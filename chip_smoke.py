@@ -6,16 +6,27 @@
 Phases, in order; any failure exits non-zero:
 
 1. build every CUDA kernel of the package from ``heat_tpu_torch/csrc``;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path and at the edges of its range;
-3. drive the main path, ``KMeans(n_clusters=8).fit`` on 10,000,000 x 16
+2. hold the Lloyd kernel against its plain PyTorch version on the card, at
+   the shapes of the main path and at the edges of its range;
+3. drive the k-means path, ``KMeans(n_clusters=8).fit`` on 10,000,000 x 16
    float32 samples split along the rows, for 30 iterations from a
    precomputed init; check that every iteration went through the kernel and
    that the result agrees with the torch path (``use_fused=False``) on the
    same card; run ``predict`` and a fit with ``init="random"``; hold the
    kernel against its plain version at the inputs of the fit's first
    launch; time it;
-4. print the card's name and power limit, one JSON line of per-kernel
+4. hold the flash-attention kernel against its plain PyTorch version on the
+   card, at the attention path's shapes and at the edges of its range;
+5. drive the attention path, the forward of the README's
+   ``TransformerLM(vocab=50257, dim=768, depth=12, heads=12, max_len=32768)``
+   with ``flash_attention(impl="pallas")`` in every block, over three
+   requests of 4 x 4096 tokens; check that every block went through the
+   kernel (12 launches per forward), that the logits are finite, repeat bit
+   for bit and agree with the dense attention path on the same card; hold
+   the kernel against its plain version at layer 0's own q, k, v; check the
+   gradient through the kernel's autograd function; time the forward, the
+   kernel, its plain version and ``scaled_dot_product_attention``;
+6. print the card's name and power limit, one JSON line of per-kernel
    numbers, and the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs CUDA and the package beside it, and fails without either.
@@ -24,15 +35,18 @@ It needs CUDA and the package beside it, and fails without either.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from functools import partial
 
 SEED = 20261016
 N, F, K = 10_000_000, 16, 8
 ITERS = 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
 
 # Tolerances, kernel against its plain version on the same inputs:
 # * labels: the two sum a dot product in different orders, so a row whose
@@ -53,6 +67,36 @@ RTOL = 1e-4
 # (an element of a mean of 10^6 rows that lies near 0 has no meaningful
 # relative error), and the inertia within 1e-4 relative.
 FIT_RTOL = 1e-4
+
+# the attention path: the README's TransformerLM, requests of 4 x 4096 tokens
+LM = dict(vocab=50257, dim=768, depth=12, heads=12, max_len=32768)
+BATCH, SEQ, REQUESTS = 4, 4096, 3
+# Tolerances, attention kernel against its plain version on the same inputs:
+# * float32: |d| <= 2e-4 (1 + |ref|), the bound tests/test_attention.py holds
+#   the TPU kernel to: the same math, its sums (over D, over the keys, and
+#   the online rescaling) in another order;
+# * float16 in and out: computed in f32 as above, then rounded to f16, where
+#   an f32 difference may flip one rounding: the f32 bound plus one f16 ulp,
+#   2^-10 |ref|;
+# * bfloat16: both round q, p and the output to bf16 at the same points, but
+#   the kernel rounds p against the running max of its key tiles and the
+#   plain version against the row's max, so a rounding may go the other way:
+#   |d| <= 2^-8 (max|v| + |ref|), two bf16 ulps of a weighted mean of v; and
+#   against f32 dense attention within 0.05, the bound of
+#   tests/test_attention.py for the TPU kernel in bf16.
+ATTN_F32_TOL = 2e-4
+F16_ULP = 2.0**-10
+BF16_ULPS = 2.0**-8
+BF16_VS_DENSE = 0.05
+# main path, logits of the kernel path against the dense attention path on
+# the same weights and tokens: 12 layers of the same f32 math with the
+# attention summed in another order (and the scale folded into q before the
+# product instead of after it): ||d||_F <= 1e-4 ||ref||_F.
+LOGITS_RTOL = 1e-4
+# the gradient through the kernel's autograd function (its backward re-runs
+# the scan path) against autograd through dense attention: rtol = atol = 1e-4,
+# the bound tests/test_ops_pallas.py holds the JAX custom VJP to.
+GRAD_TOL = 1e-4
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -140,19 +184,13 @@ def profile_fit(ht, init, x) -> None:
     """One warm fit under torch.profiler: device time by kernel and the
     device's busy share of the fit's wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         t0 = time.perf_counter()
         ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     print(
         f"  profile of a warm fit: wall {wall_ms:.3f} ms (profiler on), device busy "
@@ -162,30 +200,31 @@ def profile_fit(ht, init, x) -> None:
         print(f"    {ms:9.3f} ms  {count:4d}x  {key[:90]}")
 
 
-def main() -> int:
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _device_rows(prof):
+    """(ms, count, name) of each kernel in a profile, by device time."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    import heat_tpu_torch as ht
-    from heat_tpu_torch.ops import _build, lloyd
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
-    # 1. build
-    sources = sorted(p.stem for p in _build.SOURCE_DIR.glob("*.cu"))
-    t0 = time.perf_counter()
-    _build.build(sources)
-    for name in sources:
-        _build.library(name)
-    print(f"phase build: {sources} built in {time.perf_counter() - t0:.1f} s", flush=True)
+def kmeans_path(ht) -> dict:
+    """Phases 2 and 3: the Lloyd kernel against plain, then the k-means
+    path; returns the kernel's entry of the kernels line."""
+    import torch
+
+    from heat_tpu_torch.ops import lloyd
 
     # 2. kernel against plain
     print("phase kernels: lloyd against lloyd_accumulate_plain", flush=True)
@@ -285,9 +324,7 @@ def main() -> int:
         f"GB/s); HBM bound {t_bytes:.4f} ms at 3.35 TB/s; plain {plain_ms:.4f} ms",
         flush=True,
     )
-
-    print(smi)
-    print(json.dumps({"kernels": [{
+    return {
         "name": "lloyd",
         "route": "cuda",
         "source": "heat_tpu_torch/csrc/lloyd.cu",
@@ -301,7 +338,314 @@ def main() -> int:
         "library_ms": None,
         "fit_ms_per_iter": ms_iter,
         "warm_fit_ms_per_iter": warm_iter,
-    }]}))
+    }
+
+
+def attention_bound(q, k, causal: bool) -> dict:
+    """The least time the card could take for one attention forward on these
+    inputs: the larger of the bytes (q, k, v read once, the output written
+    once) over HBM and the flops this run needs (4·D per (query, key) pair
+    the mask keeps) over the peak of the compute dtype."""
+    import torch
+
+    B, S, H, D = q.shape
+    sk = k.shape[1]
+    if causal:  # query i keeps keys 0..min(i, sk-1)
+        pairs = sum(min(i + 1, sk) for i in range(S))
+    else:
+        pairs = S * sk
+    flops = 4 * B * H * pairs * D
+    bf16 = q.dtype == torch.bfloat16
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S) * 1e3
+    t_bytes = (2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()) / HBM_BYTES_PER_S * 1e3
+    return {
+        "flops": flops,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def check_flash(name, q, k, v, causal: bool, reps: int = 10) -> dict:
+    """Attention kernel against its plain version on the given inputs; raises
+    on disagreement, returns the errors, the kernel's time per launch and its
+    bound."""
+    import torch
+
+    from heat_tpu_torch.nn.attention import dot_product_attention
+    from heat_tpu_torch.ops import flash
+
+    out = flash.flash_attention_kernel(q, k, v, causal=causal)
+    ref = flash.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise AssertionError(f"attention kernel gave {tuple(out.shape)} {out.dtype} on {name}")
+    o32, r32 = out.float(), ref.float()
+    d = (o32 - r32).abs()
+    if q.dtype == torch.bfloat16:
+        bound = BF16_ULPS * (v.float().abs().max() + r32.abs())
+    elif q.dtype == torch.float16:
+        bound = ATTN_F32_TOL * (1 + r32.abs()) + F16_ULP * r32.abs()
+    else:
+        bound = ATTN_F32_TOL * (1 + r32.abs())
+    ok = bool(torch.isfinite(o32).all()) and bool((d <= bound).all())
+    err = {
+        "max_abs_err": d.max().item() if d.numel() else 0.0,
+        "max_rel_err": (d / r32.abs().clamp(min=1e-6)).max().item() if d.numel() else 0.0,
+    }
+    if q.dtype == torch.bfloat16:
+        dense = dot_product_attention(q.float(), k.float(), v.float(), causal=causal)
+        err["vs_f32_dense"] = (o32 - dense).abs().max().item()
+        ok = ok and err["vs_f32_dense"] <= BF16_VS_DENSE
+    err["ms"] = _time_ms(lambda: flash.flash_attention_kernel(q, k, v, causal=causal), reps)
+    err.update(attention_bound(q, k, causal))
+    err["tflops"] = err["flops"] / (err["ms"] * 1e-3) / 1e12
+    print(
+        f"  {name}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal={causal}: "
+        f"{json.dumps(err)}",
+        flush=True,
+    )
+    if not ok:
+        raise AssertionError(f"attention kernel disagrees with its plain version on {name}")
+    return err
+
+
+def compare_flash(name, B, S, H, D, dtype, causal, sk=None, reps=10) -> dict:
+    """Kernel against plain on random inputs of one shape; see check_flash."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + S + D)
+    sk = S if sk is None else sk
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, sk, H, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, sk, H, D, generator=gen, device="cuda").to(dtype)
+    return check_flash(name, q, k, v, causal, reps)
+
+
+def check_flash_gradient() -> None:
+    """The gradient through the kernel's autograd function against autograd
+    through dense attention, at (1, 512, 4, 64) causal float32."""
+    import torch
+
+    from heat_tpu_torch.nn.attention import dot_product_attention, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    inputs = [torch.randn(1, 512, 4, 64, generator=gen, device="cuda") for _ in range(3)]
+    grads = []
+    for fn in (partial(flash_attention, impl="pallas"), dot_product_attention):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves, causal=True)
+        (out**2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    diffs = ", ".join(
+        f"{name} {(a - b).abs().max().item():.3e} (max|ref| {b.abs().max().item():.3e})"
+        for name, a, b in zip("qkv", *grads)
+    )
+    print(f"  gradient through the kernel vs dense, max|d|: {diffs}", flush=True)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def profile_forward(model, tokens) -> None:
+    """One warm forward under torch.profiler: device time by kernel, the
+    attention kernel's share and the matrix products' share."""
+    import torch
+
+    with _profiled() as prof:
+        t0 = time.perf_counter()
+        model(tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    attn = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2])
+    gemm = sum(r[0] for r in rows if "gemm" in r[2].lower() or "cutlass" in r[2].lower())
+    # the Dense layers' products: q, k, v, out and the MLP (12 dim² per
+    # block) and the head, 2 flops per multiply-add per token
+    dim = LM["dim"]
+    gemm_flops = 2 * tokens.numel() * (LM["depth"] * 12 * dim * dim + dim * LM["vocab"])
+    print(
+        f"  profile of a warm forward: wall {wall_ms:.3f} ms (profiler on), device busy "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%); attention kernel {attn:.3f} ms "
+        f"({100 * attn / busy:.1f}%), matrix products {gemm:.3f} ms ({100 * gemm / busy:.1f}%) "
+        f"against their bound {gemm_flops / F32_FLOP_PER_S * 1e3:.3f} ms "
+        f"({gemm_flops / 1e12:.3f} TFLOP at 67 TFLOP/s f32)",
+        flush=True,
+    )
+    for ms, count, key in rows[:10]:
+        print(f"    {ms:9.3f} ms  {count:4d}x  {key[:90]}")
+
+
+def attention_path(ht) -> dict:
+    """Phases 4 and 5: the attention kernel against plain, then the
+    TransformerLM forward; returns the kernel's entry of the kernels line."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from heat_tpu_torch.nn.attention import flash_attention
+    from heat_tpu_torch.ops import flash
+
+    # 4. kernel against plain
+    print("phase kernels: flash against flash_attention_plain", flush=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    compare_flash("main shape", BATCH, SEQ, LM["heads"], LM["dim"] // LM["heads"], f32, True, reps=3)
+    compare_flash("4k D=128", 1, 4096, 8, 128, f32, True, reps=3)
+    compare_flash("4k D=128 bf16", 1, 4096, 8, 128, bf16, True, reps=3)
+    compare_flash("ragged S", 2, 1000, 4, 64, f32, False)
+    compare_flash("cross", 1, 70, 2, 16, f32, False, sk=300)
+    compare_flash("cross causal", 1, 70, 2, 16, f32, True, sk=300)
+    compare_flash("D=8", 1, 130, 2, 8, f32, True)
+    compare_flash("D=24", 1, 517, 2, 24, f32, False)
+    compare_flash("D=256", 1, 1024, 2, 256, f32, True)
+    compare_flash("D=512", 1, 1024, 2, 512, f32, True)
+    compare_flash("D=512 bf16", 1, 1024, 2, 512, bf16, False)
+    compare_flash("S=1", 3, 1, 4, 64, f32, False)
+    compare_flash("S=1 causal", 3, 1, 4, 64, f32, True)
+    compare_flash("f16", 2, 333, 3, 40, torch.float16, True)
+    torch.cuda.empty_cache()
+
+    # 5. main path
+    print(
+        f"phase main: TransformerLM({', '.join(f'{k}={v}' for k, v in LM.items())}) forward, "
+        f"{REQUESTS} requests of {BATCH} x {SEQ} tokens, attention through the kernel",
+        flush=True,
+    )
+    model = ht.nn.TransformerLM(
+        **LM, attention_fn=partial(flash_attention, impl="pallas"), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED),
+    )
+    n_params = sum(p.numel() for p in model.parameters())
+    requests = [
+        torch.randint(0, LM["vocab"], (BATCH, SEQ), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(SEED + i))
+        for i in range(REQUESTS)
+    ]
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in requests]
+    with torch.inference_mode():
+        flash.LAUNCHES = 0
+        finite = []
+        for i, (tokens, (start, stop)) in enumerate(zip(requests, events)):
+            start.record()
+            logits = model(tokens)
+            stop.record()
+            if i == 0:
+                first = logits
+            finite.append(tuple(logits.shape) == (BATCH, SEQ, LM["vocab"]) and torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        launches = flash.LAUNCHES
+        forward_ms = [a.elapsed_time(b) for a, b in events]
+        del logits
+        if launches != LM["depth"] * REQUESTS:
+            raise AssertionError(
+                f"the forwards launched the attention kernel {launches} times, not "
+                f"{LM['depth']} per forward"
+            )
+        if not all(bool(f) for f in finite):
+            raise AssertionError("a forward gave logits of the wrong shape or not finite")
+        again = model(requests[0])
+        if not torch.equal(first, again):
+            raise AssertionError("two forwards on the same tokens differ")
+        del again
+        # the same model with the dense attention path (attention_fn=None)
+        for block in model.blocks:
+            block.attn.attention_fn = None
+        dense = model(requests[0])
+        rel = ((first - dense).norm() / dense.norm()).item()
+        max_abs = (first - dense).abs().max().item()
+        print(
+            f"  logits, kernel path vs dense path: ||d||_F/||ref||_F {rel:.3e}, max|d| "
+            f"{max_abs:.3e} (max|ref| {dense.abs().max().item():.3e})",
+            flush=True,
+        )
+        if not rel <= LOGITS_RTOL:
+            raise AssertionError("the kernel path's logits disagree with the dense path's")
+        del dense, first
+        torch.cuda.empty_cache()
+        # layer 0's own q, k, v
+        captured = []
+
+        def capture(q, k, v, causal):
+            captured.append((q, k, v))
+            return flash_attention(q, k, v, causal=causal, impl="pallas")
+
+        for block in model.blocks:
+            block.attn.attention_fn = partial(flash_attention, impl="pallas")
+        model.blocks[0].attn.attention_fn = capture
+        model(requests[0])
+        model.blocks[0].attn.attention_fn = partial(flash_attention, impl="pallas")
+        q, k, v = captured[0]
+        main = check_flash("main path layer 0 inputs", q, k, v, True, reps=5)
+        plain_ms = _time_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True), 3)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = _time_ms(
+            lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale), 5
+        )
+        profile_forward(model, requests[1])
+    torch.cuda.empty_cache()
+    check_flash_gradient()
+
+    warm_ms = sorted(forward_ms[1:])[len(forward_ms[1:]) // 2]
+    tokens_per_s = BATCH * SEQ / (warm_ms * 1e-3)
+    print(
+        f"  forward: {n_params} parameters; {forward_ms[0]:.3f} ms first, {warm_ms:.3f} ms warm "
+        f"(requests {', '.join(f'{t:.3f}' for t in forward_ms)} ms), {tokens_per_s:.1f} tokens/s; "
+        f"kernel {main['ms']:.4f} ms per launch at {tuple(q.shape)} causal f32 "
+        f"({main['tflops']:.2f} TFLOP/s), bound {main['bound_ms']:.4f} ms "
+        f"({main['bound_by']}: {main['flops'] / 1e9:.1f} GFLOP at 67 TFLOP/s f32); "
+        f"plain {plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f} ms",
+        flush=True,
+    )
+    return {
+        "name": "flash",
+        "route": "cuda",
+        "source": "heat_tpu_torch/csrc/flash.cu",
+        "replaces": "heat_tpu/ops/flash.py:53",
+        "launches": launches,
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": library_ms,
+        "forward_ms_first": forward_ms[0],
+        "forward_ms_warm": warm_ms,
+        "tokens_per_s": tokens_per_s,
+    }
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+    # 1. build
+    sources = sorted(p.stem for p in _build.SOURCE_DIR.glob("*.cu"))
+    t0 = time.perf_counter()
+    _build.build(sources)
+    for name in sources:
+        _build.library(name)
+    print(f"phase build: {sources} built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    kernels = [kmeans_path(ht)]
+    torch.cuda.empty_cache()
+    kernels.append(attention_path(ht))
+
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -9,5 +9,5 @@ tested against.
 
 from .core import *
 from .core import random
-from . import cluster, ops, spatial, utils
+from . import cluster, nn, ops, spatial, utils
 from .core import base, communication, constants, devices, factories, sanitation, stride_tricks, types

@@ -1,0 +1,247 @@
+"""heat_tpu_torch.ops.flash and heat_tpu_torch.nn.attention against
+heat_tpu.ops.flash (the Pallas kernel in interpret mode) and
+heat_tpu.nn.attention, on the CPU.
+
+On the CPU the kernel's wrapper runs its plain PyTorch version; the CUDA
+kernel itself is held against that version on the card by chip_smoke.py.
+Inputs are float32, made with numpy from a seed (conftest turns on x64, so
+every array is cast explicitly). Tolerances:
+
+* float32: 2e-4, the bound of tests/test_attention.py for the Pallas kernel
+  against the dense oracle (the same math, summed in another order);
+* bfloat16, plain version against the Pallas kernel: both round q, p and
+  the output to bfloat16, but their f32 sums differ in order, so a rounding
+  may go the other way: |Δ| ≤ 2⁻⁸·(max|v| + |ref|), two bfloat16 ulps of a
+  weighted mean of v;
+* gradients: rtol/atol 1e-4, as tests/test_ops_pallas.py holds the JAX
+  custom VJP.
+"""
+
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import heat_tpu_torch as ht
+from heat_tpu.nn import attention as ref_attention
+from heat_tpu.ops.flash import flash_attention_tpu
+from heat_tpu_torch.nn import attention
+from heat_tpu_torch.ops import flash
+from heat_tpu_torch.utils.interop import mha_from_flax
+
+F32_TOL = 2e-4
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    ht.use_device("cpu")
+    yield
+    ht.use_device(None)
+
+
+def _qkv(B, S, H, D, seed, sk=None):
+    rng = np.random.default_rng(seed)
+    sk = S if sk is None else sk
+    shapes = [(B, S, H, D), (B, sk, H, D), (B, sk, H, D)]
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _torch(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _jax(arrays, dtype=jnp.float32):
+    return [jnp.asarray(a, dtype) for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# the plain version against the Pallas kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,D", [(256, 16), (200, 16), (256, 128), (130, 8)])
+def test_plain_matches_pallas_interpret(causal, S, D):
+    arrays = _qkv(1, S, 2, D, seed=S + D)
+    got = flash.flash_attention_plain(*_torch(arrays), causal=causal)
+    want = flash_attention_tpu(*_jax(arrays), causal=causal, block_q=128, block_k=128, interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (1, S, 2, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_matches_pallas_interpret_cross_attention(causal):
+    arrays = _qkv(1, 70, 2, 16, seed=1, sk=300)
+    got = flash.flash_attention_plain(*_torch(arrays), causal=causal)
+    want = flash_attention_tpu(*_jax(arrays), causal=causal, interpret=True)
+    assert got.shape == (1, 70, 2, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_plain_matches_pallas_interpret_bf16():
+    arrays = _qkv(1, 256, 2, 64, seed=7)
+    got = flash.flash_attention_plain(*_torch(arrays, torch.bfloat16), causal=True)
+    want = flash_attention_tpu(*_jax(arrays, jnp.bfloat16), causal=True, interpret=True)
+    assert got.dtype == torch.bfloat16
+    want32 = np.asarray(want, np.float32)
+    bound = 2.0**-8 * (np.abs(np.asarray(arrays[2], np.float32)).max() + np.abs(want32))
+    assert (np.abs(got.float().numpy() - want32) <= bound).all()
+    # and against the f32 dense oracle, to bfloat16 accuracy
+    dense = ref_attention.dot_product_attention(*_jax(arrays), causal=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(dense), rtol=0.05, atol=0.05)
+
+
+def test_plain_numerics_of_the_kernel():
+    q, k, v = _torch(_qkv(2, 33, 3, 8, seed=2, sk=17))
+    # the scale folds into q: a scale of 2 is q doubled
+    torch.testing.assert_close(
+        flash.flash_attention_plain(q, k, v, scale=2.0),
+        flash.flash_attention_plain(2 * q, k, v, scale=1.0),
+        rtol=0, atol=0,
+    )
+    # float16 and float64 compute in float32 and come back in their dtype
+    for dtype in (torch.float16, torch.float64):
+        out = flash.flash_attention_plain(q.to(dtype), k.to(dtype), v.to(dtype), causal=True)
+        assert out.dtype == dtype
+        ref = flash.flash_attention_plain(q.to(dtype).float(), k.to(dtype).float(), v.to(dtype).float(), causal=True)
+        torch.testing.assert_close(out, ref.to(dtype), rtol=0, atol=0)
+    # no key at all: every row is fully masked and comes out as 0, not NaN
+    empty = flash.flash_attention_plain(q, k[:, :0], v[:, :0])
+    assert empty.shape == q.shape and (empty == 0).all()
+    # one query row, causal: it sees key 0 only
+    one = flash.flash_attention_plain(q[:, :1], k, v, causal=True)
+    torch.testing.assert_close(one, v[:, :1], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper: CPU dispatch, checks, counter
+# ---------------------------------------------------------------------------
+def test_wrapper_dispatches_cpu_tensors_to_the_plain_version():
+    q, k, v = _torch(_qkv(1, 40, 2, 24, seed=3))
+    before = flash.LAUNCHES
+    for causal in (False, True):
+        got = flash.flash_attention_kernel(q, k, v, causal=causal, scale=0.3)
+        plain = flash.flash_attention_plain(q, k, v, causal=causal, scale=0.3)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    out = attention.flash_attention(q, k, v, causal=True, impl="pallas")
+    torch.testing.assert_close(out, flash.flash_attention_plain(q, k, v, causal=True), rtol=0, atol=0)
+    assert flash.LAUNCHES == before  # the plain version is no launch
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = _torch(_qkv(1, 8, 2, 4, seed=4))
+    big = torch.zeros(1, 8, 1, 513)
+    for fn in (flash.flash_attention_kernel, flash.flash_attention_plain):
+        with pytest.raises(ValueError, match="head_dim 513"):
+            fn(big, big, big)
+        with pytest.raises(ValueError):
+            fn(q, k[:, :, :1], v[:, :, :1])  # H differs
+        with pytest.raises(ValueError):
+            fn(q, k, v[:, :5])  # k and v differ
+        with pytest.raises(ValueError):
+            fn(q[0], k[0], v[0])  # not [B, S, H, D]
+        with pytest.raises(TypeError):
+            fn(q.int(), k.int(), v.int())
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.flash_attention(big, big, big, impl="pallas")
+    with pytest.raises(ValueError, match="unknown flash impl"):
+        attention.flash_attention(q, k, v, impl="mosaic")
+
+
+def test_kernel_gating():
+    assert not flash.attention_kernel_supported(1024, 513)
+    assert flash.attention_kernel_supported(1_000_000, 512) == torch.cuda.is_available()
+
+
+def test_kernel_source_is_shipped_and_not_built_on_import():
+    from heat_tpu_torch.ops import _build
+
+    assert (_build.SOURCE_DIR / "flash.cu").is_file()
+    assert "flash" not in _build._LOADED
+
+
+# ---------------------------------------------------------------------------
+# the oracles: dense and scan against their JAX counterparts
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sk", [None, 23])
+def test_dot_product_attention_matches_jax(causal, sk):
+    arrays = _qkv(2, 19, 3, 8, seed=5, sk=sk)
+    got = attention.dot_product_attention(*_torch(arrays), causal=causal)
+    want = ref_attention.dot_product_attention(*_jax(arrays), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,block", [(32, 8), (40, 16)])
+def test_scan_flash_matches_jax(causal, S, block):
+    arrays = _qkv(2, S, 2, 8, seed=S)
+    got = attention.flash_attention(*_torch(arrays), causal=causal, block_size=block, impl="scan")
+    want = ref_attention.flash_attention(*_jax(arrays), causal=causal, block_size=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    auto = attention.flash_attention(*_torch(arrays), causal=causal, block_size=block)
+    torch.testing.assert_close(auto, got, rtol=0, atol=0)  # 'auto' is 'scan'
+
+
+def test_pallas_custom_function_gradients_match_jax_dense():
+    arrays = _qkv(1, 32, 2, 8, seed=9)
+    q, k, v = (t.requires_grad_() for t in _torch(arrays))
+    (attention._FlashPallasDiff.apply(q, k, v, True, None) ** 2).sum().backward()
+
+    def loss(q, k, v):
+        return (ref_attention.dot_product_attention(q, k, v, causal=True) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_jax(arrays))
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# MultiHeadAttention from the flax module's parameters
+# ---------------------------------------------------------------------------
+def _flax_mha(backend, seed=0, **fields):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, 24, 32)).astype(np.float32)
+    module = ref_attention.MultiHeadAttention(num_heads=4, causal=True, backend=backend, **fields)
+    variables = module.init(jax.random.PRNGKey(seed), jnp.asarray(x))
+    want = np.asarray(module.apply(variables, jnp.asarray(x)))
+    return x, jax.tree_util.tree_map(np.asarray, variables["params"]), want
+
+
+@pytest.mark.parametrize("backend", ["dense", "flash"])
+def test_mha_matches_flax(backend):
+    x, params, want = _flax_mha(backend)
+    mha = mha_from_flax(params, causal=True, backend=backend, device="cpu")
+    with torch.no_grad():
+        got = mha(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_mha_with_the_kernel_matches_flax_with_pallas_interpret():
+    x, params, want = _flax_mha("dense", attention_fn=partial(flash_attention_tpu, interpret=True))
+    mha = mha_from_flax(
+        params, causal=True, attention_fn=partial(attention.flash_attention, impl="pallas"), device="cpu"
+    )
+    with torch.no_grad():
+        got = mha(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
+def test_sequence_parallel_backends_are_not_ported(backend):
+    mha = ht.nn.MultiHeadAttention(4, 32, backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A9"):
+        mha(torch.zeros(1, 8, 32))
+    fn = getattr(attention, f"{backend}_attention")
+    with pytest.raises(NotImplementedError, match="queue A9"):
+        fn(*_torch(_qkv(1, 8, 2, 4, seed=0)))
+
+
+def test_mha_rejects_bad_widths_and_backends():
+    with pytest.raises(ValueError, match="divisible"):
+        ht.nn.MultiHeadAttention(3, 32, device="cpu")
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        ht.nn.MultiHeadAttention(4, 32, backend="sparse", device="cpu")(torch.zeros(1, 4, 32))
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        ht.nn.MultiHeadAttention(4, 32, dtype=torch.bfloat16, device="cpu")
