@@ -26,7 +26,22 @@ Phases, in order; any failure exits non-zero:
    the kernel against its plain version at layer 0's own q, k, v; check the
    gradient through the kernel's autograd function; time the forward, the
    kernel, its plain version and ``scaled_dot_product_attention``;
-6. print the card's name and power limit, one JSON line of per-kernel
+6. hold the pairwise-distance kernel against its plain PyTorch version on
+   the card, at ragged shapes, f from 1 to 600, n = 1, m = 0 (no launch),
+   float64, strided operands and a column block of a wider output;
+7. drive the distance path on BASELINE's config 2, 100,000 x 64 float32
+   points split along the rows: ``cdist`` (first and warm), ``manhattan``,
+   ``rbf`` and ``cdist(quadratic_expansion=True)``, one 40 GB result at a
+   time; check one kernel launch per exact call and about 2,000 sampled
+   rows of each result against the plain version and a float64 version,
+   the exact symmetry and the diagonal; time the kernel, its plain version
+   and ``torch.cdist``;
+8. run the ring schedules on a mesh of four shards on the one card:
+   ``cdist`` and ``manhattan`` symmetric at n = 20,001 and ``cdist``
+   general at 20,001 x 12,345, equal bit for bit to the one-shard results,
+   with 12 and 16 launches; the quadratic expansion's ring within its
+   tolerance;
+9. print the card's name and power limit, one JSON line of per-kernel
    numbers, and the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs CUDA and the package beside it, and fails without either.
@@ -97,6 +112,39 @@ LOGITS_RTOL = 1e-4
 # the scan path) against autograd through dense attention: rtol = atol = 1e-4,
 # the bound tests/test_ops_pallas.py holds the JAX custom VJP to.
 GRAD_TOL = 1e-4
+
+# the distance path: BASELINE's config 2 (BASELINE.md:26), cdist on
+# 100,000 x 64 float32 points split along the rows
+DIST_N, DIST_F = 100_000, 64
+DIST_SIGMA = 8.0  # standard normal rows: E d² = 2f = 128, so rbf ≈ e^-1
+SAMPLE_ROWS = 2000
+PLAIN_BLOCK_ROWS = 4096
+# torch.cdist launches one block per output element, so its grid of n·m
+# blocks must fit in 32 bits: one call over the 10^10 elements here is
+# wrong (printed by the main phase), and it is timed over row blocks of
+# 20,000 (2·10^9 elements each) that cover the whole matrix
+LIBRARY_BLOCK_ROWS = 20_000
+RING_P, RING_N, RING_M = 4, 20_001, 12_345
+F32_LANE_OPS_PER_S = F32_FLOP_PER_S / 2  # one FSUB, FADD or FFMA per lane; the flop rate counts an FMA as two
+# Tolerances, with u the unit roundoff (2^-24 in float32, 2^-53 in float64):
+# * the pairwise kernel against its plain version on the same inputs:
+#   |d| <= 2(f+1)u|ref|. Both sum f nonnegative terms (squares or absolute
+#   values of the same rounded differences), the kernel in sequence with
+#   FMA and the plain version in torch's order; recursive summation of
+#   nonnegative terms errs by at most (f+1)u of the sum, so each is within
+#   (f+1)u|ref| of the exact sum. The same bound holds against a float64
+#   version of the same rows, which is exact to f32 precision.
+# * rbf against a float64 version: the argument -d²/(2σ²) inherits the
+#   bound above, the exponential multiplies it by the value, and exp rounds
+#   within 2u: |d| <= (2(f+1)u|arg| + 4u) |ref|.
+# * the quadratic expansion against a float64 version, on d²: the product
+#   x·y and the norms each err by at most (f+2)u(|x|² + |y|²), so
+#   |d_q² − d²| <= 4(f+2)u(|x|² + |y|²); its ring against one shard, whose
+#   products run in other blocks, within twice that.
+def _unit(dtype) -> float:
+    import torch
+
+    return 2.0**-53 if dtype == torch.float64 else 2.0**-24
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -615,6 +663,368 @@ def attention_path(ht) -> dict:
     }
 
 
+def pairwise_bound(n: int, m: int, f: int, itemsize: int) -> dict:
+    """The least time the card could take for an (n, m) distance matrix over
+    f features: the larger of the bytes (x and y read once, the output
+    written once) over HBM and 2·n·m·f lane instructions over the f32 rate."""
+    t_ops = 2 * n * m * f / F32_LANE_OPS_PER_S * 1e3
+    t_bytes = ((n + m) * f + n * m) * itemsize / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def _rbf_finish(d2, sigma: float = DIST_SIGMA):
+    return d2.div_(-(2.0 * sigma * sigma)).exp_()
+
+
+def check_within(name, got, ref, bound) -> float:
+    """Raise unless |got - ref| <= bound everywhere and got is finite; return
+    the largest |got - ref|."""
+    import torch
+
+    d = (got.double() - ref.double()).abs()
+    if not (bool(torch.isfinite(got).all()) and bool((d <= bound).all())):
+        worst = (d - bound).argmax().item()
+        raise AssertionError(
+            f"{name}: |d| {d.flatten()[worst].item():.3e} exceeds its bound "
+            f"{torch.as_tensor(bound).double().expand_as(d).flatten()[worst].item():.3e}"
+        )
+    return d.max().item() if d.numel() else 0.0
+
+
+def compare_pairwise(name, x, y, out=None) -> float:
+    """The kernel against its plain version on x and y, for L2 with and
+    without the sqrt and for L1; raises on disagreement, returns the largest
+    absolute error."""
+    import torch
+
+    from heat_tpu_torch.ops import pairwise
+
+    u = _unit(x.dtype)
+    f = x.shape[1]
+    errs = []
+    for p, post in ((2, True), (2, False), (1, False)):
+        got = pairwise.pairwise_kernel(x, y, p, post, out)
+        ref = pairwise.pairwise_plain(x, y, p, post)
+        torch.cuda.synchronize()
+        errs.append(check_within(f"{name} p={p} sqrt={post}", got, ref, 2 * (f + 1) * u * ref.double().abs()))
+    print(
+        f"  {name}: x {tuple(x.shape)} y {tuple(y.shape)} {x.dtype}: max|d| {max(errs):.3e} "
+        f"(bound 2(f+1)u|ref|, 2(f+1)u = {2 * (f + 1) * u:.3e})",
+        flush=True,
+    )
+    return max(errs)
+
+
+def distance_kernel_phase() -> None:
+    """Phase 6: the pairwise kernel against its plain version at the edges
+    of its range."""
+    import torch
+
+    from heat_tpu_torch.ops import pairwise
+
+    print("phase kernels: pairwise against pairwise_plain", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    compare_pairwise("ragged n, m", randn(1000, 7), randn(1303, 7))
+    compare_pairwise("f=1", randn(1000, 1), randn(1303, 1))
+    compare_pairwise("f=33", randn(1000, 33), randn(1303, 33))
+    compare_pairwise("f=600", randn(517, 600), randn(300, 600))
+    compare_pairwise("n=1", randn(1, 64), randn(1303, 64))
+    compare_pairwise("m=1", randn(129, 64), randn(1, 64))
+    compare_pairwise("float64", randn(1000, 33, dtype=torch.float64), randn(1303, 33, dtype=torch.float64))
+    base = randn(3000, 64)
+    compare_pairwise("strided row blocks", base[100:1100, :33], base[::3, :33])
+    wide = torch.full((1000, 2000), float("nan"), device="cuda")
+    compare_pairwise("column block of a wider output", base[:1000], base[1000:1700], wide[:, 650:1350])
+    if not (bool(torch.isnan(wide[:, :650]).all()) and bool(torch.isnan(wide[:, 1350:]).all())):
+        raise AssertionError("the kernel wrote outside its column block")
+    before = pairwise.LAUNCHES
+    empty = pairwise.pairwise_kernel(base[:5], base[:0], 2, True)
+    if pairwise.LAUNCHES != before or tuple(empty.shape) != (5, 0):
+        raise AssertionError("m = 0 launched the kernel or gave the wrong shape")
+    print("  m=0: no launch, shape (5, 0)", flush=True)
+    torch.cuda.synchronize()
+
+
+def _time_once_ms(fn) -> float:
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def check_sampled_rows(name, D, x, idx, p: int, post: bool, rbf: bool) -> float:
+    """Sampled rows of a full exact result against the plain version and a
+    float64 version of the same rows; the exact symmetry on sampled pairs and
+    the diagonal. Returns the largest error against the plain version."""
+    import torch
+
+    from heat_tpu_torch.ops import pairwise
+
+    f = x.shape[1]
+    u = _unit(x.dtype)
+    got = D[idx]
+    plain = pairwise.pairwise_plain(x[idx], x, p, post)
+    exact = pairwise.pairwise_plain(x[idx].double(), x.double(), p, post)
+    if rbf:
+        arg = exact / (2.0 * DIST_SIGMA * DIST_SIGMA)
+        plain, exact = _rbf_finish(plain), _rbf_finish(exact)
+        bound = (2 * (f + 1) * u * arg + 4 * u) * exact.abs()
+        err_plain = check_within(f"{name} vs plain", got, plain, 2 * bound)
+    else:
+        bound = 2 * (f + 1) * u * exact.abs()
+        err_plain = check_within(f"{name} vs plain", got, plain, 2 * (f + 1) * u * plain.double().abs())
+    err_exact = check_within(f"{name} vs float64", got, exact, bound)
+    del plain, exact
+    jdx = idx.flip(0)
+    pairs_equal = bool(torch.equal(D[idx, jdx], D[jdx, idx]))
+    diag = D[idx, idx]
+    diag_ok = bool((diag == (1.0 if rbf else 0.0)).all())
+    print(
+        f"  {name}: {idx.numel()} sampled rows, max|d| vs plain {err_plain:.3e}, vs float64 "
+        f"{err_exact:.3e}; sampled pairs symmetric bit for bit: {pairs_equal}; diagonal "
+        f"{'1' if rbf else '0'}: {diag_ok}",
+        flush=True,
+    )
+    if not (pairs_equal and diag_ok):
+        raise AssertionError(f"{name}: not exactly symmetric or a wrong diagonal")
+    return err_plain
+
+
+def distance_main_phase(ht) -> dict:
+    """Phase 7: the distance path at 100,000 x 64; returns the kernel's entry
+    of the kernels line."""
+    import torch
+
+    from heat_tpu_torch.ops import pairwise
+
+    n, f = DIST_N, DIST_F
+    print(
+        f"phase main: cdist, manhattan, rbf(sigma={DIST_SIGMA}) and cdist(quadratic_expansion=True) "
+        f"on {n} x {f} float32, split=0",
+        flush=True,
+    )
+    ht.use_device("gpu")
+    ht.random.seed(SEED)
+    X = ht.random.randn(n, f, split=0)
+    x = X.larray
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    idx = torch.randperm(n, generator=gen, device="cuda")[:SAMPLE_ROWS].sort().values
+    xn = (x.double() ** 2).sum(1)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out_gbps = lambda ms: n * n * 4 / (ms * 1e-3) / 1e9  # noqa: E731
+
+    timings, errs = {}, {}
+    pairwise.LAUNCHES = 0
+    calls = [
+        ("cdist", lambda: ht.spatial.cdist(X), 2, True, False),
+        ("cdist warm", lambda: ht.spatial.cdist(X), 2, True, False),
+        ("manhattan", lambda: ht.spatial.manhattan(X), 1, False, False),
+        ("rbf", lambda: ht.spatial.rbf(X, sigma=DIST_SIGMA), 2, False, True),
+    ]
+    for name, call, p, post, rbf in calls:
+        before = pairwise.LAUNCHES
+        start.record()
+        D = call()
+        stop.record()
+        torch.cuda.synchronize()
+        timings[name] = start.elapsed_time(stop)
+        if pairwise.LAUNCHES - before != 1:
+            raise AssertionError(f"{name} launched the kernel {pairwise.LAUNCHES - before} times, not once")
+        if D.shape != (n, n) or D.split != 0 or D.larray.dtype != torch.float32:
+            raise AssertionError(f"{name} gave {D.shape} split={D.split} {D.larray.dtype}")
+        errs[name] = check_sampled_rows(name, D.larray, x, idx, p, post, rbf)
+        print(
+            f"  {name}: {timings[name]:.3f} ms, {out_gbps(timings[name]):.1f} GB/s of output written",
+            flush=True,
+        )
+        del D
+    launches = pairwise.LAUNCHES
+    before = launches
+    start.record()
+    Q = ht.spatial.cdist(X, quadratic_expansion=True)
+    stop.record()
+    torch.cuda.synchronize()
+    timings["cdist quadratic"] = start.elapsed_time(stop)
+    if pairwise.LAUNCHES != before:
+        raise AssertionError("the quadratic expansion launched the pairwise kernel")
+    exact2 = pairwise.pairwise_plain(x[idx].double(), x.double(), 2, False)
+    q_err = check_within(
+        "cdist quadratic vs float64, on d²", Q.larray[idx].double() ** 2, exact2,
+        4 * (f + 2) * _unit(torch.float32) * (xn[idx, None] + xn[None, :]),
+    )
+    del Q, exact2
+    print(
+        f"  cdist quadratic: {timings['cdist quadratic']:.3f} ms, "
+        f"{out_gbps(timings['cdist quadratic']):.1f} GB/s of output written; max|d²| vs float64 {q_err:.3e}",
+        flush=True,
+    )
+    torch.cuda.empty_cache()
+
+    # yardsticks, never on the path
+    out = torch.empty((n, n), device="cuda")
+    kernel_ms = _time_ms(lambda: pairwise.pairwise_kernel(x, x, 2, True, out), 3)
+    kernel_l1_ms = _time_ms(lambda: pairwise.pairwise_kernel(x, x, 1, False, out), 3)
+    block = x[:PLAIN_BLOCK_ROWS]
+    plain_block_ms = _time_ms(lambda: pairwise.pairwise_plain(block, x, 2, True), 1)
+    plain_ms = _time_once_ms(lambda: pairwise.pairwise_plain(x, x, 2, True, out))
+    del out
+    torch.cuda.empty_cache()
+    library_ms = {}
+    for p in (2.0, 1.0):
+        head = torch.cdist(x[:256], x, p=p, compute_mode="donot_use_mm_for_euclid_dist")
+        check_within(
+            f"torch.cdist p={p}", head, pairwise.pairwise_plain(x[:256], x, int(p), p == 2.0),
+            2 * (f + 1) * _unit(torch.float32) * head.double().abs(),
+        )
+        del head
+
+        def library(p=p):
+            for r0 in range(0, n, LIBRARY_BLOCK_ROWS):
+                torch.cdist(x[r0 : r0 + LIBRARY_BLOCK_ROWS], x, p=p, compute_mode="donot_use_mm_for_euclid_dist")
+
+        library_ms[p] = _time_once_ms(library)
+        torch.cuda.empty_cache()
+    # why the row blocks: one call over the whole matrix, checked on the
+    # sampled rows (a record of torch.cdist's limit, not a check of the port)
+    whole = torch.cdist(x, x, p=2.0, compute_mode="donot_use_mm_for_euclid_dist")
+    ref = pairwise.pairwise_plain(x[idx], x, 2, True)
+    row_ok = ((whole[idx] - ref).abs() <= 2 * (f + 1) * _unit(torch.float32) * ref.abs()).all(1)
+    del whole, ref
+    torch.cuda.empty_cache()
+    bad = idx[~row_ok]
+    print(
+        f"  one torch.cdist call over the whole matrix: {int(row_ok.sum())} of {idx.numel()} sampled "
+        f"rows right; first wrong sampled row {bad[0].item() if bad.numel() else None} "
+        f"(n² mod 2^32 elements end in row {n * n % 2**32 // n})",
+        flush=True,
+    )
+    bound = pairwise_bound(n, n, f, 4)
+    print(
+        f"  kernel alone: L2 {kernel_ms:.3f} ms ({out_gbps(kernel_ms):.1f} GB/s of output), L1 "
+        f"{kernel_l1_ms:.3f} ms ({out_gbps(kernel_l1_ms):.1f} GB/s); bound {bound['bound_ms']:.3f} ms "
+        f"({bound['bound_by']}: 2·n²·f lane instructions at 33.5 T/s; the {n * n * 4 / 1e9:.0f} GB "
+        f"output takes {n * n * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s); plain {plain_ms:.3f} ms for the "
+        f"whole matrix, {plain_block_ms:.3f} ms for a block of {PLAIN_BLOCK_ROWS} rows; torch.cdist "
+        f"(donot_use_mm_for_euclid_dist, row blocks of {LIBRARY_BLOCK_ROWS}) p=2 {library_ms[2.0]:.3f} ms, "
+        f"p=1 {library_ms[1.0]:.3f} ms",
+        flush=True,
+    )
+    return {
+        "name": "pairwise",
+        "route": "cuda",
+        "source": "heat_tpu_torch/csrc/pairwise.cu",
+        "replaces": "heat_tpu/ops/pairwise.py:58",
+        "launches": launches,
+        "max_abs_err": max(errs.values()),
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "library_ms": library_ms[2.0],
+        "l1_ms": kernel_l1_ms,
+        "l1_library_ms": library_ms[1.0],
+        "library_one_call_rows_right": int(row_ok.sum()),
+        "plain_block_ms": plain_block_ms,
+        "plain_block_rows": PLAIN_BLOCK_ROWS,
+        "cdist_ms_first": timings["cdist"],
+        "cdist_ms_warm": timings["cdist warm"],
+        "manhattan_ms": timings["manhattan"],
+        "rbf_ms": timings["rbf"],
+        "cdist_quadratic_ms": timings["cdist quadratic"],
+    }
+
+
+def distance_ring_phase(ht) -> None:
+    """Phase 8: the two ring schedules over four shards on the one card,
+    against the one-shard results."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+    from heat_tpu_torch.ops import pairwise
+
+    card = torch.device("cuda", 0)
+    mesh1 = MeshCommunication([card])
+    mesh4 = MeshCommunication([card] * RING_P)
+    print(
+        f"phase rings: {RING_P} shards on one card, symmetric at n={RING_N}, general at "
+        f"{RING_N} x {RING_M}, f={DIST_F}",
+        flush=True,
+    )
+    ht.random.seed(SEED + 1)
+    a = ht.random.randn(RING_N, DIST_F, comm=mesh1).larray
+    b = ht.random.randn(RING_M, DIST_F, comm=mesh1).larray
+    A1, B1 = ht.array(a, split=0, comm=mesh1), ht.array(b, split=0, comm=mesh1)
+    ht.use_comm(mesh4)
+    try:
+        A4, B4 = ht.array(a, split=0), ht.array(b, split=0)
+        if A4.comm.size != RING_P or not A4.padded:
+            raise AssertionError("the ring operand is not split over four padded shards")
+        paired, self_paired = ht.spatial.distance._sym_schedule(RING_P)
+        sym_launches = RING_P * (1 + len(paired) + int(self_paired))
+        cases = [
+            ("cdist symmetric", ht.spatial.cdist, (A4,), (A1,), sym_launches),
+            ("manhattan symmetric", ht.spatial.manhattan, (A4,), (A1,), sym_launches),
+            ("cdist general", ht.spatial.cdist, (A4, B4), (A1, B1), RING_P * RING_P),
+        ]
+        for name, fn, ring_args, one_args, expected in cases:
+            pairwise.LAUNCHES = 0
+            t0 = time.perf_counter()
+            ring = fn(*ring_args)
+            torch.cuda.synchronize()
+            ring_ms = (time.perf_counter() - t0) * 1e3
+            launches = pairwise.LAUNCHES
+            one = fn(*one_args)
+            same = ring.shape == one.shape and bool(torch.equal(ring.larray, one.larray))
+            print(
+                f"  {name}: {ring.shape}, {launches} launches (schedule: {expected}), {ring_ms:.3f} ms "
+                f"wall; equal to one shard bit for bit: {same}",
+                flush=True,
+            )
+            if launches != expected or not same or ring.split != 0:
+                raise AssertionError(f"{name}: the ring disagrees with one shard")
+            del ring, one
+        ring = ht.spatial.cdist(A4, quadratic_expansion=True).larray.double() ** 2
+        one = ht.spatial.cdist(A1, quadratic_expansion=True).larray.double() ** 2
+        norms = (a.double() ** 2).sum(1)
+        err = check_within(
+            "cdist quadratic ring vs one shard, on d²", ring, one,
+            8 * (DIST_F + 2) * _unit(torch.float32) * (norms[:, None] + norms[None, :]),
+        )
+        print(f"  cdist quadratic symmetric: max|d²| against one shard {err:.3e}", flush=True)
+        del ring, one
+    finally:
+        ht.use_comm(None)
+    torch.cuda.empty_cache()
+
+
+def distance_path(ht) -> dict:
+    """Phases 6 to 8; returns the pairwise kernel's entry of the kernels line."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    distance_kernel_phase()
+    torch.cuda.empty_cache()
+    entry = distance_main_phase(ht)
+    distance_ring_phase(ht)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  distance path: peak device memory {peak / 1e9:.3f} GB", flush=True)
+    entry["peak_memory_gb"] = peak / 1e9
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -643,6 +1053,8 @@ def main() -> int:
     kernels = [kmeans_path(ht)]
     torch.cuda.empty_cache()
     kernels.append(attention_path(ht))
+    torch.cuda.empty_cache()
+    kernels.append(distance_path(ht))
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

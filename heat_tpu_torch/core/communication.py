@@ -135,6 +135,51 @@ class MeshCommunication(Communication):
         whole = torch.cat([s.to(first) for s in shards], dim=dim)
         return [whole if whole.device == d else whole.to(d) for d in self._devices]
 
+    def ppermute(
+        self,
+        shards: Sequence[torch.Tensor],
+        shift: int = 1,
+        perm: Optional[Sequence[Tuple[int, int]]] = None,
+    ) -> List[torch.Tensor]:
+        """Ring rotation (heat_tpu/core/communication.py:175-189): shard d
+        receives shard ``(d + shift) % p``, moved to device d (the same
+        tensor when it already lies there). An explicit ``perm`` of (src,
+        dst) pairs overrides ``shift``; a shard that no pair names as its
+        destination receives zeros, as in ``lax.ppermute``."""
+        self._check(shards)
+        p = self.size
+        if perm is None:
+            perm = [((d + shift) % p, d) for d in range(p)]
+        received: List[Optional[torch.Tensor]] = [None] * p
+        for src, dst in perm:
+            if received[dst] is not None:
+                raise ValueError(f"perm names destination {dst} twice")
+            received[dst] = shards[src].to(self._devices[dst])
+        return [
+            torch.zeros_like(shards[d]) if r is None else r for d, r in enumerate(received)
+        ]
+
+    def alltoall(
+        self, shards: Sequence[torch.Tensor], split_axis: int = 0, concat_axis: int = 0
+    ) -> List[torch.Tensor]:
+        """Tiled all-to-all (heat_tpu/core/communication.py:163-172): each
+        shard is cut into p equal pieces along ``split_axis``; piece j of
+        shard d goes to shard j, which concatenates what it receives along
+        ``concat_axis`` in source order."""
+        self._check(shards)
+        p = self.size
+        for s in shards:
+            if s.shape[split_axis] % p:
+                raise ValueError(
+                    f"alltoall splits axis {split_axis} of size {s.shape[split_axis]} "
+                    f"into {p} equal pieces"
+                )
+        pieces = [s.tensor_split(p, dim=split_axis) for s in shards]
+        return [
+            torch.cat([pieces[d][j].to(dev) for d in range(p)], dim=concat_axis)
+            for j, dev in enumerate(self._devices)
+        ]
+
     def _check(self, shards: Sequence[torch.Tensor]) -> None:
         if len(shards) != self.size:
             raise ValueError(f"expected {self.size} shards, got {len(shards)}")

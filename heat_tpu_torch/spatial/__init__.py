@@ -1,3 +1,4 @@
-"""Spatial algorithms (reference: heat/spatial)."""
+"""Spatial algorithms (reference: heat/spatial): ``cdist``, ``manhattan``
+and ``rbf``."""
 
 from .distance import *

@@ -66,6 +66,60 @@ def test_allreduce_and_allgather_over_shards():
         comm.allreduce(shards[:3])
 
 
+def _ref_verb(verb, x, **kwargs):
+    """A heat_tpu verb over the test mesh, on x split along axis 0."""
+    comm = ref.get_comm()
+    xs = jax.device_put(jax.numpy.asarray(x), comm.sharding(x.ndim, 0))
+    out = comm.apply(lambda s: getattr(comm, verb)(s, **kwargs), xs, in_splits=[0], out_splits=0)
+    return np.asarray(out)
+
+
+def _port_verb(verb, x, p, **kwargs):
+    """The port's verb over p CPU shards of x, its results concatenated."""
+    shards = list(torch.from_numpy(x).chunk(p))
+    return torch.cat(getattr(_cpu_mesh(p), verb)(shards, **kwargs)).numpy()
+
+
+@pytest.mark.parametrize("kwargs", [{"shift": 1}, {"shift": -1}, {"shift": 3}, {"perm": "right"}, {"perm": "partial"}])
+def test_ppermute_matches_reference_verb(kwargs):
+    p = ref.get_comm().size
+    if kwargs.get("perm") == "right":
+        kwargs = {"perm": [(j, (j + 1) % p) for j in range(p)]}
+    elif kwargs.get("perm") == "partial":  # shard 0 receives nothing: zeros
+        kwargs = {"perm": [(j, j + 1) for j in range(p - 1)]}
+    x = np.arange(p * 3 * 2, dtype=np.float64).reshape(p * 3, 2)
+    np.testing.assert_array_equal(_port_verb("ppermute", x, p, **kwargs), _ref_verb("ppermute", x, **kwargs))
+
+
+@pytest.mark.parametrize("split_axis,concat_axis", [(0, 0), (0, 1), (1, 0)])
+def test_alltoall_matches_reference_verb(split_axis, concat_axis):
+    p = ref.get_comm().size
+    x = np.arange(p * p * 2 * p, dtype=np.float32).reshape(p * p * 2, p)
+    got = _port_verb("alltoall", x, p, split_axis=split_axis, concat_axis=concat_axis)
+    want = _ref_verb("alltoall", x, split_axis=split_axis, concat_axis=concat_axis)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p", [3, 4, 5])
+def test_ring_verbs_match_numpy(p):
+    x = np.arange(p * 3, dtype=np.float64).reshape(p * 3)
+    for shift in (1, -1, 2):
+        np.testing.assert_array_equal(
+            _port_verb("ppermute", x, p, shift=shift), np.roll(x.reshape(p, 3), -shift, axis=0).reshape(-1)
+        )
+    y = np.arange(p * p * 2 * 5, dtype=np.float64).reshape(p * p * 2, 5)
+    np.testing.assert_array_equal(
+        _port_verb("alltoall", y, p), y.reshape(p, p, 2, 5).transpose(1, 0, 2, 3).reshape(-1, 5)
+    )
+    comm = _cpu_mesh(p)
+    with pytest.raises(ValueError):
+        comm.alltoall([torch.zeros(p + 1, 2)] * p)
+    with pytest.raises(ValueError):
+        comm.ppermute([torch.zeros(2)] * p, perm=[(0, 1), (2, 1)])
+    with pytest.raises(ValueError):
+        comm.ppermute([torch.zeros(2)] * (p - 1))
+
+
 # ---------------------------------------------------------------------------
 # DNDarray in the pad+mask layout
 # ---------------------------------------------------------------------------

@@ -200,6 +200,8 @@ def test_cdist_matches_reference():
         # the quadratic expansion cancels near 0, where the sqrt magnifies it
         atol = 1e-2 if quad else 1e-4
         np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-4, atol=atol)
-    if ht.get_comm().size > 1:  # two row-split operands need the ring schedule
-        with pytest.raises(NotImplementedError):
-            ht.spatial.cdist(ht.array(data, split=0))
+    # two row-split operands: the symmetric ring at the test mesh size
+    mine = ht.spatial.cdist(ht.array(data, split=0))
+    theirs = ref.spatial.cdist(ref.array(data, split=0))
+    assert mine.split == theirs.split == 0
+    np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-4, atol=1e-4)
