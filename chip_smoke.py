@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build every CUDA kernel of the package from ``heat_tpu_torch/csrc``;
+1. build every CUDA kernel of the package from ``heat_tpu_torch/csrc`` and
+   print the registers and spills the compiler reports for the flash and
+   pairwise kernels;
 2. hold the Lloyd kernel against its plain PyTorch version on the card, at
    the shapes of the main path and at the edges of its range;
 3. drive the k-means path, ``KMeans(n_clusters=8).fit`` on 10,000,000 x 16
@@ -16,7 +18,9 @@ Phases, in order; any failure exits non-zero:
    kernel against its plain version at the inputs of the fit's first
    launch; time it;
 4. hold the flash-attention kernel against its plain PyTorch version on the
-   card, at the attention path's shapes and at the edges of its range;
+   card, at the attention path's shapes (f32 and bf16) and at the edges of
+   its range, naming the design each shape runs (tensor cores for D <= 128,
+   CUDA cores above); check that the main shape repeats bit for bit;
 5. drive the attention path, the forward of the README's
    ``TransformerLM(vocab=50257, dim=768, depth=12, heads=12, max_len=32768)``
    with ``flash_attention(impl="pallas")`` in every block, over three
@@ -28,7 +32,9 @@ Phases, in order; any failure exits non-zero:
    kernel, its plain version and ``scaled_dot_product_attention``;
 6. hold the pairwise-distance kernel against its plain PyTorch version on
    the card, at ragged shapes, f from 1 to 600, n = 1, m = 0 (no launch),
-   float64, strided operands and a column block of a wider output;
+   float64, strided operands, column blocks of a wider output (misaligned
+   and 16-byte aligned) and an output whose row stride is not a multiple
+   of 16 bytes;
 7. drive the distance path on BASELINE's config 2, 100,000 x 64 float32
    points split along the rows: ``cdist`` (first and warm), ``manhattan``,
    ``rbf`` and ``cdist(quadratic_expansion=True)``, one 40 GB result at a
@@ -61,6 +67,7 @@ N, F, K = 10_000_000, 16, 8
 ITERS = 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
 
 # Tolerances, kernel against its plain version on the same inputs:
@@ -389,13 +396,15 @@ def kmeans_path(ht) -> dict:
     }
 
 
-def attention_bound(q, k, causal: bool) -> dict:
+def attention_bound(q, k, causal: bool, design: str) -> dict:
     """The least time the card could take for one attention forward on these
     inputs: the larger of the bytes (q, k, v read once, the output written
-    once) over HBM and the flops this run needs (4·D per (query, key) pair
-    the mask keeps) over the peak of the compute dtype."""
-    import torch
-
+    once) and the operations the design does on them (4·D flops per (query,
+    key) pair the mask keeps) at the card's peak for their type. All three
+    operation bounds are returned; the kernel is held to its design's:
+    ``wgmma_3xtf32`` runs three TF32 products per f32 product (3 x flops at
+    495 TFLOP/s), ``mma_bf16`` one bf16 product (989 TFLOP/s),
+    ``cuda_cores`` one f32 FMA per multiply-add (67 TFLOP/s)."""
     B, S, H, D = q.shape
     sk = k.shape[1]
     if causal:  # query i keeps keys 0..min(i, sk-1)
@@ -403,25 +412,35 @@ def attention_bound(q, k, causal: bool) -> dict:
     else:
         pairs = S * sk
     flops = 4 * B * H * pairs * D
-    bf16 = q.dtype == torch.bfloat16
-    t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S) * 1e3
+    bounds = {
+        "bound_3xtf32_ms": 3 * flops / TF32_FLOP_PER_S * 1e3,
+        "bound_cuda_cores_ms": flops / F32_FLOP_PER_S * 1e3,
+        "bound_bf16_ms": flops / BF16_FLOP_PER_S * 1e3,
+    }
+    held_to = {"wgmma_3xtf32": "bound_3xtf32_ms", "mma_bf16": "bound_bf16_ms",
+               "cuda_cores": "bound_cuda_cores_ms"}[design]
+    t_ops = bounds[held_to]
     t_bytes = (2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()) / HBM_BYTES_PER_S * 1e3
     return {
         "flops": flops,
+        **bounds,
+        "bound_held_to": held_to,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
 
 
-def check_flash(name, q, k, v, causal: bool, reps: int = 10) -> dict:
+def check_flash(name, q, k, v, causal: bool, reps: int = 10, repeat: bool = False) -> dict:
     """Attention kernel against its plain version on the given inputs; raises
-    on disagreement, returns the errors, the kernel's time per launch and its
-    bound."""
+    on disagreement, returns the design, the errors, the kernel's time per
+    launch and its bounds. With ``repeat``, a second launch must equal the
+    first bit for bit."""
     import torch
 
     from heat_tpu_torch.nn.attention import dot_product_attention
     from heat_tpu_torch.ops import flash
 
+    design = flash.kernel_design(q.shape[-1], q.dtype)
     out = flash.flash_attention_kernel(q, k, v, causal=causal)
     ref = flash.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -437,15 +456,19 @@ def check_flash(name, q, k, v, causal: bool, reps: int = 10) -> dict:
         bound = ATTN_F32_TOL * (1 + r32.abs())
     ok = bool(torch.isfinite(o32).all()) and bool((d <= bound).all())
     err = {
+        "design": design,
         "max_abs_err": d.max().item() if d.numel() else 0.0,
         "max_rel_err": (d / r32.abs().clamp(min=1e-6)).max().item() if d.numel() else 0.0,
     }
+    if repeat:
+        err["repeats_bit_for_bit"] = bool(torch.equal(out, flash.flash_attention_kernel(q, k, v, causal=causal)))
+        ok = ok and err["repeats_bit_for_bit"]
     if q.dtype == torch.bfloat16:
         dense = dot_product_attention(q.float(), k.float(), v.float(), causal=causal)
         err["vs_f32_dense"] = (o32 - dense).abs().max().item()
         ok = ok and err["vs_f32_dense"] <= BF16_VS_DENSE
     err["ms"] = _time_ms(lambda: flash.flash_attention_kernel(q, k, v, causal=causal), reps)
-    err.update(attention_bound(q, k, causal))
+    err.update(attention_bound(q, k, causal, design))
     err["tflops"] = err["flops"] / (err["ms"] * 1e-3) / 1e12
     print(
         f"  {name}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal={causal}: "
@@ -457,16 +480,19 @@ def check_flash(name, q, k, v, causal: bool, reps: int = 10) -> dict:
     return err
 
 
-def compare_flash(name, B, S, H, D, dtype, causal, sk=None, reps=10) -> dict:
-    """Kernel against plain on random inputs of one shape; see check_flash."""
+def compare_flash(name, B, S, H, D, dtype, causal, sk=None, reps=10, repeat=False, row_pad=0) -> dict:
+    """Kernel against plain on random inputs of one shape; see check_flash.
+    ``row_pad`` > 0 makes q, k and v views of [..., D + row_pad] arrays, so
+    their head stride is D + row_pad elements."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + S + D)
     sk = S if sk is None else sk
-    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B, sk, H, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, sk, H, D, generator=gen, device="cuda").to(dtype)
-    return check_flash(name, q, k, v, causal, reps)
+    q, k, v = (
+        torch.randn(B, n, H, D + row_pad, generator=gen, device="cuda").to(dtype)[..., :D]
+        for n in (S, sk, sk)
+    )
+    return check_flash(name, q, k, v, causal, reps, repeat)
 
 
 def check_flash_gradient() -> None:
@@ -535,14 +561,20 @@ def attention_path(ht) -> dict:
     # 4. kernel against plain
     print("phase kernels: flash against flash_attention_plain", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
-    compare_flash("main shape", BATCH, SEQ, LM["heads"], LM["dim"] // LM["heads"], f32, True, reps=3)
+    head_dim = LM["dim"] // LM["heads"]
+    compare_flash("main shape", BATCH, SEQ, LM["heads"], head_dim, f32, True, reps=3, repeat=True)
+    compare_flash("main shape bf16", BATCH, SEQ, LM["heads"], head_dim, bf16, True, reps=3, repeat=True)
+    compare_flash("4k D=96", 1, 4096, 8, 96, f32, True, reps=3)
     compare_flash("4k D=128", 1, 4096, 8, 128, f32, True, reps=3)
+    compare_flash("4k D=128 non-causal", 1, 4096, 8, 128, f32, False, reps=3)
     compare_flash("4k D=128 bf16", 1, 4096, 8, 128, bf16, True, reps=3)
     compare_flash("ragged S", 2, 1000, 4, 64, f32, False)
     compare_flash("cross", 1, 70, 2, 16, f32, False, sk=300)
     compare_flash("cross causal", 1, 70, 2, 16, f32, True, sk=300)
     compare_flash("D=8", 1, 130, 2, 8, f32, True)
     compare_flash("D=24", 1, 517, 2, 24, f32, False)
+    compare_flash("D=24, head stride 25 (element-wise loads)", 1, 517, 2, 24, f32, True, row_pad=1)
+    compare_flash("D=40 bf16, head stride 44 (element-wise loads)", 1, 300, 3, 40, bf16, True, row_pad=4)
     compare_flash("D=256", 1, 1024, 2, 256, f32, True)
     compare_flash("D=512", 1, 1024, 2, 512, f32, True)
     compare_flash("D=512 bf16", 1, 1024, 2, 512, bf16, False)
@@ -639,10 +671,11 @@ def attention_path(ht) -> dict:
     print(
         f"  forward: {n_params} parameters; {forward_ms[0]:.3f} ms first, {warm_ms:.3f} ms warm "
         f"(requests {', '.join(f'{t:.3f}' for t in forward_ms)} ms), {tokens_per_s:.1f} tokens/s; "
-        f"kernel {main['ms']:.4f} ms per launch at {tuple(q.shape)} causal f32 "
-        f"({main['tflops']:.2f} TFLOP/s), bound {main['bound_ms']:.4f} ms "
-        f"({main['bound_by']}: {main['flops'] / 1e9:.1f} GFLOP at 67 TFLOP/s f32); "
-        f"plain {plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f} ms",
+        f"kernel ({main['design']}) {main['ms']:.4f} ms per launch at {tuple(q.shape)} causal f32 "
+        f"({main['tflops']:.2f} TFLOP/s), held to {main['bound_ms']:.4f} ms ({main['bound_by']}: "
+        f"3 x {main['flops'] / 1e9:.1f} GFLOP at 495 TFLOP/s TF32); CUDA-core bound "
+        f"{main['bound_cuda_cores_ms']:.4f} ms (67 TFLOP/s f32), bf16 bound {main['bound_bf16_ms']:.4f} ms "
+        f"(989 TFLOP/s); plain {plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f} ms",
         flush=True,
     )
     return {
@@ -657,6 +690,11 @@ def attention_path(ht) -> dict:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": library_ms,
+        "design": main["design"],
+        "bound_held_to": main["bound_held_to"],
+        "bound_3xtf32_ms": main["bound_3xtf32_ms"],
+        "bound_cuda_cores_ms": main["bound_cuda_cores_ms"],
+        "bound_bf16_ms": main["bound_bf16_ms"],
         "forward_ms_first": forward_ms[0],
         "forward_ms_warm": warm_ms,
         "tokens_per_s": tokens_per_s,
@@ -710,9 +748,17 @@ def compare_pairwise(name, x, y, out=None) -> float:
         ref = pairwise.pairwise_plain(x, y, p, post)
         torch.cuda.synchronize()
         errs.append(check_within(f"{name} p={p} sqrt={post}", got, ref, 2 * (f + 1) * u * ref.double().abs()))
+    item = x.element_size()
+    ldo = y.shape[0] if out is None or x.shape[0] <= 1 else out.stride(0)
+    paths = {
+        "x": pairwise.aligned16(x.data_ptr(), x.stride(0), item),
+        "y": pairwise.aligned16(y.data_ptr(), y.stride(0), item),
+        "out": out is None or pairwise.aligned16(out.data_ptr(), ldo, item),
+    }
     print(
         f"  {name}: x {tuple(x.shape)} y {tuple(y.shape)} {x.dtype}: max|d| {max(errs):.3e} "
-        f"(bound 2(f+1)u|ref|, 2(f+1)u = {2 * (f + 1) * u:.3e})",
+        f"(bound 2(f+1)u|ref|, 2(f+1)u = {2 * (f + 1) * u:.3e}); 16-byte access "
+        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in paths.items()),
         flush=True,
     )
     return max(errs)
@@ -740,10 +786,16 @@ def distance_kernel_phase() -> None:
     compare_pairwise("float64", randn(1000, 33, dtype=torch.float64), randn(1303, 33, dtype=torch.float64))
     base = randn(3000, 64)
     compare_pairwise("strided row blocks", base[100:1100, :33], base[::3, :33])
-    wide = torch.full((1000, 2000), float("nan"), device="cuda")
-    compare_pairwise("column block of a wider output", base[:1000], base[1000:1700], wide[:, 650:1350])
-    if not (bool(torch.isnan(wide[:, :650]).all()) and bool(torch.isnan(wide[:, 1350:]).all())):
-        raise AssertionError("the kernel wrote outside its column block")
+    for c0 in (650, 1024):  # a misaligned and a 16-byte aligned column block
+        wide = torch.full((1000, 2000), float("nan"), device="cuda")
+        compare_pairwise(f"column block at {c0} of a wider output", base[:1000], base[1000:1700],
+                         wide[:, c0:c0 + 700])
+        if not (bool(torch.isnan(wide[:, :c0]).all()) and bool(torch.isnan(wide[:, c0 + 700:]).all())):
+            raise AssertionError("the kernel wrote outside its column block")
+    odd = torch.full((1000, 1305), float("nan"), device="cuda")
+    compare_pairwise("f=64, output row stride 1305", randn(1000, 64), randn(1303, 64), odd[:, :1303])
+    if not bool(torch.isnan(odd[:, 1303:]).all()):
+        raise AssertionError("the kernel wrote past its output's columns")
     before = pairwise.LAUNCHES
     empty = pairwise.pairwise_kernel(base[:5], base[:0], 2, True)
     if pairwise.LAUNCHES != before or tuple(empty.shape) != (5, 0):
@@ -912,6 +964,7 @@ def distance_main_phase(ht) -> dict:
         flush=True,
     )
     bound = pairwise_bound(n, n, f, 4)
+    info = pairwise.kernel_info()
     print(
         f"  kernel alone: L2 {kernel_ms:.3f} ms ({out_gbps(kernel_ms):.1f} GB/s of output), L1 "
         f"{kernel_l1_ms:.3f} ms ({out_gbps(kernel_l1_ms):.1f} GB/s); bound {bound['bound_ms']:.3f} ms "
@@ -919,7 +972,8 @@ def distance_main_phase(ht) -> dict:
         f"output takes {n * n * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s); plain {plain_ms:.3f} ms for the "
         f"whole matrix, {plain_block_ms:.3f} ms for a block of {PLAIN_BLOCK_ROWS} rows; torch.cdist "
         f"(donot_use_mm_for_euclid_dist, row blocks of {LIBRARY_BLOCK_ROWS}) p=2 {library_ms[2.0]:.3f} ms, "
-        f"p=1 {library_ms[1.0]:.3f} ms",
+        f"p=1 {library_ms[1.0]:.3f} ms; build: {info['registers']} registers, {info['local_bytes']} "
+        f"bytes spilled per thread, {info['ctas_per_sm']} CTAs per SM",
         flush=True,
     )
     return {
@@ -934,6 +988,7 @@ def distance_main_phase(ht) -> dict:
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": library_ms[2.0],
+        **info,
         "l1_ms": kernel_l1_ms,
         "l1_library_ms": library_ms[1.0],
         "library_one_call_rows_right": int(row_ok.sum()),
@@ -1025,6 +1080,16 @@ def distance_path(ht) -> dict:
     return entry
 
 
+def print_build_report(name: str, log: str) -> None:
+    """Registers and spills of each kernel of one source, from ptxas -v."""
+    kernel = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("spill" in line or "Used" in line):
+            print(f"  {name}: {kernel[:90]}: {line.strip()}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1049,6 +1114,8 @@ def main() -> int:
     for name in sources:
         _build.library(name)
     print(f"phase build: {sources} built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("flash", "pairwise"):
+        print_build_report(name, _build.build_log(name))
 
     kernels = [kmeans_path(ht)]
     torch.cuda.empty_cache()

@@ -1,7 +1,9 @@
 """Build the CUDA sources under ``heat_tpu_torch/csrc`` into shared libraries.
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``, compiled by
-``nvcc`` for ``sm_90a`` with a plain C interface and loaded with ``ctypes``.
+``nvcc`` for ``sm_90a`` with a plain C interface and loaded with ``ctypes``;
+the compiler's report (``ptxas -v``: registers, shared memory and spills of
+each kernel) is kept beside it as ``<name>-<hash>.log``.
 The hash of the source names the library, so an edited source is rebuilt.
 Nothing is built when the package is imported: a kernel's wrapper calls
 :func:`library` at its first launch, and :func:`build` compiles several
@@ -18,14 +20,14 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["build", "library"]
+__all__ = ["build", "build_log", "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -69,10 +71,18 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{output}")
         else:
+            targets[name].with_suffix(".log").write_text(output)
             os.replace(tmp, targets[name])
     if failures:
         raise RuntimeError("\n".join(failures))
     return targets
+
+
+def build_log(name: str) -> str:
+    """The compiler's report of the current build of ``csrc/<name>.cu``
+    (empty when the library was built without one)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

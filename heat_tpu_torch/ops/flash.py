@@ -9,7 +9,11 @@ have no use on the GPU. The kernel picks its own tiles from D, so the TPU
 tile arguments ``block_q`` and ``block_k`` are not carried over.
 
 It is bound by operations: 4·B·H·S·SK·D flops, half of that when causal,
-against the bytes of q, k, v and the output read or written once.
+against the bytes of q, k, v and the output read or written once. The
+kernel has two designs, chosen by D alone (:func:`kernel_design`): for
+D ≤ 128 the tensor cores, float32 products as three TF32 products of split
+operands (:func:`tf32_split`) on wgmma and bfloat16 products in bfloat16 on
+mma.sync; for 128 < D ≤ 512 the CUDA cores in float32.
 
 :func:`flash_attention_kernel` launches the kernel for CUDA tensors and
 runs :func:`flash_attention_plain` for CPU tensors; it never falls back
@@ -31,9 +35,13 @@ __all__ = [
     "attention_kernel_supported",
     "flash_attention_kernel",
     "flash_attention_plain",
+    "kernel_design",
+    "tf32_split",
 ]
 
 MAX_HEAD_DIM = 512
+MMA_MAX_HEAD_DIM = 128
+"""The largest D of the tensor-core design (``csrc/flash.cu``'s dispatch)."""
 NEG_INF = -1e30
 """The masked score. It is finite, so a row with no live key has the
 finite max -1e30, which the zeroing guard (p = 0 while the max is at most
@@ -52,6 +60,40 @@ def attention_kernel_supported(seq_len: int, head_dim: int) -> bool:
     sequence length does not limit the kernel (counterpart of
     ``pallas_attention_supported``)."""
     return torch.cuda.is_available() and 1 <= head_dim <= MAX_HEAD_DIM
+
+
+def kernel_design(head_dim: int, dtype: torch.dtype) -> str:
+    """The design of ``csrc/flash.cu`` that a launch with this head dim and
+    input dtype runs, as the kernel's dispatch chooses it by D alone:
+    ``"wgmma_3xtf32"`` (tensor cores through wgmma, float32 as three TF32
+    products; every dtype but bfloat16 is computed in float32),
+    ``"mma_bf16"`` (tensor cores through mma.sync, bfloat16 operands) up to
+    D = 128, ``"cuda_cores"`` (float32 FMA) above it."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {head_dim} outside the kernel's 1 <= D <= {MAX_HEAD_DIM}")
+    if head_dim > MMA_MAX_HEAD_DIM:
+        return "cuda_cores"
+    return "mma_bf16" if _compute_dtype(dtype) == torch.bfloat16 else "wgmma_3xtf32"
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (float32) as ``big + small``, the operands of the kernel's
+    three-term TF32 products: ``big`` is x rounded to 10 mantissa bits, to
+    nearest with ties away from zero (``cvt.rna.tf32.f32``), and ``small``
+    is ``x - big`` (exact in float32) rounded the same way, so
+    ``|big + small - x| <= 2^-22 |x|``. Infinities and NaNs are their own
+    ``big``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes float32, got {x.dtype}")
+
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        bits = t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        rounded = (bits + 0x1000) & 0xFFFFE000  # half of the 13 dropped bits, then drop them
+        rounded = torch.where(rounded >= 2**31, rounded - 2**32, rounded)
+        return torch.where(torch.isfinite(t), rounded.to(torch.int32).view(torch.float32), t)
+
+    big = rna(x)
+    return big, rna(x - big)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

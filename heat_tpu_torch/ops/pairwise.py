@@ -12,7 +12,10 @@ and of features to 128 lanes have no use here; the kernel masks its
 ragged edges itself.
 
 It is bound by operations: two FP32 lane instructions per (pair, feature)
-against n·m·itemsize bytes written.
+against n·m·itemsize bytes written. The kernel loads and stores 16 bytes
+at a time where the base and the row stride of an operand allow it
+(:func:`aligned16`, decided here and passed to the kernel), else element
+by element.
 
 :func:`pairwise_kernel` launches the kernel for CUDA tensors and runs
 :func:`pairwise_plain` for CPU tensors; it never falls back from one to the
@@ -30,6 +33,8 @@ from . import _build
 
 __all__ = [
     "LAUNCHES",
+    "aligned16",
+    "kernel_info",
     "pairwise_distance",
     "pairwise_kernel",
     "pairwise_kernel_supported",
@@ -46,6 +51,13 @@ LAUNCHES = 0
 PLAIN_ELEMENTS = 1 << 26
 """The plain version works in blocks of rows so that its (rows, m, f)
 difference never holds more than this many elements."""
+
+
+def aligned16(data_ptr: int, row_stride: int, itemsize: int) -> bool:
+    """Whether the kernel may read or write an operand 16 bytes at a time:
+    its base address and its row stride (in elements) are both multiples
+    of 16 bytes, so every row starts 16-byte aligned."""
+    return data_ptr % 16 == 0 and (row_stride * itemsize) % 16 == 0
 
 
 def pairwise_kernel_supported(f: int) -> bool:
@@ -123,10 +135,12 @@ def _library():
         lib.pairwise_distance.argtypes = (
             [ctypes.c_void_p] * 3
             + [ctypes.c_longlong] * 6
-            + [ctypes.c_int] * 3
+            + [ctypes.c_int] * 6
             + [ctypes.c_void_p]
         )
         lib.pairwise_distance.restype = ctypes.c_int
+        lib.pairwise_kernel_info.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.pairwise_kernel_info.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -143,17 +157,34 @@ def _launch(x, y, p: int, post_sqrt: bool, out: Optional[torch.Tensor]) -> torch
         return out
     x, y = (t if t.stride(1) == 1 else t.contiguous() for t in (x, y))
     ldo = out.stride(0) if n > 1 else m
+    item = x.element_size()
+    vec = [
+        int(aligned16(t.data_ptr(), ld, item))
+        for t, ld in ((x, x.stride(0)), (y, y.stride(0)), (out, ldo))
+    ]
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.pairwise_distance(
             x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, f,
             x.stride(0), y.stride(0), ldo, p, int(bool(post_sqrt)),
-            int(x.dtype == torch.float64), torch.cuda.current_stream(x.device).cuda_stream,
+            int(x.dtype == torch.float64), *vec, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"pairwise kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+def kernel_info() -> dict:
+    """What the build gave the kernel's main variant (float32, L2 with the
+    sqrt) on the current card: registers and spilled (local) bytes per
+    thread, and CTAs per SM, which is the persistent grid's width per SM.
+    Needs CUDA."""
+    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _library().pairwise_kernel_info(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(ctas))
+    if err:
+        raise RuntimeError(f"pairwise kernel info failed: CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value, "ctas_per_sm": ctas.value}
 
 
 def pairwise_plain(

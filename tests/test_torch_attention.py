@@ -149,6 +149,103 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         attention.flash_attention(q, k, v, impl="mosaic")
 
 
+# ---------------------------------------------------------------------------
+# the tensor-core design: the TF32 split and the three-term products
+# ---------------------------------------------------------------------------
+def test_tf32_split_rounds_to_ten_mantissa_bits():
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(
+        (rng.standard_normal(4096) * np.exp2(rng.integers(-60, 60, 4096))).astype(np.float32)
+    )
+    big, small = flash.tf32_split(x)
+    assert big.dtype == small.dtype == torch.float32
+    # 23 - 10 = 13 low mantissa bits are zero in both halves
+    assert (big.view(torch.int32) & 0x1FFF == 0).all()
+    assert (small.view(torch.int32) & 0x1FFF == 0).all()
+    # round to nearest: |x - big| <= half a TF32 ulp, 2^-11 |x|
+    assert ((x - big).abs() <= 2.0**-11 * x.abs()).all()
+    # the pair carries x to within 2^-22 relative
+    err = (big.double() + small.double() - x.double()).abs()
+    assert (err <= 2.0**-22 * x.double().abs()).all()
+
+
+def test_tf32_split_ties_go_away_from_zero():
+    ulp = 2.0**-10  # a TF32 ulp at 1
+    cases = [
+        (1 + ulp / 2, 1 + ulp),  # a tie: away from zero (to even would give 1)
+        (-(1 + ulp / 2), -(1 + ulp)),
+        (1 + ulp / 2 - 2.0**-23, 1.0),  # just below the tie
+        (1 + 3 * ulp / 2, 1 + 2 * ulp),  # a tie between odd and even: away again
+        (1.5, 1.5),  # already a TF32 value
+        (0.0, 0.0),
+        (float("inf"), float("inf")),
+    ]
+    x = torch.tensor([c for c, _ in cases], dtype=torch.float32)
+    want = torch.tensor([w for _, w in cases], dtype=torch.float32)
+    big, small = flash.tf32_split(x)
+    torch.testing.assert_close(big, want, rtol=0, atol=0)
+    # a tie's remainder is exact: big + small == x
+    torch.testing.assert_close(big[:2] + small[:2], x[:2], rtol=0, atol=0)
+    assert small[0].item() == -ulp / 2 and small[1].item() == ulp / 2
+    assert torch.isnan(flash.tf32_split(torch.tensor([float("nan")]))[0]).all()
+    with pytest.raises(TypeError):
+        flash.tf32_split(torch.zeros(2, dtype=torch.float64))
+
+
+def _split_matmul(a, b, terms=3):
+    """a @ b as the kernel's TF32 products, summed in float32: the small.big,
+    big.small and big.big terms, or big.big alone with terms=1."""
+    a_big, a_small = flash.tf32_split(a.contiguous())
+    b_big, b_small = flash.tf32_split(b.contiguous())
+    if terms == 1:
+        return a_big @ b_big
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _split_attention(q, k, v, causal, terms=3):
+    """The kernel's f32 tensor-core arithmetic on the CPU: both products as
+    split TF32 products, the scale folded into q, the -1e30 mask."""
+    S, D, sk = q.shape[1], q.shape[3], k.shape[1]
+    qs = (q * flash.score_scale(None, D)).permute(0, 2, 1, 3)
+    s = _split_matmul(qs, k.permute(0, 2, 3, 1), terms)
+    if causal:
+        s = s.masked_fill(torch.arange(S)[:, None] < torch.arange(sk)[None, :], flash.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(m > flash.NEG_INF / 2, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = _split_matmul(p, v.permute(0, 2, 1, 3), terms) / torch.where(l > 0, l, 1.0)
+    return o.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("S,D,causal", [(256, 64, False), (200, 64, True), (130, 128, True)])
+def test_three_term_tf32_attention_stays_within_f32_tolerance(S, D, causal):
+    arrays = _qkv(1, S, 2, D, seed=S + D + 3)
+    q, k, v = _torch(arrays)
+    got = _split_attention(q, k, v, causal)
+    plain = flash.flash_attention_plain(q, k, v, causal=causal)
+    want = flash_attention_tpu(*_jax(arrays), causal=causal, interpret=True)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+    # one TF32 product (each operand rounded to 2^-11) does not hold the bound
+    one = _split_attention(q, k, v, causal, terms=1)
+    assert not np.allclose(one.numpy(), plain.numpy(), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_kernel_design_is_chosen_by_head_dim_and_dtype():
+    assert flash.kernel_design(1, torch.float32) == "wgmma_3xtf32"
+    assert flash.kernel_design(64, torch.float32) == "wgmma_3xtf32"
+    assert flash.kernel_design(128, torch.float16) == "wgmma_3xtf32"  # computed in f32
+    assert flash.kernel_design(128, torch.float64) == "wgmma_3xtf32"
+    assert flash.kernel_design(8, torch.bfloat16) == "mma_bf16"
+    assert flash.kernel_design(128, torch.bfloat16) == "mma_bf16"
+    assert flash.kernel_design(129, torch.float32) == "cuda_cores"
+    assert flash.kernel_design(129, torch.bfloat16) == "cuda_cores"
+    assert flash.kernel_design(512, torch.float32) == "cuda_cores"
+    for bad in (0, 513):
+        with pytest.raises(ValueError, match="head_dim"):
+            flash.kernel_design(bad, torch.float32)
+
+
 def test_kernel_gating():
     assert not flash.attention_kernel_supported(1024, 513)
     assert flash.attention_kernel_supported(1_000_000, 512) == torch.cuda.is_available()

@@ -107,3 +107,26 @@ def test_cpu_tensors_launch_no_kernel_and_other_checks_raise():
         pairwise.pairwise_kernel(torch.ones(3, 2), torch.ones(4, 2), p=3)
     assert pairwise.pairwise_kernel(torch.ones(0, 2), torch.ones(4, 2)).shape == (0, 4)
     assert pairwise.pairwise_kernel(torch.ones(3, 2), torch.ones(0, 2)).shape == (3, 0)
+
+
+def test_vector_access_needs_an_aligned_base_and_row_stride():
+    # float32: 16 bytes are 4 elements
+    assert pairwise.aligned16(0x1000, 64, 4)
+    assert pairwise.aligned16(0x1000, 2000, 4)  # a column block at offset 1024 of a 2000-wide output
+    assert not pairwise.aligned16(0x1000 + 650 * 4, 2000, 4)  # the block at offset 650
+    assert not pairwise.aligned16(0x1000, 1305, 4)  # a row stride of 1305 elements
+    assert not pairwise.aligned16(0x1004, 64, 4)
+    # float64: 16 bytes are 2 elements
+    assert pairwise.aligned16(0x1010, 34, 8)
+    assert not pairwise.aligned16(0x1010, 33, 8)
+    assert not pairwise.aligned16(0x1008, 34, 8)
+
+
+def test_vector_access_of_real_views():
+    wide = torch.empty(8, 2000)
+    assert pairwise.aligned16(wide.data_ptr(), wide.stride(0), 4)
+    for c0, aligned in ((650, False), (1024, True), (1, False), (4, True)):
+        block = wide[:, c0:c0 + 100]
+        assert pairwise.aligned16(block.data_ptr(), block.stride(0), 4) == aligned
+    odd = torch.empty(8, 1305)[:, :1303]
+    assert not pairwise.aligned16(odd.data_ptr(), odd.stride(0), 4)
