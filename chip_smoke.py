@@ -47,8 +47,19 @@ Phases, in order; any failure exits non-zero:
    general at 20,001 x 12,345, equal bit for bit to the one-shard results,
    with 12 and 16 launches; the quadratic expansion's ring within its
    tolerance;
-9. print the card's name and power limit, one JSON line of per-kernel
-   numbers, and the result line ``{"ok": true, "device": {...}}`` last.
+9. drive the array library (no kernel of its own): the README quickstart
+   (``README.md:29-33``) against float64; BASELINE config 1 (mean and std of
+   1000 x 1000 float32, split=0, the protocol of
+   ``benchmarks/statistical_moments.py``); sum, mean, var and std (ddof 0
+   and 1), min, max, argmin and argmax over axis None/0/1 of 10,000,000 x
+   16 and 32,768 x 32,768 float32 (normal + 3), each against float64 within
+   its stated bound, timed beside its HBM bound and the one torch call, and
+   the warm calls under ``torch.cuda.set_sync_debug_mode("error")``; on the
+   tall array ``cumsum(axis=0)`` and the z-score; then four shards on the
+   card with NaN padding, equal to one shard;
+10. print the phase-9 numbers with the card, the card's name and power
+   limit, one JSON line of per-kernel numbers, and the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 It needs CUDA and the package beside it, and fails without either.
 """
@@ -1080,6 +1091,322 @@ def distance_path(ht) -> dict:
     return entry
 
 
+# the array library's path (phase 9): the README quickstart (README.md:29-33)
+# and BASELINE config 1 (BASELINE.md:22: statistical moments of 1000 x 1000
+# float32, split=0, the protocol of benchmarks/statistical_moments.py), then
+# the moments on two arrays of the size users hold on one card: a tall
+# feature table (the k-means configuration's) and a square 4 GiB matrix,
+# standard normal + 3.0 so that a variance computed as E[x²] - E[x]² would
+# cancel; and a four-shard mesh on the one card with a padded last shard
+MOMENT_ARRAYS = {"tall": (10_000_000, 16), "square": (32_768, 32_768)}
+MOMENT_OFFSET = 3.0
+MOMENT_REPS = 10
+MESH_ROWS = 10_000_003  # 4 shards of 2,500,001 rows: one padding row
+MESH_P = 4
+U32 = 2.0**-24
+# Tolerances of phase 9, each result against float64 on the same card, with
+# L = ceil(log2 n) for n reduced elements and u = 2^-24:
+# * sum: |d| <= 4·L·u·Σ|x|. Pairwise summation errs by at most L·u·Σ|x|;
+#   torch's CUDA reduction adds short sequential runs in each thread before
+#   its tree, which the factor 4 covers at their typical (√k) error;
+# * mean: the sum's bound over n, plus u|mean| for the division;
+# * var: the deviations d = x - μ carry u(|x| + |μ|) each, their squares
+#   2|d|u(|x| + |μ|), and their sum the sum's bound:
+#   |d_var|·(n - ddof) <= 4·L·u·(Σd² + 2Σ|d|(|x| + |μ|)), plus u·var;
+# * std: the var bound over 2·std, plus 2u·std;
+# * min, max, argmin, argmax: exact (every f32 value is exact in f64);
+# * cumsum along n rows: the engine scans blocks of b = ⌈√n⌉ rows, then the
+#   c blocks' totals, each as torch's CUDA scan along dim 0 does it, one
+#   sequential chain per column; a prefix so carries two chains, of at most
+#   b and c terms, and one addition. A chain of k terms errs by at most
+#   (k-1)·u·Σ|x| and, its rounding errors being of either sign, by λ·√k·u·Σ|x|
+#   with probability 1 - 2k·exp(-λ²/2) (Higham and Mary, 2019): the bound is
+#   8·(√b + √c + 1)·u times the running Σ|x| (λ = 8: 1 - 1e-10 at k = 3163);
+# * the z-score (x - mean(x, 0)) / std(x, 0): the mean's and std's bounds
+#   carried through, plus 4u for the subtraction and the division.
+MOMENT_OPS = ("sum", "mean", "var", "var ddof=1", "std", "std ddof=1", "min", "max", "argmin", "argmax")
+
+
+def _moment_fns(ht, name: str):
+    """The port's call and the one torch call over the whole tensor that
+    computes the same thing, each as f(x, axis)."""
+    import torch
+
+    base, _, ddof = name.partition(" ddof=")
+    kwargs = {"ddof": int(ddof or 0)} if base in ("var", "std") else {}
+    torch_fn = {"sum": torch.sum, "mean": torch.mean, "min": torch.amin, "max": torch.amax}.get(base)
+
+    def mine(x, axis):
+        return getattr(ht, base)(x, axis, **kwargs)
+
+    def lib(t, axis):
+        if base in ("var", "std"):
+            return getattr(torch, base)(t, dim=axis, correction=kwargs["ddof"])
+        if base in ("argmin", "argmax"):
+            return getattr(torch, base)(t, dim=axis)
+        return torch_fn(t, dim=() if axis is None else axis)
+
+    return mine, lib
+
+
+class Moments64:
+    """float64 references and bounds of the moments of one f32 tensor."""
+
+    def __init__(self, t):
+        self.t64 = t.double()
+
+    def of(self, axis):
+        import torch
+
+        t64 = self.t64
+        dim = tuple(range(t64.ndim)) if axis is None else (axis,)
+        n = math.prod(t64.shape[d] for d in dim)
+        level = math.ceil(math.log2(max(n, 2)))
+        abs_sum = t64.abs().sum(dim)
+        total = t64.sum(dim)
+        mean = total / n
+        kept = mean.reshape([1 if d in dim else s for d, s in enumerate(t64.shape)])
+        dev = t64 - kept
+        sq = dev.square().sum(dim)
+        weight = t64.abs().add_(kept.abs())
+        cross = dev.abs_().mul_(weight).sum(dim)
+        del dev, weight
+        out = {
+            "sum": (total, 4 * level * U32 * abs_sum),
+            "mean": (mean, 4 * level * U32 * abs_sum / n + U32 * mean.abs()),
+        }
+        for ddof in (0, 1):
+            var = sq / (n - ddof)
+            var_bound = 4 * level * U32 * (sq + 2 * cross) / (n - ddof) + U32 * var
+            std = var.sqrt()
+            suffix = "" if ddof == 0 else " ddof=1"
+            out["var" + suffix] = (var, var_bound)
+            out["std" + suffix] = (std, var_bound / (2 * std) + 2 * U32 * std)
+        for name, fn in (("min", torch.amin), ("max", torch.amax)):
+            out[name] = (fn(t64, dim=dim), None)
+        for name, fn in (("argmin", torch.argmin), ("argmax", torch.argmax)):
+            out[name] = (fn(t64) if axis is None else fn(t64, dim=axis), None)
+        return out
+
+
+def scan_bound(n: int) -> float:
+    """The cumsum bound of phase 9 over n rows, per unit of the running Σ|x|."""
+    from heat_tpu_torch.core.arithmetics import scan_blocks
+
+    b, c = scan_blocks(n)
+    return 8 * (math.sqrt(b) + math.sqrt(c) + 1) * U32
+
+
+def _check_moment(label, got, ref_and_bound) -> float:
+    import torch
+
+    ref, bound = ref_and_bound
+    got = got.reshape(ref.shape)
+    if bound is None:
+        if not torch.equal(got.to(ref.dtype), ref):
+            raise AssertionError(f"{label}: not equal to the float64 result")
+        return 0.0
+    return check_within(label, got, ref, bound)
+
+
+def _median_ms(fn, reps: int = MOMENT_REPS) -> float:
+    """Warm median of one call, CUDA events around each."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[len(times) // 2]
+
+
+def quickstart_phase(ht):
+    """README.md:29-33 verbatim, checked against float64 on the card."""
+    import torch
+
+    print("phase moments: the README quickstart (README.md:29-33)", flush=True)
+    ht.random.seed(SEED)
+    x = ht.arange(1_000_000, dtype=ht.float32, split=0)
+    y = ht.random.randn(1_000_000, split=0)
+    z = x * 2 + y
+    s = ht.sum(z)
+    m = ht.mean(z.reshape((1000, 1000)), axis=0)
+    if z.larray.device.type != "cuda" or s.larray.device.type != "cuda":
+        raise AssertionError("the quickstart did not run on the card")
+    z64 = torch.arange(1_000_000, dtype=torch.float64, device=z.larray.device) * 2 + y.larray.double()
+    # z rounds once to f32 (u|z|) before the sums of phase 9's bounds
+    s_err = check_within("quickstart sum", s.larray, z64.sum(), (4 * 20 + 1) * U32 * z64.abs().sum())
+    cols = z64.reshape(1000, 1000)
+    m64 = cols.mean(0)
+    m_err = check_within("quickstart mean", m.larray, m64, (4 * 10 + 1) * U32 * cols.abs().mean(0) + U32 * m64.abs())
+    print(
+        f"  z = x * 2 + y {z.gshape} split={z.split}; s = {s.item():.6e} (|d| {s_err:.3e} against float64); "
+        f"m {m.gshape} split={m.split} (max|d| {m_err:.3e})",
+        flush=True,
+    )
+    return z
+
+
+def baseline_moments_phase(ht) -> dict:
+    """BASELINE config 1 with the protocol of benchmarks/statistical_moments.py:
+    a warm-up, 10 trials of the call and its read-back, the minimum."""
+    import torch
+
+    print("phase moments: BASELINE config 1, mean and std of 1000 x 1000 float32, split=0", flush=True)
+    ht.random.seed(SEED)
+    x = ht.random.randn(1000, 1000, split=0)
+    ref64 = Moments64(x.larray)
+    results = {}
+    for name, fn in (("mean", ht.mean), ("std", ht.std)):
+        for axis in (None, 0, 1):
+            fn(x, axis)
+            times = []
+            for _ in range(MOMENT_REPS):
+                start = time.perf_counter()
+                r = fn(x, axis)
+                r.numpy() if r.ndim else float(r.larray)
+                times.append(time.perf_counter() - start)
+            _check_moment(f"baseline {name} axis={axis}", fn(x, axis).larray, ref64.of(axis)[name])
+            results[f"{name}_axis{axis}"] = min(times) * 1e3
+    print(f"  ms (minimum of {MOMENT_REPS} trials, the call and its read-back): {json.dumps(results)}", flush=True)
+    return results
+
+
+def moments_at_size(ht, label: str, shape) -> dict:
+    """Every moment over axis None/0/1 against float64, timed beside its HBM
+    bound and the whole-tensor torch call; the warm calls must not sync."""
+    import torch
+
+    ht.random.seed(SEED + 2)
+    x = ht.random.randn(*shape, split=0) + MOMENT_OFFSET
+    t = x.larray
+    ref64 = Moments64(t)
+    print(f"phase moments: {label} {shape[0]} x {shape[1]} float32 (normal + {MOMENT_OFFSET}), split=0", flush=True)
+    rows = {}
+    for axis in (None, 0, 1):
+        refs = ref64.of(axis)
+        for name in MOMENT_OPS:
+            mine, lib = _moment_fns(ht, name)
+            result = mine(x, axis)
+            err = _check_moment(f"{label} {name} axis={axis}", result.larray, refs[name])
+            ms = _median_ms(lambda: mine(x, axis))
+            lib_ms = _median_ms(lambda: lib(t, axis))
+            out_bytes = result.larray.numel() * result.larray.element_size()
+            bound_ms = (t.numel() * t.element_size() + out_bytes) / HBM_BYTES_PER_S * 1e3
+            rows[f"{name} axis={axis}"] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": err}
+            print(
+                f"  {name} axis={axis}: {ms:.4f} ms, torch {lib_ms:.4f} ms, HBM bound {bound_ms:.4f} ms "
+                f"({t.numel() * 4 / ms / 1e6:.1f} GB/s read); max|d| against float64 {err:.3e}",
+                flush=True,
+            )
+    # the warm calls under the sync check: any wait for the host raises
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for axis in (None, 0, 1):
+            for name in MOMENT_OPS:
+                _moment_fns(ht, name)[0](x, axis)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"  {len(MOMENT_OPS) * 3} warm calls ran under set_sync_debug_mode('error'): no host sync", flush=True)
+    if label == "tall":
+        ref_cum = ref64.t64.cumsum(0)
+        bound = scan_bound(shape[0]) * ref64.t64.abs().cumsum(0)
+        err = check_within("tall cumsum axis=0", ht.cumsum(x, 0).larray, ref_cum, bound)
+        del ref_cum, bound
+        mean0, std0 = ht.mean(x, 0), ht.std(x, 0)
+        z = (x - mean0) / std0
+        refs = ref64.of(0)
+        (m64, m_bound), (s64, s_bound) = refs["mean"], refs["std"]
+        z64 = (ref64.t64 - m64) / s64
+        z_bound = (m_bound + 4 * U32 * (ref64.t64.abs() + m64.abs())) / s64 + z64.abs() * (s_bound / s64 + 4 * U32)
+        z_err = check_within("tall z-score", z.larray, z64, z_bound)
+        rows["cumsum axis=0"] = {"ms": _median_ms(lambda: ht.cumsum(x, 0)), "max_abs_err": err}
+        rows["z-score"] = {"ms": _median_ms(lambda: (x - ht.mean(x, 0)) / ht.std(x, 0)), "max_abs_err": z_err}
+        print(
+            f"  cumsum axis=0: {rows['cumsum axis=0']['ms']:.4f} ms, max|d| {err:.3e}; z-score: "
+            f"{rows['z-score']['ms']:.4f} ms, max|d| {z_err:.3e}",
+            flush=True,
+        )
+    del ref64
+    return rows
+
+
+def moments_mesh_phase(ht, z) -> None:
+    """Four shards on the one card, the last one padded and its padding NaN:
+    every reduction equals the one-shard result (exactly for min, max,
+    argmin, argmax; within twice the float64 bound for the rest)."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = z.larray.device
+    mesh1, mesh4 = MeshCommunication([card]), MeshCommunication([card] * MESH_P)
+    print(f"phase moments: {MESH_P} shards on one card, {MESH_ROWS} x 16 float32 with NaN padding", flush=True)
+    ht.random.seed(SEED + 3)
+    x1 = ht.random.randn(MESH_ROWS, 16, split=0, comm=mesh1) + MOMENT_OFFSET
+    ht.use_comm(mesh4)
+    try:
+        x4 = ht.array(x1.larray, split=0)
+        pad = x4.shards[-1].shape[0] * MESH_P - MESH_ROWS
+        if not x4.padded or pad < 1:
+            raise AssertionError("the four-shard operand has no padding")
+        x4.shards[-1][-pad:] = float("nan")
+        ref64 = Moments64(x1.larray)
+        for axis in (None, 0, 1):
+            refs = ref64.of(axis)
+            for name in MOMENT_OPS:
+                mine = _moment_fns(ht, name)[0]
+                r4, r1 = mine(x4, axis).larray, mine(x1, axis).larray
+                if not bool(torch.isfinite(r4.double()).all()):
+                    raise AssertionError(f"four shards, {name} axis={axis}: not finite")
+                ref, bound = refs[name]
+                if bound is None:
+                    same = torch.equal(r4, r1)
+                else:
+                    same = bool(((r4.double() - r1.double()).abs().reshape(ref.shape) <= 2 * bound).all())
+                if not same:
+                    raise AssertionError(f"four shards, {name} axis={axis}: differs from one shard")
+        # each against float64 within its bound, the four shards' with
+        # their exscan of four totals on top
+        cum_bound = (2 * scan_bound(MESH_ROWS) + 4 * U32) * ref64.t64.abs().cumsum(0)
+        cum_err = check_within("four shards cumsum axis=0", ht.cumsum(x4, 0).larray, ht.cumsum(x1, 0).larray, cum_bound)
+        del cum_bound, ref64
+        x4_cols = ht.resplit(x4, 1)
+        if not torch.equal((x4 * x4_cols).larray, (x1 * x1).larray) or (x4 * x4_cols).split != 0:
+            raise AssertionError("four shards: split=0 times split=1 differs from one split")
+        z4 = ht.array(z.larray, split=0)
+        if not torch.equal(z4.reshape((1000, 1000)).larray, z.reshape((1000, 1000)).larray):
+            raise AssertionError("four shards: the quickstart's reshape differs from one shard")
+    finally:
+        ht.use_comm(None)
+    print(
+        f"  {len(MOMENT_OPS) * 3} reductions equal one shard (exact or within twice their bound), all finite; "
+        f"cumsum max|d| {cum_err:.3e}; split 0 x split 1 equal to one split; reshape(1000, 1000) equal",
+        flush=True,
+    )
+
+
+def moments_path(ht, smi: str) -> dict:
+    """Phase 9: the array library on the card; returns its numbers."""
+    import torch
+
+    z = quickstart_phase(ht)
+    numbers = {"card": smi, "baseline_config_1_ms": baseline_moments_phase(ht)}
+    for label, shape in MOMENT_ARRAYS.items():
+        numbers[label] = moments_at_size(ht, label, shape)
+        torch.cuda.empty_cache()
+    moments_mesh_phase(ht, z)
+    return numbers
+
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -1122,7 +1449,10 @@ def main() -> int:
     kernels.append(attention_path(ht))
     torch.cuda.empty_cache()
     kernels.append(distance_path(ht))
+    torch.cuda.empty_cache()
+    moments = moments_path(ht, smi)
 
+    print("moments: " + json.dumps(moments))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

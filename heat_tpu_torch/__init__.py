@@ -8,6 +8,64 @@ tested against.
 """
 
 from .core import *
-from .core import random
+from .core import linalg, random
 from . import cluster, nn, ops, spatial, utils
-from .core import base, communication, constants, devices, factories, sanitation, stride_tricks, types
+from .core import (
+    arithmetics,
+    base,
+    communication,
+    complex_math,
+    constants,
+    devices,
+    exponential,
+    factories,
+    indexing,
+    logical,
+    manipulations,
+    memory,
+    relational,
+    rounding,
+    sanitation,
+    statistics,
+    stride_tricks,
+    trigonometrics,
+    types,
+)
+
+
+def _bind_dndarray_methods():
+    """Bind the operator library onto DNDarray as methods: ``x.sum()`` as
+    well as ``ht.sum(x)`` (the reference's list, heat_tpu/__init__.py:56-97,
+    as far as it is ported)."""
+    from .core.dndarray import DNDarray
+
+    sources = {
+        arithmetics: [
+            "add", "sub", "mul", "div", "pow", "fmod", "mod", "cumsum", "cumprod",
+            "prod", "sum", "nansum", "nanprod", "diff",
+        ],
+        rounding: ["abs", "ceil", "clip", "fabs", "floor", "modf", "round", "trunc", "sign", "sgn"],
+        exponential: ["exp", "expm1", "exp2", "log", "log2", "log10", "log1p", "sqrt", "square"],
+        trigonometrics: [
+            "sin", "cos", "tan", "sinh", "cosh", "tanh", "arcsin", "arccos", "arctan",
+            "arcsinh", "arccosh", "arctanh",
+        ],
+        logical: ["all", "any", "allclose", "isclose"],
+        statistics: ["argmax", "argmin", "average", "max", "mean", "min", "std", "var", "kurtosis", "skew"],
+        manipulations: [
+            "expand_dims", "flatten", "ravel", "reshape", "resplit", "squeeze", "flip",
+            "moveaxis", "swapaxes",
+        ],
+        complex_math: ["conj"],
+        indexing: ["nonzero"],
+        memory: ["copy"],
+        linalg: ["transpose"],
+    }
+    for module, names in sources.items():
+        for name in names:
+            if not hasattr(DNDarray, name):
+                setattr(DNDarray, name, getattr(module, name))
+
+
+_bind_dndarray_methods()
+del _bind_dndarray_methods

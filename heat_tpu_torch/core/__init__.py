@@ -6,7 +6,20 @@ from .devices import *
 from .communication import *
 from .dndarray import *
 from .factories import *
+from .memory import *
 from .base import *
 from .sanitation import *
 from .stride_tricks import *
+from .arithmetics import *
+from .relational import *
+from .logical import *
+from .rounding import *
+from .exponential import *
+from .trigonometrics import *
+from .complex_math import *
+from .statistics import *
+from .manipulations import *
+from .indexing import *
+from . import linalg
+from .linalg import *
 from . import random

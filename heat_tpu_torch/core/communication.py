@@ -12,8 +12,9 @@ CPU device (default 8), the same mesh size the JAX package's tests use.
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,14 +119,57 @@ class MeshCommunication(Communication):
     # ------------------------------------------------------------------
     # collectives over the shard list
     # ------------------------------------------------------------------
-    def allreduce(self, shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Sum one tensor per shard, in shard order, and give every shard the
-        result on its own device (reference Allreduce)."""
+    def allreduce(self, shards: Sequence, op: Union[str, Callable] = "sum") -> List:
+        """Combine one value per shard in shard order and give every shard
+        the result on its own device (reference Allreduce,
+        heat_tpu/core/communication.py:120). A value is a tensor or a tuple
+        of tensors; ``op`` is one of {'sum', 'prod', 'max', 'min', 'land',
+        'lor'} or a callable combining two values (a custom reduce op such
+        as :func:`~heat_tpu_torch.core.statistics.mpi_argmax`)."""
         self._check(shards)
-        total = shards[0]
+        combine = _combine(op)
+        first = self._devices[0]
+        total = _to(shards[0], first)
         for s in shards[1:]:
-            total = total + s.to(total.device)
-        return [total if total.device == d else total.to(d) for d in self._devices]
+            total = combine(total, _to(s, first))
+        return [_to(total, d) for d in self._devices]
+
+    def bcast(self, shards: Sequence, root: int = 0) -> List:
+        """Every shard gets shard ``root``'s value, moved to its device
+        (reference Bcast, heat_tpu/core/communication.py:192)."""
+        self._check(shards)
+        return [_to(shards[root], d) for d in self._devices]
+
+    def exscan(self, shards: Sequence, op: Union[str, Callable] = "sum", neutral=None) -> List:
+        """Exclusive prefix combine in shard order (reference Exscan,
+        heat_tpu/core/communication.py:209): shard d gets the combination of
+        shards 0..d-1, shard 0 the neutral element (given for a callable
+        ``op``, else made from the op)."""
+        self._check(shards)
+        if neutral is None:
+            if callable(op):
+                raise ValueError("a callable op requires an explicit neutral element")
+            neutral = _tree(lambda t: _neutral(op, t), shards[0])
+        prefixes = self._prefixes(shards[:-1], op)
+        return [_to(neutral, self._devices[0])] + [
+            _to(v, d) for v, d in zip(prefixes, self._devices[1:])
+        ]
+
+    def scan(self, shards: Sequence, op: Union[str, Callable] = "sum") -> List:
+        """Inclusive prefix combine in shard order (reference Scan): shard d
+        gets the combination of shards 0..d."""
+        self._check(shards)
+        return self._prefixes(shards, op)
+
+    def _prefixes(self, shards: Sequence, op) -> List:
+        """s0, s0∘s1, ..., each on the device of its last shard."""
+        combine = _combine(op)
+        out, acc = [], None
+        for d, s in zip(self._devices, shards):
+            s = _to(s, d)
+            acc = s if acc is None else combine(_to(acc, d), s)
+            out.append(acc)
+        return out
 
     def allgather(self, shards: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:
         """Concatenate one tensor per shard along ``dim`` and give every shard
@@ -186,6 +230,58 @@ class MeshCommunication(Communication):
 
     def __repr__(self) -> str:
         return f"MeshCommunication({self.size} {self._devices[0].type} device(s))"
+
+
+def _tree(fn, value):
+    """Apply ``fn`` to a tensor, or to each tensor of a tuple."""
+    if isinstance(value, tuple):
+        return tuple(fn(v) for v in value)
+    return fn(value)
+
+
+def _to(value, device: torch.device):
+    return _tree(lambda t: t if t.device == device else t.to(device), value)
+
+
+def _neutral(op: str, like: torch.Tensor) -> torch.Tensor:
+    """The neutral element of ``op`` in the shape and type of ``like``."""
+    if op in ("sum", "lor"):
+        return torch.zeros_like(like)
+    if op in ("prod", "land"):
+        return torch.ones_like(like)
+    if op not in ("max", "min"):
+        raise ValueError(f"unknown reduce op {op!r}")
+    dt = like.dtype
+    if dt == torch.bool:
+        value = op == "min"
+    elif dt.is_floating_point:
+        value = -math.inf if op == "max" else math.inf
+    else:
+        info = torch.iinfo(dt)
+        value = info.min if op == "max" else info.max
+    return torch.full_like(like, value)
+
+
+_COMBINE = {
+    "sum": torch.add,
+    "prod": torch.mul,
+    "max": torch.maximum,
+    "min": torch.minimum,
+    "land": torch.logical_and,
+    "lor": torch.logical_or,
+}
+
+
+def _combine(op: Union[str, Callable]) -> Callable:
+    """The binary combiner of a reduce op: a callable as given, a named op
+    applied to a tensor or to each tensor of a tuple (max and min propagate
+    NaN)."""
+    if callable(op):
+        return op
+    if op not in _COMBINE:
+        raise ValueError(f"unknown reduce op {op!r}")
+    fn = _COMBINE[op]
+    return lambda a, b: tuple(map(fn, a, b)) if isinstance(a, tuple) else fn(a, b)
 
 
 def _cpu_mesh_size() -> int:

@@ -91,6 +91,37 @@ class DNDarray:
     def size(self) -> int:
         return int(np.prod(self.__gshape, dtype=np.int64)) if self.__gshape else 1
 
+    gnumel = size
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the logical array."""
+        return self.size * self.__shards[0].element_size()
+
+    @property
+    def lshape(self) -> Tuple[int, ...]:
+        """Logical shape of the first shard (reference dndarray.py:404)."""
+        return self.__comm.chunk(self.__gshape, self.__split, rank=0)[1]
+
+    @property
+    def T(self) -> "DNDarray":
+        """The transpose, axes reversed."""
+        from .linalg import basics
+
+        return basics.transpose(self, None)
+
+    @property
+    def real(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.imag(self)
+
     @property
     def split(self) -> Optional[int]:
         return self.__split
@@ -150,6 +181,17 @@ class DNDarray:
             raise ValueError("Non-distributed DNDarray has no counts and displacements")
         return self.__comm.counts_displs_shape(self.__gshape, self.__split)
 
+    def _replace(self, shards: Sequence[torch.Tensor], gshape: Tuple[int, ...], split: Optional[int]) -> "DNDarray":
+        """Swap the shards and their layout (the engines' ``out=`` path);
+        the dtype follows the new shards."""
+        if len(shards) != self.__comm.size:
+            raise ValueError(f"expected {self.__comm.size} shards, got {len(shards)}")
+        self.__shards = list(shards)
+        self.__gshape = tuple(int(s) for s in gshape)
+        self.__split = split
+        self.__dtype = types.canonical_heat_type(shards[0].dtype)
+        return self
+
     # ------------------------------------------------------------------
     # distribution and conversion
     # ------------------------------------------------------------------
@@ -182,11 +224,136 @@ class DNDarray:
             arr = arr.float()
         return arr.cpu().numpy()
 
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        out = self.numpy()
+        return out.astype(dtype) if dtype is not None else out
+
     def item(self):
         """The single scalar value (reference dndarray.py:965)."""
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
         return self.larray.item()
+
+    def tolist(self) -> list:
+        return self.numpy().tolist()
+
+    def __bool__(self) -> bool:
+        return bool(self.item())
+
+    def __int__(self) -> int:
+        return int(self.item())
+
+    def __float__(self) -> float:
+        return float(self.item())
+
+    def __complex__(self) -> complex:
+        return complex(self.item())
+
+    def __index__(self) -> int:
+        if not types.heat_type_is_exact(self.__dtype):
+            raise TypeError("only integer DNDarrays can be converted to an index")
+        return int(self.item())
+
+    def __len__(self) -> int:
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.__gshape[0]
+
+    # ------------------------------------------------------------------
+    # operators: the operator library bound as methods (reference
+    # dndarray.py:930-1080)
+    # ------------------------------------------------------------------
+    def __add__(self, other):
+        return arithmetics.add(self, other)
+
+    def __radd__(self, other):
+        return arithmetics.add(other, self)
+
+    def __sub__(self, other):
+        return arithmetics.sub(self, other)
+
+    def __rsub__(self, other):
+        return arithmetics.sub(other, self)
+
+    def __mul__(self, other):
+        return arithmetics.mul(self, other)
+
+    def __rmul__(self, other):
+        return arithmetics.mul(other, self)
+
+    def __truediv__(self, other):
+        return arithmetics.div(self, other)
+
+    def __rtruediv__(self, other):
+        return arithmetics.div(other, self)
+
+    def __floordiv__(self, other):
+        return arithmetics.floordiv(self, other)
+
+    def __rfloordiv__(self, other):
+        return arithmetics.floordiv(other, self)
+
+    def __mod__(self, other):
+        return arithmetics.mod(self, other)
+
+    def __rmod__(self, other):
+        return arithmetics.mod(other, self)
+
+    def __pow__(self, other):
+        return arithmetics.pow(self, other)
+
+    def __rpow__(self, other):
+        return arithmetics.pow(other, self)
+
+    def __matmul__(self, other):
+        raise NotImplementedError("matmul is not ported yet (ROADMAP queue A7)")
+
+    def __and__(self, other):
+        return arithmetics.bitwise_and(self, other)
+
+    def __or__(self, other):
+        return arithmetics.bitwise_or(self, other)
+
+    def __xor__(self, other):
+        return arithmetics.bitwise_xor(self, other)
+
+    def __lshift__(self, other):
+        return arithmetics.left_shift(self, other)
+
+    def __rshift__(self, other):
+        return arithmetics.right_shift(self, other)
+
+    def __invert__(self):
+        return arithmetics.invert(self)
+
+    def __neg__(self):
+        return arithmetics.neg(self)
+
+    def __pos__(self):
+        return arithmetics.pos(self)
+
+    def __abs__(self):
+        return rounding.abs(self)
+
+    def __eq__(self, other):  # type: ignore[override]
+        return relational.eq(self, other)
+
+    def __ne__(self, other):  # type: ignore[override]
+        return relational.ne(self, other)
+
+    def __lt__(self, other):
+        return relational.lt(self, other)
+
+    def __le__(self, other):
+        return relational.le(self, other)
+
+    def __gt__(self, other):
+        return relational.gt(self, other)
+
+    def __ge__(self, other):
+        return relational.ge(self, other)
+
+    __hash__ = None  # type: ignore[assignment]
 
     def __repr__(self) -> str:
         body = np.array2string(self.numpy(), separator=", ", threshold=1000)
@@ -231,3 +398,8 @@ def _wrap(array: torch.Tensor, split: Optional[int], device, comm: MeshCommunica
         device,
         comm,
     )
+
+
+# the operator library, bound above as methods; imported last because it
+# imports this module
+from . import arithmetics, relational, rounding  # noqa: E402

@@ -19,7 +19,20 @@ from .communication import Communication, sanitize_comm
 from .dndarray import DNDarray, _wrap
 from .stride_tricks import sanitize_axis, sanitize_shape
 
-__all__ = ["arange", "array", "asarray", "empty", "full", "ones", "zeros"]
+__all__ = [
+    "arange",
+    "array",
+    "asarray",
+    "empty",
+    "empty_like",
+    "full",
+    "full_like",
+    "linspace",
+    "ones",
+    "ones_like",
+    "zeros",
+    "zeros_like",
+]
 
 
 def _resolve(device, comm: Optional[Communication]):
@@ -144,3 +157,58 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     t = torch.arange(start, stop, step, dtype=dtype.torch_type(), device=comm.devices[0])
     split = sanitize_axis(t.shape, split) if split is not None else None
     return _wrap(t, split, device, comm)
+
+
+def _factory_like(a, dtype, split, factory, device, comm, **kwargs) -> DNDarray:
+    """``factory`` at the shape of ``a``, taking the dtype, split, device
+    and mesh of ``a`` where not given (reference factories.py:179)."""
+    shape = a.shape if hasattr(a, "shape") else np.asarray(a).shape
+    if dtype is None:
+        dtype = a.dtype if isinstance(a, DNDarray) else types.heat_type_of(a)
+    if isinstance(a, DNDarray):
+        split = a.split if split is None else split
+        if device is None and comm is None:
+            device, comm = a.device, a.comm
+    return factory(shape, dtype=dtype, split=split, device=device, comm=comm, **kwargs)
+
+
+def empty_like(a, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Uninitialized array shaped like ``a`` (reference factories.py:192)."""
+    return _factory_like(a, dtype, split, empty, device, comm)
+
+
+def zeros_like(a, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Zeros shaped like ``a`` (reference factories.py:196)."""
+    return _factory_like(a, dtype, split, zeros, device, comm)
+
+
+def ones_like(a, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Ones shaped like ``a`` (reference factories.py:200)."""
+    return _factory_like(a, dtype, split, ones, device, comm)
+
+
+def full_like(a, fill_value, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """``fill_value`` shaped like ``a``; float32 unless told otherwise, as in
+    the reference (factories.py:204)."""
+    return _factory_like(a, dtype, split, full, device, comm, fill_value=fill_value)
+
+
+def linspace(
+    start, stop, num: int = 50, endpoint: bool = True, retstep: bool = False,
+    dtype=None, split=None, device=None, comm=None,
+):
+    """``num`` evenly spaced samples over [start, stop], or [start, stop)
+    without ``endpoint``; float32 by default (reference factories.py:873)."""
+    num = int(num)
+    if num <= 0:
+        raise ValueError(f"number of samples 'num' must be non-negative integer, but was {num}")
+    start = float(start.item() if isinstance(start, DNDarray) else start)
+    stop = float(stop.item() if isinstance(stop, DNDarray) else stop)
+    dtype = types.float32 if dtype is None else types.canonical_heat_type(dtype)
+    device, comm = _resolve(device, comm)
+    step = (stop - start) / max(1, num - 1 if endpoint else num)
+    t = torch.linspace(start, stop if endpoint else stop - step, num, dtype=torch.float64, device=comm.devices[0])
+    t = t.to(dtype.torch_type())
+    split = sanitize_axis(t.shape, split) if split is not None else None
+    out = _wrap(t, split, device, comm)
+    return (out, step) if retstep else out

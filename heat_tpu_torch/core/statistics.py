@@ -1,0 +1,362 @@
+"""Statistical operations (reference: heat/core/statistics.py,
+heat_tpu/core/statistics.py).
+
+Moments reduce through the engine of :mod:`._operations`. Across the split
+axis, ``mean`` adds the shards' partial sums in shard order; ``var`` takes
+the global mean first and then the sum of squared deviations from it, shard
+by shard, never E[x²] - E[x]². ``min``/``max`` propagate NaN across shards
+(numpy's rule), and ``argmin``/``argmax`` merge (value, global index) pairs
+with :func:`mpi_argmin`/:func:`mpi_argmax`: the NaN side wins, and on a tie
+the lower global index.
+
+Not ported yet: ``median``, ``percentile``, ``histogram``, ``histc``,
+``bincount``, ``digitize`` and ``bucketize`` (the sort slice).
+"""
+
+from __future__ import annotations
+
+import builtins
+import math
+from typing import Optional
+
+import torch
+
+from . import factories, types
+from ._operations import Reduction, _across_split, _reduced_shape, _reduced_split, _result
+from ._operations import __binary_op as _binary_op
+from ._operations import __local_op as _local_op
+from ._operations import __reduce_op as _reduce_op
+from .arithmetics import SUM, _sum
+from .arithmetics import sum as _ht_sum
+from .dndarray import DNDarray
+from .logical import any as any_
+from .manipulations import broadcast_to, reshape
+from .sanitation import sanitize_in, sanitize_out
+from .stride_tricks import sanitize_axis
+
+__all__ = [
+    "argmax",
+    "argmin",
+    "average",
+    "cov",
+    "kurtosis",
+    "max",
+    "maximum",
+    "mean",
+    "min",
+    "minimum",
+    "mpi_argmax",
+    "mpi_argmin",
+    "skew",
+    "std",
+    "var",
+]
+
+
+def _is_nan(t: torch.Tensor) -> torch.Tensor:
+    return torch.isnan(t) if t.dtype.is_floating_point else torch.zeros_like(t, dtype=torch.bool)
+
+
+def _arg_combiner(better):
+    def combine(a, b):
+        av, ai = a
+        bv, bi = b
+        a_nan, b_nan = _is_nan(av), _is_nan(bv)
+        tie = (av == bv) | (a_nan & b_nan)
+        take_b = (better(bv, av) & ~a_nan) | (b_nan & ~a_nan) | (tie & (bi < ai))
+        return torch.where(take_b, bv, av), torch.where(take_b, bi, ai)
+
+    return combine
+
+
+mpi_argmax = _arg_combiner(torch.gt)
+mpi_argmax.__doc__ = """Merge two ``(values, global indices)`` pairs into the
+elementwise maximum and its index (reference statistics.py:619): a NaN side
+wins, and on a tie (two NaN included) the lower global index."""
+mpi_argmin = _arg_combiner(torch.lt)
+mpi_argmin.__doc__ = """Merge two ``(values, global indices)`` pairs into the
+elementwise minimum and its index (reference statistics.py:631): a NaN side
+wins, and on a tie (two NaN included) the lower global index."""
+
+
+def argmax(x: DNDarray, axis: Optional[int] = None, out=None, **kwargs) -> DNDarray:
+    """Indices of the maximum values, the first one on a tie, the first NaN
+    where there is one (reference statistics.py:37-116)."""
+    return _arg_reduce(x, axis, out, torch.max, mpi_argmax)
+
+
+def argmin(x: DNDarray, axis: Optional[int] = None, out=None, **kwargs) -> DNDarray:
+    """Indices of the minimum values (reference statistics.py:117-196)."""
+    return _arg_reduce(x, axis, out, torch.min, mpi_argmin)
+
+
+def _extreme(t: torch.Tensor, axis, extreme):
+    """(values, indices) of ``extreme`` (torch.max or torch.min) along
+    ``axis``, over the flattened tensor for ``axis=None``."""
+    return extreme(t.reshape(-1), dim=0) if axis is None else extreme(t, dim=axis)
+
+
+def _arg_reduce(x: DNDarray, axis, out, extreme, combiner) -> DNDarray:
+    sanitize_in(x)
+    axis = sanitize_axis(x.gshape, axis)
+    if isinstance(axis, tuple):
+        raise TypeError("axis must be None or an int")
+    if x.ndim == 0:
+        axis = None
+    split = None if axis is None else _reduced_split(x.split, (axis,), False)
+    gshape = () if axis is None else _reduced_shape(x.gshape, (axis,), False)
+    if x.split is None or (axis is not None and axis != x.split) or x.comm.size == 1:
+        source = x.shards if x.split is not None else x.shards[:1]
+        shards = [_extreme(s, axis, extreme)[1] for s in source]
+    else:
+        shards = [_arg_across_split(x, axis, extreme, combiner)]
+    ret = _result(shards, gshape, split, x)
+    if out is not None:
+        sanitize_out(out, ret.gshape, ret.split, ret.device)
+        out._replace([s.to(out.dtype.torch_type()) for s in ret.shards], ret.gshape, ret.split)
+        return out
+    return ret
+
+
+def _arg_across_split(x: DNDarray, axis, extreme, combiner) -> torch.Tensor:
+    """Per shard the local extreme and its global index, merged in shard
+    order by ``combiner``; a shard without valid rows does not take part."""
+    counts, displs = x.counts_displs()
+    first = x.comm.devices[0]
+    best = None
+    for s, c, d in zip(x.lshards, counts, displs):
+        if not c:
+            continue
+        value, index = _extreme(s, axis, extreme)
+        if axis is None:  # the flat index in the shard, as one in the whole array
+            index = _global_flat_index(index, s.shape, x.gshape, x.split, d)
+        else:
+            index = index + d
+        pair = (value.to(first), index.to(first))
+        best = pair if best is None else combiner(best, pair)
+    if best is None:  # no element at all: torch raises, as numpy does
+        _extreme(x.lshards[0], axis, extreme)
+    return best[1]
+
+
+def _global_flat_index(index: torch.Tensor, lshape, gshape, split: int, offset: int) -> torch.Tensor:
+    """A flat index into a shard of shape ``lshape``, whose rows along
+    ``split`` start at ``offset``, as a flat index into ``gshape``. Python
+    strides only: no host-to-device copy, so no wait for the device."""
+    total = None
+    for k, n in enumerate(lshape):
+        coord = torch.remainder(torch.div(index, math.prod(lshape[k + 1:]), rounding_mode="floor"), n)
+        if k == split:
+            coord = coord + offset
+        term = coord * math.prod(gshape[k + 1:])
+        total = term if total is None else total + term
+    return total
+
+
+def average(x: DNDarray, axis=None, weights: Optional[DNDarray] = None, returned: bool = False):
+    """Weighted average along axis (reference statistics.py:197-316)."""
+    sanitize_in(x)
+    if weights is None:
+        result = mean(x, axis)
+        if returned:
+            count = x.size // builtins.max(result.size, 1) if x.size else 0
+            return result, factories.full_like(result, float(count))
+        return result
+    if weights.gshape != x.gshape:
+        if axis is None or isinstance(axis, tuple):
+            raise TypeError("Axis must be specified when shapes of x and weights differ.")
+        if weights.ndim != 1:
+            raise TypeError("1D weights expected when shapes of x and weights differ.")
+        axis = sanitize_axis(x.gshape, axis)
+        if weights.gshape[0] != x.gshape[axis]:
+            raise ValueError("Length of weights not compatible with specified axis.")
+        shape = [1] * x.ndim
+        shape[axis] = -1
+        weights = reshape(weights, shape, new_split=axis if weights.split is not None else None)
+    wsum = _ht_sum(broadcast_to(weights, x.gshape), axis)
+    if any_(wsum == 0).item():
+        raise ZeroDivisionError("Weights sum to zero, can't be normalized")
+    result = _ht_sum(x * weights, axis) / wsum
+    if returned:
+        return result, broadcast_to(wsum, result.gshape)
+    return result
+
+
+def cov(m: DNDarray, y: Optional[DNDarray] = None, rowvar: bool = True, bias: bool = False, ddof: Optional[int] = None) -> DNDarray:
+    """Covariance matrix estimate of the variables in the rows of ``m``
+    (columns with ``rowvar=False``), replicated (reference statistics.py:444-525)."""
+    if ddof is not None and not isinstance(ddof, int):
+        raise TypeError("ddof must be integer")
+    sanitize_in(m)
+    if m.ndim > 2:
+        raise ValueError("m has more than 2 dimensions")
+    dtype = types.promote_types(m.dtype, types.float32).torch_type()
+
+    def rows(a: DNDarray) -> torch.Tensor:
+        t = a.larray.to(dtype)
+        if t.ndim == 1:
+            t = t[None, :]
+        return t.T if not rowvar and t.shape[0] != 1 else t
+
+    x = rows(m)
+    if y is not None:
+        sanitize_in(y)
+        if y.ndim > 2:
+            raise ValueError("y has more than 2 dimensions")
+        x = torch.cat([x, rows(y).to(x.device)], dim=0)
+    if ddof is None:
+        ddof = 0 if bias else 1
+    centered = x - x.mean(dim=1, keepdim=True)
+    result = (centered @ centered.T.conj()) / (x.shape[1] - ddof)
+    result = result.squeeze()
+    return _result([result], tuple(result.shape), None, m)
+
+
+def kurtosis(x: DNDarray, axis: Optional[int] = None, unbiased: bool = True, Fischer: bool = True) -> DNDarray:
+    """Kurtosis, the fourth standardized moment, minus 3 with ``Fischer``
+    (reference statistics.py:700-784); ``unbiased`` applies the sample
+    correction."""
+    return _moment_stat(x, axis, 4, unbiased, Fischer)
+
+
+def skew(x: DNDarray, axis: Optional[int] = None, unbiased: bool = True) -> DNDarray:
+    """Skewness, the third standardized moment (reference statistics.py:1860-1935)."""
+    return _moment_stat(x, axis, 3, unbiased)
+
+
+def _moment_stat(x: DNDarray, axis, order: int, unbiased: bool, fischer: bool = True) -> DNDarray:
+    sanitize_in(x)
+    axis = sanitize_axis(x.gshape, axis)
+    if isinstance(axis, tuple):
+        raise TypeError("axis must be None or an int")
+    if types.heat_type_is_exact(x.dtype):
+        x = x.astype(types.promote_types(x.dtype, types.float32))
+    n = x.size if axis is None else x.gshape[axis]
+    centered = x - mean(x, axis, keepdims=True)
+    m2 = mean(centered**2, axis)
+    mk = mean(centered**order, axis)
+    if order == 3:
+        g = mk / m2**1.5
+        if unbiased:
+            g = g * (math.sqrt(n * (n - 1)) / (n - 2))
+    else:
+        g = mk / m2**2
+        if unbiased:
+            g = ((n**2 - 1) * g - 3 * (n - 1) ** 2) / ((n - 2) * (n - 3)) + 3
+        if fischer:
+            g = g - 3
+    return g
+
+
+def _amax(t, dims, keepdim):
+    return torch.amax(t, dim=dims, keepdim=keepdim)
+
+
+def _amin(t, dims, keepdim):
+    return torch.amin(t, dim=dims, keepdim=keepdim)
+
+
+MAX = Reduction(_amax, "max")
+MIN = Reduction(_amin, "min")
+
+
+def max(x: DNDarray, axis=None, out=None, keepdims=False, keepdim=None) -> DNDarray:
+    """Maximum along axis; NaN where the window holds one, across shards
+    too (reference statistics.py:785-901)."""
+    return _reduce_op(MAX, x, axis, out=out, keepdims=keepdims if keepdim is None else keepdim)
+
+
+def maximum(x1, x2, out=None) -> DNDarray:
+    """Elementwise maximum, NaN-propagating (reference statistics.py:902-940)."""
+    return _binary_op(torch.maximum, x1, x2, out=out)
+
+
+def min(x: DNDarray, axis=None, out=None, keepdims=False, keepdim=None) -> DNDarray:
+    """Minimum along axis; NaN where the window holds one (reference
+    statistics.py:1114-1230)."""
+    return _reduce_op(MIN, x, axis, out=out, keepdims=keepdims if keepdim is None else keepdim)
+
+
+def minimum(x1, x2, out=None) -> DNDarray:
+    """Elementwise minimum, NaN-propagating (reference statistics.py:1231-1269)."""
+    return _binary_op(torch.minimum, x1, x2, out=out)
+
+
+def _count(x: DNDarray, axes) -> int:
+    return math.prod(x.gshape[a] for a in axes)
+
+
+def _mean_direct(t, dims, keepdim):
+    return torch.mean(t, dim=dims, keepdim=keepdim)
+
+
+def _mean_across(x: DNDarray, axes, reduction) -> torch.Tensor:
+    return _across_split(x, axes, SUM) / _count(x, axes)
+
+
+MEAN = Reduction(_sum, "sum", direct=_mean_direct, across=_mean_across)
+
+
+def mean(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
+    """Arithmetic mean along axis; integer types as heat's float for them
+    (reference statistics.py:941-1007)."""
+    sanitize_in(x)
+    if types.heat_type_is_exact(x.dtype):
+        x = x.astype(types.promote_types(x.dtype, types.float32))
+    return _reduce_op(MEAN, x, axis, keepdims=keepdims)
+
+
+def _var_reduction(ddof: int) -> Reduction:
+    def direct(t, dims, keepdim):
+        return torch.var(t, dim=dims, correction=ddof, keepdim=keepdim)
+
+    def across(x: DNDarray, axes, reduction) -> torch.Tensor:
+        # per shard: its mean and Σ(x - its mean)², one pass (torch.var_mean)
+        counts = x.counts_displs()[0]
+        others = _count(x, axes) // builtins.max(x.gshape[x.split], 1)
+        comm = x.comm
+        parts = []
+        for s, c in zip(x.lshards, counts):
+            if c:
+                v, m = torch.var_mean(s, dim=axes, correction=0, keepdim=True)
+                parts.append((m, v * (c * others), c * others))
+            else:
+                parts.append(None)
+        like = next((p[0] for p in parts if p is not None), None)
+        if like is None:  # no element: numpy's nan
+            return direct(x.lshards[0], axes, True)
+        # 1. the global mean, from the shards' sums in shard order
+        sums = [torch.zeros_like(like).to(d) if p is None else p[0] * p[2] for p, d in zip(parts, comm.devices)]
+        n = _count(x, axes)
+        mu = [t / n for t in comm.allreduce(sums)]
+        # 2. Σ(x - μ)² per shard, exactly Σ(x - μ_d)² + n_d (μ_d - μ)², combined in shard order
+        dev2 = [
+            torch.zeros_like(like).to(d) if p is None else p[1] + p[2] * (p[0] - m) ** 2
+            for p, m, d in zip(parts, mu, comm.devices)
+        ]
+        return comm.allreduce(dev2)[0] / (n - ddof)
+
+    return Reduction(_sum, "sum", direct=direct, across=across)
+
+
+def std(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
+    """Standard deviation along axis, the square root of :func:`var`
+    (reference statistics.py:1936-1996)."""
+    return _local_op(torch.sqrt, var(x, axis, ddof=ddof, **kwargs), no_cast=True)
+
+
+def var(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
+    """Variance along axis, ``ddof`` 0 or 1 (``bessel=True`` is 1); the
+    mean is taken first, then the squared deviations from it (reference
+    statistics.py:2046-2126)."""
+    sanitize_in(x)
+    if not isinstance(ddof, int):
+        raise TypeError(f"ddof must be integer, is {type(ddof)}")
+    if ddof not in (0, 1):
+        raise ValueError("Only ddof=0 or ddof=1 is supported")
+    if kwargs.get("bessel") is not None:
+        ddof = 1 if kwargs["bessel"] else 0
+    keepdims = bool(kwargs.get("keepdims", False))
+    if types.heat_type_is_exact(x.dtype):
+        x = x.astype(types.promote_types(x.dtype, types.float32))
+    return _reduce_op(_var_reduction(ddof), x, axis, keepdims=keepdims)

@@ -6,7 +6,23 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape"]
+
+
+def broadcast_shape(shape_a: Sequence[int], shape_b: Sequence[int]) -> Tuple[int, ...]:
+    """Broadcast shape of two operands under NumPy's rules (reference
+    stride_tricks.py:12-69)."""
+    return broadcast_shapes(shape_a, shape_b)
+
+
+def broadcast_shapes(*shapes: Sequence[int]) -> Tuple[int, ...]:
+    """Broadcast shape of any number of operands."""
+    try:
+        return tuple(np.broadcast_shapes(*[tuple(s) for s in shapes]))
+    except ValueError:
+        raise ValueError(
+            f"operands could not be broadcast, input shapes {' '.join(str(tuple(s)) for s in shapes)}"
+        ) from None
 
 
 def sanitize_axis(
@@ -18,6 +34,9 @@ def sanitize_axis(
     if axis is None:
         return None
     if isinstance(axis, (list, tuple, np.ndarray)):
+        for ax in axis:
+            if not isinstance(ax, (int, np.integer)):
+                raise TypeError(f"axis must be None or int or tuple of ints, got {type(ax)}")
         axes = tuple(sanitize_axis(shape, int(ax)) for ax in axis)
         if len(set(axes)) != len(axes):
             raise ValueError("duplicate value in axis")

@@ -203,8 +203,9 @@ def test_canonical_heat_type():
     assert ht.canonical_heat_type(float) is ht.float32
     assert ht.heat_type_of(torch.zeros(1, dtype=torch.int64)) is ht.int64
     assert ht.types.index_dtype() == torch.int64
+    assert ht.canonical_heat_type(torch.complex64) is ht.complex64
     with pytest.raises(TypeError):
-        ht.canonical_heat_type(torch.complex64)
+        ht.canonical_heat_type(torch.complex32)
 
 
 # ---------------------------------------------------------------------------

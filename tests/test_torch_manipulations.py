@@ -1,0 +1,226 @@
+"""heat_tpu_torch's manipulations, indexing and the new factories against
+heat_tpu and numpy on the CPU mesh: resplit, reshape (its new_split
+default), concatenate, stack, vstack/hstack, expand_dims, squeeze,
+flatten/ravel, broadcast_to/broadcast_arrays, swapaxes/moveaxis, flip,
+transpose, where, nonzero, copy, *_like and linspace. Cases from
+test_manipulations.py and test_ragged.py. Every result is checked for
+type, split, shape and its shards; the values are exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import heat_tpu as ref
+import heat_tpu_torch as ht
+from test_torch_parity import EXACT, SHAPES, both, check, data, on_cpu  # noqa: F401
+
+SPLITS = [None, 0, 1]
+TYPES = ["bool", "int32", "int64", "float32", "float64"]
+
+
+def _pair(shape=SHAPES["ragged"], split=None, dtype="float32", seed=0):
+    values = data(shape, dtype, seed=seed)
+    return (values,) + both(values, split)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+@pytest.mark.parametrize("target", SPLITS)
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", TYPES)
+def test_resplit(dtype, split, target, shape):
+    values, theirs, mine = _pair(shape, split, dtype)
+    got = ht.resplit(mine, target)
+    check(got, ref.resplit(theirs, target), values, **EXACT)
+    check(mine.resplit(target), theirs.resplit(target), values, **EXACT)
+    assert mine.split == split  # out of place
+    if target == split:  # a copy, not a view
+        assert all(a.data_ptr() != b.data_ptr() for a, b in zip(got.shards, mine.shards))
+
+
+@pytest.mark.parametrize(
+    "shape,new_shape,new_split",
+    [
+        ((13, 7), (7, 13), None), ((13, 7), (91,), None), ((13, 7), (91, 1), None),
+        ((13, 7), (1, 91), 1), ((12, 8), (4, 3, 8), None), ((12, 8), (4, 24), 1),
+        ((12, 8), (-1, 6), None), ((12, 8), (2, -1), 0), ((1000,), (10, 100), None),
+    ],
+    ids=str,
+)
+@pytest.mark.parametrize("split", SPLITS)
+def test_reshape(shape, new_shape, new_split, split):
+    if split is not None and split >= len(shape):
+        split = 0
+    values, theirs, mine = _pair(shape, split, "float64")
+    check(
+        ht.reshape(mine, new_shape, new_split=new_split),
+        ref.reshape(theirs, new_shape, new_split=new_split),
+        values.reshape(new_shape), **EXACT,
+    )
+    check(mine.reshape(*new_shape), theirs.reshape(*new_shape), values.reshape(new_shape), **EXACT)
+    with pytest.raises(ValueError):
+        ht.reshape(mine, (5, 5))
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+@pytest.mark.parametrize("splits", [(None, None), (0, 0), (1, 1), (0, None), (None, 1)], ids=str)
+def test_concatenate_and_stack(splits, axis):
+    a = data((13, 7), "float32")
+    b = data((13, 7), "int32", seed=1)
+    (ra, ma), (rb, mb) = both(a, splits[0]), both(b, splits[1])
+    check(ht.concatenate([ma, mb], axis), ref.concatenate([ra, rb], axis), np.concatenate([a, b], axis), **EXACT)
+    check(ht.concatenate((ma, ma, ma), axis), ref.concatenate((ra, ra, ra), axis), np.concatenate([a, a, a], axis), **EXACT)
+    c = data((13, 7), "float32", seed=2)
+    rc, mc = both(c, splits[0])
+    check(ht.stack([ma, mc], axis), ref.stack([ra, rc], axis), np.stack([a, c], axis), **EXACT)
+    with pytest.raises(ValueError):
+        ht.stack([ma, ht.zeros((2, 2))])
+    with pytest.raises(TypeError):
+        ht.concatenate(ma)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_vstack_hstack(split):
+    a, b = data((13, 7), "float64"), data((13, 7), "float64", seed=1)
+    (ra, ma), (rb, mb) = both(a, split), both(b, split)
+    check(ht.vstack([ma, mb]), ref.vstack([ra, rb]), np.vstack([a, b]), **EXACT)
+    check(ht.hstack([ma, mb]), ref.hstack([ra, rb]), np.hstack([a, b]), **EXACT)
+    check(ht.row_stack([ma, mb]), ref.row_stack([ra, rb]), np.vstack([a, b]), **EXACT)
+    check(ht.column_stack([ma, mb]), ref.column_stack([ra, rb]), np.column_stack([a, b]), **EXACT)
+    v, w = data((9,), "float64"), data((9,), "float64", seed=1)
+    (rv, mv), (rw, mw) = both(v, None if split is None else 0), both(w, None if split is None else 0)
+    check(ht.hstack([mv, mw]), ref.hstack([rv, rw]), np.hstack([v, w]), **EXACT)
+    check(ht.vstack([mv, mw]), ref.vstack([rv, rw]), np.vstack([v, w]), **EXACT)
+    check(ht.column_stack([mv, mw]), ref.column_stack([rv, rw]), np.column_stack([v, w]), **EXACT)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, -1])
+@pytest.mark.parametrize("split", SPLITS)
+def test_expand_dims_squeeze(split, axis):
+    values, theirs, mine = _pair(split=split)
+    check(ht.expand_dims(mine, axis), ref.expand_dims(theirs, axis), np.expand_dims(values, axis), **EXACT)
+    expanded, ref_expanded = ht.expand_dims(mine, axis), ref.expand_dims(theirs, axis)
+    check(ht.squeeze(expanded), ref.squeeze(ref_expanded), values, **EXACT)
+    check(expanded.squeeze(axis), ref_expanded.squeeze(axis), values, **EXACT)
+    with pytest.raises(ValueError):
+        ht.squeeze(mine, 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 7), (13, 1), (1, 1)], ids=str)
+@pytest.mark.parametrize("split", [0, 1])
+def test_squeeze_the_split_axis(split, shape):
+    values, theirs, mine = _pair(shape, split, "int64")
+    check(ht.squeeze(mine), ref.squeeze(theirs), np.squeeze(values), **EXACT)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", TYPES)
+def test_flatten_ravel(dtype, split, shape):
+    values, theirs, mine = _pair(shape, split, dtype)
+    check(ht.flatten(mine), ref.flatten(theirs), values.ravel(), **EXACT)
+    check(mine.ravel(), theirs.ravel(), values.ravel(), **EXACT)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_broadcast(split):
+    values, theirs, mine = _pair((1, 7), split if split != 0 else None, "float32")
+    check(ht.broadcast_to(mine, (13, 7)), ref.broadcast_to(theirs, (13, 7)), np.broadcast_to(values, (13, 7)), **EXACT)
+    check(ht.broadcast_to(mine, (4, 13, 7)), ref.broadcast_to(theirs, (4, 13, 7)), np.broadcast_to(values, (4, 13, 7)), **EXACT)
+    col = data((13, 1), "float32", seed=2)
+    rc, mc = both(col, split if split != 1 else None)
+    got, want = ht.broadcast_arrays(mine, mc), ref.broadcast_arrays(theirs, rc)
+    for g, w, e in zip(got, want, np.broadcast_arrays(values, col)):
+        check(g, w, e, **EXACT)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", [(0, 1), (1, 0), (-1, 0)], ids=str)
+def test_swapaxes_moveaxis_transpose(case, split):
+    values, theirs, mine = _pair((13, 7, 3), split)
+    check(ht.swapaxes(mine, *case), ref.swapaxes(theirs, *case), np.swapaxes(values, *case), **EXACT)
+    check(ht.moveaxis(mine, *case), ref.moveaxis(theirs, *case), np.moveaxis(values, *case), **EXACT)
+    check(mine.T, theirs.T, values.T, **EXACT)
+    check(ht.transpose(mine, (1, 2, 0)), ref.transpose(theirs, (1, 2, 0)), values.transpose(1, 2, 0), **EXACT)
+    check(ht.moveaxis(mine, (0, 1), (2, 0)), ref.moveaxis(theirs, (0, 1), (2, 0)), np.moveaxis(values, (0, 1), (2, 0)), **EXACT)
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1, (0, 1)], ids=str)
+@pytest.mark.parametrize("split", SPLITS)
+def test_flip(split, axis):
+    values, theirs, mine = _pair(split=split)
+    check(ht.flip(mine, axis), ref.flip(theirs, axis), np.flip(values, axis), **EXACT)
+    check(ht.flipud(mine), ref.flipud(theirs), np.flipud(values), **EXACT)
+    check(ht.fliplr(mine), ref.fliplr(theirs), np.fliplr(values), **EXACT)
+
+
+@pytest.mark.parametrize("layout", [(None, None, None), (0, 0, 0), (1, 1, 1), (0, None, 1), (None, 0, None), (1, None, 0)], ids=str)
+def test_where(layout):
+    cond = data((13, 7), "bool", seed=3)
+    x, y = data((13, 7), "float32"), data((13, 7), "int32", seed=1)
+    (rc, mc), (rx, mx), (ry, my) = both(cond, layout[0]), both(x, layout[1]), both(y, layout[2])
+    check(ht.where(mc, mx, my), ref.where(rc, rx, ry), np.where(cond, x, y), **EXACT)
+    check(ht.where(mc, mx, 0.5), ref.where(rc, rx, 0.5), np.where(cond, x, 0.5), **EXACT)
+    check(ht.where(mc, -1, my), ref.where(rc, -1, ry), np.where(cond, -1, y), **EXACT)
+    check(ht.where(mc, 0, 1), ref.where(rc, 0, 1), np.where(cond, 0, 1), **EXACT)
+    check(ht.where(mx > 0, mx, -mx), ref.where(rx > 0, rx, -rx), np.where(x > 0, x, -x), **EXACT)
+    row = data((7,), "float32", seed=4)
+    rr, mr = both(row)
+    check(ht.where(mc, mx, mr), ref.where(rc, rx, rr), np.where(cond, x, row), **EXACT)
+    with pytest.raises(TypeError):
+        ht.where(mc, mx)
+
+
+@pytest.mark.parametrize("shape", [(13,), (13, 7), (4, 5, 3)], ids=str)
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", ["bool", "int32", "float64"])
+def test_nonzero(dtype, split, shape):
+    if split is not None and split >= len(shape):
+        split = 0
+    values, theirs, mine = _pair(shape, split, dtype)
+    expected = np.stack(np.nonzero(values), axis=1) if len(shape) > 1 else np.nonzero(values)[0]
+    check(ht.nonzero(mine), ref.nonzero(theirs), expected, **EXACT)
+    check(ht.where(mine), ref.where(theirs), expected, **EXACT)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", TYPES)
+def test_copy(dtype, split):
+    values, theirs, mine = _pair(split=split, dtype=dtype)
+    got = ht.copy(mine)
+    check(got, ref.copy(theirs), values, **EXACT)
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(got.shards, mine.shards))
+    check(mine.copy(), theirs.copy(), values, **EXACT)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", [None, "int32", "float64"])
+def test_like_factories(dtype, split):
+    values, theirs, mine = _pair(split=split)
+    kw = {} if dtype is None else {"dtype": dtype}
+    for name, npfn in (("zeros_like", np.zeros_like), ("ones_like", np.ones_like)):
+        check(getattr(ht, name)(mine, **kw), getattr(ref, name)(theirs, **kw), npfn(values, **kw), **EXACT)
+    check(ht.full_like(mine, 3, **kw), ref.full_like(theirs, 3, **kw), np.full(values.shape, 3), **EXACT)
+    got, want = ht.empty_like(mine, **kw), ref.empty_like(theirs, **kw)
+    assert (got.dtype.__name__, got.split, got.gshape) == (want.dtype.__name__, want.split, tuple(want.shape))
+    check(ht.zeros_like(mine, split=0), ref.zeros_like(theirs, split=0), np.zeros_like(values), **EXACT)
+
+
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("args", [(0, 1, 5), (-2.5, 7, 13), (3, -3, 50), (1, 1, 1)], ids=str)
+@pytest.mark.parametrize("endpoint", [True, False])
+def test_linspace(args, endpoint, split):
+    """float32 by default in the port, as heat's factories; the reference
+    takes JAX's default float there, float64 in the tests' x64 mode, so the
+    two are held to each other at an explicit dtype."""
+    for dtype in ("float32", "float64"):
+        check(
+            ht.linspace(*args, endpoint=endpoint, split=split, dtype=getattr(ht, dtype)),
+            ref.linspace(*args, endpoint=endpoint, split=split, dtype=getattr(ref, dtype)),
+            np.linspace(*args, endpoint=endpoint, dtype=dtype),
+            rtol=1e-6 if dtype == "float32" else 1e-12, atol=1e-6 if dtype == "float32" else 1e-12,
+        )
+    got = ht.linspace(*args, endpoint=endpoint, split=split)
+    assert got.dtype is ht.float32
+    np.testing.assert_allclose(got.numpy(), np.linspace(*args, endpoint=endpoint), rtol=1e-6, atol=1e-6)
+    _, step = ht.linspace(*args, endpoint=endpoint, retstep=True)
+    assert step == pytest.approx(ref.linspace(*args, endpoint=endpoint, retstep=True)[1])
