@@ -57,9 +57,22 @@ Phases, in order; any failure exits non-zero:
    the warm calls under ``torch.cuda.set_sync_debug_mode("error")``; on the
    tall array ``cumsum(axis=0)`` and the z-score; then four shards on the
    card with NaN padding, equal to one shard;
-10. print the phase-9 numbers with the card, the card's name and power
-   limit, one JSON line of per-kernel numbers, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+10. drive the linear algebra (no kernel of its own): BASELINE config 4,
+   ``ht.linalg.qr`` of 10,000,000 x 512 float32, split=0, uncut, method
+   'auto' (CholeskyQR2): the first call, the warm median of 3 and
+   ``calc_q=False``, ‖A − QR‖_F/‖A‖_F, ‖QᵀQ − I‖_F and R's triangle in
+   float64 row blocks within stated bounds, beside its FP32 and HBM
+   bounds, the Gram as one GEMM, and ``torch.linalg.qr`` on the same A
+   (the port's residual within 10x of it); peak ~61.5 GB (A, Q₁, Q); the
+   probe's fallback to Householder on 1,000,000 x 512 with cond 1e5,
+   where ``method='cholqr2'`` raises; then four shards on the card: TSQR
+   and CholeskyQR2 on 2,000,003 x 512, the split-1 panel QR on 65,536 x
+   2,048, matmul at all nine split pairs on 8,191 x 4,096 @ 4,096 x 2,047
+   with NaN in every padding and the collectives of the case table, and
+   the blocked ``solve_triangular`` at n = 8,192;
+11. print the phase-9 and phase-10 numbers with the card, the card's name
+   and power limit, one JSON line of per-kernel numbers, and the result
+   line ``{"ok": true, "device": {...}}`` last.
 
 It needs CUDA and the package beside it, and fails without either.
 """
@@ -1407,6 +1420,440 @@ def moments_path(ht, smi: str) -> dict:
 
 
 
+# the linear algebra path (phase 10): no kernel of its own. heat_tpu hands
+# every product and small factorization of heat_tpu/core/linalg to XLA, so
+# the port runs torch.matmul and torch.linalg on the card (ROADMAP.md:15-16).
+# BASELINE.md:28, tracked config 4: qr of a 10^7 x 512 float32 array,
+# split=0, uncut; then CholeskyQR2's probe on an ill-conditioned operand, and
+# four shards on the one card for TSQR, CholeskyQR2, the split-1 panel QR,
+# matmul at every split pair and the blocked triangular solve.
+QR_SHAPE = (10_000_000, 512)
+QR_REPS = 3
+# the yardstick, torch.linalg.qr, on the same A when A, its working copy
+# and its Q fit beside the port's memory; else on the first 4,000,000 rows
+# (m n below 2^31, 8 GB per copy), the port measured on those rows too
+YARDSTICK_ROWS = 4_000_000
+FALLBACK_SHAPE, FALLBACK_COND = (1_000_000, 512), 1e5
+LINALG_P = 4
+TSQR_SHAPE = (2_000_003, 512)  # 4 shards of 500,001 rows: one padding row
+PANEL_SHAPE = (65_536, 2_048)
+MATMUL_SHAPE = (8_191, 4_096, 2_047)  # (m, k, n): m and n ragged over 4 shards
+TRI_N, TRI_K = 8_192, 16
+F64_ROWS = 262_144  # rows per float64 block of the QR checks
+# Bounds of phase 10, in float64 on the card, u = 2^-24, for an m x n QR:
+# * ‖A − QR‖_F / ‖A‖_F <= 4 √n u (5.4e-6 at n = 512). Q R reproduces each
+#   element as an n-term sum whose rounding errors have random signs, ~√n u
+#   (Higham §3.5's probabilistic bound); Householder's backward error and
+#   CholeskyQR2's residual are both of that order in practice (the worst
+#   cases, c m n u, lie far above); and the port within 10x of
+#   torch.linalg.qr's on the same A.
+# * ‖QᵀQ − I‖_F <= 16 √n u (2.2e-5 at n = 512): each of the n² entries of
+#   QᵀQ is an inner product of computed columns, in error by ~u/√n each for
+#   Householder, whose Frobenius norm is then ~√n u; CholeskyQR2's second
+#   pass restores the same order once its first pass's error is below 1
+#   (the probe's 0.5), if its Gram matrix is accurate: hence the Gram in row
+#   chunks (qr._GRAM_ROWS), held here against one GEMM over all rows.
+# * R upper triangular: exactly zero below the diagonal.
+QR_RESIDUAL_UNITS = 4  # times √n u
+QR_ORTHOGONALITY_UNITS = 16  # times √n u
+QR_VS_HOUSEHOLDER = 10
+# * four-shard R against the one-shard R of the same method (TSQR against
+#   Householder, the panel QR against torch.linalg.qr), normwise: two
+#   backward-stable factorizations of one A, their sums in other orders, so
+#   ‖ΔR‖_F / ‖R‖_F <= 16 √n u (cond(A) <= 1.4 for these normal operands,
+#   so no conditioning factor).
+# * matmul: |C − C64| <= k u (|A| |B|) elementwise, the rigorous bound of a
+#   k-term float32 dot product in any order (γ_k, Higham §3.5).
+# * triangular solve: the componentwise backward error
+#   |b − T x| <= 2 n u (|T| |x|): substitution errs by γ_n (Higham §8.1);
+#   the blocked schedule's folds are GEMMs of the same terms, hence 2.
+
+
+def _qr_module():
+    import importlib
+
+    return importlib.import_module("heat_tpu_torch.core.linalg.qr")
+
+
+def _timed(fn):
+    """(result, ms) of one call, CUDA events around it."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def qr_errors(a, q, r) -> dict:
+    """‖A − QR‖_F / ‖A‖_F, ‖QᵀQ − I‖_F and the largest |R| below the
+    diagonal, in float64, F64_ROWS rows at a time (a 10^7 x 512 A alone is
+    41 GB in float64)."""
+    import torch
+
+    m, n = a.shape
+    r64 = r.double()
+    gram = torch.zeros((n, n), dtype=torch.float64, device=a.device)
+    res2 = torch.zeros((), dtype=torch.float64, device=a.device)
+    a2 = torch.zeros((), dtype=torch.float64, device=a.device)
+    for i in range(0, m, F64_ROWS):
+        a64, q64 = a[i:i + F64_ROWS].double(), q[i:i + F64_ROWS].double()
+        res2 += (a64 - q64 @ r64).square().sum()
+        a2 += a64.square().sum()
+        gram += q64.mT @ q64
+    eye = torch.eye(n, dtype=torch.float64, device=a.device)
+    return {
+        "residual": (res2 / a2).sqrt().item(),
+        "orthogonality": torch.linalg.matrix_norm(gram - eye).item(),
+        "below_diagonal": r.tril(-1).abs().max().item(),
+    }
+
+
+def check_qr(label, errs, n) -> None:
+    """Raise unless errs lie within phase 10's QR bounds."""
+    residual = QR_RESIDUAL_UNITS * math.sqrt(n) * U32
+    orthogonality = QR_ORTHOGONALITY_UNITS * math.sqrt(n) * U32
+    if not (errs["residual"] <= residual and errs["orthogonality"] <= orthogonality and errs["below_diagonal"] == 0):
+        raise AssertionError(
+            f"{label}: residual {errs['residual']:.3e} (bound {residual:.3e}), orthogonality "
+            f"{errs['orthogonality']:.3e} (bound {orthogonality:.3e}), below the diagonal {errs['below_diagonal']}"
+        )
+
+
+def _r_difference(r, r_ref) -> float:
+    """‖s R − R_ref‖_F / ‖R_ref‖_F, s = sign(diag R) sign(diag R_ref): two
+    QR factorizations agree up to the signs of R's rows."""
+    import torch
+
+    s = torch.sign(torch.diagonal(r)) * torch.sign(torch.diagonal(r_ref))
+    return (torch.linalg.matrix_norm(s[:, None] * r.double() - r_ref.double()) / torch.linalg.matrix_norm(r_ref.double())).item()
+
+
+def qr_main_phase(ht) -> dict:
+    """BASELINE config 4: ht.linalg.qr of 10^7 x 512 float32, split=0,
+    method 'auto' (CholeskyQR2 here): the first call, the warm median, R
+    alone; the errors in float64; torch.linalg.qr beside it."""
+    import torch
+
+    m, n = QR_SHAPE
+    methods = _qr_module()._METHODS
+    print(f"phase linalg: BASELINE config 4, qr of {m} x {n} float32, split=0, method='auto'", flush=True)
+    ht.random.seed(SEED + 4)
+    x = ht.random.randn(m, n, split=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    methods.clear()
+    (q, r), first_ms = _timed(lambda: ht.linalg.qr(x))
+    peak = torch.cuda.max_memory_allocated()
+    if dict(methods) != {"cholqr2": 1} or q.split != 0 or r.split is not None:
+        raise AssertionError(f"qr took {dict(methods)}, Q split {q.split}, R split {r.split}: not CholeskyQR2")
+    errs = qr_errors(x.larray, q.larray, r.larray)
+    check_qr("qr 10^7 x 512", errs, n)
+    r_full = r.larray.clone()
+    del q, r
+    warm_ms = _median_ms(lambda: ht.linalg.qr(x), QR_REPS)
+    q_none, r_only = ht.linalg.qr(x, calc_q=False)
+    if q_none is not None or not torch.equal(r_only.larray, r_full):
+        raise AssertionError("qr(calc_q=False): Q not None, or R differs from the full call's")
+    r_only_ms = _median_ms(lambda: ht.linalg.qr(x, calc_q=False), QR_REPS)
+    flops = 4 * 2 * m * n * n  # four GEMMs of 2 m n² (two Grams, two formations)
+    hbm = 6 * m * n * 4  # A read twice, Q1 written and read twice, Q written
+    numbers = {
+        "shape": [m, n], "method": "cholqr2", "first_ms": first_ms, "warm_ms": warm_ms,
+        "r_only_ms": r_only_ms, "peak_memory_gb": peak / 1e9, **errs,
+        "fp32_bound_ms": flops / F32_FLOP_PER_S * 1e3, "hbm_bound_ms": hbm / HBM_BYTES_PER_S * 1e3,
+        "gram_rows": _qr_module()._GRAM_ROWS,
+    }
+    print(
+        f"  qr: first {first_ms:.1f} ms, warm {warm_ms:.1f} ms (median of {QR_REPS}), R only {r_only_ms:.1f} ms; "
+        f"bounds: fp32 {numbers['fp32_bound_ms']:.1f} ms ({flops / 1e12:.1f} TFLOP), HBM "
+        f"{numbers['hbm_bound_ms']:.1f} ms ({hbm / 1e9:.1f} GB); peak {peak / 1e9:.2f} GB; residual "
+        f"{errs['residual']:.3e}, orthogonality {errs['orthogonality']:.3e}",
+        flush=True,
+    )
+    numbers["gram_in_one_gemm"] = gram_in_one_gemm(ht, x)
+    numbers["torch_linalg_qr"] = householder_yardstick(ht, x, errs)
+    return numbers
+
+
+def gram_in_one_gemm(ht, x) -> dict:
+    """The same qr with each Gram matrix as one GEMM over all rows, for the
+    record: its orthogonality and warm time beside the chunked default."""
+    qr_module = _qr_module()
+    chunk = qr_module._GRAM_ROWS
+    qr_module._GRAM_ROWS = x.gshape[0]
+    try:
+        q, r = ht.linalg.qr(x)
+        errs = qr_errors(x.larray, q.larray, r.larray)
+        del q, r
+        ms = _median_ms(lambda: ht.linalg.qr(x), QR_REPS)
+    finally:
+        qr_module._GRAM_ROWS = chunk
+    print(
+        f"  the Gram as one GEMM over all {x.gshape[0]} rows instead of chunks of {chunk}: warm {ms:.1f} ms, "
+        f"residual {errs['residual']:.3e}, orthogonality {errs['orthogonality']:.3e}",
+        flush=True,
+    )
+    return {"warm_ms": ms, **errs}
+
+
+def householder_yardstick(ht, x, port_errs) -> dict:
+    """torch.linalg.qr on the same A when it fits, else on its first
+    YARDSTICK_ROWS rows (the port timed and checked there too); the port's
+    residual within QR_VS_HOUSEHOLDER of Householder's."""
+    import torch
+
+    t = x.larray
+    m, n = t.shape
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    rows = m if free > 2.25 * t.numel() * t.element_size() else YARDSTICK_ROWS
+    a = t[:rows]
+    (qh, rh), first_ms = _timed(lambda: torch.linalg.qr(a))
+    errs = qr_errors(a, qh, rh)
+    del qh, rh
+    ms = _median_ms(lambda: torch.linalg.qr(a), 1)
+    out = {"rows": rows, "first_ms": first_ms, "ms": ms, **errs}
+    if rows != m:
+        sub = ht.array(a, split=0, copy=False)
+        port_errs = qr_errors(a, *(f.larray for f in ht.linalg.qr(sub)))
+        out["port_ms"] = _median_ms(lambda: ht.linalg.qr(sub), QR_REPS)
+        out["port_residual"] = port_errs["residual"]
+    if port_errs["residual"] > QR_VS_HOUSEHOLDER * errs["residual"]:
+        raise AssertionError(
+            f"qr: residual {port_errs['residual']:.3e} exceeds {QR_VS_HOUSEHOLDER}x torch.linalg.qr's {errs['residual']:.3e}"
+        )
+    print(
+        f"  torch.linalg.qr on {rows} x {n}: first {first_ms:.1f} ms, then {ms:.1f} ms; residual "
+        f"{errs['residual']:.3e}, orthogonality {errs['orthogonality']:.3e}"
+        + (f"; the port there {out['port_ms']:.1f} ms" if rows != m else ""),
+        flush=True,
+    )
+    return out
+
+
+def qr_fallback_phase(ht) -> dict:
+    """CholeskyQR2's probe on cond(A) = 1e5, past its ~3e3 float32 limit:
+    'auto' falls back to Householder, 'cholqr2' raises."""
+    import torch
+
+    m, n = FALLBACK_SHAPE
+    methods = _qr_module()._METHODS
+    print(f"phase linalg: the probe's fallback, {m} x {n} float32 with cond {FALLBACK_COND:.0e}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    u = torch.linalg.qr(torch.randn(m, n, generator=gen, device="cuda"))[0]
+    v = torch.linalg.qr(torch.randn(n, n, generator=gen, device="cuda"))[0]
+    s = torch.logspace(0, -math.log10(FALLBACK_COND), n, device="cuda")
+    a = (u * s) @ v.mT
+    del u, v
+    x = ht.array(a, split=0, copy=False)
+    methods.clear()
+    (q, r), ms = _timed(lambda: ht.linalg.qr(x))
+    if dict(methods) != {"householder": 1}:
+        raise AssertionError(f"qr of an ill-conditioned operand took {dict(methods)}, not the Householder fallback")
+    errs = qr_errors(a, q.larray, r.larray)
+    check_qr("qr fallback", errs, n)
+    try:
+        ht.linalg.qr(x, method="cholqr2")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("qr(method='cholqr2') did not raise on cond 1e5")
+    print(
+        f"  'auto' fell back to Householder ({dict(methods)}) in {ms:.1f} ms; residual {errs['residual']:.3e}, "
+        f"orthogonality {errs['orthogonality']:.3e}; 'cholqr2' raised",
+        flush=True,
+    )
+    return {"ms": ms, "method": "householder", **errs}
+
+
+def counting_mesh(devices):
+    """A MeshCommunication that counts its collectives and the bytes put
+    into each."""
+    import collections
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    class CountingMesh(MeshCommunication):
+        def __init__(self, devices):
+            super().__init__(devices)
+            self.calls, self.bytes = collections.Counter(), collections.Counter()
+
+        def _count(self, verb, shards):
+            self.calls[verb] += 1
+            self.bytes[verb] += sum(s.numel() * s.element_size() for s in shards)
+
+        def allgather(self, shards, dim=0):
+            self._count("allgather", shards)
+            return super().allgather(shards, dim)
+
+        def allreduce(self, shards, op="sum"):
+            self._count("allreduce", shards)
+            return super().allreduce(shards, op)
+
+        def bcast(self, shards, root=0):
+            self._count("bcast", shards[root:root + 1])
+            return super().bcast(shards, root)
+
+    return CountingMesh(devices)
+
+
+def _poison_padding(x) -> int:
+    """NaN into the padding of each shard; returns the padding's length."""
+    if x.split is None or not x.padded:
+        return 0
+    for s, c in zip(x.shards, x.counts_displs()[0]):
+        s.narrow(x.split, c, s.shape[x.split] - c).fill_(float("nan"))
+    return x.shards[0].shape[x.split] * x.comm.size - x.gshape[x.split]
+
+
+def linalg_mesh_phase(ht) -> dict:
+    """Four shards on the one card: TSQR, CholeskyQR2 and the panel QR
+    against one shard or torch.linalg.qr; matmul at all nine split pairs
+    against float64, each with its collectives; the blocked triangular
+    solve. NaN fills every padding, so a padded row or column that entered
+    a contraction would show."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    mesh1, mesh4 = MeshCommunication([card]), counting_mesh([card] * LINALG_P)
+    methods = _qr_module()._METHODS
+    out = {}
+    r_bound = 16 * math.sqrt(TSQR_SHAPE[1]) * U32
+    print(f"phase linalg: {LINALG_P} shards on one card", flush=True)
+    ht.random.seed(SEED + 6)
+    a1 = ht.random.randn(*TSQR_SHAPE, split=0, comm=mesh1)
+    a4 = ht.array(a1.larray, split=0, comm=mesh4)
+    pad = _poison_padding(a4)
+    for method in ("tsqr", "cholqr2"):
+        methods.clear()
+        mesh4.calls.clear()
+        (q4, r4), ms = _timed(lambda: ht.linalg.qr(a4, method=method))
+        if dict(methods) != {method: 1}:
+            raise AssertionError(f"four shards, method={method!r} ran {dict(methods)}")
+        errs = qr_errors(a1.larray, q4.larray, r4.larray)
+        check_qr(f"four shards {method}", errs, TSQR_SHAPE[1])
+        r1 = (torch.linalg.qr(a1.larray, mode="r")[1] if method == "tsqr" else ht.linalg.qr(a1, method=method)[1].larray)
+        diff = _r_difference(r4.larray, r1)
+        if diff > r_bound:
+            raise AssertionError(f"four shards {method}: R differs from one shard by {diff:.3e} (bound {r_bound:.3e})")
+        if method == "tsqr" and not bool((q4.shards[-1][-pad:] == 0).all()):
+            raise AssertionError("four shards tsqr: the padding rows of Q are not zero")
+        out[method] = {"shape": list(TSQR_SHAPE), "ms": ms, "r_difference": diff, "collectives": dict(mesh4.calls), **errs}
+        print(
+            f"  {method} on {TSQR_SHAPE[0]} x {TSQR_SHAPE[1]} ({pad} NaN padding row): {ms:.1f} ms, residual "
+            f"{errs['residual']:.3e}, orthogonality {errs['orthogonality']:.3e}, R against one shard "
+            f"{diff:.3e}; collectives {dict(mesh4.calls)}",
+            flush=True,
+        )
+        del q4, r4
+    del a1, a4
+
+    m, n = PANEL_SHAPE
+    p1 = ht.random.randn(m, n, split=1, comm=mesh1)
+    p4 = ht.array(p1.larray, split=1, comm=mesh4)
+    methods.clear()
+    mesh4.calls.clear()
+    (q4, r4), ms = _timed(lambda: ht.linalg.qr(p4))
+    if dict(methods) != {"panel": 1} or q4.split != 1 or r4.split != 1:
+        raise AssertionError(f"four shards split=1 ran {dict(methods)}, Q split {q4.split}, R split {r4.split}")
+    errs = qr_errors(p1.larray, q4.larray, r4.larray)
+    check_qr("four shards panel", errs, n)
+    (_, rh), h_ms = _timed(lambda: torch.linalg.qr(p1.larray))
+    diff = _r_difference(r4.larray, rh)
+    panel_bound = 16 * math.sqrt(n) * U32  # cond of a 32:1 normal matrix ≈ 1.4
+    if diff > panel_bound:
+        raise AssertionError(f"four shards panel: R differs from torch.linalg.qr's by {diff:.3e} (bound {panel_bound:.3e})")
+    out["panel"] = {"shape": [m, n], "ms": ms, "torch_linalg_qr_ms": h_ms, "r_difference": diff, "collectives": dict(mesh4.calls), **errs}
+    print(
+        f"  panel QR on {m} x {n} split=1: {ms:.1f} ms (torch.linalg.qr {h_ms:.1f} ms), residual {errs['residual']:.3e}, "
+        f"orthogonality {errs['orthogonality']:.3e}, R against Householder {diff:.3e}; collectives {dict(mesh4.calls)}",
+        flush=True,
+    )
+    del p1, p4, q4, r4, rh
+
+    mm, k, nn = MATMUL_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    a = torch.randn(mm, k, generator=gen, device="cuda")
+    b = torch.randn(k, nn, generator=gen, device="cuda")
+    c64 = a.double() @ b.double()
+    bound = k * U32 * (a.double().abs() @ b.double().abs())
+    a_bytes, b_bytes = a.numel() * 4, b.numel() * 4
+    expected = {  # (split of C, collectives) of the reference's case table
+        (None, None): (None, {}), (0, None): (0, {}), (None, 1): (1, {}),
+        (0, 0): (0, {"allgather": b_bytes}), (0, 1): (0, {"allgather": b_bytes}),
+        (1, 1): (1, {"allgather": a_bytes}),
+        (1, None): (None, {"allreduce": None}), (None, 0): (None, {"allreduce": None}), (1, 0): (None, {"allreduce": None}),
+    }
+    mm_out = {}
+    for (sa, sb), (split, comms) in expected.items():
+        A4, B4 = ht.array(a, split=sa, comm=mesh4), ht.array(b, split=sb, comm=mesh4)
+        _poison_padding(A4)
+        _poison_padding(B4)
+        mesh4.calls.clear()
+        mesh4.bytes.clear()
+        c, ms = _timed(lambda: A4 @ B4)
+        err = check_within(f"matmul split {sa} x {sb}", c.larray, c64, bound)
+        seen = {v: mesh4.bytes[v] for v in mesh4.calls}
+        want = {v: (seen.get(v) if nbytes is None else nbytes) for v, nbytes in comms.items()}
+        if c.split != split or seen != want or any(mesh4.calls[v] != 1 for v in comms):
+            raise AssertionError(f"matmul split {sa} x {sb}: split {c.split}, collectives {dict(mesh4.calls)} {seen}")
+        mm_out[f"{sa}x{sb}"] = {"ms": ms, "max_abs_err": err, "split": c.split, "collectives": dict(mesh4.calls)}
+        del A4, B4, c
+    lib_ms = _median_ms(lambda: a @ b, 3)
+    print(
+        f"  matmul {mm} x {k} @ {k} x {nn}, nine split pairs within k u |A||B| of float64, splits and collectives "
+        f"as the case table: " + ", ".join(f"{key} {v['ms']:.2f} ms" for key, v in mm_out.items())
+        + f"; torch.matmul one shard {lib_ms:.2f} ms",
+        flush=True,
+    )
+    out["matmul"] = {"shape": list(MATMUL_SHAPE), "pairs": mm_out, "torch_matmul_ms": lib_ms}
+    del a, b, c64, bound
+
+    n, kk = TRI_N, TRI_K
+    t = torch.triu(torch.randn(n, n, generator=gen, device="cuda"), 1) / n
+    t += torch.diag(1 + torch.rand(n, generator=gen, device="cuda"))
+    rhs = torch.randn(n, kk, generator=gen, device="cuda")
+    T4, b4 = ht.array(t, split=0, comm=mesh4), ht.array(rhs, split=0, comm=mesh4)
+    mesh4.calls.clear()
+    x4, ms = _timed(lambda: ht.linalg.solve_triangular(T4, b4))
+    x1, lib = _timed(lambda: torch.linalg.solve_triangular(t, rhs, upper=True))
+    errs = []
+    for label, x in (("four shards", x4.larray), ("torch.linalg.solve_triangular", x1)):
+        back = (rhs.double() - t.double() @ x.double()).abs()
+        scale = 2 * n * U32 * (t.double().abs() @ x.double().abs())
+        if not bool(torch.isfinite(x).all()) or not bool((back <= scale).all()):
+            raise AssertionError(f"solve_triangular {label}: backward error beyond 2 n u |T||x|")
+        errs.append((back / scale).max().item())
+    if x4.split != 0 or mesh4.calls["allreduce"] != LINALG_P:
+        raise AssertionError(f"solve_triangular: split {x4.split}, collectives {dict(mesh4.calls)}")
+    out["solve_triangular"] = {"n": n, "k": kk, "ms": ms, "torch_ms": lib, "backward_share": errs, "collectives": dict(mesh4.calls)}
+    print(
+        f"  solve_triangular n={n}, {kk} right-hand sides: {ms:.1f} ms (torch {lib:.1f} ms), backward error "
+        f"{errs[0]:.3f} of its bound (torch {errs[1]:.3f}); collectives {dict(mesh4.calls)}",
+        flush=True,
+    )
+    torch.cuda.empty_cache()
+    return out
+
+
+def linalg_path(ht, smi: str) -> dict:
+    """Phase 10: the linear algebra on the card; returns its numbers."""
+    import torch
+
+    numbers = {"card": smi, "qr": qr_main_phase(ht)}
+    torch.cuda.empty_cache()
+    numbers["qr_fallback"] = qr_fallback_phase(ht)
+    torch.cuda.empty_cache()
+    numbers["mesh"] = linalg_mesh_phase(ht)
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -1451,8 +1898,11 @@ def main() -> int:
     kernels.append(distance_path(ht))
     torch.cuda.empty_cache()
     moments = moments_path(ht, smi)
+    torch.cuda.empty_cache()
+    linalg = linalg_path(ht, smi)
 
     print("moments: " + json.dumps(moments))
+    print("linalg: " + json.dumps(linalg))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,7 +59,7 @@ def _bind_dndarray_methods():
         complex_math: ["conj"],
         indexing: ["nonzero"],
         memory: ["copy"],
-        linalg: ["transpose"],
+        linalg: ["transpose", "tril", "triu", "dot", "qr"],
     }
     for module, names in sources.items():
         for name in names:

@@ -395,6 +395,8 @@ def _sum(t, dims, keepdim):
 
 
 def _nansum(t, dims, keepdim):
+    if t.is_complex():  # NaN in either part: the element counts as 0, as in numpy
+        return torch.sum(torch.where(torch.isnan(t), 0, t), dim=dims, keepdim=keepdim)
     return torch.nansum(t, dim=dims, keepdim=keepdim)
 
 

@@ -254,7 +254,7 @@ def _neutral(op: str, like: torch.Tensor) -> torch.Tensor:
     dt = like.dtype
     if dt == torch.bool:
         value = op == "min"
-    elif dt.is_floating_point:
+    elif dt.is_floating_point or dt.is_complex:
         value = -math.inf if op == "max" else math.inf
     else:
         info = torch.iinfo(dt)
@@ -262,11 +262,31 @@ def _neutral(op: str, like: torch.Tensor) -> torch.Tensor:
     return torch.full_like(like, value)
 
 
+def _extreme_of(greater: bool) -> Callable:
+    """Elementwise maximum (``greater``) or minimum of two tensors, NaN
+    propagating; complex values in numpy's lexicographic order, real part
+    first, a NaN in either part propagating."""
+    real_op = torch.maximum if greater else torch.minimum
+    order = torch.gt if greater else torch.lt
+
+    def extreme(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if not (a.is_complex() or b.is_complex()):
+            return real_op(a, b)
+        a_nan, b_nan = torch.isnan(a), torch.isnan(b)
+        b_wins = order(b.real, a.real) | ((b.real == a.real) & order(b.imag, a.imag))
+        return torch.where((b_wins | b_nan) & ~a_nan, b, a)
+
+    return extreme
+
+
+_maximum = _extreme_of(True)
+_minimum = _extreme_of(False)
+
 _COMBINE = {
     "sum": torch.add,
     "prod": torch.mul,
-    "max": torch.maximum,
-    "min": torch.minimum,
+    "max": _maximum,
+    "min": _minimum,
     "land": torch.logical_and,
     "lor": torch.logical_or,
 }

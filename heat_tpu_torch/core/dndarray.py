@@ -306,7 +306,15 @@ class DNDarray:
         return arithmetics.pow(other, self)
 
     def __matmul__(self, other):
-        raise NotImplementedError("matmul is not ported yet (ROADMAP queue A7)")
+        from .linalg import basics
+
+        return basics.matmul(self, other)
+
+    def __rmatmul__(self, other):
+        from . import factories
+        from .linalg import basics
+
+        return basics.matmul(factories.array(other, device=self.__device, comm=self.__comm), self)
 
     def __and__(self, other):
         return arithmetics.bitwise_and(self, other)

@@ -25,6 +25,7 @@ __all__ = [
     "asarray",
     "empty",
     "empty_like",
+    "eye",
     "full",
     "full_like",
     "linspace",
@@ -156,6 +157,21 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     device, comm = _resolve(device, comm)
     t = torch.arange(start, stop, step, dtype=dtype.torch_type(), device=comm.devices[0])
     split = sanitize_axis(t.shape, split) if split is not None else None
+    return _wrap(t, split, device, comm)
+
+
+def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """2-D array with ones on the diagonal (reference factories.py:735): an
+    int gives (n, n), a pair (n, m)."""
+    if isinstance(shape, (int, np.integer)):
+        n = m = int(shape)
+    else:
+        shape = sanitize_shape(shape)
+        n, m = (shape[0], shape[0]) if len(shape) == 1 else (shape[0], shape[1])
+    dtype = types.canonical_heat_type(dtype)
+    device, comm = _resolve(device, comm)
+    t = torch.eye(n, m, dtype=dtype.torch_type(), device=comm.devices[0])
+    split = sanitize_axis((n, m), split) if split is not None else None
     return _wrap(t, split, device, comm)
 
 

@@ -1,4 +1,9 @@
-"""Linear algebra (reference: heat/core/linalg). Only ``transpose`` is
-ported so far; matmul, QR, the solvers and SVD are queue A7."""
+"""Distributed linear algebra (reference: heat/core/linalg,
+heat_tpu/core/linalg): matmul over every split, the distributed QR
+(CholeskyQR2, TSQR, panel QR), the blocked triangular solve, Cholesky and
+determinant, the solvers and the QR-based SVD."""
 
 from .basics import *
+from .qr import *
+from .solver import *
+from .svd import *

@@ -1,5 +1,6 @@
 """Elementwise comparisons (reference: heat/core/relational.py:35-420,
-heat_tpu/core/relational.py). The result is bool."""
+heat_tpu/core/relational.py). The result is bool; complex values order
+lexicographically, as in numpy."""
 
 from __future__ import annotations
 
@@ -7,6 +8,23 @@ import torch
 
 from ._operations import __binary_op as _binary_op
 from .dndarray import DNDarray
+
+def _ordered(strict, tie):
+    """A comparison of real values by ``tie``; of complex values in numpy's
+    lexicographic order: ``strict`` on the real parts, or ``tie`` on the
+    imaginary parts where the real parts are equal."""
+
+    def compare(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if not a.is_complex():
+            return tie(a, b)
+        return strict(a.real, b.real) | (torch.eq(a.real, b.real) & tie(a.imag, b.imag))
+
+    return compare
+
+
+_ge, _gt = _ordered(torch.gt, torch.ge), _ordered(torch.gt, torch.gt)
+_le, _lt = _ordered(torch.lt, torch.le), _ordered(torch.lt, torch.lt)
+
 
 __all__ = ["eq", "equal", "ge", "greater", "greater_equal", "gt", "le", "less", "less_equal", "lt", "ne", "not_equal"]
 
@@ -30,7 +48,7 @@ def equal(t1, t2) -> bool:
 
 def ge(t1, t2, out=None, where=None) -> DNDarray:
     """Elementwise >= (reference relational.py:130)."""
-    return _binary_op(torch.ge, t1, t2, out=out, where=where)
+    return _binary_op(_ge, t1, t2, out=out, where=where)
 
 
 greater_equal = ge
@@ -38,7 +56,7 @@ greater_equal = ge
 
 def gt(t1, t2, out=None, where=None) -> DNDarray:
     """Elementwise > (reference relational.py:177)."""
-    return _binary_op(torch.gt, t1, t2, out=out, where=where)
+    return _binary_op(_gt, t1, t2, out=out, where=where)
 
 
 greater = gt
@@ -46,7 +64,7 @@ greater = gt
 
 def le(t1, t2, out=None, where=None) -> DNDarray:
     """Elementwise <= (reference relational.py:225)."""
-    return _binary_op(torch.le, t1, t2, out=out, where=where)
+    return _binary_op(_le, t1, t2, out=out, where=where)
 
 
 less_equal = le
@@ -54,7 +72,7 @@ less_equal = le
 
 def lt(t1, t2, out=None, where=None) -> DNDarray:
     """Elementwise < (reference relational.py:272)."""
-    return _binary_op(torch.lt, t1, t2, out=out, where=where)
+    return _binary_op(_lt, t1, t2, out=out, where=where)
 
 
 less = lt

@@ -86,16 +86,26 @@ def modf(x, out=None):
     return (frac, whole)
 
 
+def _round(t, decimals: int):
+    if t.is_complex():  # each part on its own, as numpy does
+        return torch.complex(torch.round(t.real, decimals=decimals), torch.round(t.imag, decimals=decimals))
+    return torch.round(t, decimals=decimals)
+
+
 def round(x, decimals: int = 0, out=None, dtype=None) -> DNDarray:
-    """Round half to even to ``decimals`` places (reference rounding.py:220)."""
-    res = _local_op(torch.round, x, out=out, decimals=decimals)
+    """Round half to even to ``decimals`` places; complex values part by
+    part (reference rounding.py:220)."""
+    res = _local_op(_round, x, out=out, decimals=decimals)
     if dtype is not None and out is None:
         res = res.astype(dtype)
     return res
 
 
 def sgn(x, out=None) -> DNDarray:
-    """Sign, complex-aware: x/|x| (reference rounding.py:266)."""
+    """Sign, complex-aware: x/|x| (reference rounding.py:266); bool raises,
+    as in heat_tpu and numpy."""
+    if x.dtype is types.bool:
+        raise TypeError("sign does not accept dtype bool")
     return _local_op(torch.sgn, x, out=out, no_cast=True)
 
 

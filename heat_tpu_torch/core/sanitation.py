@@ -7,7 +7,14 @@ from typing import Optional, Sequence, Union
 from . import types
 from .dndarray import DNDarray
 
-__all__ = ["sanitize_in", "sanitize_infinity", "sanitize_out", "sanitize_sequence"]
+__all__ = [
+    "ReplicationWarning",
+    "sanitize_in",
+    "sanitize_infinity",
+    "sanitize_out",
+    "sanitize_sequence",
+    "warn_replicated",
+]
 
 
 def sanitize_in(x) -> None:
@@ -44,3 +51,21 @@ def sanitize_sequence(seq) -> list:
     if isinstance(seq, DNDarray):
         return seq.tolist()
     raise TypeError(f"seq must be a list, tuple or DNDarray, got {type(seq)}")
+
+
+class ReplicationWarning(UserWarning):
+    """A distributed operand degraded to a replicated (gathered) execution
+    (heat_tpu/core/sanitation.py:44)."""
+
+
+def warn_replicated(op: str, reason: str) -> None:
+    """Warn that a distributed operand runs replicated: the explicit-gather
+    policy of the linear algebra (heat_tpu/core/sanitation.py:48-60), never
+    a silent gather. Callers filter it by :class:`ReplicationWarning`."""
+    import warnings
+
+    warnings.warn(
+        f"heat_tpu_torch.{op}: executing on a REPLICATED operand — {reason}",
+        ReplicationWarning,
+        stacklevel=3,
+    )

@@ -27,6 +27,7 @@ from ._operations import __binary_op as _binary_op
 from ._operations import __local_op as _local_op
 from ._operations import __reduce_op as _reduce_op
 from .arithmetics import SUM, _sum
+from .communication import _maximum, _minimum
 from .arithmetics import sum as _ht_sum
 from .dndarray import DNDarray
 from .logical import any as any_
@@ -229,8 +230,9 @@ def _moment_stat(x: DNDarray, axis, order: int, unbiased: bool, fischer: bool = 
     axis = sanitize_axis(x.gshape, axis)
     if isinstance(axis, tuple):
         raise TypeError("axis must be None or an int")
-    if types.heat_type_is_exact(x.dtype):
-        x = x.astype(types.promote_types(x.dtype, types.float32))
+    # every type computes in promote_types(dtype, float32), half floats too
+    # (heat_tpu/core/statistics.py:397)
+    x = x.astype(types.promote_types(x.dtype, types.float32))
     n = x.size if axis is None else x.gshape[axis]
     centered = x - mean(x, axis, keepdims=True)
     m2 = mean(centered**2, axis)
@@ -248,11 +250,27 @@ def _moment_stat(x: DNDarray, axis, order: int, unbiased: bool, fischer: bool = 
     return g
 
 
+def _lex_extreme(t: torch.Tensor, dims, keepdim: bool, greater: bool) -> torch.Tensor:
+    """amax/amin of a complex tensor in numpy's lexicographic order: the
+    extreme real part, then among its holders the extreme imaginary part;
+    NaN where the window holds one."""
+    reduce = torch.amax if greater else torch.amin
+    real = reduce(t.real, dim=dims, keepdim=True)
+    imag = torch.where(t.real == real, t.imag, -math.inf if greater else math.inf)
+    out = torch.complex(real, reduce(imag, dim=dims, keepdim=True))
+    out = torch.where(torch.isnan(t).any(dim=dims, keepdim=True) if dims else torch.isnan(t), torch.complex(real.new_tensor(math.nan), real.new_tensor(0.0)), out)
+    return out.squeeze(dims) if dims and not keepdim else out
+
+
 def _amax(t, dims, keepdim):
+    if t.is_complex():
+        return _lex_extreme(t, dims, keepdim, True)
     return torch.amax(t, dim=dims, keepdim=keepdim)
 
 
 def _amin(t, dims, keepdim):
+    if t.is_complex():
+        return _lex_extreme(t, dims, keepdim, False)
     return torch.amin(t, dim=dims, keepdim=keepdim)
 
 
@@ -267,8 +285,9 @@ def max(x: DNDarray, axis=None, out=None, keepdims=False, keepdim=None) -> DNDar
 
 
 def maximum(x1, x2, out=None) -> DNDarray:
-    """Elementwise maximum, NaN-propagating (reference statistics.py:902-940)."""
-    return _binary_op(torch.maximum, x1, x2, out=out)
+    """Elementwise maximum, NaN-propagating; complex values in lexicographic
+    order (reference statistics.py:902-940)."""
+    return _binary_op(_maximum, x1, x2, out=out)
 
 
 def min(x: DNDarray, axis=None, out=None, keepdims=False, keepdim=None) -> DNDarray:
@@ -278,8 +297,9 @@ def min(x: DNDarray, axis=None, out=None, keepdims=False, keepdim=None) -> DNDar
 
 
 def minimum(x1, x2, out=None) -> DNDarray:
-    """Elementwise minimum, NaN-propagating (reference statistics.py:1231-1269)."""
-    return _binary_op(torch.minimum, x1, x2, out=out)
+    """Elementwise minimum, NaN-propagating; complex values in lexicographic
+    order (reference statistics.py:1231-1269)."""
+    return _binary_op(_minimum, x1, x2, out=out)
 
 
 def _count(x: DNDarray, axes) -> int:
@@ -297,13 +317,25 @@ def _mean_across(x: DNDarray, axes, reduction) -> torch.Tensor:
 MEAN = Reduction(_sum, "sum", direct=_mean_direct, across=_mean_across)
 
 
+_HALF = (types.float16, types.bfloat16)
+
+
+def _in_float32(reduce, x: DNDarray) -> DNDarray:
+    """``reduce(x)`` with half-precision input accumulated in float32 and
+    the result cast back, as numpy does for float16: partial sums and M2 of
+    many half values overflow or lose their digits in half precision."""
+    if x.dtype not in _HALF:
+        return reduce(x)
+    return reduce(x.astype(types.float32)).astype(x.dtype, copy=False)
+
+
 def mean(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
-    """Arithmetic mean along axis; integer types as heat's float for them
-    (reference statistics.py:941-1007)."""
+    """Arithmetic mean along axis; integer types as heat's float for them,
+    half floats accumulated in float32 (reference statistics.py:941-1007)."""
     sanitize_in(x)
     if types.heat_type_is_exact(x.dtype):
         x = x.astype(types.promote_types(x.dtype, types.float32))
-    return _reduce_op(MEAN, x, axis, keepdims=keepdims)
+    return _in_float32(lambda t: _reduce_op(MEAN, t, axis, keepdims=keepdims), x)
 
 
 def _var_reduction(ddof: int) -> Reduction:
@@ -322,16 +354,17 @@ def _var_reduction(ddof: int) -> Reduction:
                 parts.append((m, v * (c * others), c * others))
             else:
                 parts.append(None)
-        like = next((p[0] for p in parts if p is not None), None)
+        like = next((p for p in parts if p is not None), None)
         if like is None:  # no element: numpy's nan
             return direct(x.lshards[0], axes, True)
         # 1. the global mean, from the shards' sums in shard order
-        sums = [torch.zeros_like(like).to(d) if p is None else p[0] * p[2] for p, d in zip(parts, comm.devices)]
+        sums = [torch.zeros_like(like[0]).to(d) if p is None else p[0] * p[2] for p, d in zip(parts, comm.devices)]
         n = _count(x, axes)
         mu = [t / n for t in comm.allreduce(sums)]
-        # 2. Σ(x - μ)² per shard, exactly Σ(x - μ_d)² + n_d (μ_d - μ)², combined in shard order
+        # 2. Σ|x - μ|² per shard, exactly Σ|x - μ_d|² + n_d |μ_d - μ|², combined
+        # in shard order; real for complex x too
         dev2 = [
-            torch.zeros_like(like).to(d) if p is None else p[1] + p[2] * (p[0] - m) ** 2
+            torch.zeros_like(like[1]).to(d) if p is None else p[1] + p[2] * (p[0] - m).abs() ** 2
             for p, m, d in zip(parts, mu, comm.devices)
         ]
         return comm.allreduce(dev2)[0] / (n - ddof)
@@ -359,4 +392,4 @@ def var(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
     keepdims = bool(kwargs.get("keepdims", False))
     if types.heat_type_is_exact(x.dtype):
         x = x.astype(types.promote_types(x.dtype, types.float32))
-    return _reduce_op(_var_reduction(ddof), x, axis, keepdims=keepdims)
+    return _in_float32(lambda t: _reduce_op(_var_reduction(ddof), t, axis, keepdims=keepdims), x)

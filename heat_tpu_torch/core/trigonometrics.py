@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from . import types
 from ._operations import __binary_op as _binary_op
 from ._operations import __local_op as _local_op
 from .arithmetics import _float_of
@@ -82,9 +83,19 @@ def _arctan2(a, b):
     return torch.arctan2(_float_of(a), _float_of(b))
 
 
+def _float_operand(x):
+    """An integer or bool DNDarray as ``promote_types(dtype, float32)``;
+    anything else as it is (heat_tpu/core/trigonometrics.py:91-96)."""
+    if isinstance(x, DNDarray) and types.heat_type_is_exact(x.dtype):
+        return x.astype(types.promote_types(x.dtype, types.float32))
+    return x
+
+
 def arctan2(x1, x2) -> DNDarray:
-    """Quadrant-aware arctan(x1/x2) (reference trigonometrics.py:158)."""
-    return _binary_op(_arctan2, x1, x2)
+    """Quadrant-aware arctan(x1/x2) (reference trigonometrics.py:158). Each
+    integer operand is cast to its float type first, then the two promote
+    together, so (int32, float16) gives float32 and (int64, 2.0) float64."""
+    return _binary_op(_arctan2, _float_operand(x1), _float_operand(x2))
 
 
 atan2 = arctan2

@@ -206,8 +206,9 @@ def test_operators(split):
     ]
     for case in cases:
         check(case(ma, mb), case(ra, rb), case(a, b), **tol("float64"))
-    with pytest.raises(NotImplementedError):
-        ma @ mb
+    check(ma @ mb.T, ra @ rb.T, a @ b.T, **EXACT)
+    with pytest.raises(ValueError):
+        ma @ mb  # (13, 7) @ (13, 7) is not aligned
 
 
 @pytest.mark.parametrize("split", [None, 0, 1])
@@ -322,3 +323,83 @@ def test_complex(split):
     b = a.astype(np.complex64)
     rb, mb = both(b, split)
     check(mb + mb, rb + rb, b + b, **tol("float32"))
+
+
+# ---------------------------------------------------------------------------
+# faults C4-C6 of ROADMAP queue C: the port on explicit meshes of 3 and 5
+# shards, the reference on its own, both against numpy
+# ---------------------------------------------------------------------------
+def _mesh(p):
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    return MeshCommunication([torch.device("cpu")] * p)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize(
+    "a_dtype,b,expected_dtype",
+    [("bool", 2, "float32"), ("int32", "float16", "float32"), ("int64", 2.0, "float64")],
+)
+def test_arctan2_casts_each_operand_first(a_dtype, b, expected_dtype, p):
+    values = np.array([[1, 0, 1], [0, 1, 1]], dtype=a_dtype)
+    other = np.array([[1.5, -2.0, 0.5], [2.0, 1.0, -1.0]], np.float16) if b == "float16" else b
+    mine = ht.arctan2(
+        ht.array(values, split=0, comm=_mesh(p)),
+        ht.array(other, split=0, comm=_mesh(p)) if b == "float16" else other,
+    )
+    theirs = ref.arctan2(ref.array(values, split=0), ref.array(other, split=0) if b == "float16" else other)
+    assert mine.dtype.__name__ == theirs.dtype.__name__ == expected_dtype
+    expected = np.arctan2(values.astype(np.float64), np.asarray(other, np.float64))
+    np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(mine.numpy(), expected, rtol=1e-6, atol=1e-6)
+
+
+_C1 = np.array([1 + 2j, 3 - 1j, 2 + 0j, 3 + 5j, 1 + 1j, -1 + 4j, 2 - 2j], np.complex64)
+_C2 = np.array([1 + 3j, 3 - 2j, 2 + 0j, 2 + 5j, 1 + 1j, -1 + 4j, 2 - 3j], np.complex64)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize(
+    "name,npfn",
+    [("lt", np.less), ("le", np.less_equal), ("gt", np.greater), ("ge", np.greater_equal),
+     ("maximum", np.maximum), ("minimum", np.minimum)],
+)
+def test_complex_comparisons_are_lexicographic(name, npfn, p):
+    mine = getattr(ht, name)(ht.array(_C1, split=0, comm=_mesh(p)), ht.array(_C2, split=0, comm=_mesh(p)))
+    theirs = getattr(ref, name)(ref.array(_C1, split=0), ref.array(_C2, split=0))
+    assert mine.dtype.__name__ == theirs.dtype.__name__
+    np.testing.assert_array_equal(mine.numpy(), theirs.numpy())
+    np.testing.assert_array_equal(mine.numpy(), npfn(_C1, _C2))
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("name", ["max", "min"])
+@pytest.mark.parametrize("split,axis", [(0, None), (1, 1), (0, 0)])
+def test_complex_max_min_are_lexicographic(name, split, axis, p):
+    values = np.stack([_C1, _C2[::-1], _C1 * 1j]).T.copy()  # (7, 3)
+    mine = getattr(ht, name)(ht.array(values, split=split, comm=_mesh(p)), axis)
+    theirs = getattr(ref, name)(ref.array(values, split=split), axis)
+    np.testing.assert_array_equal(mine.numpy(), theirs.numpy())
+    np.testing.assert_array_equal(mine.numpy(), getattr(np, name)(values, axis=axis))
+
+
+@pytest.mark.parametrize("p", [3, 5])
+def test_complex_round_and_nansum(p):
+    values = np.array([1.26 + 2.51j, -0.5 + 1.5j, 2.45 - 0.35j, 0.04 + 7.77j], np.complex64)
+    mine = ht.round(ht.array(values, split=0, comm=_mesh(p)), 1)
+    np.testing.assert_allclose(mine.numpy(), ref.round(ref.array(values, split=0), 1).numpy(), rtol=1e-6)
+    np.testing.assert_allclose(mine.numpy(), np.round(values, 1), rtol=1e-6)
+    nans = np.array([1 + 2j, complex(np.nan, 1), 3 + 0j, 3 + 4j, complex(0, np.nan)], np.complex64)
+    got = ht.nansum(ht.array(nans, split=0, comm=_mesh(p)))
+    assert got.numpy() == ref.nansum(ref.array(nans, split=0)).numpy() == np.nansum(nans) == 7 + 6j
+
+
+@pytest.mark.parametrize("p", [3, 5])
+def test_sgn_of_bool_raises(p):
+    values = np.array([True, False, True])
+    with pytest.raises(TypeError):
+        ref.sgn(ref.array(values, split=0))
+    with pytest.raises(TypeError):
+        ht.sgn(ht.array(values, split=0, comm=_mesh(p)))
+    with pytest.raises(TypeError):
+        np.sign(values)

@@ -290,3 +290,62 @@ def test_reductions_out_and_dtype():
     with pytest.raises(ValueError):
         ht.sum(mine, 0, out=ht.zeros((3,)))
     assert ht.sum(mine, keepdim=True).gshape == (1, 1)
+
+
+# ---------------------------------------------------------------------------
+# faults C1-C3 of ROADMAP queue C: the port on explicit meshes of 3 and 5
+# shards, the reference on its own, both against numpy
+# ---------------------------------------------------------------------------
+def _mesh(p):
+    return MeshCommunication([torch.device("cpu")] * p)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("name", ["var", "std"])
+def test_complex_moments_across_the_split_are_real(name, p):
+    values = np.array([1 + 2j, 3 - 1j, 0j, 3 + 5j], np.complex64)
+    mine = getattr(ht, name)(ht.array(values, split=0, comm=_mesh(p)))
+    theirs = getattr(ref, name)(ref.array(values, split=0))
+    expected = getattr(np, name)(values)  # var 6.9375
+    assert mine.dtype.__name__ == theirs.dtype.__name__ == "float32"
+    np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(mine.numpy(), expected, rtol=1e-6)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split,axis", [(0, None), (0, 0), (1, None)])
+@pytest.mark.parametrize("name", ["mean", "var", "std"])
+def test_half_moments_accumulate_in_float32(name, split, axis, p):
+    # N(30, 1) for the mean, N(3, 40) for var/std: a float16 sum of 3000
+    # such values overflows (max 65504)
+    rng = np.random.default_rng(SEED_C)
+    values = (rng.normal(30, 1, (3000, 4)) if name == "mean" else rng.normal(3, 40, (3000, 4))).astype(np.float16)
+    mine = getattr(ht, name)(ht.array(values, split=split, comm=_mesh(p)), axis)
+    theirs = getattr(ref, name)(ref.array(values, split=split), axis)
+    expected = getattr(np, name)(values.astype(np.float64), axis=axis)
+    assert mine.dtype.__name__ == theirs.dtype.__name__ == "float16"
+    # the float64 result rounded once to float16: half an ulp, 2^-11 relative
+    np.testing.assert_allclose(mine.numpy().astype(np.float64), expected, rtol=2**-10)
+    np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=2**-10)
+
+
+SEED_C = 20261017
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("name", ["skew", "kurtosis"])
+def test_half_skew_kurtosis_compute_in_float32(name, dtype, p):
+    import scipy.stats
+
+    rng = np.random.default_rng(SEED_C)
+    values = rng.normal(0, 20, (600, 4)).astype(np.float32)
+    values = torch.from_numpy(values).to(getattr(torch, dtype)).float().numpy()  # exact in the half type
+    mine = getattr(ht, name)(ht.array(values, dtype=getattr(ht, dtype), split=0, comm=_mesh(p)), 0)
+    theirs = getattr(ref, name)(ref.array(values, dtype=getattr(ref, dtype), split=0), 0)
+    fn = scipy.stats.skew if name == "skew" else scipy.stats.kurtosis
+    expected = fn(values.astype(np.float64), axis=0, bias=False)
+    assert mine.dtype.__name__ == theirs.dtype.__name__ == "float32"
+    # float32 moments of 600 values: 1e-4 relative to the moments' scale
+    np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(mine.numpy(), expected, rtol=1e-4, atol=1e-4)
