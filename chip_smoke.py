@@ -70,7 +70,18 @@ Phases, in order; any failure exits non-zero:
    2,048, matmul at all nine split pairs on 8,191 x 4,096 @ 4,096 x 2,047
    with NaN in every padding and the collectives of the case table, and
    the blocked ``solve_triangular`` at n = 8,192;
-11. print the phase-9 and phase-10 numbers with the card, the card's name
+11. drive the training stack (no kernel of its own), BASELINE config 5:
+   ``ResNet50(num_classes=10)`` at its published widths under
+   ``DataParallel`` with ``SGD(0.05)`` on a synthetic CIFAR batch of 256
+   (32 x 32 x 3 NHWC float32, 10 classes): one step against a plain
+   PyTorch step from the same weights, the first step, the warm median of
+   20 steps beside the step's FP32 and TF32 bounds, the same with
+   ``cudnn.allow_tf32``, the peak memory, a profiled step by op kind and
+   the loss falling over 30 steps; then four shards of the card:
+   DataParallel on a ragged batch of 254 against one shard, DASO's cadence
+   sweep against four-shard DataParallel with the collectives of each
+   step type, and the README's Deep learning snippet;
+12. print the phase-9, 10 and 11 numbers with the card, the card's name
    and power limit, one JSON line of per-kernel numbers, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -1684,7 +1695,9 @@ def counting_mesh(devices):
 
         def _count(self, verb, shards):
             self.calls[verb] += 1
-            self.bytes[verb] += sum(s.numel() * s.element_size() for s in shards)
+            self.bytes[verb] += sum(
+                t.numel() * t.element_size() for s in shards for t in (s if isinstance(s, tuple) else (s,))
+            )
 
         def allgather(self, shards, dim=0):
             self._count("allgather", shards)
@@ -1697,6 +1710,12 @@ def counting_mesh(devices):
         def bcast(self, shards, root=0):
             self._count("bcast", shards[root:root + 1])
             return super().bcast(shards, root)
+
+        def sub(self, ranks):
+            # a group counts into its parent's counters
+            group = CountingMesh([self.devices[r] for r in ranks])
+            group.calls, group.bytes = self.calls, self.bytes
+            return group
 
     return CountingMesh(devices)
 
@@ -1854,6 +1873,321 @@ def linalg_path(ht, smi: str) -> dict:
     return numbers
 
 
+# the training path (phase 11): BASELINE config 5, DataParallel and DASO on
+# ResNet-50/CIFAR. No kernel of its own: heat_tpu's models and trainers are
+# flax and optax on XLA, so the port's convolutions, batch norm and updates
+# are torch ops that cuDNN and cuBLAS serve (ROADMAP.md:15-16).
+TRAIN_BATCH = 256
+TRAIN_IMAGE = (32, 32, 3)  # NHWC, CIFAR's shape
+TRAIN_CLASSES = 10
+TRAIN_LR = 0.05
+FALL_STEPS = 30  # on one fixed batch; the last TRAIN_STEPS of them are timed
+TRAIN_STEPS = 20
+MESH_BATCH = 254  # 64, 64, 64, 62 rows over four shards
+MESH_STEPS = 3
+TRAIN_P = 4
+SWEEP = ((0, 0), (2, 1), (4, 1), (8, 2))  # (global_skip, local_skip)
+SWEEP_STEPS = 6
+README_FILTERS = 64
+# Bounds of phase 11, float32 on the card with TF32 off, on the parameters
+# and on the buffers (the running averages), each on the scale of its
+# largest entry: max|a - b| <= bound * max|b| over all of them, and on the
+# losses. A tensor whose gradient is rounding noise (a BatchNorm bias that
+# the next BatchNorm cancels) differs by its own size, which is not a
+# disagreement, so no bound is taken per tensor.
+# * DataParallel at p = 1 against a plain step (the same modules,
+#   F.cross_entropy, torch.optim.SGD) from the same weights: the two run the
+#   same kernels, and cuDNN's weight gradients may sum their 262,144 terms
+#   per filter in another order; one step of lr 0.05 moves a weight by
+#   0.05 |g|, so 1e-5 bounds it with room;
+# * four shards against one after 3 steps: the BatchNorm sums and the
+#   gradient run over the shards and then in shard order, and cuDNN picks
+#   other algorithms for 64 rows than for 254: float32 rounding in other
+#   orders through ~160 layers, a few 1e-7 per step on this scale (1.2e-7
+#   on the CPU at small sizes), so 1e-4.
+PLAIN_STEP_BOUND = 1e-5
+MESH_TRAIN_BOUND = 1e-4
+
+
+def _op_kind(name: str) -> str:
+    """The kind of work a profiled torch op does."""
+    n = name.lower()
+    if "conv" in n:
+        return "convolution"
+    if "batch_norm" in n:
+        return "batch_norm"
+    if "_foreach" in n or "sgd" in n:
+        return "optimizer"
+    if "mm" in n or "linear" in n:
+        return "matmul"
+    return "elementwise"
+
+
+def _time_step(fn) -> float:
+    """Host milliseconds of one call that ends in a device sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def training_flops(model, image) -> dict:
+    """Multiply-adds of one sample's forward through every Conv2d and Linear
+    (forward hooks on one image), and the floating-point operations of one
+    training step of TRAIN_BATCH samples: the forward, the weight gradients
+    and the input gradients of every layer but the stem, whose input needs
+    none; 2 operations per multiply-add. Batch norm, ReLU and the optimizer
+    are left out: they are bytes, not operations, on this scale."""
+    import torch
+
+    macs, stem = [], []
+
+    def conv(m, inp, out):
+        macs.append(out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1])
+        if not stem:
+            stem.append(macs[-1])
+
+    def dense(m, inp, out):
+        macs.append(out.numel() * m.in_features)
+
+    hooks = [
+        m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else dense)
+        for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
+    ]
+    with torch.no_grad():
+        model(image, train=False)
+    for h in hooks:
+        h.remove()
+    per_sample = sum(macs)
+    step = 2 * TRAIN_BATCH * (3 * per_sample - stem[0])
+    return {"forward_gmac_per_sample": per_sample / 1e9, "step_tflop": step / 1e12,
+            "fp32_bound_ms": step / F32_FLOP_PER_S * 1e3, "tf32_bound_ms": step / TF32_FLOP_PER_S * 1e3}
+
+
+def _tensor_errors(got, want) -> float:
+    """max|a - b| / max|b| over the parameters of two modules, and the same
+    over their buffers; the larger of the two."""
+    worst = 0.0
+    for named in ("named_parameters", "named_buffers"):
+        a, b = dict(getattr(got, named)()), dict(getattr(want, named)())
+        diff = max((a[k] - b[k]).abs().max().item() for k in b)
+        worst = max(worst, diff / max(t.abs().max().item() for t in b.values()))
+    return worst
+
+
+def profile_step(step) -> dict:
+    """One warm step under torch.profiler: the device's busy share of the
+    step's wall time and the device time by op kind (each kernel counted
+    once, under the innermost torch op that launched it)."""
+    import collections
+
+    import torch
+
+    step()
+    with _profiled() as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(r[0] for r in _device_rows(prof))
+    kinds = collections.Counter()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CPU:
+            kinds[_op_kind(ev.key)] += us / 1e3
+    print(f"  profile of a warm step: wall {wall_ms:.3f} ms (profiler on), device busy {busy:.3f} ms "
+          f"({100 * busy / wall_ms:.1f}%)", flush=True)
+    for kind, ms in kinds.most_common():
+        print(f"    {ms:9.3f} ms  {kind}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms, "by_kind_ms": dict(kinds)}
+
+
+def _cifar(n: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n,) + TRAIN_IMAGE, generator=gen, device="cuda")
+    y = torch.randint(0, TRAIN_CLASSES, (n,), generator=gen, device="cuda")
+    return x, y
+
+
+def resnet50_phase(ht, pristine, x, y) -> dict:
+    """(a) ResNet-50 under DataParallel on one shard of the card."""
+    import copy
+
+    import torch
+    import torch.nn.functional as Fn
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    out = {"flops": training_flops(pristine, x[:1])}
+    print(f"phase training: ResNet50(num_classes={TRAIN_CLASSES}) under DataParallel, SGD({TRAIN_LR}), "
+          f"batch {TRAIN_BATCH} of {TRAIN_IMAGE} float32; {json.dumps(out['flops'])}", flush=True)
+    model = copy.deepcopy(pristine)
+    dp = ht.nn.DataParallel(model, comm=MeshCommunication([torch.device("cuda", 0)]),
+                            optimizer=ht.optim.SGD(TRAIN_LR))
+    dp.init(SEED, x[:2])
+    plain = copy.deepcopy(model)
+    plain_opt = torch.optim.SGD(plain.parameters(), lr=TRAIN_LR)
+
+    losses = []
+    out["first_step_ms"] = _time_step(lambda: losses.append(dp.train_step(x, y)))
+    plain_loss = Fn.cross_entropy(plain(x, train=True), y)
+    plain_loss.backward()
+    plain_opt.step()
+    out["vs_plain_step"] = _tensor_errors(model, plain)
+    out["loss_vs_plain"] = abs(losses[0] - plain_loss.item()) / abs(plain_loss.item())
+    print(f"  first step {out['first_step_ms']:.1f} ms; against a plain PyTorch step: "
+          f"{out['vs_plain_step']:.3e} of the largest weight (bound {PLAIN_STEP_BOUND:g}), "
+          f"loss {out['loss_vs_plain']:.3e}", flush=True)
+    if not (out["vs_plain_step"] <= PLAIN_STEP_BOUND and out["loss_vs_plain"] <= PLAIN_STEP_BOUND):
+        raise AssertionError("DataParallel's step disagrees with a plain PyTorch step")
+    del plain, plain_opt
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(FALL_STEPS - 1):
+        ms = _time_step(lambda: losses.append(dp.train_step(x, y)))
+        if i >= FALL_STEPS - 1 - TRAIN_STEPS:
+            times.append(ms)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["ms"] = sorted(times)[len(times) // 2]
+    out["samples_per_s"] = TRAIN_BATCH / out["ms"] * 1e3
+    out["losses"] = losses
+    print(f"  warm median of {TRAIN_STEPS} steps: {out['ms']:.2f} ms, {out['samples_per_s']:.1f} samples/s "
+          f"(FP32 bound {out['flops']['fp32_bound_ms']:.2f} ms); peak {out['peak_gb']:.2f} GB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {FALL_STEPS} steps", flush=True)
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss does not fall on one fixed batch: {losses}")
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for _ in range(3):
+            dp.train_step(x, y)
+        tf32 = sorted(_time_step(lambda: dp.train_step(x, y)) for _ in range(TRAIN_STEPS))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out["tf32_ms"] = tf32[len(tf32) // 2]
+    out["tf32_samples_per_s"] = TRAIN_BATCH / out["tf32_ms"] * 1e3
+    print(f"  with cudnn.allow_tf32: warm median {out['tf32_ms']:.2f} ms, {out['tf32_samples_per_s']:.1f} "
+          f"samples/s (TF32 bound {out['flops']['tf32_bound_ms']:.2f} ms)", flush=True)
+    out["profile"] = profile_step(lambda: dp.train_step(x, y))
+    return out
+
+
+def mesh_training_phase(ht, pristine, x, y) -> dict:
+    """(b) Four shards of the card: DataParallel on a ragged batch against
+    one shard, then DASO's cadence sweep against four-shard DataParallel."""
+    import collections
+    import copy
+
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    out = {}
+    print(f"phase training: {TRAIN_P} shards on one card, DataParallel on {MESH_BATCH} rows against one shard",
+          flush=True)
+    xb, yb = x[:MESH_BATCH], y[:MESH_BATCH]
+    one = ht.nn.DataParallel(copy.deepcopy(pristine), comm=MeshCommunication([card]),
+                             optimizer=ht.optim.SGD(TRAIN_LR)).init(SEED, x[:2])
+    four = ht.nn.DataParallel(copy.deepcopy(pristine), comm=counting_mesh([card] * TRAIN_P),
+                              optimizer=ht.optim.SGD(TRAIN_LR)).init(SEED, x[:2])
+    loss_err = 0.0
+    for _ in range(MESH_STEPS):
+        a, b = four.train_step(xb, yb), one.train_step(xb, yb)
+        loss_err = max(loss_err, abs(a - b) / abs(b))
+    out["dp_vs_one_shard"] = _tensor_errors(four.module, one.module)
+    out["dp_loss_vs_one_shard"] = loss_err
+    out["dp_collectives_per_step"] = {k: v / MESH_STEPS for k, v in four.comm.calls.items()}
+    print(f"  after {MESH_STEPS} steps: {out['dp_vs_one_shard']:.3e} of the largest weight, losses "
+          f"{loss_err:.3e} (bound {MESH_TRAIN_BOUND:g}); collectives per step "
+          f"{out['dp_collectives_per_step']}", flush=True)
+    if not (out["dp_vs_one_shard"] <= MESH_TRAIN_BOUND and loss_err <= MESH_TRAIN_BOUND):
+        raise AssertionError("four-shard DataParallel disagrees with one shard")
+    del one
+    for _ in range(2):
+        four.train_step(x, y)
+    dp_ms = sorted(_time_step(lambda: four.train_step(x, y)) for _ in range(SWEEP_STEPS))
+    out["dp_samples_per_s"] = TRAIN_BATCH / dp_ms[len(dp_ms) // 2] * 1e3
+    print(f"  four-shard DataParallel (full sync), batch {TRAIN_BATCH}: {out['dp_samples_per_s']:.1f} samples/s",
+          flush=True)
+    out["dp_profile"] = profile_step(lambda: four.train_step(x, y))
+    del four
+
+    sweep = []
+    for gs, ls in SWEEP:
+        mesh = counting_mesh([card] * TRAIN_P)
+        daso = ht.optim.DASO(ht.optim.SGD(TRAIN_LR), total_epochs=10, comm=mesh, nodes=2,
+                             warmup_epochs=0, cooldown_epochs=0)
+        daso.add_model(copy.deepcopy(pristine), SEED, x[:TRAIN_P])
+        daso.global_skip, daso.local_skip, daso.batches_to_wait = gs, ls, 1 if gs else 0
+        for _ in range(2):
+            daso.step(x, y)
+        kinds = collections.defaultdict(collections.Counter)
+        times = []
+        for _ in range(SWEEP_STEPS):
+            before, solo = collections.Counter(mesh.calls), daso._solo_steps
+            times.append(_time_step(lambda: daso.step(x, y)))
+            merged = gs == 0 or daso.current_batch % (gs + 1) == 0
+            kind = ("solo" if daso._solo_steps > solo else "synced") + ("+merge" if merged else "")
+            kinds[kind] = mesh.calls - before
+        if gs == 0:
+            first = [p.detach() for p in daso.replicas[0].parameters()]
+            for replica in daso.replicas[1:]:
+                if not all(torch.equal(a, b) for a, b in zip(first, replica.parameters())):
+                    raise AssertionError("DASO's replicas differ after a full merge")
+        times.sort()
+        point = {"global_skip": gs, "local_skip": ls, "samples_per_s": TRAIN_BATCH / times[len(times) // 2] * 1e3,
+                 "solo_steps": daso._solo_steps, "collectives": {k: dict(v) for k, v in kinds.items()}}
+        sweep.append(point)
+        print(f"  DASO (global_skip={gs}, local_skip={ls}): {point['samples_per_s']:.1f} samples/s, "
+              f"{daso._solo_steps} solo steps, collectives {point['collectives']}", flush=True)
+        del daso
+    out["daso_sweep"] = sweep
+    print("  after every full merge (global_skip 0) the four replicas are equal bit for bit", flush=True)
+    return out
+
+
+def readme_training_phase(ht, x, y) -> dict:
+    """(c) The README's "Deep learning" snippet on the card."""
+    import torch
+
+    print("phase training: the README's Deep learning snippet (README.md:78-91)", flush=True)
+    dp = ht.nn.DataParallel(ht.nn.MLP(features=(128, 10)), optimizer=ht.optim.Adam(1e-3))
+    dp.init(0, x[:2])
+    mlp_loss = dp.train_step(x, y)
+    card = torch.device("cuda", 0)
+    daso = ht.optim.DASO(local_optimizer=ht.optim.SGD(0.1), total_epochs=90, nodes=TRAIN_P,
+                         comm=counting_mesh([card] * TRAIN_P))
+    daso.add_model(ht.nn.ResNet(stage_sizes=(2, 2, 2, 2), num_classes=10, num_filters=README_FILTERS), 0, x[:2])
+    loss = daso.step(x, y)
+    daso.epoch_loss_logic(loss)
+    print(f"  DataParallel(MLP((128, 10)), Adam(1e-3)) loss {mlp_loss:.4f}; DASO on ResNet(2, 2, 2, 2) "
+          f"with nodes={TRAIN_P} on {TRAIN_P} shards: loss {loss:.4f}, epoch {daso.epoch}", flush=True)
+    if not (math.isfinite(mlp_loss) and math.isfinite(loss) and daso.epoch == 1):
+        raise AssertionError("the README's Deep learning snippet failed")
+    return {"mlp_loss": mlp_loss, "daso_loss": loss}
+
+
+def training_path(ht, smi: str) -> dict:
+    """Phase 11: the training stack on the card; returns its numbers."""
+    import torch
+
+    x, y = _cifar(TRAIN_BATCH, SEED + 11)
+    pristine = ht.nn.ResNet50(num_classes=TRAIN_CLASSES, generator=torch.Generator("cuda").manual_seed(SEED))
+    numbers = {"card": smi, "resnet50": resnet50_phase(ht, pristine, x, y)}
+    torch.cuda.empty_cache()
+    numbers["mesh"] = mesh_training_phase(ht, pristine, x, y)
+    torch.cuda.empty_cache()
+    numbers["readme"] = readme_training_phase(ht, x, y)
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -1900,9 +2234,12 @@ def main() -> int:
     moments = moments_path(ht, smi)
     torch.cuda.empty_cache()
     linalg = linalg_path(ht, smi)
+    torch.cuda.empty_cache()
+    training = training_path(ht, smi)
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
+    print("training: " + json.dumps(training))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

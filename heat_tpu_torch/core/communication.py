@@ -77,6 +77,11 @@ class MeshCommunication(Communication):
     def is_distributed(self) -> bool:
         return self.size > 1
 
+    def sub(self, ranks: Sequence[int]) -> "MeshCommunication":
+        """The mesh of the shards ``ranks``, in that order (the group of an
+        MPI ``Comm.Split``)."""
+        return MeshCommunication([self._devices[r] for r in ranks])
+
     # ------------------------------------------------------------------
     # block-distribution arithmetic (reference communication.py:161-209)
     # ------------------------------------------------------------------

@@ -3,14 +3,14 @@
 The JAX package re-exports ``flax.linen`` and adds its own modules; the port
 re-exports ``torch.nn`` the same way: ``heat_tpu_torch.nn.Linear``,
 ``heat_tpu_torch.nn.GELU``... resolve to ``torch.nn``, while the attention
-functions, ``MultiHeadAttention`` and the models are the port's own, under
-the JAX package's names. ``DataParallel``, ``MLP``, the CNNs and the ring and
-Ulysses backends are not ported yet (ROADMAP queue A9).
+functions, ``MultiHeadAttention``, ``DataParallel``/``DataParallelMultiGPU``
+and the models are the port's own, under the JAX package's names. The ring
+and Ulysses backends are not ported yet (ROADMAP queue A9b).
 """
 
 from torch import nn as _torch_nn
 
-from . import attention, models
+from . import attention, functional, models
 from .attention import (
     MultiHeadAttention,
     dot_product_attention,
@@ -18,13 +18,30 @@ from .attention import (
     ring_attention,
     ulysses_attention,
 )
-from .models import TransformerBlock, TransformerLM
+from .data_parallel import DataParallel, DataParallelMultiGPU
+from .models import (
+    MLP,
+    ResNet,
+    ResNet18,
+    ResNet50,
+    SimpleCNN,
+    TransformerBlock,
+    TransformerLM,
+)
 
 __all__ = [
+    "DataParallel",
+    "DataParallelMultiGPU",
+    "MLP",
+    "SimpleCNN",
+    "ResNet",
+    "ResNet18",
+    "ResNet50",
     "TransformerBlock",
     "TransformerLM",
     "models",
     "attention",
+    "functional",
     "MultiHeadAttention",
     "dot_product_attention",
     "flash_attention",

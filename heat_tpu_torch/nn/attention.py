@@ -9,8 +9,12 @@
 * :class:`MultiHeadAttention` — projections around a pluggable backend.
 
 The sequence-parallel :func:`ring_attention` and :func:`ulysses_attention`
-need the ``ppermute`` and ``all_to_all`` verbs, which the port does not have
-yet (ROADMAP queue A9): they raise ``NotImplementedError``.
+are not ported yet (ROADMAP queue A9b) and raise ``NotImplementedError``.
+The verbs they need exist (``MeshCommunication.ppermute`` and
+``alltoall``); what is missing is the schedule on top: the sequence split
+over the mesh, the ring's online-softmax merge of the key/value blocks
+that visit each shard (Ulysses: the head/sequence exchange around local
+attention), and its backward.
 
 All functions take [batch, seq, heads, head_dim] tensors and accumulate the
 softmax in float32 whatever the input dtype.
@@ -178,8 +182,9 @@ def flash_attention(
 def ring_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None, comm=None):
     """Ring-parallel attention over the mesh's sequence axis: not ported yet."""
     raise NotImplementedError(
-        "ring_attention needs the ppermute verb, which heat_tpu_torch does not have yet "
-        "(ROADMAP queue A9)"
+        "ring_attention is not ported yet: the ring schedule over MeshCommunication.ppermute "
+        "(the sequence split over the mesh, the online-softmax merge of the visiting key/value "
+        "blocks, and its backward) is ROADMAP queue A9b"
     )
 
 
@@ -188,8 +193,9 @@ def ulysses_attention(
 ):
     """All-to-all (Ulysses) sequence-parallel attention: not ported yet."""
     raise NotImplementedError(
-        "ulysses_attention needs the all_to_all verb, which heat_tpu_torch does not have yet "
-        "(ROADMAP queue A9)"
+        "ulysses_attention is not ported yet: the head/sequence exchange over "
+        "MeshCommunication.alltoall around local attention, and its backward, is ROADMAP "
+        "queue A9b"
     )
 
 

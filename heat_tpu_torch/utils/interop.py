@@ -1,6 +1,7 @@
 """Carry state into the port from numpy arrays: a distributed array, a
 fitted KMeans (for example one fitted by heat_tpu, exported with numpy), or
-the parameters of a flax ``MultiHeadAttention`` or ``TransformerLM``."""
+the variables of a flax ``MultiHeadAttention``, ``TransformerLM``, ``MLP``,
+``SimpleCNN`` or ``ResNet``."""
 
 from __future__ import annotations
 
@@ -13,10 +14,19 @@ from ..cluster.kmeans import KMeans
 from ..core import factories
 from ..core.communication import MeshCommunication
 from ..core.dndarray import DNDarray
+from ..nn import _init
 from ..nn.attention import MultiHeadAttention
-from ..nn.models import TransformerLM
+from ..nn.models import MLP, BasicBlock, Bottleneck, ResNet, SimpleCNN, TransformerLM
 
-__all__ = ["dndarray_from_numpy", "kmeans_from_state", "mha_from_flax", "transformer_lm_from_flax"]
+__all__ = [
+    "dndarray_from_numpy",
+    "kmeans_from_state",
+    "mha_from_flax",
+    "transformer_lm_from_flax",
+    "mlp_from_flax",
+    "simple_cnn_from_flax",
+    "resnet_from_flax",
+]
 
 
 def dndarray_from_numpy(
@@ -114,5 +124,102 @@ def transformer_lm_from_flax(params: Mapping, **config) -> TransformerLM:
             _load_dense(block.fc1, p["Dense_0"])
             _load_dense(block.fc2, p["Dense_1"])
         _load_norm(model.norm, params["LayerNorm_0"])
+        _load_dense(model.head, params["Dense_0"])
+    return model
+
+
+def _load_conv(layer: torch.nn.Conv2d, params: Mapping) -> None:
+    """A flax Conv kernel (kh, kw, in, out) into ``nn.Conv2d``, whose weight
+    is (out, in, kh, kw)."""
+    _copy(layer.weight, np.asarray(params["kernel"]).transpose(3, 2, 0, 1))
+    if layer.bias is not None:
+        _copy(layer.bias, params["bias"])
+
+
+def _load_batch_norm(layer: _init.BatchNorm, params: Mapping, stats: Mapping) -> None:
+    _copy(layer.weight, params["scale"])
+    _copy(layer.bias, params["bias"])
+    _copy(layer.running_mean, stats["mean"])
+    _copy(layer.running_var, stats["var"])
+
+
+def _numbered(tree: Mapping, prefix: str):
+    """The entries ``prefix_0``, ``prefix_1``... of a flax tree, in order."""
+    return [tree[f"{prefix}_{i}"] for i in range(sum(1 for k in tree if k.startswith(prefix + "_")))]
+
+
+def mlp_from_flax(params: Mapping, **config) -> MLP:
+    """A :class:`~heat_tpu_torch.nn.MLP` holding the weights of a flax
+    ``heat_tpu.nn.MLP``, from its parameter tree (``Dense_0``...) as nested
+    dicts of numpy arrays; the widths come from the kernels, ``config``
+    holds ``device``."""
+    denses = _numbered(params, "Dense")
+    features = [np.shape(d["kernel"])[1] for d in denses]
+    model = MLP(features, in_features=np.shape(denses[0]["kernel"])[0], **config)
+    with torch.no_grad():
+        for layer, p in zip(model.layers, denses):
+            _load_dense(layer, p)
+    return model
+
+
+def simple_cnn_from_flax(params: Mapping, **config) -> SimpleCNN:
+    """A :class:`~heat_tpu_torch.nn.SimpleCNN` holding the weights of a flax
+    ``heat_tpu.nn.SimpleCNN`` (``Conv_0``, ``Conv_1``, ``Dense_0``,
+    ``Dense_1``); ``config`` holds ``device``."""
+    model = SimpleCNN(
+        np.shape(params["Dense_1"]["kernel"])[1],
+        in_channels=np.shape(params["Conv_0"]["kernel"])[2],
+        flat_features=np.shape(params["Dense_0"]["kernel"])[0],
+        **config,
+    )
+    with torch.no_grad():
+        _load_conv(model.conv1, params["Conv_0"])
+        _load_conv(model.conv2, params["Conv_1"])
+        _load_dense(model.fc1, params["Dense_0"])
+        _load_dense(model.fc2, params["Dense_1"])
+    return model
+
+
+def resnet_from_flax(variables: Mapping, **config) -> ResNet:
+    """A :class:`~heat_tpu_torch.nn.ResNet` holding the weights and the
+    BatchNorm running averages of a flax ``heat_tpu.nn.ResNet``, from
+    ``variables`` = {"params": ..., "batch_stats": ...} as nested dicts of
+    numpy arrays. The block kind, the stages, the filters, the input
+    channels and the classes come from the tree; ``config`` holds
+    ``device``.
+
+    In ``BasicBlock_i``/``Bottleneck_i``, ``Conv_j``/``BatchNorm_j`` are the
+    convolutions and norms in call order, and the one after them, where
+    present, the projection of the shortcut."""
+    params, stats = variables["params"], variables["batch_stats"]
+    kind = "Bottleneck" if "Bottleneck_0" in params else "BasicBlock"
+    block = Bottleneck if kind == "Bottleneck" else BasicBlock
+    blocks = _numbered(params, kind)
+    block_stats = _numbered(stats, kind)
+    filters = [np.shape(b["Conv_0"]["kernel"])[3] for b in blocks]
+    stage_sizes = [1]
+    for prev, cur in zip(filters[:-1], filters[1:]):
+        if cur == prev:
+            stage_sizes[-1] += 1
+        else:
+            stage_sizes.append(1)
+    stem = np.shape(params["Conv_0"]["kernel"])
+    model = ResNet(
+        stage_sizes, block, num_classes=np.shape(params["Dense_0"]["kernel"])[1],
+        num_filters=stem[3], in_channels=stem[2], **config,
+    )
+    with torch.no_grad():
+        _load_conv(model.stem, params["Conv_0"])
+        _load_batch_norm(model.stem_norm, params["BatchNorm_0"], stats["BatchNorm_0"])
+        for mod, p, s in zip(model.blocks, blocks, block_stats):
+            n = len(mod.convs)
+            if (mod.proj is not None) != (f"Conv_{n}" in p):
+                raise ValueError(f"the flax block {sorted(p)} does not match {mod}")
+            for j, (conv, norm) in enumerate(zip(mod.convs, mod.norms)):
+                _load_conv(conv, p[f"Conv_{j}"])
+                _load_batch_norm(norm, p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"])
+            if mod.proj is not None:
+                _load_conv(mod.proj, p[f"Conv_{n}"])
+                _load_batch_norm(mod.proj_norm, p[f"BatchNorm_{n}"], s[f"BatchNorm_{n}"])
         _load_dense(model.head, params["Dense_0"])
     return model

@@ -349,3 +349,17 @@ def test_half_skew_kurtosis_compute_in_float32(name, dtype, p):
     # float32 moments of 600 values: 1e-4 relative to the moments' scale
     np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(mine.numpy(), expected, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("name", ["sum", "prod", "nansum"])
+def test_uint8_sums_give_numpys_value(name, p):
+    # ROADMAP queue C, a reference fault: under x64 heat_tpu raises on these,
+    # numpy gives uint64 and the port heat's int64 with numpy's value
+    values = np.array([200, 100, 7], np.uint8)
+    mine = getattr(ht, name)(ht.array(values, split=0, comm=_mesh(p)))
+    expected = getattr(np, name)(values)
+    assert mine.dtype.__name__ == "int64"
+    assert mine.item() == int(expected)  # 307 for the sums: no wrap at 256
+    with pytest.raises(TypeError):
+        getattr(ref, name)(ref.array(values, split=0))
