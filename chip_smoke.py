@@ -81,7 +81,24 @@ Phases, in order; any failure exits non-zero:
    DataParallel on a ragged batch of 254 against one shard, DASO's cadence
    sweep against four-shard DataParallel with the collectives of each
    step type, and the README's Deep learning snippet;
-12. print the phase-9, 10 and 11 numbers with the card, the card's name
+12. drive the array layer (no kernel of its own): the README quickstart
+   from ``README.md:36`` to ``:50`` (``ht.save`` skipped) against float64;
+   indexing on BASELINE config 3's table, 10,000,000 x 16 float32: basic,
+   negative-step, int, boolean-mask and fancy keys and setitem by slice,
+   mask and fancy key with a broadcast and a cast, each bit for bit
+   against the same torch indexing of the shard; the sorting family on
+   10^8 float32: ``sort`` both ways with its indices, ``topk``,
+   ``unique``, ``percentile`` under every interpolation and ``median``
+   (their order statistics the sorted elements themselves, the warm calls
+   under ``set_sync_debug_mode("error")``), ``bincount``, ``histc``,
+   ``histogram`` and ``digitize`` against independent torch counts, the
+   draws' moments and their values on four shards; each call timed beside
+   its torch call and its HBM bound; then four shards of the card: the
+   merge-exchange sort with NaN padding equal to one shard with 2p
+   ``ppermute``s and its peak memory, topk's one-``allreduce`` merge,
+   ``unique``, ``median``, getitem and setitem across shard boundaries,
+   halos, ``pad``, ``roll`` and ``diag``;
+13. print the phase-9 to 12 numbers with the card, the card's name
    and power limit, one JSON line of per-kernel numbers, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -1711,6 +1728,14 @@ def counting_mesh(devices):
             self._count("bcast", shards[root:root + 1])
             return super().bcast(shards, root)
 
+        def ppermute(self, shards, shift=1, perm=None):
+            self._count("ppermute", shards)
+            return super().ppermute(shards, shift, perm)
+
+        def alltoall(self, shards, split_axis=0, concat_axis=0):
+            self._count("alltoall", shards)
+            return super().alltoall(shards, split_axis, concat_axis)
+
         def sub(self, ranks):
             # a group counts into its parent's counters
             group = CountingMesh([self.devices[r] for r in ranks])
@@ -2188,6 +2213,487 @@ def training_path(ht, smi: str) -> dict:
     return numbers
 
 
+# the array layer's path (phase 12): no kernel of its own. heat_tpu runs
+# indexing, sorting, order statistics, histograms and random draws as jnp
+# calls and shard_map programs, so the port's are torch ops over the shards.
+# Sizes: the README quickstart (README.md:36-50) as written; BASELINE config
+# 3's table (10^7 x 16 float32, 640 MB) for indexing; 10^8 float32 (400 MB)
+# for the sorting family; four shards of the card at cut sizes for the
+# merge-exchange sort and the rest of the shard bookkeeping.
+TABLE_SHAPE = (10_000_000, 16)
+SORT_N = 100_000_000
+UNIQUE_HIGH = 1_000_000
+TOPK_K = 1000
+PERCENTILES = [1.0, 50.0, 99.0]
+INTERPOLATIONS = ("linear", "lower", "higher", "midpoint", "nearest")
+HIST_BINS, HIST_RANGE = 128, (-8.0, 8.0)  # a power of two over a power of two: exact bin arithmetic
+RANDPERM_N = 10_000_000
+LAYER_REPS = 5
+LAYER_P = 4
+MESH_SORT_N = 25_000_003  # 4 shards of 6,250,001: one padding slot
+MESH_EVEN_N = 25_000_000  # unpadded: topk's merge path and median's bisection
+MESH_TABLE = (1_000_003, 16)
+MESH_DIAG = 4_099
+# Bounds of the quickstart, each against float64 on the card, n = 64
+# columns, m = 1000 rows, u = 2^-24:
+# * cdist: the difference first, then a chain of n squares: d² errs by at
+#   most (n + 2)·u·d², d by half that plus the square root's 2u (rsqrt and
+#   a Newton step): (n/2 + 4)·u·d;
+# * qr (both methods): phase 10's bounds (residual 4√n·u, orthogonality
+#   16√n·u, R upper triangular);
+# * cholesky of G = aᵀa: ‖LLᵀ − G‖_F <= 4(n + 1)·u·‖L‖_F² (the backward
+#   error of Cholesky, |L||Lᵀ| <= ‖L‖_F²);
+# * svd: ‖U diag(s) Vh − A‖_F / ‖A‖_F <= 64√n·u (the TSQR's residual and
+#   the core SVD's n·u), |s − s64| <= 64√n·u·s_max (Weyl);
+# * lstsq: ‖δx‖/‖x‖ <= 8n·u·(κ + κ²·‖r‖/(‖A‖‖x‖)), the least-squares
+#   perturbation bound, κ and r from float64;
+# * solve(G, coef): ‖δx‖/‖x‖ <= 8n·u·κ(G), against float64 on the same
+#   float32 G and coef;
+# * slogdet(G): |δ log det| <= n·κ(G)·8n·u, against float64 on the same G;
+# * einsum (a matmul, k = 64 terms): |δ| <= (k + 1)·u·(|a| @ |b|);
+# * KMeans: finite centers, and the labels are the nearest center in
+#   float64 for at least 99.9% of the rows (ties at f32 resolution aside).
+
+
+def _bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _equal(label, got, want) -> None:
+    """Raise unless got equals want: type, shape and every value, NaN where
+    NaN is."""
+    import torch
+
+    same = got.shape == want.shape and got.dtype == want.dtype
+    if same and got.is_floating_point():
+        same = torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    elif same:
+        same = torch.equal(got, want)
+    if not same:
+        raise AssertionError(f"{label}: not equal ({tuple(got.shape)} {got.dtype} against {tuple(want.shape)} {want.dtype})")
+
+
+def _relative(got, want) -> float:
+    import torch
+
+    return (torch.linalg.vector_norm(got.double() - want) / torch.linalg.vector_norm(want)).item()
+
+
+def quickstart_layer_phase(ht) -> dict:
+    """README.md:36-50 on the card, each result against float64 within the
+    bounds above; ht.save (README.md:47) waits for the I/O slice."""
+    import torch
+
+    from heat_tpu_torch.cluster import KMeans
+
+    print("phase layer: the README quickstart (README.md:36-50)", flush=True)
+    ht.random.seed(SEED)
+    a = ht.random.randn(1000, 64, split=0)
+    d = ht.spatial.cdist(a)
+    q, r = ht.linalg.qr(a)
+    q2, r2 = ht.linalg.qr(a, method="tsqr")
+    L = ht.linalg.cholesky(a.T @ a)
+    u, s, vh = ht.linalg.svd(a, full_matrices=False)
+    coef = ht.linalg.lstsq(a, d[:, 0])
+    x = ht.linalg.solve(a.T @ a, coef)
+    sgn, logdet = ht.linalg.slogdet(a.T @ a)
+    b = ht.random.randn(64, 8)
+    c = ht.einsum("ij,jk->ik", a, b)
+    print("  ht.save(a, 'a.npy') (README.md:47): skipped, the I/O slice (ROADMAP A10) is not ported", flush=True)
+    km = KMeans(n_clusters=8).fit(a)
+    if a.larray.device.type != "cuda" or km.cluster_centers_.larray.device.type != "cuda":
+        raise AssertionError("the quickstart did not run on the card")
+    m, n = a.gshape
+    a64 = a.larray.double()
+    out = {}
+    d64 = torch.cdist(a64, a64, compute_mode="donot_use_mm_for_euclid_dist")
+    out["cdist"] = check_within("quickstart cdist", d.larray, d64, (n / 2 + 4) * U32 * d64 + 1e-30)
+    for label, (qq, rr) in (("qr", (q, r)), ("qr tsqr", (q2, r2))):
+        errs = qr_errors(a.larray, qq.larray, rr.larray)
+        check_qr(f"quickstart {label}", errs, n)
+        out[label] = errs["residual"]
+    g = (a.T @ a).larray
+    l64 = L.larray.double()
+    chol = torch.linalg.matrix_norm(l64 @ l64.T - g.double()).item()
+    if not chol <= 4 * (n + 1) * U32 * torch.linalg.matrix_norm(l64).item() ** 2:
+        raise AssertionError(f"quickstart cholesky: ‖LLᵀ − G‖ {chol:.3e} out of bound")
+    out["cholesky"] = chol
+    svd_res = _relative(u.larray.double() @ torch.diag(s.larray.double()) @ vh.larray.double(), a64)
+    s64 = torch.linalg.svdvals(a64)
+    if not (svd_res <= 64 * math.sqrt(n) * U32 and (s.larray.double() - s64).abs().max().item() <= 64 * math.sqrt(n) * U32 * s64[0].item()):
+        raise AssertionError(f"quickstart svd: residual {svd_res:.3e} or singular values out of bound")
+    out["svd"] = svd_res
+    kappa = (s64[0] / s64[-1]).item()
+    rhs64 = d.larray[:, 0].double()
+    coef64 = torch.linalg.lstsq(a64, rhs64[:, None]).solution[:, 0]
+    resid = torch.linalg.vector_norm(a64 @ coef64 - rhs64).item()
+    rho = resid / (s64[0].item() * torch.linalg.vector_norm(coef64).item())
+    lstsq_err = _relative(coef.larray, coef64)
+    if not lstsq_err <= 8 * n * U32 * (kappa + kappa**2 * rho):
+        raise AssertionError(f"quickstart lstsq: {lstsq_err:.3e} out of bound")
+    out["lstsq"] = lstsq_err
+    g64 = g.double()
+    kappa_g = torch.linalg.cond(g64).item()
+    solve_err = _relative(x.larray, torch.linalg.solve(g64, coef.larray.double()))
+    if not solve_err <= 8 * n * U32 * kappa_g:
+        raise AssertionError(f"quickstart solve: {solve_err:.3e} out of bound")
+    out["solve"] = solve_err
+    sign64, logdet64 = torch.linalg.slogdet(g64)
+    logdet_err = abs(float(logdet.item()) - logdet64.item())
+    if float(sgn.item()) != sign64.item() or not logdet_err <= n * kappa_g * 8 * n * U32:
+        raise AssertionError(f"quickstart slogdet: sign {sgn.item()} or |d| {logdet_err:.3e} out of bound")
+    out["slogdet"] = logdet_err
+    b64 = b.larray.double()
+    out["einsum"] = check_within("quickstart einsum", c.larray, a64 @ b64, (n + 1) * U32 * (a64.abs() @ b64.abs()))
+    centers = km.cluster_centers_.larray
+    if not bool(torch.isfinite(centers).all()) or tuple(centers.shape) != (8, n):
+        raise AssertionError("quickstart KMeans: centers not finite or of the wrong shape")
+    nearest = torch.cdist(a64, centers.double()).argmin(1)
+    agree = (nearest == km.labels_.larray.reshape(-1).to(nearest.dtype)).double().mean().item()
+    if agree < 0.999:
+        raise AssertionError(f"quickstart KMeans: labels agree with the nearest center on {agree:.4f} of the rows")
+    out["kmeans_label_agreement"] = agree
+    print(f"  README.md:36-50 on the card within their float64 bounds: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _timed_pair(mine, lib, reps: int = LAYER_REPS) -> tuple:
+    """(port ms, torch ms), in turns: port, torch, torch, port."""
+    a = _median_ms(mine, reps)
+    b = _median_ms(lib, reps)
+    b = min(b, _median_ms(lib, reps))
+    a = min(a, _median_ms(mine, reps))
+    return a, b
+
+
+def indexing_phase(ht) -> dict:
+    """BASELINE config 3's table at p = 1: getitem and setitem, each bit for
+    bit against the same torch indexing of the one shard, timed beside it
+    and its HBM bound (bytes read plus bytes written)."""
+    import torch
+
+    rows, cols = TABLE_SHAPE
+    print(f"phase layer: indexing on {rows} x {cols} float32, split=0 (BASELINE config 3's table)", flush=True)
+    ht.random.seed(SEED + 12)
+    x = ht.random.randn(rows, cols, split=0)
+    perm = ht.random.randperm(rows)
+    idx = perm[: rows // 10]
+    t = x.larray  # the one shard, not a copy
+    it = idx.larray
+    mask_t = t[:, 0] > 1.0
+    mask = x[:, 0] > 1.0
+    row_bytes = cols * 4
+    row, stop = rows // 8 + 7, rows // 5  # an int key; a written block of rows
+    sel = int(mask_t.sum())
+    cases = {
+        "x[::3, 2:9]": (lambda: x[::3, 2:9], lambda: t[::3, 2:9].contiguous(), 2 * (-(-rows // 3)) * 7 * 4),
+        "x[-5:]": (lambda: x[-5:], lambda: t[-5:].clone(), 2 * 5 * row_bytes),
+        "x[::-1]": (lambda: x[::-1], lambda: t.flip(0), 2 * rows * row_bytes),
+        "x[row]": (lambda: x[row], lambda: t[row].clone(), 2 * row_bytes),
+        "x[mask]": (lambda: x[mask], lambda: t[mask_t], rows + 2 * sel * row_bytes),
+        "x[perm[:10^6]]": (lambda: x[idx], lambda: t[it], it.numel() * 8 + 2 * it.numel() * row_bytes),
+    }
+    out = {"selected_rows": sel}
+    for label, (mine, lib, nbytes) in cases.items():
+        got = mine()
+        _equal(label, got.larray, lib())
+        if got.split != (None if label == "x[row]" else 0):
+            raise AssertionError(f"{label}: split {got.split}")
+        ms, lib_ms = _timed_pair(mine, lib)
+        out[label] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(nbytes)}
+    shadow = t.clone()
+    value_row = ht.arange(cols, dtype=ht.int64)  # a cast and a broadcast
+    value_col = ht.array(torch.arange(it.numel(), dtype=torch.int32, device=t.device)[:, None] % 97)  # (10^6, 1) int32
+    sets = {
+        "x[100:rows/5] = 2.5": (
+            lambda: x.__setitem__(slice(100, stop), 2.5),
+            lambda: shadow.__setitem__(slice(100, stop), 2.5),
+            (stop - 100) * row_bytes,
+        ),
+        "x[mask] = arange(16)": (
+            lambda: x.__setitem__(mask, value_row),
+            lambda: shadow.__setitem__(mask_t, torch.arange(cols, device=t.device).float()),
+            rows + sel * row_bytes + cols * 8,
+        ),
+        "x[perm[:10^6]] = int32 column": (
+            lambda: x.__setitem__(idx, value_col),
+            lambda: shadow.__setitem__(it, value_col.larray.float()),
+            it.numel() * 8 + it.numel() * 4 + it.numel() * row_bytes,
+        ),
+    }
+    for label, (mine, lib, nbytes) in sets.items():
+        mine()
+        lib()
+        if x.larray.data_ptr() != t.data_ptr():
+            raise AssertionError(f"{label}: the write copied the table")
+        _equal(label, x.larray, shadow)
+        ms, lib_ms = _timed_pair(mine, lib)
+        out[label] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(nbytes)}
+    _equal("after the writes", x.larray, shadow)
+    print(f"  {len(cases)} getitem and {len(sets)} setitem equal torch bit for bit; ms: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _order_statistic(sorted_v, pos: float, method: str):
+    """The percentile at position pos from the sorted values, in their type,
+    as the port's bisection path interpolates."""
+    lo, hi = sorted_v[math.floor(pos)], sorted_v[math.ceil(pos)]
+    if method == "lower":
+        return lo
+    if method == "higher":
+        return hi
+    if method == "nearest":
+        return lo if round(pos) <= math.floor(pos) else hi
+    if method == "midpoint":
+        return (lo + hi) * 0.5
+    return lo + (hi - lo) * (pos - math.floor(pos))
+
+
+def sorting_phase(ht) -> dict:
+    """The sorting family on 10^8 float32 at p = 1, each against torch."""
+    import torch
+
+    print(f"phase layer: the sorting family on {SORT_N} float32, split=0, normal(3, 2)", flush=True)
+    ht.random.seed(SEED + 13)
+    v = ht.random.normal(3.0, 2.0, (SORT_N,), split=0)
+    t = v.larray
+    n = SORT_N
+    out = {}
+    sorted_t = None
+    for descending in (False, True):
+        label = "sort descending" if descending else "sort"
+        values, indices = ht.sort(v, descending=descending)
+        tv, ti = torch.sort(t, descending=descending, stable=True)
+        _equal(label + " values", values.larray, tv)
+        _equal(label + " indices", indices.larray, ti)
+        if not descending:
+            sorted_t = tv
+        del values, indices, ti
+        ms, lib_ms = _timed_pair(lambda: ht.sort(v, descending=descending), lambda: torch.sort(t, descending=descending, stable=True))
+        out[label] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(n * 4 + n * 12)}
+    top = ht.topk(v, TOPK_K)
+    _equal("topk values", top[0].larray, torch.topk(t, TOPK_K)[0])
+    ms, lib_ms = _timed_pair(lambda: ht.topk(v, TOPK_K), lambda: torch.topk(t, TOPK_K))
+    out["topk"] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(n * 4 + TOPK_K * 12)}
+    # percentiles: the order statistics are the sorted elements themselves
+    pcts = {}
+    for method in INTERPOLATIONS:
+        got = ht.percentile(v, PERCENTILES, interpolation=method).larray
+        want = torch.stack([_order_statistic(sorted_t, q / 100.0 * (n - 1), method) for q in PERCENTILES])
+        _equal(f"percentile {method}", got, want)
+        pcts[method] = got.tolist()
+    med = ht.median(v).larray
+    _equal("median", med, _order_statistic(sorted_t, 0.5 * (n - 1), "linear"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for method in INTERPOLATIONS:
+            ht.percentile(v, PERCENTILES, interpolation=method)
+        ht.median(v)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms, lib_ms = _timed_pair(lambda: ht.percentile(v, PERCENTILES), lambda: torch.sort(t), reps=3)
+    out["percentile [1, 50, 99]"] = {"ms": ms, "torch_sort_ms": lib_ms, "bound_ms": _bound_ms(n * 4), "values": pcts["linear"]}
+    ms = _median_ms(lambda: ht.median(v), 3)
+    out["median"] = {"ms": ms, "bound_ms": _bound_ms(n * 4), "value": med.item()}
+    print(f"  sort (both orders, values and int64 indices), topk, {len(INTERPOLATIONS)} percentile interpolations and "
+          f"median equal torch bit for bit; warm percentiles and median ran under set_sync_debug_mode('error')", flush=True)
+    del sorted_t
+    # counting
+    ints = ht.random.randint(0, UNIQUE_HIGH, (n,), split=0)
+    it = ints.larray
+    uniq = ht.unique(ints)
+    _equal("unique", uniq.larray, torch.unique(it, sorted=True))
+    ms, lib_ms = _timed_pair(lambda: ht.unique(ints), lambda: torch.unique(it, sorted=True), reps=3)
+    out["unique"] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(n * 4 + uniq.gnbytes), "count": uniq.gshape[0]}
+    counts = ht.bincount(ints)
+    values_present, present_counts = torch.unique(it, return_counts=True)
+    independent = torch.zeros(UNIQUE_HIGH, dtype=torch.int64, device=it.device)
+    independent[values_present.long()] = present_counts
+    _equal("bincount", counts.larray, independent)
+    ms, lib_ms = _timed_pair(lambda: ht.bincount(ints), lambda: torch.bincount(it), reps=3)
+    out["bincount"] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(n * 4 + UNIQUE_HIGH * 8)}
+    del ints, it, uniq, counts, independent, values_present, present_counts
+    lo, hi = HIST_RANGE
+    hc = ht.histc(v, HIST_BINS, lo, hi)
+    _equal("histc", hc.larray, torch.histc(t, HIST_BINS, lo, hi))
+    ms, lib_ms = _timed_pair(lambda: ht.histc(v, HIST_BINS, lo, hi), lambda: torch.histc(t, HIST_BINS, lo, hi))
+    out["histc"] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(n * 4 + HIST_BINS * 4)}
+    hist, edges = ht.histogram(v, bins=HIST_BINS, range=HIST_RANGE)
+    e = torch.linspace(lo, hi, HIST_BINS + 1, device=t.device)
+    _equal("histogram edges", edges.larray, e)
+    bucket = torch.bucketize(t, e, right=True) - 1  # numpy's bins, the last one closed
+    bucket = torch.where(t == hi, HIST_BINS - 1, bucket)
+    keep = (bucket >= 0) & (bucket < HIST_BINS)
+    b_values, b_counts = torch.unique(bucket[keep], return_counts=True)
+    independent = torch.zeros(HIST_BINS, dtype=torch.int64, device=t.device)
+    independent[b_values] = b_counts
+    _equal("histogram counts", hist.larray, independent)
+    ms = _median_ms(lambda: ht.histogram(v, bins=HIST_BINS, range=HIST_RANGE))
+    out["histogram"] = {"ms": ms, "bound_ms": _bound_ms(n * 4 + HIST_BINS * 8)}
+    dig = ht.digitize(v, e)
+    _equal("digitize", dig.larray, torch.bucketize(t, e, right=True))
+    ms, lib_ms = _timed_pair(lambda: ht.digitize(v, e), lambda: torch.bucketize(t, e, right=True))
+    out["digitize"] = {"ms": ms, "torch_ms": lib_ms, "bound_ms": _bound_ms(n * 4 + n * 8)}
+    del hc, hist, edges, dig, bucket, keep
+    print("  unique, bincount, histc, histogram and digitize equal independent torch counts", flush=True)
+    # the draws
+    draws = {}
+    for label, draw, mean, std in (
+        ("normal(3, 2)", lambda comm=None: ht.random.normal(3.0, 2.0, (n,), split=0, comm=comm), 3.0, 2.0),
+        ("uniform(-2, 5)", lambda comm=None: ht.random.uniform(-2.0, 5.0, (n,), split=0, comm=comm), 1.5, 7.0 / math.sqrt(12)),
+    ):
+        ht.random.seed(SEED + 14)
+        sample = draw()
+        s64 = sample.larray.double()
+        got_mean, got_std = s64.mean().item(), s64.std().item()
+        if abs(got_mean - mean) > 6 * std / math.sqrt(n) or abs(got_std - std) > 6 * std / math.sqrt(n):
+            raise AssertionError(f"{label}: mean {got_mean}, std {got_std} beyond 6σ/√n")
+        ht.random.seed(SEED + 14)
+        ms = _median_ms(lambda: draw(), 3)
+        draws[label] = {"mean": got_mean, "std": got_std, "ms": ms, "bound_ms": _bound_ms(n * 4)}
+        del sample, s64
+    ht.random.seed(SEED + 15)
+    perm = ht.random.randperm(RANDPERM_N)
+    _equal("randperm sorted", torch.sort(perm.larray)[0], torch.arange(RANDPERM_N, device=t.device))
+    card = t.device
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    for label, draw in (("normal", lambda c: ht.random.normal(3.0, 2.0, (MESH_SORT_N,), split=0, comm=c)),
+                        ("uniform", lambda c: ht.random.uniform(-2.0, 5.0, (MESH_SORT_N,), split=0, comm=c)),
+                        ("randperm", lambda c: ht.random.randperm(RANDPERM_N, split=0, comm=c))):
+        ht.random.seed(SEED + 16)
+        one = draw(MeshCommunication([card])).larray
+        ht.random.seed(SEED + 16)
+        four = draw(MeshCommunication([card] * LAYER_P)).larray
+        _equal(f"{label} on four shards", four, one)
+    out["draws"] = draws
+    print(f"  normal and uniform within 6σ/√n, randperm({RANDPERM_N}) sorted is arange, and one seed gives the "
+          f"same values on {LAYER_P} shards as on one", flush=True)
+    return out
+
+
+def layer_mesh_phase(ht) -> dict:
+    """Four shards on the one card against one shard, through a mesh that
+    counts its collectives: the merge-exchange sort with NaN in the data
+    and in every padding slot, topk's merge path, unique, median, getitem
+    and setitem across shard boundaries, halos, pad, roll and diag."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    mesh1, mesh4 = MeshCommunication([card]), counting_mesh([card] * LAYER_P)
+    print(f"phase layer: {LAYER_P} shards on one card against one shard", flush=True)
+    ht.random.seed(SEED + 17)
+    base = ht.random.normal(3.0, 2.0, (MESH_SORT_N,), split=0, comm=mesh1)
+    t = base.larray
+    t[torch.arange(0, MESH_SORT_N, 1_000_003, device=card)] = float("nan")
+    out = {}
+    ht.use_comm(mesh4)
+    try:
+        x4 = ht.array(t, split=0)
+        pad = _poison_padding(x4)
+        if pad < 1:
+            raise AssertionError("the four-shard operand has no padding")
+        for descending in (False, True):
+            v1, i1 = ht.sort(ht.array(t, split=0, comm=mesh1), descending=descending)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mesh4.calls.clear()
+            v4, i4 = ht.sort(x4, descending=descending)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            _equal("four-shard sort values", v4.larray, v1.larray)
+            _equal("four-shard sort indices", i4.larray, i1.larray)
+            if dict(mesh4.calls) != {"ppermute": 2 * LAYER_P}:
+                raise AssertionError(f"four-shard sort: collectives {dict(mesh4.calls)}")
+            data_and_indices = MESH_SORT_N * (4 + 8)
+            if peak + MESH_SORT_N * 4 >= 3 * data_and_indices:
+                raise AssertionError(f"four-shard sort: peak {peak} bytes")
+            out["sort descending" if descending else "sort"] = {
+                "ppermutes": mesh4.calls["ppermute"], "peak_over_data_and_indices": (peak + MESH_SORT_N * 4) / data_and_indices,
+                "ms": _median_ms(lambda: ht.sort(x4, descending=descending), 3),
+            }
+            del v1, i1, v4, i4
+        even1 = ht.array(t[:MESH_EVEN_N].nan_to_num(3.0), split=0, comm=mesh1)
+        even4 = ht.array(even1.larray, split=0)
+        mesh4.calls.clear()
+        top4 = ht.topk(even4, TOPK_K)
+        calls = dict(mesh4.calls)
+        top1 = ht.topk(even1, TOPK_K)
+        _equal("four-shard topk values", top4[0].larray, top1[0].larray)
+        _equal("four-shard topk indices", top4[1].larray, top1[1].larray)
+        if calls != {"allreduce": 1}:
+            raise AssertionError(f"four-shard topk: collectives {calls}")
+        _equal("four-shard median", ht.median(even4).larray, ht.median(even1).larray)
+        ints1 = ht.random.randint(0, UNIQUE_HIGH, (MESH_SORT_N,), split=0, comm=mesh1)
+        mesh4.calls.clear()
+        u4 = ht.unique(ht.array(ints1.larray, split=0))
+        _equal("four-shard unique", u4.larray, ht.unique(ints1).larray)
+        out["topk_collectives"], out["unique_collectives"] = calls, dict(mesh4.calls)
+        del even1, even4, ints1, u4, x4
+        # indexing across the shard boundaries of a ragged table
+        table = t[: MESH_TABLE[0] * MESH_TABLE[1]].nan_to_num(0.0).reshape(MESH_TABLE).clone()
+        y1 = ht.array(table, split=0, comm=mesh1)
+        y4 = ht.array(table, split=0)
+        _poison_padding(y4)
+        m = MESH_TABLE[0]  # keys whose rows cross the shard boundaries at m/4, m/2, 3m/4
+        keys = [slice(m // 500, 4 * m // 5, 7), (slice(None, None, -3), 5), slice(m // 4 - 5, m // 4 + 5),
+                torch.arange(0, MESH_TABLE[0], 997, device=card), table[:, 0] > 4.0, -1, (slice(None), slice(3, 9))]
+        for key in keys:
+            _equal(f"four-shard getitem {key}", y4[key].larray, y1[key].larray)
+        writes = [(slice(m // 4 - 10, 3 * m // 4 + 10), 1.5), (table[:, 1] < 0.0, ht.arange(16, dtype=ht.int32, comm=mesh1)),
+                  (torch.arange(3, MESH_TABLE[0], 1013, device=card), -7.0), ((slice(None), 2), 0.25), (slice(None, None, -5), 9.0)]
+        for key, value in writes:
+            y4[key] = value
+            y1[key] = value
+            _equal(f"four-shard setitem {key}", y4.larray, y1.larray)
+        # halos, pad, roll, diag
+        mesh4.calls.clear()
+        y4.get_halo(2)
+        if dict(mesh4.calls) != {"ppermute": 2}:
+            raise AssertionError(f"halos: collectives {dict(mesh4.calls)}")
+        block = y4.shards[0].shape[0]
+        from_prev, from_next = y4.halos
+        logical = y4.larray
+        for r in range(LAYER_P):
+            start = r * block
+            want_prev = logical[start - 2:start] if r else torch.zeros_like(from_prev[r])
+            nxt = logical[start + block:start + block + 2]
+            want_next = torch.cat([nxt, nxt.new_zeros((2 - nxt.shape[0], MESH_TABLE[1]))]) if r < LAYER_P - 1 else torch.zeros_like(from_next[r])
+            _equal(f"halo from_prev of shard {r}", from_prev[r], want_prev)
+            _equal(f"halo from_next of shard {r}", from_next[r], want_next)
+        _equal("four-shard pad", ht.pad(y4, ((2, 3), (1, 1)), mode="reflect").larray, ht.pad(y1, ((2, 3), (1, 1)), mode="reflect").larray)
+        _equal("four-shard roll", ht.roll(y4, 12345, 0).larray, ht.roll(y1, 12345, 0).larray)
+        square = torch.randn(MESH_DIAG, MESH_DIAG, device=card, generator=torch.Generator(card).manual_seed(SEED))
+        _equal("four-shard diagonal", ht.diag(ht.array(square, split=0)).larray, ht.diag(ht.array(square, split=0, comm=mesh1)).larray)
+        _equal("four-shard diag of a vector", ht.diag(ht.array(square[:, 0], split=0)).larray,
+               ht.diag(ht.array(square[:, 0], split=0, comm=mesh1)).larray)
+    finally:
+        ht.use_comm(None)
+    print(f"  sort (NaN data, NaN padding) equal bit for bit with 2p ppermutes and its peak under 3x data and indices; "
+          f"topk one allreduce, unique, median, getitem/setitem across boundaries, halos, pad, roll, diag equal one shard: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def array_layer_path(ht, smi: str) -> dict:
+    """Phase 12: the array layer on the card; returns its numbers."""
+    import torch
+
+    numbers = {"card": smi, "peak_gb": {}}
+    for label, phase in (("quickstart", quickstart_layer_phase), ("indexing", indexing_phase),
+                         ("sorting", sorting_phase), ("mesh", layer_mesh_phase)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        numbers[label] = phase(ht)
+        numbers["peak_gb"][label] = torch.cuda.max_memory_allocated() / 1e9
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -2236,10 +2742,13 @@ def main() -> int:
     linalg = linalg_path(ht, smi)
     torch.cuda.empty_cache()
     training = training_path(ht, smi)
+    torch.cuda.empty_cache()
+    layer = array_layer_path(ht, smi)
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
     print("training: " + json.dumps(training))
+    print("array_layer: " + json.dumps(layer))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

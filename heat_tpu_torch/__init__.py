@@ -23,11 +23,13 @@ from .core import (
     logical,
     manipulations,
     memory,
+    printing,
     relational,
     rounding,
     sanitation,
     statistics,
     stride_tricks,
+    tiling,
     trigonometrics,
     types,
 )
@@ -51,10 +53,14 @@ def _bind_dndarray_methods():
             "arcsinh", "arccosh", "arctanh",
         ],
         logical: ["all", "any", "allclose", "isclose"],
-        statistics: ["argmax", "argmin", "average", "max", "mean", "min", "std", "var", "kurtosis", "skew"],
+        statistics: [
+            "argmax", "argmin", "average", "max", "mean", "median", "min", "percentile",
+            "std", "var", "kurtosis", "skew",
+        ],
         manipulations: [
-            "expand_dims", "flatten", "ravel", "reshape", "resplit", "squeeze", "flip",
-            "moveaxis", "swapaxes",
+            "expand_dims", "flatten", "ravel", "reshape", "resplit", "squeeze", "unique",
+            "flip", "roll", "repeat", "tile", "moveaxis", "swapaxes", "collect",
+            "balance", "redistribute", "rot90",
         ],
         complex_math: ["conj"],
         indexing: ["nonzero"],

@@ -20,6 +20,8 @@ from .complex_math import *
 from .statistics import *
 from .manipulations import *
 from .indexing import *
+from .printing import *
+from .tiling import *
 from . import linalg
 from .linalg import *
-from . import random
+from . import printing, random, tiling

@@ -12,6 +12,13 @@ A replicated array (``split=None``) holds the whole array on every device.
 * ``parray`` is the physical global tensor (shards concatenated, padding
   included); with one shard it is that shard, without a copy.
 * ``larray`` is the logical global tensor: ``parray`` without the padding.
+
+Indexing follows numpy, not torch: negative slice steps work, an index out
+of range raises ``IndexError`` (the JAX package clamps it), and a result
+never aliases its source. ``__setitem__`` writes into the shards in place
+unless another array shares their storage, which it then copies first, so
+that no other array sees the write (the JAX package's buffers are
+immutable).
 """
 
 from __future__ import annotations
@@ -25,7 +32,23 @@ from . import types
 from .communication import MeshCommunication
 from .stride_tricks import sanitize_axis
 
-__all__ = ["DNDarray"]
+__all__ = ["DNDarray", "LocalIndex"]
+
+
+class LocalIndex:
+    """Marker wrapper to index into the local shard (reference
+    dndarray.py:63). With one controller the whole array is addressable, so
+    ``x.lloc[key]`` indexes ``x``."""
+
+    def __init__(self, obj, key=None):
+        self.obj = obj
+        self.key = key
+
+    def __getitem__(self, key):
+        return self.obj[key]
+
+    def __setitem__(self, key, value):
+        self.obj[key] = value
 
 
 class DNDarray:
@@ -98,10 +121,48 @@ class DNDarray:
         """Bytes of the logical array."""
         return self.size * self.__shards[0].element_size()
 
+    gnbytes = nbytes
+
+    @property
+    def lnumel(self) -> int:
+        """Elements of the first shard's logical block (reference dndarray.py:178)."""
+        return int(np.prod(self.lshape, dtype=np.int64))
+
+    @property
+    def lnbytes(self) -> int:
+        """Bytes of the first shard's logical block (reference dndarray.py:188)."""
+        return self.lnumel * self.__shards[0].element_size()
+
     @property
     def lshape(self) -> Tuple[int, ...]:
         """Logical shape of the first shard (reference dndarray.py:404)."""
         return self.__comm.chunk(self.__gshape, self.__split, rank=0)[1]
+
+    @property
+    def stride(self) -> Tuple[int, ...]:
+        """C-order strides of the global shape, in elements (reference
+        dndarray.py:431)."""
+        strides, acc = [], 1
+        for n in reversed(self.__gshape):
+            strides.append(acc)
+            acc *= n
+        return tuple(reversed(strides))
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """C-order strides of the global shape, in bytes (reference
+        dndarray.py:441)."""
+        item = self.__shards[0].element_size()
+        return tuple(s * item for s in self.stride)
+
+    @property
+    def balanced(self) -> bool:
+        """Always True: the pad+mask layout is balanced."""
+        return True
+
+    @property
+    def lloc(self) -> LocalIndex:
+        return LocalIndex(self)
 
     @property
     def T(self) -> "DNDarray":
@@ -205,6 +266,153 @@ class DNDarray:
         self.__split = axis
         return self
 
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """Always True: every shard holds ``ceil(n/p)`` rows (reference
+        dndarray.py:475)."""
+        return True
+
+    def balance_(self) -> "DNDarray":
+        """A no-op: the pad+mask layout is always balanced (reference
+        dndarray.py:478)."""
+        return self
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> "DNDarray":
+        """Only the balanced identity map is representable; any other target
+        map raises, as in the reference (dndarray.py:539)."""
+        if target_map is not None:
+            tm = np.asarray(target_map.numpy() if isinstance(target_map, DNDarray) else target_map)
+            if not np.array_equal(tm, self.__comm.lshape_map(self.__gshape, self.__split)):
+                raise NotImplementedError(
+                    "arbitrary (ragged) target maps are not representable: arrays are always balanced"
+                )
+        return self
+
+    def create_lshape_map(self, force_check: bool = False) -> "DNDarray":
+        """Method form of :attr:`lshape_map` (reference dndarray.py:686)."""
+        return self.lshape_map
+
+    def ranked_shards(self):
+        """Yield ``(rank, block)`` for every shard with logical rows, in rank
+        order: each block is the shard's logical extent as a host numpy array
+        (reference dndarray.py:374). A replicated or 0-d array yields
+        ``(0, whole array)``."""
+        if self.__split is None or self.ndim == 0:
+            yield 0, self.numpy()
+            return
+        for r, (s, c) in enumerate(zip(self.lshards, self.counts_displs()[0])):
+            if c:
+                yield r, _host(s)
+
+    def cpu(self) -> "DNDarray":
+        """A copy on the CPU mesh (reference dndarray.py:751); the array
+        itself when it is there already."""
+        from . import devices
+
+        return self._to_device(devices.cpu)
+
+    def gpu(self) -> "DNDarray":
+        """A copy on the GPU mesh, the counterpart of :meth:`cpu`."""
+        from . import devices
+
+        return self._to_device(devices.gpu)
+
+    def _to_device(self, device) -> "DNDarray":
+        from .communication import sanitize_comm
+
+        if self.__device == device:
+            return self
+        comm = sanitize_comm(None, device)
+        return DNDarray(
+            _distribute(self.larray.to(comm.devices[0]), self.__split, comm), self.__gshape,
+            self.__dtype, self.__split, device, comm,
+        )
+
+    # ------------------------------------------------------------------
+    # halos (reference dndarray.py:552-684)
+    # ------------------------------------------------------------------
+    def get_halo(self, halo_size: int) -> None:
+        """Exchange split-axis halos with the neighbouring shards: two
+        ``ppermute`` shifts, shard d+1 receiving d's trailing ``halo_size``
+        physical rows and shard d-1 its leading ones; the shards at the ends
+        receive zeros, and padding rows go as zeros (reference
+        dndarray.py:552). Nothing is exchanged on one shard or when the
+        halo is wider than a shard."""
+        if not isinstance(halo_size, int):
+            raise TypeError(f"halo_size needs to be of Python type integer, {type(halo_size)} given")
+        if halo_size < 0:
+            raise ValueError(f"halo_size needs to be a positive Python integer, {halo_size} given")
+        self.__halo_size = halo_size
+        self.__halos = None
+        split, p = self.__split, self.__comm.size
+        if not halo_size or split is None or p == 1:
+            return
+        block = self.__shards[0].shape[split]
+        if halo_size > block:
+            return
+        counts = self.counts_displs()[0]
+
+        def edge(t: torch.Tensor, count: int, lead: bool) -> torch.Tensor:
+            piece = t.narrow(split, 0 if lead else block - halo_size, halo_size).clone()
+            start = 0 if lead else block - halo_size
+            if count < start + halo_size:  # padding goes as zeros
+                piece.narrow(split, max(count - start, 0), start + halo_size - max(count, start)).zero_()
+            return piece
+
+        from_prev = self.__comm.ppermute(
+            [edge(t, c, False) for t, c in zip(self.__shards, counts)], perm=[(j, j + 1) for j in range(p - 1)]
+        )
+        from_next = self.__comm.ppermute(
+            [edge(t, c, True) for t, c in zip(self.__shards, counts)], perm=[(j, j - 1) for j in range(1, p)]
+        )
+        self.__halos = (from_prev, from_next)
+
+    @property
+    def halos(self) -> Optional[Tuple[List[torch.Tensor], List[torch.Tensor]]]:
+        """The ``(from_prev, from_next)`` shard lists of the last
+        :meth:`get_halo`, or None."""
+        return getattr(self, "_DNDarray__halos", None)
+
+    @property
+    def array_with_halos(self) -> torch.Tensor:
+        """Every physical shard extended by its halos, ``[from_prev | shard |
+        from_next]``, concatenated along the split axis on the first device
+        (reference dndarray.py:619); the logical array when no halos were
+        exchanged."""
+        halos = self.halos
+        if halos is None:
+            return self.larray
+        first = self.__comm.devices[0]
+        return torch.cat(
+            [torch.cat([a, s, b], dim=self.__split).to(first) for a, s, b in zip(halos[0], self.__shards, halos[1])],
+            dim=self.__split,
+        )
+
+    def _halo_slice(self, rank: int, trailing: bool) -> Optional[torch.Tensor]:
+        hs = getattr(self, "_DNDarray__halo_size", None)
+        if not hs or self.__split is None or self.__comm.size < 2:
+            return None
+        _, _, slices = self.__comm.chunk(self.__gshape, self.__split, rank=rank)
+        bound = slices[self.__split]
+        if trailing:
+            start = max(bound.stop - hs, 0)
+            length = bound.stop - start
+        else:
+            start = bound.start
+            length = min(hs, self.__gshape[self.__split] - start)
+        return self.larray.narrow(self.__split, start, length)
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        """The trailing ``halo_size`` rows of shard 0, which shard 1 receives
+        (reference dndarray.py:660)."""
+        return self._halo_slice(0, True)
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        """The leading ``halo_size`` rows of shard 1, which shard 0 receives
+        (reference dndarray.py:674)."""
+        return self._halo_slice(1, False)
+
     def astype(self, dtype, copy: bool = True) -> "DNDarray":
         """Cast to a new element type (reference dndarray.py:443-468)."""
         dtype = types.canonical_heat_type(dtype)
@@ -219,10 +427,7 @@ class DNDarray:
         """The logical array as a host numpy array (reference
         dndarray.py:991-1003); bfloat16, which numpy lacks, comes back as
         float32."""
-        arr = self.larray.detach()
-        if arr.dtype == torch.bfloat16:
-            arr = arr.float()
-        return arr.cpu().numpy()
+        return _host(self.larray)
 
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
         out = self.numpy()
@@ -258,6 +463,171 @@ class DNDarray:
         if self.ndim == 0:
             raise TypeError("len() of unsized object")
         return self.__gshape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    # ------------------------------------------------------------------
+    # indexing (reference dndarray.py:801-913)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _unwrap_key(key, device: Optional[torch.device] = None):
+        """A numpy-style key with its array parts as torch tensors on
+        ``device``: a list is an array index, an empty list an int64 one."""
+        if isinstance(key, DNDarray):
+            return key.larray.to(device)
+        if isinstance(key, tuple):
+            return tuple(DNDarray._unwrap_key(k, device) for k in key)
+        if isinstance(key, list):
+            if not key:
+                return torch.zeros(0, dtype=torch.int64, device=device)
+            return torch.as_tensor(np.asarray([np.asarray(k) if isinstance(k, DNDarray) else k for k in key]), device=device)
+        if isinstance(key, np.ndarray):
+            return torch.as_tensor(key, device=device)
+        if isinstance(key, torch.Tensor):
+            return key.to(device)
+        if isinstance(key, (np.integer, np.bool_)):
+            return key.item()
+        return key
+
+    def _result_split(self, key) -> Optional[int]:
+        """The split of an indexing result (reference dndarray.py:817-879):
+        the split axis followed through the key. A single advanced key that
+        consumes the split axis splits the result along the block's first
+        output dim; more than one advanced key gives None."""
+        if self.__split is None:
+            return None
+        key_t = _expand_ellipsis(key if isinstance(key, tuple) else (key,), self.ndim)
+        if sum(1 for k in key_t if _is_advanced_key(k)) > 1:
+            return None
+        out_dim = in_dim = 0
+        for k in key_t:
+            if k is None:
+                out_dim += 1
+                continue
+            if _is_advanced_key(k):
+                is_bool = _key_dtype_is_bool(k)
+                consumed = _key_ndim(k) if is_bool else 1
+                produced = 1 if is_bool else _key_ndim(k)
+                if in_dim <= self.__split < in_dim + consumed:
+                    return out_dim if produced > 0 else None
+                in_dim += consumed
+                out_dim += produced
+                continue
+            if in_dim == self.__split:
+                return out_dim if isinstance(k, slice) else None
+            in_dim += 1
+            if isinstance(k, slice):
+                out_dim += 1
+        return out_dim + (self.__split - in_dim)
+
+    def _shardwise_key(self, key) -> Optional[tuple]:
+        """The key as each shard applies it alone, or None: only ints,
+        slices, None and Ellipsis, the split axis taken whole with step 1
+        (its entry becomes ``slice(None)``)."""
+        if self.__split is None or self.__comm.size == 1:
+            return None
+        key_t = key if isinstance(key, tuple) else (key,)
+        if any(k is not None and k is not Ellipsis and not isinstance(k, (int, np.integer, slice)) for k in key_t):
+            return None
+        if any(isinstance(k, (bool, np.bool_)) for k in key_t):
+            return None
+        key_t = _expand_ellipsis(key_t, self.ndim)
+        n_dims = sum(1 for k in key_t if k is not None)
+        if n_dims > self.ndim:
+            return None
+        key_t = key_t + (slice(None),) * (self.ndim - n_dims)
+        out, in_dim, n = [], 0, self.__gshape[self.__split]
+        for k in key_t:
+            if k is not None and in_dim == self.__split:
+                if not isinstance(k, slice) or k.indices(n) != (0, n, 1):
+                    return None
+                k = slice(None)
+            in_dim += k is not None
+            out.append(k)
+        return tuple(out)
+
+    def __getitem__(self, key) -> "DNDarray":
+        """numpy indexing (reference dndarray.py:881): negative steps work,
+        an index out of range raises ``IndexError``, and the result is a new
+        array, never a view of this one."""
+        split = self._result_split(key)
+        local = self._shardwise_key(key)
+        if local is not None:
+            shards = [_take(s, local) for s in self.__shards]
+            gshape = list(_take(self.__shards[0].narrow(self.__split, 0, 0), local).shape)
+            gshape[split] = self.__gshape[self.__split]
+            return DNDarray(shards, tuple(gshape), self.__dtype, split, self.__device, self.__comm)
+        source = self.larray
+        result = _take(source, DNDarray._unwrap_key(key, source.device))
+        if result.ndim == 0 or (split is not None and split >= result.ndim):
+            split = None
+        return DNDarray(
+            _distribute(result, split, self.__comm), tuple(result.shape),
+            types.canonical_heat_type(result.dtype), split, self.__device, self.__comm,
+        )
+
+    def __setitem__(self, key, value) -> None:
+        """numpy assignment (reference dndarray.py:898-911): the value is
+        cast to this array's type and broadcast; an index out of range raises
+        ``IndexError``; the padding stays padding. With repeated indices the
+        write that wins is unspecified, as in the reference and torch."""
+        dtype = self.__dtype.torch_type()
+        if isinstance(value, DNDarray):
+            value = value.larray
+        elif not isinstance(value, (torch.Tensor, int, float, bool, complex)):
+            value = torch.as_tensor(np.asarray(value))
+        if isinstance(value, torch.Tensor):
+            value = value.to(self.__comm.devices[0], dtype)
+        split = self.__split
+        if split is None or self.__comm.size == 1:
+            target = _owned(self.__shards[0])
+            _put(target, DNDarray._unwrap_key(key, target.device), value)
+            self.__shards = _distribute(target, split, self.__comm)
+            return
+        local = self._shardwise_key(key)
+        if local is not None:
+            # each shard writes its logical rows and the value's rows that
+            # land there
+            out_split = self._result_split(key)
+            target_shape = _take(self.__shards[0].narrow(split, 0, 0), local).shape
+            full = list(target_shape)
+            full[out_split] = self.__gshape[split]
+            if isinstance(value, torch.Tensor):
+                value = value.broadcast_to(full)
+            counts, displs = self.counts_displs()
+            shards = []
+            for s, c, d in zip(self.__shards, counts, displs):
+                s = _owned(s)
+                if c:
+                    v = value.narrow(out_split, d, c).to(s.device) if isinstance(value, torch.Tensor) else value
+                    _put(s.narrow(split, 0, c), local, v)
+                shards.append(s)
+            self.__shards = shards
+            return
+        target = self.larray
+        _put(target, DNDarray._unwrap_key(key, target.device), value)
+        self.__shards = _distribute(target, split, self.__comm)
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Fill the main diagonal in place (reference dndarray.py:913)."""
+        if self.ndim != 2:
+            raise ValueError("Only 2D tensors supported")
+        split = self.__split
+        if split is None:
+            target = _owned(self.__shards[0])
+            target.diagonal().fill_(value)
+            self.__shards = _distribute(target, None, self.__comm)
+            return self
+        counts, displs = self.counts_displs()
+        shards = []
+        for s, c, d in zip(self.__shards, counts, displs):
+            s = _owned(s)
+            s.narrow(split, 0, c).diagonal(offset=d if split == 0 else -d).fill_(value)
+            shards.append(s)
+        self.__shards = shards
+        return self
 
     # ------------------------------------------------------------------
     # operators: the operator library bound as methods (reference
@@ -364,13 +734,133 @@ class DNDarray:
     __hash__ = None  # type: ignore[assignment]
 
     def __repr__(self) -> str:
-        body = np.array2string(self.numpy(), separator=", ", threshold=1000)
-        return (
-            f"DNDarray({body}, dtype=ht.{self.__dtype.__name__}, "
-            f"device={self.__device}, split={self.__split})"
-        )
+        from . import printing
+
+        return printing.__str__(self)
 
     __str__ = __repr__
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16, which numpy lacks, as float32."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# indexing helpers
+# ---------------------------------------------------------------------------
+def _is_advanced_key(k) -> bool:
+    """True for boolean-mask and integer-array key parts (reference
+    dndarray.py:1132): arrays of either package, numpy arrays, tensors and
+    lists."""
+    return isinstance(k, (list, np.ndarray, torch.Tensor, DNDarray))
+
+
+def _key_dtype_is_bool(k) -> bool:
+    if isinstance(k, DNDarray):
+        return k.dtype is types.bool
+    if isinstance(k, list):
+        return len(k) > 0 and isinstance(k[0], (bool, np.bool_))
+    if isinstance(k, torch.Tensor):
+        return k.dtype == torch.bool
+    return np.asarray(k).dtype == np.bool_
+
+
+def _key_ndim(k) -> int:
+    if isinstance(k, list):
+        return np.asarray(k).ndim
+    return k.ndim
+
+
+def _expand_ellipsis(key_t: tuple, ndim: int) -> tuple:
+    """Replace an Ellipsis by the full slices it stands for; a boolean key
+    counts its ndim."""
+    if not any(k is Ellipsis for k in key_t):
+        return key_t
+    explicit = sum(
+        _key_ndim(k) if _is_advanced_key(k) and _key_dtype_is_bool(k) else 1
+        for k in key_t
+        if k is not Ellipsis and k is not None
+    )
+    out: list = []
+    for k in key_t:
+        out.extend([slice(None)] * (ndim - explicit) if k is Ellipsis else [k])
+    return tuple(out)
+
+
+def _torch_key(t: torch.Tensor, key) -> Tuple[tuple, List[int]]:
+    """A numpy key as torch applies it to ``t``: integer arrays checked
+    against their axis (``IndexError`` out of range, without letting the
+    card assert), and each slice of negative step rewritten as a positive
+    one over the axis reversed. Returns the key and the axes to reverse."""
+    key_t = _expand_ellipsis(key if isinstance(key, tuple) else (key,), t.ndim)
+    out, flips, dim = [], [], 0
+    for k in key_t:
+        if k is None or isinstance(k, (bool, np.bool_)):
+            out.append(k)
+            continue
+        if isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+            out.append(k)
+            dim += max(k.ndim, 1) if k.ndim else 0
+            continue
+        if dim >= t.ndim:
+            raise IndexError(f"too many indices for array: array is {t.ndim}-dimensional")
+        n = t.shape[dim]
+        if isinstance(k, torch.Tensor):
+            if k.is_floating_point() or k.is_complex():
+                raise IndexError("arrays used as indices must be of integer (or boolean) type")
+            if k.dtype == torch.uint8:  # an index to numpy, a mask to torch
+                k = k.long()
+            if k.numel():
+                lo, hi = (int(v) for v in torch.aminmax(k))
+                bad = hi if hi >= n else lo if lo < -n else None
+                if bad is not None:
+                    raise IndexError(f"index {bad} is out of bounds for axis {dim} with size {n}")
+        elif isinstance(k, slice) and k.step is not None and k.step < 0:
+            start, stop, step = k.indices(n)
+            m = len(range(start, stop, step))
+            first = n - 1 - start
+            k = slice(first, first + (m - 1) * -step + 1, -step) if m else slice(0, 0)
+            flips.append(dim)
+        out.append(k)
+        dim += 1
+    return tuple(out), flips
+
+
+def _take(t: torch.Tensor, key) -> torch.Tensor:
+    """``t[key]`` with numpy's semantics, as a new contiguous tensor."""
+    key, flips = _torch_key(t, key)
+    if flips:
+        return t.flip(flips)[key].contiguous()
+    out = t[key]
+    return out.clone(memory_format=torch.contiguous_format) if out._is_view() else out.contiguous()
+
+
+def _put(t: torch.Tensor, key, value) -> None:
+    """``t[key] = value`` in place with numpy's semantics."""
+    key, flips = _torch_key(t, key)
+    if isinstance(value, torch.Tensor) and value.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+        value = value.clone()
+    if flips:
+        flipped = t.flip(flips)
+        flipped[key] = value
+        t.copy_(flipped.flip(flips))
+    else:
+        t[key] = value
+
+
+def _owned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when another tensor shares its storage, so that
+    a write into it reaches no other array."""
+    try:
+        # the storage object made for the call holds one reference
+        shared = torch._C._storage_Use_Count(t.untyped_storage()._cdata) > 2
+    except AttributeError:
+        shared = True
+    return t.clone() if shared else t
 
 
 def _distribute(array: torch.Tensor, split: Optional[int], comm: MeshCommunication) -> List[torch.Tensor]:

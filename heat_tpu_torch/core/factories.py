@@ -9,7 +9,7 @@ caller asks for the CPU.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -27,8 +27,11 @@ __all__ = [
     "empty_like",
     "eye",
     "full",
+    "from_partitioned",
     "full_like",
     "linspace",
+    "logspace",
+    "meshgrid",
     "ones",
     "ones_like",
     "zeros",
@@ -87,7 +90,10 @@ def array(
         if tdtype is None and nparr.dtype == np.float64 and not isinstance(obj, np.ndarray):
             # python floats default to float32 (reference factories.py:334-340)
             nparr = nparr.astype(np.float32)
-        t = torch.as_tensor(nparr).to(device=target, dtype=tdtype)
+        source = torch.as_tensor(nparr)
+        t = source.to(device=target, dtype=tdtype)
+        if copy and t.data_ptr() == source.data_ptr():
+            t = t.clone()  # the numpy array's memory stays its own
     while t.ndim < ndmin:
         t = t[None]
     split = sanitize_axis(t.shape, split) if split is not None else None
@@ -228,3 +234,41 @@ def linspace(
     split = sanitize_axis(t.shape, split) if split is not None else None
     out = _wrap(t, split, device, comm)
     return (out, step) if retstep else out
+
+
+def logspace(
+    start, stop, num: int = 50, endpoint: bool = True, base: float = 10.0,
+    dtype=None, split=None, device=None, comm=None,
+) -> DNDarray:
+    """``num`` samples on a log scale, ``base ** linspace(start, stop)``
+    taken as ``exp(linspace * log(base))`` (reference factories.py:260)."""
+    from . import exponential
+
+    y = linspace(start, stop, num=num, endpoint=endpoint, split=split, device=device, comm=comm)
+    out = exponential.exp(y * float(np.log(base)))
+    return out if dtype is None else out.astype(dtype)
+
+
+def meshgrid(*arrays, indexing: str = "xy") -> List[DNDarray]:
+    """Coordinate matrices from coordinate vectors (reference
+    factories.py:289); the outputs are split along 0 when an input is
+    split."""
+    if indexing not in ("xy", "ij"):
+        raise ValueError(f"indexing must be 'xy' or 'ij', got {indexing}")
+    if not arrays:
+        return []
+    first = next((a for a in arrays if isinstance(a, DNDarray)), None)
+    device, comm = _resolve(None, None if first is None else first.comm)
+    split = 0 if any(isinstance(a, DNDarray) and a.split is not None for a in arrays) else None
+    target = comm.devices[0]
+    tensors = [
+        a.larray.to(target) if isinstance(a, DNDarray) else torch.as_tensor(np.asarray(a), device=target)
+        for a in arrays
+    ]
+    return [_wrap(t.contiguous(), split, device, comm) for t in torch.meshgrid(*tensors, indexing=indexing)]
+
+
+def from_partitioned(x, comm=None) -> DNDarray:
+    """An array from any object with an array interface (reference
+    factories.py:318)."""
+    return array(x, comm=comm)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from .dndarray import DNDarray, _distribute
 
-__all__ = ["copy"]
+__all__ = ["copy", "sanitize_memory_layout"]
 
 
 def copy(a: DNDarray) -> DNDarray:
@@ -16,3 +16,11 @@ def copy(a: DNDarray) -> DNDarray:
     else:
         shards = [s.clone() for s in a.shards]
     return DNDarray(shards, a.gshape, a.dtype, a.split, a.device, a.comm)
+
+
+def sanitize_memory_layout(x, order: str = "C"):
+    """Accept a memory-layout request (reference memory.py:19): shards are
+    kept C-contiguous, so 'C' and 'F' leave ``x`` as it is."""
+    if order not in ("C", "F"):
+        raise ValueError(f"expected order to be 'C' or 'F', but was {order}")
+    return x

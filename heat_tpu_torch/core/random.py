@@ -9,7 +9,8 @@ that of the reference:
   whole, on the mesh's first device, by a generator seeded from
   (seed, counter), and only then cut into shards;
 * ``get_state``/``set_state`` round-trip;
-* the distributions are right (uniform, standard normal, uniform integers).
+* the distributions are right (uniform, standard normal, uniform integers,
+  permutations).
 """
 
 from __future__ import annotations
@@ -25,7 +26,24 @@ from .dndarray import DNDarray, _wrap
 from .factories import _resolve
 from .stride_tricks import sanitize_shape
 
-__all__ = ["get_state", "rand", "randint", "randn", "seed", "set_state"]
+__all__ = [
+    "get_state",
+    "normal",
+    "permutation",
+    "rand",
+    "randint",
+    "randn",
+    "random",
+    "random_integer",
+    "random_sample",
+    "randperm",
+    "ranf",
+    "sample",
+    "seed",
+    "set_state",
+    "standard_normal",
+    "uniform",
+]
 
 _ALGORITHM = "Torch"
 
@@ -124,3 +142,69 @@ def randint(
         return torch.randint(int(low), int(high), shape, generator=generator, dtype=dtype, device=device)
 
     return _draw(sampler, shape, dtype.torch_type(), split, device, comm)
+
+
+random_integer = randint
+
+
+def standard_normal(shape=None, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Standard-normal samples (reference random.py:179)."""
+    return randn(*sanitize_shape(() if shape is None else shape), dtype=dtype, split=split, device=device, comm=comm)
+
+
+def normal(mean=0.0, std=1.0, shape=None, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Normal samples, ``standard_normal * std + mean`` (reference
+    random.py:186); ``mean`` and ``std`` may be arrays."""
+    base = standard_normal(shape, dtype, split, device, comm)
+    first = base.comm.devices[0]
+    mean = mean.larray.to(first) if isinstance(mean, DNDarray) else mean
+    std = std.larray.to(first) if isinstance(std, DNDarray) else std
+    t = base.larray * std + mean
+    return _wrap(t, split if t.ndim else None, base.device, base.comm)
+
+
+def random(shape=None, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Uniform samples in [0, 1), numpy's name (reference random.py:197)."""
+    return rand(*sanitize_shape(() if shape is None else shape), dtype=dtype, split=split, device=device, comm=comm)
+
+
+random_sample = random
+ranf = random
+sample = random
+
+
+def uniform(low=0.0, high=1.0, size=None, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Uniform samples in [low, high) (reference random.py:209)."""
+    shape = sanitize_shape(() if size is None else size)
+    dtype = _float_dtype(dtype).torch_type()
+
+    def sampler(shape, generator, dtype, device):
+        return torch.empty(shape, dtype=dtype, device=device).uniform_(float(low), float(high), generator=generator)
+
+    return _draw(sampler, shape, dtype, split, device, comm)
+
+
+def _permuted(n: int, dtype, split, device, comm) -> DNDarray:
+    def sampler(shape, generator, dtype, device):
+        return torch.randperm(shape[0], generator=generator, dtype=dtype, device=device)
+
+    return _draw(sampler, (n,), dtype, split, device, comm)
+
+
+def permutation(x, split=None, device=None, comm=None) -> DNDarray:
+    """A random permutation of ``range(x)`` for an int, else ``x`` with its
+    first axis shuffled (reference random.py:221)."""
+    if isinstance(x, (int, np.integer)):
+        return _permuted(int(x), torch.int64, split, device, comm)
+    if isinstance(x, DNDarray):
+        order = _permuted(x.gshape[0], torch.int64, None, device or x.device, comm or x.comm)
+        t = x.larray[order.larray.to(x.larray.device)]
+        return _wrap(t, x.split if split is None else split, order.device, order.comm)
+    raise TypeError(f"x must be int or DNDarray, but was {type(x)}")
+
+
+def randperm(n: int, dtype=types.int64, split=None, device=None, comm=None) -> DNDarray:
+    """A random permutation of ``range(n)`` (reference random.py:233)."""
+    if not isinstance(n, (int, np.integer)):
+        raise TypeError(f"n must be an integer, got {type(n)}")
+    return _permuted(int(n), types.canonical_heat_type(dtype).torch_type(), split, device, comm)

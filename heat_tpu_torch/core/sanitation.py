@@ -4,15 +4,21 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+import torch
+
 from . import types
 from .dndarray import DNDarray
 
 __all__ = [
     "ReplicationWarning",
+    "sanitize_distribution",
     "sanitize_in",
+    "sanitize_in_tensor",
     "sanitize_infinity",
+    "sanitize_lshape",
     "sanitize_out",
     "sanitize_sequence",
+    "scalar_to_1d",
     "warn_replicated",
 ]
 
@@ -21,6 +27,41 @@ def sanitize_in(x) -> None:
     """Raise TypeError unless ``x`` is a DNDarray (reference sanitation.py:161)."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
+
+
+def sanitize_in_tensor(x) -> None:
+    """Raise TypeError unless ``x`` is a torch tensor (reference
+    sanitation.py:69)."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"input needs to be a torch.Tensor, but was {type(x)}")
+
+
+def sanitize_distribution(*args, target: DNDarray, diff_map=None):
+    """Give each operand of ``target``'s shape ``target``'s split axis
+    (reference sanitation.py:85): a resplit copy where it differs."""
+    from . import manipulations
+
+    out = []
+    for x in args:
+        sanitize_in(x)
+        if x.split != target.split and x.shape == target.shape:
+            x = manipulations.resplit(x, target.split)
+        out.append(x)
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def sanitize_lshape(array: DNDarray, tensor) -> None:
+    """Raise unless ``tensor`` has the shape of ``array``'s first logical
+    shard (reference sanitation.py:106)."""
+    if tuple(tensor.shape) != tuple(array.lshape):
+        raise ValueError(f"local shape {tuple(tensor.shape)} does not match expected {array.lshape}")
+
+
+def scalar_to_1d(x: DNDarray) -> DNDarray:
+    """A 0-d array as a one-element 1-d one (reference sanitation.py:138)."""
+    from . import manipulations
+
+    return manipulations.expand_dims(x, 0) if x.ndim == 0 else x
 
 
 def sanitize_infinity(x) -> Union[int, float]:

@@ -9,16 +9,20 @@ by shard, never E[x²] - E[x]². ``min``/``max`` propagate NaN across shards
 with :func:`mpi_argmin`/:func:`mpi_argmax`: the NaN side wins, and on a tie
 the lower global index.
 
-Not ported yet: ``median``, ``percentile``, ``histogram``, ``histc``,
-``bincount``, ``digitize`` and ``bucketize`` (the sort slice).
+The flat ``percentile``/``median`` of a split, unpadded array finds its
+order statistics by bisection (:func:`_order_stats_bisect`): each step
+counts the elements at or below the midpoint, shard by shard, and nothing
+waits for the device. The other order statistics sort the logical
+array. The histograms count through ``torch.bincount`` in int64, exactly.
 """
 
 from __future__ import annotations
 
 import builtins
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import factories, types
@@ -29,9 +33,9 @@ from ._operations import __reduce_op as _reduce_op
 from .arithmetics import SUM, _sum
 from .communication import _maximum, _minimum
 from .arithmetics import sum as _ht_sum
-from .dndarray import DNDarray
+from .dndarray import DNDarray, _wrap
 from .logical import any as any_
-from .manipulations import broadcast_to, reshape
+from .manipulations import _flip, _sort_keys, broadcast_to, reshape
 from .sanitation import sanitize_in, sanitize_out
 from .stride_tricks import sanitize_axis
 
@@ -39,15 +43,22 @@ __all__ = [
     "argmax",
     "argmin",
     "average",
+    "bincount",
+    "bucketize",
     "cov",
+    "digitize",
+    "histc",
+    "histogram",
     "kurtosis",
     "max",
     "maximum",
     "mean",
+    "median",
     "min",
     "minimum",
     "mpi_argmax",
     "mpi_argmin",
+    "percentile",
     "skew",
     "std",
     "var",
@@ -393,3 +404,327 @@ def var(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
     if types.heat_type_is_exact(x.dtype):
         x = x.astype(types.promote_types(x.dtype, types.float32))
     return _in_float32(lambda t: _reduce_op(_var_reduction(ddof), t, axis, keepdims=keepdims), x)
+
+
+# ---------------------------------------------------------------------------
+# counting (reference statistics.py:212-354)
+# ---------------------------------------------------------------------------
+def _fast_bincount(idx: torch.Tensor, length: int, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The counting core of bincount, histc and histogram (reference
+    statistics.py:212): ``torch.bincount`` of indices in [0, length), int64
+    counts without weights."""
+    return torch.bincount(idx, weights=weights, minlength=length)[:length]
+
+
+def _masked_counts(idx: torch.Tensor, valid: torch.Tensor, length: int) -> torch.Tensor:
+    """Exact int64 counts of ``idx`` where ``valid``: the others go to an
+    extra bin that is dropped."""
+    return _fast_bincount(torch.where(valid, idx, length), length + 1)[:length]
+
+
+def _replicated(t: torch.Tensor, ref: DNDarray) -> DNDarray:
+    return _wrap(t, None, ref.device, ref.comm)
+
+
+def bincount(x: DNDarray, weights: Optional[DNDarray] = None, minlength: int = 0) -> DNDarray:
+    """Occurrences of each non-negative integer (reference statistics.py:235);
+    int64 counts, or the sums of ``weights``."""
+    sanitize_in(x)
+    if not types.heat_type_is_exact(x.dtype):
+        raise TypeError(f"input must be integer type, got {x.dtype}")
+    flat = x.larray.reshape(-1)
+    length = builtins.max(minlength, int(flat.max()) + 1 if flat.numel() else minlength)
+    w = weights.larray.reshape(-1).to(flat.device) if weights is not None else None
+    return _replicated(_fast_bincount(flat, length, w), x)
+
+
+def bucketize(input: DNDarray, boundaries, right: bool = False, out_int32: bool = False, out=None) -> DNDarray:
+    """The bucket of each element, torch's rule (reference
+    statistics.py:249): ``right=False`` puts v at the first boundary >= v;
+    shard by shard."""
+    sanitize_in(input)
+    b = _as_tensor(boundaries, input)
+    shards = [
+        torch.bucketize(s, b.to(s.device), right=right, out_int32=out_int32)
+        for s in _own_shards(input)
+    ]
+    ret = _result(shards, input.gshape, input.split, input)
+    if out is not None:
+        out._replace(ret.shards, ret.gshape, ret.split)
+        return out
+    return ret
+
+
+def _own_shards(x: DNDarray) -> List[torch.Tensor]:
+    """The shards an elementwise op reads: each one when split, else the
+    first."""
+    return x.shards if x.split is not None else x.shards[:1]
+
+
+def _as_tensor(values, ref: DNDarray) -> torch.Tensor:
+    """An array argument (a DNDarray, tensor or array-like) as a tensor on
+    ``ref``'s first device."""
+    if isinstance(values, DNDarray):
+        values = values.larray
+    if not isinstance(values, torch.Tensor):
+        values = torch.as_tensor(np.asarray(values))
+    return values.to(ref.comm.devices[0])
+
+
+def digitize(x: DNDarray, bins, right: bool = False) -> DNDarray:
+    """The bin of each element, numpy's rule (reference statistics.py:299):
+    bins increasing or decreasing, ``right`` closing the bins on the right;
+    shard by shard."""
+    sanitize_in(x)
+    b = _as_tensor(bins, x)
+    if b.ndim != 1:
+        raise ValueError("object too deep for desired array")
+    steps = torch.diff(b.double())
+    increasing = bool((steps >= 0).all())
+    if not increasing and not bool((steps <= 0).all()):
+        raise ValueError("bins must be monotonically increasing or decreasing")
+    shards = []
+    for s in _own_shards(x):
+        dt = torch.promote_types(s.dtype, b.dtype)
+        v, e = s.to(dt), b.to(s.device, dt)
+        if increasing:
+            shards.append(torch.searchsorted(e, v, right=not right))
+        else:
+            shards.append(e.numel() - torch.searchsorted(e.flip(0), v, right=not right))
+    return _result(shards, x.gshape, x.split, x)
+
+
+def histc(input: DNDarray, bins: int = 100, min: float = 0.0, max: float = 0.0, out=None) -> DNDarray:
+    """Histogram of ``bins`` equal bins over [min, max], torch.histc's
+    definition (reference statistics.py:307): the data's range when min
+    equals max (the reference takes [min - 1, max + 1] unless both are 0),
+    that widened by 1 on each side when it is one value; elements outside
+    are not counted. The counts are exact (the reference sums float
+    weights, exact only to 2^24)."""
+    sanitize_in(input)
+    data = input.larray.reshape(-1)
+    lo, hi = float(min), float(max)
+    if lo == hi and data.numel():  # torch.histc's rule: the data's range
+        lo, hi = float(data.min()), float(data.max())
+    if lo == hi:
+        lo, hi = lo - 1.0, hi + 1.0
+    fdata = data if types.heat_type_is_inexact(input.dtype) else data.float()
+    idx = torch.floor((fdata - lo) / (hi - lo) * bins).to(torch.int64).clamp(0, bins - 1)
+    hist = _masked_counts(idx, (data >= lo) & (data <= hi), bins)
+    ret = _replicated(hist.to(input.dtype.torch_type()), input)
+    if out is not None:
+        out._replace(ret.shards, ret.gshape, ret.split)
+        return out
+    return ret
+
+
+def _bin_edges(data: torch.Tensor, bins, range) -> torch.Tensor:
+    """numpy's bin edges, computed as jnp.histogram_bin_edges does: in the
+    data's float type (float64 for integers), ``start (1 - k/b) + stop k/b``
+    and the stop itself last."""
+    dtype = data.dtype if data.is_floating_point() else torch.float64
+    if not isinstance(bins, (int, np.integer)):
+        bins = bins.larray if isinstance(bins, DNDarray) else bins
+        bins = bins if isinstance(bins, torch.Tensor) else torch.as_tensor(np.asarray(bins))
+        return bins.to(data.device, dtype)
+    if range is None:
+        lo, hi = data.min().to(dtype), data.max().to(dtype)
+    else:
+        lo, hi = (torch.tensor(float(v), dtype=dtype, device=data.device) for v in range)
+    same = bool(lo == hi)
+    lo, hi = (lo - 0.5, hi + 0.5) if same else (lo, hi)
+    step = torch.arange(bins, dtype=dtype, device=data.device) / bins
+    return torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])
+
+
+def histogram(a: DNDarray, bins=10, range=None, normed=None, weights=None, density=None):
+    """numpy's histogram (reference statistics.py:354): ``(hist, edges)``;
+    int64 counts without weights, counted by ``torch.bincount``, as the
+    card has no ``torch.histogram``."""
+    sanitize_in(a)
+    data = a.larray.reshape(-1)
+    edges = _bin_edges(data, bins, range)
+    n_bins = edges.numel() - 1
+    fdata = data.to(edges.dtype)
+    idx = (torch.searchsorted(edges, fdata, right=True) - 1).clamp(0, n_bins - 1)
+    valid = (fdata >= edges[0]) & (fdata <= edges[-1])
+    if weights is None:
+        hist = _masked_counts(idx, valid, n_bins)
+    else:
+        w = _as_tensor(weights, a).reshape(-1).to(edges.dtype)
+        hist = _fast_bincount(idx, n_bins, torch.where(valid, w, 0))
+    if density:
+        hist = hist.to(edges.dtype) / torch.diff(edges) / hist.sum().to(edges.dtype)
+    return _replicated(hist, a), _replicated(edges, a)
+
+
+# ---------------------------------------------------------------------------
+# order statistics (reference statistics.py:477-593)
+# ---------------------------------------------------------------------------
+_INTERPOLATIONS = ("linear", "lower", "higher", "midpoint", "nearest")
+
+
+def _as_float(x: DNDarray) -> DNDarray:
+    """Integers as the float type heat gives them."""
+    if types.heat_type_is_exact(x.dtype):
+        return x.astype(types.promote_types(x.dtype, types.float32))
+    return x
+
+
+def _order_stats_bisect(x: DNDarray, ranks: Sequence[int]) -> List[torch.Tensor]:
+    """The order statistics of ranks ``ranks`` of the flat split array
+    ``x`` by bisection (reference statistics.py:506): each step counts the
+    elements at or below the midpoint, a sum over the shards, never a
+    gather, and halves the bracket. The reference bisects the values
+    themselves, 64 times (100 for float64), and its upper end stalls one
+    float above the minimum when that is the statistic; here the bracket
+    is the values' order-preserving integer keys (:func:`_sort_keys`), so
+    32 steps (64 for float64) always end on the element itself. Each shard
+    sorts its own keys once, so that a step counts for every rank with one
+    ``searchsorted`` per shard, not a pass over the data (nor a mask of
+    every rank); memory stays one copy of the shard. No step reads a value back
+    to the host. NaN anywhere gives NaN. Returns one 0-d tensor per rank,
+    on the first device."""
+    comm = x.comm
+    shards = [s.reshape(-1) for s in x.shards]
+    keys = [torch.sort(_sort_keys(s))[0] for s in shards]
+    lo = comm.allreduce([torch.amin(s) for s in shards], "min")[0]
+    hi = comm.allreduce([torch.amax(s) for s in shards], "max")[0]
+    has_nan = torch.isnan(lo) | torch.isnan(hi)
+    # one bracket per rank, all stepped together; the targets made on the
+    # device, not copied from the host
+    targets = torch.stack([torch.full((), r + 1, dtype=torch.int64, device=lo.device) for r in ranks])
+    los = _sort_keys(lo.reshape(1)).expand(len(ranks)).clone()
+    his = _sort_keys(hi.reshape(1)).expand(len(ranks)).clone()
+    for _ in range(keys[0].element_size() * 8):
+        # floor((los + his) / 2) without overflow
+        mid = (los >> 1) + (his >> 1) + (los & his & 1)
+        count = comm.allreduce([torch.searchsorted(k, mid.to(k.device), right=True) for k in keys])[0]
+        ge = count >= targets
+        los, his = torch.where(ge, los, mid + 1), torch.where(ge, mid, his)
+    stats = torch.where(has_nan, math.nan, _flip(his).view(lo.dtype))
+    return list(stats.unbind())
+
+
+def _quantile_positions(q, n: int) -> np.ndarray:
+    """Positions ``q/100 (n - 1)`` in float64."""
+    return np.asarray(q, dtype=np.float64) / 100.0 * (n - 1)
+
+
+def _interpolate(lo, hi, pos: float, method: str, dtype: torch.dtype):
+    """One percentile from its two neighbouring order statistics; ``nearest``
+    rounds half to even, as numpy does."""
+    frac = pos - math.floor(pos)
+    if method == "lower":
+        return lo
+    if method == "higher":
+        return hi
+    if method == "nearest":
+        return lo if round(pos) <= math.floor(pos) else hi
+    if method == "midpoint":
+        return ((lo.double() + hi.double()) * 0.5).to(dtype)
+    return (lo.double() * (1 - frac) + hi.double() * frac).to(dtype)
+
+
+def percentile(
+    x: DNDarray,
+    q,
+    axis: Optional[int] = None,
+    out=None,
+    interpolation: str = "linear",
+    keepdims: bool = False,
+    keepdim=None,
+) -> DNDarray:
+    """The q-th percentiles (reference statistics.py:532-593), shaped like
+    ``q``, followed by the reduced shape for an ``axis``. Over the whole of
+    a split, unpadded array the order statistics come from
+    :func:`_order_stats_bisect` and are interpolated in the data's type, as
+    the reference does; otherwise from a sort of the logical array (with
+    ``torch.quantile``'s 2^24-element limit out of the way), interpolated in
+    float64. A slice holding NaN gives NaN."""
+    if keepdim is not None:
+        keepdims = keepdim
+    sanitize_in(x)
+    axis = sanitize_axis(x.gshape, axis)
+    if interpolation not in _INTERPOLATIONS:
+        raise ValueError("interpolation must be 'linear', 'lower', 'higher', 'midpoint', or 'nearest'")
+    if isinstance(q, DNDarray):
+        q = q.numpy()
+    q_shape = np.shape(q)
+    x = _as_float(x)
+    dtype = x.dtype.torch_type()
+    if axis is None and x.split is not None and not x.padded:
+        pos = _quantile_positions(q, x.size).reshape(-1)
+        ranks = [int(math.floor(p)) for p in pos] + [int(math.ceil(p)) for p in pos]
+        stats = _order_stats_bisect(x, ranks)
+        m = len(pos)
+        values = []
+        for i, p in enumerate(pos):
+            lo, hi = stats[i], stats[m + i]
+            if interpolation == "linear":  # in the data's type, as the reference does
+                values.append(lo + (hi - lo) * (p - math.floor(p)))
+            elif interpolation == "midpoint":
+                values.append((lo + hi) * 0.5)
+            else:
+                values.append(_interpolate(lo, hi, p, interpolation, dtype))
+        result = torch.stack(values).reshape(q_shape + ((1,) * x.ndim if keepdims else ()))
+    else:
+        result = _sorted_percentile(x.larray, q, axis, interpolation, keepdims, dtype)
+    ret = _wrap(result, None, x.device, x.comm)
+    if out is not None:
+        out._replace([s.to(out.dtype.torch_type()) for s in ret.shards], ret.gshape, ret.split)
+        return out
+    return ret
+
+
+def _sorted_percentile(t: torch.Tensor, q, axis, method: str, keepdims: bool, dtype) -> torch.Tensor:
+    """Percentiles from a sort along ``axis`` (of the flattened tensor for
+    None): the two order statistics of each position gathered by
+    ``narrow``, so nothing is copied from the host."""
+    shape = t.shape
+    work = t.reshape(-1) if axis is None else t.movedim(axis, -1)
+    sv = torch.sort(work, dim=-1)[0]
+    n = sv.shape[-1]
+    has_nan = torch.isnan(sv.narrow(-1, n - 1, 1)).squeeze(-1) if n and sv.is_floating_point() else None
+    values = []
+    for p in _quantile_positions(q, n).reshape(-1):
+        lo = sv.narrow(-1, int(math.floor(p)), 1).squeeze(-1)
+        hi = sv.narrow(-1, int(math.ceil(p)), 1).squeeze(-1)
+        v = _interpolate(lo, hi, float(p), method, dtype)
+        values.append(v if has_nan is None else torch.where(has_nan, math.nan, v))
+    result = torch.stack(values).reshape(np.shape(q) + tuple(values[0].shape))
+    if keepdims:
+        kept = [1] * len(shape) if axis is None else [1 if d == axis else s for d, s in enumerate(shape)]
+        result = result.reshape(np.shape(q) + tuple(kept))
+    return result
+
+
+def median(x: DNDarray, axis: Optional[int] = None, keepdims: bool = False, keepdim=None) -> DNDarray:
+    """The median, numpy's mean of the two middle values (torch.median
+    gives the lower one) (reference statistics.py:477): by bisection over
+    the whole of a split, unpadded array, else from a sort, the midpoint in
+    the data's type as the reference computes it."""
+    if keepdim is not None:
+        keepdims = keepdim
+    sanitize_in(x)
+    axis = sanitize_axis(x.gshape, axis)
+    if isinstance(axis, tuple):
+        raise TypeError("axis must be None or an int")
+    if axis is None and x.split is not None and not x.padded:
+        return percentile(x, 50.0, keepdims=keepdims)
+    x = _as_float(x)
+    t = x.larray
+    work = t.reshape(-1) if axis is None else t.movedim(axis, -1)
+    sv = torch.sort(work, dim=-1)[0]
+    n = sv.shape[-1]
+    lo = sv.narrow(-1, (n - 1) // 2, 1)
+    hi = sv.narrow(-1, n // 2, 1)
+    result = ((lo + hi) * 0.5).squeeze(-1)
+    if sv.is_floating_point() and n:
+        result = torch.where(torch.isnan(sv.narrow(-1, n - 1, 1)).squeeze(-1), math.nan, result)
+    if keepdims:
+        result = result.reshape([1] * t.ndim if axis is None else [1 if d == axis else s for d, s in enumerate(t.shape)])
+    split = None
+    if x.split is not None and axis is not None and axis != x.split:
+        split = x.split if keepdims else x.split - (axis < x.split)
+    return _wrap(result.contiguous(), split if result.ndim else None, x.device, x.comm)

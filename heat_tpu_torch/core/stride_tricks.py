@@ -6,7 +6,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape", "sanitize_slice"]
 
 
 def broadcast_shape(shape_a: Sequence[int], shape_b: Sequence[int]) -> Tuple[int, ...]:
@@ -72,3 +72,11 @@ def sanitize_shape(shape, lval: int = 0) -> Tuple[int, ...]:
             raise ValueError(f"negative dimensions are not allowed, got {dim}")
         out.append(int(dim))
     return tuple(out)
+
+
+def sanitize_slice(s: slice, max_dim: int) -> slice:
+    """A slice resolved against an extent into non-negative start, stop
+    and step (reference stride_tricks.py:87)."""
+    if not isinstance(s, slice):
+        raise TypeError("can only be used for slices")
+    return slice(*s.indices(max_dim))

@@ -224,3 +224,197 @@ def test_linspace(args, endpoint, split):
     np.testing.assert_allclose(got.numpy(), np.linspace(*args, endpoint=endpoint), rtol=1e-6, atol=1e-6)
     _, step = ht.linspace(*args, endpoint=endpoint, retstep=True)
     assert step == pytest.approx(ref.linspace(*args, endpoint=endpoint, retstep=True)[1])
+
+
+# ---------------------------------------------------------------------------
+# the rest of the array layer (the sort slice): pad in every mode, roll,
+# rot90, tile, repeat, diag/diagonal, the split family, balance, collect,
+# redistribute, logspace, meshgrid, from_partitioned and the sanitizers.
+# Exact, but for the float 'mean'/'linear_ramp' pads and logspace (1e-6
+# relative in float32: their arithmetic runs in other orders).
+# ---------------------------------------------------------------------------
+PAD_MODES = ["constant", "edge", "reflect", "symmetric", "wrap", "linear_ramp", "maximum", "minimum", "mean", "median"]
+
+
+@pytest.mark.parametrize("mode", PAD_MODES + ["empty"])
+@pytest.mark.parametrize("width", [2, ((1, 3), (2, 0)), ((0, 9), (8, 1))], ids=str)
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_pad_every_mode(dtype, split, width, mode):
+    if mode == "linear_ramp" and dtype == "int32":
+        # numpy 2 rounds an integer ramp down, numpy 1 toward zero; the
+        # port rounds down (numpy 2), checked below on the non-negative side
+        values = data((5, 4), dtype, 0, 9)
+        got = ht.pad(ht.array(values, split=split), width, mode=mode)
+        np.testing.assert_array_equal(got.numpy(), np.pad(values, width, mode=mode))
+        return
+    values = data((5, 4), dtype, -9, 9)
+    theirs, mine = both(values, split)
+    got = ht.pad(mine, width, mode=mode)
+    want = ref.pad(theirs, width, mode=mode)
+    if mode == "empty":  # numpy leaves the new values undefined: the shape and the interior
+        assert got.gshape == tuple(want.shape) and got.split == want.split
+        inner = tuple(slice(w[0], w[0] + n) for w, n in zip(np.broadcast_to(width, (2, 2)), values.shape))
+        np.testing.assert_array_equal(got.numpy()[inner], values)
+        return
+    expected = np.pad(values, width, mode=mode)
+    loose = dtype == "float32" and mode in ("mean", "linear_ramp", "median")
+    check(got, want, expected, **(dict(rtol=1e-6, atol=1e-6) if loose else EXACT))
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_pad_constant_values_and_errors(split):
+    values = data((5, 4), "float64")
+    theirs, mine = both(values, split)
+    for width, cv in ((1, 7.5), (((1, 2), (0, 1)), ((1.0, 2.0), (3.0, 4.0))), ((2, 1), -1)):
+        check(ht.pad(mine, width, constant_values=cv), ref.pad(theirs, width, constant_values=cv),
+              np.pad(values, width, constant_values=cv), **EXACT)
+    with pytest.raises(ValueError):
+        ht.pad(mine, -1)
+    with pytest.raises(ValueError):
+        ht.pad(mine, 1, mode="bogus")
+    with pytest.raises(ValueError):
+        ht.pad(ht.zeros((0, 3)), 1, mode="edge")
+
+
+@pytest.mark.parametrize("shift,axis", [(3, None), (-2, 0), (4, 1), ((1, -2), (0, 1)), (15, 0)], ids=str)
+@pytest.mark.parametrize("split", SPLITS)
+def test_roll(split, shift, axis):
+    values = data((13, 7), "int64")
+    theirs, mine = both(values, split)
+    check(ht.roll(mine, shift, axis), ref.roll(theirs, shift, axis), np.roll(values, shift, axis), **EXACT)
+    check(mine.roll(shift, axis), theirs.roll(shift, axis), np.roll(values, shift, axis), **EXACT)
+
+
+@pytest.mark.parametrize("k,axes", [(1, (0, 1)), (2, (0, 1)), (3, (1, 0)), (-1, (0, 2)), (1, (2, 1))], ids=str)
+@pytest.mark.parametrize("split", [None, 0, 1, 2])
+def test_rot90(split, k, axes):
+    values = data((5, 4, 3), "float32")
+    theirs, mine = both(values, split)
+    check(ht.rot90(mine, k, axes), ref.rot90(theirs, k, axes), np.rot90(values, k, axes), **EXACT)
+    with pytest.raises(ValueError):
+        ht.rot90(mine, 1, (0, 0))
+
+
+@pytest.mark.parametrize("reps", [2, (2, 1), (1, 3), (2, 1, 2)], ids=str)
+@pytest.mark.parametrize("split", SPLITS)
+def test_tile(split, reps):
+    values = data((5, 4), "int32")
+    theirs, mine = both(values, split)
+    check(ht.tile(mine, reps), ref.tile(theirs, reps), np.tile(values, reps), **EXACT)
+
+
+@pytest.mark.parametrize("repeats,axis", [(2, None), (3, 0), ([1, 0, 2, 1], 1), (2, 1)], ids=str)
+@pytest.mark.parametrize("split", SPLITS)
+def test_repeat(split, repeats, axis):
+    values = data((5, 4), "float64")
+    theirs, mine = both(values, split)
+    check(ht.repeat(mine, repeats, axis), ref.repeat(theirs, repeats, axis), np.repeat(values, repeats, axis), **EXACT)
+    if isinstance(repeats, list):
+        check(ht.repeat(mine, ht.array(repeats), axis), ref.repeat(theirs, ref.array(repeats), axis),
+              np.repeat(values, repeats, axis), **EXACT)
+    with pytest.raises(TypeError):
+        ht.repeat(mine, 1.5)
+
+
+@pytest.mark.parametrize("offset", [0, 1, -2])
+@pytest.mark.parametrize("split", SPLITS)
+def test_diag_and_diagonal(split, offset):
+    m = data((6, 5), "float32")
+    theirs, mine = both(m, split)
+    check(ht.diag(mine, offset), ref.diag(theirs, offset), np.diag(m, offset), **EXACT)
+    check(ht.diagonal(mine, offset, 1, 0), ref.diagonal(theirs, offset, 1, 0), np.diagonal(m, offset, 1, 0), **EXACT)
+    v = data((7,), "int32")
+    theirs, mine = both(v, None if split == 1 else split)
+    check(ht.diag(mine, offset), ref.diag(theirs, offset), np.diag(v, offset), **EXACT)
+    cube = data((4, 3, 5), "float64")
+    for s in (None, 0, 1, 2):
+        theirs, mine = both(cube, s)
+        check(ht.diagonal(mine, 0, 0, 2), ref.diagonal(theirs, 0, 0, 2), np.diagonal(cube, 0, 0, 2), **EXACT)
+    with pytest.raises(ValueError):
+        ht.diagonal(mine, 0, 1, 1)
+
+
+@pytest.mark.parametrize("sections", [2, [1, 4], [3, 3, 9]], ids=str)
+@pytest.mark.parametrize("split", SPLITS)
+def test_split_family(split, sections):
+    values = data((6, 4, 2), "int64")
+    theirs, mine = both(values, split)
+    for name, axis in (("split", 0), ("vsplit", 0), ("hsplit", 1), ("dsplit", 2)):
+        if name == "dsplit" and sections != 2:
+            continue
+        got = getattr(ht, name)(mine, sections) if name != "split" else ht.split(mine, sections, axis)
+        expected = getattr(np, name)(values, sections)
+        assert len(got) == len(expected)
+        if any(e.size == 0 for e in expected) or sorted(np.atleast_1d(sections)) != list(np.atleast_1d(sections)) \
+                or np.max(sections) > values.shape[axis]:
+            # the reference cannot place an empty piece, and jnp.split refuses
+            # split points past the axis, which numpy takes: numpy alone
+            for g, e in zip(got, expected):
+                assert g.gshape == e.shape and g.split == split
+                np.testing.assert_array_equal(g.numpy(), e)
+            continue
+        want = getattr(ref, name)(theirs, sections) if name != "split" else ref.split(theirs, sections, axis)
+        for g, w, e in zip(got, want, expected):
+            check(g, w, e, **EXACT)
+    with pytest.raises(ValueError):
+        ht.split(mine, 4, 0)
+    flat = ht.array(np.arange(6), split=None if split is None else 0)
+    assert [p.numpy().tolist() for p in ht.hsplit(flat, 3)] == [[0, 1], [2, 3], [4, 5]]
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_balance_collect_redistribute_vstack_ravel(split):
+    values = data((13, 7), "float32")
+    theirs, mine = both(values, split)
+    assert ht.balance(mine) is mine
+    copied = ht.balance(mine, copy=True)
+    check(copied, ref.balance(theirs, copy=True), values, **EXACT)
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(copied.shards, mine.shards))
+    check(ht.collect(mine), ref.collect(theirs), values, **EXACT)
+    check(mine.redistribute(), theirs.redistribute(), values, **EXACT)
+    check(ht.vstack([mine, mine]), ref.vstack([theirs, theirs]), np.vstack([values, values]), **EXACT)
+    check(ht.ravel(mine), ref.ravel(theirs), values.ravel(), **EXACT)
+
+
+@pytest.mark.parametrize("split", [None, 0])
+def test_logspace_meshgrid_from_partitioned(split):
+    for args, kwargs in (((0, 3, 7), {}), ((1.0, 2.0, 5), dict(base=2.0, endpoint=False)), ((-1, 1, 4), dict(dtype=ht.float64))):
+        ref_kwargs = {k: (ref.float64 if v is ht.float64 else v) for k, v in kwargs.items()}
+        got, want = ht.logspace(*args, split=split, **kwargs), ref.logspace(*args, split=split, **ref_kwargs)
+        expected = np.logspace(*args, **{k: v for k, v in kwargs.items() if k != "dtype"})
+        # heat's float32 by default; the reference's linspace gives float64 in x64 mode
+        assert got.dtype is kwargs.get("dtype", ht.float32) and got.split == want.split
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()), rtol=1e-6)
+        np.testing.assert_allclose(got.numpy(), expected, rtol=1e-6)
+    x, y = data((4,), "float32"), data((3,), "float32", seed=1)
+    for indexing in ("xy", "ij"):
+        (rx, mx), (ry, my) = both(x, split), both(y, None)
+        got = ht.meshgrid(mx, my, indexing=indexing)
+        want = ref.meshgrid(rx, ry, indexing=indexing)
+        for g, w, e in zip(got, want, np.meshgrid(x, y, indexing=indexing)):
+            check(g, w, e, **EXACT)
+    assert ht.meshgrid() == []
+    with pytest.raises(ValueError):
+        ht.meshgrid(ht.array(x), indexing="xx")
+    check(ht.from_partitioned(x), ref.from_partitioned(x), x, **EXACT)
+
+
+def test_sanitizers():
+    values = data((13, 7), "float32")
+    theirs, mine = both(values, 0)
+    other = ht.array(values, split=1)
+    got = ht.sanitize_distribution(other, target=mine)
+    assert got.split == 0 and other.split == 1
+    np.testing.assert_array_equal(got.numpy(), values)
+    ht.sanitize_lshape(mine, torch.zeros(mine.lshape))
+    with pytest.raises(ValueError):
+        ht.sanitize_lshape(mine, torch.zeros((1, 1)))
+    ht.sanitize_in_tensor(torch.zeros(2))
+    with pytest.raises(TypeError):
+        ht.sanitize_in_tensor(np.zeros(2))
+    assert ht.scalar_to_1d(ht.array(3.0)).gshape == (1,) == tuple(ref.scalar_to_1d(ref.array(3.0)).shape)
+    assert ht.sanitize_slice(slice(-3, None, -1), 13) == ref.sanitize_slice(slice(-3, None, -1), 13)
+    assert ht.sanitize_memory_layout(mine, "F") is mine
+    with pytest.raises(ValueError):
+        ht.sanitize_memory_layout(mine, "X")

@@ -363,3 +363,193 @@ def test_uint8_sums_give_numpys_value(name, p):
     assert mine.item() == int(expected)  # 307 for the sums: no wrap at 256
     with pytest.raises(TypeError):
         getattr(ref, name)(ref.array(values, split=0))
+
+
+# ---------------------------------------------------------------------------
+# order statistics and counting (the sort slice): percentile, median,
+# bincount, bucketize, digitize, histc, histogram. Order statistics and
+# counts are exact; interpolated float32 percentiles within 1e-6 relative,
+# float64 within 1e-12. The reference's dense percentile computes in float64
+# under the tests' x64 mode, the port in the data's float type (heat's), so
+# there the values are compared and the type is the data's.
+# ---------------------------------------------------------------------------
+INTERPOLATIONS = ["linear", "lower", "higher", "midpoint", "nearest"]
+INTERPOLATED = {"float32": dict(rtol=1e-6, atol=1e-6), "float64": dict(rtol=1e-12, atol=1e-12)}
+
+
+def _order_inputs(n, dtype, seed=0):
+    """Values with ties, so that ranks land on repeated values too."""
+    rng = np.random.default_rng(seed)
+    return np.round(rng.normal(3.0, 2.0, n), 1).astype(dtype)
+
+
+@pytest.mark.parametrize("interpolation", INTERPOLATIONS)
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int32"])
+@pytest.mark.parametrize("q", [50.0, [1.0, 50.0, 99.0], [[0.0, 25.0], [75.0, 100.0]], 37.5], ids=str)
+def test_percentile_by_bisection_equals_the_reference(q, dtype, interpolation):
+    """The flat percentile of a split, unpadded array: its order statistics
+    by bisection equal the reference's and the sorted ranks exactly."""
+    n = 24 * ht.communication._cpu_mesh_size()
+    values = _order_inputs(n, dtype)
+    theirs, mine = both(values, 0)
+    assert not mine.padded
+    got = ht.percentile(mine, q, interpolation=interpolation)
+    want = ref.percentile(theirs, q, interpolation=interpolation)
+    assert got.dtype.__name__ == want.dtype.__name__ and got.gshape == tuple(want.shape) and got.split is None
+    expected = np.percentile(values.astype(np.float64), q, method=interpolation)
+    np.testing.assert_allclose(got.numpy(), expected, **INTERPOLATED["float32" if dtype != "float64" else "float64"])
+    if interpolation in ("lower", "higher"):  # the ranks themselves, exactly
+        np.testing.assert_array_equal(got.numpy(), np.percentile(values, q, method=interpolation).astype(got.numpy().dtype))
+    # the reference's bisection stalls above the minimum when the minimum
+    # is the statistic (the case below); elsewhere the two are equal
+    agree = np.broadcast_to(np.asarray(q, np.float64) / 100 * (n - 1) >= 1, np.shape(got.numpy()))
+    tolerance = EXACT if interpolation in ("lower", "higher", "nearest") or dtype == "float64" else INTERPOLATED["float32"]
+    np.testing.assert_allclose(got.numpy()[agree], np.asarray(want.numpy())[agree], **tolerance)
+
+
+def test_percentile_of_the_minimum_is_the_minimum():
+    """A percentile whose order statistic is the minimum: numpy and the port
+    give the minimum, the reference's value bisection one float above it
+    (its upper end only ever moves to midpoints above the minimum)."""
+    low = np.nextafter(np.float32(1.0), np.float32(2.0))  # an odd last bit: the midpoint rounds up
+    values = np.array([4.0, low, 3.0, 2.0] * ht.communication._cpu_mesh_size(), np.float32)
+    theirs, mine = both(values, 0)
+    assert ht.percentile(mine, 0.0).numpy() == low == np.percentile(values, 0.0)
+    assert ref.percentile(theirs, 0.0).numpy() == np.nextafter(low, np.float32(2.0))
+
+
+@pytest.mark.parametrize("interpolation", INTERPOLATIONS)
+@pytest.mark.parametrize("keepdims", [False, True])
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("split", SPLITS)
+def test_percentile_by_sort(split, axis, keepdims, interpolation):
+    values = _order_inputs(13 * 7, "float32", seed=1).reshape(13, 7)
+    values[4, 2] = np.nan if axis == 1 else values[4, 2]
+    theirs, mine = both(values, split)
+    q = [10.0, 50.0, 90.0]
+    got = ht.percentile(mine, q, axis=axis, interpolation=interpolation, keepdims=keepdims)
+    want = ref.percentile(theirs, q, axis=axis, interpolation=interpolation, keepdims=keepdims)
+    assert got.dtype is ht.float32 and got.gshape == tuple(want.shape) and got.split is None
+    expected = np.percentile(values.astype(np.float64), q, axis=axis, method=interpolation, keepdims=keepdims)
+    np.testing.assert_allclose(got.numpy(), expected, equal_nan=True, **INTERPOLATED["float32"])
+    if interpolation != "nearest":  # see the case below
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()), equal_nan=True, **INTERPOLATED["float32"])
+
+
+def test_percentile_nearest_rounds_half_to_even_as_numpy_does():
+    """numpy's 'nearest' rounds a position of k + 1/2 to the even neighbour;
+    the reference's dense path (jnp.percentile) takes the lower one. The
+    port sides with numpy. Its bisection path rounds half to even too."""
+    values = np.arange(6, dtype=np.float64)  # q=70 -> position 3.5
+    theirs, mine = both(values, None)
+    assert np.percentile(values, 70, method="nearest") == 4.0
+    # 3.0 with jnp.percentile's rule (the reference's), 4.0 where jax rounds as numpy
+    assert float(ref.percentile(theirs, 70.0, interpolation="nearest").item()) in (3.0, 4.0)
+    assert float(ht.percentile(mine, 70.0, interpolation="nearest").item()) == 4.0
+    assert float(ht.percentile(ht.array(values, split=0), 70.0, interpolation="nearest").item()) == 4.0
+
+
+@pytest.mark.parametrize("keepdims", [False, True])
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int64"])
+def test_median(dtype, split, axis, keepdims):
+    values = _order_inputs(12 * 8, dtype, seed=2).reshape(12, 8)
+    theirs, mine = both(values, split)
+    got = ht.median(mine, axis=axis, keepdims=keepdims)
+    want = ref.median(theirs, axis=axis, keepdims=keepdims)
+    expected = np.median(values, axis=axis, keepdims=keepdims)
+    assert got.gshape == tuple(want.shape) and got.split == want.split
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()), **INTERPOLATED["float64" if dtype != "float32" else "float32"])
+    np.testing.assert_allclose(got.numpy(), expected, **INTERPOLATED["float64" if dtype != "float32" else "float32"])
+    assert mine.median(axis=axis).gshape == got.gshape if not keepdims else True
+
+
+def test_median_is_numpys_not_torchs():
+    values = np.array([4.0, 1.0, 3.0, 2.0], np.float32)
+    assert float(torch.median(torch.from_numpy(values))) == 2.0
+    for split in (None, 0):
+        assert float(ht.median(ht.array(values, split=split)).item()) == 2.5
+
+
+def test_bisection_reads_nothing_back(monkeypatch):
+    """No step of the bisection converts a tensor to a host value."""
+    values = _order_inputs(24 * ht.communication._cpu_mesh_size(), "float32", seed=3)
+    mine = ht.array(values, split=0)
+    for name in ("item", "tolist", "__bool__", "__float__", "__int__"):
+        monkeypatch.setattr(torch.Tensor, name, lambda *a, _n=name: pytest.fail(f"Tensor.{_n}"))
+    got = ht.percentile(mine, [1.0, 50.0, 99.0])
+    monkeypatch.undo()
+    np.testing.assert_allclose(got.numpy(), np.percentile(values.astype(np.float64), [1, 50, 99]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_bincount(dtype, split):
+    values = np.random.default_rng(4).integers(0, 9, 41).astype(dtype)
+    weights = data((41,), "float64")
+    theirs, mine = both(values, split)
+    check(ht.bincount(mine), ref.bincount(theirs), np.bincount(values), **EXACT)
+    check(ht.bincount(mine, minlength=12), ref.bincount(theirs, minlength=12), np.bincount(values, minlength=12), **EXACT)
+    w_ref, w_mine = both(weights, split)
+    check(ht.bincount(mine, weights=w_mine), ref.bincount(theirs, weights=w_ref), np.bincount(values, weights), **REDUCTION["float64"])
+    with pytest.raises(TypeError):
+        ht.bincount(ht.array(weights))
+
+
+@pytest.mark.parametrize("right", [False, True])
+@pytest.mark.parametrize("split", SPLITS)
+def test_bucketize_and_digitize(split, right):
+    values = np.round(data((13, 7), "float32", -4, 4), 0)  # on the boundaries too
+    theirs, mine = both(values, split)
+    inc = np.array([-3.0, -1.0, 0.0, 2.0, 3.0], np.float32)
+    expected = np.searchsorted(inc, values, side="right" if right else "left")
+    check(ht.bucketize(mine, ht.array(inc), right=right), ref.bucketize(theirs, ref.array(inc), right=right), expected, **EXACT)
+    check(ht.bucketize(mine, inc, out_int32=True), ref.bucketize(theirs, inc, out_int32=True), np.searchsorted(inc, values), **EXACT)
+    for bins in (inc, inc[::-1].copy()):
+        check(ht.digitize(mine, bins, right=right), ref.digitize(theirs, bins, right=right), np.digitize(values, bins, right=right), **EXACT)
+    with pytest.raises(ValueError):
+        ht.digitize(mine, np.array([0.0, 2.0, 1.0]))
+
+
+def test_digitize_takes_decreasing_bins_where_torch_does_not():
+    bins = np.array([5.0, 2.0, 0.0])
+    values = np.array([6.0, 5.0, 3.0, 2.0, 1.0, 0.0, -1.0])
+    for right in (False, True):
+        np.testing.assert_array_equal(ht.digitize(ht.array(values), bins, right=right).numpy(), np.digitize(values, bins, right=right))
+
+
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int32"])
+def test_histc(dtype, split):
+    values = data((13, 7), dtype, -5, 5)
+    theirs, mine = both(values, split)
+    for args in ((10, 0.0, 0.0), (7, -2.0, 3.0), (4, 1.0, 1.0)):
+        got = ht.histc(mine, *args)
+        expected = torch.histc(torch.from_numpy(values).double(), *args).numpy().astype(dtype)
+        if args[1] == args[2] != 0:
+            # torch.histc takes the data's range; the reference [min - 1, max + 1]
+            np.testing.assert_array_equal(got.numpy(), expected)
+            assert ref.histc(theirs, *args).numpy().sum() < values.size
+            continue
+        check(got, ref.histc(theirs, *args), expected, **EXACT)
+
+
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int64"])
+def test_histogram(dtype, split):
+    values = data((13, 7), dtype, -5, 5)
+    theirs, mine = both(values, split)
+    for kwargs in (dict(), dict(bins=4, range=(-2.0, 3.0)), dict(bins=np.array([-5.0, -1.0, 0.0, 4.0])), dict(bins=6, density=True)):
+        (h, e), (rh, re_) = ht.histogram(mine, **kwargs), ref.histogram(theirs, **kwargs)
+        nh, ne = np.histogram(values, **kwargs)
+        assert h.gshape == tuple(rh.shape) and e.gshape == tuple(re_.shape)
+        # XLA may contract the edges' a(1 - s) + b s into one FMA: an ulp
+        np.testing.assert_allclose(e.numpy(), np.asarray(re_.numpy()), **INTERPOLATED["float32" if dtype == "float32" else "float64"])
+        np.testing.assert_allclose(h.numpy(), np.asarray(rh.numpy()), **INTERPOLATED["float32" if dtype == "float32" else "float64"])
+        np.testing.assert_allclose(h.numpy(), nh, rtol=1e-6)
+        if not kwargs.get("density"):
+            assert h.dtype is ht.int64
+    weights = data((13, 7), "float64", 0, 1)
+    (h, _), (rh, _) = ht.histogram(mine, bins=5, weights=ht.array(weights)), ref.histogram(theirs, bins=5, weights=ref.array(weights))
+    np.testing.assert_allclose(h.numpy(), np.asarray(rh.numpy()), **INTERPOLATED["float64"])
