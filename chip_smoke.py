@@ -98,7 +98,24 @@ Phases, in order; any failure exits non-zero:
    ``ppermute``s and its peak memory, topk's one-``allreduce`` merge,
    ``unique``, ``median``, getitem and setitem across shard boundaries,
    halos, ``pad``, ``roll`` and ``diag``;
-13. print the phase-9 to 12 numbers with the card, the card's name
+13. drive the estimators (no kernel of their own; Spectral's KMeans runs
+   the Lloyd kernel): KMedians and KMedoids on BASELINE config 3's table
+   (10,000,000 x 16 float32, k = 8, 8 iterations from a precomputed init),
+   centers against float64 medians, labels against a float64 argmin,
+   medoids rows of the data, peak memory under half the k·n·f copy of
+   heat_tpu's form, beside torch.sort of the same values; Spectral on
+   40,000 x 16 (8 blobs, n_lanczos 300) with the Lloyd kernel's launches
+   counted over the fit, the blobs recovered and T's 8 smallest
+   eigenvalues against float64 subspace iteration on L, each stage timed;
+   KNN (k = 5) on BASELINE config 2's 100,000 x 64 with 10,000 queries
+   against a float64 vote; GaussianNB on 10,000,000 x 16 against float64
+   moments and partial_fit in two halves; Lasso by benchmarks/lasso.py's
+   protocol, at 10,000,000 x 64 (Gram mode) and 200,000 x 2,100 (residual
+   mode) against float64 coordinate descent; the steps of
+   examples/cluster_demo.py, knn_demo.py and lasso_demo.py; then four
+   shards of the card against one (NaN padding, two allreduces for a
+   Gram-mode Lasso fit) and the batch-parallel init's one allgather;
+14. print the phase-9 to 13 numbers with the card, the card's name
    and power limit, one JSON line of per-kernel numbers, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -2694,6 +2711,589 @@ def array_layer_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the estimators (no kernel of their own; Spectral reaches B1)
+# ---------------------------------------------------------------------------
+EST_TABLE = (10_000_000, 16)  # BASELINE config 3
+EST_K = 8
+EST_ITERS = 8
+EST_F64_ROWS = 1_000_000  # rows per float64 block of the checks
+SPECTRAL_N = 40_000  # the strong size of BASELINE's distance protocol (BASELINE.md:15)
+SPECTRAL_F = 16
+SPECTRAL_SPREAD = 4.8  # blob means ~ N(0, 4.8²) per feature, unit noise
+SPECTRAL_GAMMA = 1.0 / 32.0  # rbf sigma = sqrt(1/(2 gamma)) = 4
+SPECTRAL_LANCZOS = 300
+SUBSPACE_BLOCK, SUBSPACE_STEPS = 16, 80
+KNN_TRAIN = (100_000, 64)  # BASELINE config 2
+KNN_QUERIES, KNN_K, KNN_CLASSES, KNN_BLOCK = 10_000, 5, 8, 1_000
+NB_CLASSES = 8
+LASSO_PROTOCOL = (100_000, 64, 0.1, 20)  # benchmarks/lasso.py: n, f, lambda, sweeps
+LASSO_GRAM = (10_000_000, 64, 0.1, 20)
+LASSO_RESIDUAL = (200_000, 2_100, 0.1, 3)  # m² > 2^22: the incremental-residual sweep
+DEMO_SEEDS, DEMO_MIN_MET = 20, 10
+EST_P = 4
+EST_MESH_TABLE = (1_000_003, 16)  # 4 shards of 250,001 rows: one padding row
+EST_MESH_QUERIES = 1_000
+BATCHPARALLEL_ROWS = 1_000_000  # 4 unpadded shards
+# blob means ~ N(0, 30²) per feature: the init's last kmeans++ runs over
+# only p·k candidates, ~4 per blob, unweighted, and puts two centers into
+# one blob often unless the blobs lie far apart; heat_tpu recovers 8 blobs
+# of means ~ N(0, 3²) from 8 of 20 draws, of N(0, 30²) from 20 of 20
+# (4 CPU devices), the port from 13 and 40 of 40
+BATCHPARALLEL_SPREAD = 30.0
+# Bounds of phase 13, with u = 2^-24:
+# * KMedians' centers against float64 midpoints of each cluster's sorted
+#   columns: the port rounds (a + b)·0.5 of two float32 values once, so
+#   |c − m| <= u|m|;
+# * labels against float64 distances to the last iteration's input
+#   centers: rows whose two nearest squared distances lie within twice the
+#   quadratic expansion's bound, 4(f+2)u(|x|² + |c|²), may go either way;
+# * a medoid against the member nearest the float64 median: its distance
+#   exceeds the least by at most 2((f+2)u·d + 2u|m|√d), d its distance;
+# * T's 8 smallest eigenvalues against float64 subspace iteration on L:
+#   1e-5, Lanczos in float32 on a matrix of norm <= 2 (~80u);
+# * GaussianNB's moments against float64: float32 sums of 1.25·10⁶ terms,
+#   |d| <= 1e-4 (|μ| + σ) for theta_ and 1e-4 σ² for var_; partial_fit in
+#   two halves against fit within the same bounds; probability rows sum to
+#   1 within 1e-5;
+# * Lasso's θ against a float64 coordinate descent on the float64 Gram:
+#   float32 sums over n samples err by ~u√n of their terms, so
+#   |d| <= 8u√n · max(1, max|θ64|);
+# * examples/cluster_demo.py: an init draw that puts two centers into one
+#   class is the algorithm's local minimum, not a fault: heat_tpu itself
+#   meets tests/test_ml.py's thresholds on 17 of 20 kmeans++ draws and on
+#   37 of 50 of Spectral's random ones on the CPU, so at least half of
+#   DEMO_SEEDS = 20 draws must (a 0.5% chance of failing at 74%);
+# * four shards of the card against one: KMedians, KMedoids and GaussianNB
+#   bit for bit (the same logical rows); Lasso within the bound above;
+#   KNN equal but for queries within twice the expansion's bound of a tie.
+LASSO_UNITS = 8
+NB_BOUND = 1e-4
+EIGEN_BOUND = 1e-5
+
+
+def _same_partition(a, b) -> bool:
+    """True when the labels a and b split the rows alike, up to renaming."""
+    import torch
+
+    pairs = torch.unique(a.long() * (int(b.max()) + 1) + b.long()).numel()
+    return pairs == torch.unique(a).numel() == torch.unique(b).numel()
+
+
+def _blobs_on_card(n, f, k, spread, seed):
+    """(data f32, blob ids int64, blob means) made on the card from seed."""
+    import torch
+
+    card = torch.device("cuda", 0)
+    gen = torch.Generator(card).manual_seed(seed)
+    means = torch.randn(k, f, device=card, generator=gen) * spread
+    ids = torch.randint(0, k, (n,), device=card, generator=gen)
+    data = torch.randn(n, f, device=card, generator=gen)
+    data += means[ids]
+    return data, ids, means
+
+
+def _midpoint_medians64(data, labels, k):
+    """(k, f) float64 medians of each cluster's columns, the mean of the two
+    middle values for an even count."""
+    import torch
+
+    out = []
+    for c in range(k):
+        v = torch.sort(data[labels == c].double(), dim=0)[0]
+        m = v.shape[0]
+        out.append((v[(m - 1) // 2] + v[m // 2]) / 2)
+    return torch.stack(out)
+
+
+def _check_labels64(label, data, centers, labels) -> int:
+    """Labels against float64 distances to ``centers``; returns the rows
+    exempt as near ties."""
+    import torch
+
+    f = data.shape[1]
+    c64 = centers.double()
+    cn = (c64 * c64).sum(1)
+    exempt = 0
+    for r0 in range(0, data.shape[0], EST_F64_ROWS):
+        x = data[r0:r0 + EST_F64_ROWS].double()
+        d2 = ((x[:, None, :] - c64[None]) ** 2).sum(-1)
+        two = torch.topk(d2, 2, dim=1, largest=False)
+        bound = 8 * (f + 2) * 2.0**-24 * ((x * x).sum(1) + cn[two.indices[:, 0]])
+        tie = (two.values[:, 1] - two.values[:, 0]) <= bound
+        wrong = (labels[r0:r0 + EST_F64_ROWS] != two.indices[:, 0]) & ~tie
+        if bool(wrong.any()):
+            raise AssertionError(f"{label}: {int(wrong.sum())} labels differ from the float64 argmin")
+        exempt += int(tie.sum())
+    return exempt
+
+
+def kmedians_phase(ht) -> dict:
+    """KMedians and KMedoids on BASELINE config 3's table from a precomputed
+    init: centers against float64 medians, labels against a float64
+    argmin, medoids rows of the data; time, peak memory and torch.sort of
+    the same 1.6·10⁸ values."""
+    import torch
+
+    from heat_tpu_torch.cluster.kmedians import _value_orders
+
+    n, f = EST_TABLE
+    k = EST_K
+    print(f"phase estimators: KMedians and KMedoids on {n} x {f} float32, k={k}, {EST_ITERS} iterations", flush=True)
+    data, ids, means = _blobs_on_card(n, f, k, 3.0, SEED + 31)
+    x = ht.array(data, split=0, copy=False)
+    init = ht.array(means + 0.5)
+    u = 2.0**-24
+    out = {"reference_copy_gb": k * n * f * 4 / 1e9}
+    for name in ("KMedians", "KMedoids"):
+        cls = getattr(ht.cluster, name)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        est, first_ms = _timed(lambda: cls(n_clusters=k, init=init, max_iter=EST_ITERS).fit(x))
+        peak = torch.cuda.max_memory_allocated() - base
+        _, warm_ms = _timed(lambda: cls(n_clusters=k, init=init, max_iter=EST_ITERS).fit(x))
+        before = cls(n_clusters=k, init=init, max_iter=EST_ITERS - 1).fit(x)
+        centers, labels = est.cluster_centers_.larray, est.labels_.larray
+        if est.n_iter_ != EST_ITERS or tuple(centers.shape) != (k, f) or not bool(torch.isfinite(centers).all()):
+            raise AssertionError(f"{name}: n_iter {est.n_iter_}, centers {tuple(centers.shape)}")
+        exempt = _check_labels64(name, data, before.cluster_centers_.larray, labels)
+        med64 = _midpoint_medians64(data, labels, k)
+        if name == "KMedians":
+            err = (centers.double() - med64).abs()
+            if not bool((err <= u * med64.abs()).all()):
+                raise AssertionError(f"{name}: centers differ from the float64 medians by {err.max().item():.3e}")
+            check = float(err.max())
+        else:
+            check = 0.0
+            for c in range(k):
+                member = data[labels == c].double()
+                d = ((member - med64[c]) ** 2).sum(1)
+                chosen = ((centers[c].double() - med64[c]) ** 2).sum()
+                if not bool((member == centers[c].double()).all(1).any()):
+                    raise AssertionError(f"{name}: center {c} is not a row of its cluster")
+                slack = 2 * ((f + 2) * u * chosen + 2 * u * med64[c].norm() * chosen.sqrt())
+                if not bool(chosen - d.min() <= slack):
+                    raise AssertionError(f"{name}: medoid {c} is {float(chosen - d.min()):.3e} farther than the nearest member")
+                check = max(check, float(chosen - d.min()))
+        if not _same_partition(labels, ids):
+            raise AssertionError(f"{name}: the labels do not recover the blobs")
+        if peak >= k * n * f * 4 / 2:
+            raise AssertionError(f"{name}: peak {peak / 1e9:.2f} GB, not under half the reference's {k * n * f * 4 / 1e9:.2f} GB copy")
+        out[name] = {"first_ms": first_ms, "warm_ms": warm_ms, "ms_per_iteration": warm_ms / EST_ITERS,
+                     "peak_gb": peak / 1e9, "label_rows_exempt": exempt, "check": check, "inertia": est.inertia_}
+        print(f"  {name}: first fit {first_ms:.1f} ms, warm {warm_ms:.1f} ms ({warm_ms / EST_ITERS:.2f} ms/iteration), "
+              f"peak {peak / 1e9:.3f} GB above the data; labels = float64 argmin ({exempt} near-tie rows), "
+              f"{'centers within u|m| of float64 medians' if name == 'KMedians' else 'medoids rows of the data, nearest the median'} "
+              f"({check:.3e})", flush=True)
+        del est, before, centers, labels
+    out["value_orders_ms"] = _median_ms(lambda: _value_orders(data), 3)
+    out["torch_sort_ms"] = _median_ms(lambda: torch.sort(data.reshape(-1)), 3)
+    print(f"  per fit: the columns' value orders {out['value_orders_ms']:.2f} ms; torch.sort of the same "
+          f"{n * f:.3e} values {out['torch_sort_ms']:.2f} ms", flush=True)
+    return out
+
+
+def _smallest_eigenvalues64(L, count):
+    """The ``count`` smallest eigenvalues of the symmetric ``L`` (spectrum in
+    [0, 2]) in float64: subspace iteration on 2I − L over a block of
+    SUBSPACE_BLOCK vectors, then eigvalsh of the Rayleigh quotient QᵀLQ;
+    returns (values, the largest residual ‖Ly − θy‖ of their Ritz pairs)."""
+    import torch
+
+    B = L.double()
+    gen = torch.Generator(B.device).manual_seed(SEED)
+    Q = torch.linalg.qr(torch.randn(B.shape[0], SUBSPACE_BLOCK, dtype=B.dtype, device=B.device, generator=gen))[0]
+    for _ in range(SUBSPACE_STEPS):
+        Q = torch.linalg.qr(2.0 * Q - B @ Q)[0]
+    BQ = B @ Q
+    theta, s = torch.linalg.eigh(Q.T @ BQ)
+    y = Q @ s[:, :count]
+    residual = torch.linalg.vector_norm(B @ y - y * theta[:count], dim=0).max().item()
+    return theta[:count], residual
+
+
+def spectral_phase(ht) -> dict:
+    """Spectral on 40,000 x 16 float32, 8 blobs: the fit through B1 (the
+    Lloyd kernel's launches counted), the labels against the blobs, T's
+    smallest eigenvalues against float64, each stage timed."""
+    import torch
+
+    from heat_tpu_torch.ops import lloyd
+
+    n, f, k = SPECTRAL_N, SPECTRAL_F, EST_K
+    print(f"phase estimators: Spectral on {n} x {f} float32, {k} blobs, gamma {SPECTRAL_GAMMA}, n_lanczos {SPECTRAL_LANCZOS}", flush=True)
+    data, ids, _ = _blobs_on_card(n, f, k, SPECTRAL_SPREAD, SEED + 37)
+    x = ht.array(data, split=0, copy=False)
+    sp = ht.cluster.Spectral(n_clusters=k, gamma=SPECTRAL_GAMMA, n_lanczos=SPECTRAL_LANCZOS, init="kmeans++", random_state=SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lloyd.LAUNCHES = 0
+    _, fit_ms = _timed(lambda: sp.fit(x))
+    launches = lloyd.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() - base
+    if launches != sp._cluster.n_iter_ or launches < 1:
+        raise AssertionError(f"Spectral.fit launched the Lloyd kernel {launches} times over {sp._cluster.n_iter_} iterations")
+    if not _same_partition(sp.labels_.larray, ids):
+        raise AssertionError("Spectral: the labels do not recover the blobs")
+    sigma = math.sqrt(1.0 / (2.0 * SPECTRAL_GAMMA))
+    S, sim_ms = _timed(lambda: ht.spatial.rbf(x, sigma=sigma, quadratic_expansion=True))
+    L, lap_ms = _timed(lambda: ht.graph.Laplacian(lambda _: S).construct(x))
+    del S
+    (V, T), lanczos_ms = _timed(lambda: ht.linalg.lanczos(L, SPECTRAL_LANCZOS))
+    evals, evecs = torch.linalg.eigh(T.larray)
+    components = ht.array((V.larray @ evecs)[:, :k], split=0)
+    _, kmeans_ms = _timed(lambda: ht.cluster.KMeans(n_clusters=k, init="kmeans++", random_state=SEED).fit(components))
+    want, residual = _smallest_eigenvalues64(L.larray, k)
+    err = (evals[:k].double() - want).abs().max().item()
+    del L, V, T
+    if not (err <= EIGEN_BOUND and residual <= 1e-8):
+        raise AssertionError(f"Spectral: T's smallest eigenvalues {err:.3e} from float64 (residual {residual:.3e})")
+    out = {"fit_ms": fit_ms, "similarity_ms": sim_ms, "laplacian_ms": lap_ms, "lanczos_ms": lanczos_ms,
+           "kmeans_ms": kmeans_ms, "lloyd_launches": launches, "kmeans_iterations": sp._cluster.n_iter_,
+           "peak_gb": peak / 1e9, "eigenvalue_err": err, "ritz_residual64": residual,
+           "smallest_eigenvalues": [float(v) for v in want]}
+    print(f"  fit {fit_ms:.1f} ms, {launches} Lloyd launches over {sp._cluster.n_iter_} iterations, blobs recovered; "
+          f"similarity {sim_ms:.1f} ms, Laplacian {lap_ms:.1f}, Lanczos {lanczos_ms:.1f}, KMeans {kmeans_ms:.1f}; "
+          f"peak {peak / 1e9:.2f} GB; T's {k} smallest eigenvalues within {err:.3e} of float64 (Ritz residual {residual:.1e})",
+          flush=True)
+    return out
+
+
+def _knn_vote64(train, labels, queries, k, classes):
+    """(m,) labels of a float64 vote over the k smallest float64 distances
+    and the (m,) mask of queries whose k-th and (k+1)-th squared distances
+    lie within twice the float32 expansion's bound."""
+    import torch
+
+    f = train.shape[1]
+    t64 = train.double()
+    tn = (t64 * t64).sum(1)
+    onehot = torch.nn.functional.one_hot(labels.long(), classes).double()
+    votes, exempt = [], []
+    block = max(1, min(KNN_BLOCK, (1 << 27) // train.shape[0]))
+    for r0 in range(0, queries.shape[0], block):
+        q = queries[r0:r0 + block].double()
+        qn = (q * q).sum(1)
+        d2 = torch.clamp(qn[:, None] + tn[None, :] - 2.0 * (q @ t64.T), min=0.0)
+        near = torch.topk(d2, k + 1, dim=1, largest=False)
+        edge = torch.maximum(tn[near.indices[:, k - 1]], tn[near.indices[:, k]])
+        bound = 8 * (f + 2) * 2.0**-24 * (qn + edge)
+        exempt.append(near.values[:, k] - near.values[:, k - 1] <= bound)
+        votes.append(torch.argmax(onehot[near.indices[:, :k]].sum(1), dim=1))
+    return torch.cat(votes), torch.cat(exempt)
+
+
+def knn_phase(ht) -> dict:
+    """KNN on BASELINE config 2's 100,000 x 64 float32 with 8 classes,
+    10,000 queries, k = 5: labels against a float64 vote; predict timed."""
+    import torch
+
+    n, f = KNN_TRAIN
+    print(f"phase estimators: KNeighborsClassifier(k={KNN_K}) on {n} x {f} float32, {KNN_QUERIES} queries", flush=True)
+    data, ids, _ = _blobs_on_card(n + KNN_QUERIES, f, KNN_CLASSES, 1.0, SEED + 41)
+    train, queries = data[:n], data[n:]
+    knn = ht.classification.KNeighborsClassifier(KNN_K).fit(ht.array(train, split=0), ht.array(ids[:n], split=0))
+    xq = ht.array(queries, split=0)
+    pred, first_ms = _timed(lambda: knn.predict(xq))
+    warm_ms = _median_ms(lambda: knn.predict(xq), 3)
+    want, exempt = _knn_vote64(train, ids[:n], queries, KNN_K, KNN_CLASSES)
+    wrong = (pred.larray != want) & ~exempt
+    if bool(wrong.any()) or pred.shape != (KNN_QUERIES,):
+        raise AssertionError(f"KNN: {int(wrong.sum())} labels differ from the float64 vote")
+    accuracy = float((pred.larray == ids[n:]).float().mean())
+    print(f"  predict first {first_ms:.1f} ms, warm {warm_ms:.2f} ms; labels = float64 vote "
+          f"({int(exempt.sum())} near-tie queries exempt); accuracy {accuracy:.4f}", flush=True)
+    return {"first_ms": first_ms, "warm_ms": warm_ms, "exempt": int(exempt.sum()), "accuracy": accuracy}
+
+
+def gaussian_nb_phase(ht) -> dict:
+    """GaussianNB on 10⁷ x 16 float32, 8 classes: moments against float64,
+    partial_fit in two halves against fit, probabilities summing to 1."""
+    import torch
+
+    n, f = EST_TABLE
+    c = NB_CLASSES
+    print(f"phase estimators: GaussianNB on {n} x {f} float32, {c} classes", flush=True)
+    data, ids, _ = _blobs_on_card(n, f, c, 2.0, SEED + 43)
+    data *= 1.0 + ids[:, None] / 4.0
+    x, y = ht.array(data, split=0, copy=False), ht.array(ids, split=0)
+    nb, first_ms = _timed(lambda: ht.naive_bayes.GaussianNB().fit(x, y))
+    _, warm_ms = _timed(lambda: ht.naive_bayes.GaussianNB().fit(x, y))
+    theta_err = var_err = 0.0
+    for k in range(c):
+        rows = data[ids == k].double()
+        var64, mu64 = torch.var_mean(rows, dim=0, correction=0)
+        d_mu = (nb.theta_[k].double() - mu64).abs() / (mu64.abs() + var64.sqrt())
+        d_var = (nb.var_[k].double() - nb.epsilon_ - var64).abs() / var64
+        theta_err, var_err = max(theta_err, d_mu.max().item()), max(var_err, d_var.max().item())
+    if not (theta_err <= NB_BOUND and var_err <= NB_BOUND):
+        raise AssertionError(f"GaussianNB: moments {theta_err:.3e} / {var_err:.3e} from float64")
+    half = n // 2
+    two = ht.naive_bayes.GaussianNB()
+    two.partial_fit(ht.array(data[:half], split=0), ht.array(ids[:half], split=0), classes=ht.arange(c))
+    two.partial_fit(ht.array(data[half:], split=0), ht.array(ids[half:], split=0))
+    merge_err = max(((two.theta_ - nb.theta_).abs() / (nb.theta_.abs() + nb.var_.sqrt())).max().item(),
+                    ((two.var_ - nb.var_).abs() / nb.var_).max().item())
+    if not merge_err <= NB_BOUND or not torch.equal(two.class_count_, nb.class_count_):
+        raise AssertionError(f"GaussianNB: partial_fit in two halves {merge_err:.3e} from fit")
+    proba, proba_ms = _timed(lambda: nb.predict_proba(x))
+    sum_err = (proba.larray.double().sum(1) - 1.0).abs().max().item()
+    if not sum_err <= 1e-5:
+        raise AssertionError(f"GaussianNB: probability rows sum to 1 within {sum_err:.3e}")
+    accuracy = float((nb.predict(x).larray == ids).float().mean())
+    print(f"  fit first {first_ms:.1f} ms, warm {warm_ms:.1f}; theta_ {theta_err:.2e}, var_ {var_err:.2e} from float64; "
+          f"two halves {merge_err:.2e} from fit; predict_proba {proba_ms:.1f} ms, rows sum to 1 within {sum_err:.1e}; "
+          f"accuracy {accuracy:.4f}", flush=True)
+    return {"first_ms": first_ms, "warm_ms": warm_ms, "theta_err": theta_err, "var_err": var_err,
+            "partial_fit_err": merge_err, "predict_proba_ms": proba_ms, "accuracy": accuracy}
+
+
+def _lasso64(X, y, lam, sweeps):
+    """θ of the reference's coordinate descent in float64 on the host, from
+    the float64 Gram X'X and X'y made on the card in row blocks."""
+    import numpy as np
+    import torch
+
+    n, m = X.shape
+    G = X.new_zeros((m, m), dtype=torch.float64)
+    cy = X.new_zeros((m,), dtype=torch.float64)
+    step = max(1, EST_F64_ROWS * 64 // m)
+    for r0 in range(0, n, step):
+        xb = X[r0:r0 + step].double()
+        G += xb.T @ xb
+        cy += xb.T @ y[r0:r0 + step].double()
+    G, cy = G.cpu().numpy(), cy.cpu().numpy()
+    theta = np.zeros(m)
+    for _ in range(sweeps):
+        c = cy - G @ theta
+        for j in range(m):
+            rho = (c[j] + theta[j] * G[j, j]) / n
+            new = rho if j == 0 else np.sign(rho) * max(abs(rho) - lam, 0.0)
+            c -= (new - theta[j]) * G[j]
+            theta[j] = new
+    return theta
+
+
+def _lasso_case(ht, label, X, y, lam, sweeps, trials=1) -> dict:
+    """Fit, time and hold θ against float64 coordinate descent."""
+    import numpy as np
+
+    x, yv = ht.array(X, split=0, copy=False), ht.array(y, split=0, copy=False)
+    times = []
+    for _ in range(trials):
+        lasso, ms = _timed(lambda: ht.regression.Lasso(lam=lam, max_iter=sweeps, tol=None).fit(x, yv))
+        float(lasso.theta.larray[0, 0])
+        times.append(ms)
+    n, m = X.shape
+    gram = m * m <= (1 << 22) and n >= m
+    gram_ms = _timed(lambda: (X.T @ X, X.T @ y))[1] if gram else 0.0
+    want = _lasso64(X, y, lam, sweeps)
+    got = lasso.theta.larray.reshape(-1).double().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    bound = LASSO_UNITS * 2.0**-24 * math.sqrt(n) * max(1.0, float(np.abs(want).max()))
+    if lasso.n_iter != sweeps or not err <= bound:
+        raise AssertionError(f"Lasso {label}: θ {err:.3e} from float64 (bound {bound:.3e}), n_iter {lasso.n_iter}")
+    fit_ms = min(times)
+    sweep_ms = (fit_ms - gram_ms) / sweeps
+    print(f"  Lasso {label} ({n} x {m}, {'Gram' if gram else 'residual'} mode): fit {fit_ms:.1f} ms"
+          f"{f' (of which X^T X and X^T y {gram_ms:.2f} ms)' if gram else ''}, {sweep_ms:.2f} ms/sweep; "
+          f"θ within {err:.2e} of float64 (bound {bound:.2e}), {int(np.count_nonzero(got))} nonzero", flush=True)
+    return {"fit_ms": fit_ms, "sweep_ms": sweep_ms, "gram_ms": gram_ms, "theta_err": err, "bound": bound,
+            "mode": "gram" if gram else "residual"}
+
+
+def lasso_phase(ht) -> dict:
+    """benchmarks/lasso.py's protocol, 10⁷ x 64 in Gram mode and
+    200,000 x 2,100 in residual mode, each against float64."""
+    import torch
+
+    print("phase estimators: Lasso", flush=True)
+    out = {}
+    n, f, lam, sweeps = LASSO_PROTOCOL
+    ht.random.seed(0)
+    X = ht.random.randn(n, f, split=0).larray
+    y = ht.random.randn(n, split=0).larray
+    out["protocol"] = _lasso_case(ht, "benchmarks/lasso.py", X, y, lam, sweeps, trials=3)
+    card = torch.device("cuda", 0)
+    for label, (n, m, lam, sweeps) in (("gram", LASSO_GRAM), ("residual", LASSO_RESIDUAL)):
+        gen = torch.Generator(card).manual_seed(SEED + m)
+        X = torch.randn(n, m, device=card, generator=gen)
+        w = torch.zeros(m, device=card)
+        w[: min(m, 8)] = torch.tensor([0.5, 2.0, -1.5, 0.0, 1.0, -0.7, 0.3, 1.2], device=card)[: min(m, 8)]
+        y = X @ w + 0.1 * torch.randn(n, device=card, generator=gen)
+        out[label] = _lasso_case(ht, label, X, y, lam, sweeps)
+        del X, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def _best_accuracy(labels, truth, k) -> float:
+    """Accuracy of the best matching of k clusters to k classes."""
+    import itertools
+
+    import numpy as np
+
+    return max(float(np.mean(np.array(p)[labels] == truth)) for p in itertools.permutations(range(k)))
+
+
+def examples_phase(ht) -> dict:
+    """The examples' steps on the card, their lines reproduced:
+    examples/cluster_demo.py's four estimators over DEMO_SEEDS draws of
+    their init, knn_demo.py's five folds, lasso_demo.py's λ sweep."""
+    import numpy as np
+
+    print("phase estimators: examples/cluster_demo.py, knn_demo.py and lasso_demo.py on the card", flush=True)
+    out = {}
+    x, y = ht.datasets.iris_like(split=0, return_labels=True)
+    truth = y.numpy()
+    demo = [
+        ("KMeans", lambda s: ht.cluster.KMeans(n_clusters=3, init="kmeans++", random_state=s), 0.9),
+        ("KMedians", lambda s: ht.cluster.KMedians(n_clusters=3, init="kmeans++", random_state=s), 0.9),
+        ("KMedoids", lambda s: ht.cluster.KMedoids(n_clusters=3, init="kmeans++", random_state=s), 0.9),
+        ("Spectral", lambda s: ht.cluster.Spectral(n_clusters=3, gamma=0.5, n_lanczos=50, random_state=s), 0.85),
+    ]
+    for name, make, least in demo:
+        accuracies = []
+        for seed in range(DEMO_SEEDS):
+            est = make(seed).fit(x)
+            if est.labels_.larray.device.type != "cuda":
+                raise AssertionError(f"cluster_demo {name}: labels off the card")
+            accuracies.append(_best_accuracy(est.labels_.numpy(), truth, 3))
+        met = sum(a > least for a in accuracies)
+        out[name] = {"met": met, "accuracies": accuracies}
+        if met < DEMO_MIN_MET:
+            raise AssertionError(f"cluster_demo {name}: {met} of {DEMO_SEEDS} draws above {least}")
+    X, Y = ht.datasets.iris_like(split=0, return_labels=True)
+    n = X.shape[0]
+    fold = n // 5
+    folds = []
+    for k in range(5):
+        mask = np.ones(n, dtype=bool)
+        mask[k * fold:(k + 1) * fold] = False
+        train, test = np.nonzero(mask)[0], np.arange(k * fold, (k + 1) * fold)
+        pred = ht.classification.KNeighborsClassifier(n_neighbors=5).fit(X[train], Y[train]).predict(X[test])
+        folds.append(float((pred.numpy() == Y[test].numpy()).mean()))
+    out["knn_folds"] = folds
+    if np.mean(folds) <= 0.9:
+        raise AssertionError(f"knn_demo: mean accuracy {np.mean(folds):.3f}")
+    X = ht.datasets.diabetes_like(split=0)
+    rng = np.random.default_rng(0)
+    w = np.zeros(X.shape[1], np.float32)
+    w[[1, 4, 7]] = [2.5, -1.5, 3.0]
+    y_np = X.numpy() @ w + 0.05 * rng.standard_normal(X.shape[0]).astype(np.float32)
+    yv = ht.array(y_np[:, None], split=0)
+    X = X / ht.sqrt(ht.mean(X**2, axis=0))
+    sweep = {}
+    for lam in (0.001, 0.01, 0.1, 0.5, 1.0):
+        est = ht.regression.Lasso(lam=lam, max_iter=200).fit(X, yv)
+        coef = np.asarray(est.coef_.numpy()).ravel()
+        # float64 coordinate descent for as many sweeps as the fit took
+        want = _lasso64(X.larray, yv.larray.reshape(-1), lam, est.n_iter)
+        err = float(np.abs(est.theta.numpy().ravel() - want).max())
+        if not err <= 1e-3:
+            raise AssertionError(f"lasso_demo λ={lam}: θ {err:.3e} from float64 coordinate descent")
+        sweep[lam] = {"nonzero": int(np.count_nonzero(np.abs(coef) > 1e-3)), "theta_err": err, "n_iter": est.n_iter}
+    out["lasso_sweep"] = sweep
+    print(f"  cluster_demo draws above test_ml.py's thresholds {({k: out[k]['met'] for k, _, _ in demo})} of {DEMO_SEEDS}; "
+          f"knn_demo folds {folds}; lasso_demo {sweep}", flush=True)
+    return out
+
+
+def estimators_mesh_phase(ht) -> dict:
+    """Four shards of the card against one, through a mesh that counts its
+    collectives: KMedians, KMedoids, GaussianNB, Lasso and KNN on a ragged
+    table with NaN in the padding; the batch-parallel init on 8 blobs."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    mesh1, mesh4 = MeshCommunication([card]), counting_mesh([card] * EST_P)
+    n, f = EST_MESH_TABLE
+    k = EST_K
+    print(f"phase estimators: {EST_P} shards on one card against one shard, {n} x {f}", flush=True)
+    data, ids, means = _blobs_on_card(n, f, k, 3.0, SEED + 47)
+    x1, x4 = ht.array(data, split=0, comm=mesh1), ht.array(data, split=0, comm=mesh4)
+    y1, y4 = ht.array(ids, split=0, comm=mesh1), ht.array(ids, split=0, comm=mesh4)
+    if _poison_padding(x4) < 1:
+        raise AssertionError("the four-shard table has no padding")
+    out = {}
+    for name in ("KMedians", "KMedoids"):
+        cls = getattr(ht.cluster, name)
+        one = cls(n_clusters=k, init=ht.array(means, comm=mesh1), max_iter=EST_ITERS).fit(x1)
+        four = cls(n_clusters=k, init=ht.array(means, comm=mesh4), max_iter=EST_ITERS).fit(x4)
+        _equal(f"four-shard {name} centers", four.cluster_centers_.larray, one.cluster_centers_.larray)
+        _equal(f"four-shard {name} labels", four.labels_.larray, one.labels_.larray)
+        if four.n_iter_ != one.n_iter_ or four.inertia_ != one.inertia_ or four.labels_.split != 0:
+            raise AssertionError(f"four-shard {name}: n_iter/inertia/split differ")
+    nb1 = ht.naive_bayes.GaussianNB().fit(x1, y1)
+    nb4 = ht.naive_bayes.GaussianNB().fit(x4, y4)
+    _equal("four-shard GaussianNB theta_", nb4.theta_, nb1.theta_)
+    _equal("four-shard GaussianNB var_", nb4.var_, nb1.var_)
+    _equal("four-shard GaussianNB predict", nb4.predict(x4).larray, nb1.predict(x1).larray)
+    # coordinate descent wants columns of mean square 1, as lasso_demo.py makes them
+    unit = data / data.square().mean(0).sqrt()
+    target = unit @ torch.linspace(-1.0, 1.0, f, device=card) + 0.1
+    u1, u4 = ht.array(unit, split=0, comm=mesh1), ht.array(unit, split=0, comm=mesh4)
+    _poison_padding(u4)
+    t1, t4 = ht.array(target, split=0, comm=mesh1), ht.array(target, split=0, comm=mesh4)
+    mesh4.calls.clear()
+    l4 = ht.regression.Lasso(lam=0.01, max_iter=30).fit(u4, t4)
+    calls = dict(mesh4.calls)
+    l1 = ht.regression.Lasso(lam=0.01, max_iter=30).fit(u1, t1)
+    if calls != {"allreduce": 2}:
+        raise AssertionError(f"four-shard Lasso in Gram mode: collectives {calls}")
+    lasso_err = (l4.theta.larray - l1.theta.larray).abs().max().item()
+    lasso_bound = LASSO_UNITS * 2.0**-24 * math.sqrt(n) * max(1.0, l1.theta.larray.abs().max().item())
+    if not lasso_err <= lasso_bound or l4.n_iter != l1.n_iter:
+        raise AssertionError(f"four-shard Lasso: θ {lasso_err:.3e} from one shard (bound {lasso_bound:.3e})")
+    out["lasso"] = {"collectives": calls, "theta_err": lasso_err, "n_iter": l1.n_iter}
+    queries = data[:: n // EST_MESH_QUERIES][:EST_MESH_QUERIES] + 0.25
+    q1, q4 = ht.array(queries, split=0, comm=mesh1), ht.array(queries, split=0, comm=mesh4)
+    p1 = ht.classification.KNeighborsClassifier(KNN_K).fit(x1, y1).predict(q1)
+    p4 = ht.classification.KNeighborsClassifier(KNN_K).fit(x4, y4).predict(q4)
+    _, exempt = _knn_vote64(data, ids, queries, KNN_K, k)
+    differ = (p4.larray != p1.larray) & ~exempt
+    if bool(differ.any()):
+        raise AssertionError(f"four-shard KNN: {int(differ.sum())} labels differ from one shard")
+    out["knn_exempt"] = int(exempt.sum())
+    del x1, x4, y1, y4, data
+    torch.cuda.empty_cache()
+    # the batch-parallel init: one allgather of the 4·k candidates
+    blobs, blob_ids, _ = _blobs_on_card(BATCHPARALLEL_ROWS, f, k, BATCHPARALLEL_SPREAD, SEED + 53)
+    xb = ht.array(blobs, split=0, comm=mesh4)
+    mesh4.calls.clear()
+    km = ht.cluster.KMeans(n_clusters=k, init="batchparallel", random_state=SEED, max_iter=30).fit(xb)
+    gathers = mesh4.calls["allgather"]
+    if gathers != 1 or not _same_partition(km.labels_.larray, blob_ids):
+        raise AssertionError(f"batch-parallel init: {gathers} allgathers, blobs recovered: {_same_partition(km.labels_.larray, blob_ids)}")
+    out["batchparallel"] = {"allgathers": gathers, "collectives_of_fit": dict(mesh4.calls), "n_iter": km.n_iter_}
+    print(f"  KMedians, KMedoids and GaussianNB equal one shard bit for bit (NaN padding); Lasso {calls} within "
+          f"{lasso_err:.2e}; KNN equal ({out['knn_exempt']} near-tie queries exempt); batch-parallel init "
+          f"{gathers} allgather, 8 blobs recovered", flush=True)
+    return out
+
+
+def estimators_path(ht, smi: str) -> dict:
+    """Phase 13: the estimators on the card; returns their numbers."""
+    import torch
+
+    numbers = {"card": smi, "peak_gb": {}}
+    for label, phase in (("kmedians", kmedians_phase), ("spectral", spectral_phase), ("knn", knn_phase),
+                         ("gaussian_nb", gaussian_nb_phase), ("lasso", lasso_phase), ("examples", examples_phase),
+                         ("mesh", estimators_mesh_phase)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        numbers[label] = phase(ht)
+        numbers.setdefault("seconds", {})[label] = time.perf_counter() - t0
+        numbers["peak_gb"][label] = torch.cuda.max_memory_allocated() / 1e9
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -2744,11 +3344,14 @@ def main() -> int:
     training = training_path(ht, smi)
     torch.cuda.empty_cache()
     layer = array_layer_path(ht, smi)
+    torch.cuda.empty_cache()
+    estimators = estimators_path(ht, smi)
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
     print("training: " + json.dumps(training))
     print("array_layer: " + json.dumps(layer))
+    print("estimators: " + json.dumps(estimators))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

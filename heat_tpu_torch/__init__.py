@@ -9,7 +9,7 @@ tested against.
 
 from .core import *
 from .core import linalg, random
-from . import cluster, nn, ops, optim, spatial, utils
+from . import classification, cluster, datasets, graph, naive_bayes, nn, ops, optim, regression, spatial, utils
 from .core import (
     arithmetics,
     base,

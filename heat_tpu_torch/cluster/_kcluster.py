@@ -5,7 +5,11 @@ Initialization follows the reference: ``"random"`` picks k random rows,
 ``"probability_based"`` (kmeans++) samples each next center with probability
 proportional to its squared distance from the nearest chosen one
 (reference _kcluster.py:142-187), and a DNDarray of k rows is taken as given.
-The batch-parallel init is not ported yet.
+``"batchparallel"`` runs a fixed-shape kmeans++ on each row shard, gathers
+the p·k candidates with one ``allgather`` and runs one more kmeans++ over
+them (heat_tpu/cluster/_kcluster.py:27-66, :139-178); on a replicated,
+padded or single-shard input, or one with fewer than k rows per shard, it
+is kmeans++, as in heat_tpu.
 """
 
 from __future__ import annotations
@@ -25,6 +29,28 @@ __all__ = ["_KCluster"]
 def _float_dtype(x: DNDarray) -> torch.dtype:
     """The compute dtype of a clustering: at least float32."""
     return types.promote_types(x.dtype, types.float32).torch_type()
+
+
+def _kmeanspp_fixed(generator: torch.Generator, data: torch.Tensor, k: int, metric) -> torch.Tensor:
+    """kmeans++ over one block with no host read (heat_tpu/cluster/_kcluster.py:27-51):
+    the (k, f) centers buffer is filled row by row, the rows not yet filled
+    masked out of the minimum distance by the step index, each draw made on
+    the block's device from ``generator``."""
+    n, f = data.shape
+    device = data.device
+    first = torch.randint(0, n, (), generator=generator, device=device)
+    centers = data.new_zeros((k, f))
+    centers[0] = data[first]
+    steps = torch.arange(k, device=device)
+    for i in range(1, k):
+        d = metric(data, centers)
+        dmin = torch.amin(torch.where(steps[None, :] < i, d, torch.inf), dim=1)
+        total = torch.sum(dmin)
+        prob = torch.where(total > 0, dmin / torch.clamp(total, min=1e-30), 1.0 / n)
+        r = torch.rand((), generator=generator, device=device, dtype=prob.dtype)
+        nxt = torch.clamp(torch.searchsorted(torch.cumsum(prob, 0), r[None]), 0, n - 1)
+        centers[i] = data[nxt[0]]
+    return centers
 
 
 class _KCluster(ClusteringMixin, BaseEstimator):
@@ -68,7 +94,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
                 )
             self.init = "precomputed"
             self._precomputed = init
-        elif init not in ("random", "probability_based", "kmeans++", "k-means++"):
+        elif init not in ("random", "probability_based", "kmeans++", "k-means++", "batchparallel"):
             raise ValueError(f"Initialization method {init!r} not supported")
 
     @property
@@ -97,6 +123,14 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         if self.init == "random":
             idx = ht_random.randint(0, n, (k,), device=x.device, comm=x.comm).larray
             return data[idx.to(data.device).long()]
+        if (
+            self.init == "batchparallel"
+            and x.split == 0
+            and x.comm.size > 1
+            and not x.padded
+            and n // x.comm.size >= k
+        ):
+            return self._batchparallel_init(x, data.dtype, k)
         # kmeans++ / probability_based (reference _kcluster.py:142-187)
         idx0 = int(ht_random.randint(0, n, (1,), device=x.device, comm=x.comm).larray[0])
         centers = data[idx0][None, :]
@@ -107,6 +141,22 @@ class _KCluster(ClusteringMixin, BaseEstimator):
             nxt = min(int(torch.searchsorted(cum, cum.new_tensor([r]))), n - 1)
             centers = torch.cat([centers, data[nxt][None, :]], dim=0)
         return centers
+
+    def _batchparallel_init(self, x: DNDarray, dtype: torch.dtype, k: int) -> torch.Tensor:
+        """Batch-parallel init (heat_tpu/cluster/_kcluster.py:162-178): each
+        shard runs :func:`_kmeanspp_fixed` over its own rows with a generator
+        seeded from one ``ht.random`` draw plus its index; one ``allgather``
+        brings the p·k candidates together, and one more kmeans++ over them,
+        seeded from the draw plus p, picks the k centers."""
+        comm = x.comm
+        seed = int(ht_random.randint(0, 2**31 - 1, (1,), device=x.device, comm=comm).larray[0])
+        local = []
+        for r, shard in enumerate(x.shards):
+            gen = torch.Generator(device=shard.device).manual_seed(seed + r)
+            local.append(_kmeanspp_fixed(gen, shard.to(dtype), k, self._metric))
+        candidates = comm.allgather(local)[0]
+        gen = torch.Generator(device=candidates.device).manual_seed(seed + comm.size)
+        return _kmeanspp_fixed(gen, candidates, k, self._metric)
 
     def _assign_to_cluster(self, x: DNDarray) -> DNDarray:
         """Cluster id per sample (reference _kcluster.py:196-209)."""

@@ -5,7 +5,7 @@ from __future__ import annotations
 import inspect
 from typing import Dict, List
 
-__all__ = ["BaseEstimator", "ClusteringMixin"]
+__all__ = ["BaseEstimator", "ClassificationMixin", "ClusteringMixin", "RegressionMixin"]
 
 
 class BaseEstimator:
@@ -58,6 +58,20 @@ class BaseEstimator:
         return f"{self.__class__.__name__}({self.get_params(deep=False)})"
 
 
+class ClassificationMixin:
+    """Mixin for classifiers (reference base.py:98-144)."""
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
+
+
 class ClusteringMixin:
     """Mixin for clusterers (reference base.py:145-175)."""
 
@@ -67,3 +81,17 @@ class ClusteringMixin:
     def fit_predict(self, x):
         self.fit(x)
         return self.predict(x)
+
+
+class RegressionMixin:
+    """Mixin for regressors (reference base.py:176-220)."""
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()

@@ -278,9 +278,15 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+SUBPACKAGES = ("classification", "cluster", "datasets", "graph", "naive_bayes", "nn", "ops", "optim", "regression", "spatial", "utils")
+
+
 def test_port_imports_neither_jax_nor_heat_tpu():
     files = sorted((ROOT / "heat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # every subpackage of the port is under the rule
+    for sub in SUBPACKAGES:
+        assert ROOT / "heat_tpu_torch" / sub / "__init__.py" in files, sub
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -288,6 +294,10 @@ def test_port_imports_neither_jax_nor_heat_tpu():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = "import sys, heat_tpu_torch; sys.exit(1 if 'jax' in sys.modules or 'heat_tpu' in sys.modules else 0)"
+    code = (
+        "import sys, heat_tpu_torch as ht; "
+        f"assert all(getattr(ht, s).__name__ == 'heat_tpu_torch.' + s for s in {SUBPACKAGES!r}); "
+        "sys.exit(1 if {'jax', 'jaxlib', 'heat_tpu', 'flax', 'optax'} & set(sys.modules) else 0)"
+    )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -187,7 +187,8 @@ def test_fit_input_checks():
     with pytest.raises(ValueError):
         ht.cluster.KMeans(n_clusters=3, init=ht.zeros((2, 2)))
     with pytest.raises(ValueError):
-        ht.cluster.KMeans(init="batchparallel")
+        ht.cluster.KMeans(init="nope")
+    assert ht.cluster.KMeans(init="batchparallel").init == "batchparallel"
     assert ht.cluster.KMeans(n_clusters=5).get_params()["n_clusters"] == 5
 
 
