@@ -115,7 +115,26 @@ Phases, in order; any failure exits non-zero:
    examples/cluster_demo.py, knn_demo.py and lasso_demo.py; then four
    shards of the card against one (NaN padding, two allreduces for a
    Gram-mode Lasso fit) and the batch-parallel init's one allgather;
-14. print the phase-9 to 13 numbers with the card, the card's name
+14. drive the rest of nn (the flash kernel is the only kernel on it): the
+   README's ``TransformerLM`` trains under ``DataParallel`` with Adam on
+   4 x 4096 tokens, the next-token loss, the kernel in every block, in
+   float32 and in bfloat16: the first step against a plain PyTorch step
+   (dense attention, ``torch.optim.Adam``) from the same weights, 12
+   kernel launches per step, the warm median of 9 steps beside the step's
+   FP32 and bf16 bounds, the peak memory, a profiled step with the
+   kernel's backward (the scan path) called out, the loss falling over 10
+   steps; the bfloat16 forward on phase 5's requests against the float32
+   logits, and the kernel in bf16 beside ``scaled_dot_product_attention``;
+   ring and Ulysses attention on four shards of the card against dense
+   attention at (4, 4096, 12, 64) in f32 and bf16, the ring's gradient,
+   and the trained model at S = 32,768 through both against its
+   single-shard forward through the kernel, with their collectives
+   counted; one bfloat16 ResNet-50 step at batch 256 against the float32
+   model's loss; ``parallel/`` on four shards: the tensor-parallel MLP at
+   GPT-2 small's widths (one ``allreduce``), a 2 x 2 dp x tp step, a
+   4-stage pipeline of ``TransformerBlock(768)`` and 4 experts, each
+   against its dense oracle;
+15. print the phase-9 to 14 numbers with the card, the card's name
    and power limit, one JSON line of per-kernel numbers, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -330,14 +349,16 @@ def _profiled():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def _device_rows(prof):
-    """(ms, count, name) of each kernel in a profile, by device time."""
+def _device_rows(prof, ranges=()):
+    """(ms, count, name) of each kernel in a profile, by device time. The
+    named ranges of ``ranges`` (``record_function``) also appear on the
+    device's timeline, as spans over their kernels: they are no kernels."""
     import torch
 
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA and ev.key not in ranges:
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     return rows
@@ -1958,10 +1979,16 @@ def _op_kind(name: str) -> str:
         return "convolution"
     if "batch_norm" in n:
         return "batch_norm"
-    if "_foreach" in n or "sgd" in n:
+    if "_foreach" in n or "sgd" in n or "adam" in n:
         return "optimizer"
+    if "flashpallas" in n:
+        return "attention kernel"
     if "mm" in n or "linear" in n:
         return "matmul"
+    if "layer_norm" in n:
+        return "layer_norm"
+    if "softmax" in n or "nll_loss" in n:
+        return "softmax and loss"
     return "elementwise"
 
 
@@ -2020,10 +2047,11 @@ def _tensor_errors(got, want) -> float:
     return worst
 
 
-def profile_step(step) -> dict:
+def profile_step(step, ranges=()) -> dict:
     """One warm step under torch.profiler: the device's busy share of the
-    step's wall time and the device time by op kind (each kernel counted
-    once, under the innermost torch op that launched it)."""
+    step's wall time, the device time by op kind (each kernel counted
+    once, under the innermost torch op that launched it) and the device
+    time under each named range of ``ranges`` (``record_function``)."""
     import collections
 
     import torch
@@ -2034,17 +2062,24 @@ def profile_step(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = sum(r[0] for r in _device_rows(prof))
+    busy = sum(r[0] for r in _device_rows(prof, ranges))
     kinds = collections.Counter()
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CPU:
             kinds[_op_kind(ev.key)] += us / 1e3
+    # a range's host-side event holds the device time of the kernels
+    # launched inside it
+    in_range = {name: sum(getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+                          for ev in prof.key_averages()
+                          if ev.key == name and ev.device_type == torch.autograd.DeviceType.CPU) / 1e3
+                for name in ranges}
     print(f"  profile of a warm step: wall {wall_ms:.3f} ms (profiler on), device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f}%)", flush=True)
     for kind, ms in kinds.most_common():
         print(f"    {ms:9.3f} ms  {kind}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms, "by_kind_ms": dict(kinds)}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms, "by_kind_ms": dict(kinds),
+            "ranges_ms": in_range}
 
 
 def _cifar(n: int, seed: int):
@@ -3294,6 +3329,623 @@ def estimators_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the rest of nn (phase 14): the README's TransformerLM trains through the
+# attention kernel (B3) in float32 and bfloat16 and serves sequence-parallel
+# through ring and Ulysses attention; the bfloat16 ResNet-50; parallel/.
+# B3 is the only kernel on this path: heat_tpu runs the ring and Ulysses
+# schedules, tensor parallelism, the pipeline and the experts on XLA, so the
+# port runs them as torch ops over its in-process collectives.
+LM_BATCH, LM_SEQ = 4, 4096  # the README's requests, 4 x 4096 tokens
+LM_LR = 3e-4  # Adam
+LM_STEPS = 10  # on one repeated batch; the warm median is over steps 2..10
+LONG_SEQ = 32_768  # the README model's max_len, batch 1
+MID_SEQ = 16_384  # a second reading of the long forward's error, batch 1
+SP_P = 4  # ring and Ulysses shards on the one card
+SP_BLOCK = 512  # Ulysses' local blockwise attention
+SP_SMALL = (LM_BATCH, LM_SEQ, 12, 64)  # (B, S, H, D) against dense attention
+SP_GRAD = (1, 512, 4, 64)
+CNN_BF16_STEPS = 5
+CNN_LOGIT_ROWS = 32  # images whose eval logits hold the bf16 ResNet-50 against f32
+TP_ROWS = 4096  # tokens through the tensor-parallel MLP, the experts and the pipeline
+TP_SHAPE = (768, 3072)  # GPT-2 small's MLP: dim and hidden
+PP_SEQ, PP_BATCH = 512, 8
+# Bounds of phase 14 (float32 with TF32 off, as main sets it):
+# * the first training step through the kernel against a plain step (dense
+#   attention, torch.optim.Adam) from the same weights: the forward differs
+#   as phase 5's logits do (the attention summed in another order, 3xTF32
+#   products), so the loss within LOGITS_RTOL relative and the gradient
+#   within it normwise over all parameters; Adam's first step moves each
+#   weight by lr g/(|g| + eps), about ±lr, so a gradient element within
+#   rounding of 0 may take the other sign and move by 2 lr: the update
+#   normwise within UPDATE_F32 of its norm (1% admits a few in 10^5 flips);
+# * the same in bfloat16, against a plain bfloat16 step: each of the two
+#   computes the README model within ~1% of float32 normwise (~2.3 bf16
+#   ulps; 0.8-0.9% measured on the CPU at depth 2 to 12), and the two round
+#   at other points (the kernel's p against its running max), so the loss
+#   within one bf16 ulp (2^-8) relative, the gradient within 2^-4 normwise
+#   and the update, with more sign flips at that noise, within 1/4;
+# * the same model on four shards of the card against one shard, first
+#   step: phase 11's MESH_TRAIN_BOUND on the loss and normwise on the
+#   gradient in f32 (products over other row counts, the gradient summed
+#   over the shards), the bf16 bounds above in bf16;
+# * the bf16 forward against the f32 model's logits: 4 bf16 ulps, 2^-6,
+#   normwise (~2.3 ulps measured on the CPU), and at least BF16_FLOOR,
+#   2^-12: a model that computed in float32 and cast its outputs would
+#   sit at the f32 model's rounding noise (~1e-6), one that rounds as
+#   flax does at ~1e-2 (9.5e-3 measured on an H100); the bf16 ResNet-50's
+#   eval logits the same (3.4e-3 on the CPU at the full width);
+# * ring and Ulysses at the README's width and S = 32,768 against the
+#   single-shard forward through the kernel: float32 attention in other
+#   orders, where the kernel's 3xTF32 sums run over up to S keys (phase 5
+#   measures 1.9e-5 over 4,096). An H100 at 700 W measured 1.095e-4 for
+#   both at S = 32,768 (three runs) and 5.43e-5 for the ring at MID_SEQ,
+#   linear in S. A control must fail the bound: the same forward with B3's
+#   bf16 design in every layer (q, k, v rounded to bf16), 7.28e-4 on that
+#   card. LONG_LOGITS_RTOL, 2.5e-4, sits between the two, 2.3 times the
+#   largest sound reading and 1/2.9 of the control's. Ring against
+#   Ulysses, both exact f32 einsums in other blocks, LOGITS_RTOL;
+#   the kernel against its plain version at layer 0's q, k, v of that
+#   forward, check_flash's bound; at (4, 4096, 12, 64) against dense
+#   attention 1e-5 (the CPU tests' bound) in f32 and 0.05 in bf16; the
+#   ring's gradient GRAD_TOL;
+# * the bf16 ResNet-50's first loss against the f32 model's from the same
+#   weights: one bf16 ulp, 2^-8 relative (1.6e-4 measured on the CPU at
+#   8 filters);
+# * parallel/: float32 products over other row counts (cuBLAS may pick
+#   another algorithm) and sums in shard order, PARALLEL_RTOL normwise.
+UPDATE_F32 = 1e-2
+BF16_LOSS = 2.0**-8
+BF16_GRAD = 2.0**-4
+UPDATE_BF16 = 0.25
+BF16_LOGITS = 2.0**-6
+BF16_FLOOR = 2.0**-12
+SP_SMALL_TOL = 1e-5
+LONG_LOGITS_RTOL = 2.5e-4
+PARALLEL_RTOL = 1e-5
+
+
+def _relative(got, want) -> float:
+    """||got − want||_F / ||want||_F, in float64."""
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def next_token_loss(logits, labels):
+    """examples/long_context_lm.py:40-43: cross entropy of each position's
+    logits against the next token."""
+    import torch.nn.functional as Fn
+
+    return Fn.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]), labels[:, 1:].reshape(-1))
+
+
+def lm_step_flops(batch: int, seq: int) -> dict:
+    """Floating-point operations of one training step of the README model on
+    batch x seq tokens: the Dense layers' products (12 dim² per block and the
+    head, 2 per multiply-add per token) and the causal attention's (4·D per
+    kept (query, key) pair), each three times (forward, input and weight
+    gradients; the kernel's backward recomputes its forward, which is not
+    counted as needed work). LayerNorm, softmax, the loss and Adam are
+    bytes, not operations, on this scale."""
+    dim, depth, heads = LM["dim"], LM["depth"], LM["heads"]
+    gemm = 2 * batch * seq * (depth * 12 * dim * dim + dim * LM["vocab"])
+    attn = 4 * batch * heads * (seq * (seq + 1) // 2) * (dim // heads) * depth
+    step = 3 * (gemm + attn)
+    return {"step_tflop": step / 1e12, "fp32_bound_ms": step / F32_FLOP_PER_S * 1e3,
+            "bf16_bound_ms": step / BF16_FLOP_PER_S * 1e3}
+
+
+def _lm(ht, dtype, attention=True):
+    """The README's TransformerLM from the seed of phase 5 (the same
+    weights whatever the dtype), with the kernel in every block or dense
+    attention."""
+    import torch
+
+    from heat_tpu_torch.nn.attention import flash_attention
+
+    return ht.nn.TransformerLM(
+        **LM, dtype=dtype, attention_fn=partial(flash_attention, impl="pallas") if attention else None,
+        device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED),
+    )
+
+
+def _flat(tensors):
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).double() for t in tensors])
+
+
+def _checkpointed(block):
+    """``block`` recomputed in the backward (torch.utils.checkpoint), so the
+    plain step's dense attention keeps one layer's S x S scores at a time."""
+    import torch
+
+    class Checkpointed(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x):
+            return torch.utils.checkpoint.checkpoint(self.inner, x, use_reentrant=False)
+
+    return Checkpointed(block)
+
+
+def plain_lm_step(ht, dtype, tokens) -> dict:
+    """One plain PyTorch step: dense attention, the next-token loss and a bare
+    torch.optim.Adam loop (optax's adam: the same rule). Returns the loss,
+    the gradient and the parameters after the step, flat in float64."""
+    import torch
+
+    model = _lm(ht, dtype, attention=False)
+    start = _flat(model.parameters())
+    for i, block in enumerate(model.blocks):
+        model.blocks[i] = _checkpointed(block)
+    opt = torch.optim.Adam(model.parameters(), lr=LM_LR, betas=(0.9, 0.999), eps=1e-8)
+    loss = next_token_loss(model(tokens), tokens)
+    loss.backward()
+    grads = _flat(p.grad for p in model.parameters())
+    opt.step()
+    out = {"loss": loss.item(), "grad": grads, "update": _flat(model.parameters()) - start}
+    del model, opt, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_training_phase(ht, dtype, tokens, flops) -> tuple:
+    """(a) The README model under DataParallel with Adam through the kernel:
+    the first step against a plain step, LM_STEPS on a repeated batch, the
+    warm median, the peak, a profiled step. Returns its numbers and the
+    trained module."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+    from heat_tpu_torch.ops import flash
+
+    name = "f32" if dtype == torch.float32 else "bf16"
+    bounds = ((LOGITS_RTOL, LOGITS_RTOL, UPDATE_F32) if dtype == torch.float32
+              else (BF16_LOSS, BF16_GRAD, UPDATE_BF16))
+    print(f"phase nn: the README's TransformerLM trains in {name} under DataParallel, Adam({LM_LR}), "
+          f"{LM_BATCH} x {LM_SEQ} tokens, the next-token loss, attention through the kernel", flush=True)
+    plain = plain_lm_step(ht, dtype, tokens)
+    model = _lm(ht, dtype)
+    start = _flat(model.parameters())
+    forward_launches = []
+
+    def loss_fn(logits, labels):
+        # the loss is taken between the forward and the backward: the count
+        # so far is the forward's, and from 0 again it is the backward's
+        forward_launches.append(flash.LAUNCHES)
+        flash.LAUNCHES = 0
+        return next_token_loss(logits, labels)
+
+    dp = ht.nn.DataParallel(model, comm=MeshCommunication([torch.device("cuda", 0)]),
+                            optimizer=ht.optim.Adam(LM_LR), loss_fn=loss_fn)
+    dp.init(SEED, tokens[:1])
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    flash.LAUNCHES = 0
+    out = {"first_step_ms": _time_step(lambda: losses.append(dp.train_step(tokens, tokens)))}
+    out["launches_forward"], out["launches_backward"] = forward_launches[0], flash.LAUNCHES
+    out["launches_per_step"] = out["launches_forward"] + out["launches_backward"]
+    first_grad = _flat(p.grad for p in model.parameters())
+    out["loss_vs_plain"] = abs(losses[0] - plain["loss"]) / abs(plain["loss"])
+    out["grad_vs_plain"] = _relative(first_grad, plain["grad"])
+    out["update_vs_plain"] = _relative(_flat(model.parameters()) - start, plain["update"])
+    del plain, start
+    print(f"  first step {out['first_step_ms']:.1f} ms, {out['launches_forward']} kernel launches in its forward, "
+          f"{out['launches_backward']} in its backward; against a "
+          f"plain step: loss {out['loss_vs_plain']:.3e} (bound {bounds[0]:g}), gradient "
+          f"{out['grad_vs_plain']:.3e} normwise (bound {bounds[1]:g}), update {out['update_vs_plain']:.3e} "
+          f"(bound {bounds[2]:g})", flush=True)
+    if out["launches_forward"] != LM["depth"] or out["launches_backward"] != 0:
+        raise AssertionError(f"a training step launched the kernel {out['launches_forward']} times in its "
+                             f"forward and {out['launches_backward']} in its backward, not {LM['depth']} and 0")
+    if not (out["loss_vs_plain"] <= bounds[0] and out["grad_vs_plain"] <= bounds[1]
+            and out["update_vs_plain"] <= bounds[2]):
+        raise AssertionError(f"the {name} training step disagrees with a plain PyTorch step")
+    times = [_time_step(lambda: losses.append(dp.train_step(tokens, tokens))) for _ in range(LM_STEPS - 1)]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["ms"] = sorted(times)[len(times) // 2]
+    out["tokens_per_s"] = LM_BATCH * LM_SEQ / out["ms"] * 1e3
+    out["losses"] = losses
+    bound = flops["fp32_bound_ms"] if dtype == torch.float32 else flops["bf16_bound_ms"]
+    print(f"  warm median of {LM_STEPS - 1} steps: {out['ms']:.2f} ms, {out['tokens_per_s']:.1f} tokens/s "
+          f"(bound {bound:.2f} ms: {flops['step_tflop']:.2f} TFLOP at "
+          f"{'67 TFLOP/s f32' if dtype == torch.float32 else '989 TFLOP/s bf16'}); peak {out['peak_gb']:.2f} GB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {LM_STEPS} steps", flush=True)
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the {name} loss does not fall on one repeated batch: {losses}")
+    out["profile"] = profile_lm_step(lambda: dp.train_step(tokens, tokens))
+    del dp
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    out["four_shards"] = four_shard_lm_step(ht, dtype, tokens, losses[0], first_grad)
+    return out, model
+
+
+def four_shard_lm_step(ht, dtype, tokens, first_loss, first_grad) -> dict:
+    """The same model from the same weights under DataParallel on four
+    shards of the card: its first step against one shard's, the kernel's
+    launches (12 per replica) and the collectives counted."""
+    import torch
+
+    from heat_tpu_torch.ops import flash
+
+    mesh = counting_mesh([torch.device("cuda", 0)] * TRAIN_P)
+    model = _lm(ht, dtype)
+    dp = ht.nn.DataParallel(model, comm=mesh, optimizer=ht.optim.Adam(LM_LR), loss_fn=next_token_loss)
+    dp.init(SEED, tokens[:1])
+    mesh.calls.clear()
+    flash.LAUNCHES = 0
+    loss = dp.train_step(tokens, tokens)
+    out = {"launches": flash.LAUNCHES, "collectives": dict(mesh.calls),
+           "loss_vs_one_shard": abs(loss - first_loss) / abs(first_loss),
+           "grad_vs_one_shard": _relative(_flat(p.grad for p in model.parameters()), first_grad)}
+    del dp, model
+    torch.cuda.empty_cache()
+    loss_bound, grad_bound = (MESH_TRAIN_BOUND, MESH_TRAIN_BOUND) if dtype == torch.float32 else (BF16_LOSS, BF16_GRAD)
+    print(f"  {TRAIN_P} shards of the card against one: first loss {out['loss_vs_one_shard']:.3e} (bound "
+          f"{loss_bound:g}), gradient {out['grad_vs_one_shard']:.3e} normwise (bound {grad_bound:g}); "
+          f"{out['launches']} kernel launches, collectives {out['collectives']}", flush=True)
+    if out["launches"] != min(TRAIN_P, len(tokens)) * LM["depth"] or out["collectives"] != {"allreduce": 1}:
+        raise AssertionError(f"the four-shard step launched {out['launches']} kernels, {out['collectives']}")
+    if not (out["loss_vs_one_shard"] <= loss_bound and out["grad_vs_one_shard"] <= grad_bound):
+        raise AssertionError("the four-shard training step disagrees with one shard's")
+    return out
+
+
+def profile_lm_step(step) -> dict:
+    """profile_step, with the device time under the kernel's backward range
+    (the scan path's recompute and backward) called out."""
+    from heat_tpu_torch.nn.attention import BACKWARD_RANGE
+
+    out = profile_step(step, ranges=(BACKWARD_RANGE,))
+    scan = out["ranges_ms"][BACKWARD_RANGE]
+    out["scan_backward_share"] = scan / out["busy_ms"] if out["busy_ms"] else 0.0
+    print(f"    {scan:9.3f} ms  of it under the kernel's backward (the scan path, recompute included): "
+          f"{100 * out['scan_backward_share']:.1f}% of the busy time", flush=True)
+    return out
+
+
+def lm_bf16_forward_phase(ht) -> dict:
+    """(b) The README forward in bf16 on phase 5's three requests; logits
+    against the f32 model's; B3 bf16 at layer 0's q, k, v beside
+    scaled_dot_product_attention on the same inputs."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from heat_tpu_torch.nn.attention import flash_attention
+    from heat_tpu_torch.ops import flash
+
+    print(f"phase nn: the README's TransformerLM forward in bf16, {REQUESTS} requests of {BATCH} x {SEQ} tokens",
+          flush=True)
+    requests = [
+        torch.randint(0, LM["vocab"], (BATCH, SEQ), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(SEED + i))
+        for i in range(REQUESTS)
+    ]
+    out = {}
+    with torch.inference_mode():
+        reference = _lm(ht, torch.float32)(requests[0])
+        model = _lm(ht, torch.bfloat16)
+        torch.cuda.synchronize()
+        flash.LAUNCHES = 0
+        times, logits = [], None
+        for tokens in requests:
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = model(tokens)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+            if not (result.dtype == torch.float32 and torch.isfinite(result).all()):
+                raise AssertionError("the bf16 forward gave logits that are not finite float32")
+            logits = result if logits is None else logits
+            del result
+        out["launches"] = flash.LAUNCHES
+        out["forward_ms_first"] = times[0]
+        out["forward_ms_warm"] = sorted(times[1:])[len(times[1:]) // 2]
+        out["logits_vs_f32"] = _relative(logits, reference)
+        del logits, reference
+        print(f"  {out['launches']} kernel launches; forward {out['forward_ms_first']:.3f} ms first, "
+              f"{out['forward_ms_warm']:.3f} ms warm (f32 114.2 ms, PERF.md §5); logits against the f32 "
+              f"model's {out['logits_vs_f32']:.3e} normwise (bounds {BF16_FLOOR:g} and {BF16_LOGITS:g})", flush=True)
+        if out["launches"] != LM["depth"] * REQUESTS:
+            raise AssertionError(f"the bf16 forwards launched the kernel {out['launches']} times")
+        if not BF16_FLOOR <= out["logits_vs_f32"] <= BF16_LOGITS:
+            raise AssertionError("the bf16 forward's logits are not as far from the f32 model's as bf16 "
+                                 "rounding puts them")
+        captured = []
+
+        def capture(q, k, v, causal):
+            captured.append((q, k, v))
+            return flash_attention(q, k, v, causal=causal, impl="pallas")
+
+        model.blocks[0].attn.attention_fn = capture
+        model(requests[0])
+        q, k, v = captured[0]
+        del model, captured
+        torch.cuda.empty_cache()
+        kernel = check_flash("bf16 main path layer 0 inputs", q, k, v, True, reps=5)
+        out["kernel_ms"], out["kernel_bound_ms"] = kernel["ms"], kernel["bound_ms"]
+        out["kernel_max_abs_err"] = kernel["max_abs_err"]
+        out["plain_ms"] = _time_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True), 3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        out["library_ms"] = _time_ms(
+            lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale), 5)
+    print(f"  kernel (mma_bf16) {out['kernel_ms']:.4f} ms per launch at {tuple(q.shape)} causal bf16, bound "
+          f"{out['kernel_bound_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms; scaled_dot_product_attention "
+          f"{out['library_ms']:.4f} ms on the same bf16 q, k, v", flush=True)
+    return out
+
+
+def sequence_parallel_phase(ht, trained) -> dict:
+    """(c) Ring and Ulysses over four shards of the card: the README model at
+    max_len with the trained parameters against its single-shard forward
+    through the kernel; both schedules against dense attention at
+    SP_SMALL; the ring's gradient."""
+    import torch
+
+    from heat_tpu_torch.nn.attention import (
+        dot_product_attention,
+        flash_attention,
+        ring_attention,
+        ulysses_attention,
+    )
+    from heat_tpu_torch.ops import flash
+
+    card = torch.device("cuda", 0)
+    out = {}
+    print(f"phase nn: ring and Ulysses attention on {SP_P} shards of the card against dense at {SP_SMALL}",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    mesh = counting_mesh([card] * SP_P)
+    q, k, v = (torch.randn(SP_SMALL, generator=gen, device="cuda") for _ in range(3))
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            dense = dot_product_attention(qd.float(), kd.float(), vd.float(), causal=causal)
+            for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+                got = fn(qd, kd, vd, causal=causal, comm=mesh)
+                err = (got.float() - dense).abs().max().item()
+                label = f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}_{'causal' if causal else 'full'}"
+                out[label] = err
+                tol = SP_SMALL_TOL * (1 + dense.abs().max().item()) if dtype == torch.float32 else BF16_VS_DENSE
+                if got.dtype != dtype or not err <= tol:
+                    raise AssertionError(f"{label}: max|d| {err:.3e} against dense (bound {tol:.3e})")
+            del dense
+    print(f"  max|d| against dense attention: {json.dumps(out)}", flush=True)
+    grads = []
+    small = [t[: SP_GRAD[0], : SP_GRAD[1], : SP_GRAD[2]].contiguous() for t in (q, k, v)]
+    for fn in (partial(ring_attention, comm=mesh), dot_product_attention):
+        leaves = [t.clone().requires_grad_() for t in small]
+        (fn(*leaves, causal=True) ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    out["ring_grad_max_abs"] = max((a - b).abs().max().item() for a, b in zip(*grads))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=GRAD_TOL, atol=GRAD_TOL)
+    print(f"  the ring's gradient at {SP_GRAD} causal against dense: max|d| {out['ring_grad_max_abs']:.3e}",
+          flush=True)
+    del q, k, v, small, grads
+    torch.cuda.empty_cache()
+
+    print(f"phase nn: the README's TransformerLM (trained in f32) at batch 1, S = {LONG_SEQ}: ring and Ulysses "
+          f"(block_size={SP_BLOCK}) on {SP_P} shards of the card against one shard through the kernel", flush=True)
+    tokens = torch.randint(0, LM["vocab"], (1, LONG_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 15))
+    forwards = {
+        "kernel": partial(flash_attention, impl="pallas"),
+        "ring": partial(ring_attention, comm=mesh),
+        "ulysses": partial(ulysses_attention, comm=mesh, block_size=SP_BLOCK),
+    }
+    logits, captured = {}, []
+
+    def capture(q, k, v, causal):
+        captured.append((q, k, v))
+        return forwards["kernel"](q, k, v, causal=causal)
+
+    def bf16_kernel(q, k, v, causal):
+        """The control: B3's bf16 design on q, k, v rounded to bf16."""
+        return flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=causal, impl="pallas").to(q.dtype)
+
+    def attend(fn):
+        for block in trained.blocks:
+            block.attn.attention_fn = fn
+
+    with torch.inference_mode():
+        for name, fn in forwards.items():
+            attend(fn)
+            if name == "kernel":
+                trained.blocks[0].attn.attention_fn = capture
+            mesh.calls.clear()
+            flash.LAUNCHES = 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = _time_step(lambda: logits.__setitem__(name, trained(tokens)))
+            out[f"{name}_forward_ms"] = ms
+            out[f"{name}_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            out[f"{name}_collectives"] = dict(mesh.calls)
+            out[f"{name}_kernel_launches"] = flash.LAUNCHES
+            if not torch.isfinite(logits[name]).all():
+                raise AssertionError(f"the {name} forward at S = {LONG_SEQ} is not finite")
+            if name != "kernel":
+                out[f"{name}_vs_kernel"] = _relative(logits[name], logits["kernel"])
+            print(f"  {name}: {ms:.1f} ms, peak {out[f'{name}_peak_gb']:.2f} GB above the model, collectives "
+                  f"{out[f'{name}_collectives']}, kernel launches {flash.LAUNCHES}"
+                  + (f", logits against one shard {out[f'{name}_vs_kernel']:.3e} normwise (bound "
+                     f"{LONG_LOGITS_RTOL:g})" if name != "kernel" else ""), flush=True)
+        out["ring_vs_ulysses"] = _relative(logits["ring"], logits["ulysses"])
+        del logits["ring"], logits["ulysses"]
+        torch.cuda.empty_cache()
+        attend(bf16_kernel)
+        out["control_bf16_attention_vs_kernel"] = _relative(trained(tokens), logits["kernel"])
+        del logits
+        torch.cuda.empty_cache()
+        mid = {}
+        for name in ("kernel", "ring"):
+            attend(forwards[name])
+            mid[name] = trained(tokens[:, :MID_SEQ])
+        out["ring_vs_kernel_mid"] = _relative(mid["ring"], mid["kernel"])
+        attend(forwards["kernel"])
+        del mid
+        torch.cuda.empty_cache()
+        print(f"  ring against Ulysses {out['ring_vs_ulysses']:.3e} normwise (bound {LOGITS_RTOL:g}); the ring "
+              f"against one shard at S = {MID_SEQ} {out['ring_vs_kernel_mid']:.3e} (bound {LONG_LOGITS_RTOL:g}); "
+              f"the control, B3's bf16 design in every layer at S = {LONG_SEQ}, "
+              f"{out['control_bf16_attention_vs_kernel']:.3e} (must exceed {LONG_LOGITS_RTOL:g})", flush=True)
+        out["kernel_at_long_shape"] = check_flash("long forward layer 0 inputs", *captured[0], True, reps=1)
+    del captured
+    torch.cuda.empty_cache()
+    if out["kernel_kernel_launches"] != LM["depth"]:
+        raise AssertionError("the single-shard long forward did not launch the kernel once per block")
+    if out["ring_collectives"] != {"ppermute": 2 * (SP_P - 1) * LM["depth"]}:
+        raise AssertionError(f"the ring issued {out['ring_collectives']}")
+    if out["ulysses_collectives"] != {"alltoall": 4 * LM["depth"]}:
+        raise AssertionError(f"Ulysses issued {out['ulysses_collectives']}")
+    if not (out["ring_vs_kernel"] <= LONG_LOGITS_RTOL and out["ulysses_vs_kernel"] <= LONG_LOGITS_RTOL
+            and out["ring_vs_ulysses"] <= LOGITS_RTOL and out["ring_vs_kernel_mid"] <= LONG_LOGITS_RTOL):
+        raise AssertionError("a sequence-parallel forward disagrees with the single-shard forward")
+    if not out["control_bf16_attention_vs_kernel"] > LONG_LOGITS_RTOL:
+        raise AssertionError("the long forward's bound admits bf16 attention: it cannot tell a wrong forward")
+    return out
+
+
+def cnn_bf16_phase(ht) -> dict:
+    """(d) One bf16 ResNet-50 step under DataParallel at BASELINE config 5's
+    batch, its first loss against the f32 model's from the same weights,
+    and the warm step time."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    print(f"phase nn: ResNet50(num_classes={TRAIN_CLASSES}, dtype=bfloat16) under DataParallel, SGD({TRAIN_LR}), "
+          f"batch {TRAIN_BATCH}", flush=True)
+    x, y = _cifar(TRAIN_BATCH, SEED + 11)
+    card = MeshCommunication([torch.device("cuda", 0)])
+    losses, logits = {}, {}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = ht.nn.ResNet50(num_classes=TRAIN_CLASSES, dtype=dtype,
+                               generator=torch.Generator("cuda").manual_seed(SEED))
+        dp = ht.nn.DataParallel(model, comm=card, optimizer=ht.optim.SGD(TRAIN_LR)).init(SEED, x[:2])
+        with torch.no_grad():
+            logits[dtype] = dp(x[:CNN_LOGIT_ROWS]).double()
+        losses[dtype] = [dp.train_step(x, y)]
+        if dtype == torch.bfloat16:
+            times = [_time_step(lambda: losses[dtype].append(dp.train_step(x, y))) for _ in range(CNN_BF16_STEPS)]
+            out["ms"] = sorted(times)[len(times) // 2]
+            out["samples_per_s"] = TRAIN_BATCH / out["ms"] * 1e3
+        del dp, model
+        torch.cuda.empty_cache()
+    first32, first16 = losses[torch.float32][0], losses[torch.bfloat16][0]
+    out["loss_f32"], out["loss_bf16"] = first32, first16
+    out["loss_vs_f32"] = abs(first16 - first32) / abs(first32)
+    out["losses"] = losses[torch.bfloat16]
+    out["logits_vs_f32"] = _relative(logits[torch.bfloat16], logits[torch.float32])
+    print(f"  first loss {first16:.5f} against the f32 model's {first32:.5f}: {out['loss_vs_f32']:.3e} (bound "
+          f"{BF16_LOSS:g}); warm median of {CNN_BF16_STEPS} steps {out['ms']:.2f} ms, "
+          f"{out['samples_per_s']:.1f} samples/s (f32 106.19 ms, PERF.md §5); eval logits of {CNN_LOGIT_ROWS} "
+          f"images against the f32 model's {out['logits_vs_f32']:.3e} normwise (bounds {BF16_FLOOR:g} and "
+          f"{BF16_LOGITS:g})", flush=True)
+    if not (out["loss_vs_f32"] <= BF16_LOSS and all(math.isfinite(v) for v in out["losses"])
+            and BF16_FLOOR <= out["logits_vs_f32"] <= BF16_LOGITS):
+        raise AssertionError("the bf16 ResNet-50 step disagrees with the f32 model's")
+    return out
+
+
+def parallel_phase(ht) -> dict:
+    """(e) parallel/ on four shards of the card at cut sizes: the Megatron
+    pair, a dp x tp step, the GPipe schedule and the experts, each against
+    its dense oracle, with the collectives counted."""
+    import torch
+    from torch.func import functional_call
+
+    from heat_tpu_torch import parallel
+
+    card = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    dim, hidden = TP_SHAPE
+    x = torch.randn(TP_ROWS, dim, generator=gen, device="cuda")
+    out = {}
+    print(f"phase nn: parallel/ on {SP_P} shards of the card", flush=True)
+
+    mesh = counting_mesh([card] * SP_P)
+    tp = parallel.TPMLPBlock(hidden, dim, dim, comm=mesh, generator=torch.Generator("cuda").manual_seed(SEED))
+    dense = parallel.TPMLPBlock(hidden, dim, dim, generator=torch.Generator("cuda").manual_seed(SEED))
+    with torch.no_grad():
+        got = tp(x)
+        out["tp_collectives"] = dict(mesh.calls)
+        out["tp_vs_dense"] = _relative(got, dense(x))
+    if out["tp_collectives"] != {"allreduce": 1} or not out["tp_vs_dense"] <= PARALLEL_RTOL:
+        raise AssertionError(f"TPMLPBlock on {SP_P} shards: {out['tp_collectives']}, {out['tp_vs_dense']:.3e}")
+
+    grid = parallel.make_mesh([("dp", 2), ("tp", 2)], devices=[card] * 4)
+    block = parallel.TPMLPBlock(hidden, dim, dim, comm=grid, generator=torch.Generator("cuda").manual_seed(SEED))
+    oracle = parallel.TPMLPBlock(hidden, dim, dim, generator=torch.Generator("cuda").manual_seed(SEED))
+    target = torch.randn(TP_ROWS, dim, generator=gen, device="cuda")
+    ((block(x) - target) ** 2).mean().backward()
+    ((oracle(x) - target) ** 2).mean().backward()
+    pairs = [(torch.cat([k.grad for k in block.up.kernel], 1), oracle.up.kernel[0].grad),
+             (torch.cat([k.grad for k in block.down.kernel], 0), oracle.down.kernel[0].grad),
+             (torch.cat([b.grad for b in block.up.bias]), oracle.up.bias[0].grad),
+             (block.down.bias.grad, oracle.down.bias.grad)]
+    out["dp_tp_grad_vs_dense"] = max(_relative(a, b) for a, b in pairs)
+    if not out["dp_tp_grad_vs_dense"] <= PARALLEL_RTOL or len(block.up.kernel) != 2:
+        raise AssertionError(f"the dp x tp step's gradient: {out['dp_tp_grad_vs_dense']:.3e}")
+
+    mesh = counting_mesh([card] * SP_P)
+    blocks = [ht.nn.TransformerBlock(dim, heads=LM["heads"], generator=torch.Generator("cuda").manual_seed(SEED + s))
+              for s in range(SP_P)]
+    acts = torch.randn(PP_BATCH, PP_SEQ, dim, generator=gen, device="cuda")
+    with torch.no_grad():
+        stacked = parallel.pipeline_stage_params([dict(b.named_parameters()) for b in blocks])
+        got = parallel.pipeline_apply(lambda p, a: functional_call(blocks[0], p, (a,)), stacked, acts, mesh)
+        want = acts
+        for b in blocks:
+            want = b(want)
+        out["pipeline_collectives"] = dict(mesh.calls)
+        out["pipeline_vs_sequential"] = _relative(got, want)
+    if (out["pipeline_collectives"] != {"ppermute": 2 * SP_P - 1, "bcast": 1}
+            or not out["pipeline_vs_sequential"] <= PARALLEL_RTOL):
+        raise AssertionError(f"pipeline_apply: {out['pipeline_collectives']}, {out['pipeline_vs_sequential']:.3e}")
+
+    mesh = counting_mesh([card] * SP_P)
+    moe = parallel.MoELayer(SP_P, hidden, dim, generator=torch.Generator("cuda").manual_seed(SEED))
+    with torch.no_grad():
+        got = moe(x, mesh=mesh)
+        out["moe_collectives"] = dict(mesh.calls)
+        out["moe_vs_dense"] = _relative(got, moe(x))
+    if out["moe_collectives"] != {"alltoall": 2} or not out["moe_vs_dense"] <= PARALLEL_RTOL:
+        raise AssertionError(f"moe_apply: {out['moe_collectives']}, {out['moe_vs_dense']:.3e}")
+    print(f"  {json.dumps(out)}", flush=True)
+    return out
+
+
+def nn_path(ht, smi: str) -> dict:
+    """Phase 14: the rest of nn on the card; returns its numbers."""
+    import torch
+
+    numbers = {"card": smi, "seconds": {}}
+    tokens = torch.randint(0, LM["vocab"], (LM_BATCH, LM_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 14))
+    numbers["flops"] = lm_step_flops(LM_BATCH, LM_SEQ)
+    t0 = time.perf_counter()
+    numbers["train_f32"], trained = lm_training_phase(ht, torch.float32, tokens, numbers["flops"])
+    numbers["train_bf16"], _ = lm_training_phase(ht, torch.bfloat16, tokens, numbers["flops"])
+    numbers["seconds"]["training"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for label, phase in (("forward_bf16", lm_bf16_forward_phase),
+                         ("sequence_parallel", lambda ht: sequence_parallel_phase(ht, trained)),
+                         ("resnet50_bf16", cnn_bf16_phase), ("parallel", parallel_phase)):
+        t0 = time.perf_counter()
+        numbers[label] = phase(ht)
+        numbers["seconds"][label] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -3346,12 +3998,28 @@ def main() -> int:
     layer = array_layer_path(ht, smi)
     torch.cuda.empty_cache()
     estimators = estimators_path(ht, smi)
+    torch.cuda.empty_cache()
+    nn = nn_path(ht, smi)
+    train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
+    kernels[1].update({
+        "launches_training_step_f32": train_f32["launches_per_step"],
+        "launches_training_step_bf16": train_bf16["launches_per_step"],
+        "launches_training_backward_f32": train_f32["launches_backward"],
+        "launches_training_backward_bf16": train_bf16["launches_backward"],
+        "launches_bf16_forward": forward_bf16["launches"],
+        "ms_bf16": forward_bf16["kernel_ms"],
+        "bound_bf16_held_ms": forward_bf16["kernel_bound_ms"],
+        "plain_ms_bf16": forward_bf16["plain_ms"],
+        "library_ms_bf16": forward_bf16["library_ms"],
+        "max_abs_err_bf16": forward_bf16["kernel_max_abs_err"],
+    })
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
     print("training: " + json.dumps(training))
     print("array_layer: " + json.dumps(layer))
     print("estimators: " + json.dumps(estimators))
+    print("nn: " + json.dumps(nn))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ tested against.
 
 from .core import *
 from .core import linalg, random
-from . import classification, cluster, datasets, graph, naive_bayes, nn, ops, optim, regression, spatial, utils
+from . import (
+    classification, cluster, datasets, graph, naive_bayes, nn, ops, optim, parallel, regression, spatial, utils,
+)
 from .core import (
     arithmetics,
     base,

@@ -4,8 +4,9 @@ The JAX package re-exports ``flax.linen`` and adds its own modules; the port
 re-exports ``torch.nn`` the same way: ``heat_tpu_torch.nn.Linear``,
 ``heat_tpu_torch.nn.GELU``... resolve to ``torch.nn``, while the attention
 functions, ``MultiHeadAttention``, ``DataParallel``/``DataParallelMultiGPU``
-and the models are the port's own, under the JAX package's names. The ring
-and Ulysses backends are not ported yet (ROADMAP queue A9b).
+and the models are the port's own, under the JAX package's names,
+among them the sequence-parallel ``ring_attention`` and
+``ulysses_attention`` and the bfloat16 model dtype.
 """
 
 from torch import nn as _torch_nn

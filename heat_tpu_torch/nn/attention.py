@@ -1,20 +1,23 @@
-"""Attention: dense, blockwise (flash-style) and the hand-written kernel
-(counterpart of heat_tpu/nn/attention.py).
+"""Attention: dense, blockwise (flash-style), the hand-written kernel, and
+the sequence-parallel ring and Ulysses schedules (counterpart of
+heat_tpu/nn/attention.py).
 
 * :func:`dot_product_attention` — dense softmax attention, the oracle.
 * :func:`flash_attention` — blockwise online-softmax attention: a loop over
   key tiles (``impl="scan"``), or the CUDA kernel of
   :mod:`heat_tpu_torch.ops.flash` (``impl="pallas"``, the name the JAX
   package gives its hand-written kernel, kept so callers port unchanged).
+* :func:`ring_attention` — sequence parallelism over a mesh: the sequence
+  is cut into one block per shard, each shard keeps its Q block while the
+  K/V blocks rotate around the ring by ``MeshCommunication.ppermute``, and
+  each visiting block is folded into the shard's online-softmax state.
+  Attention memory per shard is O(S/p) keys at a time.
+* :func:`ulysses_attention` — two ``MeshCommunication.alltoall`` exchanges
+  turn sequence shards into head shards and back around local attention.
 * :class:`MultiHeadAttention` — projections around a pluggable backend.
 
-The sequence-parallel :func:`ring_attention` and :func:`ulysses_attention`
-are not ported yet (ROADMAP queue A9b) and raise ``NotImplementedError``.
-The verbs they need exist (``MeshCommunication.ppermute`` and
-``alltoall``); what is missing is the schedule on top: the sequence split
-over the mesh, the ring's online-softmax merge of the key/value blocks
-that visit each shard (Ulysses: the head/sequence exchange around local
-attention), and its backward.
+The schedules run on the in-process verbs of the port's single-controller
+mesh, so autograd differentiates them as it does any torch code.
 
 All functions take [batch, seq, heads, head_dim] tensors and accumulate the
 softmax in float32 whatever the input dtype.
@@ -23,11 +26,13 @@ softmax in float32 whatever the input dtype.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from functools import partial
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
 
+from ..core.communication import MeshCommunication, sanitize_comm
 from ..ops import flash as _flash
 from . import _init
 
@@ -113,6 +118,10 @@ def _finalize(l, o, dtype):
     return (o / denom[..., None]).to(dtype)
 
 
+BACKWARD_RANGE = "flash_attention backward (scan)"
+"""The profiler range around :class:`_FlashPallasDiff`'s backward."""
+
+
 class _FlashPallasDiff(torch.autograd.Function):
     """The kernel's forward with the gradient of the scan path: the backward
     recomputes :func:`flash_attention` ``impl="scan"`` from the saved inputs,
@@ -128,9 +137,11 @@ class _FlashPallasDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        # a named range, so that a profile of a training step can tell the
+        # scan path's recompute and backward from the rest of the step
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
             out = flash_attention(*inputs, causal=ctx.causal, scale=ctx.scale, impl="scan")
-        grads = torch.autograd.grad(out, inputs, g)
+            grads = torch.autograd.grad(out, inputs, g)
         return (*grads, None, None)
 
 
@@ -179,24 +190,101 @@ def flash_attention(
     return _finalize(l, o, q.dtype)
 
 
-def ring_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None, comm=None):
-    """Ring-parallel attention over the mesh's sequence axis: not ported yet."""
-    raise NotImplementedError(
-        "ring_attention is not ported yet: the ring schedule over MeshCommunication.ppermute "
-        "(the sequence split over the mesh, the online-softmax merge of the visiting key/value "
-        "blocks, and its backward) is ROADMAP queue A9b"
-    )
+def _split_seq(x: torch.Tensor, comm: MeshCommunication) -> List[torch.Tensor]:
+    """x's sequence (dim 1) cut into one equal block per shard of ``comm``,
+    each on its shard's device."""
+    return [b.to(d) for b, d in zip(x.tensor_split(comm.size, dim=1), comm.devices)]
+
+
+def _gather_seq(shards: List[torch.Tensor], device: torch.device) -> torch.Tensor:
+    return torch.cat([s.to(device) for s in shards], dim=1)
+
+
+def ring_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    comm: Optional[MeshCommunication] = None,
+) -> torch.Tensor:
+    """Ring-parallel attention over the mesh's sequence axis.
+
+    q, k and v are [B, S, H, D]; S is cut into ``comm.size`` blocks, block r
+    on shard r. Each shard keeps its Q block while the K/V blocks rotate
+    around the ring (``ppermute``, shard j sends to j − 1: the reference's
+    systolic cdist schedule), folding one block per step into its
+    online-softmax state with the block's global offset for the causal
+    mask. Returns the output blocks concatenated along S on q's device, in
+    q's dtype (the state is float32).
+    """
+    comm = sanitize_comm(comm)
+    S = q.shape[1]
+    if S % comm.size:
+        raise ValueError(f"ring_attention requires seq {S} divisible by mesh size {comm.size}")
+    scale = _flash.score_scale(scale, q.shape[-1])
+    out = _ring_shards(*(_split_seq(t, comm) for t in (q, k, v)), causal, scale, comm)
+    return _gather_seq(out, q.device)
+
+
+def _ring_shards(qs, ks, vs, causal: bool, scale: float, comm: MeshCommunication) -> List[torch.Tensor]:
+    """The ring on sequence shards: one output block per shard, on its device."""
+    p = comm.size
+    B, sq, H, D = qs[0].shape
+    acc = _acc_dtype(qs[0].dtype)
+    state = [
+        (
+            torch.full((B, sq, H), -math.inf, dtype=acc, device=d),
+            torch.zeros((B, sq, H), dtype=acc, device=d),
+            torch.zeros((B, sq, H, D), dtype=acc, device=d),
+        )
+        for d in comm.devices
+    ]
+    perm = [(j, (j - 1) % p) for j in range(p)]
+    for i in range(p):
+        # shard r holds the K/V block of shard (r + i) % p
+        state = [
+            _tile_update(qs[r], ks[r], vs[r], *state[r], r * sq, ((r + i) % p) * sq, causal, scale)
+            for r in range(p)
+        ]
+        if i < p - 1:  # p - 1 rotations: the last block's is never issued
+            ks, vs = comm.ppermute(ks, perm=perm), comm.ppermute(vs, perm=perm)
+    return [_finalize(l, o, qs[0].dtype) for _, l, o in state]
 
 
 def ulysses_attention(
-    q, k, v, *, causal: bool = False, scale: Optional[float] = None, comm=None, block_size: int = 0
-):
-    """All-to-all (Ulysses) sequence-parallel attention: not ported yet."""
-    raise NotImplementedError(
-        "ulysses_attention is not ported yet: the head/sequence exchange over "
-        "MeshCommunication.alltoall around local attention, and its backward, is ROADMAP "
-        "queue A9b"
-    )
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    comm: Optional[MeshCommunication] = None,
+    block_size: int = 0,
+) -> torch.Tensor:
+    """All-to-all (Ulysses) sequence-parallel attention.
+
+    The sequence blocks [B, S/p, H, D] of the mesh's shards become head
+    groups [B, S, H/p, D] through one ``alltoall`` each for q, k and v;
+    every shard runs full-sequence attention on its heads, dense or, with
+    ``block_size > 0``, the blockwise :func:`flash_attention` (O(S) memory);
+    one ``alltoall`` switches the output back. Requires heads and seq
+    divisible by the mesh size. Returns [B, S, H, D] on q's device.
+    """
+    comm = sanitize_comm(comm)
+    p = comm.size
+    H = q.shape[2]
+    if H % p:
+        raise ValueError(f"ulysses_attention requires heads {H} divisible by mesh size {p}")
+    if q.shape[1] % p:
+        raise ValueError(f"seq {q.shape[1]} not divisible by mesh size {p}")
+    scale = _flash.score_scale(scale, q.shape[-1])
+    local = partial(flash_attention, block_size=block_size) if block_size else dot_product_attention
+    # [B, S/p, H, D] -> [B, S, H/p, D]: split heads, gather sequence
+    qh, kh, vh = (comm.alltoall(_split_seq(t, comm), split_axis=2, concat_axis=1) for t in (q, k, v))
+    oh = [local(a, b, c, causal=causal, scale=scale) for a, b, c in zip(qh, kh, vh)]
+    return _gather_seq(comm.alltoall(oh, split_axis=1, concat_axis=2), q.device)
 
 
 _BACKENDS = {
@@ -219,8 +307,11 @@ class MultiHeadAttention(nn.Module):
 
     ``backend`` selects among 'dense', 'flash', 'ring', 'ulysses';
     ``attention_fn``, a callable ``(q, k, v, causal=...) -> out``, overrides
-    it. The q, k and v projections map ``in_features`` to (heads, head_dim)
-    with a bias (flax's DenseGeneral), the out projection maps them back.
+    it; ``forward(x, comm)`` hands ``comm`` to the ring and Ulysses
+    backends. The q, k and v projections map ``in_features`` to (heads,
+    head_dim) with a bias (flax's DenseGeneral), the out projection maps
+    them back, each computing in ``dtype`` (None: the input's type promoted
+    with the float32 parameters).
     flax infers ``in_features`` from the first input; a torch module takes it
     up front. Parameters are initialized as flax does (lecun-normal kernels,
     zero biases) from ``generator``, on ``device`` (None: the default
@@ -252,10 +343,10 @@ class MultiHeadAttention(nn.Module):
         self.attention_fn = attention_fn
         device = _init.torch_device(device)
         generator = _init.generator(generator, device)
-        self.query = _init.dense(in_features, features, device, generator)
-        self.key = _init.dense(in_features, features, device, generator)
-        self.value = _init.dense(in_features, features, device, generator)
-        self.out = _init.dense(features, in_features, device, generator)
+        self.query = _init.dense(in_features, features, device, generator, dtype)
+        self.key = _init.dense(in_features, features, device, generator, dtype)
+        self.value = _init.dense(in_features, features, device, generator, dtype)
+        self.out = _init.dense(features, in_features, device, generator, dtype)
 
     def forward(self, x: torch.Tensor, comm=None) -> torch.Tensor:
         heads = (self.num_heads, self.head_dim)

@@ -6,8 +6,14 @@ The CNNs take NHWC images, as flax's do, and run their convolutions on the
 NCHW view ``x.permute(0, 3, 1, 2)``, whose strides are channels-last: no
 copy. ``forward(x, train=...)`` of a model with BatchNorm selects batch
 statistics (``train=True``, which update the running averages) or the
-running averages. The models run float32; a ``dtype`` other than float32
-raises ``NotImplementedError``.
+running averages.
+
+``dtype`` is flax's: float32 or bfloat16, the type a model computes in.
+Its parameters stay float32; its Dense, Conv and Embed layers cast their
+inputs and parameters to ``dtype``; its norms take their statistics in
+float32 (:mod:`._init`). The heads of ``ResNet`` and ``TransformerLM``
+compute in float32, as in flax; ``MLP`` and ``SimpleCNN`` return
+``dtype``. Another dtype raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,9 +47,9 @@ def _setup(dtype, device, generator):
     return device, _init.generator(generator, device)
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    """The NCHW view of an NHWC float32 batch."""
-    return x.to(torch.float32).permute(0, 3, 1, 2)
+def _nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The NCHW view of an NHWC batch cast to ``dtype``."""
+    return x.to(dtype).permute(0, 3, 1, 2)
 
 
 class MLP(nn.Module):
@@ -62,16 +68,17 @@ class MLP(nn.Module):
     ):
         super().__init__()
         device, generator = _setup(dtype, device, generator)
+        self.dtype = dtype
         first = (
-            _init.LazyDense(features[0], device, generator)
+            _init.LazyDense(features[0], device, generator, dtype)
             if in_features is None
-            else _init.dense(in_features, features[0], device, generator)
+            else _init.dense(in_features, features[0], device, generator, dtype)
         )
-        rest = [_init.dense(a, b, device, generator) for a, b in zip(features[:-1], features[1:])]
+        rest = [_init.dense(a, b, device, generator, dtype) for a, b in zip(features[:-1], features[1:])]
         self.layers = nn.ModuleList([first] + rest)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.reshape(x.shape[0], -1).to(torch.float32)
+        x = x.reshape(x.shape[0], -1).to(self.dtype)
         for layer in self.layers[:-1]:
             x = F.relu(layer(x))
         return self.layers[-1](x)
@@ -96,19 +103,20 @@ class SimpleCNN(nn.Module):
     ):
         super().__init__()
         device, generator = _setup(dtype, device, generator)
-        self.conv1 = _init.conv(in_channels, 32, 3, device=device, gen=generator)
-        self.conv2 = _init.conv(32, 64, 3, device=device, gen=generator)
+        self.dtype = dtype
+        self.conv1 = _init.conv(in_channels, 32, 3, device=device, gen=generator, dtype=dtype)
+        self.conv2 = _init.conv(32, 64, 3, device=device, gen=generator, dtype=dtype)
         self.fc1 = (
-            _init.LazyDense(128, device, generator)
+            _init.LazyDense(128, device, generator, dtype)
             if flat_features is None
-            else _init.dense(flat_features, 128, device, generator)
+            else _init.dense(flat_features, 128, device, generator, dtype)
         )
-        self.fc2 = _init.dense(128, num_classes, device, generator)
+        self.fc2 = _init.dense(128, num_classes, device, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() == 3:
             x = x[..., None]
-        x = F.relu(self.conv1(_nchw(x)))
+        x = F.relu(self.conv1(_nchw(x, self.dtype)))
         x = F.max_pool2d(F.relu(self.conv2(x)), 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten as NHWC
         return self.fc2(F.relu(self.fc1(x)))
@@ -128,7 +136,7 @@ class _ResidualBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, convs, in_channels: int, filters: int, stride: int, device, generator):
+    def __init__(self, convs, in_channels: int, filters: int, stride: int, dtype, device, generator):
         super().__init__()
         out = filters * self.expansion
         self.convs = nn.ModuleList(convs)
@@ -138,7 +146,8 @@ class _ResidualBlock(nn.Module):
         )
         self.proj = self.proj_norm = None
         if in_channels != out or stride != 1:
-            self.proj = _init.conv(in_channels, out, 1, stride, bias=False, device=device, gen=generator)
+            self.proj = _init.conv(in_channels, out, 1, stride, bias=False, device=device, gen=generator,
+                                   dtype=dtype)
             self.proj_norm = _init.BatchNorm(out, device)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -159,9 +168,9 @@ class BasicBlock(_ResidualBlock):
                  in_channels: int, device=None, generator: Optional[torch.Generator] = None):
         device, generator = _setup(dtype, device, generator)
         s = _pair_stride(strides)
-        conv = partial(_init.conv, bias=False, device=device, gen=generator)
+        conv = partial(_init.conv, bias=False, device=device, gen=generator, dtype=dtype)
         convs = [conv(in_channels, filters, 3, s, padding=1), conv(filters, filters, 3, padding=1)]
-        super().__init__(convs, in_channels, filters, s, device, generator)
+        super().__init__(convs, in_channels, filters, s, dtype, device, generator)
 
 
 class Bottleneck(_ResidualBlock):
@@ -174,13 +183,13 @@ class Bottleneck(_ResidualBlock):
                  in_channels: int, device=None, generator: Optional[torch.Generator] = None):
         device, generator = _setup(dtype, device, generator)
         s = _pair_stride(strides)
-        conv = partial(_init.conv, bias=False, device=device, gen=generator)
+        conv = partial(_init.conv, bias=False, device=device, gen=generator, dtype=dtype)
         convs = [
             conv(in_channels, filters, 1),
             conv(filters, filters, 3, s, padding=1),
             conv(filters, 4 * filters, 1),
         ]
-        super().__init__(convs, in_channels, filters, s, device, generator)
+        super().__init__(convs, in_channels, filters, s, dtype, device, generator)
 
 
 class ResNet(nn.Module):
@@ -203,21 +212,22 @@ class ResNet(nn.Module):
     ):
         super().__init__()
         device, generator = _setup(dtype, device, generator)
+        self.dtype = dtype
         self.stem = _init.conv(in_channels, num_filters, 3, padding=1, bias=False,
-                               device=device, gen=generator)
+                               device=device, gen=generator, dtype=dtype)
         self.stem_norm = _init.BatchNorm(num_filters, device)
         blocks, channels = [], num_filters
         for i, size in enumerate(stage_sizes):
             for j in range(size):
                 strides = (2, 2) if i > 0 and j == 0 else (1, 1)
-                blocks.append(block(num_filters * 2**i, strides, in_channels=channels,
+                blocks.append(block(num_filters * 2**i, strides, dtype, in_channels=channels,
                                     device=device, generator=generator))
                 channels = num_filters * 2**i * block.expansion
         self.blocks = nn.ModuleList(blocks)
-        self.head = _init.dense(channels, num_classes, device, generator)
+        self.head = _init.dense(channels, num_classes, device, generator, torch.float32)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = F.relu(self.stem_norm(self.stem(_nchw(x)), train))
+        x = F.relu(self.stem_norm(self.stem(_nchw(x, self.dtype)), train))
         for block in self.blocks:
             x = block(x, train)
         return self.head(x.mean(dim=(2, 3)))
@@ -255,12 +265,12 @@ class TransformerBlock(nn.Module):
         device, generator = _setup(dtype, device, generator)
         self.norm1 = _init.layer_norm(dim, device)
         self.attn = MultiHeadAttention(
-            heads, dim, qkv_features=dim, causal=causal, attention_fn=attention_fn,
+            heads, dim, qkv_features=dim, causal=causal, dtype=dtype, attention_fn=attention_fn,
             device=device, generator=generator,
         )
         self.norm2 = _init.layer_norm(dim, device)
-        self.fc1 = _init.dense(dim, mlp_ratio * dim, device, generator)
-        self.fc2 = _init.dense(mlp_ratio * dim, dim, device, generator)
+        self.fc1 = _init.dense(dim, mlp_ratio * dim, device, generator, dtype)
+        self.fc2 = _init.dense(mlp_ratio * dim, dim, device, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # x: [batch, seq, dim]
         x = x + self.attn(self.norm1(x))
@@ -294,17 +304,17 @@ class TransformerLM(nn.Module):
         super().__init__()
         self.max_len = max_len
         device, generator = _setup(dtype, device, generator)
-        self.embed = _init.embed(vocab, dim, device, generator)
-        self.pos_embed = _init.embed(max_len, dim, device, generator)
+        self.embed = _init.embed(vocab, dim, device, generator, dtype)
+        self.pos_embed = _init.embed(max_len, dim, device, generator, dtype)
         self.blocks = nn.ModuleList(
             TransformerBlock(
-                dim, heads=heads, causal=causal, attention_fn=attention_fn,
+                dim, heads=heads, causal=causal, dtype=dtype, attention_fn=attention_fn,
                 device=device, generator=generator,
             )
             for _ in range(depth)
         )
         self.norm = _init.layer_norm(dim, device)
-        self.head = _init.dense(dim, vocab, device, generator)
+        self.head = _init.dense(dim, vocab, device, generator, torch.float32)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:  # tokens: [batch, seq] int
         seq = tokens.shape[1]

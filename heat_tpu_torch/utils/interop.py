@@ -1,7 +1,12 @@
 """Carry state into the port from numpy arrays: a distributed array, a
-fitted KMeans (for example one fitted by heat_tpu, exported with numpy), or
+fitted KMeans (for example one fitted by heat_tpu, exported with numpy),
 the variables of a flax ``MultiHeadAttention``, ``TransformerLM``, ``MLP``,
-``SimpleCNN`` or ``ResNet``."""
+``SimpleCNN``, ``ResNet``, ``TPMLPBlock`` or ``MoELayer``, or any tree of
+arrays (per-stage pipeline parameters).
+
+The model loaders take the model's other fields as keywords, ``dtype``
+among them: the parameters load as float32 whatever the model's dtype, as
+flax keeps them."""
 
 from __future__ import annotations
 
@@ -17,6 +22,9 @@ from ..core.dndarray import DNDarray
 from ..nn import _init
 from ..nn.attention import MultiHeadAttention
 from ..nn.models import MLP, BasicBlock, Bottleneck, ResNet, SimpleCNN, TransformerLM
+from ..parallel.expert import MoELayer
+from ..parallel.pipeline import tree_map
+from ..parallel.tensor import TPMLPBlock
 
 __all__ = [
     "dndarray_from_numpy",
@@ -26,6 +34,9 @@ __all__ = [
     "mlp_from_flax",
     "simple_cnn_from_flax",
     "resnet_from_flax",
+    "tp_mlp_block_from_flax",
+    "moe_layer_from_flax",
+    "tree_from_numpy",
 ]
 
 
@@ -223,3 +234,55 @@ def resnet_from_flax(variables: Mapping, **config) -> ResNet:
                 _load_batch_norm(mod.proj_norm, p[f"BatchNorm_{n}"], s[f"BatchNorm_{n}"])
         _load_dense(model.head, params["Dense_0"])
     return model
+
+
+def _unbox(value):
+    """The array inside a flax ``Partitioned`` box (a leaf made by
+    ``nn.with_partitioning``), or the value itself."""
+    return value.unbox() if hasattr(value, "unbox") else value
+
+
+def _load_blocks(blocks, value, dim: int) -> None:
+    """A flax kernel into the port's blocks of it, cut along ``dim``."""
+    value = np.asarray(_unbox(value))
+    widths = [b.shape[dim] for b in blocks]
+    for block, part in zip(blocks, np.split(value, np.cumsum(widths)[:-1], axis=dim)):
+        _copy(block, part)
+
+
+def tp_mlp_block_from_flax(params: Mapping, **config) -> TPMLPBlock:
+    """A :class:`~heat_tpu_torch.parallel.TPMLPBlock` holding the weights of a
+    flax ``heat_tpu.parallel.TPMLPBlock``, read through the ``Partitioned``
+    boxes of its sharded kernels: ``up`` and ``down`` with kernel and bias.
+    ``config`` holds ``comm`` (the 'tp' line the kernels are cut over) and
+    ``device``; the widths come from the kernels."""
+    in_features, hidden = np.shape(_unbox(params["up"]["kernel"]))
+    features = np.shape(_unbox(params["down"]["kernel"]))[1]
+    block = TPMLPBlock(hidden, features, in_features, **config)
+    with torch.no_grad():
+        _load_blocks(block.up.kernel, params["up"]["kernel"], 1)
+        _load_blocks(block.up.bias, params["up"]["bias"], 0)
+        _load_blocks(block.down.kernel, params["down"]["kernel"], 0)
+        _copy(block.down.bias, _unbox(params["down"]["bias"]))
+    return block
+
+
+def moe_layer_from_flax(params: Mapping, **config) -> MoELayer:
+    """A :class:`~heat_tpu_torch.parallel.MoELayer` holding the router and
+    the expert kernels (``router``, ``wi``, ``wo``) of a flax
+    ``heat_tpu.parallel.MoELayer``; ``config`` holds ``device``."""
+    n_experts, features, hidden = np.shape(params["wi"])
+    layer = MoELayer(n_experts, hidden, features, **config)
+    with torch.no_grad():
+        for name in ("router", "wi", "wo"):
+            _copy(getattr(layer, name), params[name])
+    return layer
+
+
+def tree_from_numpy(tree, device=None):
+    """Nested dicts, lists and tuples of numpy arrays as the same tree of
+    tensors on ``device`` (None: the default device), dtypes kept; for
+    example the per-stage parameters of
+    :func:`~heat_tpu_torch.parallel.pipeline_stage_params`."""
+    device = _init.torch_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)

@@ -1,6 +1,8 @@
 """heat_tpu_torch.ops.flash and heat_tpu_torch.nn.attention against
 heat_tpu.ops.flash (the Pallas kernel in interpret mode) and
-heat_tpu.nn.attention, on the CPU.
+heat_tpu.nn.attention, on the CPU; the ring and Ulysses schedules on the
+tests' CPU mesh (``HEAT_TPU_TEST_DEVICES`` shards) against heat_tpu's on
+the JAX CPU mesh of the same size and against the port's dense path.
 
 On the CPU the kernel's wrapper runs its plain PyTorch version; the CUDA
 kernel itself is held against that version on the card by chip_smoke.py.
@@ -14,7 +16,11 @@ every array is cast explicitly). Tolerances:
   may go the other way: |Δ| ≤ 2⁻⁸·(max|v| + |ref|), two bfloat16 ulps of a
   weighted mean of v;
 * gradients: rtol/atol 1e-4, as tests/test_ops_pallas.py holds the JAX
-  custom VJP.
+  custom VJP and tests/test_attention.py the ring's;
+* ring and Ulysses in float32: 1e-5 against heat_tpu's and the dense path,
+  the bound of tests/test_attention.py (the same online-softmax math over
+  blocks, summed in another order); in bfloat16 within 0.05 of float32
+  dense attention, as there.
 """
 
 from functools import partial
@@ -25,14 +31,18 @@ import numpy as np
 import pytest
 import torch
 
+import heat_tpu as ref
 import heat_tpu_torch as ht
 from heat_tpu.nn import attention as ref_attention
 from heat_tpu.ops.flash import flash_attention_tpu
+from heat_tpu_torch.core.communication import MeshCommunication
 from heat_tpu_torch.nn import attention
 from heat_tpu_torch.ops import flash
 from heat_tpu_torch.utils.interop import mha_from_flax
 
 F32_TOL = 2e-4
+SP_TOL = 1e-5
+P = ht.communication._cpu_mesh_size()
 
 
 @pytest.fixture(autouse=True)
@@ -325,20 +335,111 @@ def test_mha_with_the_kernel_matches_flax_with_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("backend", ["ring", "ulysses"])
-def test_sequence_parallel_backends_are_not_ported(backend):
-    mha = ht.nn.MultiHeadAttention(4, 32, backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A9"):
-        mha(torch.zeros(1, 8, 32))
-    fn = getattr(attention, f"{backend}_attention")
-    with pytest.raises(NotImplementedError, match="queue A9"):
-        fn(*_torch(_qkv(1, 8, 2, 4, seed=0)))
-
-
 def test_mha_rejects_bad_widths_and_backends():
     with pytest.raises(ValueError, match="divisible"):
         ht.nn.MultiHeadAttention(3, 32, device="cpu")
     with pytest.raises(ValueError, match="unknown attention backend"):
         ht.nn.MultiHeadAttention(4, 32, backend="sparse", device="cpu")(torch.zeros(1, 4, 32))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ht.nn.MultiHeadAttention(4, 32, dtype=torch.bfloat16, device="cpu")
+    with pytest.raises(NotImplementedError, match="float16"):
+        ht.nn.MultiHeadAttention(4, 32, dtype=torch.float16, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# ring and Ulysses over the tests' mesh (after tests/test_attention.py)
+# ---------------------------------------------------------------------------
+def _mesh(p):
+    return MeshCommunication([torch.device("cpu")] * p)
+
+
+def _sp_qkv(B=2, S=None, H=None, D=16, seed=0):
+    # sequence and heads scale with the mesh, as tests/test_attention.py's
+    return _qkv(B, 8 * P if S is None else S, 2 * P if H is None else H, D, seed)
+
+
+def _reference(fn_name, arrays, dtype=jnp.float32, **kwargs):
+    """heat_tpu's schedule on the JAX CPU mesh, inputs sharded along seq."""
+    comm = ref.get_comm()
+    sharded = [jax.device_put(a, comm.sharding(4, 1)) for a in _jax(arrays, dtype)]
+    return getattr(ref_attention, fn_name)(*sharded, comm=comm, **kwargs)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_matches_heat_tpu_and_dense(causal):
+    arrays = _sp_qkv(seed=20)
+    got = attention.ring_attention(*_torch(arrays), causal=causal, comm=ht.get_comm())
+    want = _reference("ring_attention", arrays, causal=causal)
+    dense = attention.dot_product_attention(*_torch(arrays), causal=causal)
+    assert got.shape == dense.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SP_TOL, atol=SP_TOL)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=SP_TOL, atol=SP_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block_size", [0, 8], ids=["dense-local", "blockwise-local"])
+def test_ulysses_matches_heat_tpu_and_dense(causal, block_size):
+    arrays = _sp_qkv(seed=21)
+    got = attention.ulysses_attention(*_torch(arrays), causal=causal, comm=ht.get_comm(), block_size=block_size)
+    want = _reference("ulysses_attention", arrays, causal=causal, block_size=block_size)
+    dense = attention.dot_product_attention(*_torch(arrays), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SP_TOL, atol=SP_TOL)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=SP_TOL, atol=SP_TOL)
+
+
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
+def test_sequence_parallel_bf16_inputs_f32_accumulation(backend):
+    arrays = _sp_qkv(seed=22)
+    got = getattr(attention, f"{backend}_attention")(*_torch(arrays, torch.bfloat16), comm=ht.get_comm())
+    # the f32 oracle on the bf16-rounded inputs
+    dense = attention.dot_product_attention(*(t.float() for t in _torch(arrays, torch.bfloat16)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), dense.numpy(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
+def test_sequence_parallel_gradients_match_dense(backend):
+    arrays = _sp_qkv(B=1, S=4 * P, H=2 * P, D=8, seed=23)
+    fn = partial(getattr(attention, f"{backend}_attention"), comm=ht.get_comm())
+    grads = []
+    for attn in (fn, attention.dot_product_attention):
+        leaves = [t.requires_grad_() for t in _torch(arrays)]
+        (attn(*leaves, causal=True) ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend,S,H", [("ring", 1, 2), ("ulysses", 0, 1), ("ulysses", 1, 0)],
+                         ids=["ring-seq", "ulysses-heads", "ulysses-seq"])
+def test_sequence_parallel_rejects_indivisible_shapes(backend, S, H):
+    p = max(P, 2)  # every shape divides a one-shard mesh
+    q, k, v = _torch(_qkv(1, 8 * p + S, 2 * p + H, 4, seed=24))
+    with pytest.raises(ValueError, match="divisible"):
+        getattr(attention, f"{backend}_attention")(q, k, v, comm=_mesh(p))
+
+
+@pytest.mark.parametrize("backend", ["dense", "flash", "ring", "ulysses"])
+def test_mha_backends_agree_with_flax_dense(backend):
+    heads = 2 * P  # divisible for Ulysses at any mesh size
+    x = np.random.default_rng(25).standard_normal((2, 8 * P, 4 * heads)).astype(np.float32)
+    module = ref_attention.MultiHeadAttention(num_heads=heads, causal=True, backend="dense")
+    variables = module.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = np.asarray(module.apply(variables, jnp.asarray(x)))
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    mha = mha_from_flax(params, causal=True, backend=backend, device="cpu")
+    with torch.no_grad():
+        got = mha(torch.from_numpy(x), comm=ht.get_comm())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_long_sequence_ring_keeps_shard_rows():
+    # S = 1024 over p shards: every shard holds and returns 1024 / p rows
+    p = P if 1024 % P == 0 else 8
+    q, k, v = _torch(_qkv(1, 1024, 4, 8, seed=26))
+    comm = _mesh(p)
+    shards = attention._ring_shards(*(attention._split_seq(t, comm) for t in (q, k, v)), True,
+                                    flash.score_scale(None, 8), comm)
+    assert [tuple(s.shape) for s in shards] == [(1, 1024 // p, 4, 8)] * p
+    out = attention.ring_attention(q, k, v, causal=True, comm=comm)
+    torch.testing.assert_close(out, torch.cat(shards, dim=1), rtol=0, atol=0)
+    dense = attention.dot_product_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(out.numpy(), dense.numpy(), rtol=SP_TOL, atol=SP_TOL)

@@ -278,7 +278,10 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-SUBPACKAGES = ("classification", "cluster", "datasets", "graph", "naive_bayes", "nn", "ops", "optim", "regression", "spatial", "utils")
+SUBPACKAGES = (
+    "classification", "cluster", "datasets", "graph", "naive_bayes", "nn", "ops", "optim", "parallel", "regression",
+    "spatial", "utils",
+)
 
 
 def test_port_imports_neither_jax_nor_heat_tpu():

@@ -23,7 +23,6 @@ Tolerances, float32 throughout:
 * datasets: bit for bit.
 """
 
-import collections
 import os
 import warnings
 
@@ -34,6 +33,7 @@ import torch
 import heat_tpu as ref
 import heat_tpu_torch as ht
 from heat_tpu_torch.core.communication import MeshCommunication
+from torch_counting import CountingMesh
 
 P = ht.communication._cpu_mesh_size()
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "heat_tpu", "datasets", "data")
@@ -49,22 +49,6 @@ def on_cpu():
     ref.fusion.set_enabled(was)
     ht.use_comm(None)
     ht.use_device(None)
-
-
-class CountingMesh(MeshCommunication):
-    """A CPU mesh that counts its allgathers and allreduces."""
-
-    def __init__(self, p):
-        super().__init__([torch.device("cpu")] * p)
-        self.calls = collections.Counter()
-
-    def allgather(self, shards, dim=0):
-        self.calls["allgather"] += 1
-        return super().allgather(shards, dim)
-
-    def allreduce(self, shards, op="sum"):
-        self.calls["allreduce"] += 1
-        return super().allreduce(shards, op)
 
 
 def _blobs(n, f, k, seed, scale=6.0):
@@ -237,7 +221,7 @@ def test_batchparallel_recovers_blobs():
 
 @pytest.mark.parametrize("p", [2, 4])
 def test_batchparallel_gathers_once(p):
-    mesh = CountingMesh(p)
+    mesh = CountingMesh([torch.device("cpu")] * p)
     x = ht.array(_four_blobs(p, seed=p), split=0, comm=mesh)
     km = ht.cluster.KMeans(n_clusters=4, init="batchparallel", random_state=5)
     centers = km._initialize_cluster_centers(x)
@@ -255,7 +239,7 @@ def test_batchparallel_falls_back_on_ragged_or_single_device():
     km = ht.cluster.KMeans(n_clusters=2, init="batchparallel", max_iter=10).fit(x)
     assert km.cluster_centers_.shape == (2, 3)
     # no gather where the init is kmeans++: padded, replicated, too few rows
-    mesh = CountingMesh(4)
+    mesh = CountingMesh([torch.device("cpu")] * 4)
     for data, split in ((rng.standard_normal((17, 3)), 0), (rng.standard_normal((16, 3)), None), (rng.standard_normal((8, 3)), 0)):
         km = ht.cluster.KMeans(n_clusters=3, init="batchparallel")
         km._initialize_cluster_centers(ht.array(data, split=split, comm=mesh))
@@ -321,7 +305,7 @@ def test_lasso_tol_none_runs_every_sweep():
 
 @pytest.mark.parametrize("p", [1, 3, 4])
 def test_lasso_collectives(p):
-    mesh = CountingMesh(p)
+    mesh = CountingMesh([torch.device("cpu")] * p)
     X, y = _lasso_data(103, 6, seed=5)
     lasso = ht.regression.Lasso(lam=0.01, max_iter=30)
     lasso.fit(ht.array(X, split=0, comm=mesh), ht.array(y, split=0, comm=mesh))
