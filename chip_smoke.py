@@ -82,7 +82,7 @@ Phases, in order; any failure exits non-zero:
    sweep against four-shard DataParallel with the collectives of each
    step type, and the README's Deep learning snippet;
 12. drive the array layer (no kernel of its own): the README quickstart
-   from ``README.md:36`` to ``:50`` (``ht.save`` skipped) against float64;
+   from ``README.md:36`` to ``:50`` against float64, ``ht.save`` read back;
    indexing on BASELINE config 3's table, 10,000,000 x 16 float32: basic,
    negative-step, int, boolean-mask and fancy keys and setitem by slice,
    mask and fancy key with a broadcast and a cast, each bit for bit
@@ -134,7 +134,29 @@ Phases, in order; any failure exits non-zero:
    GPT-2 small's widths (one ``allreduce``), a 2 x 2 dp x tp step, a
    4-stage pipeline of ``TransformerBlock(768)`` and 4 experts, each
    against its dense oracle;
-15. print the phase-9 to 14 numbers with the card, the card's name
+15. I/O and checkpointing (no kernel of its own; the disk-loaded fit runs
+   the Lloyd kernel, the LM's checkpoint step the flash kernel): print
+   whether h5py and scipy import, the g++ version and the free disk space;
+   save and load BASELINE config 3's table (10,000,000 x 16 float32,
+   split=0) as .npy, .h5 (where h5py imports), classic netCDF3 and .csv
+   (through the native codec, whose calls are counted; cut to 10^6 rows,
+   said on a line, when the whole table would take over 20 s), each load
+   at split 0 and None equal to the table bit for bit, with save and load
+   GB/s beside np.save/np.load of the same host bytes; fit KMeans for 30
+   iterations from phase 3's centres on the table read from .npy (and .h5):
+   30 Lloyd launches, centres, labels and inertia equal to the in-memory
+   fit bit for bit; save from four shards of the card and load into one,
+   and back; then checkpoints: ResNet-50 under DataParallel at batch 256,
+   DASO on four shards and the README's TransformerLM (f32, 4 x 4096
+   tokens, Adam, 12 flash launches in the restored step's forward) step
+   twice, save, step; a fresh trainer restores, its state equal to the
+   saved one bit for bit, and its next step equal to the uninterrupted
+   third step (bit for bit where the card repeats a step exactly, else
+   within four times the run-to-run difference); the checkpoint's bytes,
+   save and restore GB/s, ``verify_checkpoint``; finally ``convolve`` of
+   10^8 float32 with a 9-tap filter in every mode against float64, four
+   shards equal to one bit for bit;
+16. print the phase-9 to 15 numbers with the card, the card's name
    and power limit, one JSON line of per-kernel numbers, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -145,8 +167,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -364,6 +389,26 @@ def _device_rows(prof, ranges=()):
     return rows
 
 
+def kmeans_table(ht):
+    """BASELINE config 3's table, N x F float32 blobs split along the rows,
+    and the K rows of it that start every fit, drawn from SEED (phases 3
+    and 15)."""
+    import torch
+
+    ht.use_device("gpu")
+    ht.random.seed(SEED)
+    noise = ht.random.randn(N, F, split=0)
+    member = ht.random.randint(0, K, (N,), split=0)
+    means = ht.random.randn(K, F)
+    data = noise.larray + 8.0 * means.larray[member.larray.long()]
+    del noise, member
+    x = ht.array(data, split=0, copy=False)
+    rows = ht.random.randint(0, N, (K,)).larray.long()
+    init = ht.array(x.larray[rows])
+    torch.cuda.synchronize()
+    return x, init
+
+
 def kmeans_path(ht) -> dict:
     """Phases 2 and 3: the Lloyd kernel against plain, then the k-means
     path; returns the kernel's entry of the kernels line."""
@@ -389,17 +434,7 @@ def kmeans_path(ht) -> dict:
 
     # 3. main path
     print(f"phase main: KMeans(n_clusters={K}).fit on {N} x {F} float32, split=0", flush=True)
-    ht.use_device("gpu")
-    ht.random.seed(SEED)
-    noise = ht.random.randn(N, F, split=0)
-    member = ht.random.randint(0, K, (N,), split=0)
-    means = ht.random.randn(K, F)
-    data = noise.larray + 8.0 * means.larray[member.larray.long()]
-    del noise, member
-    x = ht.array(data, split=0, copy=False)
-    rows = ht.random.randint(0, N, (K,)).larray.long()
-    init = ht.array(x.larray[rows])
-    torch.cuda.synchronize()
+    x, init = kmeans_table(ht)
 
     lloyd.LAUNCHES = 0
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2333,7 +2368,8 @@ def _relative(got, want) -> float:
 
 def quickstart_layer_phase(ht) -> dict:
     """README.md:36-50 on the card, each result against float64 within the
-    bounds above; ht.save (README.md:47) waits for the I/O slice."""
+    bounds above; ht.save (README.md:47) into a temporary directory, read
+    back bit for bit."""
     import torch
 
     from heat_tpu_torch.cluster import KMeans
@@ -2351,7 +2387,12 @@ def quickstart_layer_phase(ht) -> dict:
     sgn, logdet = ht.linalg.slogdet(a.T @ a)
     b = ht.random.randn(64, 8)
     c = ht.einsum("ij,jk->ik", a, b)
-    print("  ht.save(a, 'a.npy') (README.md:47): skipped, the I/O slice (ROADMAP A10) is not ported", flush=True)
+    with tempfile.TemporaryDirectory(prefix="heat_quickstart_") as tmp:
+        ht.save(a, os.path.join(tmp, "a.npy"))
+        back = ht.load(os.path.join(tmp, "a.npy"), split=0)
+        if not (back.gshape == a.gshape and torch.equal(back.larray, a.larray)):
+            raise AssertionError("ht.save(a, 'a.npy') did not read back bit for bit")
+    print("  ht.save(a, 'a.npy') (README.md:47): written and read back bit for bit", flush=True)
     km = KMeans(n_clusters=8).fit(a)
     if a.larray.device.type != "cuda" or km.cluster_centers_.larray.device.type != "cuda":
         raise AssertionError("the quickstart did not run on the card")
@@ -3946,6 +3987,436 @@ def nn_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# I/O and checkpointing (phase 15): no kernel of its own. BASELINE config 3's
+# table goes to disk and back in every format whose library imports, then
+# from disk into KMeans.fit through the Lloyd kernel; the trainers (and the
+# README's TransformerLM through the flash kernel) save, restore and step;
+# convolve runs over halos.
+# ---------------------------------------------------------------------------
+IO_P = 4  # shards of the card for the mesh checks
+CSV_TRIAL_ROWS = 1_000_000  # the CSV cut, kept when the whole table would take longer than CSV_BUDGET_S
+CSV_BUDGET_S = 20.0
+CKPT_BATCH = 256  # BASELINE config 5's batch for ResNet-50 and DASO
+CONV_N, CONV_TAPS = 100_000_000, 9
+# Bounds of phase 15: the formats, the disk-loaded fit, the restored states
+# and (where the card repeats a step bit for bit) the next step are exact.
+# Where two steps from the restored state differ, the next step is held to
+# RUN_TO_RUN_FACTOR times that difference (relative to the largest value),
+# named in the output. convolve against float64 on the card: each output
+# is a sum of k products, every one rounded once and added in k - 1
+# roundings, so |d| <= (k + 1) u Σ_j |v_j x_{i-j}| (u = 2^-24).
+RUN_TO_RUN_FACTOR = 4.0
+
+
+def io_environment(ht, tmp: str) -> dict:
+    """What the machine offers the I/O layer, printed before anything is
+    written: the optional libraries, the compiler of the CSV codec and the
+    free space where the files go."""
+    from heat_tpu_torch import _native
+    from heat_tpu_torch.ops import _build
+
+    gxx = subprocess.run([_build.gxx(), "--version"], capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+    env = {
+        "supports_hdf5": ht.supports_hdf5(), "supports_netcdf": ht.supports_netcdf(), "gxx": gxx,
+        "free_gb": shutil.disk_usage(tmp).free / 1e9, "directory": tmp,
+    }
+    t0 = time.perf_counter()
+    if not _native.native_available():
+        raise AssertionError("the native CSV codec is not available: no g++ or HEAT_TPU_NO_NATIVE is set")
+    env["codec_build_s"] = time.perf_counter() - t0
+    print(f"phase io: h5py imports: {env['supports_hdf5']}; netCDF: {env['supports_netcdf']} (classic "
+          f"netCDF3 through scipy); g++: {gxx}; {env['free_gb']:.1f} GB free in {tmp}; the CSV codec built "
+          f"into heat_tpu_torch/_build in {env['codec_build_s']:.1f} s", flush=True)
+    return env
+
+
+def _file_bytes(path: str) -> int:
+    if os.path.isdir(path):
+        return sum(os.path.getsize(os.path.join(root, n)) for root, _, names in os.walk(path) for n in names)
+    return os.path.getsize(path)
+
+
+def _round_trip(ht, fmt: str, x, tmp: str) -> dict:
+    """Save ``x`` in one format and load it at split 0 and split None; each
+    load must equal ``x`` bit for bit. Host clock, a device sync at each
+    end."""
+    import torch
+
+    path = os.path.join(tmp, f"table.{fmt}")
+    save, load = {
+        "npy": (lambda: ht.save_npy(x, path), lambda s: ht.load_npy(path, split=s)),
+        "h5": (lambda: ht.save_hdf5(x, path, "data"), lambda s: ht.load_hdf5(path, "data", split=s)),
+        "nc": (lambda: ht.save_netcdf(x, path, "data", format="NETCDF3_64BIT"),
+               lambda s: ht.load_netcdf(path, "data", split=s)),
+        "csv": (lambda: ht.save_csv(x, path), lambda s: ht.load_csv(path, split=s)),
+    }[fmt]
+    out = {"rows": x.gshape[0], "save_s": _time_step(save) / 1e3, "file_bytes": _file_bytes(path)}
+    for split in (0, None):
+        box = []
+        out[f"load_s_split_{split}"] = _time_step(lambda: box.append(load(split))) / 1e3
+        got = box[0]
+        if not (got.gshape == x.gshape and got.split == split and got.larray.device.type == "cuda"
+                and torch.equal(got.larray, x.larray)):
+            raise AssertionError(f"{fmt}: the table loaded at split={split} is not the saved one bit for bit")
+        del box, got
+    os.remove(path)
+    return out
+
+
+def formats_phase(ht, x, tmp: str, env: dict) -> dict:
+    """(1) The table in every format that imports, bit for bit, with save
+    and load GB/s beside np.save/np.load of the same host bytes."""
+    import numpy as np
+
+    from heat_tpu_torch import _native
+
+    table_gb = x.nbytes / 1e9
+    print(f"phase io: BASELINE config 3's table, {x.gshape[0]} x {x.gshape[1]} float32 ({table_gb:.3f} GB), "
+          "split=0, saved and loaded in each format; reads may come from the page cache", flush=True)
+    out = {}
+    host = x.larray.cpu().numpy()
+    yard = os.path.join(tmp, "yardstick.npy")
+    t0 = time.perf_counter()
+    np.save(yard, host)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.load(yard)
+    load_s = time.perf_counter() - t0
+    os.remove(yard)
+    del host
+    out["np"] = {"save_gb_per_s": table_gb / save_s, "load_gb_per_s": table_gb / load_s}
+    print(f"  np.save {out['np']['save_gb_per_s']:.2f} GB/s, np.load {out['np']['load_gb_per_s']:.2f} GB/s "
+          "(the same host bytes, the yardstick)", flush=True)
+    formats = ["npy", "h5", "nc", "csv"]
+    if not env["supports_hdf5"]:
+        print("  h5: skipped, h5py does not import on this machine", flush=True)
+        formats.remove("h5")
+    calls = dict(_native.CALLS)
+    for fmt in formats:
+        if fmt == "csv":
+            trial = _round_trip(ht, "csv", x[:CSV_TRIAL_ROWS], tmp)
+            seconds = trial["save_s"] + trial["load_s_split_0"] + trial["load_s_split_None"]
+            projected = seconds * x.gshape[0] / CSV_TRIAL_ROWS
+            fits = 2.5 * trial["file_bytes"] * x.gshape[0] / CSV_TRIAL_ROWS < env["free_gb"] * 1e9
+            if projected > CSV_BUDGET_S or not fits:
+                print(f"  csv: cut to {CSV_TRIAL_ROWS} rows: the whole table would take ~{projected:.1f} s "
+                      f"(budget {CSV_BUDGET_S:g} s) or more disk than is free", flush=True)
+                r = trial
+            else:
+                r = _round_trip(ht, "csv", x, tmp)
+        else:
+            r = _round_trip(ht, fmt, x, tmp)
+        gb = table_gb * r["rows"] / x.gshape[0]
+        r.update({"save_gb_per_s": gb / r["save_s"], "load_gb_per_s": gb / r["load_s_split_0"],
+                  "load_gb_per_s_replicated": gb / r["load_s_split_None"]})
+        out[fmt] = r
+        print(f"  {fmt}: {r['rows']} rows, file {r['file_bytes'] / 1e9:.3f} GB; save {r['save_gb_per_s']:.2f} GB/s, "
+              f"load {r['load_gb_per_s']:.2f} GB/s (split 0), {r['load_gb_per_s_replicated']:.2f} GB/s "
+              "(split None); both loads equal the table bit for bit", flush=True)
+    out["csv_codec_calls"] = {k: _native.CALLS[k] - calls[k] for k in calls}
+    if not (out["csv_codec_calls"]["csv_write"] >= 1 and out["csv_codec_calls"]["csv_parse"] >= 2):
+        raise AssertionError(f"the CSV round trip did not go through the native codec: {out['csv_codec_calls']}")
+    print(f"  native CSV codec calls: {out['csv_codec_calls']}", flush=True)
+    return out
+
+
+def disk_fit_phase(ht, x, init, tmp: str, env: dict) -> dict:
+    """(2) KMeans from the disk: the .npy (and .h5) table at split=0 through
+    the Lloyd kernel, equal bit for bit to the fit on the in-memory table;
+    then four shards of the card save and load against one."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+    from heat_tpu_torch.ops import lloyd
+
+    print(f"phase io: KMeans(n_clusters={K}) for {ITERS} iterations from phase 3's centres on the table "
+          "read from disk, against the fit on the in-memory table", flush=True)
+    KMeans = ht.cluster.KMeans
+    memory = KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+    out = {}
+    paths = {"npy": os.path.join(tmp, "fit.npy")}
+    ht.save_npy(x, paths["npy"])
+    if env["supports_hdf5"]:
+        paths["h5"] = os.path.join(tmp, "fit.h5")
+        ht.save_hdf5(x, paths["h5"], "data")
+    for fmt, path in paths.items():
+        loaded = ht.load_npy(path, split=0) if fmt == "npy" else ht.load_hdf5(path, "data", split=0)
+        lloyd.LAUNCHES = 0
+        fit = KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(loaded)
+        torch.cuda.synchronize()
+        launches = lloyd.LAUNCHES
+        same = (torch.equal(fit.cluster_centers_.larray, memory.cluster_centers_.larray)
+                and torch.equal(fit.labels_.larray, memory.labels_.larray) and fit.inertia_ == memory.inertia_)
+        out[fmt] = {"launches": launches, "equal": same, "inertia": fit.inertia_}
+        print(f"  {fmt}: {launches} Lloyd kernel launches; centres, labels and inertia "
+              f"({fit.inertia_:.9e}) equal to the in-memory fit bit for bit: {same}", flush=True)
+        if launches != ITERS or not same:
+            raise AssertionError(f"the fit on the {fmt} table differs from the in-memory fit or missed the kernel")
+        del loaded, fit
+        os.remove(path)
+    card = torch.device("cuda", 0)
+    mesh = MeshCommunication([card] * IO_P)
+    x4 = ht.array(x.larray, split=0, comm=mesh)
+    four, one = os.path.join(tmp, "four.npy"), os.path.join(tmp, "one.npy")
+    ht.save_npy(x4, four)
+    ht.save_npy(x, one)
+    into_one = ht.load_npy(four, split=0, comm=MeshCommunication([card]))
+    into_four = ht.load_npy(one, split=0, comm=mesh)
+    equal = (torch.equal(into_one.larray, x.larray) and torch.equal(into_four.larray, x4.larray)
+             and all(torch.equal(a.narrow(0, 0, c), b.narrow(0, 0, c)) for a, b, c in
+                     zip(into_four.shards, x4.shards, x4.counts_displs()[0])))
+    out["mesh"] = {"equal": equal, "files_equal": open(four, "rb").read(1 << 20) == open(one, "rb").read(1 << 20)
+                   and os.path.getsize(four) == os.path.getsize(one)}
+    print(f"  {IO_P} shards of the card: saved from four and loaded into one, and back, equal bit for bit: "
+          f"{equal}; the two files the same size and header: {out['mesh']['files_equal']}", flush=True)
+    if not (equal and out["mesh"]["files_equal"]):
+        raise AssertionError("the table saved from four shards and loaded into one (or back) differs")
+    os.remove(four)
+    os.remove(one)
+    return out
+
+
+def _leaves(tree, prefix=""):
+    """(path, leaf) pairs of a state dict, dicts in sorted key order."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree, key=str) for pair in _leaves(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, v in enumerate(tree) for pair in _leaves(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def _state_diff(a, b) -> float:
+    """0.0 when two states are equal bit for bit (tensors with their
+    dtypes), else the largest |d| / max|b| over their tensors; inf when the
+    structure or a plain value differs."""
+    import torch
+
+    la, lb = _leaves(a), _leaves(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return math.inf
+    worst = 0.0
+    for (_, x), (_, y) in zip(la, lb):
+        if isinstance(y, torch.Tensor):
+            if not isinstance(x, torch.Tensor) or x.dtype != y.dtype or x.shape != y.shape:
+                return math.inf
+            x, y = x.detach().to(y.device), y.detach()
+            if not torch.equal(x, y):
+                scale = y.double().abs().max().item() or 1.0
+                worst = max(worst, (x.double() - y.double()).abs().max().item() / scale)
+        elif x != y:
+            return math.inf
+    return worst
+
+
+def _checkpoint_case(ht, label: str, make, step, tmp: str, count=None) -> dict:
+    """Step twice, save, step once more; a fresh trainer restores (its state
+    must equal the saved one bit for bit) and steps; a second restored
+    trainer steps from the same state, which shows whether the card repeats
+    the step bit for bit here, and sets the bound otherwise."""
+    import copy
+
+    import torch
+
+    directory = os.path.join(tmp, label.replace(" ", "_"))
+    first = make()
+    for _ in range(2):
+        step(first)
+    saved = copy.deepcopy(first.state_dict())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = first.save(directory, step=2)
+    save_s = time.perf_counter() - t0
+    nbytes = _file_bytes(directory)
+    t0 = time.perf_counter()
+    problems = ht.utils.checkpoint.verify_checkpoint(directory, 2)
+    verify_s = time.perf_counter() - t0
+    third_loss = step(first)
+    third = copy.deepcopy(first.state_dict())
+    del first
+    torch.cuda.empty_cache()
+    restored = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored.restore(directory)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state_diff = _state_diff(restored.state_dict(), saved)
+    twin = make()
+    twin.load_state_dict(copy.deepcopy(restored.state_dict()))
+    if count is not None:
+        count(reset=True)
+    loss = step(restored)
+    launches = count() if count is not None else None
+    loss_twin = step(twin)
+    run_to_run = max(_state_diff(twin.state_dict(), restored.state_dict()), abs(loss_twin - loss) / abs(loss))
+    next_diff = max(_state_diff(restored.state_dict(), third), abs(loss - third_loss) / abs(third_loss))
+    bound = RUN_TO_RUN_FACTOR * run_to_run
+    out = {"path": os.path.basename(path), "bytes": nbytes, "save_gb_per_s": nbytes / save_s / 1e9,
+           "restore_s": restore_s, "restore_gb_per_s": nbytes / restore_s / 1e9, "verify_s": verify_s,
+           "verify": problems, "restored_state_diff": state_diff, "next_step_diff": next_diff,
+           "run_to_run": run_to_run, "bit_for_bit": run_to_run == 0.0, "launches": launches}
+    held = "bit for bit (two steps from the restored state repeat exactly)" if run_to_run == 0.0 else (
+        f"within {RUN_TO_RUN_FACTOR:g} x the run-to-run difference {run_to_run:.3e}")
+    print(f"  {label}: checkpoint {nbytes / 1e9:.3f} GB, save {out['save_gb_per_s']:.2f} GB/s, restore "
+          f"{restore_s:.2f} s ({out['restore_gb_per_s']:.2f} GB/s, the checksums included), "
+          f"verify_checkpoint {problems} in {verify_s:.2f} s; restored state against the saved: "
+          f"{state_diff:.3e}; next step against the uninterrupted third: {next_diff:.3e}, held {held}"
+          + ("" if launches is None else f"; {launches} flash launches in the restored step"), flush=True)
+    if problems or state_diff != 0.0 or not next_diff <= bound:
+        raise AssertionError(f"{label}: the checkpoint does not resume the run")
+    del restored, twin, saved, third
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_phase(ht, tmp: str) -> dict:
+    """(3) Checkpoints at full width: ResNet-50 under DataParallel at batch
+    256 (BASELINE config 5), DASO on four shards of the card, and the
+    README's TransformerLM (f32, 4 x 4096 tokens) under DataParallel with
+    Adam through the flash kernel."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+    from heat_tpu_torch.ops import flash
+
+    card = torch.device("cuda", 0)
+    print("phase io: checkpoints at full width; deterministic algorithms where torch has them", flush=True)
+    x, y = _cifar(CKPT_BATCH, SEED + 15)
+
+    def resnet():
+        return ht.nn.ResNet50(num_classes=TRAIN_CLASSES, generator=torch.Generator("cuda").manual_seed(SEED))
+
+    out = {}
+
+    def make_dp():
+        return ht.nn.DataParallel(resnet(), comm=MeshCommunication([card]),
+                                  optimizer=ht.optim.SGD(TRAIN_LR, momentum=0.9)).init(SEED, x[:2])
+
+    out["resnet50"] = _checkpoint_case(ht, "ResNet-50 DataParallel", make_dp, lambda t: t.train_step(x, y), tmp)
+
+    def make_daso():
+        daso = ht.optim.DASO(ht.optim.SGD(TRAIN_LR, momentum=0.9), total_epochs=10,
+                             comm=MeshCommunication([card] * IO_P), nodes=2, warmup_epochs=0, cooldown_epochs=0)
+        daso.add_model(resnet(), SEED, x[:IO_P])
+        daso.global_skip, daso.local_skip, daso.batches_to_wait = 2, 1, 1
+        return daso
+
+    out["daso"] = _checkpoint_case(ht, f"ResNet-50 DASO on {IO_P} shards", make_daso, lambda t: t.step(x, y), tmp)
+
+    tokens = torch.randint(0, LM["vocab"], (LM_BATCH, LM_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 15))
+    forward = []
+
+    def loss_fn(logits, labels):
+        forward.append(flash.LAUNCHES)  # the forward's launches, counted before the backward
+        return next_token_loss(logits, labels)
+
+    def make_lm():
+        return ht.nn.DataParallel(_lm(ht, torch.float32), comm=MeshCommunication([card]),
+                                  optimizer=ht.optim.Adam(LM_LR), loss_fn=loss_fn).init(SEED, tokens[:1])
+
+    def count(reset=False):
+        if reset:
+            flash.LAUNCHES = 0
+            forward.clear()
+            return None
+        return {"forward": forward[0], "step": flash.LAUNCHES}
+
+    lm = _checkpoint_case(ht, "TransformerLM f32 DataParallel Adam", make_lm,
+                          lambda t: t.train_step(tokens, tokens), tmp, count)
+    lm["launches"], lm["launches_forward"] = lm["launches"]["step"], lm["launches"]["forward"]
+    if lm["launches_forward"] != LM["depth"] or lm["launches"] != LM["depth"]:
+        raise AssertionError(f"the LM checkpoint step launched the flash kernel {lm['launches']} times, not {LM['depth']}")
+    out["transformer_lm"] = lm
+    return out
+
+
+def convolve_phase(ht) -> dict:
+    """(4) convolve of 10^8 float32 with a 9-tap filter in every mode
+    against float64 on the card; four shards (halos exchanged) equal one
+    shard bit for bit."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    print(f"phase io: convolve of {CONV_N} float32 with a {CONV_TAPS}-tap filter, every mode, against float64; "
+          f"{IO_P} shards against one", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    a = torch.randn(CONV_N, device="cuda", generator=gen)
+    v = torch.randn(CONV_TAPS, device="cuda", generator=gen)
+    k = CONV_TAPS
+    flipped = v.double().flip(0)[None, None]
+    full64 = Fn.conv1d(a.double()[None, None], flipped, padding=k - 1)[0, 0]
+    mag64 = Fn.conv1d(a.double().abs()[None, None], flipped.abs(), padding=k - 1)[0, 0]
+    one = ht.array(a, split=0, comm=MeshCommunication([card]))
+    four = ht.array(a, split=0, comm=MeshCommunication([card] * IO_P))
+    taps = ht.array(v)
+    out = {}
+    for mode, (lo, hi) in {"full": (0, CONV_N + k - 1), "same": ((k - 1) // 2, (k - 1) // 2 + CONV_N),
+                           "valid": (k - 1, CONV_N)}.items():
+        box = []
+        ms = _time_step(lambda: box.append(ht.convolve(one, taps, mode=mode)))
+        got = box[0].larray
+        err = ((got.double() - full64[lo:hi]).abs() / ((k + 1) * U32 * mag64[lo:hi] + 1e-30)).max().item()
+        ms4 = _time_step(lambda: box.append(ht.convolve(four, taps, mode=mode)))
+        equal = box[1].gshape == box[0].gshape and torch.equal(box[1].larray, got)
+        out[mode] = {"ms": ms, "ms_four_shards": ms4, "error_over_bound": err, "four_equal_one": equal}
+        print(f"  {mode}: {ms:.2f} ms on one shard, {ms4:.2f} ms on {IO_P}; error {err:.3f} of the bound; "
+              f"{IO_P} shards equal one bit for bit: {equal}", flush=True)
+        if not (err <= 1.0 and equal and box[0].gshape == (hi - lo,)):
+            raise AssertionError(f"convolve mode={mode} out of bound or four shards differ from one")
+        del box, got
+    return out
+
+
+def io_path(ht, smi: str) -> dict:
+    """Phase 15: I/O and checkpointing on the card; returns its numbers."""
+    import torch
+
+    numbers = {"card": smi, "seconds": {}}
+    tmp = tempfile.mkdtemp(prefix="heat_io_")
+    deterministic = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    try:
+        numbers["environment"] = io_environment(ht, tmp)
+        x, init = kmeans_table(ht)
+        t0 = time.perf_counter()
+        numbers["formats"] = formats_phase(ht, x, tmp, numbers["environment"])
+        numbers["seconds"]["formats"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numbers["disk_fit"] = disk_fit_phase(ht, x, init, tmp, numbers["environment"])
+        numbers["seconds"]["disk_fit"] = time.perf_counter() - t0
+        del x, init
+        torch.cuda.empty_cache()
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        t0 = time.perf_counter()
+        numbers["checkpoints"] = checkpoint_phase(ht, tmp)
+        numbers["seconds"]["checkpoints"] = time.perf_counter() - t0
+        torch.use_deterministic_algorithms(deterministic[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[1:]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        numbers["convolve"] = convolve_phase(ht)
+        numbers["seconds"]["convolve"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[1:]
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 15 took {sum(numbers['seconds'].values()):.1f} s: {numbers['seconds']}", flush=True)
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -4000,7 +4471,10 @@ def main() -> int:
     estimators = estimators_path(ht, smi)
     torch.cuda.empty_cache()
     nn = nn_path(ht, smi)
+    torch.cuda.empty_cache()
+    io = io_path(ht, smi)
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
+    kernels[0]["launches_disk_fit"] = io["disk_fit"]["npy"]["launches"]
     kernels[1].update({
         "launches_training_step_f32": train_f32["launches_per_step"],
         "launches_training_step_bf16": train_bf16["launches_per_step"],
@@ -4012,6 +4486,7 @@ def main() -> int:
         "plain_ms_bf16": forward_bf16["plain_ms"],
         "library_ms_bf16": forward_bf16["library_ms"],
         "max_abs_err_bf16": forward_bf16["kernel_max_abs_err"],
+        "launches_checkpoint_step": io["checkpoints"]["transformer_lm"]["launches"],
     })
 
     print("moments: " + json.dumps(moments))
@@ -4020,6 +4495,7 @@ def main() -> int:
     print("array_layer: " + json.dumps(layer))
     print("estimators: " + json.dumps(estimators))
     print("nn: " + json.dumps(nn))
+    print("io: " + json.dumps(io))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ from .core import (
     exponential,
     factories,
     indexing,
+    io,
     logical,
     manipulations,
     memory,
@@ -29,6 +30,7 @@ from .core import (
     relational,
     rounding,
     sanitation,
+    signal,
     statistics,
     stride_tricks,
     tiling,
@@ -66,6 +68,7 @@ def _bind_dndarray_methods():
         ],
         complex_math: ["conj"],
         indexing: ["nonzero"],
+        io: ["save", "save_hdf5", "save_netcdf", "save_csv"],
         memory: ["copy"],
         linalg: ["transpose", "tril", "triu", "dot", "qr"],
     }

@@ -22,6 +22,8 @@ from .manipulations import *
 from .indexing import *
 from .printing import *
 from .tiling import *
+from .io import *
+from .signal import *
 from . import linalg
 from .linalg import *
-from . import printing, random, tiling
+from . import io, printing, random, signal, tiling

@@ -5,7 +5,18 @@ from __future__ import annotations
 import inspect
 from typing import Dict, List
 
-__all__ = ["BaseEstimator", "ClassificationMixin", "ClusteringMixin", "RegressionMixin"]
+__all__ = [
+    "BaseEstimator",
+    "ClassificationMixin",
+    "ClusteringMixin",
+    "RegressionMixin",
+    "TransformMixin",
+    "is_classifier",
+    "is_clusterer",
+    "is_estimator",
+    "is_regressor",
+    "is_transformer",
+]
 
 
 class BaseEstimator:
@@ -72,6 +83,19 @@ class ClassificationMixin:
         raise NotImplementedError()
 
 
+class TransformMixin:
+    """Mixin for transformers (reference base.py)."""
+
+    def fit(self, x):
+        raise NotImplementedError()
+
+    def fit_transform(self, x):
+        return self.fit(x).transform(x)
+
+    def transform(self, x):
+        raise NotImplementedError()
+
+
 class ClusteringMixin:
     """Mixin for clusterers (reference base.py:145-175)."""
 
@@ -95,3 +119,28 @@ class RegressionMixin:
 
     def predict(self, x):
         raise NotImplementedError()
+
+
+def is_classifier(estimator) -> bool:
+    """True for a classifier (reference base.py:221)."""
+    return isinstance(estimator, ClassificationMixin)
+
+
+def is_estimator(estimator) -> bool:
+    """True for an estimator (reference base.py:230)."""
+    return isinstance(estimator, BaseEstimator)
+
+
+def is_regressor(estimator) -> bool:
+    """True for a regressor (reference base.py:248)."""
+    return isinstance(estimator, RegressionMixin)
+
+
+def is_transformer(estimator) -> bool:
+    """True for a transformer (reference base.py:239)."""
+    return isinstance(estimator, TransformMixin)
+
+
+def is_clusterer(estimator) -> bool:
+    """True for a clusterer (reference base.py:245)."""
+    return isinstance(estimator, ClusteringMixin)

@@ -23,14 +23,22 @@ class Device:
     ----------
     device_type : str
         ``"cpu"`` or ``"gpu"``.
+    device_id : int
+        Kept for the reference's signature (devices.py:28); which devices
+        hold the shards is the mesh's business.
     """
 
-    def __init__(self, device_type: str):
+    def __init__(self, device_type: str, device_id: int = 0):
         self.__device_type = device_type
+        self.__device_id = device_id
 
     @property
     def device_type(self) -> str:
         return self.__device_type
+
+    @property
+    def device_id(self) -> int:
+        return self.__device_id
 
     @property
     def torch_type(self) -> str:

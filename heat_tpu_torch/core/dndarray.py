@@ -215,6 +215,22 @@ class DNDarray:
             arr = arr.narrow(self.__split, 0, self.__gshape[self.__split])
         return arr
 
+    @larray.setter
+    def larray(self, array: torch.Tensor) -> None:
+        """Replace the data with a new logical global tensor (reference
+        dndarray.py:229-247): shape and dtype follow it, and it is cut into
+        the pad+mask shards of the mesh along the split, which is dropped
+        when the new tensor has no such axis."""
+        if not isinstance(array, torch.Tensor):
+            raise TypeError(f"larray must be a torch.Tensor, got {type(array)}")
+        split = self.__split
+        if split is not None and split >= array.ndim:
+            split = None
+        self.__shards = _distribute(array.to(self.__comm.devices[0]), split, self.__comm)
+        self.__gshape = tuple(int(s) for s in array.shape)
+        self.__dtype = types.canonical_heat_type(array.dtype)
+        self.__split = split
+
     @property
     def lshards(self) -> List[torch.Tensor]:
         """Per-device logical shards: each physical shard without its padding."""
@@ -439,7 +455,10 @@ class DNDarray:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
         return self.larray.item()
 
-    def tolist(self) -> list:
+    def tolist(self, keepsplit: bool = False) -> list:
+        """The values as nested Python lists (reference dndarray.py:748);
+        with one controller the local data is the global array, so
+        ``keepsplit`` changes nothing."""
         return self.numpy().tolist()
 
     def __bool__(self) -> bool:

@@ -54,6 +54,7 @@ def array(
     dtype=None,
     copy: Optional[bool] = True,
     ndmin: int = 0,
+    order: str = "C",
     split: Optional[int] = None,
     is_split: Optional[int] = None,
     device=None,
@@ -61,7 +62,9 @@ def array(
 ) -> DNDarray:
     """Create a DNDarray from a DNDarray, tensor, numpy array or nested
     sequence (reference factories.py:150-431). With one controller the local
-    data is the global array, so ``is_split`` behaves like ``split``."""
+    data is the global array, so ``is_split`` behaves like ``split``. The
+    shards are C-contiguous tensors whatever ``order`` says; it is passed to
+    ``np.asarray`` for other inputs, as the reference does."""
     if split is not None and is_split is not None:
         raise ValueError("split and is_split are mutually exclusive parameters")
     if is_split is not None:
@@ -82,7 +85,10 @@ def array(
         if copy and t.data_ptr() == obj.data_ptr():
             t = t.clone()
     else:
-        nparr = np.asarray(obj)
+        try:
+            nparr = np.asarray(obj, order=order)
+        except ValueError as e:
+            raise ValueError(f"invalid data: {e}")
         if not nparr.flags.writeable:
             nparr = nparr.copy()  # torch tensors are writable
         if nparr.dtype == object:
@@ -100,10 +106,10 @@ def array(
     return _wrap(t, split, device, comm)
 
 
-def asarray(obj, dtype=None, copy=None, is_split=None, device=None, comm=None) -> DNDarray:
+def asarray(obj, dtype=None, copy=None, order="C", is_split=None, device=None, comm=None) -> DNDarray:
     """Convert input to a DNDarray without copying where possible
     (reference factories.py:520)."""
-    return array(obj, dtype=dtype, copy=copy, is_split=is_split, device=device, comm=comm)
+    return array(obj, dtype=dtype, copy=copy, order=order, is_split=is_split, device=device, comm=comm)
 
 
 def _factory(shape, dtype, split, fill, device, comm) -> DNDarray:
@@ -115,22 +121,23 @@ def _factory(shape, dtype, split, fill, device, comm) -> DNDarray:
     return _wrap(t, split if shape else None, device, comm)
 
 
-def empty(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
-    """Uninitialized array (reference factories.py:558)."""
+def empty(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Uninitialized array (reference factories.py:558). ``order`` is
+    accepted as the reference accepts it: the shards are C-contiguous."""
     return _factory(shape, dtype, split, torch.empty, device, comm)
 
 
-def zeros(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def zeros(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Array of zeros (reference factories.py:1244)."""
     return _factory(shape, dtype, split, torch.zeros, device, comm)
 
 
-def ones(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def ones(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Array of ones (reference factories.py:1072)."""
     return _factory(shape, dtype, split, torch.ones, device, comm)
 
 
-def full(shape, fill_value, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+def full(shape, fill_value, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Constant-filled array (reference factories.py:820); an integer fill
     value gives float32, as in the reference."""
     if dtype is None:
@@ -194,22 +201,22 @@ def _factory_like(a, dtype, split, factory, device, comm, **kwargs) -> DNDarray:
     return factory(shape, dtype=dtype, split=split, device=device, comm=comm, **kwargs)
 
 
-def empty_like(a, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+def empty_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Uninitialized array shaped like ``a`` (reference factories.py:192)."""
     return _factory_like(a, dtype, split, empty, device, comm)
 
 
-def zeros_like(a, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+def zeros_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Zeros shaped like ``a`` (reference factories.py:196)."""
     return _factory_like(a, dtype, split, zeros, device, comm)
 
 
-def ones_like(a, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+def ones_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Ones shaped like ``a`` (reference factories.py:200)."""
     return _factory_like(a, dtype, split, ones, device, comm)
 
 
-def full_like(a, fill_value, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def full_like(a, fill_value, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
     """``fill_value`` shaped like ``a``; float32 unless told otherwise, as in
     the reference (factories.py:204)."""
     return _factory_like(a, dtype, split, full, device, comm, fill_value=fill_value)

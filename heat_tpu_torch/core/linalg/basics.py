@@ -107,6 +107,8 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     sanitize_in(b)
     if a.ndim == 1 and b.ndim == 1:
         return dot(a, b)
+    if _both_bool(a, b):
+        return _nonzero(matmul(a.astype(types.int64), b.astype(types.int64)))
     dtype = types.promote_types(a.dtype, b.dtype)
     tdt = dtype.torch_type()
     if a.ndim == 2 and b.ndim == 2:
@@ -150,11 +152,21 @@ def _matmul_2d(a: DNDarray, b: DNDarray, dtype, tdt: torch.dtype) -> DNDarray:
     return DNDarray(shards, gshape, dtype, out_split, a.device, comm)
 
 
+def _both_bool(a: DNDarray, b: DNDarray) -> bool:
+    return a.dtype is types.bool and b.dtype is types.bool
+
+
+def _nonzero(x: DNDarray) -> DNDarray:
+    """A product of bool operands computed in integers, as numpy's bool
+    result: true where the count of true terms is not 0."""
+    return DNDarray([s != 0 for s in x.shards], x.gshape, types.bool, x.split, x.device, x.comm)
+
+
 def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> Union[DNDarray, float]:
     """Dot product (reference basics.py:246-309): for two vectors the local
     dots of their shards and one ``allreduce``, otherwise matmul."""
     if isinstance(a, DNDarray) and isinstance(b, DNDarray) and a.ndim == 1 and b.ndim == 1:
-        ret = _inner(a, b)
+        ret = _nonzero(_inner(a.astype(types.int64), b.astype(types.int64))) if _both_bool(a, b) else _inner(a, b)
     elif a.ndim <= 2 and b.ndim <= 2:
         ret = matmul(a, b)
     else:
@@ -181,6 +193,8 @@ def _inner(a: DNDarray, b: DNDarray) -> DNDarray:
 def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
     """Dot product of the flattened inputs, the first conjugated (reference
     basics.py:2236)."""
+    if _both_bool(x1, x2):
+        return _nonzero(vdot(x1.astype(types.int64), x2.astype(types.int64)))
     tdt = types.promote_types(x1.dtype, x2.dtype).torch_type()
     return _wrap_like(torch.vdot(x1.larray.reshape(-1).to(tdt), x2.larray.reshape(-1).to(tdt)), None, x1)
 

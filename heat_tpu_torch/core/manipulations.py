@@ -119,6 +119,20 @@ def concatenate(arrays: Sequence[DNDarray], axis: int = 0) -> DNDarray:
     for a in arrays:
         sanitize_in(a)
     axis = sanitize_axis(arrays[0].gshape, axis)
+    first_shape = arrays[0].gshape
+    for i, a in enumerate(arrays[1:], 1):
+        if a.ndim != len(first_shape):
+            raise ValueError(
+                "all the input arrays must have same number of dimensions, but the array at "
+                f"index 0 has {len(first_shape)} dimension(s) and the array at index {i} has {a.ndim} dimension(s)"
+            )
+        for d, (m, n) in enumerate(zip(first_shape, a.gshape)):
+            if d != axis and m != n:
+                raise ValueError(
+                    "all the input array dimensions except for the concatenation axis must match "
+                    f"exactly, but along dimension {d}, the array at index 0 has size {m} and the "
+                    f"array at index {i} has size {n}"
+                )
     dtype = arrays[0].dtype
     for a in arrays[1:]:
         dtype = types.promote_types(dtype, a.dtype)
@@ -128,13 +142,23 @@ def concatenate(arrays: Sequence[DNDarray], axis: int = 0) -> DNDarray:
     return _wrap(result, split, arrays[0].device, arrays[0].comm)
 
 
-def expand_dims(a: DNDarray, axis: int) -> DNDarray:
-    """Insert an axis of length 1 (reference manipulations.py:742-795)."""
+def expand_dims(a: DNDarray, axis) -> DNDarray:
+    """Insert axes of length 1 at the positions ``axis`` (an int or a tuple)
+    of the result, as numpy does (reference manipulations.py:742-795)."""
     sanitize_in(a)
-    axis = sanitize_axis(tuple(a.gshape) + (1,), axis)
-    split = a.split if a.split is None or axis > a.split else a.split + 1
-    gshape = a.gshape[:axis] + (1,) + a.gshape[axis:]
-    return _like(a, [s.unsqueeze(axis) for s in a.shards], gshape, split)
+    n_new = len(axis) if isinstance(axis, (tuple, list)) else 1
+    out_ndim = a.ndim + n_new
+    axes = sanitize_axis((1,) * out_ndim, axis)
+    axes = sorted(axes) if isinstance(axes, tuple) else [axes]
+    kept = [d for d in range(out_ndim) if d not in axes]  # where the old axes go
+    split = None if a.split is None else kept[a.split]
+    gshape = [1] * out_ndim
+    for d, n in zip(kept, a.gshape):
+        gshape[d] = n
+    shards = a.shards
+    for ax in axes:
+        shards = [s.unsqueeze(ax) for s in shards]
+    return _like(a, shards, tuple(gshape), split)
 
 
 def flatten(a: DNDarray) -> DNDarray:
@@ -344,6 +368,11 @@ def split(x: DNDarray, indices_or_sections, axis: int = 0) -> List[DNDarray]:
     axis = sanitize_axis(x.gshape, axis)
     if isinstance(indices_or_sections, DNDarray):
         indices_or_sections = indices_or_sections.tolist()
+    if isinstance(indices_or_sections, (float, np.floating)):
+        # numpy takes a float as a number of sections when it divides the axis
+        if x.gshape[axis] % indices_or_sections:
+            raise ValueError("array split does not result in an equal division")
+        indices_or_sections = int(indices_or_sections)
     if isinstance(indices_or_sections, (int, np.integer)):
         if x.gshape[axis] % int(indices_or_sections) != 0:
             raise ValueError("array split does not result in an equal division")
@@ -443,7 +472,10 @@ def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -
         raise ValueError(f"mode {mode!r} is not supported")
     if isinstance(pad_width, DNDarray):
         pad_width = pad_width.tolist()
-    widths = np.broadcast_to(np.asarray(pad_width, dtype=np.int64), (array.ndim, 2))
+    widths = np.asarray(pad_width)
+    if widths.dtype.kind not in "iu":
+        raise TypeError("`pad_width` must be of integral type.")
+    widths = np.broadcast_to(widths.astype(np.int64), (array.ndim, 2))
     if (widths < 0).any():
         raise ValueError("index can't contain negative values")
     values = np.broadcast_to(np.asarray(constant_values if mode == "constant" else 0), (array.ndim, 2))
@@ -775,7 +807,12 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
         return _wrap_result(comm.allgather(uniques)[0], 0, a)
     split = 0 if a.split is not None else None
     t = a.larray
-    if axis is not None:
+    if axis is not None and t.numel() == 0:
+        # numpy: the slices along an axis of an empty array are all equal
+        n = t.shape[axis]
+        uniq = t.narrow(axis, 0, min(n, 1))
+        res = (uniq, torch.zeros(n, dtype=torch.int64, device=t.device)) if return_inverse else uniq
+    elif axis is not None:
         res = torch.unique(t, sorted=True, return_inverse=return_inverse, dim=axis)
     else:
         res = _unique_flat(t, return_inverse)

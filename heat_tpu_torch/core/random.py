@@ -15,7 +15,7 @@ that of the reference:
 
 from __future__ import annotations
 
-import time
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -53,10 +53,11 @@ __counter: int = 0
 
 
 def seed(new_seed: Optional[int] = None) -> None:
-    """Seed the global generator (reference random.py:772-790)."""
+    """Seed the global generator (reference random.py:772-790); ``None``
+    draws the seed from the operating system's entropy, as numpy does."""
     global __seed, __counter
     if new_seed is None:
-        new_seed = int(time.time() * 1000) % (2**31)
+        new_seed = int.from_bytes(os.urandom(4), "little") % (2**31)
     __seed = int(new_seed)
     __counter = 0
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import builtins
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -433,6 +433,8 @@ def bincount(x: DNDarray, weights: Optional[DNDarray] = None, minlength: int = 0
     if not types.heat_type_is_exact(x.dtype):
         raise TypeError(f"input must be integer type, got {x.dtype}")
     flat = x.larray.reshape(-1)
+    if flat.dtype == torch.bool:  # numpy counts the False and True entries
+        flat = flat.long()
     length = builtins.max(minlength, int(flat.max()) + 1 if flat.numel() else minlength)
     w = weights.larray.reshape(-1).to(flat.device) if weights is not None else None
     return _replicated(_fast_bincount(flat, length, w), x)
@@ -518,23 +520,44 @@ def histc(input: DNDarray, bins: int = 100, min: float = 0.0, max: float = 0.0, 
     return ret
 
 
-def _bin_edges(data: torch.Tensor, bins, range) -> torch.Tensor:
-    """numpy's bin edges, computed as jnp.histogram_bin_edges does: in the
-    data's float type (float64 for integers), ``start (1 - k/b) + stop k/b``
-    and the stop itself last."""
+def _outer_edges(data: torch.Tensor, range) -> Tuple[float, float]:
+    """numpy's outer edges: ``range`` or the data's min and max, each moved
+    half a unit out when they are one value."""
+    if range is not None:
+        lo, hi = (v.item() if isinstance(v, (torch.Tensor, np.generic)) else v for v in range)
+    elif data.numel():
+        lo, hi = data.min().item(), data.max().item()
+    else:
+        lo, hi = 0.0, 1.0
+    if not (np.isfinite(lo) and np.isfinite(hi)):
+        raise ValueError(f"autodetected range of [{lo}, {hi}] is not finite")
+    if lo > hi:
+        raise ValueError("max must be larger than min in range parameter.")
+    if lo == hi:
+        lo, hi = lo - 0.5, hi + 0.5
+    return lo, hi
+
+
+def _bin_edges(data: torch.Tensor, bins, range) -> Tuple[torch.Tensor, Optional[Tuple[float, float]]]:
+    """numpy's bin edges: the given ones, or ``np.linspace`` of the outer
+    edges in the data's float type (float64 for integers), evaluated as
+    numpy does, in float64 when ``range`` is given; and the outer edges of
+    equal bins (None for given ones)."""
     dtype = data.dtype if data.is_floating_point() else torch.float64
     if not isinstance(bins, (int, np.integer)):
         bins = bins.larray if isinstance(bins, DNDarray) else bins
         bins = bins if isinstance(bins, torch.Tensor) else torch.as_tensor(np.asarray(bins))
-        return bins.to(data.device, dtype)
-    if range is None:
-        lo, hi = data.min().to(dtype), data.max().to(dtype)
-    else:
-        lo, hi = (torch.tensor(float(v), dtype=dtype, device=data.device) for v in range)
-    same = bool(lo == hi)
-    lo, hi = (lo - 0.5, hi + 0.5) if same else (lo, hi)
-    step = torch.arange(bins, dtype=dtype, device=data.device) / bins
-    return torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])
+        return bins.to(data.device, dtype), None
+    lo, hi = _outer_edges(data, range)
+    work = torch.float64 if range is not None else dtype
+    start = torch.tensor(lo, dtype=work, device=data.device)
+    stop = torch.tensor(hi, dtype=work, device=data.device)
+    y = torch.arange(bins + 1, dtype=work, device=data.device)
+    step = (stop - start) / bins
+    y = y / bins * (stop - start) if bool(step == 0) else y * step
+    y = y + start
+    y[-1] = stop
+    return y.to(dtype), (lo, hi)
 
 
 def histogram(a: DNDarray, bins=10, range=None, normed=None, weights=None, density=None):
@@ -543,10 +566,22 @@ def histogram(a: DNDarray, bins=10, range=None, normed=None, weights=None, densi
     card has no ``torch.histogram``."""
     sanitize_in(a)
     data = a.larray.reshape(-1)
-    edges = _bin_edges(data, bins, range)
+    edges, outer = _bin_edges(data, bins, range)
     n_bins = edges.numel() - 1
     fdata = data.to(edges.dtype)
-    idx = (torch.searchsorted(edges, fdata, right=True) - 1).clamp(0, n_bins - 1)
+    if outer is not None:
+        # numpy's index of equal bins: scaled, truncated, then moved by one
+        # where a value lies on the other side of its bin's edges
+        lo, hi = outer
+        first = torch.tensor(lo, dtype=edges.dtype, device=data.device)
+        denom = torch.tensor(hi - lo, dtype=torch.float64).to(edges.dtype).to(data.device)
+        idx = ((fdata - first) / denom * n_bins).to(torch.int64).clamp(0, n_bins)
+        idx = idx - (idx == n_bins).long()
+        idx = idx - (fdata < edges[idx]).long()
+        idx = idx.clamp(0, n_bins - 1)
+        idx = idx + ((fdata >= edges[idx + 1]) & (idx != n_bins - 1)).long()
+    else:
+        idx = (torch.searchsorted(edges, fdata, right=True) - 1).clamp(0, n_bins - 1)
     valid = (fdata >= edges[0]) & (fdata <= edges[-1])
     if weights is None:
         hist = _masked_counts(idx, valid, n_bins)
@@ -650,6 +685,9 @@ def percentile(
         raise ValueError("interpolation must be 'linear', 'lower', 'higher', 'midpoint', or 'nearest'")
     if isinstance(q, DNDarray):
         q = q.numpy()
+    q_values = np.asarray(q, dtype=np.float64)
+    if np.any(q_values < 0) or np.any(q_values > 100):
+        raise ValueError("Percentiles must be in the range [0, 100]")
     q_shape = np.shape(q)
     x = _as_float(x)
     dtype = x.dtype.torch_type()
@@ -677,12 +715,34 @@ def percentile(
     return ret
 
 
+def _axes(ndim: int, axis) -> Tuple[int, ...]:
+    """The reduced axes of an ``axis`` argument (None, an int or a tuple)."""
+    if axis is None:
+        return tuple(range(ndim))
+    return tuple(axis) if isinstance(axis, tuple) else (axis,)
+
+
+def _to_last(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` with the reduced axes moved to the end and flattened into one."""
+    if axis is None:
+        return t.reshape(-1)
+    axes = _axes(t.ndim, axis)
+    moved = t.movedim(axes, tuple(range(t.ndim - len(axes), t.ndim)))
+    return moved.reshape(tuple(moved.shape[: t.ndim - len(axes)]) + (-1,))
+
+
+def _kept_shape(shape, axis) -> List[int]:
+    axes = _axes(len(shape), axis)
+    return [1 if d in axes else s for d, s in enumerate(shape)]
+
+
 def _sorted_percentile(t: torch.Tensor, q, axis, method: str, keepdims: bool, dtype) -> torch.Tensor:
     """Percentiles from a sort along ``axis`` (of the flattened tensor for
-    None): the two order statistics of each position gathered by
-    ``narrow``, so nothing is copied from the host."""
+    None; of the named axes flattened together for a tuple): the two order
+    statistics of each position gathered by ``narrow``, so nothing is
+    copied from the host."""
     shape = t.shape
-    work = t.reshape(-1) if axis is None else t.movedim(axis, -1)
+    work = _to_last(t, axis)
     sv = torch.sort(work, dim=-1)[0]
     n = sv.shape[-1]
     has_nan = torch.isnan(sv.narrow(-1, n - 1, 1)).squeeze(-1) if n and sv.is_floating_point() else None
@@ -694,8 +754,7 @@ def _sorted_percentile(t: torch.Tensor, q, axis, method: str, keepdims: bool, dt
         values.append(v if has_nan is None else torch.where(has_nan, math.nan, v))
     result = torch.stack(values).reshape(np.shape(q) + tuple(values[0].shape))
     if keepdims:
-        kept = [1] * len(shape) if axis is None else [1 if d == axis else s for d, s in enumerate(shape)]
-        result = result.reshape(np.shape(q) + tuple(kept))
+        result = result.reshape(np.shape(q) + tuple(_kept_shape(shape, axis)))
     return result
 
 
@@ -708,13 +767,11 @@ def median(x: DNDarray, axis: Optional[int] = None, keepdims: bool = False, keep
         keepdims = keepdim
     sanitize_in(x)
     axis = sanitize_axis(x.gshape, axis)
-    if isinstance(axis, tuple):
-        raise TypeError("axis must be None or an int")
     if axis is None and x.split is not None and not x.padded:
         return percentile(x, 50.0, keepdims=keepdims)
     x = _as_float(x)
     t = x.larray
-    work = t.reshape(-1) if axis is None else t.movedim(axis, -1)
+    work = _to_last(t, axis)
     sv = torch.sort(work, dim=-1)[0]
     n = sv.shape[-1]
     lo = sv.narrow(-1, (n - 1) // 2, 1)
@@ -723,8 +780,9 @@ def median(x: DNDarray, axis: Optional[int] = None, keepdims: bool = False, keep
     if sv.is_floating_point() and n:
         result = torch.where(torch.isnan(sv.narrow(-1, n - 1, 1)).squeeze(-1), math.nan, result)
     if keepdims:
-        result = result.reshape([1] * t.ndim if axis is None else [1 if d == axis else s for d, s in enumerate(t.shape)])
+        result = result.reshape(_kept_shape(t.shape, axis))
     split = None
-    if x.split is not None and axis is not None and axis != x.split:
-        split = x.split if keepdims else x.split - (axis < x.split)
+    axes = _axes(t.ndim, axis)
+    if x.split is not None and axis is not None and x.split not in axes:
+        split = x.split if keepdims else x.split - builtins.sum(a < x.split for a in axes)
     return _wrap(result.contiguous(), split if result.ndim else None, x.device, x.comm)

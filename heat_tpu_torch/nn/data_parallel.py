@@ -240,6 +240,24 @@ class DataParallel:
             self.optimizers = [self.optimizer(r.parameters()) for r in self.replicas]
         return self
 
+    def save(self, directory: str, step: int = 0, keep: int = 3) -> str:
+        """Write :meth:`state_dict` as the checkpoint
+        ``directory/ckpt_{step}.manifest.json`` and its payload files (the
+        manifest's rename is the commit point); keep the newest ``keep``
+        (reference data_parallel.py:243-249). Returns the manifest's path."""
+        from ..utils.checkpoint import save_checkpoint
+
+        return save_checkpoint(directory, self.state_dict(), step=step, keep=keep)
+
+    def restore(self, directory: str, step: Optional[int] = None, strict: bool = False) -> "DataParallel":
+        """Resume from a checkpoint written by :meth:`save`: the newest that
+        verifies for ``step=None`` (an unverifiable newer one is skipped
+        with a warning, or raises under ``strict``), else that step
+        (reference data_parallel.py:251-266)."""
+        from ..utils.checkpoint import load_checkpoint
+
+        return self.load_state_dict(load_checkpoint(directory, _template(self.state_dict()), step=step, strict=strict))
+
     def rebind(self, comm: Optional[MeshCommunication] = None) -> "DataParallel":
         """Re-target the trainer onto another mesh, carrying its state."""
         sd = copy.deepcopy(self.state_dict()) if self.replicas is not None else None
@@ -299,3 +317,37 @@ class DataParallelMultiGPU(DataParallel):
             self.comm = self.daso.comm
             return self
         return super().rebind(comm)
+
+    def state_dict(self) -> dict:
+        """The bound DASO's state, else :meth:`DataParallel.state_dict`."""
+        if self.daso is not None:
+            return self.daso.state_dict()
+        return super().state_dict()
+
+    def load_state_dict(self, sd: Mapping) -> "DataParallelMultiGPU":
+        if self.daso is not None:
+            self.daso.load_state_dict(sd)
+            return self
+        return super().load_state_dict(sd)
+
+    def save(self, directory: str, step: int = 0, keep: int = 3) -> str:
+        """The bound DASO's checkpoint, else :meth:`DataParallel.save`
+        (reference data_parallel.py:320-323)."""
+        if self.daso is not None:
+            return self.daso.save(directory, step=step, keep=keep)
+        return super().save(directory, step=step, keep=keep)
+
+    def restore(self, directory: str, step: Optional[int] = None, strict: bool = False) -> "DataParallelMultiGPU":
+        """Resume the bound DASO, else as :meth:`DataParallel.restore`
+        (reference data_parallel.py:325-330)."""
+        if self.daso is not None:
+            self.daso.restore(directory, step=step, strict=strict)
+            return self
+        return super().restore(directory, step=step, strict=strict)
+
+
+def _template(sd: dict) -> dict:
+    """A trainer's state dict as the template of its restore: the
+    optimizer's per-parameter state left open (an empty dict), so that a
+    trainer that has not stepped yet, and has none, takes the saved one."""
+    return {**sd, "opt_state": {**sd["opt_state"], "state": {}}}

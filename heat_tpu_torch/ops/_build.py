@@ -1,4 +1,5 @@
-"""Build the CUDA sources under ``heat_tpu_torch/csrc`` into shared libraries.
+"""Build the CUDA sources under ``heat_tpu_torch/csrc`` and the host C++
+sources under ``heat_tpu_torch/_native`` into shared libraries.
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``, compiled by
 ``nvcc`` for ``sm_90a`` with a plain C interface and loaded with ``ctypes``;
@@ -7,7 +8,11 @@ each kernel) is kept beside it as ``<name>-<hash>.log``.
 The hash of the source names the library, so an edited source is rebuilt.
 Nothing is built when the package is imported: a kernel's wrapper calls
 :func:`library` at its first launch, and :func:`build` compiles several
-sources at once, one ``nvcc`` process each. A failed build raises.
+sources at once, one ``nvcc`` process each. :func:`build_host` compiles
+host C++ with ``g++`` the same way. A failed build raises. Every library is
+compiled under a name of its own process and moved into place with
+``os.replace``, so processes that build at once (test workers) never load
+a half-written file.
 """
 
 from __future__ import annotations
@@ -18,9 +23,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
-__all__ = ["build", "build_log", "library"]
+__all__ = ["build", "build_host", "build_log", "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
@@ -29,6 +34,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -91,3 +98,32 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
     return lib
+
+
+def gxx() -> str:
+    """The host C++ compiler: ``$CXX`` or ``g++`` on the path; raises
+    ``RuntimeError`` when there is none."""
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the native host code is built with the image's C++ compiler")
+
+
+def build_host(name: str, sources: Sequence[Path]) -> Path:
+    """Compile host C++ ``sources`` with ``g++`` into
+    ``_build/lib<name>-<hash>.so`` (the hash of every source), unless it is
+    built already; return its path. Raises ``RuntimeError`` with the
+    compiler's output if the build fails."""
+    digest = hashlib.sha256(b"".join(Path(src).read_bytes() for src in sources)).hexdigest()[:16]
+    target = BUILD_DIR / f"lib{name}-{digest}.so"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    cmd = [gxx(), *GXX_FLAGS, *(str(s) for s in sources), "-o", str(tmp), "-lpthread"]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {name} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target

@@ -424,6 +424,23 @@ class DASO:
             **sd, **{k: _broadcast(sd[k], n) for k in ("params", "state", "opt_state")}
         })
 
+    def save(self, directory: str, step: int = 0, keep: int = 3) -> str:
+        """Write :meth:`state_dict` (the replica axis included) as the
+        checkpoint ``directory/ckpt_{step}.manifest.json``; keep the newest
+        ``keep`` (reference dp_optimizer.py:547-553)."""
+        from ..utils.checkpoint import save_checkpoint
+
+        return save_checkpoint(directory, self.state_dict(), step=step, keep=keep)
+
+    def restore(self, directory: str, step=None, strict: bool = False) -> "DASO":
+        """Resume from a checkpoint written by :meth:`save` onto a mesh of
+        the same size: the newest that verifies for ``step=None``, else that
+        step (reference dp_optimizer.py:555-570)."""
+        from ..nn.data_parallel import _template
+        from ..utils.checkpoint import load_checkpoint
+
+        return self.load_state_dict(load_checkpoint(directory, _template(self.state_dict()), step=step, strict=strict))
+
     def rebind(self, comm: Optional[MeshCommunication] = None) -> "DASO":
         """Re-target the trainer onto another mesh: the merged state carries
         over, the group count falls back to the default where it no longer

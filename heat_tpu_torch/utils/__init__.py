@@ -1,3 +1,4 @@
-"""Utilities."""
+"""Utilities (reference: heat/utils/__init__.py): interop with the JAX
+package's models, checkpoints, and the data utilities."""
 
-from . import interop
+from . import checkpoint, data, interop

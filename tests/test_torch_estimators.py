@@ -325,16 +325,16 @@ def test_lasso_collectives(p):
 
 def test_lasso_on_diabetes_by_numpys_math():
     # the reference's demo protocol on the bundled diabetes file
-    # (tests/test_datasets_real.py:74-88), read with h5py; heat_tpu's own
-    # test of it fails, so the port is held to numpy
-    h5py = pytest.importorskip("h5py")
-    with h5py.File(os.path.join(DATA, "diabetes.h5"), "r") as f:
-        X, yv = np.asarray(f["x"], np.float32), np.asarray(f["y"], np.float32)
-    X = X / np.sqrt(np.mean(X**2, axis=0))
-    lasso = ht.regression.Lasso(max_iter=100, lam=0.1).fit(ht.array(X, split=0), ht.array(yv[:, None], split=0))
+    # (tests/test_datasets_real.py:74-88), read by the port's loader;
+    # heat_tpu's own test of it fails, so the port is held to numpy
+    x, y = ht.datasets.load_diabetes(split=0, return_y=True)
+    assert x.gshape == (442, 11) and y.gshape == (442,)
+    x = x / ht.sqrt(ht.mean(x**2, axis=0))
+    X, yv = x.numpy(), y.numpy()
+    lasso = ht.regression.Lasso(max_iter=100, lam=0.1).fit(x, ht.reshape(y, (442, 1)))
     expected = _numpy_lasso_cd(X.astype(np.float64), yv.astype(np.float64), 0.1, 100, 1e-6)
     np.testing.assert_allclose(lasso.theta.numpy().reshape(-1), expected, atol=1e-3 * max(1.0, np.abs(expected).max()))
-    pred = lasso.predict(ht.array(X, split=0)).numpy().ravel()
+    pred = lasso.predict(x).numpy().ravel()
     assert 1.0 - ((pred - yv) ** 2).sum() / ((yv - yv.mean()) ** 2).sum() > 0.3
 
 

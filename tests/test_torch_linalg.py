@@ -606,3 +606,38 @@ def test_rank_deficient_pinv_cutoff():
     a_np = _rng(86).standard_normal((9, 2)) @ _rng(87).standard_normal((2, 4))
     np.testing.assert_allclose(ht.linalg.pinv(ht.array(a_np, split=0), rcond=1e-10).numpy(),
                                np.linalg.pinv(a_np, rcond=1e-10), rtol=1e-8, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# fault C10 of ROADMAP queue C: bool products as numpy gives them (exact), on
+# explicit meshes of 3 and 5 shards and against the reference
+# ---------------------------------------------------------------------------
+def _mesh(p):
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    return MeshCommunication([torch.device("cpu")] * p)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("sa,sb", [(None, None), (0, None), (None, 1), (1, 0), (1, 1), (0, 0)])
+def test_matmul_of_bool_is_bool(sa, sb, p):
+    rng = np.random.default_rng(20261017)
+    a, b = rng.random((7, 5)) < 0.3, rng.random((5, 4)) < 0.3
+    mine = ht.matmul(ht.array(a, split=sa, comm=_mesh(p)), ht.array(b, split=sb, comm=_mesh(p)))
+    theirs = ref.matmul(ref.array(a, split=sa), ref.array(b, split=sb))
+    assert mine.dtype is ht.bool and theirs.dtype is ref.bool
+    np.testing.assert_array_equal(mine.numpy(), a @ b)
+    np.testing.assert_array_equal(mine.numpy(), theirs.numpy())
+    check_layout(mine)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("name", ["dot", "vdot"])
+def test_dot_and_vdot_of_bool_are_bool(name, split, p):
+    rng = np.random.default_rng(20261017)
+    for v, w in ((rng.random(11) < 0.5, rng.random(11) < 0.5), (np.zeros(11, bool), rng.random(11) < 0.5)):
+        mine = getattr(ht, name)(ht.array(v, split=split, comm=_mesh(p)), ht.array(w, split=split, comm=_mesh(p)))
+        assert mine.dtype is ht.bool
+        assert mine.item() == getattr(np, name)(v, w)
+        assert mine.item() == getattr(ref, name)(ref.array(v, split=split), ref.array(w, split=split)).item()

@@ -12,7 +12,7 @@ import torch
 
 import heat_tpu as ref
 import heat_tpu_torch as ht
-from test_torch_parity import EXACT, SHAPES, both, check, data, on_cpu  # noqa: F401
+from test_torch_parity import EXACT, SHAPES, both, check, check_layout, data, on_cpu  # noqa: F401
 
 SPLITS = [None, 0, 1]
 TYPES = ["bool", "int32", "int64", "float32", "float64"]
@@ -418,3 +418,63 @@ def test_sanitizers():
     assert ht.sanitize_memory_layout(mine, "F") is mine
     with pytest.raises(ValueError):
         ht.sanitize_memory_layout(mine, "X")
+
+
+# ---------------------------------------------------------------------------
+# faults C9 and C12 of ROADMAP queue C: the port on explicit meshes of 3 and
+# 5 shards against numpy's values and error types
+# ---------------------------------------------------------------------------
+def _mesh(p):
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    return MeshCommunication([torch.device("cpu")] * p)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0, 2])
+@pytest.mark.parametrize("axis", [(0, 1), (0, 3), (-1, 1), (4, 0, 2), 3])
+def test_expand_dims_takes_a_tuple_axis(axis, split, p):
+    values = data((7, 3, 2), "float32")
+    mine = ht.expand_dims(ht.array(values, split=split, comm=_mesh(p)), axis)
+    expected = np.expand_dims(values, axis)
+    np.testing.assert_array_equal(mine.numpy(), expected)
+    assert mine.gshape == expected.shape
+    if split is not None:
+        # the split follows its axis to its place among the new ones
+        assert mine.gshape[mine.split] == values.shape[split]
+    check_layout(mine)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+def test_concatenate_of_mismatched_shapes_raises_value_error(p):
+    a = ht.zeros((4, 3), split=0, comm=_mesh(p))
+    for other in (ht.zeros((2, 2), split=0, comm=_mesh(p)), ht.zeros((2,), split=0, comm=_mesh(p))):
+        with pytest.raises(ValueError):
+            np.concatenate([np.zeros((4, 3)), np.zeros(other.gshape)])
+        with pytest.raises(ValueError):
+            ht.concatenate([a, other])
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("shape,axis", [((0, 4), 1), ((0, 4), 0), ((3, 0), 0)])
+def test_unique_of_an_empty_array_along_an_axis(shape, axis, split, p):
+    values = np.zeros(shape, np.float32)
+    mine = ht.unique(ht.array(values, split=split, comm=_mesh(p)), axis=axis)
+    assert mine.gshape == np.unique(values, axis=axis).shape
+
+
+@pytest.mark.parametrize("p", [3, 5])
+def test_pad_and_split_refuse_a_float_as_numpy_does(p):
+    values = data((4, 3), "float32")
+    x = ht.array(values, split=0, comm=_mesh(p))
+    with pytest.raises(TypeError):
+        np.pad(values, 1.5)
+    with pytest.raises(TypeError):
+        ht.pad(x, 1.5)
+    with pytest.raises(ValueError):
+        np.split(values, 1.5)
+    with pytest.raises(ValueError):
+        ht.split(x, 1.5)
+    # a float that divides the axis is a number of sections, as in numpy
+    assert [s.gshape for s in ht.split(x, 2.0)] == [s.shape for s in np.split(values, 2.0)]

@@ -128,3 +128,21 @@ def test_random_integer_is_randint():
     r = ht.random.random_integer(3, 8, (N,)).numpy()
     assert r.min() == 3 and r.max() == 7
     assert stats.chisquare(np.bincount(r - 3)).pvalue > ALPHA
+
+
+# ---------------------------------------------------------------------------
+# fault C13 of ROADMAP queue C: seed(None) draws from the OS's entropy, so two
+# calls in the same millisecond give different streams
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("p", [3, 5])
+def test_seed_none_twice_at_once_gives_two_streams(p, monkeypatch):
+    import time
+
+    monkeypatch.setattr(time, "time", lambda: 1.0e9)  # a frozen clock
+    draws, seeds = [], set()
+    for _ in range(4):
+        ht.random.seed(None)
+        seeds.add(ht.random.get_state()[1])
+        draws.append(ht.random.rand(16, split=0, comm=_mesh(p)).numpy())
+    assert len(seeds) == 4
+    assert not any(np.array_equal(draws[i], draws[j]) for i in range(4) for j in range(i + 1, 4))

@@ -553,3 +553,64 @@ def test_histogram(dtype, split):
     weights = data((13, 7), "float64", 0, 1)
     (h, _), (rh, _) = ht.histogram(mine, bins=5, weights=ht.array(weights)), ref.histogram(theirs, bins=5, weights=ref.array(weights))
     np.testing.assert_allclose(h.numpy(), np.asarray(rh.numpy()), **INTERPOLATED["float64"])
+
+
+# ---------------------------------------------------------------------------
+# faults C8-C10 and C12 of ROADMAP queue C: the port on explicit meshes of 3
+# and 5 shards, against numpy (and the reference where it agrees with numpy)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize(
+    "values,bins,range_",
+    [
+        (np.array([-3, -1, 0, 1, 2], np.int32), 10, None),  # the C8 repro
+        (np.arange(-50, 50, dtype=np.int64), 7, None),
+        (np.random.default_rng(SEED_C).normal(size=1001).astype(np.float32), 10, None),
+        (np.random.default_rng(SEED_C).normal(size=1001).astype(np.float32), 12, (-1.5, 2.5)),
+        (np.linspace(0, 1, 41, dtype=np.float64), 8, None),
+    ],
+)
+def test_histogram_bins_values_on_an_edge_as_numpy_does(values, bins, range_, p):
+    # exact: numpy's linspace edges and its index correction at the edges
+    hist, edges = ht.histogram(ht.array(values, split=0, comm=_mesh(p)), bins=bins, range=range_)
+    expected, expected_edges = np.histogram(values, bins=bins, range=range_)
+    np.testing.assert_array_equal(hist.numpy(), expected)
+    assert edges.numpy().dtype == expected_edges.dtype
+    np.testing.assert_array_equal(edges.numpy(), expected_edges)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0, 2])
+@pytest.mark.parametrize("axis", [(0, 1), (1, 2), (0, 2), (-1, 0)])
+def test_order_statistics_take_a_tuple_axis(axis, split, p):
+    values = data((6, 5, 4), "float32", seed=SEED_C)
+    x = ht.array(values, split=split, comm=_mesh(p))
+    # float32 order statistics are exact; the interpolation within 1e-6
+    for keepdims in (False, True):
+        mine = ht.median(x, axis=axis, keepdims=keepdims)
+        np.testing.assert_allclose(mine.numpy(), np.median(values, axis=axis, keepdims=keepdims), rtol=1e-6)
+        theirs = ref.median(ref.array(values, split=split), axis=axis, keepdims=keepdims)
+        assert mine.split == theirs.split and mine.gshape == tuple(theirs.shape)
+    mine = ht.percentile(x, [30, 75], axis=axis)
+    np.testing.assert_allclose(mine.numpy(), np.percentile(values, [30, 75], axis=axis), rtol=1e-6, atol=1e-6)
+    theirs = ref.percentile(ref.array(values, split=split), [30, 75], axis=axis)
+    np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0])
+def test_bincount_of_bool_counts_false_and_true(split, p):
+    values = data((17,), "bool", seed=SEED_C)
+    mine = ht.bincount(ht.array(values, split=split, comm=_mesh(p)))
+    np.testing.assert_array_equal(mine.numpy(), np.bincount(values))
+    np.testing.assert_array_equal(mine.numpy(), ref.bincount(ref.array(values, split=split)).numpy())
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("q", [150, -1, [20, 101]])
+def test_percentile_outside_0_100_raises_value_error(q, p):
+    values = data((13,), "float32", seed=SEED_C)
+    with pytest.raises(ValueError):
+        np.percentile(values, q)
+    with pytest.raises(ValueError):
+        ht.percentile(ht.array(values, split=0, comm=_mesh(p)), q)
