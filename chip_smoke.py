@@ -156,7 +156,30 @@ Phases, in order; any failure exits non-zero:
    save and restore GB/s, ``verify_checkpoint``; finally ``convolve`` of
    10^8 float32 with a 9-tap filter in every mode against float64, four
    shards equal to one bit for bit;
-16. print the phase-9 to 15 numbers with the card, the card's name
+16. the runtime's observability and robustness layer (no kernel of its
+   own; the traced fit runs the Lloyd kernel, the traced LM step the flash
+   kernel, the four-shard cdist the pairwise kernel): with the table on the
+   card, ``device_memory_stats`` and ``report()["memory"]``; phase 3's fit
+   with telemetry off, at mode 1 and verbose, 30 Lloyd launches each and
+   the results equal bit for bit; the 10-op eager chain's ops/s at
+   1,000 x 16 and on the table in the three modes, mode 1 at least 0.9 of
+   off at the small size; a warm reduction chain under
+   ``set_sync_debug_mode("error")`` with telemetry verbose, and under
+   ``errstate("warn")`` one sync per checked op; a NaN on the card raising
+   ``NonFiniteError``; on four shards of the card the symmetric ring
+   ``cdist``, ``qr`` of a tall split-0 matrix, one DASO step of ResNet-50
+   and ring attention, each with ``collective_counts()`` equal to a
+   counting mesh's, the ring's ppermute bytes against its shards'; one
+   README TransformerLM f32 step (12 flash launches) and the fit at
+   verbose, the exported trace validated, the fit under
+   ``profiling.trace`` with its Lloyd kernels inside the ``annotate``
+   region, a ``timed`` fit within 5% of its CUDA events; an ``io.write``
+   fault every second attempt on the table's ``.npy`` saves, a hard
+   ``checkpoint.commit`` fault on ResNet-50's second checkpoint (the first
+   restores bit for bit) and a ``collective.allreduce`` fault on a
+   four-shard sum (the next call equal to the fault-free one); the metrics
+   sink in a subprocess, whose ``report()`` leaves CUDA uninitialized;
+17. print the phase-9 to 16 numbers with the card, the card's name
    and power limit, one JSON line of per-kernel numbers, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -4417,6 +4440,511 @@ def io_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the runtime's path (phase 16): telemetry, resilience and profiling on the
+# card. No kernel of its own: the traced fit runs the Lloyd kernel, the
+# traced LM step the flash kernel and the four-shard cdist the pairwise one.
+# ---------------------------------------------------------------------------
+RT_P = 4  # shards of the card for the collective counts and the fault
+RT_SMALL = (1_000, 16)  # the overhead chain where the host sets the pace
+RT_CHAIN_REPS, RT_CHAIN_TRIALS, RT_CHAIN_ROUNDS = 8, 5, 5
+RT_LARGE_REPS, RT_LARGE_TRIALS = 2, 2  # the chain on BASELINE config 3's table
+RT_OVERHEAD_FLOOR = 0.9  # mode 1 against off, heat_tpu's own guard (tests/test_telemetry.py)
+RT_QR_SHAPE = (1_000_000, 256)
+RT_TIMED_TOL = 0.05  # a timed fit's host time against its CUDA-event time
+RT_TABLE_BYTES = N * F * 4
+
+
+def _rt_chain(ht, a, b):
+    """heat_tpu's 10-op eager chain (tests/test_telemetry.py:28-38)."""
+    c = (a + b) * 2.0
+    c = ht.exp(c)
+    c = c - b
+    d = ht.abs(c)
+    e = d + a
+    f = ht.sqrt(ht.abs(e))
+    g = f / (d + 1.0)
+    h = g * b
+    return ht.sum(h)
+
+
+def _rt_rate(ht, a, b, reps: int, trials: int) -> float:
+    """Ops per second of the chain, each chain ending in one host read (the
+    reference's measurement)."""
+    float(_rt_chain(ht, a, b).larray)
+    best = math.inf
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            float(_rt_chain(ht, a, b).larray)
+        best = min(best, time.perf_counter() - t0)
+    return 10.0 * reps / best
+
+
+def _rt_counting_mesh(devices):
+    """Phase 10's counting mesh, counting the prefix verbs too."""
+    mesh = counting_mesh(devices)
+
+    def counted(verb):
+        method = getattr(type(mesh).__mro__[1], verb)
+
+        def call(shards, *args, **kwargs):
+            mesh._count(verb, shards)
+            return method(mesh, shards, *args, **kwargs)
+
+        return call
+
+    mesh.exscan, mesh.scan = counted("exscan"), counted("scan")
+    return mesh
+
+
+def traced_fit_phase(ht, tel, x, init) -> dict:
+    """(a) Phase 3's fit with telemetry off, at mode 1 and verbose, each
+    under ``span("fit")``: the Lloyd kernel's launches, and the results
+    equal bit for bit across the modes."""
+    import torch
+
+    from heat_tpu_torch.ops import lloyd
+
+    print(f"phase runtime: KMeans(n_clusters={K}) for {ITERS} iterations from phase 3's centres with "
+          "telemetry off, at mode 1 and verbose", flush=True)
+    fits, out = {}, {"launches": {}, "ms_per_iter": {}}
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    tel.set_mode(0)
+    ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)  # warm: the first fit of a process
+    torch.cuda.synchronize()
+    for mode, name in ((0, "off"), (1, "on"), (2, "verbose")):
+        tel.set_mode(mode)
+        tel.reset()
+        lloyd.LAUNCHES = 0
+        start.record()
+        with tel.span("fit"):
+            fits[name] = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+        stop.record()
+        torch.cuda.synchronize()
+        out["launches"][name] = lloyd.LAUNCHES
+        out["ms_per_iter"][name] = start.elapsed_time(stop) / ITERS
+    ref = fits["off"]
+    out["equal"] = all(
+        torch.equal(f.cluster_centers_.larray, ref.cluster_centers_.larray)
+        and torch.equal(f.labels_.larray, ref.labels_.larray) and f.inertia_ == ref.inertia_
+        for f in fits.values()
+    )
+    print(f"  Lloyd launches {out['launches']}; ms per iteration {json.dumps(out['ms_per_iter'])}; centres, "
+          f"labels and inertia equal across the modes bit for bit: {out['equal']}", flush=True)
+    if set(out["launches"].values()) != {ITERS} or not out["equal"]:
+        raise AssertionError("the traced fits differ or missed the Lloyd kernel")
+    return out
+
+
+def overhead_phase(ht, tel, x) -> dict:
+    """(b) The 10-op chain at RT_SMALL (the host sets the pace) and on the
+    table: ops/s with telemetry off, at mode 1 and verbose; mode 1 keeps at
+    least RT_OVERHEAD_FLOOR of the rate off at the small size (the legs
+    alternate, the best round counts, as in the reference's guard)."""
+    import torch
+
+    print(f"phase runtime: the 10-op eager chain at {RT_SMALL[0]} x {RT_SMALL[1]} and {N} x {F} float32, "
+          "telemetry off, at mode 1 and verbose", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    a, b = (ht.array(torch.randn(RT_SMALL, generator=gen, device="cuda"), split=0) for _ in range(2))
+    out = {"small": {}, "large": {}}
+    ratio = 0.0
+    for round_ in range(RT_CHAIN_ROUNDS):
+        rates = {}
+        for mode, name in ((0, "off"), (1, "on"), (2, "verbose")):
+            tel.set_mode(mode)
+            tel.reset()
+            rates[name] = _rt_rate(ht, a, b, RT_CHAIN_REPS, RT_CHAIN_TRIALS)
+        if rates["on"] / rates["off"] > ratio:
+            ratio, out["small"] = rates["on"] / rates["off"], rates
+        if round_ >= 1 and ratio >= RT_OVERHEAD_FLOOR:
+            break
+    out["small_ratio_on_off"] = ratio
+    for mode, name in ((0, "off"), (1, "on"), (2, "verbose")):
+        tel.set_mode(mode)
+        tel.reset()
+        out["large"][name] = _rt_rate(ht, x, x, RT_LARGE_REPS, RT_LARGE_TRIALS)
+    tel.set_mode(0)
+    print(f"  ops/s at {RT_SMALL}: {json.dumps(out['small'])} (mode 1 / off {ratio:.4f}); on the table: "
+          f"{json.dumps(out['large'])}", flush=True)
+    if ratio < RT_OVERHEAD_FLOOR:
+        raise AssertionError(f"telemetry at mode 1 keeps {ratio:.3f} of the dispatch rate, under {RT_OVERHEAD_FLOOR}")
+    return out
+
+
+def sync_phase(ht, tel, res, x) -> dict:
+    """(c) No sync added: a warm reduction chain on one and on four shards
+    under ``set_sync_debug_mode("error")`` with telemetry verbose; under
+    ``errstate("warn")`` the syncs counted with the mode at "warn", one per
+    checked op; a NaN made on the card raises under ``"raise"``."""
+    import warnings
+
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    print("phase runtime: a warm reduction chain under set_sync_debug_mode('error') with telemetry verbose; "
+          "errstate('warn') under 'warn'; a NaN on the card under errstate('raise')", flush=True)
+    x4 = ht.array(x.larray[:1_000_003], split=0, comm=MeshCommunication([torch.device("cuda", 0)] * RT_P))
+
+    def chain(z):
+        return ht.sum(ht.abs(z * 2.0 - 1.0), axis=0)
+
+    tel.set_mode(2)
+    tel.reset()
+    chain(x), chain(x4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with tel.span("chain"):
+            chain(x)
+            chain(x4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = {"no_sync_events": len(tel.events())}
+    tel.set_mode(1)
+    tel.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with res.errstate(nonfinite="warn"):
+                chain(x)
+                chain(x4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["checked_ops"] = sum(rec["eager"] for rec in tel.dispatches().values())
+    out["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    tel.reset()
+    z = ht.zeros(RT_SMALL, split=0) - 1.0
+    raised = False
+    with res.errstate(nonfinite="raise"):
+        try:
+            ht.log(z)
+        except res.NonFiniteError as exc:
+            raised, out["nonfinite_message"] = True, str(exc)
+    out["nonfinite_counts"] = tel.nonfinite_counts()
+    print(f"  no sync under 'error' ({out['no_sync_events']} timeline events); under errstate('warn') "
+          f"{out['syncs']} syncs for {out['checked_ops']} checked ops; NaN raised NonFiniteError: {raised}, "
+          f"nonfinite_counts {out['nonfinite_counts']}", flush=True)
+    if out["syncs"] != out["checked_ops"] or not raised or out["nonfinite_counts"] != {"eager": 1}:
+        raise AssertionError("errstate on the card did not check each op with one sync, or missed the NaN")
+    return out
+
+
+def collectives_phase(ht, tel) -> dict:
+    """(d) Four shards of the card: the symmetric ring cdist, qr of a tall
+    split-0 matrix, one DASO step of ResNet-50 and ring attention, each
+    with ``collective_counts()`` equal to the counting mesh's; the ring's
+    ppermute bytes against its shards' by hand."""
+    import torch
+
+    from heat_tpu_torch.nn.attention import ring_attention
+
+    card = torch.device("cuda", 0)
+    mesh = _rt_counting_mesh([card] * RT_P)
+    print(f"phase runtime: collectives on {RT_P} shards of the card against the counting mesh", flush=True)
+    tel.set_mode(1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    out = {}
+
+    def counted(label, fn):
+        before = dict(mesh.calls)
+        tel.reset()
+        fn()
+        torch.cuda.synchronize()
+        delta = {k: v - before.get(k, 0) for k, v in mesh.calls.items() if v - before.get(k, 0)}
+        got = tel.collective_counts()
+        out[label] = {"telemetry": got, "counting_mesh": delta, "collectives": tel.collectives()}
+        print(f"  {label}: telemetry {got}, counting mesh {delta}", flush=True)
+        if got != delta or not got:
+            raise AssertionError(f"{label}: telemetry's collective counts differ from the counting mesh's")
+
+    a = ht.array(torch.randn((RING_N, DIST_F), generator=gen, device="cuda"), split=0, comm=mesh)
+    counted("cdist_ring_symmetric", lambda: ht.spatial.cdist(a))
+    mb = a.shards[0].shape[0]
+    rec = out["cdist_ring_symmetric"]["collectives"]["ppermute"]
+    out["ppermute_bytes_by_hand"] = rec["count"] * mb * DIST_F * 4
+    print(f"  the ring's ppermute bytes {rec['bytes']}: {rec['count']} x one shard's {mb} x {DIST_F} float32 = "
+          f"{out['ppermute_bytes_by_hand']}", flush=True)
+    if rec["bytes"] != out["ppermute_bytes_by_hand"]:
+        raise AssertionError("the ring's recorded ppermute bytes are not its shards' bytes")
+    del a
+    q = ht.array(torch.randn(RT_QR_SHAPE, generator=gen, device="cuda"), split=0, comm=mesh)
+    counted("qr_tall_split0", lambda: ht.linalg.qr(q))
+    del q
+    x, y = _cifar(CKPT_BATCH, SEED + 16)
+    daso = ht.optim.DASO(ht.optim.SGD(TRAIN_LR, momentum=0.9), total_epochs=10, comm=mesh, nodes=2,
+                         warmup_epochs=0, cooldown_epochs=0)
+    daso.add_model(ht.nn.ResNet50(num_classes=TRAIN_CLASSES, generator=torch.Generator("cuda").manual_seed(SEED)),
+                   SEED, x[:RT_P])
+    daso.global_skip, daso.local_skip, daso.batches_to_wait = 2, 1, 1
+    counted("daso_step", lambda: daso.step(x, y))
+    del daso, x, y
+    torch.cuda.empty_cache()
+    qkv = [torch.randn(SP_SMALL, generator=gen, device="cuda") for _ in range(3)]
+    counted("ring_attention", lambda: ring_attention(*qkv, causal=True, comm=mesh))
+    del qkv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernels_in_region(trace_path: str, region: str, kernel: str) -> dict:
+    """Kernels whose name holds ``kernel`` on the device rows of a torch
+    profiler trace, and how many of them lie inside the device row of the
+    ``region`` annotation."""
+    with open(trace_path) as fh:
+        evs = json.load(fh)["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in evs
+              if e.get("name") == region and e.get("cat") == "gpu_user_annotation"]
+    kernels = [e for e in evs if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    inside = sum(any(lo <= e["ts"] and e["ts"] + e.get("dur", 0) <= hi for lo, hi in ranges) for e in kernels)
+    return {"regions": len(ranges), "kernels": len(kernels), "inside": inside}
+
+
+def timeline_phase(ht, tel, x, init, tmp: str) -> dict:
+    """(e) One README TransformerLM f32 step (4 x 4096 tokens, Adam) under
+    ``span("lm_step")`` and the fit under ``span("fit")`` at verbose: the
+    exported trace validates, the launches; the fit under
+    ``profiling.trace`` with ``annotate("lloyd")`` holds the Lloyd kernel
+    inside the region on the device rows; a ``timed`` fit against its CUDA
+    events."""
+    import importlib
+    import io as pyio
+
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+    from heat_tpu_torch.ops import flash, lloyd
+    from heat_tpu_torch.utils import profiling
+
+    cli = importlib.import_module("heat_tpu_torch.telemetry")
+    print("phase runtime: the README TransformerLM f32 step and the fit at verbose, exported; the fit under "
+          "torch.profiler with annotate('lloyd'); a timed fit", flush=True)
+    card = torch.device("cuda", 0)
+    tel.set_mode(2)
+    tel.reset()
+    tokens = torch.randint(0, LM["vocab"], (LM_BATCH, LM_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 16))
+    lm = ht.nn.DataParallel(_lm(ht, torch.float32), comm=MeshCommunication([card]),
+                            optimizer=ht.optim.Adam(LM_LR), loss_fn=next_token_loss).init(SEED, tokens[:1])
+    flash.LAUNCHES = 0
+    with tel.span("lm_step"):
+        loss = lm.train_step(tokens, tokens)
+    torch.cuda.synchronize()
+    out = {"launches_lm_step": flash.LAUNCHES, "lm_loss": float(loss)}
+    del lm
+    torch.cuda.empty_cache()
+    lloyd.LAUNCHES = 0
+    with tel.span("fit"):
+        ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+    torch.cuda.synchronize()
+    out["launches_fit"] = lloyd.LAUNCHES
+    path = os.path.join(tmp, "telemetry_trace.json")
+    doc = tel.export_trace(path)
+    out["trace_events"] = len(doc["traceEvents"])
+    out["validate_trace"] = tel.validate_trace(path)
+    buf = pyio.StringIO()
+    out["cli_validate_rc"] = cli.main(["validate-trace", path], out=buf)
+    out["spans"] = {p: {"calls": r["calls"], "host_s": r["total_s"]} for p, r in tel.spans().items()}
+    print(f"  flash launches in the step {out['launches_lm_step']} (loss {out['lm_loss']:.4f}), Lloyd launches "
+          f"in the fit {out['launches_fit']}; exported {out['trace_events']} trace events, validate_trace "
+          f"{out['validate_trace']}, the command line: {buf.getvalue().strip()}; spans {json.dumps(out['spans'])}",
+          flush=True)
+    if (out["launches_lm_step"] != LM["depth"] or out["launches_fit"] != ITERS or out["validate_trace"]
+            or out["cli_validate_rc"] != 0):
+        raise AssertionError("the traced step or fit missed its kernel, or the exported trace does not validate")
+    tel.set_mode(0)
+    prof_dir = os.path.join(tmp, "profile")
+    with profiling.trace(prof_dir):
+        with profiling.annotate("lloyd"):
+            ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+        torch.cuda.synchronize()
+    files = sorted(os.listdir(prof_dir))
+    out["profile"] = _kernels_in_region(os.path.join(prof_dir, files[-1]), "lloyd", "lloyd")
+    print(f"  torch profiler trace {files[-1]}: {json.dumps(out['profile'])} (Lloyd kernels on the device "
+          "rows, inside the 'lloyd' region)", flush=True)
+    if out["profile"]["inside"] < ITERS or out["profile"]["inside"] != out["profile"]["kernels"]:
+        raise AssertionError("the profiler trace does not hold the Lloyd kernels inside the annotated region")
+    timed_fit = profiling.timed(name="timed_fit")(
+        lambda: ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x))
+    profiling.reset()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    timed_fit()
+    stop.record()
+    torch.cuda.synchronize()
+    out["timed_ms"] = profiling.report()["timed_fit"]["total_s"] * 1e3
+    out["event_ms"] = start.elapsed_time(stop)
+    rel = abs(out["timed_ms"] - out["event_ms"]) / out["event_ms"]
+    print(f"  timed fit {out['timed_ms']:.3f} ms against its CUDA events {out['event_ms']:.3f} ms "
+          f"({100 * rel:.2f}%)", flush=True)
+    if rel > RT_TIMED_TOL:
+        raise AssertionError(f"the timed fit differs from its CUDA-event time by {100 * rel:.1f}%")
+    return out
+
+
+def memory_phase(ht, tel) -> dict:
+    """(f) The allocator's bytes with the table on the card."""
+    from heat_tpu_torch.utils import profiling
+
+    stats = profiling.device_memory_stats()
+    tel.set_mode(1)
+    block = tel.report()["memory"]
+    card = stats.get("cuda:0", {})
+    print(f"phase runtime: device_memory_stats {json.dumps(stats)}; report()['memory']['device'] has "
+          f"{sorted(block['device'])}", flush=True)
+    if not (card.get("bytes_in_use", 0) >= RT_TABLE_BYTES and card.get("peak_bytes_in_use", 0) >= card["bytes_in_use"]
+            and block["device"]):
+        raise AssertionError("the device memory stats do not show the table")
+    return {"device": stats, "report_device_keys": sorted(block["device"])}
+
+
+def runtime_faults_phase(ht, tel, res, x, tmp: str) -> dict:
+    """(g) Faults on the card: an io.write OSError every second attempt
+    while the table is saved as .npy (twice), a hard checkpoint.commit
+    fault on ResNet-50's second checkpoint, and a collective.allreduce
+    fault on a four-shard sum."""
+    import copy
+
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    print("phase runtime: io.write OSError every=2 on the table's .npy saves; checkpoint.commit on ResNet-50's "
+          f"second checkpoint; collective.allreduce on a {RT_P}-shard sum", flush=True)
+    tel.set_mode(1)
+    tel.reset()
+    out = {}
+    paths = [os.path.join(tmp, f"rt{i}.npy") for i in range(2)]
+    with res.inject("io.write", exc=OSError, every=2, times=None) as spec:
+        for path in paths:
+            ht.save_npy(x, path)
+    loaded = ht.load_npy(paths[1], split=0)
+    out["io"] = {"fired": spec.fired, "io_retries": tel.io_retries(), "equal": torch.equal(loaded.larray, x.larray)}
+    del loaded
+    for path in paths:
+        os.remove(path)
+
+    xb, yb = _cifar(CKPT_BATCH, SEED + 16)
+
+    def make():
+        return ht.nn.DataParallel(
+            ht.nn.ResNet50(num_classes=TRAIN_CLASSES, generator=torch.Generator("cuda").manual_seed(SEED)),
+            comm=MeshCommunication([card]), optimizer=ht.optim.SGD(TRAIN_LR, momentum=0.9)).init(SEED, xb[:2])
+
+    directory = os.path.join(tmp, "rt_ckpt")
+    dp = make()
+    dp.train_step(xb, yb)
+    saved = copy.deepcopy(dp.state_dict())
+    dp.save(directory, step=1)
+    dp.train_step(xb, yb)
+    raised = False
+    with res.inject("checkpoint.commit"):
+        try:
+            dp.save(directory, step=2)
+        except res.FaultInjected:
+            raised = True
+    del dp
+    fresh = make()
+    fresh.restore(directory)
+    out["checkpoint"] = {"raised": raised, "latest_step": ht.checkpoint.latest_step(directory),
+                         "restored_state_diff": _state_diff(fresh.state_dict(), saved),
+                         "events": tel.checkpoint_events()}
+    del fresh, saved, xb, yb
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    x4 = ht.array(x.larray, split=0, comm=MeshCommunication([card] * RT_P))
+    want = ht.sum(x4, axis=0).larray.clone()
+    faulted = False
+    with res.inject("collective.allreduce"):
+        try:
+            ht.sum(x4, axis=0)
+        except res.FaultInjected:
+            faulted = True
+    out["allreduce"] = {"raised": faulted, "next_equal": torch.equal(ht.sum(x4, axis=0).larray, want)}
+    del x4
+    print(f"  {json.dumps(out)}", flush=True)
+    if not (out["io"]["equal"] and out["io"]["fired"] == 1 and out["io"]["io_retries"] == {"io.write": 1}
+            and raised and out["checkpoint"]["latest_step"] == 1 and out["checkpoint"]["restored_state_diff"] == 0.0
+            and faulted and out["allreduce"]["next_equal"]):
+        raise AssertionError("an injected fault on the card did not recover as stated")
+    return out
+
+
+_RT_SINK_SCRIPT = """
+import json, sys, torch
+import heat_tpu_torch as ht
+ht.telemetry.report()
+ht.telemetry._SINK.flush("before")
+untouched = not torch.cuda.is_initialized()
+x = ht.ones((1000, 16), split=0)
+ht.sum(x).item()
+print(json.dumps({"cuda_uninitialized_after_report": untouched}))
+"""
+
+
+def sink_phase(tmp: str) -> dict:
+    """(h) A subprocess with HEAT_TPU_METRICS set: ``report()`` and a sink
+    flush before any tensor leave CUDA uninitialized, and the file holds
+    JSON lines that parse."""
+    path = os.path.join(tmp, "metrics.jsonl")
+    env = dict(os.environ, HEAT_TPU_METRICS=path, HEAT_TPU_TELEMETRY="1", HEAT_TPU_METRICS_INTERVAL="0")
+    proc = subprocess.run([sys.executable, "-c", _RT_SINK_SCRIPT], capture_output=True, text=True, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"the metrics-sink subprocess failed: {proc.stderr[-2000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = [json.loads(line) for line in open(path)]
+    out = {"cuda_uninitialized_after_report": result["cuda_uninitialized_after_report"],
+           "lines": [line["event"] for line in lines],
+           "exit_line_device_memory": sorted(lines[-1]["report"]["memory"]["device"])}
+    print(f"phase runtime: the metrics sink in a subprocess: {json.dumps(out)}", flush=True)
+    if not (out["cuda_uninitialized_after_report"] and out["lines"] == ["before", "exit"]
+            and out["exit_line_device_memory"]):
+        raise AssertionError("report() initialized CUDA, or the metrics sink's lines are wrong")
+    return out
+
+
+def runtime_path(ht, smi: str) -> dict:
+    """Phase 16: the runtime's observability and robustness layer on the
+    card; returns its numbers (telemetry off again at the end)."""
+    import torch
+
+    from heat_tpu_torch.core import resilience as res
+    from heat_tpu_torch.core import telemetry as tel
+
+    numbers = {"card": smi, "seconds": {}}
+    tmp = tempfile.mkdtemp(prefix="heat_rt_")
+    was = tel.set_mode(0)
+    try:
+        x, init = kmeans_table(ht)
+        for label, fn in (
+            ("memory", lambda: memory_phase(ht, tel)),
+            ("fit", lambda: traced_fit_phase(ht, tel, x, init)),
+            ("overhead", lambda: overhead_phase(ht, tel, x)),
+            ("sync", lambda: sync_phase(ht, tel, res, x)),
+            ("collectives", lambda: collectives_phase(ht, tel)),
+            ("timeline", lambda: timeline_phase(ht, tel, x, init, tmp)),
+            ("faults", lambda: runtime_faults_phase(ht, tel, res, x, tmp)),
+            ("sink", lambda: sink_phase(tmp)),
+        ):
+            t0 = time.perf_counter()
+            numbers[label] = fn()
+            numbers["seconds"][label] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        tel.set_mode(was)
+        tel.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 16 took {sum(numbers['seconds'].values()):.1f} s: {numbers['seconds']}", flush=True)
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -4473,6 +5001,8 @@ def main() -> int:
     nn = nn_path(ht, smi)
     torch.cuda.empty_cache()
     io = io_path(ht, smi)
+    torch.cuda.empty_cache()
+    runtime = runtime_path(ht, smi)
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
     kernels[0]["launches_disk_fit"] = io["disk_fit"]["npy"]["launches"]
     kernels[1].update({
@@ -4487,7 +5017,9 @@ def main() -> int:
         "library_ms_bf16": forward_bf16["library_ms"],
         "max_abs_err_bf16": forward_bf16["kernel_max_abs_err"],
         "launches_checkpoint_step": io["checkpoints"]["transformer_lm"]["launches"],
+        "launches_traced_step": runtime["timeline"]["launches_lm_step"],
     })
+    kernels[0]["launches_traced_fit"] = runtime["fit"]["launches"]["verbose"]
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
@@ -4496,6 +5028,7 @@ def main() -> int:
     print("estimators: " + json.dumps(estimators))
     print("nn: " + json.dumps(nn))
     print("io: " + json.dumps(io))
+    print("runtime: " + json.dumps(runtime))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from .core import linalg, random
 from . import (
     classification, cluster, datasets, graph, naive_bayes, nn, ops, optim, parallel, regression, spatial, utils,
 )
+from .utils import checkpoint  # ht.checkpoint, as heat_tpu/__init__.py:12 exports it
 from .core import (
     arithmetics,
     base,
@@ -28,15 +29,19 @@ from .core import (
     memory,
     printing,
     relational,
+    resilience,
     rounding,
     sanitation,
     signal,
     statistics,
     stride_tricks,
+    telemetry,
     tiling,
     trigonometrics,
     types,
+    version,
 )
+from .core.version import __version__
 
 
 def _bind_dndarray_methods():

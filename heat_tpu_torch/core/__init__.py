@@ -1,5 +1,10 @@
 """The distributed array and its runtime (reference: heat/core)."""
 
+from . import version
+from .version import __version__
+from . import telemetry
+from . import resilience
+from .resilience import errstate
 from .constants import *
 from .types import *
 from .devices import *

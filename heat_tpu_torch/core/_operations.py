@@ -21,7 +21,10 @@ pad+mask layout of :class:`~heat_tpu_torch.core.dndarray.DNDarray`:
 
 The padding of a shard is garbage that stays in the padding. A replicated
 array (``split=None``) is computed once, on the mesh's first device, and
-placed on the others. Nothing here reads a value back to the host.
+placed on the others. Nothing here reads a value back to the host, except
+the ``ht.errstate`` check of each result while a policy is active
+(heat_tpu/core/_operations.py:29-37). Each engine counts its dispatches in
+:mod:`.telemetry`.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from . import types
-from .communication import MeshCommunication, _combine, _neutral
+from . import resilience, telemetry, types
+from .communication import SPLIT_AXIS, MeshCommunication, _combine, _neutral
 from .dndarray import DNDarray, _distribute
 from .sanitation import sanitize_in, sanitize_out
 from .stride_tricks import broadcast_shapes, sanitize_axis
@@ -64,6 +67,16 @@ def _aligned(x, out_shape, out_split, comm: MeshCommunication, dtype: torch.dtyp
     if k < 0 or whole.shape[k] == 1:
         return [whole.to(d) for d in comm.devices]
     return _distribute(whole, k, comm)
+
+
+def _nonfinite_checked(res: DNDarray) -> DNDarray:
+    """The numeric error policy (``ht.errstate``) on an engine's result: its
+    logical shards (never the padding) take one ``isfinite`` reduction each
+    and one scalar read. One module-attribute read when no policy is
+    active."""
+    if resilience._ERRSTATE is not None:
+        resilience.check_nonfinite(res.lshards if res.split is not None else res.shards[:1], "eager")
+    return res
 
 
 def _shape(x) -> Tuple[int, ...]:
@@ -127,7 +140,15 @@ def __binary_op(
     ):
         from .manipulations import resplit
 
+        if telemetry._MODE:
+            # the same-shape operand on another split axis moves to the first
+            # operand's (heat_tpu/core/_operations.py:93-102)
+            telemetry.record_collective(
+                "reshard", SPLIT_AXIS, t2.nbytes, telemetry._dtype_name(t2.dtype.torch_type())
+            )
         t2 = resplit(t2, t1.split)
+    if telemetry._MODE:
+        telemetry.record_dispatch("binary", fused=False)
     dtype = types.result_type(t1, t2).torch_type()
     shapes = [_shape(t) for t in (t1, t2)]
     out_shape = broadcast_shapes(*shapes)
@@ -146,7 +167,7 @@ def __binary_op(
         else:
             base = [torch.zeros((), dtype=shards[0].dtype, device=s.device) for s in shards]
         shards = [torch.where(c, r, z) for c, r, z in zip(w, shards, base)]
-    return _into_out(_result(shards, out_shape, out_split, ref), out)
+    return _nonfinite_checked(_into_out(_result(shards, out_shape, out_split, ref), out))
 
 
 def __local_op(
@@ -160,12 +181,14 @@ def __local_op(
     _operations.py:211). Exact types are promoted to floating first unless
     ``no_cast``."""
     sanitize_in(x)
+    if telemetry._MODE:
+        telemetry.record_dispatch("local", fused=False)
     dtype = None
     if not no_cast and types.heat_type_is_exact(x.dtype):
         dtype = types.promote_types(x.dtype, types.float32).torch_type()
     shards = x.shards if x.split is not None else x.shards[:1]
     shards = [operation(s if dtype is None else s.to(dtype), **kwargs) for s in shards]
-    return _into_out(_result(shards, x.gshape, x.split, x), out)
+    return _nonfinite_checked(_into_out(_result(shards, x.gshape, x.split, x), out))
 
 
 class Reduction(NamedTuple):
@@ -214,6 +237,8 @@ def __reduce_op(
 ) -> DNDarray:
     """Generic distributed reduction (reference _operations.py:281-382)."""
     sanitize_in(x)
+    if telemetry._MODE:
+        telemetry.record_dispatch("reduce", fused=False)
     axes = _axes(x, axis)
     gshape = _reduced_shape(x.gshape, axes, keepdims)
     split = _reduced_split(x.split, axes, keepdims)
@@ -229,7 +254,7 @@ def __reduce_op(
         shards = [total]
     if dtype is not None:
         shards = [s.to(types.canonical_heat_type(dtype).torch_type()) for s in shards]
-    return _into_out(_result(shards, gshape, split, x), out)
+    return _nonfinite_checked(_into_out(_result(shards, gshape, split, x), out))
 
 
 def _across_split(x: DNDarray, axes, reduction: Reduction) -> torch.Tensor:
@@ -266,6 +291,8 @@ def __cum_op(
     rows); the padding is a suffix, so every shard before one with valid
     rows is full."""
     sanitize_in(x)
+    if telemetry._MODE:
+        telemetry.record_dispatch("cum", fused=False)
     axis = sanitize_axis(x.gshape, axis)
     if not isinstance(axis, int):
         raise TypeError("axis must be a single integer for cumulative operations")
@@ -277,4 +304,4 @@ def __cum_op(
         shards = [_combine(combine)(s, o) for s, o in zip(shards, offsets)]
     if dtype is not None:
         shards = [s.to(types.canonical_heat_type(dtype).torch_type()) for s in shards]
-    return _into_out(_result(shards, x.gshape, x.split, x), out)
+    return _nonfinite_checked(_into_out(_result(shards, x.gshape, x.split, x), out))

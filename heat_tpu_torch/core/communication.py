@@ -8,18 +8,27 @@ operations over the shard list, combined in a fixed shard order so that a
 result does not depend on timing. On the GPU the default mesh is every
 visible CUDA device; on the CPU it is ``HEAT_TPU_TEST_DEVICES`` copies of the
 CPU device (default 8), the same mesh size the JAX package's tests use.
+
+Each verb records itself in :mod:`.telemetry` (its op name, the mesh axis
+``"split"``, one participant's payload bytes and dtype) and fires its
+``collective.<verb>`` fault site of :mod:`.resilience` before it moves
+anything (heat_tpu/core/communication.py:120-242). A schedule that declares
+its collectives itself runs its verbs inside :func:`_declared`.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import threading
+from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import devices as devices_module
+from . import resilience, telemetry
 
 __all__ = [
     "Communication",
@@ -28,6 +37,46 @@ __all__ = [
     "sanitize_comm",
     "use_comm",
 ]
+
+
+#: the mesh axis name the verbs record, as the JAX package's mesh names it
+SPLIT_AXIS = "split"
+
+_DECLARED = threading.local()
+
+
+@contextmanager
+def _declared():
+    """Run verbs that neither record nor fire their fault sites: the caller
+    declares its schedule's collectives and fires its one site itself, with
+    the JAX package's op names, bytes and multiplicities
+    (heat_tpu/core/linalg/qr.py:215-228, solver.py:322-333)."""
+    _DECLARED.depth = getattr(_DECLARED, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _DECLARED.depth -= 1
+
+
+def _declare(verb: str, dtype, *records) -> None:
+    """A declared schedule's fault site ``collective.<verb>``, fired once,
+    and its collectives: ``count`` ``verb``s of ``nbytes`` each per
+    ``(nbytes, count)`` record. Its verbs then run inside :func:`_declared`."""
+    if resilience._ARMED:
+        resilience.check("collective." + verb)
+    if telemetry._MODE:
+        for nbytes, count in records:
+            telemetry.record_collective(verb, SPLIT_AXIS, int(nbytes), telemetry._dtype_name(dtype), count=count)
+
+
+def _note(verb: str, payload) -> None:
+    """Record verb ``verb`` of one participant's ``payload`` and fire its
+    fault site, unless a declared schedule is running."""
+    if getattr(_DECLARED, "depth", 0):
+        return
+    telemetry.record_collective_operand(verb, SPLIT_AXIS, payload)
+    if resilience._ARMED:
+        resilience.check("collective." + verb)
 
 
 class Communication:
@@ -132,6 +181,8 @@ class MeshCommunication(Communication):
         'lor'} or a callable combining two values (a custom reduce op such
         as :func:`~heat_tpu_torch.core.statistics.mpi_argmax`)."""
         self._check(shards)
+        if telemetry._MODE or resilience._ARMED:
+            _note("allreduce", shards[0])
         combine = _combine(op)
         first = self._devices[0]
         total = _to(shards[0], first)
@@ -143,6 +194,8 @@ class MeshCommunication(Communication):
         """Every shard gets shard ``root``'s value, moved to its device
         (reference Bcast, heat_tpu/core/communication.py:192)."""
         self._check(shards)
+        if telemetry._MODE or resilience._ARMED:
+            _note("bcast", shards[root])
         return [_to(shards[root], d) for d in self._devices]
 
     def exscan(self, shards: Sequence, op: Union[str, Callable] = "sum", neutral=None) -> List:
@@ -151,6 +204,8 @@ class MeshCommunication(Communication):
         shards 0..d-1, shard 0 the neutral element (given for a callable
         ``op``, else made from the op)."""
         self._check(shards)
+        if telemetry._MODE or resilience._ARMED:
+            _note("exscan", shards[0])
         if neutral is None:
             if callable(op):
                 raise ValueError("a callable op requires an explicit neutral element")
@@ -164,6 +219,8 @@ class MeshCommunication(Communication):
         """Inclusive prefix combine in shard order (reference Scan): shard d
         gets the combination of shards 0..d."""
         self._check(shards)
+        if telemetry._MODE or resilience._ARMED:
+            _note("scan", shards[0])
         return self._prefixes(shards, op)
 
     def _prefixes(self, shards: Sequence, op) -> List:
@@ -180,6 +237,8 @@ class MeshCommunication(Communication):
         """Concatenate one tensor per shard along ``dim`` and give every shard
         the result on its own device (reference Allgather(v))."""
         self._check(shards)
+        if telemetry._MODE or resilience._ARMED:
+            _note("allgather", shards[0])
         first = self._devices[0]
         whole = torch.cat([s.to(first) for s in shards], dim=dim)
         return [whole if whole.device == d else whole.to(d) for d in self._devices]
@@ -196,6 +255,8 @@ class MeshCommunication(Communication):
         dst) pairs overrides ``shift``; a shard that no pair names as its
         destination receives zeros, as in ``lax.ppermute``."""
         self._check(shards)
+        if telemetry._MODE or resilience._ARMED:
+            _note("ppermute", shards[0])
         p = self.size
         if perm is None:
             perm = [((d + shift) % p, d) for d in range(p)]
@@ -216,6 +277,8 @@ class MeshCommunication(Communication):
         shard d goes to shard j, which concatenates what it receives along
         ``concat_axis`` in source order."""
         self._check(shards)
+        if telemetry._MODE or resilience._ARMED:
+            _note("alltoall", shards[0])
         p = self.size
         for s in shards:
             if s.shape[split_axis] % p:

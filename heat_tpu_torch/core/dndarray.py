@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import types
+from . import resilience, telemetry, types
 from .communication import MeshCommunication
 from .stride_tricks import sanitize_axis
 
@@ -278,6 +278,9 @@ class DNDarray:
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return self
+        if resilience._ARMED:
+            # the fault fires before the array changes (heat_tpu dndarray.py:505-509)
+            resilience.check("collective.reshard")
         self.__shards = _distribute(self.larray, axis, self.__comm)
         self.__split = axis
         return self
@@ -365,6 +368,8 @@ class DNDarray:
         block = self.__shards[0].shape[split]
         if halo_size > block:
             return
+        if resilience._ARMED:
+            resilience.check("collective.halo")
         counts = self.counts_displs()[0]
 
         def edge(t: torch.Tensor, count: int, lead: bool) -> torch.Tensor:
@@ -442,8 +447,11 @@ class DNDarray:
     def numpy(self) -> np.ndarray:
         """The logical array as a host numpy array (reference
         dndarray.py:991-1003); bfloat16, which numpy lacks, comes back as
-        float32."""
-        return _host(self.larray)
+        float32. A host read: telemetry counts it as a blocking sync."""
+        token = telemetry.record_blocking_sync("numpy") if telemetry._MODE else None
+        out = _host(self.larray)
+        telemetry.end_blocking_sync(token)
+        return out
 
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
         out = self.numpy()
@@ -453,7 +461,10 @@ class DNDarray:
         """The single scalar value (reference dndarray.py:965)."""
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
-        return self.larray.item()
+        token = telemetry.record_blocking_sync("item") if telemetry._MODE else None
+        out = self.larray.item()
+        telemetry.end_blocking_sync(token)
+        return out
 
     def tolist(self, keepsplit: bool = False) -> list:
         """The values as nested Python lists (reference dndarray.py:748);

@@ -25,9 +25,12 @@ The reference's per-chunk protocol, on the shards of a
   strict native parser refuses.
 
 Every ``save_*`` writes a temporary file beside the target and renames it
-into place (:func:`_atomic_write`): a failed write leaves the old file, or
-none. The reference's retries, fault injection, telemetry events and
-memory-ledger tags are runtime layers not ported yet (ROADMAP A11).
+into place (``resilience.atomic_write``): a failed write leaves the old
+file, or none. Each write attempt is retried on a transient ``OSError``
+(``resilience.call_with_retries``, fault site ``io.write``; the rename is
+``io.rename``), as is each block read of a load (``io.read``). In verbose
+telemetry a load's per-shard ingest and a save's shard stream each leave
+one ``io`` event (heat_tpu/core/io.py:186-206, 310-326).
 
 numpy has no bfloat16: such arrays are written as float32 values, which
 hold them exactly.
@@ -39,14 +42,13 @@ import csv as csv_module
 import mmap
 import os
 import struct
-from contextlib import contextmanager
 from io import BytesIO
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import factories, types
+from . import factories, resilience, telemetry, types
 from .dndarray import DNDarray
 
 try:
@@ -152,41 +154,8 @@ def save(data: DNDarray, path: str, *args, **kwargs) -> None:
 
 
 # ---------------------------------------------------------------------------
-# host transfers, atomic publication, the per-shard ingest
+# host transfers and the per-shard ingest
 # ---------------------------------------------------------------------------
-def _unlink_quiet(path: str) -> None:
-    try:
-        os.unlink(path)
-    except OSError:
-        pass
-
-
-@contextmanager
-def _atomic_write(path: str, preserve: bool = False) -> Iterator[str]:
-    """Yield a temporary path beside ``path`` and rename it onto ``path``
-    when the body finishes; on any error remove it, so the target only ever
-    holds a complete file, the old one or the new one (the reference's
-    ``resilience.atomic_write``). ``preserve`` seeds the temporary file with
-    a copy of the target, for the append modes."""
-    import shutil
-
-    directory = os.path.dirname(os.path.abspath(path)) or "."
-    tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp-{os.getpid()}-0")
-    if preserve and os.path.exists(path):
-        try:
-            shutil.copy2(path, tmp)
-        except BaseException:
-            _unlink_quiet(tmp)
-            raise
-    try:
-        yield tmp
-        if os.path.exists(tmp):
-            os.replace(tmp, path)
-    except BaseException:
-        _unlink_quiet(tmp)
-        raise
-
-
 def _file_dtype(dtype) -> np.dtype:
     """The numpy type an array of heat type ``dtype`` is written as:
     bfloat16, which numpy lacks, as float32."""
@@ -221,7 +190,8 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
     ``read_block(slices)`` returns the host block of the global ``slices``,
     ``convert(block, torch_dtype)`` makes it a tensor, which is padded to the
     shard's ``ceil(n/p)`` rows and moved to its device (the reference's
-    per-device ingest, io.py:149-210)."""
+    per-device ingest, io.py:149-210). Each block read, the host copy out
+    of a memory map included, is retried at the ``io.read`` site."""
     dtype = types.canonical_heat_type(dtype)
     tdt = dtype.torch_type()
     gshape = tuple(int(s) for s in gshape)
@@ -229,15 +199,20 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
     block = -(-n // comm.size) if n else 0
     counts, displs = comm.counts_displs_shape(gshape, split)
     shards = []
+    read_bytes = 0
     for dev, count, displ in zip(comm.devices, counts, displs):
         sl = [slice(None)] * len(gshape)
         sl[split] = slice(displ, displ + count)
-        local = convert(read_block(tuple(sl)), tdt)
+        host = resilience.call_with_retries("io.read", lambda: np.asarray(read_block(tuple(sl))))
+        read_bytes += host.nbytes
+        local = convert(host, tdt)
         if count < block:
             pad = list(gshape)
             pad[split] = block - count
             local = torch.cat([local, local.new_zeros(pad)], dim=split)
         shards.append(local.to(dev))
+    if telemetry._MODE >= 2:
+        telemetry.record_event("io", op="sharded_ingest", bytes=int(read_bytes), blocks=len(shards), split=split)
     return DNDarray(shards, gshape, dtype, split, device, comm)
 
 
@@ -252,9 +227,15 @@ def _shard_blocks(data: DNDarray) -> Iterator[Tuple[int, int, np.ndarray]]:
     """``(rank, start, block)`` for every shard with logical rows, in shard
     order: the shard's logical block copied to the host, one at a time."""
     counts, displs = data.counts_displs()
+    written = blocks = 0
     for r, (shard, count, displ) in enumerate(zip(data.shards, counts, displs)):
         if count:
-            yield r, displ, _to_host(shard.narrow(data.split, 0, count))
+            block = _to_host(shard.narrow(data.split, 0, count))
+            written += block.nbytes
+            blocks += 1
+            yield r, displ, block
+    if telemetry._MODE >= 2:
+        telemetry.record_event("io", op="stream_blocks", bytes=int(written), blocks=blocks)
 
 
 def _whole(data: DNDarray) -> np.ndarray:
@@ -304,7 +285,7 @@ def load_hdf5(
         raise ValueError(f"load_fraction must be in (0, 1], but was {load_fraction}")
     _need_h5py()
     device, comm = factories._resolve(device, comm)
-    with h5py.File(path, "r") as handle:
+    with resilience.call_with_retries("io.read", h5py.File, path, "r") as handle:
         data = handle[dataset]
         gshape = list(data.shape)
         if load_fraction < 1.0 and split == 0:
@@ -312,7 +293,7 @@ def load_hdf5(
         gshape = tuple(gshape)
         if split is None or len(gshape) == 0:
             sl = tuple(slice(0, s) for s in gshape)
-            values = np.asarray(data[sl] if gshape else data[()])
+            values = resilience.call_with_retries("io.read", lambda: np.asarray(data[sl] if gshape else data[()]))
             return _replicated(values, dtype, device, comm)
         return _ingest(lambda sl: data[sl], gshape, dtype, split % len(gshape), device, comm)
 
@@ -335,9 +316,13 @@ def save_hdf5(data: DNDarray, path: str, dataset: str, mode: str = "w", **kwargs
         raise TypeError(f"dataset must be str, but was {type(dataset)}")
     _check_mode(mode, path)
     _need_h5py()
-    with _atomic_write(path, preserve=mode in ("a", "r+")) as tmp:
-        with h5py.File(tmp, mode) as handle:
-            _write_h5_dataset(handle, dataset, data, **kwargs)
+
+    def _write():
+        with resilience.atomic_write(path, preserve=mode in ("a", "r+")) as tmp:
+            with h5py.File(tmp, mode) as handle:
+                _write_h5_dataset(handle, dataset, data, **kwargs)
+
+    resilience.call_with_retries("io.write", _write)
 
 
 def _write_h5_dataset(handle, dataset: str, data: DNDarray, **kwargs):
@@ -369,7 +354,7 @@ def _load_netcdf3(path, variable, dtype, split, device, comm) -> DNDarray:
     if not _HAS_SCIPY:
         raise RuntimeError("classic NETCDF3 files need scipy, which does not import here")
     device, comm = factories._resolve(device, comm)
-    nc = _scipy_io.netcdf_file(path, "r", mmap=True)
+    nc = resilience.call_with_retries("io.read", _scipy_io.netcdf_file, path, "r", mmap=True)
     var = None
     try:
         if variable not in nc.variables:
@@ -377,7 +362,8 @@ def _load_netcdf3(path, variable, dtype, split, device, comm) -> DNDarray:
         var = nc.variables[variable]
         gshape = tuple(int(s) for s in var.shape)
         if split is None or len(gshape) == 0:
-            return _replicated(np.array(var[...] if gshape else var.getValue()), dtype, device, comm)
+            values = resilience.call_with_retries("io.read", lambda: np.array(var[...] if gshape else var.getValue()))
+            return _replicated(values, dtype, device, comm)
         return _ingest(lambda sl: np.array(var[sl]), gshape, dtype, split % len(gshape), device, comm)
     finally:
         del var
@@ -423,20 +409,28 @@ def save_netcdf(
     if format in _NETCDF3_FORMATS:
         if mode != "w":
             raise ValueError(f"classic netCDF3 files are written whole: mode must be 'w', got {mode!r}")
-        with _atomic_write(path) as tmp:
-            _write_netcdf3(tmp, variable, data, list(dimension_names), _NETCDF3_FORMATS[format])
+
+        def _write3():
+            with resilience.atomic_write(path) as tmp:
+                _write_netcdf3(tmp, variable, data, list(dimension_names), _NETCDF3_FORMATS[format])
+
+        resilience.call_with_retries("io.write", _write3)
         return
     if format != "NETCDF4":
         raise ValueError(f"format must be 'NETCDF4', 'NETCDF3_CLASSIC' or 'NETCDF3_64BIT', got {format!r}")
     _need_h5py()
-    with _atomic_write(path, preserve=mode in ("a", "r+")) as tmp:
-        with h5py.File(tmp, mode) as handle:
-            dset = _write_h5_dataset(handle, variable, data, **kwargs)
-            for i, name in enumerate(dimension_names):
-                if name not in handle:
-                    scale = handle.create_dataset(name, shape=(data.gshape[i],), dtype=np.float64)
-                    scale.make_scale(name)
-                dset.dims[i].attach_scale(handle[name])
+
+    def _write():
+        with resilience.atomic_write(path, preserve=mode in ("a", "r+")) as tmp:
+            with h5py.File(tmp, mode) as handle:
+                dset = _write_h5_dataset(handle, variable, data, **kwargs)
+                for i, name in enumerate(dimension_names):
+                    if name not in handle:
+                        scale = handle.create_dataset(name, shape=(data.gshape[i],), dtype=np.float64)
+                        scale.make_scale(name)
+                    dset.dims[i].attach_scale(handle[name])
+
+    resilience.call_with_retries("io.write", _write)
 
 
 #: classic netCDF type codes (the netCDF3 file format specification)
@@ -502,12 +496,13 @@ def load_npy(path: str, dtype=None, split: Optional[int] = None, device=None, co
     if not isinstance(path, str):
         raise TypeError(f"path must be str, but was {type(path)}")
     device, comm = factories._resolve(device, comm)
-    mm = np.load(path, mmap_mode="r")
+    mm = resilience.call_with_retries("io.read", np.load, path, mmap_mode="r")
     if dtype is None:
         dtype = types.canonical_heat_type(mm.dtype)
     if split is None or mm.ndim == 0:
-        return _replicated(np.array(mm), dtype, device, comm)
-    return _ingest(lambda sl: mm[sl], tuple(mm.shape), dtype, split % mm.ndim, device, comm)
+        return _replicated(resilience.call_with_retries("io.read", np.array, mm), dtype, device, comm)
+    # np.array copies the pages out of the map inside the retried read
+    return _ingest(lambda sl: np.array(mm[sl]), tuple(mm.shape), dtype, split % mm.ndim, device, comm)
 
 
 def save_npy(data: DNDarray, path: str) -> None:
@@ -519,10 +514,14 @@ def save_npy(data: DNDarray, path: str) -> None:
     if not isinstance(path, str):
         raise TypeError(f"path must be str, but was {type(path)}")
     if data.split is None or data.comm.size == 1 or data.ndim == 0:
-        with _atomic_write(path) as tmp:
-            # a file object: np.save of a str path would append '.npy'
-            with open(tmp, "wb") as fh:
-                np.save(fh, _whole(data))
+
+        def _write_whole():
+            with resilience.atomic_write(path) as tmp:
+                # a file object: np.save of a str path would append '.npy'
+                with open(tmp, "wb") as fh:
+                    np.save(fh, _whole(data))
+
+        resilience.call_with_retries("io.write", _write_whole)
         return
     data = _rows(data)
     header = {
@@ -530,11 +529,15 @@ def save_npy(data: DNDarray, path: str) -> None:
         "fortran_order": False,
         "shape": tuple(int(s) for s in data.gshape),
     }
-    with _atomic_write(path) as tmp:
-        with open(tmp, "wb") as fh:
-            np.lib.format.write_array_header_1_0(fh, header)
-            for _, _, block in _shard_blocks(data):
-                np.ascontiguousarray(block).tofile(fh)
+
+    def _write():
+        with resilience.atomic_write(path) as tmp:
+            with open(tmp, "wb") as fh:
+                np.lib.format.write_array_header_1_0(fh, header)
+                for _, _, block in _shard_blocks(data):
+                    np.ascontiguousarray(block).tofile(fh)
+
+    resilience.call_with_retries("io.write", _write)
 
 
 # ---------------------------------------------------------------------------
@@ -569,7 +572,7 @@ def _scan_line_offsets(path: str, header_lines: int) -> np.ndarray:
 def _load_csv_ranges(path, header_lines, sep, npdtype, dtype, device, comm) -> DNDarray:
     """The split=0 Python path: each shard's rows parsed from their own
     byte range of the memory-mapped file (reference heat_tpu io.py:589-631)."""
-    offs = _scan_line_offsets(path, header_lines)
+    offs = resilience.call_with_retries("io.read", _scan_line_offsets, path, header_lines)
     with open(path, "rb") as f:
         if os.path.getsize(path) == 0:
             return _replicated(np.empty((0, 0), npdtype), dtype, device, comm).resplit_(0)
@@ -647,7 +650,7 @@ def load_csv(
     if values is None and split == 0 and plain:
         return _load_csv_ranges(path, header_lines, sep, npdtype, dtype, device, comm)
     if values is None:
-        values = _parse_csv_python(path, header_lines, sep, encoding, npdtype)
+        values = resilience.call_with_retries("io.read", _parse_csv_python, path, header_lines, sep, encoding, npdtype)
     if split is None or values.ndim == 0:
         return _replicated(values.astype(npdtype, copy=False), dtype, device, comm)
     return _ingest(lambda sl: values[sl].astype(npdtype), values.shape, dtype, split % values.ndim, device, comm)
@@ -692,15 +695,19 @@ def save_csv(
     native = None
     if np.issubdtype(npdtype, np.floating) and len(sep) == 1 and ord(sep) < 128 and _plain_encoding(encoding):
         native = _native_codec()
-    with _atomic_write(path) as tmp:
-        with open(tmp, "w", encoding=encoding, newline="") as f:
-            write_header(f)
-            if native is None:
-                fmt = f"%.{decimals}f" if decimals >= 0 else None
-                writer = csv_module.writer(f, delimiter=sep, lineterminator="\n")
+
+    def _write():
+        with resilience.atomic_write(path) as tmp:
+            with open(tmp, "w", encoding=encoding, newline="") as f:
+                write_header(f)
+                if native is None:
+                    fmt = f"%.{decimals}f" if decimals >= 0 else None
+                    writer = csv_module.writer(f, delimiter=sep, lineterminator="\n")
+                    for block in row_blocks():
+                        for row in block:
+                            writer.writerow([fmt % v for v in row] if fmt else row)
+            if native is not None:
                 for block in row_blocks():
-                    for row in block:
-                        writer.writerow([fmt % v for v in row] if fmt else row)
-        if native is not None:
-            for block in row_blocks():
-                native.csv_write(tmp, block, sep=sep, decimals=decimals, append=True)
+                    native.csv_write(tmp, block, sep=sep, decimals=decimals, append=True)
+
+    resilience.call_with_retries("io.write", _write)

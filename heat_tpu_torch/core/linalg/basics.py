@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .. import factories, types
+from .. import factories, resilience, types
 from ..dndarray import DNDarray, _wrap
 from ..sanitation import sanitize_in, warn_replicated
 from ..stride_tricks import sanitize_axis
@@ -112,6 +112,9 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     dtype = types.promote_types(a.dtype, b.dtype)
     tdt = dtype.torch_type()
     if a.ndim == 2 and b.ndim == 2:
+        if resilience._ARMED and not a.padded and not b.padded:
+            # the fault fires before any path computes (heat_tpu basics.py:108-112)
+            resilience.check("collective.matmul")
         return _matmul_2d(a, b, dtype, tdt)
     result = torch.matmul(a.larray.to(tdt), b.larray.to(tdt))
     split: Optional[int] = None

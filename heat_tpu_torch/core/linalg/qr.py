@@ -21,6 +21,14 @@ branch:
   :class:`~heat_tpu_torch.core.sanitation.ReplicationWarning` for a
   distributed operand above 2²² elements.
 
+The distributed schedules declare their collectives to telemetry with the
+JAX package's op names, bytes and multiplicities and fire one fault site
+each (heat_tpu/core/linalg/qr.py:215-228, 300-320, 365-381, 455-473): two
+Gram ``allreduce``s for CholeskyQR2, one ``allgather`` of the p R factors
+for TSQR, a Q and an R ``bcast`` per panel for the panel QR (the port's
+panel R block stays with its owner, so it runs p ``bcast``s of the 2p it
+declares).
+
 Integer and half-precision inputs factor in float32. ``_METHODS`` counts
 the schedule each call ran ("cholqr2", "tsqr", "panel", "householder"), as
 ``ops.*.LAUNCHES`` count kernel launches.
@@ -34,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import types
+from ..communication import _declare, _declared
 from ..dndarray import DNDarray, _distribute
 from ..sanitation import sanitize_in, warn_replicated
 from .basics import _wrap_like
@@ -161,9 +170,12 @@ def _cholqr2(a: DNDarray, calc_q: bool):
         r_inv = torch.linalg.solve_triangular(r, eye, upper=True)
         return [s @ w for s, w in zip(shards, _distribute(r_inv, None, comm))]
 
-    r1, info1, _ = gram_chol(x)
-    q1 = form_q(x, r1)
-    r2, info2, g2 = gram_chol(q1)
+    if a.split == 0 and comm.size > 1:
+        _declare("allreduce", acc, (n * n * eye.element_size(), 2))
+    with _declared():
+        r1, info1, _ = gram_chol(x)
+        q1 = form_q(x, r1)
+        r2, info2, g2 = gram_chol(q1)
     ok = (info1 == 0) & (info2 == 0) & _cholqr2_probe_ok(r1, r2, g2, eye)
     r = DNDarray(_distribute(r2 @ r1, None, comm), (n, n), a.dtype, None, a.device, comm)
     if not calc_q:
@@ -194,7 +206,10 @@ def _tsqr(a: DNDarray, calc_q: bool) -> Tuple[Optional[DNDarray], DNDarray]:
         q1, r1 = torch.linalg.qr(s, mode="reduced")
         q1s.append(q1)
         r1s.append(r1)
-    stack = comm.allgather(r1s, dim=0)[0]
+    k1 = r1s[0].shape[0]
+    _declare("allgather", r1s[0].dtype, (comm.size * k1 * n * r1s[0].element_size(), 1))
+    with _declared():
+        stack = comm.allgather(r1s, dim=0)[0]
     q2, r = torch.linalg.qr(stack, mode="reduced")
     r_arr = DNDarray(_distribute(r, None, comm), (n, n), types.canonical_heat_type(r.dtype), None, a.device, comm)
     if not calc_q:
@@ -223,9 +238,12 @@ def _panel_qr_split1(a: DNDarray) -> Tuple[DNDarray, DNDarray]:
         cur.append(s if cnt == c else torch.cat([s[:, :cnt], s.new_zeros((m, c - cnt))], dim=1))
     q_loc = [None] * p
     r_loc = [s.new_zeros((p * c, c)) for s in cur]
+    itemsize = cur[0].element_size()
+    _declare("bcast", cur[0].dtype, (m * c * itemsize, p), (c * c * itemsize, p))
     for d in range(p):
         q_own, r_own = torch.linalg.qr(cur[d], mode="reduced")
-        qd = comm.bcast([q_own] * p, root=d)
+        with _declared():
+            qd = comm.bcast([q_own] * p, root=d)
         q_loc[d] = q_own
         r_loc[d][d * c:(d + 1) * c] = r_own
         for i in range(d + 1, p):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import factories, types
+from ..communication import _declare, _declared
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in, warn_replicated
 from .basics import _wrap_like, matmul, norm, transpose
@@ -107,12 +108,15 @@ def solve_triangular(A: DNDarray, b: DNDarray, lower: bool = False) -> DNDarray:
         # padding rows are identity rows against a zero right-hand side
         rhs.append(b_pad[i * rows_loc:(i + 1) * rows_loc].to(d))
     x_own = [torch.zeros((rows_loc, k), dtype=tdt, device=d) for d in comm.devices]
+    # declared: one allreduce of one solved block per stage (heat_tpu solver.py:322-333)
+    _declare("allreduce", tdt, (rows_loc * k * x_own[0].element_size(), n_stages))
     for i in range(n_stages):
         t = i if lower else n_stages - 1 - i
         start, owner = t * rows_loc, owners[t]
         tiles = [w[:, start:start + rows_loc] for w in slabs]
         cand = torch.linalg.solve_triangular(tiles[owner], rhs[owner], upper=not lower)
-        block = comm.allreduce([cand if j == owner else torch.zeros_like(cand).to(d) for j, d in enumerate(comm.devices)])
+        with _declared():
+            block = comm.allreduce([cand if j == owner else torch.zeros_like(cand).to(d) for j, d in enumerate(comm.devices)])
         x_own[owner] = block[owner]
         rhs = [r - tile @ blk for r, tile, blk in zip(rhs, tiles, block)]
     shards = [x[:, 0] for x in x_own] if vector_rhs else x_own

@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import types
+from . import resilience, types
 from ._operations import _into_out
 from .dndarray import DNDarray, _wrap
 from .sanitation import sanitize_in, warn_replicated
@@ -246,6 +246,8 @@ def resplit(arr: DNDarray, axis: Optional[int] = None) -> DNDarray:
         from . import memory
 
         return memory.copy(arr)
+    if resilience._ARMED:
+        resilience.check("collective.reshard")
     return _wrap(arr.larray, axis, arr.device, arr.comm)
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import telemetry
 from .communication import get_comm
 from .dndarray import _host
 
@@ -67,11 +68,12 @@ def print0(*args, **kwargs) -> None:
 
 def __str__(dndarray) -> str:
     """The string of an array (reference printing.py:104-127), bound as
-    ``DNDarray.__str__`` and ``__repr__``."""
-    return (
-        f"DNDarray({_format_data(dndarray, __PRINT_OPTIONS)}, dtype=ht.{dndarray.dtype.__name__}, "
-        f"device={dndarray.device}, split={dndarray.split})"
-    )
+    ``DNDarray.__str__`` and ``__repr__``. A host read: telemetry counts it
+    as a blocking sync."""
+    token = telemetry.record_blocking_sync("print") if telemetry._MODE else None
+    body = _format_data(dndarray, __PRINT_OPTIONS)
+    telemetry.end_blocking_sync(token)
+    return f"DNDarray({body}, dtype=ht.{dndarray.dtype.__name__}, device={dndarray.device}, split={dndarray.split})"
 
 
 def _format_data(dndarray, opts) -> str:
@@ -94,7 +96,7 @@ def _format_data(dndarray, opts) -> str:
         if __LOCAL_PRINTING and dndarray.split is not None:
             return "\n".join(np.array2string(_host(s), separator=", ") for s in dndarray.lshards)
         if not summarize:
-            return np.array2string(dndarray.numpy(), separator=", ", prefix="DNDarray(")
+            return np.array2string(_host(dndarray.larray), separator=", ", prefix="DNDarray(")
         arr = dndarray.larray
         top, bot = _host(arr[:edge]), _host(arr[-edge:])
         if dndarray.ndim == 1:

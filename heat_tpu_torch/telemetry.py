@@ -1,0 +1,223 @@
+"""``python -m heat_tpu_torch.telemetry``: the observability command line
+(reference: heat_tpu/telemetry.py).
+
+Pretty-prints and diffs ``ht.telemetry.report_json`` files and validates
+exported Chrome/Perfetto trace files:
+
+.. code-block:: console
+
+    $ python -m heat_tpu_torch.telemetry show telemetry.json
+    $ python -m heat_tpu_torch.telemetry diff before.json after.json
+    $ python -m heat_tpu_torch.telemetry validate-trace trace.json
+
+The state lives in :mod:`heat_tpu_torch.core.telemetry`; this module proxies
+its names (``heat_tpu_torch.telemetry.report`` and the rest) so that the
+command line has a stable ``-m`` entry point. The reference's ``memory``,
+``health``, ``numerics``, ``sessions``, ``analyze`` and ``ops`` commands come
+with the modules they read.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List, Optional
+
+from heat_tpu_torch.core import telemetry as _core
+
+
+def __getattr__(name):
+    # live proxy: heat_tpu_torch.telemetry.<name> is heat_tpu_torch.core.telemetry.<name>
+    return getattr(_core, name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(dir(_core)))
+
+
+# ----------------------------------------------------------------------
+# show
+# ----------------------------------------------------------------------
+def _load(path: str) -> Dict[str, Any]:
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _fmt_bytes(n) -> str:
+    try:
+        n = float(n)
+    except (TypeError, ValueError):
+        return str(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0 or unit == "TiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{int(n)} B"
+        n /= 1024.0
+    return f"{n:.1f} TiB"  # pragma: no cover - loop always returns
+
+
+def _show(doc: Dict[str, Any], out) -> None:
+    print(f"mode: {doc.get('mode', '?')}  enabled: {doc.get('enabled')}", file=out)
+    colls = doc.get("collectives") or {}
+    if colls:
+        print("collectives:", file=out)
+        for op, rec in sorted(colls.items(), key=lambda kv: -kv[1].get("count", 0)):
+            print(
+                f"  {op:<20} x{rec.get('count', 0):<8} {_fmt_bytes(rec.get('bytes', 0))}",
+                file=out,
+            )
+    fused = doc.get("fused_collectives") or {}
+    if fused:
+        print("fused collective nodes:", file=out)
+        for op, n in sorted(fused.items(), key=lambda kv: -kv[1]):
+            print(f"  {op:<28} x{n}", file=out)
+    asyncf = doc.get("async_forcing") or {}
+    if asyncf:
+        print(
+            f"async forcing: {asyncf.get('dispatches', 0)} dispatches "
+            f"({asyncf.get('roots_dispatched', 0)} roots, "
+            f"{asyncf.get('multi_root_batches', 0)} batched) / "
+            f"{asyncf.get('blocking_total', 0)} blocking syncs "
+            f"{asyncf.get('blocking_syncs', {})}",
+            file=out,
+        )
+    forces = doc.get("forcing_points") or {}
+    if forces:
+        print("forcing points:", file=out)
+        for trig, rec in sorted(forces.items(), key=lambda kv: -kv[1].get("count", 0)):
+            print(
+                f"  {trig:<12} x{rec.get('count', 0):<7} mean depth "
+                f"{rec.get('mean_depth', 0)} (max {rec.get('max_depth', 0)}, "
+                f"{rec.get('compiles', 0)} compiles)",
+                file=out,
+            )
+    progs = (doc.get("programs") or {}).get("top") or []
+    if progs:
+        print(f"top programs (of {doc.get('programs', {}).get('cached', 0)} cached):", file=out)
+        for rec in progs:
+            line = (
+                f"  {rec.get('key', '?'):<18} x{rec.get('dispatches', 0):<6} "
+                f"{rec.get('family', '')[:60]}"
+            )
+            cost = rec.get("cost") or {}
+            if cost.get("flops") is not None:
+                line += f"  [{cost['flops']:.0f} flops, {_fmt_bytes(cost.get('bytes_accessed'))}]"
+            print(line, file=out)
+    spans = doc.get("spans") or {}
+    if spans:
+        print("spans:", file=out)
+        for path, rec in sorted(spans.items(), key=lambda kv: -kv[1].get("total_s", 0.0)):
+            print(
+                f"  {path:<28} x{rec.get('calls', 0):<5} {rec.get('total_s', 0.0):.4f}s",
+                file=out,
+            )
+    scopes = doc.get("scopes") or {}
+    if scopes:
+        print("scopes:", file=out)
+        for path, rec in sorted(scopes.items()):
+            blk = rec.get("async_forcing") or {}
+            print(
+                f"  {path:<24} x{rec.get('calls', 0):<4} {rec.get('wall_s', 0.0):.4f}s  "
+                f"{blk.get('dispatches', 0)} dispatches / "
+                f"{blk.get('blocking_total', 0)} syncs  "
+                f"collectives {rec.get('collective_counts', {})}",
+                file=out,
+            )
+    tl = doc.get("timeline") or {}
+    if tl:
+        dropped = tl.get("events_dropped", 0)
+        note = f" ({dropped} DROPPED past cap {tl.get('cap')})" if dropped else ""
+        print(f"timeline: {tl.get('events', 0)} events{note}", file=out)
+    for key in ("degraded", "faults", "io_retries", "checkpoint", "nonfinite", "retraces"):
+        block = doc.get(key) or {}
+        if block:
+            print(f"{key}: {json.dumps(block, sort_keys=True)}", file=out)
+
+
+# ----------------------------------------------------------------------
+# diff
+# ----------------------------------------------------------------------
+def _flatten_numeric(doc, prefix="") -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    if isinstance(doc, dict):
+        for k, v in doc.items():
+            out.update(_flatten_numeric(v, f"{prefix}{k}/" if prefix else f"{k}/"))
+    elif isinstance(doc, bool) or doc is None or isinstance(doc, str):
+        pass
+    elif isinstance(doc, (int, float)):
+        out[prefix.rstrip("/")] = float(doc)
+    return out
+
+
+def _diff(a: Dict[str, Any], b: Dict[str, Any], out, top: int = 40) -> int:
+    """Print per-counter deltas b - a, largest absolute change first.
+    Returns the number of changed counters."""
+    fa, fb = _flatten_numeric(a), _flatten_numeric(b)
+    deltas = []
+    for key in sorted(set(fa) | set(fb)):
+        if key.startswith("events/") or key.endswith("/ts"):
+            continue  # raw timeline entries are not counters
+        va, vb = fa.get(key, 0.0), fb.get(key, 0.0)
+        if va != vb:
+            deltas.append((abs(vb - va), key, va, vb))
+    deltas.sort(reverse=True)
+    for _, key, va, vb in deltas[:top]:
+        sign = "+" if vb >= va else ""
+        print(f"  {key:<64} {va:g} -> {vb:g} ({sign}{vb - va:g})", file=out)
+    if len(deltas) > top:
+        print(f"  ... and {len(deltas) - top} more changed counters", file=out)
+    if not deltas:
+        print("  no counter differences", file=out)
+    return len(deltas)
+
+
+# ----------------------------------------------------------------------
+# entry point
+# ----------------------------------------------------------------------
+def main(argv: Optional[List[str]] = None, out=None) -> int:
+    out = out if out is not None else sys.stdout
+    parser = argparse.ArgumentParser(
+        prog="python -m heat_tpu_torch.telemetry",
+        description="Pretty-print/diff heat_tpu_torch telemetry reports and validate trace files.",
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p_show = sub.add_parser("show", help="pretty-print a report_json artifact")
+    p_show.add_argument("report", help="path to a telemetry report_json file")
+    p_show.add_argument("--raw", action="store_true", help="re-emit the parsed JSON instead")
+    p_diff = sub.add_parser("diff", help="diff two report_json artifacts (b - a)")
+    p_diff.add_argument("a")
+    p_diff.add_argument("b")
+    p_val = sub.add_parser("validate-trace", help="check a Chrome/Perfetto trace-event JSON file")
+    p_val.add_argument("trace", help="path to an export_trace/merge_traces output")
+    p_val.add_argument(
+        "--cross-host",
+        action="store_true",
+        help="also require cross-host collective parity (per-cid collective event "
+        "counts equal on every process row)",
+    )
+    args = parser.parse_args(argv)
+
+    if args.cmd == "show":
+        doc = _load(args.report)
+        if args.raw:
+            print(json.dumps(doc, indent=2, sort_keys=True), file=out)
+        else:
+            _show(doc, out)
+        return 0
+    if args.cmd == "diff":
+        _diff(_load(args.a), _load(args.b), out)
+        return 0
+    problems = _core.validate_trace(args.trace, cross_host=args.cross_host)
+    if problems:
+        for p in problems[:20]:
+            print(f"INVALID: {p}", file=out)
+        return 1
+    with open(args.trace) as fh:
+        n = len(json.load(fh).get("traceEvents", []))
+    parity = " + cross-host collective parity" if args.cross_host else ""
+    print(f"OK: {args.trace} parses as trace-event JSON ({n} events){parity}", file=out)
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover - run through subprocess in the tests
+    sys.exit(main())

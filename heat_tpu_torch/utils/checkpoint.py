@@ -33,9 +33,17 @@ debris older than the newest manifest.
 
 Left out: the legacy single-blob flax-msgpack format
 (``ckpt_<step>.msgpack``) needs flax; the port lists such steps and raises
-``NotImplementedError`` naming the format when asked to restore one. The
-reference's retries, fault-injection sites, telemetry events and the
-multi-controller receipts wait for the runtime layers (ROADMAP A11).
+``NotImplementedError`` naming the format when asked to restore one.
+
+Fault sites and retries (``core/resilience.py``, heat_tpu/utils/checkpoint.py
+:101-132, 913-1079): each payload-file write retries transient ``OSError``s
+at ``checkpoint.write``, the manifest's publication at ``checkpoint.commit``
+(a hard fault there leaves the previous checkpoint committed), every
+verify and restore read at ``checkpoint.restore``, and each GC deletion
+fires ``checkpoint.gc`` (a failure degrades to a warning). Telemetry counts
+the lifecycle in ``telemetry.checkpoint_events()`` (``save``, ``restore``,
+``corrupt``, ``fallback``, ``gc``); verbose telemetry adds a
+``checkpoint_phase`` event at each phase boundary.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import io
+from ..core import io, resilience, telemetry
 
 __all__ = [
     "CheckpointCorruptError",
@@ -74,6 +82,16 @@ _MANIFEST_RE = re.compile(r"^ckpt_(\d+)\.manifest\.json$")
 _LEGACY_RE = re.compile(r"^ckpt_(\d+)\.msgpack$")
 _LEGACY_TMP_RE = re.compile(r"^ckpt_(\d+)\.msgpack\.tmp$")
 _PAYLOAD_RE = re.compile(r"^ckpt_(\d+)(\.r\d+)?$")
+
+# the forcing attribution of the host copies a save makes
+_T_IO = telemetry.force_trigger("io")
+
+
+def _phase(phase: str, step=None, **fields) -> None:
+    """One ``checkpoint_phase`` timeline event (verbose mode only), apart
+    from the lifecycle counts of ``telemetry.checkpoint_events()``."""
+    if telemetry._MODE >= 2:
+        telemetry.record_event("checkpoint_phase", phase=phase, step=step, **fields)
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -293,8 +311,13 @@ def _legacy_path(directory: str, step: int) -> str:
 
 
 def _read_manifest(directory: str, step: int) -> dict:
-    with open(_manifest_path(directory, step), "r") as fh:
-        return json.load(fh)
+    path = _manifest_path(directory, step)
+
+    def _read():
+        with open(path, "r") as fh:
+            return json.load(fh)
+
+    return resilience.call_with_retries("checkpoint.restore", _read)
 
 
 # ----------------------------------------------------------------------
@@ -319,20 +342,25 @@ class _HashingWriter:
 
 def _write_payload_file(path: str, arr: np.ndarray, raw: bool) -> Tuple[str, int]:
     """Write one payload file under a temporary name and rename it; return
-    its ``(sha256, bytes)``."""
-    tmp = f"{path}.tmp-{os.getpid()}-0"
-    try:
-        with open(tmp, "wb") as fh:
-            w = _HashingWriter(fh)
-            if raw:
-                w.write(np.ascontiguousarray(arr).tobytes())
-            else:
-                np.save(w, arr)
-        os.replace(tmp, path)
-        return w.h.hexdigest(), w.n
-    except BaseException:
-        io._unlink_quiet(tmp)
-        raise
+    its ``(sha256, bytes)``. A transient ``OSError`` re-runs the attempt
+    (``checkpoint.write``)."""
+
+    def _attempt() -> Tuple[str, int]:
+        tmp = f"{path}.tmp-{os.getpid()}-0"
+        try:
+            with open(tmp, "wb") as fh:
+                w = _HashingWriter(fh)
+                if raw:
+                    w.write(np.ascontiguousarray(arr).tobytes())
+                else:
+                    np.save(w, arr)
+            os.replace(tmp, path)
+            return w.h.hexdigest(), w.n
+        except BaseException:
+            resilience._unlink_quiet(tmp)
+            raise
+
+    return resilience.call_with_retries("checkpoint.write", _attempt)
 
 
 def _file_entry(payload_rel: str, fname: str, name: str, shape) -> dict:
@@ -422,13 +450,18 @@ def save_checkpoint(directory: str, tree: Any, step: int = 0, keep: int = 3) -> 
     payload_rel = _payload_rel_for_save(directory, step)
     payload_dir = os.path.join(directory, payload_rel)
     os.makedirs(payload_dir, exist_ok=True)
+    leaves = _flatten(tree)
+    _phase("save_begin", step, leaves=len(leaves))
+    _phase("save_materialized", step)
     entries: List[dict] = []
-    for i, (path, leaf) in enumerate(_flatten(tree)):
+    for i, (path, leaf) in enumerate(leaves):
         base = f"leaf_{i:05d}"
         if isinstance(leaf, DNDarray):
-            entry = _save_dndarray(payload_dir, payload_rel, base, leaf)
+            with _T_IO:
+                entry = _save_dndarray(payload_dir, payload_rel, base, leaf)
         elif _is_arraylike(leaf):
-            arr, name = _host(leaf)
+            with _T_IO:
+                arr, name = _host(leaf)
             fname = f"{base}.arr"
             frag = _file_entry(payload_rel, fname, name, arr.shape)
             _write_frag(frag, payload_dir, fname, arr)
@@ -444,11 +477,18 @@ def save_checkpoint(directory: str, tree: Any, step: int = 0, keep: int = 3) -> 
         "payload": payload_rel,
         "leaves": entries,
     }
+    _phase("save_staged", step, leaves=len(entries))
     manifest_path = _manifest_path(directory, step)
-    with io._atomic_write(manifest_path) as tmp:
-        with open(tmp, "w") as fh:
-            json.dump(doc, fh, indent=1)
-            fh.write("\n")
+
+    def _commit():
+        with resilience.atomic_write(manifest_path) as tmp:
+            with open(tmp, "w") as fh:
+                json.dump(doc, fh, indent=1)
+                fh.write("\n")
+
+    resilience.call_with_retries("checkpoint.commit", _commit)
+    telemetry.record_checkpoint("save", step)
+    _phase("save_committed", step)
     gc_checkpoints(directory, keep=keep, protect_step=step)
     return manifest_path
 
@@ -457,14 +497,19 @@ def save_checkpoint(directory: str, tree: Any, step: int = 0, keep: int = 3) -> 
 # verification
 # ----------------------------------------------------------------------
 def _sha256_file(path: str) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as fh:
-        while True:
-            chunk = fh.read(1 << 20)
-            if not chunk:
-                break
-            h.update(chunk)
-    return h.hexdigest()
+    """The streamed SHA-256 of ``path``, its read retried."""
+
+    def _hash() -> str:
+        h = hashlib.sha256()
+        with open(path, "rb") as fh:
+            while True:
+                chunk = fh.read(1 << 20)
+                if not chunk:
+                    break
+                h.update(chunk)
+        return h.hexdigest()
+
+    return resilience.call_with_retries("checkpoint.restore", _hash)
 
 
 def verify_checkpoint(directory: str, step: int) -> List[str]:
@@ -494,7 +539,7 @@ def _verify_manifest_artifact(directory: str, step: int) -> List[str]:
         for frag in entry.get("files", ()):
             full = os.path.join(directory, frag["file"])
             try:
-                size = os.path.getsize(full)
+                size = resilience.call_with_retries("checkpoint.restore", os.path.getsize, full)
             except FileNotFoundError:
                 problems.append(f"missing payload file {frag['file']}")
                 continue
@@ -518,10 +563,13 @@ def _verify_manifest_artifact(directory: str, step: int) -> List[str]:
 def _read_array_file(directory: str, frag: dict) -> np.ndarray:
     full = os.path.join(directory, frag["file"])
     shape = tuple(frag["shape"])
-    if frag["format"] == "npy":
-        arr = np.load(full, allow_pickle=False)
-    else:
-        arr = np.fromfile(full, dtype=_np_dtype(frag["dtype"])).reshape(shape)
+
+    def _read():
+        if frag["format"] == "npy":
+            return np.load(full, allow_pickle=False)
+        return np.fromfile(full, dtype=_np_dtype(frag["dtype"])).reshape(shape)
+
+    arr = resilience.call_with_retries("checkpoint.restore", _read)
     if tuple(arr.shape) != shape:
         raise CheckpointCorruptError(f"payload file {frag['file']} holds shape {tuple(arr.shape)}, manifest says {shape}")
     return arr
@@ -605,7 +653,7 @@ def _restore_dndarray(directory: str, entry: dict, template) -> Any:
         return pieces[0] if len(pieces) == 1 else np.concatenate(pieces, axis=saved_split)
 
     if out_split is None:
-        full = convert(read_block(tuple(slice(0, s) for s in gshape)))
+        full = convert(resilience.call_with_retries("checkpoint.restore", read_block, tuple(slice(0, s) for s in gshape)))
         return _wrap(full.to(comm.devices[0]), None, device, comm)
     return io._ingest(read_block, gshape, dtype, int(out_split) % len(gshape), device, comm, convert=convert)
 
@@ -640,7 +688,14 @@ def _restore_manifest(directory: str, step: int, target: Any) -> Any:
             values[path] = _restore_dndarray(directory, entry, tleaf if isinstance(tleaf, DNDarray) else None)
         else:
             raise CheckpointCorruptError(f"checkpoint step {step} in {directory!r}: unknown leaf kind {kind!r}")
+    telemetry.record_checkpoint("restore", step)
+    _phase("restore_done", step, leaves=len(values))
     return _unflatten(target, values)
+
+
+def _restore_step(directory: str, step: int, target: Any) -> Any:
+    _phase("restore_begin", step)
+    return _restore_manifest(directory, step, target)
 
 
 def load_checkpoint(directory: str, target: Any, step: Optional[int] = None, strict: bool = False) -> Any:
@@ -663,6 +718,7 @@ def load_checkpoint(directory: str, target: Any, step: Optional[int] = None, str
         file_step = int(m.group(1))
         problems = _verify_manifest_artifact(parent, file_step)
         if problems:
+            telemetry.record_checkpoint("corrupt", file_step)
             raise CheckpointCorruptError(
                 f"checkpoint {directory!r} (step {file_step}) failed verification: "
                 f"{'; '.join(problems[:3])} — no fallback (explicit file path given)"
@@ -681,11 +737,12 @@ def load_checkpoint(directory: str, target: Any, step: Optional[int] = None, str
             raise _legacy_error(_legacy_path(directory, step))
         problems = _verify_manifest_artifact(directory, step)
         if problems:
+            telemetry.record_checkpoint("corrupt", step)
             raise CheckpointCorruptError(
                 f"checkpoint step {step} in {directory!r} failed verification: "
                 f"{'; '.join(problems[:3])} — no fallback (explicit step= requested)"
             )
-        return _restore_manifest(directory, step, target)
+        return _restore_step(directory, step, target)
 
     skipped: List[Tuple[int, List[str]]] = []
     for s in reversed(steps):
@@ -694,6 +751,7 @@ def load_checkpoint(directory: str, target: Any, step: Optional[int] = None, str
         problems = _verify_manifest_artifact(directory, s)
         if not problems:
             if skipped:
+                telemetry.record_checkpoint("fallback", s)
                 warnings.warn(
                     CheckpointCorruptWarning(
                         f"checkpoint step(s) {[t for t, _ in skipped]} in {directory!r} "
@@ -702,7 +760,8 @@ def load_checkpoint(directory: str, target: Any, step: Optional[int] = None, str
                     ),
                     stacklevel=2,
                 )
-            return _restore_manifest(directory, s, target)
+            return _restore_step(directory, s, target)
+        telemetry.record_checkpoint("corrupt", s)
         if strict:
             raise CheckpointCorruptError(
                 f"checkpoint step {s} in {directory!r} failed verification: "
@@ -723,15 +782,21 @@ def gc_checkpoints(directory: str, keep: int = 3, protect_step: Optional[int] = 
     """Keep-N retention that never deletes the last step that verifies,
     and a sweep of staging debris (``*.tmp-*`` files, payload directories
     no manifest references) older than the newest manifest. A failure
-    degrades to a warning and leaves the rest for the next sweep."""
+    degrades to a warning and leaves the rest for the next sweep (the
+    ``checkpoint.gc`` site fires at the sweep's start and before each
+    deletion)."""
     try:
-        _gc_inner(directory, keep, protect_step)
+        swept = _gc_inner(directory, keep, protect_step)
+        if swept:
+            telemetry.record_checkpoint("gc", protect_step, detail=f"removed {swept}")
     except Exception as exc:  # noqa: BLE001 - GC must never fail the save
         warnings.warn(f"checkpoint GC in {directory!r} failed ({exc!r}); debris left for the next sweep", stacklevel=2)
 
 
 def _gc_remove(path: str, tree: bool = False) -> bool:
     try:
+        if resilience._ARMED:
+            resilience.check("checkpoint.gc")
         if tree:
             shutil.rmtree(path)
         else:
@@ -742,6 +807,8 @@ def _gc_remove(path: str, tree: bool = False) -> bool:
 
 
 def _gc_inner(directory: str, keep: int, protect_step: Optional[int]) -> int:
+    if resilience._ARMED:
+        resilience.check("checkpoint.gc")
     committed = _committed(directory)
     steps = sorted(committed)
     swept = 0

@@ -17,6 +17,7 @@ import copy
 import hashlib
 import json
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -366,3 +367,135 @@ def test_data_parallel_restore_of_a_named_step_and_strict(tmp_path):
     for k in before:
         assert torch.equal(fresh.state_dict()["params"][k], before[k])
     assert not all(torch.equal(at0[k], before[k]) for k in before)
+
+
+# ---------------------------------------------------------------------------
+# fault sites, retries and lifecycle counts (test_checkpoint_resilience.py)
+# ---------------------------------------------------------------------------
+from heat_tpu.core import resilience as ref_res  # noqa: E402
+from heat_tpu.core import telemetry as ref_tel  # noqa: E402
+from heat_tpu_torch.core import resilience as res  # noqa: E402
+from heat_tpu_torch.core import telemetry as tel  # noqa: E402
+
+MESHES = [1, 3, 5]
+
+
+@pytest.fixture
+def observed(monkeypatch):
+    """Both packages with no backoff sleep and telemetry at mode 1."""
+    for module in (res, ref_res):
+        monkeypatch.setattr(module, "retry_policy", module.RetryPolicy(retries=2, base_delay=0.0))
+    was = tel.set_mode(1), ref_tel.set_mode(1)
+    tel.reset()
+    ref_tel.reset()
+    yield
+    tel.set_mode(was[0])
+    ref_tel.set_mode(was[1])
+
+
+def _truncate_a_payload(directory, step):
+    payload = json.loads(open(os.path.join(directory, f"ckpt_{step}.manifest.json")).read())["payload"]
+    victim = sorted(os.listdir(os.path.join(directory, payload)))[0]
+    with open(os.path.join(directory, payload, victim), "r+b") as fh:
+        fh.truncate(8)
+
+
+@pytest.mark.parametrize("p", MESHES)
+def test_a_hard_commit_fault_leaves_the_previous_step_restorable(p, tmp_path, observed):
+    d = str(tmp_path)
+    first = _port_tree(_values(), p)
+    ckpt.save_checkpoint(d, first, step=1)
+    with res.inject("checkpoint.commit") as spec:
+        with pytest.raises(res.FaultInjected, match="checkpoint.commit"):
+            ckpt.save_checkpoint(d, _port_tree(_values(SEED + 1), p), step=2)
+    assert spec.fired == 1
+    assert ckpt.all_steps(d) == [1] and ckpt.latest_step(d) == 1
+    got = ckpt.load_checkpoint(d, _port_tree(_values(SEED + 2), p))
+    _check_tree(got, first, _port_numpy, _port_numpy)
+    assert tel.checkpoint_events() == {"save": 1, "restore": 1}
+    # the staged payload of the failed save is debris the next save sweeps
+    ckpt.save_checkpoint(d, first, step=3)
+    assert sorted(n for n in os.listdir(d) if not n.endswith(".json")) == ["ckpt_1", "ckpt_3"]
+
+
+def test_a_gc_fault_degrades_to_a_warning(tmp_path, observed):
+    d = str(tmp_path)
+    for step in range(3):
+        ckpt.save_checkpoint(d, _port_tree(_values(), 3), step=step, keep=2)
+    with res.inject("checkpoint.gc"):
+        with pytest.warns(UserWarning, match="GC"):
+            ckpt.save_checkpoint(d, _port_tree(_values(), 3), step=3, keep=2)
+    assert ckpt.all_steps(d) == [1, 2, 3]  # nothing deleted, nothing lost
+    ckpt.gc_checkpoints(d, keep=2)
+    assert ckpt.all_steps(d) == [2, 3] and tel.checkpoint_events()["gc"] == 2
+    # the sweep checks the site on entry too, so a fault degrades even with nothing to delete
+    with res.inject("checkpoint.gc") as spec:
+        with pytest.warns(UserWarning, match="GC"):
+            ckpt.gc_checkpoints(d, keep=2)
+    assert spec.fired == 1 and ckpt.all_steps(d) == [2, 3]
+
+
+def test_a_saves_host_reads_are_attributed_to_io(tmp_path, monkeypatch):
+    """The reference's ``force_trigger("io")`` scope around each leaf's host
+    copy: a read there is attributed to ``io``, one outside to ``parray``."""
+    seen = []
+
+    def probe(name, real):
+        def wrapped(*args):
+            seen.append((name, tel.current_trigger()))
+            return real(*args)
+        return wrapped
+
+    for name in ("_save_dndarray", "_host"):
+        monkeypatch.setattr(ckpt, name, probe(name, getattr(ckpt, name)))
+    tree = {"w": ht.array(np.ones((6, 2), np.float32), split=0, comm=_mesh(3)), "b": np.zeros(3, np.float32)}
+    ckpt.save_checkpoint(str(tmp_path), tree, step=1)
+    assert set(seen) == {("_host", "io"), ("_save_dndarray", "io")}
+    assert tel.current_trigger() == "parray"
+
+
+def _lifecycle(pkg_ckpt, tree_of, t, directory):
+    t.set_mode(2)
+    t.reset()
+    for step in (1, 2, 3):
+        pkg_ckpt.save_checkpoint(directory, tree_of(SEED + step), step=step, keep=2)
+    _truncate_a_payload(directory, 3)
+    with pytest.warns(pkg_ckpt.CheckpointCorruptWarning):
+        pkg_ckpt.load_checkpoint(directory, tree_of(SEED))
+    with pytest.raises(pkg_ckpt.CheckpointCorruptError):
+        pkg_ckpt.load_checkpoint(directory, tree_of(SEED), step=3)
+    with pytest.raises(pkg_ckpt.CheckpointCorruptError):
+        pkg_ckpt.load_checkpoint(directory, tree_of(SEED), strict=True)
+    pkg_ckpt.load_checkpoint(os.path.join(directory, "ckpt_2.manifest.json"), tree_of(SEED))
+    phases = [(e["phase"], e.get("step")) for e in t.events() if e["kind"] == "checkpoint_phase"]
+    return t.checkpoint_events(), phases
+
+
+@pytest.mark.parametrize("p", MESHES)
+def test_the_lifecycle_counts_and_phases_equal_heat_tpus(p, tmp_path, observed):
+    q = min(p, len(jax.devices()))
+    mine = _lifecycle(ckpt, lambda s: _port_tree(_values(s), p), tel, str(tmp_path / "port"))
+    theirs = _lifecycle(ref_ckpt, lambda s: _ref_tree(_values(s), q), ref_tel, str(tmp_path / "ref"))
+    assert mine == theirs
+    assert mine[0] == {"save": 3, "gc": 1, "corrupt": 3, "fallback": 1, "restore": 2}
+
+
+@pytest.mark.parametrize("p", MESHES)
+def test_the_ci_fault_mix_leaves_checkpoints_byte_equal(p, tmp_path, observed, monkeypatch):
+    """The reference's ``ci`` preset in the background: every transient
+    write, commit and restore fault is retried, GC faults degrade, and the
+    files equal a fault-free save's."""
+    v = _values()
+    ckpt.save_checkpoint(str(tmp_path / "clean"), _port_tree(v, p), step=5)
+    monkeypatch.setattr(res, "_BACKGROUND", res._parse_env("ci"))
+    monkeypatch.setattr(res, "_ARMED", True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for step in (3, 4, 5):
+            ckpt.save_checkpoint(str(tmp_path / "faulty"), _port_tree(v if step == 5 else _values(SEED + 9), p), step=step)
+        got = ckpt.load_checkpoint(str(tmp_path / "faulty"), _port_tree(_values(SEED + 2), p))
+    monkeypatch.setattr(res, "_ARMED", False)
+    _check_tree(got, _port_tree(v, p), _port_numpy, _port_numpy)
+    clean, faulty = _files(tmp_path / "clean"), _files(tmp_path / "faulty")
+    assert {k: h for k, h in faulty.items() if k.startswith("ckpt_5")} == clean
+    assert set(tel.io_retries()) >= {"checkpoint.write", "checkpoint.commit", "checkpoint.restore"}

@@ -286,7 +286,10 @@ SUBPACKAGES = (
 
 FORBIDDEN = ("jax", "jaxlib", "heat_tpu", "flax", "optax", "ml_dtypes")
 #: modules beyond the subpackages' own that must exist and obey the rule
-MODULES = ("_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset")
+MODULES = (
+    "_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset",
+    "core.version", "core.telemetry", "core.resilience", "utils.profiling", "telemetry",
+)
 
 
 def test_port_imports_neither_jax_nor_heat_tpu():

@@ -456,3 +456,131 @@ def test_materialize_writes_the_seeded_sets(tmp_path):
         a = ht.load(paths[name], **({} if name.endswith(".csv") else {"dataset": "data" if name == "iris.h5" else "x"}))
         b = ht.load(theirs[name], **({} if name.endswith(".csv") else {"dataset": "data" if name == "iris.h5" else "x"}))
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---------------------------------------------------------------------------
+# retries, fault sites and events (test_resilience_io.py)
+# ---------------------------------------------------------------------------
+from heat_tpu.core import resilience as ref_res  # noqa: E402
+from heat_tpu.core import telemetry as ref_tel  # noqa: E402
+from heat_tpu_torch.core import resilience as res  # noqa: E402
+from heat_tpu_torch.core import telemetry as tel  # noqa: E402
+
+
+@pytest.fixture
+def fast_retries(monkeypatch):
+    """Both packages with no backoff sleep and telemetry at mode 1."""
+    for module in (res, ref_res):
+        monkeypatch.setattr(module, "retry_policy", module.RetryPolicy(retries=2, base_delay=0.0))
+    was = tel.set_mode(1), ref_tel.set_mode(1)
+    tel.reset()
+    ref_tel.reset()
+    yield
+    tel.set_mode(was[0])
+    ref_tel.set_mode(was[1])
+
+
+def _ref_save(fmt, x, path):
+    if fmt == "npy":
+        ref.save_npy(x, path)
+    elif fmt == "h5":
+        ref.save_hdf5(x, path, "data")
+    elif fmt == "nc4":
+        ref.save_netcdf(x, path, "data")
+    else:
+        ref.save_csv(x, path)
+
+
+@pytest.mark.parametrize("p", MESHES)
+@pytest.mark.parametrize("fmt", ["npy", "h5", "nc4", "nc3", "csv"])
+def test_an_io_write_fault_every_second_attempt_is_retried_to_the_same_bytes(fmt, p, tmp_path, fast_retries):
+    values = _values((13, 3), "float32")
+    x = ht.array(values, split=0, comm=_mesh(p))
+    clean = str(tmp_path / f"clean{_EXT[fmt]}")
+    _save(fmt, x, clean)
+    paths = [str(tmp_path / f"f{i}{_EXT[fmt]}") for i in range(2)]
+    with res.inject("io.write", exc=OSError, every=2, times=None) as spec:
+        for path in paths:
+            _save(fmt, x, path)
+    assert spec.fired == 1 and tel.io_retries() == {"io.write": 1}
+    if fmt in ("npy", "nc3", "csv"):  # HDF5 files carry timestamps
+        for path in paths:
+            assert open(path, "rb").read() == open(clean, "rb").read()
+    for path in paths:
+        np.testing.assert_array_equal(_load(fmt, path, ht.float32, 0, _mesh(p)).numpy(), values)
+    assert sorted(os.listdir(tmp_path)) == sorted(os.path.basename(q) for q in [clean] + paths)
+
+
+@pytest.mark.parametrize("fmt", ["npy", "h5", "csv"])
+def test_write_retries_count_as_heat_tpus(fmt, tmp_path, fast_retries):
+    values = _values((12, 3), "float32")
+    for name, pkg, module, t, save, comm in (
+        ("port", ht, res, tel, _save, _mesh(3)),
+        ("ref", ref, ref_res, ref_tel, _ref_save, _ref_comm(3)),
+    ):
+        x = pkg.array(values, split=0, comm=comm)
+        with module.inject("io.write", exc=OSError, every=2, times=None):
+            for i in range(3):
+                save(fmt, x, str(tmp_path / f"{name}{i}{_EXT[fmt]}"))
+        with module.inject("io.rename", exc=OSError, times=1):
+            save(fmt, x, str(tmp_path / f"{name}r{_EXT[fmt]}"))
+    # the rename fault is retried by the write attempt around it
+    assert tel.io_retries() == ref_tel.io_retries() == {"io.write": 3}
+    assert tel.fault_events() == ref_tel.fault_events()
+
+
+@pytest.mark.parametrize("p", MESHES)
+@pytest.mark.parametrize("fmt", ["npy", "h5", "nc3", "csv"])
+def test_an_io_read_fault_every_second_block_is_retried(fmt, p, tmp_path, fast_retries):
+    values = _values((13, 3), "float32")
+    path = str(tmp_path / f"r{_EXT[fmt]}")
+    _save(fmt, ht.array(values, split=0, comm=_mesh(p)), path)
+    with res.inject("io.read", exc=OSError, every=2, times=None) as spec:
+        got = _load(fmt, path, ht.float32, 0, _mesh(p))
+    np.testing.assert_array_equal(got.numpy(), values)
+    assert tel.io_retries().get("io.read", 0) == spec.fired >= (1 if p > 1 else 0)
+
+
+def test_exhausted_or_hard_faults_leave_the_old_file(tmp_path, fast_retries):
+    path = str(tmp_path / "x.npy")
+    old = _values((6, 4), "float32")
+    io.save_npy(ht.array(old, split=0, comm=_mesh(3)), path)
+    before = open(path, "rb").read()
+    new = ht.array(_values((6, 4), "float32", seed=1), split=0, comm=_mesh(3))
+    with res.inject("io.write", exc=OSError, times=None):
+        with pytest.raises(OSError):
+            io.save_npy(new, path)
+    with res.inject("io.rename"):
+        with pytest.raises(res.FaultInjected):
+            io.save_npy(new, path)
+    assert tel.io_retries() == {"io.write": 2}
+    assert open(path, "rb").read() == before and os.listdir(tmp_path) == ["x.npy"]
+
+
+@pytest.mark.skipif(not io.supports_hdf5(), reason="h5py does not import")
+def test_a_failed_append_keeps_the_original_intact(tmp_path, fast_retries):
+    path = str(tmp_path / "a.h5")
+    io.save_hdf5(ht.array(np.arange(6.0), split=0, comm=_mesh(3)), path, "first")
+    before = open(path, "rb").read()
+    with res.inject("io.rename"):
+        with pytest.raises(res.FaultInjected):
+            io.save_hdf5(ht.array(np.ones(4), split=0, comm=_mesh(3)), path, "second", mode="a")
+    assert open(path, "rb").read() == before and os.listdir(tmp_path) == ["a.h5"]
+    io.save_hdf5(ht.array(np.ones(4), split=0, comm=_mesh(3)), path, "second", mode="a")
+    np.testing.assert_array_equal(ht.load_hdf5(path, "first", dtype=ht.float64).numpy(), np.arange(6.0))
+
+
+@pytest.mark.parametrize("p", MESHES)
+def test_the_io_events_of_a_save_and_a_load_match_heat_tpus(p, tmp_path, fast_retries):
+    values = _values((13, 3), "float32")
+    seen = []
+    p = min(p, len(jax.devices()))
+    for name, pkg, t, save, comm in (("port", ht, tel, _save, _mesh(p)), ("ref", ref, ref_tel, _ref_save, _ref_comm(p))):
+        t.set_mode(2)
+        t.reset()
+        path = str(tmp_path / f"{name}.npy")
+        save("npy", pkg.array(values, split=0, comm=comm), path)
+        pkg.load_npy(path, split=0, comm=comm)
+        seen.append([(e["op"], e["bytes"], e["blocks"]) for e in t.events() if e["kind"] == "io"])
+    assert seen[0] == seen[1]
+    assert [op for op, _, _ in seen[0]] == (["stream_blocks", "sharded_ingest"] if p > 1 else ["sharded_ingest"])
