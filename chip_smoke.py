@@ -179,7 +179,26 @@ Phases, in order; any failure exits non-zero:
    restores bit for bit) and a ``collective.allreduce`` fault on a
    four-shard sum (the next call equal to the fault-free one); the metrics
    sink in a subprocess, whose ``report()`` leaves CUDA uninitialized;
-17. print the phase-9 to 16 numbers with the card, the card's name
+17. memory and health on the card (no kernel of its own; the fit runs the
+   Lloyd kernel, the LM step the flash kernel): phase 3's fit with the
+   memory ledger and the flight ring on, 30 Lloyd launches, the ledger's
+   ``dndarray`` bytes equal to the live arrays' shard storages, its total
+   within one allocator block per buffer of ``memory_allocated()``, the
+   watermark between the table's bytes and ``max_memory_allocated()``; the
+   fit's ms per iteration and the host-bound 10-op chain's ops/s with the
+   hooks on and off, and the p50/p90/p99 of the host waits that end the
+   fits; the README TransformerLM f32 step (12 flash launches) saved and
+   restored, the ledger's owner split printed, the table restored from a
+   checkpoint and loaded from ``.npy`` on four shards of the card with its
+   staged shards under ``checkpoint`` and ``io``; a ``watchdog.stall``
+   injected at ``numpy()`` of the fitted centres under a 200 ms deadline in
+   the ``warn``, ``raise`` and ``dump`` policies (the dump's trace accepted
+   by ``python -m heat_tpu_torch.telemetry validate-trace``);
+   ``ping_mesh`` on one and four shards of the card and
+   ``memory_report()`` against the ledger; a fresh process whose
+   ``report()``, ``ledger()`` and ``ht.flight.health_block()`` leave CUDA
+   uninitialized;
+18. print the phase-9 to 17 numbers with the card, the card's name
    and power limit, one JSON line of per-kernel numbers, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -4945,6 +4964,373 @@ def runtime_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# memory and health on the card (phase 17): the memory ledger, the flight
+# ring, the watchdog and the mesh probes. No kernel of its own: the fit runs
+# the Lloyd kernel and the LM step the flash kernel.
+# ---------------------------------------------------------------------------
+MH_P = 4  # shards of the card for the staged ingest and the mesh probe
+MH_DEADLINE_MS = 200  # the watchdog's deadline for the injected stalls
+MH_BLOCK = 512  # the caching allocator's rounding of a block
+MH_FITS = 3  # fits per leg of the overhead comparison (hooks on, off)
+MH_CHAIN_REPS, MH_CHAIN_TRIALS = 8, 5
+
+
+def _dndarray_storages() -> int:
+    """Bytes of the distinct shard storages of every live DNDarray."""
+    import gc
+
+    from heat_tpu_torch.core.dndarray import DNDarray
+
+    gc.collect()
+    storages = {}
+    for obj in gc.get_objects():
+        if issubclass(type(obj), DNDarray):
+            for s in obj.shards:
+                if s.device.type == "cuda":
+                    storages[(str(s.device), s.untyped_storage().data_ptr())] = s.untyped_storage().nbytes()
+    return sum(storages.values())
+
+
+def ledger_fit_phase(ht, tel, x, init) -> dict:
+    """(a) Phase 3's fit with the ledger and the ring on at telemetry mode
+    1: its Lloyd launches, the ledger against the live arrays and the
+    allocator, the watermark between the table and the allocator's peak."""
+    import torch
+
+    from heat_tpu_torch.core import memledger
+    from heat_tpu_torch.ops import lloyd
+
+    print(f"phase health: KMeans(n_clusters={K}) for {ITERS} iterations from phase 3's centres with the memory "
+          "ledger and the flight ring on", flush=True)
+    tel.set_mode(1)
+    tel.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lloyd.LAUNCHES = 0
+    km = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+    torch.cuda.synchronize()
+    out = {"launches": lloyd.LAUNCHES}
+    memledger.sample("fit", force=True)
+    led = memledger.ledger(top=3)
+    out["ledger"] = {k: led[k] for k in ("total_bytes", "by_owner", "buffers", "top")}
+    out["dndarray_storages"] = _dndarray_storages()
+    out["memory_allocated"] = torch.cuda.memory_allocated()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["watermark"] = memledger.watermark()
+    out["table_bytes"] = RT_TABLE_BYTES
+    slack = MH_BLOCK * led["buffers"]
+    print(f"  Lloyd launches {out['launches']}; ledger {json.dumps(out['ledger'])}; the live arrays' shard "
+          f"storages {out['dndarray_storages']}; memory_allocated {out['memory_allocated']} (the ledger's total "
+          f"within {slack} B: {abs(led['total_bytes'] - out['memory_allocated'])}); watermark "
+          f"{json.dumps(out['watermark'])} between the table's {RT_TABLE_BYTES} B and max_memory_allocated "
+          f"{out['max_memory_allocated']}", flush=True)
+    if out["launches"] != ITERS:
+        raise AssertionError("the fit with the ledger on missed the Lloyd kernel")
+    if led["by_owner"].get("dndarray") != out["dndarray_storages"]:
+        raise AssertionError("the ledger's dndarray bytes are not the live arrays' shard storages")
+    if abs(led["total_bytes"] - out["memory_allocated"]) > slack:
+        raise AssertionError("the ledger's total is not the allocator's")
+    if not RT_TABLE_BYTES <= out["watermark"]["bytes"] <= out["max_memory_allocated"]:
+        raise AssertionError("the watermark is not between the table's bytes and the allocator's peak")
+    out["fitted_centres"] = km.cluster_centers_
+    return out
+
+
+def hooks_overhead_phase(ht, tel, x, init) -> dict:
+    """(b) The fit's ms per iteration and the host-bound 10-op chain's ops/s
+    at telemetry mode 1, with the ledger's hook and the ring on and off
+    (legs alternated, the best of each kept); the host waits of the
+    centres' reads that end the fits, in the health layer's histogram."""
+    import torch
+
+    from heat_tpu_torch.core import health_runtime, memledger
+
+    print("phase health: the fit and the 10-op chain at mode 1 with the ledger and the ring on and off "
+          "(HEAT_TPU_MEMORY_LEDGER=0 HEAT_TPU_FLIGHT=0 in-process)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    a, b = (ht.array(torch.randn(RT_SMALL, generator=gen, device="cuda"), split=0) for _ in range(2))
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    tel.set_mode(1)
+    tel.reset()
+    fit_ms = {"on": math.inf, "off": math.inf}
+    chain = {"on": 0.0, "off": 0.0}
+    try:
+        with tel.scope("fit"):
+            for _ in range(MH_FITS):
+                for leg in ("on", "off"):
+                    memledger.set_enabled(leg == "on")
+                    health_runtime.set_flight(leg == "on")
+                    start.record()
+                    km = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+                    stop.record()
+                    km.cluster_centers_.numpy()  # the host wait for the fit
+                    torch.cuda.synchronize()
+                    fit_ms[leg] = min(fit_ms[leg], start.elapsed_time(stop) / ITERS)
+                    chain[leg] = max(chain[leg], _rt_rate(ht, a, b, MH_CHAIN_REPS, MH_CHAIN_TRIALS))
+            waits = health_runtime.health_block()["sync"]
+    finally:
+        memledger.set_enabled(True)
+        health_runtime.set_flight(True)
+    out = {"fit_ms_per_iter": fit_ms, "fit_ratio_on_off": fit_ms["on"] / fit_ms["off"],
+           "chain_ops_per_s": chain, "chain_ratio_on_off": chain["on"] / chain["off"],
+           "sync_waits": waits.get("numpy", {})}
+    print(f"  fit ms per iteration {json.dumps(fit_ms)} (on / off {out['fit_ratio_on_off']:.4f}); chain ops/s at "
+          f"{RT_SMALL} {json.dumps(chain)} (on / off {out['chain_ratio_on_off']:.4f}); the fits' host waits "
+          f"(sync:numpy) {json.dumps(out['sync_waits'])}", flush=True)
+    if out["sync_waits"].get("count") != 2 * MH_FITS:
+        raise AssertionError("the histogram did not see one host wait per fit")
+    return out
+
+
+def _staged_owners(ht, load):
+    """The largest ``io`` and ``checkpoint`` bytes the ledger holds at a
+    block read of the sharded ingest that ``load()`` runs."""
+    from heat_tpu_torch.core import io as io_module
+    from heat_tpu_torch.core import memledger
+
+    seen = {"io": 0, "checkpoint": 0}
+    ingest = io_module._ingest
+
+    def watched(read_block, *args, **kwargs):
+        def read(sl):
+            by_owner = memledger.ledger(top=0)["by_owner"]
+            for owner in seen:
+                seen[owner] = max(seen[owner], by_owner.get(owner, 0))
+            return read_block(sl)
+
+        return ingest(read, *args, **kwargs)
+
+    io_module._ingest = watched
+    try:
+        result = load()
+    finally:
+        io_module._ingest = ingest
+    return seen, result
+
+
+def ledger_lm_phase(ht, tel, x, tmp: str) -> dict:
+    """(c) The README TransformerLM f32 step (4 x 4096 tokens, Adam) with the
+    ledger on, saved and restored, its owner split; the table restored from
+    a checkpoint and loaded from .npy on four shards of the card, its staged
+    shards under ``checkpoint`` and ``io``."""
+    import torch
+
+    from heat_tpu_torch.core import memledger
+    from heat_tpu_torch.core.communication import MeshCommunication
+    from heat_tpu_torch.ops import flash
+
+    card = torch.device("cuda", 0)
+    print("phase health: the README TransformerLM f32 step, saved and restored, and the table restored and "
+          f"loaded on {MH_P} shards of the card, with the ledger on", flush=True)
+    tel.set_mode(1)
+    tel.reset()
+    tokens = torch.randint(0, LM["vocab"], (LM_BATCH, LM_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 17))
+
+    def make():
+        return ht.nn.DataParallel(_lm(ht, torch.float32), comm=MeshCommunication([card]),
+                                  optimizer=ht.optim.Adam(LM_LR), loss_fn=next_token_loss).init(SEED, tokens[:1])
+
+    lm = make()
+    flash.LAUNCHES = 0
+    loss = lm.train_step(tokens, tokens)
+    torch.cuda.synchronize()
+    out = {"launches": flash.LAUNCHES, "loss": float(loss)}
+    out["after_step"] = memledger.ledger(top=0)["by_owner"]
+    directory = os.path.join(tmp, "lm_ckpt")
+    lm.save(directory, step=1)
+    del lm
+    torch.cuda.empty_cache()
+    fresh = make()
+    fresh.restore(directory)
+    torch.cuda.synchronize()
+    out["after_restore"] = memledger.ledger(top=0)["by_owner"]
+    del fresh
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    mesh = MeshCommunication([card] * MH_P)
+    table_dir = os.path.join(tmp, "table_ckpt")
+    ht.checkpoint.save_checkpoint(table_dir, {"table": x}, step=1)
+    template = ht.zeros(x.gshape, split=0, comm=mesh)
+    out["restore_staged"], restored = _staged_owners(
+        ht, lambda: ht.checkpoint.load_checkpoint(table_dir, {"table": template})["table"])
+    out["restored_equal"] = torch.equal(restored.larray, x.larray)
+    del restored, template
+    shutil.rmtree(table_dir, ignore_errors=True)
+    path = os.path.join(tmp, "table.npy")
+    ht.save_npy(x, path)
+    out["npy_staged"], loaded = _staged_owners(ht, lambda: ht.load_npy(path, split=0, comm=mesh))
+    out["npy_equal"] = torch.equal(loaded.larray, x.larray)
+    out["after_load"] = memledger.ledger(top=0)["by_owner"]
+    del loaded
+    os.remove(path)
+    torch.cuda.empty_cache()
+    shard_bytes = -(-N // MH_P) * F * 4
+    print(f"  flash launches in the step {out['launches']} (loss {out['loss']:.4f}); owner split after the step "
+          f"{json.dumps(out['after_step'])}, after the restore {json.dumps(out['after_restore'])}; the table's "
+          f"restore staged {json.dumps(out['restore_staged'])} and its .npy load {json.dumps(out['npy_staged'])} "
+          f"at the last block read ({MH_P - 1} shards of {shard_bytes} B); after the load "
+          f"{json.dumps(out['after_load'])}; equal to the table: {out['restored_equal']}, {out['npy_equal']}",
+          flush=True)
+    if out["launches"] != LM["depth"] or not (out["restored_equal"] and out["npy_equal"]):
+        raise AssertionError("the LM step missed the flash kernel, or a staged table differs")
+    if out["restore_staged"]["checkpoint"] < (MH_P - 1) * shard_bytes or out["npy_staged"]["io"] < (MH_P - 1) * shard_bytes:
+        raise AssertionError("the staged shards are not under checkpoint and io")
+    if out["after_load"].get("io", 0) or out["after_load"].get("checkpoint", 0):
+        raise AssertionError("the loaded array did not claim its staged shards")
+    return out
+
+
+def watchdog_phase(ht, tel, res, centres, tmp: str) -> dict:
+    """(d) A watchdog.stall injected at numpy() of the fitted centres under
+    a MH_DEADLINE_MS deadline in the three policies."""
+    import warnings
+
+    import torch
+
+    from heat_tpu_torch.core import health_runtime
+
+    print(f"phase health: watchdog.stall at numpy() of the fitted centres, {MH_DEADLINE_MS} ms deadline, "
+          "policies warn, raise and dump", flush=True)
+    tel.set_mode(1)
+    tel.reset()
+    want = centres.numpy()
+    prev = health_runtime.set_watchdog(deadline_ms=MH_DEADLINE_MS, policy="warn", enabled=True)
+    dump_dir = health_runtime.set_dump_dir(tmp)
+    out = {}
+
+    def tripped(policy):
+        before = health_runtime.watchdog_stats()["trips"]
+        health_runtime.set_watchdog(policy=policy)
+        got, raised = None, False
+        with res.inject("watchdog.stall:sync:numpy", times=1):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    got = centres.numpy()
+                except res.StallError:
+                    raised = True
+        stall = health_runtime.last_stall()
+        named = [str(w.message) for w in caught if w.category is res.StallWarning and "sync:numpy" in str(w.message)]
+        return {"trips": health_runtime.watchdog_stats()["trips"] - before, "site": stall["site"],
+                "waited_s": stall["waited_s"], "warning": bool(named), "raised": raised,
+                "equal": None if got is None else bool((got == want).all())}
+
+    try:
+        out["warn"] = tripped("warn")
+        out["dump"] = tripped("dump")
+        end = time.monotonic() + 10.0
+        while time.monotonic() < end and health_runtime.last_dump() is None:
+            time.sleep(0.01)
+        dump = health_runtime.last_dump()
+        out["raise"] = tripped("raise")
+        out["raise"]["next_read_equal"] = bool((centres.numpy() == want).all())
+    finally:
+        health_runtime.set_watchdog(prev[0], policy=prev[1], enabled=prev[2])
+        health_runtime.set_dump_dir(dump_dir)
+    proc = subprocess.run([sys.executable, "-m", "heat_tpu_torch.telemetry", "validate-trace", dump["trace_path"]],
+                          capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    with open(dump["path"]) as fh:
+        bundle = json.load(fh)
+    out["dump"].update({"cli_rc": proc.returncode, "cli": proc.stdout.strip(), "reason": bundle["reason"],
+                        "bundle_stall_site": bundle["stalls"][-1]["site"]})
+    print(f"  {json.dumps(out)}", flush=True)
+    ok = (all(out[p]["trips"] == 1 and out[p]["site"] == "sync:numpy" and out[p]["warning"] for p in out)
+          and out["warn"]["equal"] and out["dump"]["equal"] and out["raise"]["raised"]
+          and out["raise"]["next_read_equal"] and out["dump"]["cli_rc"] == 0 and out["dump"]["reason"] == "stall")
+    if not ok:
+        raise AssertionError("the injected stall did not trip as stated under every policy")
+    torch.cuda.synchronize()
+    return out
+
+
+def probes_phase(ht) -> dict:
+    """(e) ping_mesh on one and four shards of the card; memory_report()
+    against the ledger."""
+    import torch
+
+    from heat_tpu_torch.core import memledger
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    out = {}
+    for p in (1, MH_P):
+        ht.utils.health.ping_mesh(MeshCommunication([card] * p))  # warm
+        out[f"ping_{p}"] = ht.utils.health.ping_mesh(MeshCommunication([card] * p))
+    rep = ht.utils.health.memory_report()
+    led = memledger.ledger(top=0)
+    out["memory_report_total"], out["ledger_total"] = rep["total_bytes"], led["total_bytes"]
+    print(f"phase health: ping_mesh {json.dumps({k: v for k, v in out.items() if k.startswith('ping')})}; "
+          f"memory_report total {rep['total_bytes']} B, the ledger's {led['total_bytes']} B", flush=True)
+    if not all(out[f"ping_{p}"]["ok"] for p in (1, MH_P)) or rep["total_bytes"] != led["total_bytes"]:
+        raise AssertionError("a mesh probe failed, or memory_report disagrees with the ledger")
+    return out
+
+
+_MH_FRESH_SCRIPT = """
+import json, torch
+import heat_tpu_torch as ht
+from heat_tpu_torch.core import memledger
+ht.telemetry.report()
+memledger.ledger()
+ht.flight.health_block()
+print(json.dumps({"cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def fresh_process_phase() -> dict:
+    """(f) A fresh process reads report(), ledger() and the health block:
+    CUDA stays uninitialized."""
+    proc = subprocess.run([sys.executable, "-c", _MH_FRESH_SCRIPT], capture_output=True, text=True,
+                          env=dict(os.environ, HEAT_TPU_TELEMETRY="1"),
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"the fresh process failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"phase health: a fresh process after report(), ledger() and ht.flight.health_block(): "
+          f"{json.dumps(out)}", flush=True)
+    if out["cuda_initialized"]:
+        raise AssertionError("reading the memory and health surfaces initialized CUDA")
+    return out
+
+
+def health_path(ht, smi: str) -> dict:
+    """Phase 17: memory and health on the card; returns its numbers
+    (telemetry off again at the end)."""
+    import torch
+
+    from heat_tpu_torch.core import resilience as res
+    from heat_tpu_torch.core import telemetry as tel
+
+    numbers = {"card": smi, "seconds": {}}
+    tmp = tempfile.mkdtemp(prefix="heat_mh_")
+    was = tel.set_mode(0)
+    try:
+        x, init = kmeans_table(ht)
+        t0 = time.perf_counter()
+        numbers["fit"] = ledger_fit_phase(ht, tel, x, init)
+        centres = numbers["fit"].pop("fitted_centres")
+        numbers["seconds"]["fit"] = time.perf_counter() - t0
+        for label, fn in (
+            ("overhead", lambda: hooks_overhead_phase(ht, tel, x, init)),
+            ("lm", lambda: ledger_lm_phase(ht, tel, x, tmp)),
+            ("watchdog", lambda: watchdog_phase(ht, tel, res, centres, tmp)),
+            ("probes", lambda: probes_phase(ht)),
+            ("fresh_process", fresh_process_phase),
+        ):
+            t0 = time.perf_counter()
+            numbers[label] = fn()
+            numbers["seconds"][label] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        tel.set_mode(was)
+        tel.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 17 took {sum(numbers['seconds'].values()):.1f} s: {numbers['seconds']}", flush=True)
+    return numbers
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -5003,6 +5389,8 @@ def main() -> int:
     io = io_path(ht, smi)
     torch.cuda.empty_cache()
     runtime = runtime_path(ht, smi)
+    torch.cuda.empty_cache()
+    health = health_path(ht, smi)
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
     kernels[0]["launches_disk_fit"] = io["disk_fit"]["npy"]["launches"]
     kernels[1].update({
@@ -5020,6 +5408,8 @@ def main() -> int:
         "launches_traced_step": runtime["timeline"]["launches_lm_step"],
     })
     kernels[0]["launches_traced_fit"] = runtime["fit"]["launches"]["verbose"]
+    kernels[0]["launches_ledger_fit"] = health["fit"]["launches"]
+    kernels[1]["launches_ledger_step"] = health["lm"]["launches"]
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
@@ -5029,6 +5419,7 @@ def main() -> int:
     print("nn: " + json.dumps(nn))
     print("io: " + json.dumps(io))
     print("runtime: " + json.dumps(runtime))
+    print("health: " + json.dumps(health))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

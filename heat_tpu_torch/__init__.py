@@ -13,6 +13,7 @@ from . import (
     classification, cluster, datasets, graph, naive_bayes, nn, ops, optim, parallel, regression, spatial, utils,
 )
 from .utils import checkpoint  # ht.checkpoint, as heat_tpu/__init__.py:12 exports it
+from .core import health_runtime as flight  # ht.flight, as heat_tpu/__init__.py:52 exports it
 from .core import (
     arithmetics,
     base,

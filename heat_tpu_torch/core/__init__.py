@@ -4,6 +4,8 @@ from . import version
 from .version import __version__
 from . import telemetry
 from . import resilience
+from . import memledger
+from . import health_runtime
 from .resilience import errstate
 from .constants import *
 from .types import *

@@ -401,6 +401,14 @@ def get_comm() -> MeshCommunication:
     return _world(devices_module.get_device().device_type)
 
 
+def _built_comm() -> Optional[MeshCommunication]:
+    """The default communication context if it exists already, else None:
+    the read of the runtime's report, which must not build a mesh."""
+    if __default_comm is not None:
+        return __default_comm
+    return _WORLDS.get(devices_module.get_device().device_type)
+
+
 def sanitize_comm(
     comm: Optional[Communication], device: Optional[devices_module.Device] = None
 ) -> MeshCommunication:

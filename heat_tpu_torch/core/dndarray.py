@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import resilience, telemetry, types
+from . import health_runtime, memledger, resilience, telemetry, types
 from .communication import MeshCommunication
 from .stride_tricks import sanitize_axis
 
@@ -78,7 +78,7 @@ class DNDarray:
     ):
         if len(shards) != comm.size:
             raise ValueError(f"expected {comm.size} shards, got {len(shards)}")
-        self.__shards = list(shards)
+        self.__shards = _tagged(shards)
         self.__gshape = tuple(int(s) for s in gshape)
         self.__dtype = dtype
         self.__split = split
@@ -226,7 +226,7 @@ class DNDarray:
         split = self.__split
         if split is not None and split >= array.ndim:
             split = None
-        self.__shards = _distribute(array.to(self.__comm.devices[0]), split, self.__comm)
+        self.__shards = _tagged(_distribute(array.to(self.__comm.devices[0]), split, self.__comm))
         self.__gshape = tuple(int(s) for s in array.shape)
         self.__dtype = types.canonical_heat_type(array.dtype)
         self.__split = split
@@ -263,7 +263,7 @@ class DNDarray:
         the dtype follows the new shards."""
         if len(shards) != self.__comm.size:
             raise ValueError(f"expected {self.__comm.size} shards, got {len(shards)}")
-        self.__shards = list(shards)
+        self.__shards = _tagged(shards)
         self.__gshape = tuple(int(s) for s in gshape)
         self.__split = split
         self.__dtype = types.canonical_heat_type(shards[0].dtype)
@@ -281,7 +281,7 @@ class DNDarray:
         if resilience._ARMED:
             # the fault fires before the array changes (heat_tpu dndarray.py:505-509)
             resilience.check("collective.reshard")
-        self.__shards = _distribute(self.larray, axis, self.__comm)
+        self.__shards = _tagged(_distribute(self.larray, axis, self.__comm))
         self.__split = axis
         return self
 
@@ -440,16 +440,18 @@ class DNDarray:
         shards = [s.to(dtype.torch_type()) for s in self.__shards]
         if copy:
             return DNDarray(shards, self.__gshape, dtype, self.__split, self.__device, self.__comm)
-        self.__shards = shards
+        self.__shards = _tagged(shards)
         self.__dtype = dtype
         return self
 
     def numpy(self) -> np.ndarray:
         """The logical array as a host numpy array (reference
         dndarray.py:991-1003); bfloat16, which numpy lacks, comes back as
-        float32. A host read: telemetry counts it as a blocking sync."""
+        float32. A host read: telemetry counts it as a blocking sync, and the
+        watchdog guards it as ``sync:numpy``."""
         token = telemetry.record_blocking_sync("numpy") if telemetry._MODE else None
-        out = _host(self.larray)
+        with health_runtime.watch("sync:numpy"):
+            out = _host(self.larray)
         telemetry.end_blocking_sync(token)
         return out
 
@@ -462,7 +464,8 @@ class DNDarray:
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
         token = telemetry.record_blocking_sync("item") if telemetry._MODE else None
-        out = self.larray.item()
+        with health_runtime.watch("sync:item"):
+            out = self.larray.item()
         telemetry.end_blocking_sync(token)
         return out
 
@@ -614,7 +617,7 @@ class DNDarray:
         if split is None or self.__comm.size == 1:
             target = _owned(self.__shards[0])
             _put(target, DNDarray._unwrap_key(key, target.device), value)
-            self.__shards = _distribute(target, split, self.__comm)
+            self.__shards = _tagged(_distribute(target, split, self.__comm))
             return
         local = self._shardwise_key(key)
         if local is not None:
@@ -634,11 +637,11 @@ class DNDarray:
                     v = value.narrow(out_split, d, c).to(s.device) if isinstance(value, torch.Tensor) else value
                     _put(s.narrow(split, 0, c), local, v)
                 shards.append(s)
-            self.__shards = shards
+            self.__shards = _tagged(shards)
             return
         target = self.larray
         _put(target, DNDarray._unwrap_key(key, target.device), value)
-        self.__shards = _distribute(target, split, self.__comm)
+        self.__shards = _tagged(_distribute(target, split, self.__comm))
 
     def fill_diagonal(self, value) -> "DNDarray":
         """Fill the main diagonal in place (reference dndarray.py:913)."""
@@ -648,7 +651,7 @@ class DNDarray:
         if split is None:
             target = _owned(self.__shards[0])
             target.diagonal().fill_(value)
-            self.__shards = _distribute(target, None, self.__comm)
+            self.__shards = _tagged(_distribute(target, None, self.__comm))
             return self
         counts, displs = self.counts_displs()
         shards = []
@@ -656,7 +659,7 @@ class DNDarray:
             s = _owned(s)
             s.narrow(split, 0, c).diagonal(offset=d if split == 0 else -d).fill_(value)
             shards.append(s)
-        self.__shards = shards
+        self.__shards = _tagged(shards)
         return self
 
     # ------------------------------------------------------------------
@@ -891,6 +894,15 @@ def _owned(t: torch.Tensor) -> torch.Tensor:
     except AttributeError:
         shared = True
     return t.clone() if shared else t
+
+
+def _tagged(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The shards as a list, each attributed to ``dndarray`` in the memory
+    ledger: every store of a payload goes through here."""
+    shards = list(shards)
+    for s in shards:
+        memledger.tag(s, "dndarray")
+    return shards
 
 
 def _distribute(array: torch.Tensor, split: Optional[int], comm: MeshCommunication) -> List[torch.Tensor]:

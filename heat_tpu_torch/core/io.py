@@ -48,7 +48,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import factories, resilience, telemetry, types
+from . import factories, memledger, resilience, telemetry, types
 from .dndarray import DNDarray
 
 try:
@@ -191,7 +191,10 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
     ``convert(block, torch_dtype)`` makes it a tensor, which is padded to the
     shard's ``ceil(n/p)`` rows and moved to its device (the reference's
     per-device ingest, io.py:149-210). Each block read, the host copy out
-    of a memory map included, is retried at the ``io.read`` site."""
+    of a memory map included, is retried at the ``io.read`` site. The
+    memory ledger attributes each staged shard to ``io``, or to the
+    enclosing :func:`~.memledger.owner_scope` (a checkpoint restore's),
+    until the array that wraps it claims it."""
     dtype = types.canonical_heat_type(dtype)
     tdt = dtype.torch_type()
     gshape = tuple(int(s) for s in gshape)
@@ -210,7 +213,9 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
             pad = list(gshape)
             pad[split] = block - count
             local = torch.cat([local, local.new_zeros(pad)], dim=split)
-        shards.append(local.to(dev))
+        piece = local.to(dev)
+        memledger.tag(piece, memledger.current_owner() or "io")
+        shards.append(piece)
     if telemetry._MODE >= 2:
         telemetry.record_event("io", op="sharded_ingest", bytes=int(read_bytes), blocks=len(shards), split=split)
     return DNDarray(shards, gshape, dtype, split, device, comm)

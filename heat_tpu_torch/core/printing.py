@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import telemetry
+from . import health_runtime, telemetry
 from .communication import get_comm
 from .dndarray import _host
 
@@ -71,7 +71,8 @@ def __str__(dndarray) -> str:
     ``DNDarray.__str__`` and ``__repr__``. A host read: telemetry counts it
     as a blocking sync."""
     token = telemetry.record_blocking_sync("print") if telemetry._MODE else None
-    body = _format_data(dndarray, __PRINT_OPTIONS)
+    with health_runtime.watch("sync:print"):
+        body = _format_data(dndarray, __PRINT_OPTIONS)
     telemetry.end_blocking_sync(token)
     return f"DNDarray({body}, dtype=ht.{dndarray.dtype.__name__}, device={dndarray.device}, split={dndarray.split})"
 

@@ -22,6 +22,10 @@ site                     where it fires
 ``checkpoint.commit``    the manifest publication, a checkpoint's commit
 ``checkpoint.restore``   manifest and payload reads of verify and restore
 ``checkpoint.gc``        each retention or debris deletion
+``watchdog.stall``       an armed watchdog guard (``core/health_runtime``),
+                         which turns the fault into a real stall past its
+                         deadline; ``watchdog.stall:<site>`` targets one
+                         site (``watchdog.stall:sync:numpy``)
 =======================  ==================================================
 
 :func:`inject` arms a site for a block::

@@ -34,11 +34,20 @@ A :func:`span` measures host time and never synchronizes the device: work
 it enqueued may still run after it closes. ``utils.profiling.Timer`` and
 ``timed`` are the synchronized measurement.
 
+Three hooks join the runtime's other layers without this module importing
+them: ``core/memledger.py`` installs ``_MEM_HOOK`` (a throttled ledger
+sample at the dispatch, collective and checkpoint record seams) and
+``core/health_runtime.py`` installs ``_FLIGHT_HOOK`` (every typed event
+into the flight ring, at mode 1 too) and ``_SYNC_HOOK`` (every closed
+blocking sync into the latency histograms). :func:`reset` and
+:func:`scope` reset and scope their session state as well, and
+``report()`` carries their ``memory`` ledger and ``health`` blocks.
+
 Not here yet: the fusion recorder's program costs, cache, forcing,
-retrace, degradation and fused-collective blocks, the memory ledger, and
-the health, numerics, serving, elastic, autoscale and multi-process blocks
-of ``report()``. Their modules come with later parts of the port. The
-entry points the fusion recorder feeds (:func:`record_force`,
+retrace, degradation and fused-collective blocks, the memory budget and
+OOM forensics, and the numerics, serving, elastic, autoscale and
+multi-process blocks of ``report()``. Their modules come with later parts
+of the port. The entry points the fusion recorder feeds (:func:`record_force`,
 :func:`record_retrace`, :func:`record_async_dispatch`,
 :func:`record_fused_collective`, :func:`record_unfused`,
 :func:`record_degraded`) keep their signatures and record nothing until
@@ -147,6 +156,23 @@ _EVENT_CAP = int(os.environ.get("HEAT_TPU_TELEMETRY_EVENTS", "8192"))
 _DROP_WARNED = False
 
 _MODE_NAMES = {0: "off", 1: "on", 2: "verbose"}
+
+#: the memory ledger's sampling hook (``core/memledger.py`` installs its
+#: ``note`` at import): called at the dispatch, collective and checkpoint
+#: record seams, so the high watermark follows the events that change
+#: memory. None until the ledger is imported.
+_MEM_HOOK = None
+
+#: the flight recorder's hook (``core/health_runtime.py`` installs its ring
+#: append at import): called with every typed event of :func:`_note_event`,
+#: at mode 1 as well, where the verbose timeline stays empty. None while
+#: ``HEAT_TPU_FLIGHT=0``.
+_FLIGHT_HOOK = None
+
+#: the blocking-sync hook (``core/health_runtime.py``): called as
+#: ``_SYNC_HOOK(kind, cid, dur_s)`` when :func:`end_blocking_sync` closes a
+#: token, feeding the host-wait latency histograms.
+_SYNC_HOOK = None
 
 
 def active() -> bool:
@@ -324,8 +350,11 @@ def _cur() -> _State:
 
 def reset() -> None:
     """Clear every counter, span, event and completed scope of every active
-    state, and the ``utils.profiling`` timer registry with them (``report()``
-    joins it). The mode is kept; active scopes and spans keep recording."""
+    state, and with them the session state of the surfaces ``report()``
+    joins: the ``utils.profiling`` timer registry, the memory ledger's
+    watermark and the health layer's ring, histograms, SLO windows and
+    stall log. The mode and the other modules' settings are kept; active
+    scopes and spans keep recording."""
     global _DROP_WARNED
     _DROP_WARNED = False
     _GLOBAL.clear()
@@ -334,8 +363,11 @@ def reset() -> None:
             st.clear()
         _SCOPES.clear()
     from ..utils import profiling
+    from . import health_runtime, memledger
 
     profiling.reset()
+    memledger.reset()
+    health_runtime.reset()
 
 
 # ----------------------------------------------------------------------
@@ -356,10 +388,23 @@ def _emit(kind: str, **fields) -> dict:
 
 
 def _note_event(kind: str, **fields) -> Optional[dict]:
-    """Record one event on the verbose timeline; returns it, or None when
-    the timeline is off."""
+    """Record one event on the verbose timeline and, at any mode on, on the
+    flight ring once ``core/health_runtime.py`` has installed
+    ``_FLIGHT_HOOK``. Returns the (shared) event, or None when nothing
+    recorded it."""
     if _MODE >= 2:
-        return _emit(kind, **fields)
+        ev = _emit(kind, **fields)
+        if _FLIGHT_HOOK is not None:
+            _FLIGHT_HOOK(ev)
+        return ev
+    if _MODE and _FLIGHT_HOOK is not None:
+        ev = {"kind": kind, "ts": time.perf_counter()}
+        ev.update(fields)
+        stack = getattr(_TLS, "scopes", None)
+        if stack:
+            ev["scope"] = stack[-1].path
+        _FLIGHT_HOOK(ev)
+        return ev
     return None
 
 
@@ -387,16 +432,20 @@ def scope(name: str):
     into the enclosing scopes and the global state. Scopes nest (paths join
     as ``outer/inner``), the stack is per thread, and on exit the session is
     archived under ``report()["scopes"][path]`` (re-entry accumulates,
-    ``calls`` counts entries). Yields the path, or None when off."""
+    ``calls`` counts entries). The health layer's latency histograms are
+    scoped alongside. Yields the path, or None when off."""
     if not _MODE:
         yield None
         return
+    from . import health_runtime
+
     stack = _scope_stack()
     path = (stack[-1].path + "/" + str(name)) if stack else str(name)
     st = _State(path)
     stack.append(st)
     with _SCOPE_LOCK:
         _ACTIVE_SCOPE_STATES.append(st)
+    health_runtime._push_scope(path)
     try:
         yield path
     finally:
@@ -417,6 +466,7 @@ def scope(name: str):
                 acc.calls = 0
                 acc.wall_s = 0.0
             _merge_state(acc, st)
+        health_runtime._pop_scope(path)
 
 
 def _counter_blocks(st: _State) -> Dict[str, Any]:
@@ -524,10 +574,12 @@ def record_collective(
             rec["axes"][axis] = rec["axes"].get(axis, 0) + count
         if dtype is not None:
             rec["dtypes"][dtype] = rec["dtypes"].get(dtype, 0) + count
-    if _MODE >= 2:
-        _emit("collective", op=op, axis=axis, bytes=int(nbytes), dtype=dtype, count=count)
+    if _MODE >= 2 or _FLIGHT_HOOK is not None:
+        _note_event("collective", op=op, axis=axis, bytes=int(nbytes), dtype=dtype, count=count)
     for frame in _span_stack():
         frame.collectives[op] = frame.collectives.get(op, 0) + count
+    if _MEM_HOOK is not None:
+        _MEM_HOOK("collective")
 
 
 def _render_collectives(st: _State) -> Dict[str, Dict[str, Any]]:
@@ -573,8 +625,9 @@ def record_blocking_sync(kind: str, cid: Optional[int] = None) -> Optional[dict]
 
 def end_blocking_sync(token: Optional[dict]) -> None:
     """Close a token of :func:`record_blocking_sync`: stamp the wait's wall
-    ``dur`` and fold it into every active state's ``sync_wait`` aggregate
-    (count, total and max per kind, kept at mode 1 too)."""
+    ``dur``, fold it into every active state's ``sync_wait`` aggregate
+    (count, total and max per kind, kept at mode 1 too) and hand it to the
+    health layer's latency histograms through ``_SYNC_HOOK``."""
     if token is None:
         return
     dur = time.perf_counter() - token["ts"]
@@ -588,6 +641,8 @@ def end_blocking_sync(token: Optional[dict]) -> None:
         rec["total_s"] += dur
         if dur > rec["max_s"]:
             rec["max_s"] = dur
+    if _SYNC_HOOK is not None:
+        _SYNC_HOOK(kind, token.get("cid"), dur)
 
 
 def _render_async(st: _State) -> Dict[str, Any]:
@@ -674,6 +729,8 @@ def record_dispatch(engine: str, fused: bool) -> None:
         if rec is None:
             rec = st.dispatches[engine] = {"fused": 0, "eager": 0}
         rec[key] += 1
+    if _MEM_HOOK is not None:
+        _MEM_HOOK("dispatch")
 
 
 def dispatches() -> Dict[str, Dict[str, int]]:
@@ -767,6 +824,8 @@ def record_checkpoint(event: str, step: Optional[int] = None, detail: str = "") 
     for st in _states():
         st.checkpoint[event] = st.checkpoint.get(event, 0) + 1
     _note_event("checkpoint", event=event, step=step, detail=detail)
+    if _MEM_HOOK is not None:
+        _MEM_HOOK("checkpoint")
 
 
 def checkpoint_events() -> Dict[str, int]:
@@ -863,17 +922,27 @@ def spans() -> Dict[str, Dict[str, Any]]:
 # report
 # ----------------------------------------------------------------------
 def _memory_block() -> Dict[str, Any]:
-    """The memory picture: per-device allocator bytes and this process's
-    host memory. It never initializes CUDA: the device stats are read only
-    once CUDA is initialized, so ``report()`` (and the metrics sink's
-    thread) can never be the first code to touch the card."""
+    """The memory picture: per-device allocator bytes, this process's host
+    memory, the owner-attributed ledger (``core/memledger.py``) with its
+    high watermark, and the live buffers of the default mesh once that mesh
+    exists (``utils.health.memory_report``). It never initializes CUDA: the
+    device stats are read only once CUDA is initialized, so ``report()``
+    (and the metrics sink's thread) can never be the first code to touch
+    the card. Nor does it walk the heap: on the CPU its ledger holds the
+    tagged storages, and ``memledger.ledger()`` adds the foreign tensors."""
     import torch
 
-    from ..utils import profiling
+    from ..utils import health, profiling
+    from . import communication, memledger
 
-    out: Dict[str, Any] = {"device": {}, "host": profiling.host_memory_stats()}
+    out: Dict[str, Any] = {"device": {}, "host": profiling.host_memory_stats(), "live_buffers": {}}
     if torch.cuda.is_initialized():
         out["device"] = profiling.device_memory_stats()
+    out["ledger"] = memledger._scan(top=5)
+    out["watermark"] = memledger.watermark()
+    comm = communication._built_comm()
+    if comm is not None:
+        out["live_buffers"] = health.memory_report(comm)
     return out
 
 
@@ -888,6 +957,9 @@ def report(*, _state: Optional[_State] = None) -> Dict[str, Any]:
     doc.update(_counter_blocks(st))
     doc["scopes"] = scope_reports()
     doc["memory"] = _memory_block()
+    from . import health_runtime
+
+    doc["health"] = health_runtime.health_block(global_view=_state is not None)
     from ..utils import profiling
 
     doc["timers"] = profiling.report()
@@ -956,13 +1028,17 @@ _INSTANT_KINDS = {
     "checkpoint": ("checkpoint", lambda ev: "checkpoint:" + str(ev.get("event"))),
     "checkpoint_phase": ("checkpoint", lambda ev: "ckpt:" + str(ev.get("phase"))),
     "nonfinite": ("errstate", lambda ev: "nonfinite:" + str(ev.get("where"))),
+    "stall": ("health", lambda ev: "stall:" + str(ev.get("site"))),
+    "slo_breach": ("health", lambda ev: "slo:" + str(ev.get("metric"))),
+    "flight_dump": ("health", lambda ev: "flight_dump:" + str(ev.get("reason"))),
 }
 
 
 def trace_events(evs: Optional[List[dict]] = None, pid: Optional[int] = None) -> List[dict]:
     """The timeline as Chrome trace-event dicts: spans and timers as B/E
-    pairs, blocking syncs with their duration as X events, everything else
-    as thread-scoped instants; one process row, tid 0."""
+    pairs, blocking syncs with their duration as X events, memory samples
+    as counter (C) tracks, everything else as thread-scoped instants; one
+    process row, tid 0."""
     if evs is None:
         evs = list(_cur().events)
     if pid is None:
@@ -995,6 +1071,16 @@ def trace_events(evs: Optional[List[dict]] = None, pid: Optional[int] = None) ->
                 out.append(dict(common, ph="X", cat="sync", name=name, dur=_us(float(ev["dur"])), args=args_of(ev, "dur")))
             else:
                 out.append(dict(common, ph="i", s="t", cat="sync", name=name, args=args_of(ev)))
+        elif kind == "memory":
+            # counter ("C") tracks: Perfetto draws each args key as a stacked
+            # series, one track for the owner split of the live bytes and one
+            # for the high watermark
+            series = {"total": int(ev.get("total", 0))}
+            for owner, nbytes in (ev.get("by_owner") or {}).items():
+                series[str(owner)] = int(nbytes)
+            out.append(dict(common, ph="C", cat="memory", name="live_bytes", args=series))
+            out.append(dict(common, ph="C", cat="memory", name="live_bytes_watermark",
+                            args={"watermark": int(ev.get("watermark", 0))}))
         else:
             cat, name_of = _INSTANT_KINDS.get(kind, ("event", lambda e, k=kind: str(k)))
             out.append(dict(common, ph="i", s="t", cat=cat, name=name_of(ev), args=args_of(ev)))

@@ -9,12 +9,16 @@ exported Chrome/Perfetto trace files:
     $ python -m heat_tpu_torch.telemetry show telemetry.json
     $ python -m heat_tpu_torch.telemetry diff before.json after.json
     $ python -m heat_tpu_torch.telemetry validate-trace trace.json
+    $ python -m heat_tpu_torch.telemetry memory                 # this process's ledger
+    $ python -m heat_tpu_torch.telemetry memory report.json --json
+    $ python -m heat_tpu_torch.telemetry health                 # flight, watchdog, SLO
+    $ python -m heat_tpu_torch.telemetry health flight_dump.json
 
 The state lives in :mod:`heat_tpu_torch.core.telemetry`; this module proxies
 its names (``heat_tpu_torch.telemetry.report`` and the rest) so that the
-command line has a stable ``-m`` entry point. The reference's ``memory``,
-``health``, ``numerics``, ``sessions``, ``analyze`` and ``ops`` commands come
-with the modules they read.
+command line has a stable ``-m`` entry point. The reference's ``numerics``,
+``sessions``, ``analyze`` and ``ops`` commands come with the modules they
+read.
 """
 
 from __future__ import annotations
@@ -135,6 +139,136 @@ def _show(doc: Dict[str, Any], out) -> None:
 
 
 # ----------------------------------------------------------------------
+# memory: the live ledger and the watermark
+# ----------------------------------------------------------------------
+def _memory_doc(report_path: Optional[str], top: int) -> Dict[str, Any]:
+    """The memory picture to show: a saved report's ``memory`` block when a
+    path is given, else this process's live ledger."""
+    if report_path is not None:
+        doc = _load(report_path)
+        return {"source": report_path, "memory": doc.get("memory") or {}}
+    from heat_tpu_torch.core import memledger
+
+    return {"source": "<live>", "memory": {"ledger": memledger.ledger(top=top), "watermark": memledger.watermark()}}
+
+
+def _show_memory(doc: Dict[str, Any], out) -> None:
+    mem = doc.get("memory") or {}
+    led = mem.get("ledger") or {}
+    print(f"memory ({doc.get('source', '?')}):", file=out)
+    if led:
+        print(
+            f"  live: {_fmt_bytes(led.get('total_bytes', 0))} over "
+            f"{led.get('buffers', led.get('buffer_count', 0))} buffer(s)",
+            file=out,
+        )
+        for owner, nbytes in sorted((led.get("by_owner") or {}).items(), key=lambda kv: -kv[1]):
+            print(f"    {owner:<14} {_fmt_bytes(nbytes)}", file=out)
+        for rec in led.get("top") or []:
+            print(
+                f"    top: {_fmt_bytes(rec.get('nbytes', 0)):<10} "
+                f"{rec.get('owner', '?'):<14} {rec.get('dtype', '?')}"
+                f"{rec.get('shape', [])}",
+                file=out,
+            )
+    wm = mem.get("watermark") or {}
+    if wm:
+        print(
+            f"  watermark: {_fmt_bytes(wm.get('bytes', 0))} "
+            f"(event {wm.get('event')}, {wm.get('samples', 0)} samples) "
+            f"{wm.get('by_owner', {})}",
+            file=out,
+        )
+    dev = mem.get("device") or {}
+    for name, stats in sorted(dev.items()):
+        line = ", ".join(f"{k}={_fmt_bytes(v)}" for k, v in sorted(stats.items()))
+        print(f"  {name}: {line}", file=out)
+
+
+# ----------------------------------------------------------------------
+# health: the flight recorder, the watchdog and the latency picture
+# ----------------------------------------------------------------------
+def _health_doc(report_path: Optional[str]) -> Dict[str, Any]:
+    """The health picture to show: a saved report's (or a flight dump's)
+    ``health`` block when a path is given, else this process's live block
+    (module state: asking for health initializes nothing)."""
+    if report_path is not None:
+        doc = _load(report_path)
+        blk = doc.get("health") or {}
+        if not blk and "watchdog" in doc:  # a bare bundle without the block
+            blk = {"watchdog": doc.get("watchdog") or {}}
+        return {"source": report_path, "health": blk, "stalls": doc.get("stalls") or []}
+    from heat_tpu_torch.core import health_runtime
+
+    return {"source": "<live>", "health": health_runtime.health_block(global_view=True), "stalls": health_runtime.stalls()}
+
+
+def _ms(v) -> str:
+    try:
+        return f"{float(v) * 1e3:.2f}ms"
+    except (TypeError, ValueError):
+        return "?"
+
+
+def _show_health(doc: Dict[str, Any], out) -> None:
+    blk = doc.get("health") or {}
+    print(f"health ({doc.get('source', '?')}):", file=out)
+    fl = blk.get("flight") or {}
+    if fl:
+        state = "armed" if fl.get("enabled") else "DISARMED"
+        dropped = f", {fl['dropped']} dropped" if fl.get("dropped") else ""
+        last = f"  last dump: {fl['last_dump']}" if fl.get("last_dump") else ""
+        print(
+            f"  flight: {state}, {fl.get('events', 0)}/{fl.get('cap', 0)} "
+            f"events{dropped}, {fl.get('dumps', 0)} dump(s){last}",
+            file=out,
+        )
+    wd = blk.get("watchdog") or {}
+    if wd:
+        state = "armed" if wd.get("enabled") else "DISARMED"
+        print(
+            f"  watchdog: {state}, deadline {wd.get('deadline_ms', 0)}ms "
+            f"policy={wd.get('policy')} arms={wd.get('arms', 0)} "
+            f"trips={wd.get('trips', 0)}",
+            file=out,
+        )
+    for st in (doc.get("stalls") or [])[-3:]:
+        print(
+            f"  STALL: {st.get('site')} waited {st.get('waited_s')}s "
+            f"(deadline {st.get('deadline_s')}s) program={st.get('program')} "
+            f"pending={[r.get('cid') for r in st.get('pending_roots') or []]}",
+            file=out,
+        )
+    for metric, title in (("sync", "blocking-sync host wait"), ("dispatch", "dispatch→done"), ("compile", "compile time")):
+        table = blk.get(metric) or {}
+        rows = [(k, r) for k, r in table.items() if r.get("count")]
+        if not rows:
+            continue
+        print(f"  {title}:", file=out)
+        rows.sort(key=lambda kv: (kv[0] != "*", -kv[1].get("count", 0)))
+        for key, rec in rows[:12]:
+            print(
+                f"    {key:<20} x{rec.get('count', 0):<6} "
+                f"p50 {_ms(rec.get('p50_s'))}  p90 {_ms(rec.get('p90_s'))}  "
+                f"p99 {_ms(rec.get('p99_s'))}  max {_ms(rec.get('max_s'))}",
+                file=out,
+            )
+    slo = blk.get("slo") or {}
+    for metric in ("sync", "dispatch", "compile"):
+        rec = slo.get(metric) or {}
+        if rec.get("limit_ms") is None:
+            continue
+        ratio = rec.get("ok_ratio")
+        print(
+            f"  SLO {metric}: limit {rec['limit_ms']}ms, {rec.get('recent', 0)} in "
+            f"window, {rec.get('window_breaches', 0)} breach(es)"
+            + (f", ok_ratio {ratio}" if ratio is not None else "")
+            + f", {rec.get('breaches_total', 0)} total",
+            file=out,
+        )
+
+
+# ----------------------------------------------------------------------
 # diff
 # ----------------------------------------------------------------------
 def _flatten_numeric(doc, prefix="") -> Dict[str, float]:
@@ -187,6 +321,23 @@ def main(argv: Optional[List[str]] = None, out=None) -> int:
     p_diff = sub.add_parser("diff", help="diff two report_json artifacts (b - a)")
     p_diff.add_argument("a")
     p_diff.add_argument("b")
+    p_mem = sub.add_parser(
+        "memory",
+        help="the live-buffer ledger and the watermark (from a report_json artifact, or live from this process)",
+    )
+    p_mem.add_argument("report", nargs="?", default=None, help="a report_json artifact; omitted = this process, live")
+    p_mem.add_argument("--json", action="store_true", help="emit JSON instead of text")
+    p_mem.add_argument("--top", type=int, default=5, help="top-K buffers shown")
+    p_health = sub.add_parser(
+        "health",
+        help="runtime health: flight recorder, watchdog and stalls, latency p50/p90/p99 and SLO gauges "
+        "(from a report_json artifact or a flight-dump bundle, or live from this process)",
+    )
+    p_health.add_argument(
+        "report", nargs="?", default=None,
+        help="a report_json artifact or flight-dump bundle; omitted = this process's live health block",
+    )
+    p_health.add_argument("--json", action="store_true", help="emit JSON instead of text")
     p_val = sub.add_parser("validate-trace", help="check a Chrome/Perfetto trace-event JSON file")
     p_val.add_argument("trace", help="path to an export_trace/merge_traces output")
     p_val.add_argument(
@@ -206,6 +357,13 @@ def main(argv: Optional[List[str]] = None, out=None) -> int:
         return 0
     if args.cmd == "diff":
         _diff(_load(args.a), _load(args.b), out)
+        return 0
+    if args.cmd in ("memory", "health"):
+        doc = _memory_doc(args.report, top=args.top) if args.cmd == "memory" else _health_doc(args.report)
+        if args.json:
+            print(json.dumps(_core._jsonable(doc), indent=2, sort_keys=True), file=out)
+        else:
+            (_show_memory if args.cmd == "memory" else _show_health)(doc, out)
         return 0
     problems = _core.validate_trace(args.trace, cross_host=args.cross_host)
     if problems:

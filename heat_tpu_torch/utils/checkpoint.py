@@ -61,7 +61,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import io, resilience, telemetry
+from ..core import io, memledger, resilience, telemetry
 
 __all__ = [
     "CheckpointCorruptError",
@@ -655,7 +655,10 @@ def _restore_dndarray(directory: str, entry: dict, template) -> Any:
     if out_split is None:
         full = convert(resilience.call_with_retries("checkpoint.restore", read_block, tuple(slice(0, s) for s in gshape)))
         return _wrap(full.to(comm.devices[0]), None, device, comm)
-    return io._ingest(read_block, gshape, dtype, int(out_split) % len(gshape), device, comm, convert=convert)
+    with memledger.owner_scope("checkpoint"):
+        # the staged shards count under "checkpoint" in the memory ledger
+        # until the restored array claims them
+        return io._ingest(read_block, gshape, dtype, int(out_split) % len(gshape), device, comm, convert=convert)
 
 
 def _restore_manifest(directory: str, step: int, target: Any) -> Any:

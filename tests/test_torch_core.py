@@ -4,6 +4,7 @@ boundary (the port never imports jax or heat_tpu). CPU only."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -289,6 +290,7 @@ FORBIDDEN = ("jax", "jaxlib", "heat_tpu", "flax", "optax", "ml_dtypes")
 MODULES = (
     "_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset",
     "core.version", "core.telemetry", "core.resilience", "utils.profiling", "telemetry",
+    "core.memledger", "core.health_runtime", "utils.health",
 )
 
 
@@ -305,6 +307,17 @@ def test_port_imports_neither_jax_nor_heat_tpu():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+@pytest.mark.parametrize("module", ["core/memledger.py", "core/health_runtime.py", "utils/health.py"])
+def test_runtime_modules_read_only_the_references_knobs(module):
+    """Every HEAT_TPU_* variable a runtime module of the port reads is one
+    the reference module of the same name reads: no knob of the port's own."""
+    mine = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu_torch" / module).read_text()))
+    theirs = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu" / module).read_text()))
+    assert mine <= theirs, sorted(mine - theirs)
+    if module != "utils/health.py":
+        assert mine
 
 
 def test_importing_the_port_loads_no_jax():

@@ -53,10 +53,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: report() blocks of modules the port has not yet: the fusion recorder's
 #: (cache, programs, fused collectives, forcing points, unfused reasons,
-#: retraces, degradations), health, numerics, serving, elastic, autoscale
-#: and multi-process
+#: retraces, degradations), numerics, serving, elastic, autoscale and
+#: multi-process
 FUSION_BLOCKS = {"fusion_cache", "programs", "fused_collectives", "forcing_points", "unfused_reasons", "retraces", "degraded"}
-LATER_BLOCKS = FUSION_BLOCKS | {"health", "numerics", "serving", "elastic", "autoscale", "multihost"}
+LATER_BLOCKS = FUSION_BLOCKS | {"numerics", "serving", "elastic", "autoscale", "multihost"}
 
 
 @pytest.fixture(autouse=True)
