@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero. Every phase runs as a user
+gets the package, with the fusion recorder on (its default): each path's
+seconds, program builds, forces and degraded forces are printed, and a
+degraded force fails it. Phases 9, 12 and 13, where the array engines do
+most of the work, run a second time with the recorder off, the compared
+leg; phase 18 holds the recorder itself.
 
 1. build every CUDA kernel of the package from ``heat_tpu_torch/csrc`` and
    print the registers and spills the compiler reports for the flash and
@@ -161,12 +166,13 @@ Phases, in order; any failure exits non-zero:
    kernel, the four-shard cdist the pairwise kernel): with the table on the
    card, ``device_memory_stats`` and ``report()["memory"]``; phase 3's fit
    with telemetry off, at mode 1 and verbose, 30 Lloyd launches each and
-   the results equal bit for bit; the 10-op eager chain's ops/s at
-   1,000 x 16 and on the table in the three modes, mode 1 at least 0.9 of
-   off at the small size; a warm reduction chain under
-   ``set_sync_debug_mode("error")`` with telemetry verbose, and under
-   ``errstate("warn")`` one sync per checked op; a NaN on the card raising
-   ``NonFiniteError``; on four shards of the card the symmetric ring
+   the results equal bit for bit; the 10-op chain's ops/s at 1,000 x 16
+   (eager there by the card's default) and on the table (recorded) in the
+   three modes, mode 1 at least 0.9 of off at the small size; a warm
+   reduction chain under ``set_sync_debug_mode("error")`` with telemetry
+   verbose, and under ``errstate("warn")`` one sync per check (per forced
+   chain with the recorder on, per op with it off); a NaN on the card
+   raising ``NonFiniteError``; on four shards of the card the symmetric ring
    ``cdist``, ``qr`` of a tall split-0 matrix, one DASO step of ResNet-50
    and ring attention, each with ``collective_counts()`` equal to a
    counting mesh's, the ring's ppermute bytes against its shards'; one
@@ -177,7 +183,9 @@ Phases, in order; any failure exits non-zero:
    fault every second attempt on the table's ``.npy`` saves, a hard
    ``checkpoint.commit`` fault on ResNet-50's second checkpoint (the first
    restores bit for bit) and a ``collective.allreduce`` fault on a
-   four-shard sum (the next call equal to the fault-free one); the metrics
+   four-shard sum with the recorder off (the next call equal to the
+   fault-free one; a recorded sum combines inside its program and passes
+   no site); the metrics
    sink in a subprocess, whose ``report()`` leaves CUDA uninitialized;
 17. memory and health on the card (no kernel of its own; the fit runs the
    Lloyd kernel, the LM step the flash kernel): phase 3's fit with the
@@ -198,9 +206,37 @@ Phases, in order; any failure exits non-zero:
    ``memory_report()`` against the ledger; a fresh process whose
    ``report()``, ``ledger()`` and ``ht.flight.health_block()`` leave CUDA
    uninitialized;
-18. print the phase-9 to 17 numbers with the card, the card's name
-   and power limit, one JSON line of per-kernel numbers, and the result
-   line ``{"ok": true, "device": {...}}`` last.
+18. the fusion recorder on the card (``core/fusion.py``: each recorded
+   chain one program, Inductor over its GraphModule; no kernel of its own,
+   the fit runs the Lloyd kernel): heat_tpu's 10-op chain at 1,000 x 16
+   and on BASELINE config 3's table (two 10,000,000 x 16 float32
+   operands), fused and with the recorder off: the first build's seconds,
+   ops/s with a host read per chain, device ms per chain by CUDA events
+   beside the bytes bounds of the two (the fused chain reads its two
+   operands once, the eager one moves each op's operands and result);
+   one fused dispatch per chain, one build per signature over 100 warm
+   chains and no Dynamo graph added, fused against eager and the compiled
+   module against its plain GraphModule element by element (in units of
+   u times each element's first-order error scale) and on the sum, within
+   bounds that a bfloat16 control of the chain exceeds; four
+   shards of the card with NaN in the padding against one shard; no host
+   sync before the read under ``set_sync_debug_mode("error")`` and at most
+   one at it; phase 3's fit with the recorder on (30 Lloyd launches)
+   against the fit with it off; ``fusion.compile``, ``fusion.execute`` and
+   ``memory.exhausted`` injected, each degrading bit for bit to the eager
+   result with its signature quarantined, its flight dump validated and
+   the OOM forensic written; a budget under the chain's static peak
+   raising ``MemoryBudgetExceeded`` with the chain left pending; the
+   report's fusion blocks, the dispatch and compile histograms and the
+   exported trace's dispatch-to-sync pairs; ``degraded`` 0 in every step
+   that injected nothing (these steps record at every size); then the
+   chain's ops/s over sizes from 1,000 x 16 to 10^7 x 16, recorded, eager
+   and as the card's default chooses, and a one-op program run without an
+   Inductor build, equal to the eager op bit for bit;
+19. print the phase-9 to 18 numbers with the card, the recorder-off legs
+   of phases 9, 12 and 13, each path's seconds and program builds, the
+   card's name and power limit, one JSON line of per-kernel numbers, and
+   the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs CUDA and the package beside it, and fails without either.
 """
@@ -309,15 +345,32 @@ def _unit(dtype) -> float:
     return 2.0**-53 if dtype == torch.float64 else 2.0**-24
 
 
+def _dispatched(out):
+    """``out`` with every pending array in it forced: dispatched to the card,
+    not read. With the recorder on, a call of the array library returns a
+    recorded chain, and a timing has to hold the chain's run."""
+    from heat_tpu_torch.core import fusion
+
+    if isinstance(out, (tuple, list)):
+        for o in out:
+            _dispatched(o)
+    elif isinstance(out, dict):
+        for o in out.values():
+            _dispatched(o)
+    elif fusion.is_deferred(out):
+        out.shards
+    return out
+
+
 def _time_ms(fn, reps: int) -> float:
     import torch
 
-    fn()
+    _dispatched(fn())
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        _dispatched(fn())
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -977,7 +1030,7 @@ def _time_once_ms(fn) -> float:
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    fn()
+    _dispatched(fn())
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop)
@@ -1369,12 +1422,12 @@ def _median_ms(fn, reps: int = MOMENT_REPS) -> float:
     """Warm median of one call, CUDA events around each."""
     import torch
 
-    fn()
+    _dispatched(fn())
     times = []
     for _ in range(reps):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        _dispatched(fn())
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
@@ -1420,7 +1473,7 @@ def baseline_moments_phase(ht) -> dict:
     results = {}
     for name, fn in (("mean", ht.mean), ("std", ht.std)):
         for axis in (None, 0, 1):
-            fn(x, axis)
+            _dispatched(fn(x, axis))
             times = []
             for _ in range(MOMENT_REPS):
                 start = time.perf_counter()
@@ -1625,7 +1678,7 @@ def _timed(fn):
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    out = fn()
+    out = _dispatched(fn())
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
@@ -2075,7 +2128,7 @@ def _time_step(fn) -> float:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    _dispatched(fn())
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
 
@@ -4593,63 +4646,82 @@ def overhead_phase(ht, tel, x) -> dict:
 
 
 def sync_phase(ht, tel, res, x) -> dict:
-    """(c) No sync added: a warm reduction chain on one and on four shards
-    under ``set_sync_debug_mode("error")`` with telemetry verbose; under
-    ``errstate("warn")`` the syncs counted with the mode at "warn", one per
-    checked op; a NaN made on the card raises under ``"raise"``."""
+    """(c) No sync added: a warm reduction chain on one and on four shards,
+    forced (dispatched, not read) under ``set_sync_debug_mode("error")``
+    with telemetry verbose; under ``errstate("warn")`` the syncs counted
+    with the mode at "warn", one per check: with the recorder on one per
+    forced chain, with it off one per op; a NaN made on the card raises
+    under ``"raise"`` at the chain's force, and with the recorder off at
+    the op."""
     import warnings
 
     import torch
 
+    from heat_tpu_torch.core import fusion
     from heat_tpu_torch.core.communication import MeshCommunication
 
     print("phase runtime: a warm reduction chain under set_sync_debug_mode('error') with telemetry verbose; "
-          "errstate('warn') under 'warn'; a NaN on the card under errstate('raise')", flush=True)
+          "errstate('warn') under 'warn'; a NaN on the card under errstate('raise'); recorder on and off",
+          flush=True)
     x4 = ht.array(x.larray[:1_000_003], split=0, comm=MeshCommunication([torch.device("cuda", 0)] * RT_P))
 
     def chain(z):
-        return ht.sum(ht.abs(z * 2.0 - 1.0), axis=0)
+        return ht.sum(ht.abs(z * 2.0 - 1.0), axis=0).shards  # forced: dispatched, not read
 
-    tel.set_mode(2)
-    tel.reset()
-    chain(x), chain(x4)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        with tel.span("chain"):
-            chain(x)
-            chain(x4)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    out = {"no_sync_events": len(tel.events())}
-    tel.set_mode(1)
-    tel.reset()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            with res.errstate(nonfinite="warn"):
-                chain(x)
-                chain(x4)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    out["checked_ops"] = sum(rec["eager"] for rec in tel.dispatches().values())
-    out["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
-    tel.reset()
-    z = ht.zeros(RT_SMALL, split=0) - 1.0
-    raised = False
-    with res.errstate(nonfinite="raise"):
+    out = {}
+    default = fusion._EAGER_BELOW_BYTES
+    for leg in ("on", "off"):
+        was = fusion.set_enabled(leg == "on")
+        fusion._EAGER_BELOW_BYTES = 0  # the recorder at every size: its checks are what this leg holds
         try:
-            ht.log(z)
-        except res.NonFiniteError as exc:
-            raised, out["nonfinite_message"] = True, str(exc)
-    out["nonfinite_counts"] = tel.nonfinite_counts()
-    print(f"  no sync under 'error' ({out['no_sync_events']} timeline events); under errstate('warn') "
-          f"{out['syncs']} syncs for {out['checked_ops']} checked ops; NaN raised NonFiniteError: {raised}, "
-          f"nonfinite_counts {out['nonfinite_counts']}", flush=True)
-    if out["syncs"] != out["checked_ops"] or not raised or out["nonfinite_counts"] != {"eager": 1}:
-        raise AssertionError("errstate on the card did not check each op with one sync, or missed the NaN")
+            tel.set_mode(2)
+            tel.reset()
+            chain(x), chain(x4)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with tel.span("chain"):
+                    chain(x)
+                    chain(x4)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            rec = {"no_sync_events": len(tel.events())}
+            tel.set_mode(1)
+            tel.reset()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    with res.errstate(nonfinite="warn"):
+                        chain(x)
+                        chain(x4)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            rec["checks"] = sum(r["eager"] for r in tel.dispatches().values()) + sum(
+                fp["count"] for fp in tel.forcing_points().values())
+            rec["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+            tel.reset()
+            z = ht.zeros(RT_SMALL, split=0) - 1.0
+            raised = False
+            with res.errstate(nonfinite="raise"):
+                try:
+                    ht.log(z).shards
+                except res.NonFiniteError as exc:
+                    raised, rec["nonfinite_message"] = True, str(exc)
+            rec["nonfinite_counts"] = tel.nonfinite_counts()
+        finally:
+            fusion.set_enabled(was)
+            fusion._EAGER_BELOW_BYTES = default
+        out[leg] = rec
+        print(f"  recorder {leg}: no sync under 'error' ({rec['no_sync_events']} timeline events); under "
+              f"errstate('warn') {rec['syncs']} syncs for {rec['checks']} checks; NaN raised NonFiniteError: "
+              f"{raised}, nonfinite_counts {rec['nonfinite_counts']}", flush=True)
+        where = "force" if leg == "on" else "eager"
+        if not (rec["syncs"] == rec["checks"] == (2 if leg == "on" else 8) and raised
+                and rec["nonfinite_counts"] == {where: 1}):
+            raise AssertionError(f"recorder {leg}: errstate on the card did not check each "
+                                 f"{'chain' if leg == 'on' else 'op'} with one sync, or missed the NaN")
     return out
 
 
@@ -4830,6 +4902,7 @@ def runtime_faults_phase(ht, tel, res, x, tmp: str) -> dict:
 
     import torch
 
+    from heat_tpu_torch.core import fusion
     from heat_tpu_torch.core.communication import MeshCommunication
 
     card = torch.device("cuda", 0)
@@ -4877,20 +4950,30 @@ def runtime_faults_phase(ht, tel, res, x, tmp: str) -> dict:
     shutil.rmtree(directory, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # the collective.allreduce site is the mesh verb's, which the eager
+    # engine calls: a recorded sum combines its partials inside its program
+    # and passes no site
     x4 = ht.array(x.larray, split=0, comm=MeshCommunication([card] * RT_P))
-    want = ht.sum(x4, axis=0).larray.clone()
     faulted = False
-    with res.inject("collective.allreduce"):
-        try:
-            ht.sum(x4, axis=0)
-        except res.FaultInjected:
-            faulted = True
-    out["allreduce"] = {"raised": faulted, "next_equal": torch.equal(ht.sum(x4, axis=0).larray, want)}
-    del x4
+    with fusion.disabled():
+        want = ht.sum(x4, axis=0).larray.clone()
+        with res.inject("collective.allreduce"):
+            try:
+                ht.sum(x4, axis=0)
+            except res.FaultInjected:
+                faulted = True
+        next_equal = torch.equal(ht.sum(x4, axis=0).larray, want)
+    with res.inject("collective.allreduce") as spec:
+        recorded = ht.sum(x4, axis=0)
+        was_recorded = fusion.is_deferred(recorded)
+        recorded.larray
+    out["allreduce"] = {"raised": faulted, "next_equal": next_equal, "recorded": was_recorded,
+                        "recorded_fired": spec.fired}
+    del x4, recorded
     print(f"  {json.dumps(out)}", flush=True)
     if not (out["io"]["equal"] and out["io"]["fired"] == 1 and out["io"]["io_retries"] == {"io.write": 1}
             and raised and out["checkpoint"]["latest_step"] == 1 and out["checkpoint"]["restored_state_diff"] == 0.0
-            and faulted and out["allreduce"]["next_equal"]):
+            and faulted and out["allreduce"]["next_equal"] and out["allreduce"]["recorded"] and out["allreduce"]["recorded_fired"] == 0):
         raise AssertionError("an injected fault on the card did not recover as stated")
     return out
 
@@ -5331,6 +5414,651 @@ def health_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the fusion recorder on the card (phase 18): no kernel of its own. A
+# recorded chain is one program: its GraphModule through torch.compile
+# (Inductor), built at the first force of its signature.
+# ---------------------------------------------------------------------------
+FU_WARM = 100  # warm chains of one signature: no build, no Dynamo graph added
+FU_REPS = 20  # chains per CUDA-event timing
+FU_P = 4  # shards of the card for the ragged chain
+FU_RAGGED = (1_000_003, 16)  # 4 shards of 250,001 rows: one padding row
+# Fused against eager, and the compiled program against its plain module:
+# * element by element, on h (the chain before its sum), in units of
+#   u = 2^-24 times each element's first-order error scale (_fu_scale: the
+#   rounding of each op carried through the chain, the one sum that can
+#   cancel included): a float32 implementation of the chain lies within 2
+#   of the exact value (1.996 measured for ATen's on 10^6 elements against
+#   float64, on the CPU), so two lie within FU_ULPS = 4 of each other; the
+#   bfloat16 control lies ~1.6e5 away;
+# * on the sum S = sum(h): |S_f - S_e| <= FU_SUM_TOL sum|h|. Elementwise
+#   differences of a few u and the two reductions' orders (ATen's tree,
+#   Inductor's split reduction) measured 0 at both sizes on an H100; the
+#   bfloat16 control measured 7.486e-5 at 1,000 x 16 and 4.301e-5 on the
+#   table, so the bound sits 4.3x under it: a sum that lost a term or ran
+#   in a lower precision shows.
+FU_SUM_TOL = 1e-5
+FU_ULPS = 4
+#: rows of the sweep of the 10-op chain over sizes (x 16 float32, two operands)
+FU_SWEEP_ROWS = (1_000, 10_000, 100_000, 300_000, 1_000_000, 3_000_000, 10_000_000)
+#: the eager chain's memory traffic, in operand-sized units (reads + writes)
+#: per op: a+b, *2, exp, -b, abs, +a, abs, sqrt, +1, /, *b, then the sum
+#: reading h once
+FU_EAGER_UNITS = (3, 2, 2, 3, 2, 3, 2, 2, 2, 3, 3, 1)
+
+
+def _fu_nine(ht, a, b):
+    """The 10-op chain (tests/test_telemetry.py:28-38) before its sum."""
+    c = (a + b) * 2.0
+    c = ht.exp(c)
+    c = c - b
+    d = ht.abs(c)
+    e = d + a
+    f = ht.sqrt(ht.abs(e))
+    g = f / (d + 1.0)
+    return g * b
+
+
+def _fu_bounds(n: int, f: int) -> dict:
+    """The least device time of the chain, fused and eager: bytes over the
+    card's memory rate (the operations, ~20 per element, are far under the
+    float32 rate)."""
+    unit = n * f * 4
+    fused = 2 * unit + 4  # a and b read once, the scalar written
+    eager = sum(FU_EAGER_UNITS) * unit + 4
+    return {
+        "fused_bytes": fused, "eager_bytes": eager,
+        "fused_bound_ms": fused / HBM_BYTES_PER_S * 1e3, "eager_bound_ms": eager / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def _fu_nine_torch(a, b):
+    """The chain before its sum in plain torch: the lower-precision control."""
+    c = ((a + b) * 2.0).exp() - b
+    d = c.abs()
+    f = (d + a).abs().sqrt()
+    return f / (d + 1.0) * b
+
+
+def _fu_scale(a, b):
+    """Per element, the size of the chain's first-order rounding error in
+    units of u = 2^-24, in float64 from its float32 operands: exp's result
+    E = e^(2(a + b)) carries an error of ~E (1 + 2|a + b|) u, c = E - b
+    adds |b|; e = |c| + a, which can cancel, adds |a|; the square root
+    divides e's error by 2 sqrt|e|; g = f / (|c| + 1) and h = g b pass the
+    errors on and each add one rounding of their result."""
+    a, b = a.double(), b.double()
+    big = ((a + b) * 2.0).exp()
+    c = big - b
+    d = c.abs()
+    e = d + a
+    f = e.abs().sqrt()
+    m_c = big * (1.0 + 2.0 * (a + b).abs()) + b.abs()
+    h = f / (d + 1.0) * b
+    return b.abs() * ((m_c + a.abs()) / (2.0 * f * (d + 1.0)) + f * m_c / (d + 1.0) ** 2) + h.abs()
+
+
+def _fu_ulps(got, want, scale) -> float:
+    """The largest |got - want| over all elements in units of u times the
+    element's error scale (:func:`_fu_scale`): a few for two float32
+    implementations of the chain, ~2^16 for a bfloat16 one."""
+    import torch
+
+    worst = 0.0
+    for g, w, sc in zip(got, want, scale):
+        # an element with b = 0 has h = 0 and a scale of 0 in every
+        # implementation; a NaN anywhere counts as infinitely far
+        ratio = (g.double() - w.double()).abs() / (sc * 2.0**-24).clamp_min(2.0**-1022)
+        worst = max(worst, torch.nan_to_num(ratio, nan=math.inf).max().item())
+    return worst
+
+
+def _fu_unique_graphs() -> int:
+    from torch._dynamo.utils import counters
+
+    return int(counters["stats"]["unique_graphs"])
+
+
+def _fu_degraded(fusion) -> int:
+    return fusion.cache_stats()["degraded"]
+
+
+def _fu_device_ms(ht, a, b) -> float:
+    """Device ms per chain: FU_REPS chains forced (dispatched, never read)
+    between two CUDA events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ht.sum(_fu_nine(ht, a, b)).shards
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(FU_REPS):
+        ht.sum(_fu_nine(ht, a, b)).shards
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / FU_REPS
+
+
+def _fu_sum_check(label, got, want, abs_sum) -> float:
+    ratio = abs(got - want) / abs_sum
+    if not ratio <= FU_SUM_TOL:
+        raise AssertionError(f"{label}: |S - S_ref| / sum|h| = {ratio:.3e} over {FU_SUM_TOL}")
+    return ratio
+
+
+def fusion_chain_phase(ht, tel, fusion, x) -> dict:
+    """(a) The 10-op chain at RT_SMALL and on the table, fused and eager."""
+    import torch
+
+    print(f"phase fusion: the 10-op chain at {RT_SMALL[0]} x {RT_SMALL[1]} and {N} x {F} float32, fused and "
+          "with the recorder off", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    out = {}
+    for label, shape, (a, b) in (
+        ("small", RT_SMALL, [ht.array(torch.randn(RT_SMALL, generator=gen, device="cuda"), split=0) for _ in range(2)]),
+        ("table", (N, F), (x, ht.array(torch.randn((N, F), generator=gen, device="cuda"), split=0))),
+    ):
+        rec = dict(_fu_bounds(*shape))
+        degraded = _fu_degraded(fusion)
+        # the first force of the signature builds the program
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = ht.sum(_fu_nine(ht, a, b))
+        if not fusion.is_deferred(total):
+            raise AssertionError("the chain did not defer")
+        fused_value = float(total.larray)
+        rec["first_build_s"] = time.perf_counter() - t0
+        with fusion.disabled():
+            h_eager = _fu_nine(ht, a, b)
+            eager_value = float(ht.sum(h_eager).larray)
+        abs_sum = h_eager.larray.double().abs().sum().item()
+        rec["fused_vs_eager"] = _fu_sum_check(f"{label} fused vs eager", fused_value, eager_value, abs_sum)
+        # the compiled program against its plain GraphModule on the same leaves
+        pending = ht.sum(_fu_nine(ht, a, b))
+        sig, leaves, _ = fusion._signature(pending._payload)
+        prog = fusion._PROGRAMS[sig]
+        flat = fusion._flat(leaves)
+        compiled_value = prog.compiled(*flat)[0].item()
+        plain_value = prog.gm(*flat)[0].item()
+        rec["compiled_vs_plain"] = _fu_sum_check(f"{label} compiled vs plain", compiled_value, plain_value, abs_sum)
+        if plain_value != eager_value:
+            raise AssertionError(f"{label}: the plain GraphModule differs from the eager engines")
+        del pending, flat, leaves
+        # element by element, on the chain before its sum (a program of its
+        # own): compiled against plain on the same leaves, the installed
+        # result against the compiled one and against the eager engines
+        h = _fu_nine(ht, a, b)
+        sig, leaves, _ = fusion._signature(h._payload)
+        flat = fusion._flat(leaves)
+        fused_h = h.shards
+        prog = fusion._PROGRAMS[sig]
+        compiled_h, plain_h = prog.compiled(*flat), prog.gm(*flat)
+        scale = [_fu_scale(a.larray, b.larray)]
+        rec["h_installed_is_compiled"] = all(torch.equal(x, y) for x, y in zip(fused_h, compiled_h))
+        rec["h_bit_for_bit"] = all(torch.equal(x, y) for x, y in zip(compiled_h, plain_h))
+        rec["h_compiled_vs_plain_ulps"] = _fu_ulps(compiled_h, plain_h, scale)
+        rec["h_fused_vs_eager_ulps"] = _fu_ulps(fused_h, h_eager.shards, scale)
+        del h, flat, leaves, fused_h, compiled_h, plain_h
+        # the control: the same chain in bfloat16, summed in float32
+        h_low = _fu_nine_torch(a.larray.bfloat16(), b.larray.bfloat16()).float()
+        rec["control_bf16_ulps"] = _fu_ulps([h_low], [h_eager.larray], scale)
+        rec["control_bf16_sum_ratio"] = abs(h_low.sum().item() - eager_value) / abs_sum
+        del h_low, h_eager, scale
+        print(f"  {label}: h element by element, compiled vs plain {rec['h_compiled_vs_plain_ulps']:.3f} u of its "
+              f"error scale (bit for bit: {rec['h_bit_for_bit']}), fused vs eager "
+              f"{rec['h_fused_vs_eager_ulps']:.3f} (installed = compiled: {rec['h_installed_is_compiled']}); the "
+              f"bf16 control {rec['control_bf16_ulps']:.3e}, its sum |S_c - S_e| / sum|h| "
+              f"{rec['control_bf16_sum_ratio']:.3e}; fused vs eager sum {rec['fused_vs_eager']:.3e}, compiled vs "
+              f"plain sum {rec['compiled_vs_plain']:.3e}", flush=True)
+        if not (rec["h_installed_is_compiled"] and rec["h_compiled_vs_plain_ulps"] <= FU_ULPS
+                and rec["h_fused_vs_eager_ulps"] <= FU_ULPS):
+            raise AssertionError(f"{label}: the compiled chain differs from its plain version element by element")
+        if not (rec["control_bf16_ulps"] > FU_ULPS and rec["control_bf16_sum_ratio"] > FU_SUM_TOL):
+            raise AssertionError(f"{label}: the bf16 control passes the bounds: they cannot see a lower precision")
+        # warm: one dispatch per chain, no build, no Dynamo graph added
+        builds, graphs = fusion.cache_stats()["compiles"], _fu_unique_graphs()
+        tel.set_mode(1)
+        tel.reset()
+        for _ in range(FU_WARM):
+            ht.sum(_fu_nine(ht, a, b)).shards
+        torch.cuda.synchronize()
+        rec["warm_dispatches"] = tel.async_forcing()["dispatches"]
+        rec["warm_engine_dispatches"] = tel.dispatches()
+        tel.set_mode(0)
+        rec["warm_builds"] = fusion.cache_stats()["compiles"] - builds
+        rec["warm_dynamo_graphs"] = _fu_unique_graphs() - graphs
+        fused_engine = sum(r["fused"] for r in rec["warm_engine_dispatches"].values())
+        eager_engine = sum(r["eager"] for r in rec["warm_engine_dispatches"].values())
+        if (rec["warm_dispatches"], rec["warm_builds"], rec["warm_dynamo_graphs"], fused_engine, eager_engine) != (
+            FU_WARM, 0, 0, 12 * FU_WARM, 0
+        ):
+            raise AssertionError(f"{label}: the warm chains were not one fused dispatch each without a build: {rec}")
+        # device time per chain and ops/s with a host read per chain
+        rec["fused_ms"] = _fu_device_ms(ht, a, b)
+        reps, trials = (RT_CHAIN_REPS, RT_CHAIN_TRIALS) if label == "small" else (RT_LARGE_REPS, RT_LARGE_TRIALS)
+        rec["fused_ops_per_s"] = _rt_rate(ht, a, b, reps, trials)
+        with fusion.disabled():
+            rec["eager_ms"] = _fu_device_ms(ht, a, b)
+            rec["eager_ops_per_s"] = _rt_rate(ht, a, b, reps, trials)
+        if _fu_degraded(fusion) != degraded:
+            raise AssertionError(f"{label}: a program degraded")
+        print(
+            f"  {label}: first build {rec['first_build_s']:.2f} s; device ms per chain fused {rec['fused_ms']:.4f} "
+            f"(bound {rec['fused_bound_ms']:.4f}, {rec['fused_bytes'] / 1e9:.3f} GB) vs eager {rec['eager_ms']:.4f} "
+            f"(bound {rec['eager_bound_ms']:.4f}, {rec['eager_bytes'] / 1e9:.3f} GB); ops/s fused "
+            f"{rec['fused_ops_per_s']:.0f} vs eager {rec['eager_ops_per_s']:.0f}; |S_f - S_e| / sum|h| "
+            f"{rec['fused_vs_eager']:.3e}, compiled vs plain {rec['compiled_vs_plain']:.3e}; {FU_WARM} warm chains: "
+            f"{rec['warm_dispatches']} dispatches, {rec['warm_builds']} builds, {rec['warm_dynamo_graphs']} Dynamo graphs",
+            flush=True,
+        )
+        out[label] = rec
+    return out
+
+
+def fusion_ragged_phase(ht, fusion) -> dict:
+    """(b) Four shards of the card, NaN in the inputs' padding, against one
+    shard: the logical rows and the row sums bit for bit, the column sums
+    (across the split) finite and within the sum bound."""
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    print(f"phase fusion: {FU_P} shards of the card, {FU_RAGGED[0]} x {FU_RAGGED[1]} float32 with NaN padding, "
+          "against one shard", flush=True)
+    degraded = _fu_degraded(fusion)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 181)
+    xa, xb = (torch.randn(FU_RAGGED, generator=gen, device="cuda") for _ in range(2))
+    mesh = MeshCommunication([torch.device("cuda", 0)] * FU_P)
+    a4, b4 = ht.array(xa, split=0, comm=mesh), ht.array(xb, split=0, comm=mesh)
+    pad = _poison_padding(a4) + _poison_padding(b4)
+    a1, b1 = ht.array(xa, split=0), ht.array(xb, split=0)
+    h4, h1 = _fu_nine(ht, a4, b4), _fu_nine(ht, a1, b1)
+    rows4, rows1 = ht.sum(h4, axis=1), ht.sum(h1, axis=1)
+    cols4, cols1 = ht.sum(h4, axis=0), ht.sum(h1, axis=0)
+    if not all(fusion.is_deferred(t) for t in (h4, rows4, cols4)):
+        raise AssertionError("the four-shard chain did not defer")
+    block = -(-FU_RAGGED[0] // FU_P)
+    shapes_ok = all(tuple(s.shape) == (block, FU_RAGGED[1]) for s in h4.shards)
+    rows_equal = torch.equal(h4.larray, h1.larray) and torch.equal(rows4.larray, rows1.larray)
+    abs_cols = h1.larray.double().abs().sum(dim=0)
+    c4, c1 = cols4.larray.double(), cols1.larray.double()
+    col_ratio = ((c4 - c1).abs() / abs_cols).max().item()
+    out = {"padding_rows": pad, "shards_hold_blocks": shapes_ok, "rows_bit_for_bit": rows_equal,
+           "cols_finite": bool(torch.isfinite(c4).all()), "cols_ratio": col_ratio}
+    print(f"  {pad} NaN padding rows; shards of {block} rows: {shapes_ok}; logical rows and row sums equal one "
+          f"shard's bit for bit: {rows_equal}; column sums finite: {out['cols_finite']}, max |d| / sum|h| "
+          f"{col_ratio:.3e}", flush=True)
+    if not (shapes_ok and rows_equal and out["cols_finite"] and col_ratio <= FU_SUM_TOL):
+        raise AssertionError("the four-shard chain differs from one shard's, or let the padding in")
+    if _fu_degraded(fusion) != degraded:
+        raise AssertionError("the four-shard chain degraded")
+    return out
+
+
+def fusion_sync_phase(ht, tel, fusion, x) -> dict:
+    """(c) No host sync in a warm fused chain before its read, on the table
+    and on four shards; at most one at the read."""
+    import warnings
+
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    print("phase fusion: warm fused chains under set_sync_debug_mode('error') until the read, one sync at it",
+          flush=True)
+    degraded = _fu_degraded(fusion)
+    x4 = ht.array(x.larray[:FU_RAGGED[0]], split=0, comm=MeshCommunication([torch.device("cuda", 0)] * FU_P))
+    for z in (x, x4):
+        ht.sum(_fu_nine(ht, z, z)).shards  # built before the checked region
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [ht.sum(_fu_nine(ht, z, z)) for z in (x, x4)]
+        for s in pending:
+            s.shards  # forced: dispatched, not read
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = []
+    tel.set_mode(1)
+    tel.reset()
+    for s in pending:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                s.item()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    blocking = tel.async_forcing()["blocking_total"]
+    tel.set_mode(0)
+    out = {"syncs_at_read": syncs, "blocking_syncs": blocking}
+    print(f"  no sync before the reads; syncs at each read {syncs}; blocking syncs counted {blocking}", flush=True)
+    if max(syncs) > 1 or blocking != len(pending):
+        raise AssertionError("a fused chain's read took more than one sync")
+    if _fu_degraded(fusion) != degraded:
+        raise AssertionError("the synced chain degraded")
+    return out
+
+
+def fusion_fit_phase(ht, fusion, x, init) -> dict:
+    """(d) Phase 3's fit with the recorder on: 30 Lloyd launches, and the
+    fit with the recorder off equal bit for bit (no engine op lies on the
+    fit's loop: it streams the shards through the kernel and reduces with
+    torch)."""
+    import torch
+
+    from heat_tpu_torch.ops import lloyd
+
+    print(f"phase fusion: KMeans(n_clusters={K}) for {ITERS} iterations from phase 3's centres with the recorder "
+          "on and off", flush=True)
+    degraded = _fu_degraded(fusion)
+    lloyd.LAUNCHES = 0
+    on = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+    torch.cuda.synchronize()
+    launches = lloyd.LAUNCHES
+    with fusion.disabled():
+        off = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+    out = {
+        "launches": launches,
+        "labels_equal": torch.equal(on.labels_.larray, off.labels_.larray),
+        "centres_bit_for_bit": torch.equal(on.cluster_centers_.larray, off.cluster_centers_.larray),
+        "inertia_equal": on.inertia_ == off.inertia_,
+    }
+    print(f"  Lloyd launches {launches}; labels equal {out['labels_equal']}; centres bit for bit "
+          f"{out['centres_bit_for_bit']}; inertia equal {out['inertia_equal']}", flush=True)
+    if launches != ITERS or not (out["labels_equal"] and out["centres_bit_for_bit"] and out["inertia_equal"]):
+        raise AssertionError("the fit with the recorder on missed the kernel or differs from the fit without it")
+    if _fu_degraded(fusion) != degraded:
+        raise AssertionError("a program of the fit degraded")
+    return out
+
+
+def fusion_faults_phase(ht, tel, fusion, tmp: str) -> dict:
+    """(e) fusion.compile, fusion.execute and memory.exhausted injected on
+    the chain at three shapes of its own: each degrades to the eager result
+    bit for bit, quarantines its signature and auto-dumps a bundle whose
+    trace validates (memory.exhausted writes the OOM forensic first); a
+    budget under the chain's static peak raises MemoryBudgetExceeded under
+    ``raise`` with the chain left pending."""
+    import warnings
+
+    import torch
+
+    from heat_tpu_torch.core import health_runtime as hr
+    from heat_tpu_torch.core import memledger as ml
+    from heat_tpu_torch.core import resilience as res
+
+    print("phase fusion: fusion.compile, fusion.execute and memory.exhausted injected; a budget under the static "
+          "peak under 'raise'", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 182)
+    prev_dir = hr.set_dump_dir(tmp)
+    out = {}
+    tel.set_mode(1)
+    try:
+        for i, site in enumerate(("fusion.compile", "fusion.execute", "memory.exhausted")):
+            tel.reset()  # the auto-dump's throttle is per reason, and restarts here
+            where = os.path.join(tmp, site)  # a directory each: the dumps' numbering restarts too
+            os.makedirs(where)
+            hr.set_dump_dir(where)
+            rows = RT_SMALL[0] + 1 + i
+            a, b = (ht.array(torch.randn((rows, RT_SMALL[1]), generator=gen, device="cuda"), split=0) for _ in range(2))
+            with fusion.disabled():
+                want = ht.sum(_fu_nine(ht, a, b)).larray.clone()
+            if site == "fusion.execute":
+                ht.sum(_fu_nine(ht, a, b)).shards  # the program is built and cached first
+            stats = fusion.cache_stats()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with res.inject(site, times=1) as spec:
+                    got = ht.sum(_fu_nine(ht, a, b)).larray
+            after = fusion.cache_stats()
+            # the bundles this fault wrote: "degrade", and "oom" before it
+            bundles = [
+                os.path.join(where, name) for name in os.listdir(where)
+                if name.endswith(".json") and not name.endswith(".trace.json")
+            ]
+            reasons, problems = [], []
+            for path in bundles:
+                with open(path) as fh:
+                    bundle = json.load(fh)
+                reasons.append(bundle["reason"])
+                problems += bundle["trace_problems"] + tel.validate_trace(bundle["trace_path"])
+            oom = ml.last_oom() if site == "memory.exhausted" else None
+            rec = {
+                "fired": spec.fired,
+                "bit_for_bit": torch.equal(got, want),
+                "degraded": after["degraded"] - stats["degraded"],
+                "quarantined": after["quarantined"] - stats["quarantined"],
+                "dumps": sorted(reasons),
+                "dump_problems": problems,
+                "warned": sorted({w.category.__name__ for w in caught}),
+            }
+            if oom is not None:
+                rec["oom_program"] = oom["program"]
+                rec["oom_names_owners"] = bool(oom["by_owner"])
+            out[site] = rec
+            print(f"  {site}: {json.dumps(rec)}", flush=True)
+            ok = rec["fired"] == 1 and rec["bit_for_bit"] and rec["degraded"] == 1 and rec["quarantined"] == 1
+            ok = ok and not rec["dump_problems"] and "DegradedDispatchWarning" in rec["warned"]
+            if site == "memory.exhausted":
+                ok = ok and rec["oom_program"] and rec["oom_names_owners"] and "MemoryExhaustedWarning" in rec["warned"]
+                ok = ok and rec["dumps"] == ["degrade", "oom"]
+            else:
+                ok = ok and rec["dumps"] == ["degrade"]
+            if not ok:
+                raise AssertionError(f"{site}: the injected fault did not degrade as it should")
+        degraded = _fu_degraded(fusion)
+        a, b = (ht.array(torch.randn(RT_SMALL, generator=gen, device="cuda"), split=0) for _ in range(2))
+        pending = ht.sum(_fu_nine(ht, a, b))
+        prev = ml.set_budget(1, "raise")
+        try:
+            try:
+                pending.shards
+                raised = False
+            except ml.MemoryBudgetExceeded:
+                raised = True
+            left_pending = fusion.is_deferred(pending)
+        finally:
+            ml.set_budget(*prev)
+        with fusion.disabled():
+            want = ht.sum(_fu_nine(ht, a, b)).larray.item()
+        value = pending.larray.item()
+        out["budget"] = {"raised": raised, "left_pending": left_pending, "read_after": value,
+                         "ratio_to_eager": abs(value - want) / max(abs(want), 1e-30)}
+        print(f"  budget of 1 byte under 'raise': raised {raised}, chain left pending {left_pending}, read after "
+              f"the budget was lifted {value:.6e} (eager {want:.6e})", flush=True)
+        if not (raised and left_pending) or _fu_degraded(fusion) != degraded:
+            raise AssertionError("the memory gate did not refuse the dispatch with the chain intact")
+    finally:
+        tel.set_mode(0)
+        tel.reset()
+        hr.set_dump_dir(prev_dir)
+    return out
+
+
+def fusion_telemetry_phase(ht, tel, fusion, tmp: str) -> dict:
+    """(f) Verbose telemetry over a fresh chain: the report's six fusion
+    blocks, the health block's dispatch and compile histograms, and the
+    exported trace validated with its dispatch-to-sync pairs."""
+    import torch
+
+    print("phase fusion: the report's fusion blocks, the dispatch and compile histograms, the trace's pairs",
+          flush=True)
+    degraded = _fu_degraded(fusion)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 183)
+    tel.set_mode(2)
+    tel.reset()
+    try:
+        a, b = (ht.array(torch.randn((RT_SMALL[0] + 7, RT_SMALL[1]), generator=gen, device="cuda"), split=0)
+                for _ in range(2))
+        for _ in range(3):
+            ht.sum(_fu_nine(ht, a, b)).item()
+        rep = tel.report()
+        path = os.path.join(tmp, "fusion_trace.json")
+        doc = tel.export_trace(path)
+        problems = tel.validate_trace(path)
+    finally:
+        tel.set_mode(0)
+        tel.reset()
+    blocks = ("fusion_cache", "programs", "forcing_points", "unfused_reasons", "retraces", "degraded")
+    pairs = sum(1 for e in doc["traceEvents"] if e["ph"] == "b")
+    out = {
+        "blocks": {k: k in rep for k in blocks},
+        "forcing_points": rep["forcing_points"],
+        "dispatch_hist": rep["health"]["dispatch"].get("*", {}).get("count", 0),
+        "compile_hist": rep["health"]["compile"].get("*", {}).get("count", 0),
+        "trace_pairs": pairs,
+        "trace_problems": problems,
+    }
+    print(f"  {json.dumps(out)}", flush=True)
+    if not (all(out["blocks"].values()) and out["dispatch_hist"] >= 1 and out["compile_hist"] >= 1
+            and pairs >= 3 and not problems):
+        raise AssertionError("the fusion telemetry on the card is incomplete")
+    if _fu_degraded(fusion) != degraded:
+        raise AssertionError("a program degraded under verbose telemetry")
+    return out
+
+
+def fusion_sweep_phase(ht, tel, fusion, default: int) -> dict:
+    """(g) The 10-op chain over sizes, ops/s with a host read per chain:
+    recorded at every size, with the recorder off, and with the card's
+    default, under which operands smaller than ``default`` bytes together
+    run eagerly (``small_on_card``); at each size which of the two the
+    default chose, and the one-op programs' plain run (no build)."""
+    import torch
+
+    print(f"phase fusion: the 10-op chain at {list(FU_SWEEP_ROWS)} x {F} float32, ops/s recorded, eager and by "
+          f"the default (operands under {default} B eager)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 184)
+    out = {}
+    for rows in FU_SWEEP_ROWS:
+        a, b = (ht.array(torch.randn((rows, F), generator=gen, device="cuda"), split=0) for _ in range(2))
+        reps, trials = (RT_CHAIN_REPS, RT_CHAIN_TRIALS) if rows <= 1_000_000 else (RT_LARGE_REPS, RT_LARGE_TRIALS)
+        rec = {"operand_bytes": a.nbytes + b.nbytes}
+        rates = {"recorded": [], "eager": [], "default": []}
+        for leg in ("recorded", "eager", "default", "default", "eager", "recorded"):  # the host drifts: in turns
+            fusion._EAGER_BELOW_BYTES = 0 if leg == "recorded" else default
+            if leg == "eager":
+                with fusion.disabled():
+                    rates[leg].append(_rt_rate(ht, a, b, reps, trials))
+            else:
+                rates[leg].append(_rt_rate(ht, a, b, reps, trials))
+        rec.update({leg: max(r) for leg, r in rates.items()})
+        fusion._EAGER_BELOW_BYTES = default
+        rec["default_records"] = fusion.is_deferred(a + b)
+        fusion._EAGER_BELOW_BYTES = 0
+        out[rows] = rec
+        print(f"  {rows} x {F} ({rec['operand_bytes']} B): ops/s recorded {rec['recorded']:.0f}, eager "
+              f"{rec['eager']:.0f}, default {rec['default']:.0f} ({'recorded' if rec['default_records'] else 'eager'})",
+              flush=True)
+        del a, b
+    # one op has nothing to fuse: its program runs the eager op, no build
+    before = _fu_unique_graphs()
+    y = ht.array(torch.randn((N, F), generator=gen, device="cuda"), split=0)
+    total = ht.sum(y, axis=0)
+    if not fusion.is_deferred(total):
+        raise AssertionError("the one-op sum did not record")
+    with fusion.disabled():
+        want = ht.sum(y, axis=0).larray
+    out["one_op"] = {"dynamo_graphs": _fu_unique_graphs() - before, "bit_for_bit": torch.equal(total.larray, want)}
+    print(f"  a one-op program (sum over {N} x {F}): {json.dumps(out['one_op'])}", flush=True)
+    if out["one_op"] != {"dynamo_graphs": 0, "bit_for_bit": True}:
+        raise AssertionError("a one-op program was built by Inductor or differs from the eager op")
+    return out
+
+
+def fusion_path(ht, smi: str) -> dict:
+    """Phase 18: the fusion recorder on the card; returns its numbers (the
+    recorder is left off again at the end)."""
+    import torch
+
+    from heat_tpu_torch.core import fusion
+    from heat_tpu_torch.core import telemetry as tel
+
+    numbers = {"card": smi, "seconds": {}, "torch": torch.__version__}
+    tmp = tempfile.mkdtemp(prefix="heat_fu_")
+    was = fusion.set_enabled(True)
+    default = fusion._EAGER_BELOW_BYTES
+    tel.set_mode(0)
+    fusion.clear_cache()
+    try:
+        x, init = kmeans_table(ht)
+        # the recorder's own checks record at every size; the sweep then
+        # measures where the card's default (small operands eager) stands
+        fusion._EAGER_BELOW_BYTES = 0
+        for label, fn in (
+            ("chain", lambda: fusion_chain_phase(ht, tel, fusion, x)),
+            ("ragged", lambda: fusion_ragged_phase(ht, fusion)),
+            ("sync", lambda: fusion_sync_phase(ht, tel, fusion, x)),
+            ("fit", lambda: fusion_fit_phase(ht, fusion, x, init)),
+            ("faults", lambda: fusion_faults_phase(ht, tel, fusion, tmp)),
+            ("telemetry", lambda: fusion_telemetry_phase(ht, tel, fusion, tmp)),
+            ("sweep", lambda: fusion_sweep_phase(ht, tel, fusion, default)),
+        ):
+            t0 = time.perf_counter()
+            numbers[label] = fn()
+            numbers["seconds"][label] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        numbers["cache"] = {k: v for k, v in fusion.cache_stats().items() if k != "program_keys"}
+    finally:
+        fusion._EAGER_BELOW_BYTES = default
+        fusion.set_enabled(was)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 18 took {sum(numbers['seconds'].values()):.1f} s: {numbers['seconds']}", flush=True)
+    return numbers
+
+
+def recorded_path(fusion, paths: dict, label: str, fn, off=None):
+    """Run one path with the recorder on, as a user gets the package: its
+    seconds, programs (cache misses), Inductor builds (Dynamo graphs),
+    forces and degraded forces go into ``paths``,
+    and a degraded force fails it (no phase before 18 injects a fusion
+    fault). A change of the default mesh clears the program cache and
+    zeroes its counters (as heat_tpu's does): the counts carry across each
+    clear. With ``off`` (a dict), run the path again with the recorder off
+    and keep that leg's numbers there. Returns the recorder-on numbers."""
+    import torch
+
+    keys = ("compiles", "forces", "degraded")
+    carried = dict.fromkeys(keys, 0)
+    clear = fusion.clear_cache
+
+    def clear_carrying():
+        stats = fusion.cache_stats()
+        for k in keys:
+            carried[k] += stats[k]
+        clear()
+
+    def counts():
+        stats = fusion.cache_stats()
+        return dict({k: carried[k] + stats[k] for k in keys}, inductor_builds=_fu_unique_graphs())
+
+    out = None
+    fusion.clear_cache = clear_carrying
+    try:
+        for leg in ("on", "off") if off is not None else ("on",):
+            before, t0 = counts(), time.perf_counter()
+            if leg == "on":
+                out = fn()
+            else:
+                with fusion.disabled():
+                    off[label] = fn()
+            after = counts()
+            rec = {"seconds": time.perf_counter() - t0}
+            rec.update({k: after[k] - before[k] for k in after})
+            paths[label if leg == "on" else f"{label}_recorder_off"] = rec
+            print(f"  path {label}, recorder {leg}: {rec['seconds']:.1f} s, {rec['compiles']} programs "
+                  f"({rec['inductor_builds']} built by Inductor), {rec['forces']} forces, {rec['degraded']} degraded",
+                  flush=True)
+            torch.cuda.empty_cache()
+            if rec["degraded"]:
+                raise AssertionError(f"{label}: {rec['degraded']} fused programs degraded with no fault injected")
+    finally:
+        fusion.clear_cache = clear
+    return out
+
+
 def print_build_report(name: str, log: str) -> None:
     """Registers and spills of each kernel of one source, from ptxas -v."""
     kernel = None
@@ -5368,29 +6096,23 @@ def main() -> int:
     for name in ("flash", "pairwise"):
         print_build_report(name, _build.build_log(name))
 
-    kernels = [kmeans_path(ht)]
-    torch.cuda.empty_cache()
-    kernels.append(attention_path(ht))
-    torch.cuda.empty_cache()
-    kernels.append(distance_path(ht))
-    torch.cuda.empty_cache()
-    moments = moments_path(ht, smi)
-    torch.cuda.empty_cache()
-    linalg = linalg_path(ht, smi)
-    torch.cuda.empty_cache()
-    training = training_path(ht, smi)
-    torch.cuda.empty_cache()
-    layer = array_layer_path(ht, smi)
-    torch.cuda.empty_cache()
-    estimators = estimators_path(ht, smi)
-    torch.cuda.empty_cache()
-    nn = nn_path(ht, smi)
-    torch.cuda.empty_cache()
-    io = io_path(ht, smi)
-    torch.cuda.empty_cache()
-    runtime = runtime_path(ht, smi)
-    torch.cuda.empty_cache()
-    health = health_path(ht, smi)
+    # phases 2 to 17 run as a user gets the package, the recorder on; the
+    # engine-heavy ones run again with it off, the compared leg
+    paths, off = {}, {}
+    run = partial(recorded_path, ht.core.fusion, paths)
+    kernels = [run("kmeans", lambda: kmeans_path(ht))]
+    kernels.append(run("attention", lambda: attention_path(ht)))
+    kernels.append(run("distance", lambda: distance_path(ht)))
+    moments = run("moments", lambda: moments_path(ht, smi), off)
+    linalg = run("linalg", lambda: linalg_path(ht, smi))
+    training = run("training", lambda: training_path(ht, smi))
+    layer = run("array_layer", lambda: array_layer_path(ht, smi), off)
+    estimators = run("estimators", lambda: estimators_path(ht, smi), off)
+    nn = run("nn", lambda: nn_path(ht, smi))
+    io = run("io", lambda: io_path(ht, smi))
+    runtime = run("runtime", lambda: runtime_path(ht, smi))
+    health = run("health", lambda: health_path(ht, smi))
+    fusion = fusion_path(ht, smi)
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
     kernels[0]["launches_disk_fit"] = io["disk_fit"]["npy"]["launches"]
     kernels[1].update({
@@ -5409,6 +6131,7 @@ def main() -> int:
     })
     kernels[0]["launches_traced_fit"] = runtime["fit"]["launches"]["verbose"]
     kernels[0]["launches_ledger_fit"] = health["fit"]["launches"]
+    kernels[0]["launches_fused_fit"] = fusion["fit"]["launches"]
     kernels[1]["launches_ledger_step"] = health["lm"]["launches"]
 
     print("moments: " + json.dumps(moments))
@@ -5420,6 +6143,10 @@ def main() -> int:
     print("io: " + json.dumps(io))
     print("runtime: " + json.dumps(runtime))
     print("health: " + json.dumps(health))
+    print("fusion: " + json.dumps(fusion))
+    for label, numbers in off.items():
+        print(f"{label}_recorder_off: " + json.dumps(numbers))
+    print("paths: " + json.dumps(paths))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ from . import telemetry
 from . import resilience
 from . import memledger
 from . import health_runtime
+from . import fusion
 from .resilience import errstate
 from .constants import *
 from .types import *

@@ -25,6 +25,15 @@ placed on the others. Nothing here reads a value back to the host, except
 the ``ht.errstate`` check of each result while a policy is active
 (heat_tpu/core/_operations.py:29-37). Each engine counts its dispatches in
 :mod:`.telemetry`.
+
+Each engine first offers its op to the fusion recorder (``core/fusion.py``;
+reference _operations.py:111-129, 222-234, 312-333, 397-406): a deferred op
+is a node of a pending chain, counted as a ``fused`` dispatch, and the
+chain runs as one program at its forcing point. What cannot defer
+(``out=``, ``where=``, unhashable keyword arguments, a padded broadcast, a
+recorder turned off by ``HEAT_TPU_FUSION=0``) runs eagerly below and leaves
+its reason in ``telemetry.unfused_reasons()``. The same-shape operand on
+another split axis is resplit first, a collective that forces its chain.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from . import resilience, telemetry, types
+from . import fusion, resilience, telemetry, types
 from .communication import SPLIT_AXIS, MeshCommunication, _combine, _neutral
 from .dndarray import DNDarray, _distribute
 from .sanitation import sanitize_in, sanitize_out
@@ -147,9 +156,24 @@ def __binary_op(
                 "reshard", SPLIT_AXIS, t2.nbytes, telemetry._dtype_name(t2.dtype.torch_type())
             )
         t2 = resplit(t2, t1.split)
+    dtype = types.result_type(t1, t2).torch_type()
+    if out is None and where is None and fusion.active() and fusion.hashable_kwargs(fn_kwargs):
+        lazy = fusion.defer_binary(operation, t1, t2, dtype, fn_kwargs)
+        if lazy is not None:
+            if telemetry._MODE:
+                telemetry.record_dispatch("binary", fused=True)
+            return lazy
+        # defer_binary left its own reason
+    elif telemetry._MODE:
+        telemetry.record_unfused(
+            "binary",
+            "out=" if out is not None
+            else "where=" if where is not None
+            else "fusion_off" if not fusion.active()
+            else "unhashable_kwargs",
+        )
     if telemetry._MODE:
         telemetry.record_dispatch("binary", fused=False)
-    dtype = types.result_type(t1, t2).torch_type()
     shapes = [_shape(t) for t in (t1, t2)]
     out_shape = broadcast_shapes(*shapes)
     out_split = None
@@ -181,11 +205,19 @@ def __local_op(
     _operations.py:211). Exact types are promoted to floating first unless
     ``no_cast``."""
     sanitize_in(x)
-    if telemetry._MODE:
-        telemetry.record_dispatch("local", fused=False)
     dtype = None
     if not no_cast and types.heat_type_is_exact(x.dtype):
         dtype = types.promote_types(x.dtype, types.float32).torch_type()
+    if out is None and fusion.active():
+        lazy = fusion.defer_local(operation, x, dtype, kwargs)
+        if lazy is not None:
+            if telemetry._MODE:
+                telemetry.record_dispatch("local", fused=True)
+            return lazy
+    elif telemetry._MODE:
+        telemetry.record_unfused("local", "out=" if out is not None else "fusion_off")
+    if telemetry._MODE:
+        telemetry.record_dispatch("local", fused=False)
     shards = x.shards if x.split is not None else x.shards[:1]
     shards = [operation(s if dtype is None else s.to(dtype), **kwargs) for s in shards]
     return _nonfinite_checked(_into_out(_result(shards, x.gshape, x.split, x), out))
@@ -237,11 +269,22 @@ def __reduce_op(
 ) -> DNDarray:
     """Generic distributed reduction (reference _operations.py:281-382)."""
     sanitize_in(x)
-    if telemetry._MODE:
-        telemetry.record_dispatch("reduce", fused=False)
     axes = _axes(x, axis)
     gshape = _reduced_shape(x.gshape, axes, keepdims)
     split = _reduced_split(x.split, axes, keepdims)
+    torch_dtype = None if dtype is None else types.canonical_heat_type(dtype).torch_type()
+    if out is None and fusion.active():
+        lazy = fusion.defer_reduce(
+            reduction, reduction.across or _across_split, x, axes, keepdims, gshape, split, torch_dtype
+        )
+        if lazy is not None:
+            if telemetry._MODE:
+                telemetry.record_dispatch("reduce", fused=True)
+            return lazy
+    elif telemetry._MODE:
+        telemetry.record_unfused("reduce", "out=" if out is not None else "fusion_off")
+    if telemetry._MODE:
+        telemetry.record_dispatch("reduce", fused=False)
     direct = reduction.direct or reduction.local
     if x.split is None or x.split not in axes or x.comm.size == 1:
         # each result element's inputs lie in one shard: nothing to combine
@@ -252,8 +295,8 @@ def __reduce_op(
         if not keepdims:
             total = total.reshape(gshape)
         shards = [total]
-    if dtype is not None:
-        shards = [s.to(types.canonical_heat_type(dtype).torch_type()) for s in shards]
+    if torch_dtype is not None:
+        shards = [s.to(torch_dtype) for s in shards]
     return _nonfinite_checked(_into_out(_result(shards, gshape, split, x), out))
 
 
@@ -291,17 +334,26 @@ def __cum_op(
     rows); the padding is a suffix, so every shard before one with valid
     rows is full."""
     sanitize_in(x)
-    if telemetry._MODE:
-        telemetry.record_dispatch("cum", fused=False)
     axis = sanitize_axis(x.gshape, axis)
     if not isinstance(axis, int):
         raise TypeError("axis must be a single integer for cumulative operations")
+    torch_dtype = None if dtype is None else types.canonical_heat_type(dtype).torch_type()
+    if out is None and fusion.active():
+        lazy = fusion.defer_cum(operation, combine, x, axis, torch_dtype)
+        if lazy is not None:
+            if telemetry._MODE:
+                telemetry.record_dispatch("cum", fused=True)
+            return lazy
+    elif telemetry._MODE:
+        telemetry.record_unfused("cum", "out=" if out is not None else "fusion_off")
+    if telemetry._MODE:
+        telemetry.record_dispatch("cum", fused=False)
     source = x.shards if x.split is not None else x.shards[:1]
     shards = [operation(s, axis) for s in source]
     if x.split == axis and x.comm.size > 1 and shards[0].shape[axis] > 0:
         last = shards[0].shape[axis] - 1
         offsets = x.comm.exscan([s.narrow(axis, last, 1) for s in shards], combine)
         shards = [_combine(combine)(s, o) for s, o in zip(shards, offsets)]
-    if dtype is not None:
-        shards = [s.to(types.canonical_heat_type(dtype).torch_type()) for s in shards]
+    if torch_dtype is not None:
+        shards = [s.to(torch_dtype) for s in shards]
     return _nonfinite_checked(_into_out(_result(shards, x.gshape, x.split, x), out))

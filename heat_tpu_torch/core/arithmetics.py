@@ -71,11 +71,20 @@ __all__ = [
 ]
 
 
+#: heat's float type of each integer and bool type, computed once: the
+#: fusion recorder's programs run ``_float_of`` under Dynamo on the card,
+#: which cannot trace the numpy promotion rules behind ``promote_types``
+_FLOAT_OF = {
+    t: types.promote_types(t, types.float32).torch_type()
+    for t in (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+}
+
+
 def _float_of(t: torch.Tensor) -> torch.Tensor:
     """An integer or bool tensor as heat's float type for it."""
     if t.dtype.is_floating_point or t.dtype.is_complex:
         return t
-    return t.to(types.promote_types(t.dtype, types.float32).torch_type())
+    return t.to(_FLOAT_OF[t.dtype])
 
 
 def _true_divide(a, b):

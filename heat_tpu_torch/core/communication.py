@@ -183,12 +183,7 @@ class MeshCommunication(Communication):
         self._check(shards)
         if telemetry._MODE or resilience._ARMED:
             _note("allreduce", shards[0])
-        combine = _combine(op)
-        first = self._devices[0]
-        total = _to(shards[0], first)
-        for s in shards[1:]:
-            total = combine(total, _to(s, first))
-        return [_to(total, d) for d in self._devices]
+        return _allreduce(shards, op, self._devices)
 
     def bcast(self, shards: Sequence, root: int = 0) -> List:
         """Every shard gets shard ``root``'s value, moved to its device
@@ -206,14 +201,9 @@ class MeshCommunication(Communication):
         self._check(shards)
         if telemetry._MODE or resilience._ARMED:
             _note("exscan", shards[0])
-        if neutral is None:
-            if callable(op):
-                raise ValueError("a callable op requires an explicit neutral element")
-            neutral = _tree(lambda t: _neutral(op, t), shards[0])
-        prefixes = self._prefixes(shards[:-1], op)
-        return [_to(neutral, self._devices[0])] + [
-            _to(v, d) for v, d in zip(prefixes, self._devices[1:])
-        ]
+        if neutral is None and callable(op):
+            raise ValueError("a callable op requires an explicit neutral element")
+        return _exscan(shards, op, self._devices, neutral)
 
     def scan(self, shards: Sequence, op: Union[str, Callable] = "sum") -> List:
         """Inclusive prefix combine in shard order (reference Scan): shard d
@@ -224,14 +214,7 @@ class MeshCommunication(Communication):
         return self._prefixes(shards, op)
 
     def _prefixes(self, shards: Sequence, op) -> List:
-        """s0, s0∘s1, ..., each on the device of its last shard."""
-        combine = _combine(op)
-        out, acc = [], None
-        for d, s in zip(self._devices, shards):
-            s = _to(s, d)
-            acc = s if acc is None else combine(_to(acc, d), s)
-            out.append(acc)
-        return out
+        return _prefixes(shards, op, self._devices)
 
     def allgather(self, shards: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:
         """Concatenate one tensor per shard along ``dim`` and give every shard
@@ -298,6 +281,39 @@ class MeshCommunication(Communication):
 
     def __repr__(self) -> str:
         return f"MeshCommunication({self.size} {self._devices[0].type} device(s))"
+
+
+def _allreduce(shards: Sequence, op, devices: Sequence[torch.device]) -> List:
+    """The arithmetic of :meth:`MeshCommunication.allreduce`: the values
+    combined in shard order on the first device, then given to every
+    device. The fusion recorder's programs call it directly: they record no
+    collective."""
+    combine = _combine(op)
+    first = devices[0]
+    total = _to(shards[0], first)
+    for s in shards[1:]:
+        total = combine(total, _to(s, first))
+    return [_to(total, d) for d in devices]
+
+
+def _prefixes(shards: Sequence, op, devices: Sequence[torch.device]) -> List:
+    """s0, s0∘s1, ..., each on the device of its last shard."""
+    combine = _combine(op)
+    out, acc = [], None
+    for d, s in zip(devices, shards):
+        s = _to(s, d)
+        acc = s if acc is None else combine(_to(acc, d), s)
+        out.append(acc)
+    return out
+
+
+def _exscan(shards: Sequence, op, devices: Sequence[torch.device], neutral=None) -> List:
+    """The arithmetic of :meth:`MeshCommunication.exscan` (``neutral``
+    made from a named ``op`` when not given)."""
+    if neutral is None:
+        neutral = _tree(lambda t: _neutral(op, t), shards[0])
+    prefixes = _prefixes(shards[:-1], op, devices)
+    return [_to(neutral, devices[0])] + [_to(v, d) for v, d in zip(prefixes, devices[1:])]
 
 
 def _tree(fn, value):
@@ -432,4 +448,19 @@ def use_comm(comm: Optional[Communication] = None) -> None:
     communication.py:1927-1937); ``None`` returns to the default mesh of the
     default device."""
     global __default_comm
+    prev = _built_comm()
     __default_comm = None if comm is None else sanitize_comm(comm)
+    new = _built_comm()
+    if prev is not None and new is not None and new.devices != prev.devices:
+        _refresh_world_state()
+
+
+def _refresh_world_state() -> None:
+    """Invalidate the mesh-keyed state after the default mesh changed
+    (heat_tpu/core/communication.py:530-551): the fusion recorder's program
+    cache and the memory gate's resolved budget, a fraction of the old
+    mesh's memory."""
+    from . import fusion, memledger
+
+    fusion.clear_cache()
+    memledger.invalidate_resolved_budget()

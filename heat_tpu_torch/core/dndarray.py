@@ -9,6 +9,14 @@ global size ``n`` are padding, a suffix of the global axis. The padding's
 content is unspecified; consumers that read the physical shards mask it.
 A replicated array (``split=None``) holds the whole array on every device.
 
+Under the fusion recorder (``core/fusion.py``) the shard list may be a
+pending :class:`~heat_tpu_torch.core.fusion.LazyArray` chain instead. Every
+reader of the shards forces it (``shards``, ``parray``, ``larray``,
+``lshards``, ``numpy``, ``item``, indexing, printing, I/O, ``resplit_``,
+halos, ``astype`` of a concrete array); each force is attributed to its
+forcing point in telemetry. Shape, dtype, split and ``padded`` are
+metadata and never force.
+
 * ``parray`` is the physical global tensor (shards concatenated, padding
   included); with one shard it is that shard, without a copy.
 * ``larray`` is the logical global tensor: ``parray`` without the padding.
@@ -18,7 +26,8 @@ of range raises ``IndexError`` (the JAX package clamps it), and a result
 never aliases its source. ``__setitem__`` writes into the shards in place
 unless another array shares their storage, which it then copies first, so
 that no other array sees the write (the JAX package's buffers are
-immutable).
+immutable); a pending chain that reads the storage is forced first, so
+that no result recorded before the write sees it either.
 """
 
 from __future__ import annotations
@@ -28,11 +37,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import health_runtime, memledger, resilience, telemetry, types
+from . import fusion, health_runtime, memledger, resilience, telemetry, types
 from .communication import MeshCommunication
 from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray", "LocalIndex"]
+
+# forcing-point attribution (telemetry): entered only when a chain is pending
+_T_LARRAY = telemetry.force_trigger("larray")
+_T_INDEXING = telemetry.force_trigger("indexing")
+_T_COLLECTIVE = telemetry.force_trigger("collective")
 
 
 class LocalIndex:
@@ -119,7 +133,7 @@ class DNDarray:
     @property
     def nbytes(self) -> int:
         """Bytes of the logical array."""
-        return self.size * self.__shards[0].element_size()
+        return self.size * self._itemsize()
 
     gnbytes = nbytes
 
@@ -131,7 +145,7 @@ class DNDarray:
     @property
     def lnbytes(self) -> int:
         """Bytes of the first shard's logical block (reference dndarray.py:188)."""
-        return self.lnumel * self.__shards[0].element_size()
+        return self.lnumel * self._itemsize()
 
     @property
     def lshape(self) -> Tuple[int, ...]:
@@ -152,7 +166,7 @@ class DNDarray:
     def strides(self) -> Tuple[int, ...]:
         """C-order strides of the global shape, in bytes (reference
         dndarray.py:441)."""
-        item = self.__shards[0].element_size()
+        item = self._itemsize()
         return tuple(s * item for s in self.stride)
 
     @property
@@ -190,27 +204,79 @@ class DNDarray:
     @property
     def shards(self) -> List[torch.Tensor]:
         """The physical shards, one per mesh device, padding included."""
-        return list(self.__shards)
+        return list(self._forced())
+
+    @property
+    def _payload(self):
+        """The stored shard list, or the pending ``fusion.LazyArray``,
+        without forcing: the fusion recorder's read."""
+        return self.__shards
+
+    def _itemsize(self) -> int:
+        payload = self.__shards
+        if isinstance(payload, fusion.LazyArray):
+            return payload.dtype.itemsize
+        return payload[0].element_size()
+
+    def _forced(self, scope=None) -> List[torch.Tensor]:
+        """The shard list, a pending chain forced first (attributed to the
+        forcing point ``scope``): the program's shards become this array's,
+        claimed from the ``fusion`` owner, after the ``ht.errstate`` policy
+        has checked their logical extent. A raise leaves the chain
+        pending."""
+        lazy = self.__shards
+        if not isinstance(lazy, fusion.LazyArray):
+            return lazy
+        if scope is None:
+            value = fusion.force(lazy)
+        else:
+            with scope:
+                value = fusion.force(lazy)
+        split = self.__split
+        shards = list(value) if split is not None else _distribute(value[0], None, self.__comm)
+        if resilience._ERRSTATE is not None:
+            if split is not None:
+                counts = self.__comm.counts_displs_shape(self.__gshape, split)[0]
+                logical = [s.narrow(split, 0, c) for s, c in zip(shards, counts)]
+            else:
+                logical = shards[:1]
+            resilience.check_nonfinite(logical, "force", program=lazy.program, cid=lazy.cid)
+        self.__shards = _tagged(shards)
+        return self.__shards
+
+    def _pending_cid(self) -> Optional[int]:
+        """The correlation id of a pending chain, else None."""
+        payload = self.__shards
+        if isinstance(payload, fusion.LazyArray) and payload._value is None:
+            return payload.cid
+        return None
 
     @property
     def padded(self) -> bool:
         """True when the shards carry suffix padding along the split axis."""
         s = self.__split
-        return s is not None and self.__shards[0].shape[s] * self.__comm.size != self.__gshape[s]
+        if s is None:
+            return False
+        payload = self.__shards
+        rows = payload.shape[s] if isinstance(payload, fusion.LazyArray) else payload[0].shape[s]
+        return rows * self.__comm.size != self.__gshape[s]
 
     @property
     def parray(self) -> torch.Tensor:
         """The physical global tensor, on the first mesh device: the shards
         concatenated along ``split``, padding included."""
-        if self.__split is None or len(self.__shards) == 1:
-            return self.__shards[0]
+        return self._physical(self._forced())
+
+    def _physical(self, shards: List[torch.Tensor]) -> torch.Tensor:
+        if self.__split is None or len(shards) == 1:
+            return shards[0]
         first = self.__comm.devices[0]
-        return torch.cat([s.to(first) for s in self.__shards], dim=self.__split)
+        return torch.cat([s.to(first) for s in shards], dim=self.__split)
 
     @property
     def larray(self) -> torch.Tensor:
         """The logical global tensor: :attr:`parray` without the padding."""
-        arr = self.parray
+        arr = self._physical(self._forced(_T_LARRAY))
         if self.padded:
             arr = arr.narrow(self.__split, 0, self.__gshape[self.__split])
         return arr
@@ -234,10 +300,11 @@ class DNDarray:
     @property
     def lshards(self) -> List[torch.Tensor]:
         """Per-device logical shards: each physical shard without its padding."""
+        shards = self._forced()
         if self.__split is None:
-            return self.shards
+            return list(shards)
         counts, _ = self.counts_displs()
-        return [s.narrow(self.__split, 0, c) for s, c in zip(self.__shards, counts)]
+        return [s.narrow(self.__split, 0, c) for s, c in zip(shards, counts)]
 
     @property
     def lshape_map(self) -> "DNDarray":
@@ -281,6 +348,7 @@ class DNDarray:
         if resilience._ARMED:
             # the fault fires before the array changes (heat_tpu dndarray.py:505-509)
             resilience.check("collective.reshard")
+        self._forced(_T_COLLECTIVE)  # a redistribution is a collective: it forces
         self.__shards = _tagged(_distribute(self.larray, axis, self.__comm))
         self.__split = axis
         return self
@@ -365,7 +433,8 @@ class DNDarray:
         split, p = self.__split, self.__comm.size
         if not halo_size or split is None or p == 1:
             return
-        block = self.__shards[0].shape[split]
+        shards = self._forced(_T_COLLECTIVE)
+        block = shards[0].shape[split]
         if halo_size > block:
             return
         if resilience._ARMED:
@@ -380,10 +449,10 @@ class DNDarray:
             return piece
 
         from_prev = self.__comm.ppermute(
-            [edge(t, c, False) for t, c in zip(self.__shards, counts)], perm=[(j, j + 1) for j in range(p - 1)]
+            [edge(t, c, False) for t, c in zip(shards, counts)], perm=[(j, j + 1) for j in range(p - 1)]
         )
         from_next = self.__comm.ppermute(
-            [edge(t, c, True) for t, c in zip(self.__shards, counts)], perm=[(j, j - 1) for j in range(1, p)]
+            [edge(t, c, True) for t, c in zip(shards, counts)], perm=[(j, j - 1) for j in range(1, p)]
         )
         self.__halos = (from_prev, from_next)
 
@@ -403,8 +472,9 @@ class DNDarray:
         if halos is None:
             return self.larray
         first = self.__comm.devices[0]
+        shards = self._forced(_T_COLLECTIVE)
         return torch.cat(
-            [torch.cat([a, s, b], dim=self.__split).to(first) for a, s, b in zip(halos[0], self.__shards, halos[1])],
+            [torch.cat([a, s, b], dim=self.__split).to(first) for a, s, b in zip(halos[0], shards, halos[1])],
             dim=self.__split,
         )
 
@@ -435,9 +505,25 @@ class DNDarray:
         return self._halo_slice(1, False)
 
     def astype(self, dtype, copy: bool = True) -> "DNDarray":
-        """Cast to a new element type (reference dndarray.py:443-468)."""
+        """Cast to a new element type (reference dndarray.py:443-468,
+        693-719). A pending chain records the cast as a node."""
         dtype = types.canonical_heat_type(dtype)
-        shards = [s.to(dtype.torch_type()) for s in self.__shards]
+        payload = self.__shards
+        if isinstance(payload, fusion.LazyArray) and payload._value is None:
+            try:
+                casted = fusion.cast(payload, dtype.torch_type())
+            except Exception as exc:  # the defer sites' one policy
+                if not resilience.record_recoverable(exc):
+                    raise
+                casted = None
+            if casted is not None:
+                if copy:
+                    return fusion.wrap_node(casted, self.__gshape, self.__split, self)
+                self.__shards = casted
+                self.__dtype = dtype
+                fusion.register_root(self)
+                return self
+        shards = [s.to(dtype.torch_type()) for s in self._forced()]
         if copy:
             return DNDarray(shards, self.__gshape, dtype, self.__split, self.__device, self.__comm)
         self.__shards = _tagged(shards)
@@ -449,8 +535,9 @@ class DNDarray:
         dndarray.py:991-1003); bfloat16, which numpy lacks, comes back as
         float32. A host read: telemetry counts it as a blocking sync, and the
         watchdog guards it as ``sync:numpy``."""
-        token = telemetry.record_blocking_sync("numpy") if telemetry._MODE else None
-        with health_runtime.watch("sync:numpy"):
+        cid = self._pending_cid()
+        token = telemetry.record_blocking_sync("numpy", cid=cid) if telemetry._MODE else None
+        with health_runtime.watch("sync:numpy", cid=cid):
             out = _host(self.larray)
         telemetry.end_blocking_sync(token)
         return out
@@ -463,8 +550,9 @@ class DNDarray:
         """The single scalar value (reference dndarray.py:965)."""
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
-        token = telemetry.record_blocking_sync("item") if telemetry._MODE else None
-        with health_runtime.watch("sync:item"):
+        cid = self._pending_cid()
+        token = telemetry.record_blocking_sync("item", cid=cid) if telemetry._MODE else None
+        with health_runtime.watch("sync:item", cid=cid):
             out = self.larray.item()
         telemetry.end_blocking_sync(token)
         return out
@@ -585,10 +673,11 @@ class DNDarray:
         """numpy indexing (reference dndarray.py:881): negative steps work,
         an index out of range raises ``IndexError``, and the result is a new
         array, never a view of this one."""
+        shards = self._forced(_T_INDEXING)
         split = self._result_split(key)
         local = self._shardwise_key(key)
         if local is not None:
-            shards = [_take(s, local) for s in self.__shards]
+            shards = [_take(s, local) for s in shards]
             gshape = list(_take(self.__shards[0].narrow(self.__split, 0, 0), local).shape)
             gshape[split] = self.__gshape[self.__split]
             return DNDarray(shards, tuple(gshape), self.__dtype, split, self.__device, self.__comm)
@@ -606,6 +695,8 @@ class DNDarray:
         cast to this array's type and broadcast; an index out of range raises
         ``IndexError``; the padding stays padding. With repeated indices the
         write that wins is unspecified, as in the reference and torch."""
+        with _T_INDEXING:
+            fusion.release(self._forced())
         dtype = self.__dtype.torch_type()
         if isinstance(value, DNDarray):
             value = value.larray
@@ -647,6 +738,8 @@ class DNDarray:
         """Fill the main diagonal in place (reference dndarray.py:913)."""
         if self.ndim != 2:
             raise ValueError("Only 2D tensors supported")
+        with _T_INDEXING:
+            fusion.release(self._forced())
         split = self.__split
         if split is None:
             target = _owned(self.__shards[0])

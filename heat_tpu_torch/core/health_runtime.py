@@ -35,13 +35,22 @@ watchdog and streaming latency histograms with rolling SLO gauges
   every state on the stack, a query reads the innermost) and shown with
   p50/p90/p99 in ``report()["health"]``. ``HEAT_TPU_SLO_SYNC_MS`` turns
   each wait into a pass or a breach over a rolling window
-  (``HEAT_TPU_SLO_WINDOW_S``); a breach lands on the ring.
+  (``HEAT_TPU_SLO_WINDOW_S``); a breach lands on the ring. The fusion
+  recorder's dispatches feed two more tables through :func:`note_dispatch`,
+  keyed by program key: ``compile`` (the call of a fresh program, which
+  builds it) and ``dispatch`` (from the call to the blocking sync that
+  waited on its chain), with their SLOs ``HEAT_TPU_SLO_COMPILE_MS`` and
+  ``HEAT_TPU_SLO_DISPATCH_MS``. A fused dispatch is a guarded site
+  (``dispatch``), and a stall's diagnosis names the in-flight program and
+  the pending roots of the recorder's registry.
+* **Auto-dumps.** A degraded fused program (``degrade``), a memory
+  exhaustion (``oom``) and a watchdog trip under ``dump``/``raise`` dump
+  the ring, throttled per reason; the bundle carries the recorder's cache
+  counters under ``programs``.
 
 The port counts every host read as a blocking sync (the reference counts
 only a pending chain's), so its ``sync`` histograms fill where the
-reference's stay empty. The ``dispatch`` and ``compile`` tables keep the
-reference's shape and stay empty: the fusion recorder, which observes them,
-comes later, and with it the bundle's ``programs``.
+reference's stay empty.
 
 Nothing here syncs the card or initializes CUDA: it is module state and
 metadata reads. ``telemetry.reset()`` and ``telemetry.scope()`` reset and
@@ -60,8 +69,8 @@ import threading
 import time
 import traceback
 import warnings
-from collections import deque
-from typing import Any, Dict, List, Optional
+from collections import OrderedDict, deque
+from typing import Any, Dict, List, Optional, Tuple
 
 from . import resilience, telemetry
 from .resilience import StallError, StallWarning
@@ -76,6 +85,7 @@ __all__ = [
     "health_block",
     "last_dump",
     "last_stall",
+    "note_dispatch",
     "reset",
     "set_dump_dir",
     "set_flight",
@@ -203,7 +213,7 @@ def dump_flight(path: Optional[str] = None, reason: str = "manual") -> Dict[str,
     only. Returns ``{"path", "trace_path", "problems"}``, ``problems`` being
     ``validate_trace``'s findings (empty for a well-formed dump)."""
     global _DUMP_COUNT, _LAST_DUMP
-    from . import memledger
+    from . import fusion, memledger
 
     evs = _ring()
     _DUMP_COUNT += 1
@@ -229,7 +239,12 @@ def dump_flight(path: Optional[str] = None, reason: str = "manual") -> Dict[str,
         "watchdog": watchdog_stats(),
         "stalls": list(_STALLS),
         "health": health_block(global_view=True),
-        "memory": {"watermark": memledger.watermark()},
+        "programs": fusion.cache_stats(),
+        "memory": {
+            "watermark": memledger.watermark(),
+            "budget": memledger.budget_info(),
+            "last_oom": memledger.last_oom(),
+        },
     }
     with open(bundle_path, "w") as fh:
         json.dump(telemetry._jsonable(bundle), fh, indent=1, default=str)
@@ -240,8 +255,9 @@ def dump_flight(path: Optional[str] = None, reason: str = "manual") -> Dict[str,
 
 
 def auto_dump(reason: str) -> Optional[Dict[str, Any]]:
-    """The dump of a failure seam (a watchdog trip under the ``dump`` and
-    ``raise`` policies), throttled per reason
+    """The dump of a failure seam (a degraded fused program, a memory
+    exhaustion, a watchdog trip under the ``dump`` and ``raise`` policies),
+    throttled per reason
     (``HEAT_TPU_FLIGHT_DUMP_EVERY_S``) so that a storm writes one bundle. A
     no-op unless the recorder is on and telemetry is active."""
     if not _ENABLED or not telemetry._MODE:
@@ -444,8 +460,8 @@ def _render_hists(st: _HState, metric: str) -> Dict[str, Any]:
 # ----------------------------------------------------------------------
 _SLO_LIMITS: Dict[str, Optional[float]] = {  # seconds; None = no SLO set
     "sync": _env_ms("HEAT_TPU_SLO_SYNC_MS"),
-    "dispatch": None,
-    "compile": None,
+    "dispatch": _env_ms("HEAT_TPU_SLO_DISPATCH_MS"),
+    "compile": _env_ms("HEAT_TPU_SLO_COMPILE_MS"),
 }
 _SLO_WINDOW_S = max(1.0, _env_float("HEAT_TPU_SLO_WINDOW_S", 300.0))
 #: samples are ``(perf_counter_ts, seconds)``
@@ -461,14 +477,15 @@ def _slo_observe(metric: str, v: float) -> None:
         telemetry.record_event("slo_breach", metric=metric, value_ms=round(v * 1e3, 3), limit_ms=round(limit * 1e3, 3))
 
 
-def set_slo(sync_ms=_UNSET, window_s=None) -> Dict[str, Optional[float]]:
-    """Set the sync-wait SLO limit in milliseconds (None clears it) and the
-    rolling window in-process; returns the previous limits in seconds keyed
-    by metric."""
+def set_slo(sync_ms=_UNSET, dispatch_ms=_UNSET, compile_ms=_UNSET, window_s=None) -> Dict[str, Optional[float]]:
+    """Set SLO limits in milliseconds (None clears one) and the rolling
+    window in-process; returns the previous limits in seconds keyed by
+    metric."""
     global _SLO_WINDOW_S
     prev = dict(_SLO_LIMITS)
-    if sync_ms is not _UNSET:
-        _SLO_LIMITS["sync"] = None if sync_ms is None else float(sync_ms) / 1e3
+    for metric, value in (("sync", sync_ms), ("dispatch", dispatch_ms), ("compile", compile_ms)):
+        if value is not _UNSET:
+            _SLO_LIMITS[metric] = None if value is None else float(value) / 1e3
     if window_s is not None:
         _SLO_WINDOW_S = max(1.0, float(window_s))
     return prev
@@ -499,10 +516,42 @@ def _slo_block() -> Dict[str, Any]:
     return out
 
 
+# ----------------------------------------------------------------------
+# dispatch to done
+# ----------------------------------------------------------------------
+#: in-flight fused dispatches: cid -> (dispatch perf_counter ts, program
+#: key); a blocking sync on one of these cids closes its sample, and the
+#: cap bounds the dispatches whose reads never block
+_DISPATCHED: "OrderedDict[int, Tuple[float, str]]" = OrderedDict()
+_DISPATCHED_CAP = 512
+
+
+def note_dispatch(program: str, cids, compiled: bool, dur_s: float) -> None:
+    """The fusion recorder's seam, right after a program call returns:
+    start the dispatch-to-done clock of each root cid, and, when the call
+    built the program, fold its duration into the ``compile`` table (a
+    cached program's call is an enqueue, whose duration says nothing)."""
+    now = time.perf_counter()
+    for cid in cids:
+        if cid is not None:
+            _DISPATCHED[cid] = (now - dur_s, str(program))
+            _DISPATCHED.move_to_end(cid)
+    while len(_DISPATCHED) > _DISPATCHED_CAP:
+        _DISPATCHED.popitem(last=False)
+    if compiled:
+        _observe("compile", str(program), dur_s)
+
+
 def _on_sync_end(kind: str, cid: Optional[int], dur: float) -> None:
     """``telemetry._SYNC_HOOK``: every closed blocking sync feeds the host
-    wait histogram of its trigger."""
+    wait histogram of its trigger and, when its cid names an in-flight
+    fused dispatch, the ``dispatch`` table of that program."""
+    now = time.perf_counter()
     _observe("sync", kind, dur)
+    if cid is not None:
+        rec = _DISPATCHED.pop(cid, None)
+        if rec is not None:
+            _observe("dispatch", rec[1], max(0.0, now - rec[0]))
 
 
 # ----------------------------------------------------------------------
@@ -668,6 +717,35 @@ def _stack_of(thread_ident: int) -> List[str]:
     return [ln.rstrip() for ln in traceback.format_stack(frame)][-12:]
 
 
+def _program_of_cid(cid) -> Optional[str]:
+    """The program key a chain's cid was dispatched under, from the
+    in-flight table or the ring."""
+    if cid is None:
+        return None
+    rec = _DISPATCHED.get(cid)
+    if rec is not None:
+        return rec[1]
+    for ev in reversed(_ring()):
+        if ev.get("kind") == "dispatch" and (ev.get("cid") == cid or cid in (ev.get("cids") or ())):
+            return ev.get("program")
+    return None
+
+
+def _pending_roots() -> List[dict]:
+    """The still-pending roots of the fusion recorder's registry, by cid
+    and depth (a metadata walk: nothing is forced)."""
+    from . import fusion
+
+    out = []
+    for key in fusion._live_root_keys():
+        payload = getattr(fusion._LIVE_ROOTS.get(key), "_payload", None)
+        if isinstance(payload, fusion.LazyArray) and payload._value is None:
+            out.append({"cid": payload.cid, "depth": payload.depth})
+        if len(out) >= 32:
+            break
+    return out
+
+
 def _trip(g: _Guard) -> None:
     waited = time.perf_counter() - g.t0
     diag = {
@@ -676,9 +754,10 @@ def _trip(g: _Guard) -> None:
         "waited_s": round(waited, 4),
         "deadline_s": g.deadline_s,
         "policy": _WD_POLICY,
-        "program": g.program,
+        "program": g.program or _program_of_cid(g.cid),
         "cid": g.cid,
         "cids": list(g.cids),
+        "pending_roots": _pending_roots(),
         "collective_trail": _collective_trail(),
         "stack": _stack_of(g.thread_ident),
     }
@@ -767,6 +846,7 @@ def reset() -> None:
     _DUMP_COUNT = 0
     _LAST_DUMP = None
     _LAST_AUTO_DUMP_TS.clear()
+    _DISPATCHED.clear()
     with _H_LOCK:
         _H_GLOBAL.clear()
         for st in list(_H_ACTIVE):

@@ -51,6 +51,9 @@ import torch
 from . import factories, memledger, resilience, telemetry, types
 from .dndarray import DNDarray
 
+# the forcing-point attribution of the saves: a pending chain runs here
+_T_IO = telemetry.force_trigger("io")
+
 try:
     import h5py
 
@@ -321,6 +324,7 @@ def save_hdf5(data: DNDarray, path: str, dataset: str, mode: str = "w", **kwargs
         raise TypeError(f"dataset must be str, but was {type(dataset)}")
     _check_mode(mode, path)
     _need_h5py()
+    data._forced(_T_IO)
 
     def _write():
         with resilience.atomic_write(path, preserve=mode in ("a", "r+")) as tmp:
@@ -407,6 +411,7 @@ def save_netcdf(
     if not isinstance(variable, str):
         raise TypeError(f"variable must be str, but was {type(variable)}")
     _check_mode(mode, path)
+    data._forced(_T_IO)
     if dimension_names is None:
         dimension_names = [f"{variable}_dim_{i}" for i in range(data.ndim)]
     elif len(dimension_names) != data.ndim:
@@ -518,6 +523,7 @@ def save_npy(data: DNDarray, path: str) -> None:
         raise TypeError(f"data must be a DNDarray, but was {type(data)}")
     if not isinstance(path, str):
         raise TypeError(f"path must be str, but was {type(path)}")
+    data._forced(_T_IO)
     if data.split is None or data.comm.size == 1 or data.ndim == 0:
 
         def _write_whole():
@@ -682,6 +688,7 @@ def save_csv(
         raise TypeError(f"path must be str, but was {type(path)}")
     if data.ndim > 2:
         raise ValueError("CSV can only store 1-D or 2-D arrays")
+    data._forced(_T_IO)
     data = _rows(data)
 
     def row_blocks():

@@ -50,11 +50,29 @@ Everything here is a read: nothing syncs the card, nothing initializes
 CUDA (the allocator is read only once CUDA is initialized), and nothing
 raises past a tensor that cannot name its storage.
 
-Not here yet: the headroom admission gate, the budget and its knobs, and
-OOM forensics come with the fusion recorder, whose dispatch seam acts on
-them; the admission hold and the gate exemption come with autoscale and
-elastic. :class:`MemoryBudgetExceeded`, :class:`MemoryBudgetWarning` and
-:class:`MemoryExhaustedWarning` are the classes those seams raise and warn.
+* **The headroom admission gate** (:func:`admit`). The fusion recorder's
+  dispatch seam checks the live total plus the program's static peak
+  (computed from its GraphModule's node shapes, ``fusion._static_peak``)
+  against ``HEAT_TPU_MEMORY_BUDGET``: bytes, a ``KiB``/``MiB``/``GiB``
+  suffixed string, or a fraction in (0, 1] of the card's memory (the
+  host's on the CPU). ``HEAT_TPU_MEMORY_POLICY`` picks what an overrun
+  does: ``warn`` (once per program key), ``raise``
+  (:class:`MemoryBudgetExceeded` before the dispatch, the chain left
+  pending) or ``drain`` (force and wait for every other pending root, then
+  check again and warn if still over). :func:`gate_stats` counts.
+* **OOM forensics** (:func:`is_oom`, :func:`record_oom`, :func:`last_oom`).
+  A dispatch that dies of ``torch.cuda.OutOfMemoryError`` (or
+  ``MemoryError``, or an injected ``memory.exhausted`` fault) gets a ranked
+  diagnostic, the failing program's key and static peak, the top live
+  buffers by owner and the last dispatches, as a
+  :class:`MemoryExhaustedWarning` and a flight dump, before the guarded
+  force degrades it.
+
+The fusion recorder tags the results of a force ``fusion`` until a
+``DNDarray`` claims them (``dndarray``).
+
+Not here yet: the admission hold and the gate exemption, which come with
+autoscale and elastic.
 """
 
 from __future__ import annotations
@@ -63,6 +81,7 @@ import gc
 import os
 import threading
 import time
+import warnings
 import weakref
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple
@@ -76,13 +95,22 @@ __all__ = [
     "MemoryBudgetWarning",
     "MemoryExhaustedWarning",
     "UNATTRIBUTED",
+    "admit",
+    "budget_info",
     "current_owner",
+    "gate_stats",
+    "invalidate_resolved_budget",
+    "is_oom",
+    "last_oom",
     "ledger",
     "note",
     "owner_scope",
+    "parse_budget",
+    "record_oom",
     "reset",
     "reset_watermark",
     "sample",
+    "set_budget",
     "set_enabled",
     "tag",
     "watermark",
@@ -378,10 +406,321 @@ def reset_watermark() -> None:
         _WATERMARK.update(bytes=0, by_owner={}, event=None, samples=0)
 
 
+# ----------------------------------------------------------------------
+# the headroom admission gate
+# ----------------------------------------------------------------------
+_UNITS = {
+    "b": 1,
+    "kb": 10**3, "mb": 10**6, "gb": 10**9, "tb": 10**12,
+    "kib": 1 << 10, "mib": 1 << 20, "gib": 1 << 30, "tib": 1 << 40,
+    # a bare letter reads as binary: "2G" is memory
+    "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40,
+}
+
+
+def parse_budget(value) -> Optional[object]:
+    """A budget spec: None or an off word disarms; an int, or a suffixed
+    string such as ``"512MiB"``, is bytes; a float in (0, 1] is a fraction
+    of the card's memory (the host's without CUDA), resolved at the first
+    gate check. Returns int bytes, a float fraction or None."""
+    if value is None:
+        return None
+    if isinstance(value, bool):
+        raise ValueError("memory budget must be bytes or a fraction, not a bool")
+    if isinstance(value, (int, float)):
+        if isinstance(value, float) and 0.0 < value <= 1.0:
+            return float(value)
+        if value <= 0:
+            return None
+        return int(value)
+    text = str(value).strip().lower()
+    if text in telemetry._OFF_VALUES:
+        return None
+    for unit in sorted(_UNITS, key=len, reverse=True):
+        if text.endswith(unit) and text[: -len(unit)].strip():
+            return int(float(text[: -len(unit)].strip()) * _UNITS[unit])
+    num = float(text)
+    if 0.0 < num <= 1.0:
+        return num
+    if num <= 0:
+        return None
+    return int(num)
+
+
+_POLICIES = ("warn", "raise", "drain")
+
+
+def _parse_env_budget(value) -> Optional[object]:
+    """:func:`parse_budget` of the knob: a malformed value warns and
+    disarms instead of making the import raise."""
+    try:
+        return parse_budget(value)
+    except (ValueError, TypeError):
+        warnings.warn(
+            f"HEAT_TPU_MEMORY_BUDGET={value!r} is not parseable (bytes, a KiB/MiB/GiB-suffixed "
+            "string, or a 0-1 fraction); the admission gate stays disarmed",
+            stacklevel=1,
+        )
+        return None
+
+
+#: the armed budget (int bytes, float fraction or None): the dispatch seam
+#: gates on it with one attribute read
+_BUDGET_RAW = _parse_env_budget(os.environ.get("HEAT_TPU_MEMORY_BUDGET"))
+_POLICY = os.environ.get("HEAT_TPU_MEMORY_POLICY", "warn").strip().lower() or "warn"
+if _POLICY not in _POLICIES:
+    warnings.warn(f"HEAT_TPU_MEMORY_POLICY={_POLICY!r} is not one of {_POLICIES}; using 'warn'", stacklevel=1)
+    _POLICY = "warn"
+
+#: a fractional budget resolved to bytes at the first gate check
+_RESOLVED_BUDGET: Optional[int] = None
+
+_GATE_STATS = {"checks": 0, "allowed": 0, "exceeded": 0, "drains": 0, "drained_roots": 0, "warned": 0, "raised": 0}
+_WARNED_KEYS: set = set()
+
+#: set while a drain forces other roots: their forces are the freeing, not
+#: new admissions
+_IN_GATE = False
+
+
+def invalidate_resolved_budget() -> None:
+    """Drop the resolved bytes of a fractional budget: the next gate check
+    resolves it against the devices of the mesh then."""
+    global _RESOLVED_BUDGET
+    _RESOLVED_BUDGET = None
+
+
+def set_budget(budget=None, policy: Optional[str] = None):
+    """Arm the gate in-process: ``budget`` as :func:`parse_budget` takes it
+    (None disarms), ``policy`` one of ``warn``/``raise``/``drain``. Returns
+    the previous ``(budget, policy)``; clears the once-per-key warnings and
+    the resolved fraction."""
+    global _BUDGET_RAW, _POLICY, _RESOLVED_BUDGET
+    prev = (_BUDGET_RAW, _POLICY)
+    _BUDGET_RAW = parse_budget(budget)
+    if policy is not None:
+        if policy not in _POLICIES:
+            raise ValueError(f"policy must be one of {_POLICIES}, got {policy!r}")
+        _POLICY = policy
+    _RESOLVED_BUDGET = None
+    _WARNED_KEYS.clear()
+    return prev
+
+
+def _device_bytes_limit() -> Optional[int]:
+    """The card's memory over the CUDA devices in use, or None before CUDA
+    is initialized (the gate never initializes it)."""
+    if not torch.cuda.is_initialized():
+        return None
+    try:
+        totals = [torch.cuda.get_device_properties(i).total_memory for i in range(torch.cuda.device_count())]
+    except (RuntimeError, AssertionError):
+        return None
+    return min(totals) * len(totals) if totals else None
+
+
+def _host_bytes_total() -> Optional[int]:
+    try:
+        return int(os.sysconf("SC_PAGE_SIZE")) * int(os.sysconf("SC_PHYS_PAGES"))
+    except (ValueError, OSError, AttributeError):
+        return None
+
+
+def _resolve_budget() -> Optional[int]:
+    global _RESOLVED_BUDGET
+    if _BUDGET_RAW is None:
+        return None
+    if isinstance(_BUDGET_RAW, int):
+        return _BUDGET_RAW
+    if _RESOLVED_BUDGET is None:
+        base = _device_bytes_limit() or _host_bytes_total()
+        if base is None:
+            return None
+        _RESOLVED_BUDGET = int(_BUDGET_RAW * base)
+    return _RESOLVED_BUDGET
+
+
+def budget_info(resolve: bool = False) -> Dict[str, Any]:
+    """The gate's knob, resolved bytes (None while disarmed, or a fraction
+    not yet resolved: the report never probes the card), policy and
+    :func:`gate_stats`."""
+    if _BUDGET_RAW is None:
+        budget_bytes = None
+    elif isinstance(_BUDGET_RAW, int):
+        budget_bytes = _BUDGET_RAW
+    elif resolve or _RESOLVED_BUDGET is not None:
+        budget_bytes = _resolve_budget()
+    else:
+        budget_bytes = None
+    return {"budget": _BUDGET_RAW, "budget_bytes": budget_bytes, "policy": _POLICY, **gate_stats()}
+
+
+def gate_stats() -> Dict[str, int]:
+    """The gate's counters: ``checks``, ``allowed``, ``exceeded`` and the
+    policies' outcomes ``warned``, ``raised``, ``drains``,
+    ``drained_roots``."""
+    return dict(_GATE_STATS)
+
+
+def admit(program: str, family: str, static_peak: int, source: str, drain_fn=None) -> None:
+    """The headroom check at the fused-program dispatch seam: live bytes
+    plus ``static_peak`` against the budget. Within it: returns. Over it:
+    the policy acts (module docstring). The forces of a drain pass."""
+    global _IN_GATE
+    if _IN_GATE or _BUDGET_RAW is None:
+        return
+    budget = _resolve_budget()
+    if budget is None:
+        return
+    _GATE_STATS["checks"] += 1
+    live = _scan_total()
+    if live > _WATERMARK["bytes"]:
+        sample("gate", force=True)
+    projected = live + int(static_peak)
+    if projected <= budget:
+        _GATE_STATS["allowed"] += 1
+        return
+    _GATE_STATS["exceeded"] += 1
+    policy = _POLICY
+    drained = None
+    if policy == "drain" and drain_fn is not None:
+        _GATE_STATS["drains"] += 1
+        _IN_GATE = True
+        try:
+            drained = int(drain_fn() or 0)
+        finally:
+            _IN_GATE = False
+        _GATE_STATS["drained_roots"] += drained
+        live = _scan_total()
+        projected = live + int(static_peak)
+    if telemetry._MODE >= 2:
+        telemetry.record_event(
+            "memory_gate", program=program, policy=policy, projected=projected, live=live,
+            static_peak=int(static_peak), budget=budget, drained=drained, over=projected > budget,
+        )
+    if projected <= budget:
+        _GATE_STATS["allowed"] += 1
+        return
+    if policy != "raise" and program in _WARNED_KEYS:
+        return
+    snap = _scan()
+    owners = ", ".join(f"{o} {_fmt_bytes(b)}" for o, b in sorted(snap["by_owner"].items(), key=lambda kv: -kv[1])[:4])
+    msg = (
+        f"memory budget {_fmt_bytes(budget)} exceeded: projected {_fmt_bytes(projected)} (live "
+        f"{_fmt_bytes(live)} + static peak {_fmt_bytes(static_peak)} [{source}]) for program "
+        f"{program} ({family}); top live owners: {owners or 'none'}"
+    )
+    if policy == "raise":
+        _GATE_STATS["raised"] += 1
+        raise MemoryBudgetExceeded(
+            msg + " — the chain is left pending; lift the budget (memledger.set_budget) or free "
+            "buffers, then force again"
+        )
+    if program not in _WARNED_KEYS:
+        _WARNED_KEYS.add(program)
+        _GATE_STATS["warned"] += 1
+        suffix = f" — drained {drained} outstanding root(s), still over budget" if policy == "drain" else ""
+        warnings.warn(MemoryBudgetWarning(msg + suffix), stacklevel=5)
+
+
+# ----------------------------------------------------------------------
+# OOM forensics
+# ----------------------------------------------------------------------
+_OOM_MARKERS = ("resource_exhausted", "resource exhausted", "out of memory", "memory.exhausted")
+
+_LAST_OOM: Optional[Dict[str, Any]] = None
+
+
+def is_oom(exc: BaseException) -> bool:
+    """Whether ``exc`` is memory exhaustion: ``torch.cuda.OutOfMemoryError``,
+    ``MemoryError``, an allocator error naming it, or an injected
+    ``memory.exhausted`` fault (its message names the site)."""
+    oom_type = getattr(torch.cuda, "OutOfMemoryError", None)
+    if isinstance(exc, MemoryError) or (oom_type is not None and isinstance(exc, oom_type)):
+        return True
+    text = (type(exc).__name__ + ": " + str(exc)).lower()
+    return any(marker in text for marker in _OOM_MARKERS)
+
+
+def record_oom(
+    exc: BaseException,
+    program: Optional[str] = None,
+    family: Optional[str] = None,
+    static_peak: Optional[int] = None,
+    top: int = 5,
+) -> Dict[str, Any]:
+    """Build, keep and warn the ranked diagnostic of a dispatch that died of
+    memory exhaustion: the program's key, family and static peak, the live
+    buffers by owner and the largest, the last dispatches of the timeline
+    and the gate's state; then dump the flight ring. The fusion recorder
+    calls it before the guarded replay churns the evidence."""
+    global _LAST_OOM
+    led = ledger(top=top)
+    recent = [
+        {"program": ev.get("program"), "roots": ev.get("roots"), "ts": ev.get("ts")}
+        for ev in telemetry.events()
+        if ev.get("kind") == "dispatch"
+    ][-5:]
+    report = {
+        "error": repr(exc),
+        "program": program,
+        "family": family,
+        "static_peak_bytes": None if static_peak is None else int(static_peak),
+        "live_total_bytes": led["total_bytes"],
+        "by_owner": dict(led["by_owner"]),
+        "top_buffers": list(led["top"]),
+        "recent_dispatches": recent,
+        "watermark_bytes": _WATERMARK["bytes"],
+        "budget": budget_info(),
+    }
+    _LAST_OOM = report
+    if telemetry._MODE:
+        telemetry.record_event("memory_oom", program=program, family=family, error=repr(exc), live=led["total_bytes"])
+    owners = ", ".join(f"{o} {_fmt_bytes(b)}" for o, b in sorted(led["by_owner"].items(), key=lambda kv: -kv[1])[:4])
+    tops = "; ".join(f"{_fmt_bytes(b['nbytes'])} {b['owner']} {b['dtype']}{b['shape']}" for b in led["top"][:3])
+    peak = "unknown" if static_peak is None else _fmt_bytes(static_peak)
+    warnings.warn(
+        MemoryExhaustedWarning(
+            f"device memory exhausted dispatching program {program or '<eager>'} ({family or '?'}; "
+            f"static peak {peak}): {exc!r}. Live buffers {_fmt_bytes(led['total_bytes'])} by owner: "
+            f"{owners or 'none'}. Largest: {tops or 'none'}. Full diagnostic via memledger.last_oom(); "
+            "the chain degrades to per-op eager replay"
+        ),
+        stacklevel=5,
+    )
+    from . import health_runtime
+
+    health_runtime.auto_dump("oom")
+    return report
+
+
+def last_oom() -> Optional[Dict[str, Any]]:
+    """The last OOM diagnostic, or None."""
+    return _LAST_OOM
+
+
+def _fmt_bytes(n) -> str:
+    try:
+        n = float(n)
+    except (TypeError, ValueError):
+        return str(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0 or unit == "TiB":
+            return f"{int(n)} B" if unit == "B" else f"{n:.1f} {unit}"
+        n /= 1024.0
+    return f"{n:.1f} TiB"  # pragma: no cover - the loop returns
+
+
 def reset() -> None:
-    """Zero the session state, the watermark; the registry stays, since it
-    tracks live tensors, not a session."""
+    """Zero the session state: the watermark, the gate's counters and
+    warnings, the last OOM diagnostic. The registry stays, since it tracks
+    live tensors, not a session."""
+    global _LAST_OOM
     reset_watermark()
+    for k in _GATE_STATS:
+        _GATE_STATS[k] = 0
+    _WARNED_KEYS.clear()
+    _LAST_OOM = None
 
 
 # the sampling hook, installed on telemetry by attribute (telemetry stays

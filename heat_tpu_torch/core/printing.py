@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import health_runtime, telemetry
+from . import fusion, health_runtime, telemetry
 from .communication import get_comm
 from .dndarray import _host
 
@@ -20,6 +20,8 @@ __all__ = [
     "print0",
     "set_printoptions",
 ]
+
+_T_PRINT = telemetry.force_trigger("print")
 
 __PRINT_OPTIONS = dict(precision=4, threshold=1000, edgeitems=3, linewidth=120, sci_mode=None)
 __LOCAL_PRINTING = False
@@ -70,9 +72,11 @@ def __str__(dndarray) -> str:
     """The string of an array (reference printing.py:104-127), bound as
     ``DNDarray.__str__`` and ``__repr__``. A host read: telemetry counts it
     as a blocking sync."""
-    token = telemetry.record_blocking_sync("print") if telemetry._MODE else None
-    with health_runtime.watch("sync:print"):
-        body = _format_data(dndarray, __PRINT_OPTIONS)
+    cid = dndarray._payload.cid if fusion.is_deferred(dndarray) else None
+    token = telemetry.record_blocking_sync("print", cid=cid) if telemetry._MODE else None
+    with _T_PRINT:  # a print that forces a pending chain reads as "print"
+        with health_runtime.watch("sync:print", cid=cid):
+            body = _format_data(dndarray, __PRINT_OPTIONS)
     telemetry.end_blocking_sync(token)
     return f"DNDarray({body}, dtype=ht.{dndarray.dtype.__name__}, device={dndarray.device}, split={dndarray.split})"
 

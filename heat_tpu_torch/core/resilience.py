@@ -388,9 +388,16 @@ def record_recoverable(exc: BaseException) -> bool:
 
 def force_recoverable(exc: BaseException) -> bool:
     """Whether a fused program's build or run failure degrades the chain to
-    op-by-op dispatch: everything does except the policy signals raised by
-    the forcing point itself (:class:`NonFiniteError`, :class:`StallError`)."""
-    return not isinstance(exc, (NonFiniteError, StallError))
+    op-by-op dispatch: everything does (a memory exhaustion too) except the
+    policy signals raised by the forcing point itself
+    (:class:`NonFiniteError`, :class:`StallError` and the memory gate's
+    :class:`~.memledger.MemoryBudgetExceeded`, raised before the dispatch so
+    that the chain stays pending)."""
+    if isinstance(exc, (NonFiniteError, StallError)):
+        return False
+    from .memledger import MemoryBudgetExceeded
+
+    return not isinstance(exc, MemoryBudgetExceeded)
 
 
 # ----------------------------------------------------------------------

@@ -19,6 +19,7 @@ array. The histograms count through ``torch.bincount`` in int64, exactly.
 from __future__ import annotations
 
 import builtins
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -314,7 +315,9 @@ def minimum(x1, x2, out=None) -> DNDarray:
 
 
 def _count(x: DNDarray, axes) -> int:
-    return math.prod(x.gshape[a] for a in axes)
+    # a list, not a generator: the fusion recorder's programs run this under
+    # Dynamo, which cannot pass a generator to math.prod
+    return math.prod([x.gshape[a] for a in axes])
 
 
 def _mean_direct(t, dims, keepdim):
@@ -349,7 +352,9 @@ def mean(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
     return _in_float32(lambda t: _reduce_op(MEAN, t, axis, keepdims=keepdims), x)
 
 
+@functools.lru_cache(maxsize=None)
 def _var_reduction(ddof: int) -> Reduction:
+    # one Reduction per ddof: the fusion recorder keys programs on its identity
     def direct(t, dims, keepdim):
         return torch.var(t, dim=dims, correction=ddof, keepdim=keepdim)
 

@@ -15,10 +15,25 @@ both packages:
   blocked substitution) declares its schedule with the reference's op
   names, bytes and multiplicities instead. Recording reads shapes and
   dtypes only, never a value.
-* **Dispatches and host reads.** The eager engines count their dispatches
-  (:func:`record_dispatch`); ``item()``, ``numpy()`` and ``print`` are
-  host reads that wait on the device, counted as blocking syncs with their
-  wall time (:func:`record_blocking_sync`).
+* **Dispatches and host reads.** The engines count their dispatches,
+  deferred into a fused program or eager (:func:`record_dispatch`), with
+  the reason of each op that did not defer (:func:`unfused_reasons`);
+  ``item()``, ``numpy()`` and ``print`` are host reads that wait on the
+  device, counted as blocking syncs with their wall time
+  (:func:`record_blocking_sync`).
+* **The fusion recorder** (``core/fusion.py``). Each force is attributed
+  to its forcing point (:func:`forcing_points`, with the chain depths and
+  the forces that built a program), each program build to its op family
+  (:func:`retraces`; a family rebuilt under
+  ``HEAT_TPU_TELEMETRY_RETRACE_WARN`` distinct leaf layouts warns
+  :class:`RetraceWarning` once), each fused dispatch counted
+  (``report()["async_forcing"]``) and each degraded program recorded
+  (:func:`degraded`). ``report()`` carries the program cache
+  (``fusion_cache``) and the top programs by dispatches (``programs``,
+  ``HEAT_TPU_TELEMETRY_TOP_PROGRAMS``, with their cost estimates once
+  :func:`program_costs` computed them). A chain's record, dispatch and
+  blocking sync share a correlation id (``cid``): :func:`export_trace`
+  pairs each sync with the dispatch it waited on.
 * **Faults, retries, non-finite values, checkpoints.** The resilience layer
   and the I/O and checkpoint code record what they absorbed.
 
@@ -43,15 +58,10 @@ blocking sync into the latency histograms). :func:`reset` and
 :func:`scope` reset and scope their session state as well, and
 ``report()`` carries their ``memory`` ledger and ``health`` blocks.
 
-Not here yet: the fusion recorder's program costs, cache, forcing,
-retrace, degradation and fused-collective blocks, the memory budget and
-OOM forensics, and the numerics, serving, elastic, autoscale and
-multi-process blocks of ``report()``. Their modules come with later parts
-of the port. The entry points the fusion recorder feeds (:func:`record_force`,
-:func:`record_retrace`, :func:`record_async_dispatch`,
-:func:`record_fused_collective`, :func:`record_unfused`,
-:func:`record_degraded`) keep their signatures and record nothing until
-then.
+Not here yet: the fused-collective block (the recorder's collective
+nodes come later; :func:`record_fused_collective` records nothing until
+then), and the numerics, serving, elastic, autoscale and multi-process
+blocks of ``report()``. Their modules come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -68,14 +78,18 @@ from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 __all__ = [
+    "RetraceWarning",
     "TimelineDroppedWarning",
     "active",
     "async_forcing",
+    "async_pairs",
     "checkpoint_events",
     "collective_budget_excess",
     "collective_counts",
     "collectives",
     "current_trigger",
+    "degraded",
+    "degraded_counts",
     "dispatches",
     "enabled",
     "end_blocking_sync",
@@ -83,6 +97,7 @@ __all__ = [
     "export_trace",
     "fault_events",
     "force_trigger",
+    "forcing_points",
     "hlo_collective_counts",
     "hlo_collectives",
     "io_retries",
@@ -90,6 +105,7 @@ __all__ = [
     "nonfinite_counts",
     "on_timer",
     "operand_bytes",
+    "program_costs",
     "record_async_dispatch",
     "record_blocking_sync",
     "record_checkpoint",
@@ -109,6 +125,7 @@ __all__ = [
     "report",
     "report_json",
     "reset",
+    "retraces",
     "scope",
     "scope_reports",
     "set_metrics_sink",
@@ -117,9 +134,16 @@ __all__ = [
     "spans",
     "trace_collective_parity",
     "trace_events",
+    "unfused_reasons",
     "validate_trace",
     "verbose",
 ]
+
+
+class RetraceWarning(UserWarning):
+    """One op family of the fusion recorder was rebuilt under
+    ``HEAT_TPU_TELEMETRY_RETRACE_WARN`` distinct leaf layouts: shape churn
+    defeats the program cache."""
 
 
 class TimelineDroppedWarning(UserWarning):
@@ -148,9 +172,15 @@ def _parse_mode(value) -> int:
 #: gates on ``telemetry._MODE`` with one attribute read.
 _MODE = _parse_mode(os.environ.get("HEAT_TPU_TELEMETRY", "0"))
 
+#: distinct leaf layouts of one op family before :class:`RetraceWarning`
+_RETRACE_WARN_AFTER = int(os.environ.get("HEAT_TPU_TELEMETRY_RETRACE_WARN", "8"))
+
 #: event cap per state (global and per scope); overflow drops the oldest
 #: events and counts them
 _EVENT_CAP = int(os.environ.get("HEAT_TPU_TELEMETRY_EVENTS", "8192"))
+
+#: programs listed in ``report()["programs"]["top"]``
+_TOP_PROGRAMS = int(os.environ.get("HEAT_TPU_TELEMETRY_TOP_PROGRAMS", "5"))
 
 #: one-shot latch of :class:`TimelineDroppedWarning`
 _DROP_WARNED = False
@@ -215,8 +245,9 @@ class _State:
     thread's innermost scope (sessions are isolated)."""
 
     __slots__ = (
-        "path", "t0", "wall_s", "calls", "collectives", "compiles", "dispatches",
-        "nonfinite", "io_retries", "checkpoint", "blocking", "sync_wait",
+        "path", "t0", "wall_s", "calls", "collectives", "forces", "retraces",
+        "compiles", "dispatches", "degraded", "unfused", "nonfinite",
+        "io_retries", "checkpoint", "async_", "blocking", "sync_wait",
         "faults", "spans", "events", "events_dropped",
     )
 
@@ -229,11 +260,16 @@ class _State:
     def clear(self) -> None:
         self.t0 = time.perf_counter()
         self.collectives: Dict[str, Dict[str, Any]] = {}
+        self.forces: Dict[str, Dict[str, Any]] = {}
+        self.retraces: Dict[tuple, Dict[str, Any]] = {}
         self.compiles: Dict[str, int] = {}
         self.dispatches: Dict[str, Dict[str, int]] = {}
+        self.degraded: Dict[str, Dict[str, Any]] = {}
+        self.unfused: Dict[str, Dict[str, int]] = {}
         self.nonfinite: Dict[str, int] = {}
         self.io_retries: Dict[str, int] = {}
         self.checkpoint: Dict[str, int] = {}
+        self.async_ = {"dispatches": 0, "roots": 0, "multi_root_batches": 0}
         self.blocking: Dict[str, int] = {}
         self.sync_wait: Dict[str, Dict[str, float]] = {}
         self.faults: Dict[str, int] = {}
@@ -270,12 +306,38 @@ def _merge_state(dst: _State, src: _State) -> None:
         d["bytes"] += rec["bytes"]
         _add_int(d["axes"], rec["axes"])
         _add_int(d["dtypes"], rec["dtypes"])
+    for trig, rec in src.forces.items():
+        d = dst.forces.setdefault(trig, {"count": 0, "depth_total": 0, "max_depth": 0, "compiles": 0})
+        d["count"] += rec["count"]
+        d["depth_total"] += rec["depth_total"]
+        d["max_depth"] = max(d["max_depth"], rec["max_depth"])
+        d["compiles"] += rec["compiles"]
+    for fam, rec in src.retraces.items():
+        d = dst.retraces.setdefault(fam, {"misses": 0, "keys": set(), "warned": False})
+        d["misses"] += rec["misses"]
+        if not d["warned"]:
+            # the key set exists to cross the warn threshold: an archived
+            # scope never holds more
+            for key in rec["keys"]:
+                if len(d["keys"]) >= _RETRACE_WARN_AFTER:
+                    d["warned"] = True
+                    break
+                d["keys"].add(key)
+        d["warned"] = d["warned"] or rec["warned"]
     _add_int(dst.compiles, src.compiles)
     for eng, rec in src.dispatches.items():
         _add_int(dst.dispatches.setdefault(eng, {}), rec)
+    for key, rec in src.degraded.items():
+        d = dst.degraded.setdefault(key, {"count": 0, "stages": {}, "last_error": ""})
+        d["count"] += rec["count"]
+        _add_int(d["stages"], rec["stages"])
+        d["last_error"] = rec["last_error"] or d["last_error"]
+    for eng, rec in src.unfused.items():
+        _add_int(dst.unfused.setdefault(eng, {}), rec)
     _add_int(dst.nonfinite, src.nonfinite)
     _add_int(dst.io_retries, src.io_retries)
     _add_int(dst.checkpoint, src.checkpoint)
+    _add_int(dst.async_, src.async_)
     _add_int(dst.blocking, src.blocking)
     for kind, rec in src.sync_wait.items():
         d = dst.sync_wait.setdefault(kind, {"count": 0, "total_s": 0.0, "max_s": 0.0})
@@ -285,10 +347,12 @@ def _merge_state(dst: _State, src: _State) -> None:
     _add_int(dst.faults, src.faults)
     for path, rec in src.spans.items():
         d = dst.spans.setdefault(
-            path, {"calls": 0, "total_s": 0.0, "collectives": {}, "timers": {}}
+            path, {"calls": 0, "total_s": 0.0, "collectives": {}, "forces": 0, "retraces": 0, "timers": {}}
         )
         d["calls"] += rec["calls"]
         d["total_s"] += rec["total_s"]
+        d["forces"] += rec["forces"]
+        d["retraces"] += rec["retraces"]
         _add_int(d["collectives"], rec["collectives"])
         for t, s in rec["timers"].items():
             d["timers"][t] = d["timers"].get(t, 0.0) + s
@@ -475,7 +539,11 @@ def _counter_blocks(st: _State) -> Dict[str, Any]:
         "collectives": _render_collectives(st),
         "collective_counts": {op: rec["count"] for op, rec in st.collectives.items()},
         "async_forcing": _render_async(st),
+        "forcing_points": _render_forces(st),
         "dispatches": {k: dict(v) for k, v in st.dispatches.items()},
+        "unfused_reasons": {k: dict(v) for k, v in st.unfused.items()},
+        "retraces": _render_retraces(st),
+        "degraded": _render_degraded(st),
         "nonfinite": dict(st.nonfinite),
         "io_retries": dict(st.io_retries),
         "checkpoint": dict(st.checkpoint),
@@ -645,8 +713,30 @@ def end_blocking_sync(token: Optional[dict]) -> None:
         _SYNC_HOOK(kind, token.get("cid"), dur)
 
 
+def record_async_dispatch(n_roots: int, cid: Optional[int] = None, cids=(), program: Optional[str] = None, sessions=None) -> None:
+    """Count one fused-program dispatch of ``n_roots`` roots (one: the
+    recorder does not batch roots yet). It installs the result tensors
+    without waiting. ``cid`` is the chain's correlation id, ``cids`` every
+    root's, ``program`` the program key (None for a degraded replay): the
+    timeline's ``dispatch`` event joins the chain's record and its
+    blocking sync."""
+    if not _MODE:
+        return
+    for st in _states():
+        st.async_["dispatches"] += 1
+        st.async_["roots"] += int(n_roots)
+        if n_roots > 1:
+            st.async_["multi_root_batches"] += 1
+    _note_event("dispatch", roots=int(n_roots), cid=cid, cids=list(cids), program=program)
+    if _MEM_HOOK is not None:
+        _MEM_HOOK("dispatch")
+
+
 def _render_async(st: _State) -> Dict[str, Any]:
     return {
+        "dispatches": st.async_["dispatches"],
+        "roots_dispatched": st.async_["roots"],
+        "multi_root_batches": st.async_["multi_root_batches"],
         "blocking_syncs": dict(st.blocking),
         "blocking_total": sum(st.blocking.values()),
         "sync_wait": {
@@ -661,7 +751,8 @@ def _render_async(st: _State) -> Dict[str, Any]:
 
 
 def async_forcing() -> Dict[str, Any]:
-    """Blocking host syncs by kind, with their wait times."""
+    """Fused-program dispatches (with the roots they carried) against the
+    blocking host syncs by kind, with their wait times."""
     return _render_async(_cur())
 
 
@@ -739,34 +830,160 @@ def dispatches() -> Dict[str, Dict[str, int]]:
 
 
 # ----------------------------------------------------------------------
-# the fusion recorder's entry points: they keep the reference's signatures
-# and record nothing until the fusion recorder is ported
+# the fusion recorder: forces, retraces, unfused ops, degradations
 # ----------------------------------------------------------------------
 def record_force(trigger: str, depth: int, compiled: bool = False, cid: Optional[int] = None) -> None:
-    """A fused chain of ``depth`` ops forced at ``trigger``: records nothing
-    yet."""
+    """Count one forced chain: ``trigger`` names the forcing point,
+    ``depth`` the chain's depth, ``compiled`` whether the force built its
+    program, ``cid`` the chain's correlation id."""
+    if not _MODE:
+        return
+    for st in _states():
+        rec = st.forces.get(trigger)
+        if rec is None:
+            rec = st.forces[trigger] = {"count": 0, "depth_total": 0, "max_depth": 0, "compiles": 0}
+        rec["count"] += 1
+        rec["depth_total"] += int(depth)
+        if depth > rec["max_depth"]:
+            rec["max_depth"] = int(depth)
+        if compiled:
+            rec["compiles"] += 1
+    _note_event("force", trigger=trigger, depth=int(depth), compiled=compiled, cid=cid)
+    for frame in _span_stack():
+        frame.forces += 1
+    if _MEM_HOOK is not None:
+        _MEM_HOOK("force")
+
+
+def _render_forces(st: _State) -> Dict[str, Dict[str, Any]]:
+    return {
+        trigger: {
+            "count": rec["count"],
+            "mean_depth": round(rec["depth_total"] / rec["count"], 2) if rec["count"] else 0.0,
+            "max_depth": rec["max_depth"],
+            "compiles": rec["compiles"],
+        }
+        for trigger, rec in st.forces.items()
+    }
+
+
+def forcing_points() -> Dict[str, Dict[str, Any]]:
+    """Forces per forcing point: count, mean and max chain depth, and the
+    forces that built their program."""
+    return _render_forces(_cur())
 
 
 def record_retrace(family: tuple, shape_key) -> None:
-    """A program-cache miss of op ``family``: records nothing yet."""
+    """Count one program-cache miss of op ``family`` under leaf layout
+    ``shape_key``. At ``HEAT_TPU_TELEMETRY_RETRACE_WARN`` distinct layouts of
+    one family a :class:`RetraceWarning` fires, once per family (the global
+    ledger decides, so a scope never warns again)."""
+    if not _MODE:
+        return
+    grec0 = _GLOBAL.retraces.get(family)
+    already_warned = grec0 is not None and grec0["warned"]
+    for st in _states():
+        rec = st.retraces.get(family)
+        if rec is None:
+            rec = st.retraces[family] = {"misses": 0, "keys": set(), "warned": already_warned}
+        rec["misses"] += 1
+        if not rec["warned"] and not already_warned:
+            rec["keys"].add(shape_key)
+    for frame in _span_stack():
+        frame.retraces += 1
+    grec = _GLOBAL.retraces.get(family)
+    if grec is None:
+        return
+    if not grec["warned"] and len(grec["keys"]) >= _RETRACE_WARN_AFTER:
+        for st in _states():
+            rec = st.retraces.get(family)
+            if rec is not None:
+                rec["warned"] = True
+        warnings.warn(
+            RetraceWarning(
+                f"op family {'/'.join(family) or '<leaf>'} recompiled under {len(grec['keys'])} "
+                f"distinct input shapes ({grec['misses']} cache misses): shape churn is defeating "
+                "the fusion program cache; pad or bucket the varying dimension, or force the "
+                "chain before the shape-dependent step"
+            ),
+            stacklevel=3,
+        )
 
 
-def record_async_dispatch(n_roots: int, cid: Optional[int] = None, cids=(), program: Optional[str] = None, sessions=None) -> None:
-    """An asynchronous fused-program dispatch: records nothing yet."""
+def _render_retraces(st: _State) -> Dict[str, Dict[str, Any]]:
+    return {
+        "/".join(family) or "<leaf>": {
+            "misses": rec["misses"],
+            "distinct_shapes": len(rec["keys"]),
+            "warned": rec["warned"],
+        }
+        for family, rec in st.retraces.items()
+    }
+
+
+def retraces() -> Dict[str, Dict[str, Any]]:
+    """Program-cache misses per op family."""
+    return _render_retraces(_cur())
 
 
 def record_fused_collective(kind: str, cid: Optional[int] = None, detail: Optional[str] = None) -> None:
-    """A collective recorded into a fused program: records nothing yet."""
+    """A collective node recorded into a fused program. The recorder has no
+    collective nodes yet (a collective forces the chain): they come with the
+    collective half of the fusion recorder (ROADMAP A11.2b), and this
+    records nothing until then."""
 
 
 def record_unfused(engine: str, reason: str) -> None:
-    """An op that ``engine`` did not defer into a fused program: records
-    nothing yet."""
+    """Count an op that ``engine`` ran eagerly instead of deferring, by
+    ``reason`` (``out=``, ``where=``, ``fusion_off``, ``padded_broadcast``,
+    ``record_failed:<Type>``, ...)."""
+    if not _MODE:
+        return
+    for st in _states():
+        rec = st.unfused.get(engine)
+        if rec is None:
+            rec = st.unfused[engine] = {}
+        rec[reason] = rec.get(reason, 0) + 1
+
+
+def unfused_reasons() -> Dict[str, Dict[str, int]]:
+    """Per engine, why ops ran eagerly instead of deferring."""
+    return {k: dict(v) for k, v in _cur().unfused.items()}
 
 
 def record_degraded(family: tuple, stage: str, error: str = "") -> None:
-    """A fused program re-run op by op after a failure: records nothing
-    yet."""
+    """Count one degraded program: the program of op ``family`` failed at
+    ``stage`` (``compile``/``execute``) and its chain was replayed op by
+    op."""
+    if not _MODE:
+        return
+    key = "/".join(family) or "<leaf>"
+    for st in _states():
+        rec = st.degraded.get(key)
+        if rec is None:
+            rec = st.degraded[key] = {"count": 0, "stages": {}, "last_error": ""}
+        rec["count"] += 1
+        rec["stages"][stage] = rec["stages"].get(stage, 0) + 1
+        if error:
+            rec["last_error"] = error
+    _note_event("degraded", family=key, stage=stage, error=error)
+
+
+def degraded_counts() -> Dict[str, int]:
+    """Degradations per op family."""
+    return {key: rec["count"] for key, rec in _cur().degraded.items()}
+
+
+def _render_degraded(st: _State) -> Dict[str, Dict[str, Any]]:
+    return {
+        key: {"count": rec["count"], "stages": dict(rec["stages"]), "last_error": rec["last_error"]}
+        for key, rec in st.degraded.items()
+    }
+
+
+def degraded() -> Dict[str, Dict[str, Any]]:
+    """Degradations per op family: count, per stage, last error."""
+    return _render_degraded(_cur())
 
 
 # ----------------------------------------------------------------------
@@ -837,12 +1054,14 @@ def checkpoint_events() -> Dict[str, int]:
 # spans
 # ----------------------------------------------------------------------
 class _SpanFrame:
-    __slots__ = ("path", "t0", "collectives", "timers")
+    __slots__ = ("path", "t0", "collectives", "forces", "retraces", "timers")
 
     def __init__(self, path: str):
         self.path = path
         self.t0 = time.perf_counter()
         self.collectives: Dict[str, int] = {}
+        self.forces = 0
+        self.retraces = 0
         self.timers: Dict[str, float] = {}
 
 
@@ -874,10 +1093,12 @@ def span(name: str):
             rec = st.spans.get(path)
             if rec is None:
                 rec = st.spans[path] = {
-                    "calls": 0, "total_s": 0.0, "collectives": {}, "timers": {},
+                    "calls": 0, "total_s": 0.0, "collectives": {}, "forces": 0, "retraces": 0, "timers": {},
                 }
             rec["calls"] += 1
             rec["total_s"] += elapsed
+            rec["forces"] += frame.forces
+            rec["retraces"] += frame.retraces
             for op, cnt in frame.collectives.items():
                 rec["collectives"][op] = rec["collectives"].get(op, 0) + cnt
             for tname, secs in frame.timers.items():
@@ -906,6 +1127,8 @@ def _render_spans(st: _State) -> Dict[str, Dict[str, Any]]:
             "calls": rec["calls"],
             "total_s": rec["total_s"],
             "collectives": dict(rec["collectives"]),
+            "forces": rec["forces"],
+            "retraces": rec["retraces"],
             "timers": dict(rec["timers"]),
         }
         for path, rec in st.spans.items()
@@ -913,8 +1136,8 @@ def _render_spans(st: _State) -> Dict[str, Dict[str, Any]]:
 
 
 def spans() -> Dict[str, Dict[str, Any]]:
-    """Per-span calls, host wall seconds, collectives and
-    nested timer seconds."""
+    """Per-span calls, host wall seconds, collectives, forces, retraces
+    and nested timer seconds."""
     return _render_spans(_cur())
 
 
@@ -940,16 +1163,44 @@ def _memory_block() -> Dict[str, Any]:
         out["device"] = profiling.device_memory_stats()
     out["ledger"] = memledger._scan(top=5)
     out["watermark"] = memledger.watermark()
+    out["budget"] = memledger.budget_info()
+    oom = memledger.last_oom()
+    if oom is not None:
+        out["last_oom"] = oom
     comm = communication._built_comm()
     if comm is not None:
         out["live_buffers"] = health.memory_report(comm)
     return out
 
 
+def _programs_block(top: Optional[int] = None) -> Dict[str, Any]:
+    """The top cached programs by dispatches (metadata; the cost
+    estimates that :func:`program_costs` computed are merged in, the report
+    computes none) and ``cost_errors``, the programs whose estimate
+    failed."""
+    from . import fusion
+
+    progs = fusion.programs()
+    ranked = sorted(progs.items(), key=lambda kv: kv[1].get("dispatches", 0), reverse=True)
+    n = _TOP_PROGRAMS if top is None else top
+    return {"cached": len(progs), "cost_errors": fusion.cost_error_count(), "top": [dict(rec, key=key) for key, rec in ranked[:n]]}
+
+
+def program_costs(top: Optional[int] = None, refresh: bool = False) -> Dict[str, Dict[str, Any]]:
+    """Cost estimates of the cached programs by program key
+    (``fusion.program_costs``): operand and result bytes, flops and the
+    static peak, from each program's node shapes. Memoized; never touches
+    data or forces a chain."""
+    from . import fusion
+
+    return fusion.program_costs(top=top, refresh=refresh)
+
+
 def report(*, _state: Optional[_State] = None) -> Dict[str, Any]:
     """The whole telemetry picture as one dict (JSON-ready through
     :func:`report_json`): the counter blocks (the scope's own view inside a
-    :func:`scope`), the archived scopes, the memory block and the
+    :func:`scope`), the archived scopes, the memory block, the fusion
+    recorder's program cache and top programs, and the
     ``utils.profiling`` timers. ``_state`` lets the metrics sink read the
     global state whatever scope another thread is in."""
     st = _state if _state is not None else _cur()
@@ -957,9 +1208,11 @@ def report(*, _state: Optional[_State] = None) -> Dict[str, Any]:
     doc.update(_counter_blocks(st))
     doc["scopes"] = scope_reports()
     doc["memory"] = _memory_block()
-    from . import health_runtime
+    from . import fusion, health_runtime
 
     doc["health"] = health_runtime.health_block(global_view=_state is not None)
+    doc["fusion_cache"] = fusion.cache_stats()
+    doc["programs"] = _programs_block()
     from ..utils import profiling
 
     doc["timers"] = profiling.report()
@@ -1021,24 +1274,51 @@ def _us(ts: float) -> float:
 #: instant-event rendering: kind -> (category, name builder)
 _INSTANT_KINDS = {
     "collective": ("collective", lambda ev: ev.get("op", "collective")),
+    "record": ("record", lambda ev: "record:" + str(ev.get("op"))),
     "compile": ("compile", lambda ev: "compile:" + str(ev.get("label") or ev.get("family") or ev.get("program"))),
+    "force": ("force", lambda ev: "force:" + str(ev.get("trigger"))),
+    "degraded": ("degrade", lambda ev: "degraded:" + str(ev.get("family"))),
     "fault": ("fault", lambda ev: "fault:" + str(ev.get("site"))),
     "io_retry": ("io", lambda ev: "io_retry:" + str(ev.get("site"))),
     "io": ("io", lambda ev: "io:" + str(ev.get("op", "op"))),
     "checkpoint": ("checkpoint", lambda ev: "checkpoint:" + str(ev.get("event"))),
     "checkpoint_phase": ("checkpoint", lambda ev: "ckpt:" + str(ev.get("phase"))),
     "nonfinite": ("errstate", lambda ev: "nonfinite:" + str(ev.get("where"))),
+    "memory_gate": ("memory", lambda ev: "gate:" + str(ev.get("policy"))),
+    "memory_oom": ("memory", lambda ev: "oom:" + str(ev.get("program"))),
     "stall": ("health", lambda ev: "stall:" + str(ev.get("site"))),
     "slo_breach": ("health", lambda ev: "slo:" + str(ev.get("metric"))),
     "flight_dump": ("health", lambda ev: "flight_dump:" + str(ev.get("reason"))),
 }
 
 
+def async_pairs(evs: Optional[List[dict]] = None) -> List[tuple]:
+    """The timeline's ``dispatch`` events matched with the
+    ``blocking_sync`` events that waited on them by correlation id: a sync
+    waits on the dispatch whose roots (``cids``) hold its chain's ``cid``.
+    Returns ``[(dispatch_event, sync_event), ...]``."""
+    if evs is None:
+        evs = list(_cur().events)
+    by_cid: Dict[int, dict] = {}
+    for ev in evs:
+        if ev.get("kind") == "dispatch":
+            for cid in ev.get("cids") or ([ev["cid"]] if ev.get("cid") is not None else []):
+                by_cid[cid] = ev
+    pairs = []
+    for ev in evs:
+        if ev.get("kind") == "blocking_sync" and ev.get("cid") is not None:
+            disp = by_cid.get(ev["cid"])
+            if disp is not None:
+                pairs.append((disp, ev))
+    return pairs
+
+
 def trace_events(evs: Optional[List[dict]] = None, pid: Optional[int] = None) -> List[dict]:
     """The timeline as Chrome trace-event dicts: spans and timers as B/E
     pairs, blocking syncs with their duration as X events, memory samples
-    as counter (C) tracks, everything else as thread-scoped instants; one
-    process row, tid 0."""
+    as counter (C) tracks, each dispatch and the blocking sync that waited
+    on it as an async b/e pair keyed by cid, everything else as
+    thread-scoped instants; one process row, tid 0."""
     if evs is None:
         evs = list(_cur().events)
     if pid is None:
@@ -1081,10 +1361,23 @@ def trace_events(evs: Optional[List[dict]] = None, pid: Optional[int] = None) ->
             out.append(dict(common, ph="C", cat="memory", name="live_bytes", args=series))
             out.append(dict(common, ph="C", cat="memory", name="live_bytes_watermark",
                             args={"watermark": int(ev.get("watermark", 0))}))
+        elif kind == "dispatch":
+            out.append(dict(common, ph="i", s="t", cat="dispatch", name="dispatch", args=args_of(ev)))
         else:
             cat, name_of = _INSTANT_KINDS.get(kind, ("event", lambda e, k=kind: str(k)))
             out.append(dict(common, ph="i", s="t", cat=cat, name=name_of(ev), args=args_of(ev)))
 
+    # dispatch -> blocking sync pairs by correlation id: the sync is stamped
+    # when the host read notes the pending chain, before the dispatch, so a
+    # pair opens at the earlier stamp and closes when the host holds the value
+    for disp, sync in async_pairs(evs):
+        start = min(disp["ts"], sync["ts"])
+        end = max(disp["ts"], sync["ts"] + float(sync.get("dur", 0.0)))
+        common = {"cat": "async_forcing", "name": "dispatch→sync", "id": str(sync.get("cid")), "pid": pid, "tid": tid}
+        out.append(dict(common, ph="b", ts=_us(start), args={
+            "program": disp.get("program"), "roots": disp.get("roots"), "where": sync.get("where"), "cid": sync.get("cid"),
+        }))
+        out.append(dict(common, ph="e", ts=_us(end)))
     return out
 
 

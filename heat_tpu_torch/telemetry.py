@@ -142,14 +142,29 @@ def _show(doc: Dict[str, Any], out) -> None:
 # memory: the live ledger and the watermark
 # ----------------------------------------------------------------------
 def _memory_doc(report_path: Optional[str], top: int) -> Dict[str, Any]:
-    """The memory picture to show: a saved report's ``memory`` block when a
-    path is given, else this process's live ledger."""
+    """The memory picture to show: a saved report's ``memory`` and
+    ``programs`` blocks when a path is given, else this process's live
+    ledger, gate and the fusion recorder's programs with their static
+    peaks."""
     if report_path is not None:
         doc = _load(report_path)
-        return {"source": report_path, "memory": doc.get("memory") or {}}
-    from heat_tpu_torch.core import memledger
+        return {"source": report_path, "memory": doc.get("memory") or {}, "programs": doc.get("programs") or {}}
+    from heat_tpu_torch.core import fusion, memledger
 
-    return {"source": "<live>", "memory": {"ledger": memledger.ledger(top=top), "watermark": memledger.watermark()}}
+    return {
+        "source": "<live>",
+        "memory": {
+            "ledger": memledger.ledger(top=top),
+            "watermark": memledger.watermark(),
+            "budget": memledger.budget_info(resolve=True),
+            "last_oom": memledger.last_oom(),
+        },
+        "programs": {
+            "cached": len(fusion.cache_stats()["program_keys"]),
+            "cost_errors": fusion.cost_error_count(),
+            "top": [dict(rec, key=key) for key, rec in fusion.program_costs(top=top).items()],
+        },
+    }
 
 
 def _show_memory(doc: Dict[str, Any], out) -> None:
@@ -179,10 +194,48 @@ def _show_memory(doc: Dict[str, Any], out) -> None:
             f"{wm.get('by_owner', {})}",
             file=out,
         )
+    budget = mem.get("budget") or {}
+    if budget.get("budget") is not None:
+        print(
+            f"  budget: {_fmt_bytes(budget.get('budget_bytes'))} "
+            f"policy={budget.get('policy')} checks={budget.get('checks', 0)} "
+            f"exceeded={budget.get('exceeded', 0)} drains={budget.get('drains', 0)}",
+            file=out,
+        )
+    oom = mem.get("last_oom")
+    if oom:
+        print(
+            f"  LAST OOM: program {oom.get('program')} ({oom.get('family')}) "
+            f"static peak {_fmt_bytes(oom.get('static_peak_bytes'))}, live "
+            f"{_fmt_bytes(oom.get('live_total_bytes', 0))} by owner "
+            f"{oom.get('by_owner', {})}",
+            file=out,
+        )
     dev = mem.get("device") or {}
     for name, stats in sorted(dev.items()):
         line = ", ".join(f"{k}={_fmt_bytes(v)}" for k, v in sorted(stats.items()))
         print(f"  {name}: {line}", file=out)
+    progs = doc.get("programs") or {}
+    top_progs = progs.get("top") or []
+    if top_progs:
+        print(
+            f"per-program static peaks (of {progs.get('cached', 0)} cached, "
+            f"{progs.get('cost_errors', 0)} cost error(s)):",
+            file=out,
+        )
+        for rec in top_progs:
+            memrec = (rec.get("cost") or rec).get("memory") or {}
+            peak = memrec.get("peak_bytes")
+            line = f"  {rec.get('key', '?'):<18} x{rec.get('dispatches', 0):<6} {str(rec.get('family', ''))[:48]:<48} "
+            if peak is not None:
+                line += (
+                    f"peak {_fmt_bytes(peak)} (args {_fmt_bytes(memrec.get('argument_bytes', 0))}"
+                    f" + out {_fmt_bytes(memrec.get('output_bytes', 0))}"
+                    f" + temp {_fmt_bytes(memrec.get('temp_bytes', 0))})"
+                )
+            else:
+                line += "peak n/a"
+            print(line, file=out)
 
 
 # ----------------------------------------------------------------------

@@ -290,7 +290,7 @@ FORBIDDEN = ("jax", "jaxlib", "heat_tpu", "flax", "optax", "ml_dtypes")
 MODULES = (
     "_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset",
     "core.version", "core.telemetry", "core.resilience", "utils.profiling", "telemetry",
-    "core.memledger", "core.health_runtime", "utils.health",
+    "core.memledger", "core.health_runtime", "utils.health", "core.fusion",
 )
 
 
@@ -309,15 +309,23 @@ def test_port_imports_neither_jax_nor_heat_tpu():
             assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
-@pytest.mark.parametrize("module", ["core/memledger.py", "core/health_runtime.py", "utils/health.py"])
+@pytest.mark.parametrize(
+    "module", ["core/memledger.py", "core/health_runtime.py", "utils/health.py", "core/fusion.py", "core/telemetry.py"]
+)
 def test_runtime_modules_read_only_the_references_knobs(module):
     """Every HEAT_TPU_* variable a runtime module of the port reads is one
-    the reference module of the same name reads: no knob of the port's own."""
+    the reference module of the same name reads: no knob of the port's own.
+    The knobs of the recorder's collective half (its collective nodes and
+    root batching, ROADMAP A11.2b) are absent until that half is ported."""
     mine = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu_torch" / module).read_text()))
     theirs = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu" / module).read_text()))
     assert mine <= theirs, sorted(mine - theirs)
     if module != "utils/health.py":
         assert mine
+    later = {"HEAT_TPU_FUSION_COLLECTIVES", "HEAT_TPU_FUSION_BATCH", "HEAT_TPU_FUSION_BATCH_BYTES"}
+    assert not mine & later, sorted(mine & later)
+    if module == "core/fusion.py":
+        assert later <= theirs
 
 
 def test_importing_the_port_loads_no_jax():

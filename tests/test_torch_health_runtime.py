@@ -45,7 +45,10 @@ from heat_tpu_torch.core import health_runtime as hr
 from heat_tpu_torch.core import resilience as res
 from heat_tpu_torch.core import telemetry as tel
 from heat_tpu_torch.core.communication import MeshCommunication
-from test_torch_parity import on_cpu  # noqa: F401
+from test_torch_parity import eager_engines, on_cpu  # noqa: F401
+
+# every test here holds the eager engines' accounting against heat_tpu's
+pytestmark = pytest.mark.usefixtures("eager_engines")
 
 cli = importlib.import_module("heat_tpu_torch.telemetry")
 ref_cli = importlib.import_module("heat_tpu.telemetry")
@@ -170,9 +173,10 @@ def test_manual_dumps_validate_in_both_packages(tmp_path):
     with open(dumps[1]["path"]) as fh:
         ref_bundle = json.load(fh)
     # the reference's keys less those of modules the port does not have yet
-    assert set(bundle) == set(ref_bundle) - {"programs", "diagnosis", "numerics"}
+    assert set(bundle) == set(ref_bundle) - {"diagnosis", "numerics"}
     assert bundle["reason"] == "manual" and bundle["trace_problems"] == [] and bundle["events"] > 0
-    assert set(bundle["memory"]) == {"watermark"}
+    assert set(bundle["memory"]) == set(ref_bundle["memory"]) == {"watermark", "budget", "last_oom"}
+    assert set(bundle["programs"]) == set(ref_bundle["programs"])
     assert set(bundle["health"]) == set(ref_bundle["health"])
     assert hr.flight_stats()["dumps"] == 1 and hr.last_dump()["path"] == dumps[0]["path"]
 

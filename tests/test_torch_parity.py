@@ -54,6 +54,16 @@ def on_cpu():
     ht.use_device(None)
 
 
+@pytest.fixture
+def eager_engines():
+    """The port's fusion recorder off as well, for the tests that hold the
+    eager engines' accounting (dispatches, syncs, collectives, errstate at
+    the op) against the reference's eager engines; the recorder's own
+    accounting is held in test_torch_fusion_runtime.py."""
+    with ht.core.fusion.disabled():
+        yield
+
+
 def data(shape, dtype: str, low: float = -3.0, high: float = 3.0, seed: int = SEED) -> np.ndarray:
     """Seeded input of a type: bool half true, integers in [low, high),
     floats uniform in [low, high) (bfloat16 inputs are float32 values that

@@ -30,7 +30,10 @@ from heat_tpu.core.communication import MeshCommunication as RefMesh
 from heat_tpu_torch.core import resilience as res
 from heat_tpu_torch.core import telemetry as tel
 from heat_tpu_torch.core.communication import MeshCommunication
-from test_torch_parity import on_cpu  # noqa: F401
+from test_torch_parity import eager_engines, on_cpu  # noqa: F401
+
+# every test here holds the eager engines' accounting against heat_tpu's
+pytestmark = pytest.mark.usefixtures("eager_engines")
 
 MESHES = [1, 3, 5]
 

@@ -41,7 +41,10 @@ from heat_tpu.core import telemetry as ref_tel
 from heat_tpu.core.communication import MeshCommunication as RefMesh
 from heat_tpu_torch.core import telemetry as tel
 from heat_tpu_torch.core.communication import MeshCommunication
-from test_torch_parity import on_cpu  # noqa: F401
+from test_torch_parity import eager_engines, on_cpu  # noqa: F401
+
+# every test here holds the eager engines' accounting against heat_tpu's
+pytestmark = pytest.mark.usefixtures("eager_engines")
 from torch_counting import CountingMesh
 
 # the command-line modules (the packages' ``telemetry`` attribute is the core module)
@@ -51,12 +54,11 @@ ref_cli = importlib.import_module("heat_tpu.telemetry")
 MESHES = [1, 3, 5]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: report() blocks of modules the port has not yet: the fusion recorder's
-#: (cache, programs, fused collectives, forcing points, unfused reasons,
-#: retraces, degradations), numerics, serving, elastic, autoscale and
-#: multi-process
-FUSION_BLOCKS = {"fusion_cache", "programs", "fused_collectives", "forcing_points", "unfused_reasons", "retraces", "degraded"}
-LATER_BLOCKS = FUSION_BLOCKS | {"numerics", "serving", "elastic", "autoscale", "multihost"}
+#: report() blocks of the fusion recorder, which the port has, and of what
+#: it has not yet: the recorder's collective nodes (fused collectives),
+#: numerics, serving, elastic, autoscale and multi-process
+FUSION_BLOCKS = {"fusion_cache", "programs", "forcing_points", "unfused_reasons", "retraces", "degraded"}
+LATER_BLOCKS = {"fused_collectives", "numerics", "serving", "elastic", "autoscale", "multihost"}
 
 
 @pytest.fixture(autouse=True)
@@ -393,13 +395,13 @@ def test_counters_of_the_resilience_and_checkpoint_seams_match():
         t.record_fused_collective("reduce.psum")
         t.record_async_dispatch(2, cid=1, cids=(1, 2), program="p0")
     mine, theirs = tel.report(), ref_tel.report()
-    for key in ("faults", "io_retries", "nonfinite", "checkpoint", "jit_compiles"):
+    for key in ("faults", "io_retries", "nonfinite", "checkpoint", "jit_compiles", "forcing_points",
+                "unfused_reasons", "retraces", "degraded", "async_forcing"):
         assert mine[key] == theirs[key], key
-    # the fusion recorder's entry points take the reference's arguments and
-    # record nothing: no block of theirs, and no async dispatch
-    assert not FUSION_BLOCKS & set(mine) and FUSION_BLOCKS - {"fusion_cache", "programs"} <= set(theirs)
-    assert mine["async_forcing"] == {"blocking_syncs": {}, "blocking_total": 0, "sync_wait": {}}
-    assert theirs["async_forcing"]["dispatches"] == 1
+    # the fused-collective entry point takes the reference's arguments and
+    # records nothing until the recorder has collective nodes
+    assert FUSION_BLOCKS <= set(mine) and "fused_collectives" not in mine
+    assert theirs["fused_collectives"] == {"reduce.psum": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -434,10 +436,9 @@ def test_each_packages_trace_passes_the_others_validator(p, tmp_path):
     names = [e["name"] for e in doc["traceEvents"] if e["ph"] == "B"]
     assert names == ["fit", "fit/iter"]
     assert any(e["ph"] == "X" for e in doc["traceEvents"])
-    # the reference pairs its async dispatch with the sync (b/e); the port
-    # dispatches nothing asynchronously, so its trace has no such pair
-    assert not any(e["ph"] in "be" for e in doc["traceEvents"])
-    assert any(e["ph"] == "b" for e in ref_tel.export_trace()["traceEvents"])
+    # both pair the async dispatch with the sync that waited on it (b/e, by cid)
+    for events in (doc["traceEvents"], ref_tel.export_trace()["traceEvents"]):
+        assert [(e["ph"], e["id"]) for e in events if e["ph"] in ("b", "e")] == [("b", "7"), ("e", "7")]
     if p > 1:
         assert [e["name"] for e in doc["traceEvents"] if e.get("cat") == "collective"] == ["allreduce", "allgather"]
 
@@ -563,7 +564,8 @@ def test_the_metrics_sink_writes_json_lines(tmp_path):
         "ht.sum(x, axis=0)\n"
         "ht.telemetry._SINK.flush('mid')\n"
     )
-    env = dict(os.environ, HEAT_TPU_METRICS=path, HEAT_TPU_TELEMETRY="1", HEAT_TPU_TEST_DEVICES="3")
+    # the eager engines, whose sum records its allreduce at the op
+    env = dict(os.environ, HEAT_TPU_METRICS=path, HEAT_TPU_TELEMETRY="1", HEAT_TPU_TEST_DEVICES="3", HEAT_TPU_FUSION="0")
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, cwd=ROOT, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = [json.loads(line) for line in open(path)]
