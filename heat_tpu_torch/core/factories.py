@@ -139,13 +139,19 @@ def ones(shape, dtype=types.float32, split=None, device=None, comm=None, order="
 
 def full(shape, fill_value, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Constant-filled array (reference factories.py:820); an integer fill
-    value gives float32, as in the reference."""
+    value gives float32, as in the reference. An array fill value (a numpy
+    array or a DNDarray) is broadcast to ``shape``, as numpy does."""
     if dtype is None:
         dtype = types.heat_type_of(fill_value)
         if isinstance(fill_value, (int, np.integer)):
             dtype = types.float32
+    if isinstance(fill_value, DNDarray):
+        fill_value = fill_value.numpy()
 
     def fill(shape, dtype, device):
+        if isinstance(fill_value, np.ndarray):
+            value = torch.as_tensor(fill_value).to(device=device, dtype=dtype)
+            return value.broadcast_to(shape).clone()
         return torch.full(shape, fill_value, dtype=dtype, device=device)
 
     return _factory(shape, dtype, split, fill, device, comm)

@@ -212,6 +212,13 @@ def vecdot(
 
     if keepdim is not None:
         keepdims = keepdim
+    for i, operand in enumerate((x1, x2)):
+        if (operand.ndim if isinstance(operand, DNDarray) else np.ndim(operand)) == 0:
+            # numpy's gufunc error: the core dimension (n) is missing
+            raise ValueError(
+                f"vecdot: Input operand {i} does not have enough dimensions (has 0, gufunc core with "
+                "signature (n),(n)->() requires 1)"
+            )
     if axis is None:
         axis = -1
     first = complex_math.conjugate(x1) if types.heat_type_is_complexfloating(x1.dtype) else x1

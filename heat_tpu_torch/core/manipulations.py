@@ -380,7 +380,10 @@ def split(x: DNDarray, indices_or_sections, axis: int = 0) -> List[DNDarray]:
             raise ValueError("array split does not result in an equal division")
         parts = torch.tensor_split(x.larray, int(indices_or_sections), dim=axis)
     else:
-        parts = torch.tensor_split(x.larray, [int(i) for i in np.asarray(indices_or_sections).reshape(-1)], dim=axis)
+        indices = np.asarray(indices_or_sections)
+        if indices.ndim > 1:  # numpy's error: an index must be a scalar
+            raise TypeError("only integer scalar arrays can be converted to a scalar index")
+        parts = torch.tensor_split(x.larray, [int(i) for i in indices.reshape(-1)], dim=axis)
     return [_wrap_result(p, x.split, x) for p in parts]
 
 
@@ -503,6 +506,8 @@ def repeat(a, repeats, axis: Optional[int] = None) -> DNDarray:
         raise TypeError(f"repeats must be int, list, tuple or DNDarray, got {type(repeats)}")
     else:
         repeats = int(repeats)
+    if bool(repeats < 0) if isinstance(repeats, int) else bool((repeats < 0).any()):
+        raise ValueError("repeats may not contain negative values.")
     t = a.larray
     if axis is None:
         t, axis_, split = t.reshape(-1), 0, 0 if a.split is not None else None

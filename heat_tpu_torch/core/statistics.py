@@ -440,7 +440,13 @@ def bincount(x: DNDarray, weights: Optional[DNDarray] = None, minlength: int = 0
     flat = x.larray.reshape(-1)
     if flat.dtype == torch.bool:  # numpy counts the False and True entries
         flat = flat.long()
-    length = builtins.max(minlength, int(flat.max()) + 1 if flat.numel() else minlength)
+    top = minlength
+    if flat.numel():
+        low, high = (int(v) for v in torch.stack(torch.aminmax(flat)).tolist())  # one host read
+        if low < 0:
+            raise ValueError("'list' argument must have no negative elements")
+        top = high + 1
+    length = builtins.max(minlength, top)
     w = weights.larray.reshape(-1).to(flat.device) if weights is not None else None
     return _replicated(_fast_bincount(flat, length, w), x)
 

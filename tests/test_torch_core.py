@@ -407,3 +407,29 @@ def test_the_native_codec_builds_only_into_the_build_directory(tmp_path):
     libraries = sorted((ROOT / "heat_tpu_torch").rglob("*.so"))
     assert libraries and all(p.parent == _build.BUILD_DIR for p in libraries), libraries
     assert not list((ROOT / "heat_tpu_torch" / "_native").glob("*.so"))
+
+
+# ---------------------------------------------------------------------------
+# fault C15 of ROADMAP queue C: an array fill value is broadcast to the shape,
+# with the reference's dtype rule, on explicit meshes of 3 and 5 shards
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_full_broadcasts_an_array_fill_value(split, p):
+    comm, theirs = _cpu_mesh(p), RefMesh(jax.devices()[: min(p, len(jax.devices()))])
+    cases = [
+        (lambda pkg, c: pkg.full((4, 3), pkg.array(5, dtype=pkg.int32), split=split, comm=c), np.full((4, 3), 5, np.int32)),
+        (lambda pkg, c: pkg.full((4, 3), np.array([1, 2, 3], np.int32), split=split, comm=c), np.full((4, 3), [1, 2, 3], np.int32)),
+        (lambda pkg, c: pkg.full((4, 3), np.array([1.5, 2.0, -3.0], np.float32), split=split, comm=c), np.full((4, 3), [1.5, 2.0, -3.0], np.float32)),
+        (lambda pkg, c: pkg.full((4, 3), np.array(2.5, np.float32), split=split, comm=c), np.full((4, 3), 2.5, np.float32)),
+        (
+            lambda pkg, c: pkg.full_like(pkg.zeros((4, 3), split=split, comm=c), pkg.array(2.0)),
+            np.full((4, 3), 2.0, np.float32),
+        ),
+    ]
+    for make, expected in cases:
+        mine, want = make(ht, comm), make(ref, theirs)
+        np.testing.assert_array_equal(mine.numpy(), expected)
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(want.numpy()))
+        assert str(mine.dtype).split(".")[-1] == str(want.dtype).split(".")[-1] == expected.dtype.name
+        assert mine.split == want.split == split

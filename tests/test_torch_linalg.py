@@ -641,3 +641,20 @@ def test_dot_and_vdot_of_bool_are_bool(name, split, p):
         assert mine.dtype is ht.bool
         assert mine.item() == getattr(np, name)(v, w)
         assert mine.item() == getattr(ref, name)(ref.array(v, split=split), ref.array(w, split=split)).item()
+
+
+# ---------------------------------------------------------------------------
+# fault C16 of ROADMAP queue C: vecdot with a 0-d operand raises numpy's
+# ValueError, on explicit meshes of 3 and 5 shards
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0])
+def test_vecdot_with_a_scalar_operand_raises_value_error(split, p):
+    x_np = np.array([1.0, 2.0, 3.0, 4.0], np.float32)
+    x = ht.array(x_np, split=split, comm=_mesh(p))
+    for args, np_args in (((x, 2), (x_np, 2)), ((2, x), (2, x_np)), ((x, ht.array(2.0, comm=_mesh(p))), (x_np, np.float32(2.0)))):
+        with pytest.raises(ValueError):
+            np.vecdot(*np_args)
+        with pytest.raises(ValueError):
+            ht.vecdot(*args)
+    np.testing.assert_allclose(ht.vecdot(x, x).numpy(), np.vecdot(x_np, x_np), rtol=1e-6)

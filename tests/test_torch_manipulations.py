@@ -478,3 +478,35 @@ def test_pad_and_split_refuse_a_float_as_numpy_does(p):
         ht.split(x, 1.5)
     # a float that divides the axis is a number of sections, as in numpy
     assert [s.gshape for s in ht.split(x, 2.0)] == [s.shape for s in np.split(values, 2.0)]
+
+
+# ---------------------------------------------------------------------------
+# fault C16 of ROADMAP queue C: numpy's error types for a negative repeat
+# count and for split indices that are not one-dimensional, on explicit
+# meshes of 3 and 5 shards
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0])
+def test_repeat_of_a_negative_count_raises_value_error(split, p):
+    x = ht.array(np.array([1, 2, 3], np.int64), split=split, comm=_mesh(p))
+    for repeats in ([1, -1, 2], np.array([1, -1, 2]), ht.array(np.array([1, -1, 2]), comm=_mesh(p)), -1):
+        with pytest.raises(ValueError):
+            np.repeat(np.array([1, 2, 3]), np.asarray(repeats.numpy() if isinstance(repeats, ht.DNDarray) else repeats))
+        with pytest.raises(ValueError):
+            ht.repeat(x, repeats)
+    np.testing.assert_array_equal(ht.repeat(x, [1, 0, 2]).numpy(), np.repeat([1, 2, 3], [1, 0, 2]))
+
+
+@pytest.mark.parametrize("p", [3, 5])
+def test_split_of_two_dimensional_indices_raises_type_error(p):
+    x = ht.arange(6, split=0, comm=_mesh(p))
+    m = ht.zeros((6, 4), split=0, comm=_mesh(p))
+    for fn, arr, np_fn, np_arr in ((ht.split, x, np.split, np.arange(6)), (ht.hsplit, x, np.hsplit, np.arange(6)), (ht.vsplit, m, np.vsplit, np.zeros((6, 4)))):
+        with pytest.raises(TypeError):
+            np_fn(np_arr, np.array([[1, 2]]))
+        with pytest.raises(TypeError):
+            fn(arr, np.array([[1, 2]]))
+        with pytest.raises(TypeError):
+            ref.split(ref.arange(6), np.array([[1, 2]]))
+    parts = ht.split(x, np.array([1, 2]))
+    assert [q.numpy().tolist() for q in parts] == [q.tolist() for q in np.split(np.arange(6), [1, 2])]

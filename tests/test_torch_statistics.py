@@ -614,3 +614,19 @@ def test_percentile_outside_0_100_raises_value_error(q, p):
         np.percentile(values, q)
     with pytest.raises(ValueError):
         ht.percentile(ht.array(values, split=0, comm=_mesh(p)), q)
+
+
+# ---------------------------------------------------------------------------
+# fault C16 of ROADMAP queue C: a negative bincount value raises numpy's
+# ValueError, on explicit meshes of 3 and 5 shards
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("split", [None, 0])
+def test_bincount_of_a_negative_value_raises_value_error(split, p):
+    values = np.array([1, -1, 2, 4, 0, 3, 1], np.int64)
+    with pytest.raises(ValueError):
+        np.bincount(values)
+    with pytest.raises(ValueError):
+        ht.bincount(ht.array(values, split=split, comm=_mesh(p)))
+    good = np.abs(values)
+    np.testing.assert_array_equal(ht.bincount(ht.array(good, split=split, comm=_mesh(p))).numpy(), np.bincount(good))

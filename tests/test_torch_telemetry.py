@@ -27,6 +27,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -355,10 +356,21 @@ def test_report_json_round_trips_and_is_deterministic():
     x = ht.array(np.ones((9, 2), np.float32), split=0, comm=_mesh(3))
     with tel.span("s"):
         ht.sum(x, axis=0)
-    text = tel.report_json()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "telemetry.json")
+        text = tel.report_json(path)
+        with open(path) as fh:
+            assert json.load(fh) == json.loads(text)  # one report's file against its own text
     doc = json.loads(text)
     assert doc["collective_counts"] == {"allreduce": 1}
-    assert json.loads(tel.report_json()) == {**doc, "timers": json.loads(tel.report_json())["timers"]}
+
+    def stable(d):
+        # the timers and the OS-sampled host memory (resident set size) move
+        # between two reports; every other block is deterministic
+        memory = {k: v for k, v in d["memory"].items() if k != "host"}
+        return {**d, "timers": None, "memory": memory}
+
+    assert stable(json.loads(tel.report_json())) == stable(doc)
     assert tel._jsonable({("a", 1): {1, 2}, "t": (1, np.float32(2.5))}) == ref_tel._jsonable({("a", 1): {1, 2}, "t": (1, np.float32(2.5))})
 
 
