@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero. Every phase runs as a user
-gets the package, with the fusion recorder on (its default): each path's
-seconds, program builds, forces and degraded forces are printed, and a
-degraded force fails it. Phases 9, 12 and 13, where the array engines do
-most of the work, run a second time with the recorder off, the compared
-leg; phase 18 holds the recorder itself.
+gets the package, with the fusion recorder and its collective nodes on
+(the defaults): each path's seconds, program builds, forces, multi-root
+batches and degraded forces are printed, and a degraded force fails it.
+Phases 9, 12 and 13, where the array engines do most of the work, run
+again with the collective nodes off and with the recorder off, the
+compared legs; phase 18 holds the recorder itself, phase 19 its
+collective nodes.
 
 1. build every CUDA kernel of the package from ``heat_tpu_torch/csrc`` and
    print the registers and spills the compiler reports for the flash and
@@ -233,16 +235,33 @@ leg; phase 18 holds the recorder itself.
    chain's ops/s over sizes from 1,000 x 16 to 10^7 x 16, recorded, eager
    and as the card's default chooses, and a one-op program run without an
    Inductor build, equal to the eager op bit for bit;
-19. print the phase-9 to 18 numbers with the card, the recorder-off legs
-   of phases 9, 12 and 13, each path's seconds and program builds, the
-   card's name and power limit, one JSON line of per-kernel numbers, and
-   the result line ``{"ok": true, "device": {...}}`` last.
+19. the recorder's collective nodes on four shards of the card (no
+   kernel of its own; the four-shard paths run the Lloyd and pairwise
+   kernels): each item with the collective nodes on, off and the recorder
+   off, its dispatches, roots, multi-root batches, Inductor builds and
+   device ms (median of three calls) beside its bytes bound: ``mean``,
+   ``var`` and ``std`` of BASELINE config 3's table along the split as one
+   dispatch of three roots; a z-score through ``resplit_(1)``, column sums
+   and ``resplit_(0)``, pending throughout, its shards equal to the
+   collectives-off leg's; ``argmax``/``argmin`` along the split equal to
+   the eager leg's; ``z @ W`` pending at split 0 and ``zᵀ z`` within k u of
+   float64; CholeskyQR2 and TSQR of a pending column scale at 2.5·10^6 x
+   512 within phase 10's bounds; ``convolve`` of a pending 10^8 signal with
+   9 taps within phase 15's bound; ``cg`` on an 8,192² SPD matrix declined
+   by name, its residual checked; then phases 9, 10, 12, 16, 4 and 13's
+   four-shard steps again, each path's programs, builds and batches;
+20. print the phase-9 to 19 numbers with the card, the collectives-off and
+   recorder-off legs of phases 9, 12 and 13, each path's seconds and
+   program builds, the card's name and power limit, one JSON line of
+   per-kernel numbers, and the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 It needs CUDA and the package beside it, and fails without either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1913,6 +1932,31 @@ def counting_mesh(devices):
     return CountingMesh(devices)
 
 
+@contextlib.contextmanager
+def program_verbs(fusion):
+    """Count the verbs that recorded schedules run inside their programs
+    (``fusion._ProgramComm``'s shard-order arithmetic), not the record-time
+    runs on meta tensors; yields the Counter."""
+    import collections
+
+    calls = collections.Counter()
+    originals = {}
+    for verb in ("allgather", "allreduce", "bcast", "ppermute", "alltoall"):
+        originals[verb] = getattr(fusion._ProgramComm, verb)
+
+        def counted(self, shards, *args, _verb=verb, **kwargs):
+            if shards[0].device.type != "meta":
+                calls[_verb] += 1
+            return originals[_verb](self, shards, *args, **kwargs)
+
+        setattr(fusion._ProgramComm, verb, counted)
+    try:
+        yield calls
+    finally:
+        for verb, fn in originals.items():
+            setattr(fusion._ProgramComm, verb, fn)
+
+
 def _poison_padding(x) -> int:
     """NaN into the padding of each shard; returns the padding's length."""
     if x.split is None or not x.padded:
@@ -2032,24 +2076,63 @@ def linalg_mesh_phase(ht) -> dict:
     t += torch.diag(1 + torch.rand(n, generator=gen, device="cuda"))
     rhs = torch.randn(n, kk, generator=gen, device="cuda")
     T4, b4 = ht.array(t, split=0, comm=mesh4), ht.array(rhs, split=0, comm=mesh4)
+    fusion = ht.core.fusion
+    recorded = fusion.collectives_active()  # T is above the 192 MiB rule: the default records the solve
+
+    def solve():
+        x = ht.linalg.solve_triangular(T4, b4)
+        if recorded and not fusion.is_deferred(x):
+            raise AssertionError("solve_triangular: the default did not record the solve")
+        return x
+
+    # the default leg, as a user gets it (the schedule recorded, its verbs
+    # run inside the program), then the collectives-off leg, whose verbs
+    # the counting mesh counts: the compared one. Each leg's first call is
+    # counted (the default's records and builds its program), its second
+    # timed warm
     mesh4.calls.clear()
-    x4, ms = _timed(lambda: ht.linalg.solve_triangular(T4, b4))
+    with program_verbs(fusion) as in_program:
+        x_on, cold_on = _timed(solve)
+    legs = {"default": (x_on, cold_on, dict(mesh4.calls), dict(in_program))}
+    x_on, ms_on = _timed(solve)
+    mesh4.calls.clear()
+    with fusion.collectives_disabled():
+        with program_verbs(fusion) as in_program:
+            x4, cold = _timed(lambda: ht.linalg.solve_triangular(T4, b4))
+        legs["collectives off"] = (x4, cold, dict(mesh4.calls), dict(in_program))
+        x4, ms = _timed(lambda: ht.linalg.solve_triangular(T4, b4))
     x1, lib = _timed(lambda: torch.linalg.solve_triangular(t, rhs, upper=True))
     errs = []
-    for label, x in (("four shards", x4.larray), ("torch.linalg.solve_triangular", x1)):
+    for label, x in (("default", x_on.larray), ("collectives off", x4.larray), ("torch.linalg.solve_triangular", x1)):
         back = (rhs.double() - t.double() @ x.double()).abs()
         scale = 2 * n * U32 * (t.double().abs() @ x.double().abs())
         if not bool(torch.isfinite(x).all()) or not bool((back <= scale).all()):
             raise AssertionError(f"solve_triangular {label}: backward error beyond 2 n u |T||x|")
         errs.append((back / scale).max().item())
-    if x4.split != 0 or mesh4.calls["allreduce"] != LINALG_P:
-        raise AssertionError(f"solve_triangular: split {x4.split}, collectives {dict(mesh4.calls)}")
-    out["solve_triangular"] = {"n": n, "k": kk, "ms": ms, "torch_ms": lib, "backward_share": errs, "collectives": dict(mesh4.calls)}
+    # the program's verbs run only where the default recorded the solve
+    want = {"default": ({}, {"allreduce": LINALG_P}) if recorded else ({"allreduce": LINALG_P}, {}),
+            "collectives off": ({"allreduce": LINALG_P}, {})}
+    for label, (first, _, eager_verbs, program_verbs_seen) in legs.items():
+        if first.split != 0 or (eager_verbs, program_verbs_seen) != want[label]:
+            raise AssertionError(f"solve_triangular {label}: split {first.split}, verbs {eager_verbs} eager, "
+                                 f"{program_verbs_seen} in the program")
+    bitwise = torch.equal(x_on.larray, x4.larray) and torch.equal(legs["default"][0].larray, x_on.larray)
+    diff = (x_on.larray.double() - x4.larray.double()).abs().max().item()
+    out["solve_triangular"] = {
+        "n": n, "k": kk, "ms": ms, "default_ms": ms_on, "first_call_ms": cold, "default_first_call_ms": cold_on,
+        "torch_ms": lib, "recorded": recorded,
+        "backward_share": errs, "collectives": legs["collectives off"][2], "program_collectives": legs["default"][3],
+        "default_equal_to_off": bitwise, "default_max_abs_diff": diff,
+    }
     print(
-        f"  solve_triangular n={n}, {kk} right-hand sides: {ms:.1f} ms (torch {lib:.1f} ms), backward error "
-        f"{errs[0]:.3f} of its bound (torch {errs[1]:.3f}); collectives {dict(mesh4.calls)}",
+        f"  solve_triangular n={n}, {kk} right-hand sides: default (recorded: {recorded}) {ms_on:.1f} ms (first "
+        f"call {cold_on:.1f}), collectives off {ms:.1f} ms (first call {cold:.1f}; torch {lib:.1f} ms); backward "
+        f"error {errs[0]:.3f}, {errs[1]:.3f} of its bound (torch {errs[2]:.3f}); default against off: bit for bit "
+        f"{bitwise}, max |d| {diff:.3e}; verbs "
+        f"{legs['collectives off'][2]} eager off, {legs['default'][3]} in the default's program",
         flush=True,
     )
+    del T4, b4, x_on, x4, x1, legs
     torch.cuda.empty_cache()
     return out
 
@@ -4764,7 +4847,10 @@ def collectives_phase(ht, tel) -> dict:
         raise AssertionError("the ring's recorded ppermute bytes are not its shards' bytes")
     del a
     q = ht.array(torch.randn(RT_QR_SHAPE, generator=gen, device="cuda"), split=0, comm=mesh)
-    counted("qr_tall_split0", lambda: ht.linalg.qr(q))
+    # the counting mesh counts the eager schedule's verbs: a recorded one
+    # runs them inside its program (phase 19)
+    with ht.core.fusion.collectives_disabled():
+        counted("qr_tall_split0", lambda: ht.linalg.qr(q))
     del q
     x, y = _cifar(CKPT_BATCH, SEED + 16)
     daso = ht.optim.DASO(ht.optim.SGD(TRAIN_LR, momentum=0.9), total_epochs=10, comm=mesh, nodes=2,
@@ -6009,47 +6095,417 @@ def fusion_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the recorder's collective half on four shards of the card (phase 19): no
+# kernel of its own. A collective of a pending chain records a node of it,
+# and a force batches the small live roots into one program. Every item runs
+# three legs: the collective nodes on (the default), off (each collective
+# forces its chain) and the recorder off; each leg's first call builds, the
+# second is timed by CUDA events and counted by telemetry.
+# ---------------------------------------------------------------------------
+FC_P = 4
+# BASELINE config 4's 512 columns; its 10^7 rows cut to 2.5·10^6 (5.1 GB
+# float32) so that four shards, Q and the chain's intermediates fit in 80 GB
+FC_QR_SHAPE = (2_500_000, 512)
+FC_CONV_N, FC_CONV_TAPS = 100_000_000, 9
+FC_CG_N = 8_192  # a replicated SPD matrix of 268 MB, above the 192 MiB rule
+FC_LEGS = ("on", "off", "eager")
+FC_REPS = 3  # timed calls per leg after the first; the median is kept
+# Tolerances of the legs against each other. The programs of the three legs
+# cut one chain into other Inductor programs, which may round otherwise
+# (an FMA contracted, a reduction split differently):
+# * moments: |on - off| <= 1e-5 |off| + 1e-6, and each against float64
+#   within 1e-4 relative (10^7-row float32 sums in any order);
+# * the z-score chain through the resplits: |on - off| <= 8 u (1 + |z|)
+#   elementwise (z = (x - m) / s rounds once per op; m and s within a few u);
+# * argmax/argmin: exact (integer results; the maxima of random columns
+#   are unique);
+# * matmul: on against off within FC_ZSCORE_UNITS u of the factors' spread
+#   (see the item), each leg against float64 within FC_MATMUL_F64_UNITS
+#   u |A||B| elementwise, a bound that a product of bf16 factors must fail;
+# * convolve: phase 15's bound, |c - c64| <= (k + 1) u (|v| * |a|);
+# * CG: ‖b - A x‖ / ‖b‖ <= 1e-4 in float64 (float32 CG of a matrix of
+#   condition ~5).
+FC_ZSCORE_UNITS = 8
+FC_CG_RESIDUAL = 1e-4
+# about 6x the largest reading on an H100 80GB HBM3 at 700 W (10.8 u|A||B|,
+# zᵀ z with the recorder off; 4.7 and 5.8 on and off), about 700x under
+# the bf16 control's (4.5e4 and 9.5e4 u|A||B|); a zeroed off-diagonal entry
+# of zᵀ z sits near 8e3
+FC_MATMUL_F64_UNITS = 64
+
+
+def _fc_leg(fusion, tel, leg: str, fn, check_pending=None) -> tuple:
+    """One leg of an item: its first call (the builds), then FC_REPS calls
+    each forced between CUDA events, the first with telemetry counting.
+    Returns (outputs of the last call, numbers with the median ms)."""
+    import contextlib
+
+    import torch
+
+    ctx = {"on": contextlib.nullcontext, "off": fusion.collectives_disabled, "eager": fusion.disabled}[leg]()
+    with ctx:
+        builds, degraded = _fu_unique_graphs(), _fu_degraded(fusion)
+        out = fn()
+        if check_pending is not None and leg == "on":
+            check_pending(out)
+        _dispatched(out)
+        torch.cuda.synchronize()
+        builds = _fu_unique_graphs() - builds
+        del out
+        times = []
+        for rep in range(FC_REPS):
+            mode = tel.set_mode(1 if rep == 0 else 0)
+            tel.reset()
+            try:
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                out = None
+                start.record()
+                out = _dispatched(fn())
+                stop.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(stop))
+                if rep == 0:
+                    stats, reasons = tel.async_forcing(), tel.unfused_reasons()
+            finally:
+                tel.set_mode(mode)
+                tel.reset()
+        degraded = _fu_degraded(fusion) - degraded
+    numbers = {
+        "ms": sorted(times)[len(times) // 2], "dispatches": stats["dispatches"], "roots": stats["roots_dispatched"],
+        "multi_root_batches": stats["multi_root_batches"], "builds": builds, "degraded": degraded,
+    }
+    if reasons.get("op"):
+        numbers["declined"] = reasons["op"]
+    if degraded:
+        raise AssertionError(f"collectives {leg}: {degraded} programs degraded")
+    return out, numbers
+
+
+def _fc_item(fusion, tel, label: str, fn, nbytes: float, check_pending=None) -> tuple:
+    """The three legs of one item, printed beside its bytes bound; returns
+    ({leg: outputs}, numbers)."""
+    import torch
+
+    outs, numbers = {}, {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    for leg in FC_LEGS:
+        outs[leg], numbers[leg] = _fc_leg(fusion, tel, leg, fn, check_pending)
+        torch.cuda.empty_cache()
+    print(
+        f"  {label}: bound {numbers['bound_ms']:.3f} ms; " + "; ".join(
+            f"{leg} {numbers[leg]['ms']:.3f} ms, {numbers[leg]['dispatches']} dispatches "
+            f"({numbers[leg]['roots']} roots, {numbers[leg]['multi_root_batches']} batched), {numbers[leg]['builds']} builds"
+            for leg in FC_LEGS
+        ),
+        flush=True,
+    )
+    return outs, numbers
+
+
+def _fc_pending(*names):
+    """A check that every output of the on leg's first call is pending."""
+    from heat_tpu_torch.core import fusion
+
+    def check(out):
+        for name, o in zip(names, out if isinstance(out, (tuple, list)) else (out,)):
+            if not fusion.is_deferred(o):
+                raise AssertionError(f"{name} is not pending before its read")
+
+    return check
+
+
+def _fc_zscore(ht, x):
+    return (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+
+
+def fused_collectives_path(ht, smi: str) -> dict:
+    """Phase 19: the recorder's collective half on four shards of the card;
+    returns its numbers."""
+    import torch
+
+    from heat_tpu_torch.core import fusion
+    from heat_tpu_torch.core import telemetry as tel
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    card = torch.device("cuda", 0)
+    mesh = MeshCommunication([card] * FC_P)
+    numbers = {"card": smi, "seconds": {}}
+    print(f"phase collectives: the recorder's collective nodes on {FC_P} shards of the card", flush=True)
+    if not (fusion.active() and fusion.collectives_active()):
+        raise AssertionError("the recorder or its collective nodes are off by default")
+    x, _ = kmeans_table(ht)
+    x = ht.array(x.larray, split=0, comm=mesh)
+    table_bytes = x.nbytes
+    t0 = time.perf_counter()
+
+    # 1. the moments of config 3's table: one program of three roots
+    outs, numbers["moments"] = _fc_item(
+        fusion, tel, f"mean, var, std along axis 0 of {N} x {F} float32",
+        lambda: (ht.mean(x, axis=0), ht.var(x, axis=0), ht.std(x, axis=0)), table_bytes,
+        _fc_pending("mean", "var", "std"),
+    )
+    on = numbers["moments"]["on"]
+    if (on["dispatches"], on["roots"], on["multi_root_batches"]) != (1, 3, 1):  # tests/test_fused_collectives.py:79-81
+        raise AssertionError(f"moments: {on['dispatches']} dispatches of {on['roots']} roots, {on['multi_root_batches']} batched")
+    x64 = x.larray.double()
+    want64 = (x64.mean(0), x64.var(0), x64.std(0))
+    worst = 0.0
+    for got_on, got_off, ref in zip(outs["on"], outs["off"], want64):
+        a, b = got_on.larray.double(), got_off.larray.double()
+        if not bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-6).all()):
+            raise AssertionError("moments: the collective leg differs from the collectives-off leg")
+        worst = max(worst, ((a - ref).abs() / ref.abs()).max().item())
+    del x64, outs
+    if worst > 1e-4:
+        raise AssertionError(f"moments: {worst:.3e} from float64")
+    numbers["moments"]["max_rel_err_f64"] = worst
+
+    # 2. a chain through two resplits, pending throughout
+    def resplit_chain():
+        z = _fc_zscore(ht, x)
+        z.resplit_(1)
+        s = ht.sum(z * z, axis=0)
+        z.resplit_(0)
+        return z, s
+
+    outs, numbers["resplit_chain"] = _fc_item(
+        fusion, tel, "z-score, resplit_(1), column sums, resplit_(0)", resplit_chain, 2 * table_bytes,
+        _fc_pending("z", "column sums"),
+    )
+    (z_on, s_on), (z_off, s_off) = outs["on"], outs["off"]
+    bitwise = all(torch.equal(a, b) for a, b in zip(z_on.shards, z_off.shards)) and torch.equal(s_on.larray, s_off.larray)
+    dz = ((z_on.larray - z_off.larray).abs() / (U32 * (1 + z_off.larray.abs()))).max().item()
+    numbers["resplit_chain"].update(bitwise=bitwise, max_units=dz, split=z_on.split)
+    print(f"    shards equal to the collectives-off leg bit for bit: {bitwise}; max |dz| {dz:.2f} u (1 + |z|)", flush=True)
+    if z_on.split != 0 or dz > FC_ZSCORE_UNITS:
+        raise AssertionError(f"resplit chain: split {z_on.split}, {dz:.2f} u from the collectives-off leg")
+    del outs, z_on, s_on, z_off, s_off
+
+    # 3. argmax/argmin along the split axis
+    outs, numbers["argreduce"] = _fc_item(
+        fusion, tel, "argmax, argmin along the split axis", lambda: (ht.argmax(x, axis=0), ht.argmin(x, axis=0)),
+        table_bytes, _fc_pending("argmax", "argmin"),
+    )
+    for leg in ("on", "off"):
+        for got, want in zip(outs[leg], outs["eager"]):
+            if not torch.equal(got.larray, want.larray):
+                raise AssertionError(f"argmax/argmin, collectives {leg}: indices differ from the eager leg")
+    del outs
+
+    # 4. matmul: the pending z-scored table @ a replicated W, and Zᵀ Z
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    w = ht.array(torch.randn(F, F, generator=gen, device="cuda"), comm=mesh)
+
+    def products():
+        z = _fc_zscore(ht, x)
+        y = ht.matmul(z, w)
+        if fusion.collectives_active() and not (fusion.is_deferred(y) and y.split == 0):
+            raise AssertionError("z @ W is not pending at split 0")
+        return y, ht.matmul(z.T, z)
+
+    outs, numbers["matmul"] = _fc_item(fusion, tel, "z @ W (16 x 16) and zᵀ z", products, 2 * table_bytes)
+    if outs["on"][0].split != 0 or outs["on"][1].split is not None:
+        raise AssertionError("matmul: the case table's splits")
+    z64 = _fc_zscore(ht, x).larray.double()
+    w64 = w.larray.double()
+    for i, (label, a64, b64, w_exact) in enumerate((("z @ W", z64, w64, True), ("zᵀ z", z64.T, z64, False))):
+        on, off = outs["on"][i].larray, outs["off"][i].larray
+        exact, mag = a64 @ b64, U32 * (a64.abs() @ b64.abs())  # u |A||B|
+        # on against off: both legs run the same per-shard products and
+        # combine order, on factors that differ by at most FC_ZSCORE_UNITS
+        # u (1 + |z|) elementwise (the resplit chain's bound); W is a leaf
+        spread = (a64.abs() + 1) @ b64.abs() + (0 if w_exact else a64.abs() @ (b64.abs() + 1))
+        d_on_off = (on.double() - off.double()).abs()
+        check_within(f"matmul {label}, on against off", on, off, FC_ZSCORE_UNITS * U32 * spread)
+        units = {leg: ((outs[leg][i].larray.double() - exact).abs() / mag).max().item() for leg in FC_LEGS}
+        # the control: the same product from bf16 factors, which the
+        # float64 bound must refuse
+        control = ((a64.float().bfloat16() @ b64.float().bfloat16()).double() - exact).abs()
+        control_units = (control / mag).max().item()
+        for leg, got in units.items():
+            if got > FC_MATMUL_F64_UNITS:
+                raise AssertionError(f"matmul {label}, collectives {leg}: {got:.3e} u |A||B| from float64")
+        if control_units <= FC_MATMUL_F64_UNITS:
+            raise AssertionError(f"matmul {label}: the bf16 control passes the float64 bound ({control_units:.3e} u |A||B|)")
+        numbers["matmul"][label] = {
+            "bitwise_on_off": torch.equal(on, off), "on_off_units": (d_on_off / mag).max().item(),
+            "f64_units": units, "bf16_control_units": control_units,
+        }
+        print(f"    {label}: on equal to off bit for bit {numbers['matmul'][label]['bitwise_on_off']}, max |on - off| "
+              f"{numbers['matmul'][label]['on_off_units']:.3e} u |A||B|; from float64 in u |A||B| {units} "
+              f"(bound {FC_MATMUL_F64_UNITS}), the bf16 control {control_units:.3e}", flush=True)
+        del exact, mag, spread, d_on_off, control
+    del outs, z64, w64
+
+    # 5. QR: a pending column scale into CholQR2 (one multi-output node) and TSQR
+    m, n = FC_QR_SHAPE
+    base = ht.array(torch.randn(m, n, generator=gen, device="cuda"), split=0, comm=mesh)
+    scale = ht.array(torch.linspace(0.5, 2.0, n, device="cuda"), comm=mesh)
+    qr_bytes = 2 * base.nbytes
+    numbers["qr"] = {}
+    for method in ("cholqr2", "tsqr"):
+        check = _fc_pending("Q", "R") if method == "tsqr" else None
+        outs, numbers["qr"][method] = _fc_item(
+            fusion, tel, f"qr(method={method!r}) of a column scale of {m} x {n}",
+            lambda: ht.linalg.qr(base * scale, method=method), qr_bytes, check,
+        )
+        a = (base * scale).larray
+        for leg in FC_LEGS:
+            errs = qr_errors(a, outs[leg][0].larray, outs[leg][1].larray)
+            check_qr(f"{method}, collectives {leg}", errs, n)
+            numbers["qr"][method][leg].update(errs)
+        print(f"    residual {numbers['qr'][method]['on']['residual']:.3e}, orthogonality "
+              f"{numbers['qr'][method]['on']['orthogonality']:.3e} (collectives on)", flush=True)
+        del outs, a
+        torch.cuda.empty_cache()
+    del base, scale
+
+    # 6. convolve over the deferred halo
+    import torch.nn.functional as Fn
+
+    sig = ht.array(torch.randn(FC_CONV_N, generator=gen, device="cuda"), split=0, comm=mesh)
+    taps = ht.array(torch.randn(FC_CONV_TAPS, generator=gen, device="cuda"), comm=mesh)
+    outs, numbers["convolve"] = _fc_item(
+        fusion, tel, f"convolve of a pending {FC_CONV_N} float32 with {FC_CONV_TAPS} taps",
+        lambda: ht.convolve(sig * 0.5 + 1.0, taps), 2 * sig.nbytes, _fc_pending("convolve"),
+    )
+    k = FC_CONV_TAPS
+    a64 = (sig * 0.5 + 1.0).larray.double()
+    flipped = taps.larray.double().flip(0)[None, None]
+    full64 = Fn.conv1d(a64[None, None], flipped, padding=k - 1)[0, 0]
+    mag64 = Fn.conv1d(a64.abs()[None, None], flipped.abs(), padding=k - 1)[0, 0]
+    errs = {}
+    for leg in FC_LEGS:
+        errs[leg] = ((outs[leg].larray.double() - full64).abs() / ((k + 1) * U32 * mag64 + 1e-30)).max().item()
+    bitwise = torch.equal(outs["on"].larray, outs["off"].larray)
+    numbers["convolve"].update(error_over_bound=errs, bitwise_on_off=bitwise)
+    print(f"    error over the bound {errs}; on equal to off bit for bit: {bitwise}", flush=True)
+    if max(errs.values()) > 1.0:
+        raise AssertionError(f"convolve: error over its bound {errs}")
+    del outs, a64, full64, mag64, sig, taps
+    torch.cuda.empty_cache()
+
+    # 7. CG on a replicated SPD matrix above the 192 MiB rule
+    c = FC_CG_N
+    mat = torch.randn(c, c, generator=gen, device="cuda")
+    spd = ht.array(mat @ mat.T / c + torch.eye(c, device="cuda"), comm=mesh)
+    rhs = ht.array(torch.randn(c, generator=gen, device="cuda"), comm=mesh)
+    x0 = ht.zeros((c,), comm=mesh)
+    del mat
+    outs, numbers["cg"] = _fc_item(fusion, tel, f"cg on a {c} x {c} SPD float32", lambda: ht.linalg.cg(spd, rhs, x0), spd.nbytes)
+    declined = numbers["cg"]["on"].get("declined")
+    print(f"    recording declined: {declined}", flush=True)
+    if declined != {"cg_unrolled_loop": 1}:
+        raise AssertionError(f"cg: declined {declined}")
+    a64, b64 = spd.larray.double(), rhs.larray.double()
+    for leg in FC_LEGS:
+        res = (torch.linalg.vector_norm(b64 - a64 @ outs[leg].larray.double()) / torch.linalg.vector_norm(b64)).item()
+        numbers["cg"][leg]["residual"] = res
+        if not res <= FC_CG_RESIDUAL:
+            raise AssertionError(f"cg, collectives {leg}: residual {res:.3e}")
+    del outs, a64, b64, spd, rhs, x0, x
+    torch.cuda.empty_cache()
+    numbers["seconds"]["items"] = time.perf_counter() - t0
+    print(f"  phase 19's items took {numbers['seconds']['items']:.1f} s", flush=True)
+    return numbers
+
+
+def four_shard_paths(ht, paths: dict) -> dict:
+    """Phase 19, second part: the earlier four-shard paths again, each
+    through ``recorded_path`` with the collective nodes on (the default),
+    for their programs, builds and multi-root batches. Returns the Lloyd
+    and pairwise launches of each, counted at the wrappers' launch
+    function (the paths zero the ``LAUNCHES`` counters themselves)."""
+    import torch
+
+    from heat_tpu_torch.core import fusion
+    from heat_tpu_torch.core import telemetry as tel
+    from heat_tpu_torch.ops import lloyd, pairwise
+
+    counts = {"lloyd": 0, "pairwise": 0}
+    originals = {mod: mod._launch for mod in (lloyd, pairwise)}
+
+    def counted(mod, name):
+        def launch(*args, **kwargs):
+            counts[name] += 1
+            return originals[mod](*args, **kwargs)
+
+        return launch
+
+    launches = {}
+    lloyd._launch, pairwise._launch = counted(lloyd, "lloyd"), counted(pairwise, "pairwise")
+    try:
+        z = ht.array(torch.randn(1000 * 1000, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda"), split=0)
+        for label, fn in (
+            ("four_shard_moments", lambda: moments_mesh_phase(ht, z)),
+            ("four_shard_linalg", lambda: linalg_mesh_phase(ht)),
+            ("four_shard_layer", lambda: layer_mesh_phase(ht)),
+            ("four_shard_runtime_collectives", lambda: collectives_phase(ht, tel)),
+            ("four_shard_distance_rings", lambda: distance_ring_phase(ht)),
+            ("four_shard_fit", lambda: estimators_mesh_phase(ht)),
+        ):
+            before = dict(counts)
+            recorded_path(fusion, paths, label, fn)
+            launches[label] = {k: counts[k] - before[k] for k in counts}
+            print(f"  {label}: {launches[label]['lloyd']} Lloyd and {launches[label]['pairwise']} pairwise launches",
+                  flush=True)
+    finally:
+        for mod, fn in originals.items():
+            mod._launch = fn
+    return launches
+
+
 def recorded_path(fusion, paths: dict, label: str, fn, off=None):
     """Run one path with the recorder on, as a user gets the package: its
     seconds, programs (cache misses), Inductor builds (Dynamo graphs),
-    forces and degraded forces go into ``paths``,
-    and a degraded force fails it (no phase before 18 injects a fusion
-    fault). A change of the default mesh clears the program cache and
-    zeroes its counters (as heat_tpu's does): the counts carry across each
-    clear. With ``off`` (a dict), run the path again with the recorder off
-    and keep that leg's numbers there. Returns the recorder-on numbers."""
+    forces, multi-root batches (dispatches of programs of several roots)
+    and degraded forces go into ``paths``, and a degraded force fails it
+    (no phase before 18 injects a fusion fault). A change of the default
+    mesh clears the program cache and zeroes its counters (as heat_tpu's
+    does): the counts carry across each clear. With ``off`` (a dict), run
+    the path again with the collective nodes off and with the recorder off
+    and keep those legs' numbers there. Returns the recorder-on numbers."""
     import torch
 
     keys = ("compiles", "forces", "degraded")
-    carried = dict.fromkeys(keys, 0)
+    carried = dict.fromkeys(keys + ("batches",), 0)
     clear = fusion.clear_cache
+
+    def batches():
+        return sum(p["dispatches"] for p in fusion.programs().values() if p["roots"] > p["dispatches"])
 
     def clear_carrying():
         stats = fusion.cache_stats()
         for k in keys:
             carried[k] += stats[k]
+        carried["batches"] += batches()
         clear()
 
     def counts():
         stats = fusion.cache_stats()
-        return dict({k: carried[k] + stats[k] for k in keys}, inductor_builds=_fu_unique_graphs())
+        return dict({k: carried[k] + stats[k] for k in keys}, batches=carried["batches"] + batches(),
+                    inductor_builds=_fu_unique_graphs())
 
     out = None
     fusion.clear_cache = clear_carrying
     try:
-        for leg in ("on", "off") if off is not None else ("on",):
+        for leg in ("on", "collectives off", "off") if off is not None else ("on",):
             before, t0 = counts(), time.perf_counter()
             if leg == "on":
                 out = fn()
-            else:
+            elif leg == "off":
                 with fusion.disabled():
-                    off[label] = fn()
+                    off[f"{label}_recorder_off"] = fn()
+            else:
+                with fusion.collectives_disabled():
+                    off[f"{label}_collectives_off"] = fn()
             after = counts()
             rec = {"seconds": time.perf_counter() - t0}
             rec.update({k: after[k] - before[k] for k in after})
-            paths[label if leg == "on" else f"{label}_recorder_off"] = rec
+            paths[{"on": label, "off": f"{label}_recorder_off"}.get(leg, f"{label}_collectives_off")] = rec
             print(f"  path {label}, recorder {leg}: {rec['seconds']:.1f} s, {rec['compiles']} programs "
-                  f"({rec['inductor_builds']} built by Inductor), {rec['forces']} forces, {rec['degraded']} degraded",
+                  f"({rec['inductor_builds']} built by Inductor), {rec['forces']} forces, {rec['batches']} "
+                  f"multi-root batches, {rec['degraded']} degraded",
                   flush=True)
             torch.cuda.empty_cache()
             if rec["degraded"]:
@@ -6113,6 +6569,10 @@ def main() -> int:
     runtime = run("runtime", lambda: runtime_path(ht, smi))
     health = run("health", lambda: health_path(ht, smi))
     fusion = fusion_path(ht, smi)
+    collectives = run("fused_collectives", lambda: fused_collectives_path(ht, smi))
+    collectives["four_shard_launches"] = four_shard_paths(ht, paths)
+    for entry, name in ((kernels[0], "lloyd"), (kernels[2], "pairwise")):
+        entry["launches_four_shard_paths"] = sum(v[name] for v in collectives["four_shard_launches"].values())
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
     kernels[0]["launches_disk_fit"] = io["disk_fit"]["npy"]["launches"]
     kernels[1].update({
@@ -6144,8 +6604,9 @@ def main() -> int:
     print("runtime: " + json.dumps(runtime))
     print("health: " + json.dumps(health))
     print("fusion: " + json.dumps(fusion))
+    print("fused_collectives: " + json.dumps(collectives))
     for label, numbers in off.items():
-        print(f"{label}_recorder_off: " + json.dumps(numbers))
+        print(f"{label}: " + json.dumps(numbers))
     print("paths: " + json.dumps(paths))
     print(smi)
     print(json.dumps({"kernels": kernels}))

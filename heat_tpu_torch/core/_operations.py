@@ -280,6 +280,10 @@ def __reduce_op(
         if lazy is not None:
             if telemetry._MODE:
                 telemetry.record_dispatch("reduce", fused=True)
+                if x.split is not None and x.split in axes and x.comm.is_distributed():
+                    # the combine across the split runs inside the program: a
+                    # collective node (heat_tpu/core/_operations.py:322-329)
+                    telemetry.record_fused_collective("reduce.psum")
             return lazy
     elif telemetry._MODE:
         telemetry.record_unfused("reduce", "out=" if out is not None else "fusion_off")

@@ -100,6 +100,10 @@ class MeshCommunication(Communication):
         (p shards on the one CPU).
     """
 
+    #: whether the verbs record themselves and fire their fault sites; the
+    #: fusion recorder's programs run the verbs' arithmetic without either
+    _records = True
+
     def __init__(self, devices: Sequence[torch.device]):
         devices = [torch.device(d) for d in devices]
         if not devices:
@@ -181,7 +185,7 @@ class MeshCommunication(Communication):
         'lor'} or a callable combining two values (a custom reduce op such
         as :func:`~heat_tpu_torch.core.statistics.mpi_argmax`)."""
         self._check(shards)
-        if telemetry._MODE or resilience._ARMED:
+        if self._records and (telemetry._MODE or resilience._ARMED):
             _note("allreduce", shards[0])
         return _allreduce(shards, op, self._devices)
 
@@ -189,7 +193,7 @@ class MeshCommunication(Communication):
         """Every shard gets shard ``root``'s value, moved to its device
         (reference Bcast, heat_tpu/core/communication.py:192)."""
         self._check(shards)
-        if telemetry._MODE or resilience._ARMED:
+        if self._records and (telemetry._MODE or resilience._ARMED):
             _note("bcast", shards[root])
         return [_to(shards[root], d) for d in self._devices]
 
@@ -199,7 +203,7 @@ class MeshCommunication(Communication):
         shards 0..d-1, shard 0 the neutral element (given for a callable
         ``op``, else made from the op)."""
         self._check(shards)
-        if telemetry._MODE or resilience._ARMED:
+        if self._records and (telemetry._MODE or resilience._ARMED):
             _note("exscan", shards[0])
         if neutral is None and callable(op):
             raise ValueError("a callable op requires an explicit neutral element")
@@ -209,7 +213,7 @@ class MeshCommunication(Communication):
         """Inclusive prefix combine in shard order (reference Scan): shard d
         gets the combination of shards 0..d."""
         self._check(shards)
-        if telemetry._MODE or resilience._ARMED:
+        if self._records and (telemetry._MODE or resilience._ARMED):
             _note("scan", shards[0])
         return self._prefixes(shards, op)
 
@@ -220,7 +224,7 @@ class MeshCommunication(Communication):
         """Concatenate one tensor per shard along ``dim`` and give every shard
         the result on its own device (reference Allgather(v))."""
         self._check(shards)
-        if telemetry._MODE or resilience._ARMED:
+        if self._records and (telemetry._MODE or resilience._ARMED):
             _note("allgather", shards[0])
         first = self._devices[0]
         whole = torch.cat([s.to(first) for s in shards], dim=dim)
@@ -238,7 +242,7 @@ class MeshCommunication(Communication):
         dst) pairs overrides ``shift``; a shard that no pair names as its
         destination receives zeros, as in ``lax.ppermute``."""
         self._check(shards)
-        if telemetry._MODE or resilience._ARMED:
+        if self._records and (telemetry._MODE or resilience._ARMED):
             _note("ppermute", shards[0])
         p = self.size
         if perm is None:
@@ -260,7 +264,7 @@ class MeshCommunication(Communication):
         shard d goes to shard j, which concatenates what it receives along
         ``concat_axis`` in source order."""
         self._check(shards)
-        if telemetry._MODE or resilience._ARMED:
+        if self._records and (telemetry._MODE or resilience._ARMED):
             _note("alltoall", shards[0])
         p = self.size
         for s in shards:

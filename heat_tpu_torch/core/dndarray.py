@@ -12,10 +12,11 @@ A replicated array (``split=None``) holds the whole array on every device.
 Under the fusion recorder (``core/fusion.py``) the shard list may be a
 pending :class:`~heat_tpu_torch.core.fusion.LazyArray` chain instead. Every
 reader of the shards forces it (``shards``, ``parray``, ``larray``,
-``lshards``, ``numpy``, ``item``, indexing, printing, I/O, ``resplit_``,
-halos, ``astype`` of a concrete array); each force is attributed to its
-forcing point in telemetry. Shape, dtype, split and ``padded`` are
-metadata and never force.
+``lshards``, ``numpy``, ``item``, indexing, printing, I/O, ``astype`` of a
+concrete array); each force is attributed to its forcing point in
+telemetry. ``resplit_`` and ``get_halo`` of a pending chain record nodes
+of it instead (with ``HEAT_TPU_FUSION_COLLECTIVES=0`` they force it).
+Shape, dtype, split and ``padded`` are metadata and never force.
 
 * ``parray`` is the physical global tensor (shards concatenated, padding
   included); with one shard it is that shard, without a copy.
@@ -228,10 +229,10 @@ class DNDarray:
         if not isinstance(lazy, fusion.LazyArray):
             return lazy
         if scope is None:
-            value = fusion.force(lazy)
+            value = fusion.force(lazy, self.__comm)
         else:
             with scope:
-                value = fusion.force(lazy)
+                value = fusion.force(lazy, self.__comm)
         split = self.__split
         shards = list(value) if split is not None else _distribute(value[0], None, self.__comm)
         if resilience._ERRSTATE is not None:
@@ -341,13 +342,23 @@ class DNDarray:
     # ------------------------------------------------------------------
     def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
         """Redistribute in place to a new split axis (reference
-        dndarray.py:1235-1357)."""
+        dndarray.py:1235-1357). A pending chain stays pending: the
+        redistribution records a node of it (``fusion.defer_reshard``,
+        heat_tpu/core/dndarray.py:495-530)."""
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return self
         if resilience._ARMED:
             # the fault fires before the array changes (heat_tpu dndarray.py:505-509)
             resilience.check("collective.reshard")
+        payload = self.__shards
+        if isinstance(payload, fusion.LazyArray) and payload._value is None and fusion.collectives_active():
+            node = fusion.defer_reshard(payload, self.__gshape, self.__split, axis, self.__comm)
+            if node is not None:
+                self.__shards = node
+                self.__split = axis
+                fusion.register_root(self)
+                return self
         self._forced(_T_COLLECTIVE)  # a redistribution is a collective: it forces
         self.__shards = _tagged(_distribute(self.larray, axis, self.__comm))
         self.__split = axis
@@ -423,7 +434,10 @@ class DNDarray:
         physical rows and shard d-1 its leading ones; the shards at the ends
         receive zeros, and padding rows go as zeros (reference
         dndarray.py:552). Nothing is exchanged on one shard or when the
-        halo is wider than a shard."""
+        halo is wider than a shard. The halos of a pending chain are a
+        node of it (``fusion.defer_apply``, heat_tpu/core/dndarray.py:
+        570-598): arrays of the exchanged rows, read by ``convolve``
+        without a force."""
         if not isinstance(halo_size, int):
             raise TypeError(f"halo_size needs to be of Python type integer, {type(halo_size)} given")
         if halo_size < 0:
@@ -433,34 +447,44 @@ class DNDarray:
         split, p = self.__split, self.__comm.size
         if not halo_size or split is None or p == 1:
             return
+        payload = self.__shards
+        if isinstance(payload, fusion.LazyArray) and payload._value is None and fusion.collectives_active():
+            if halo_size > payload.shape[split]:
+                return
+            if resilience._ARMED:
+                resilience.check("collective.halo")
+            nodes = fusion.defer_apply(self.__comm, _halo_kernel, (self,), out_split=(split, split), halo_size=halo_size)
+            if nodes is not None:
+                hshape = list(self.__gshape)
+                hshape[split] = halo_size * p
+                self.__halos = tuple(fusion.wrap_node(n, tuple(hshape), split, self) for n in nodes)
+                return
         shards = self._forced(_T_COLLECTIVE)
-        block = shards[0].shape[split]
-        if halo_size > block:
+        if halo_size > shards[0].shape[split]:
             return
         if resilience._ARMED:
             resilience.check("collective.halo")
-        counts = self.counts_displs()[0]
+        self.__halos = _halo_kernel(self, comm=self.__comm, halo_size=halo_size)
 
-        def edge(t: torch.Tensor, count: int, lead: bool) -> torch.Tensor:
-            piece = t.narrow(split, 0 if lead else block - halo_size, halo_size).clone()
-            start = 0 if lead else block - halo_size
-            if count < start + halo_size:  # padding goes as zeros
-                piece.narrow(split, max(count - start, 0), start + halo_size - max(count, start)).zero_()
-            return piece
-
-        from_prev = self.__comm.ppermute(
-            [edge(t, c, False) for t, c in zip(shards, counts)], perm=[(j, j + 1) for j in range(p - 1)]
-        )
-        from_next = self.__comm.ppermute(
-            [edge(t, c, True) for t, c in zip(shards, counts)], perm=[(j, j - 1) for j in range(1, p)]
-        )
-        self.__halos = (from_prev, from_next)
+    def _halo_arrays(self) -> Optional[Tuple["DNDarray", "DNDarray"]]:
+        """The halos of the last :meth:`get_halo` as arrays of split rows,
+        ``halo_size`` per shard, without a force (a pending exchange stays
+        pending), or None."""
+        halos = getattr(self, "_DNDarray__halos", None)
+        if halos is None or isinstance(halos[0], DNDarray):
+            return halos
+        gshape = list(self.__gshape)
+        gshape[self.__split] = halos[0][0].shape[self.__split] * self.__comm.size
+        return tuple(DNDarray(h, tuple(gshape), self.__dtype, self.__split, self.__device, self.__comm) for h in halos)
 
     @property
     def halos(self) -> Optional[Tuple[List[torch.Tensor], List[torch.Tensor]]]:
         """The ``(from_prev, from_next)`` shard lists of the last
-        :meth:`get_halo`, or None."""
-        return getattr(self, "_DNDarray__halos", None)
+        :meth:`get_halo`, or None (a pending exchange is forced)."""
+        halos = getattr(self, "_DNDarray__halos", None)
+        if halos is not None and isinstance(halos[0], DNDarray):
+            return tuple(h._forced(_T_COLLECTIVE) for h in halos)
+        return halos
 
     @property
     def array_with_halos(self) -> torch.Tensor:
@@ -468,11 +492,13 @@ class DNDarray:
         from_next]``, concatenated along the split axis on the first device
         (reference dndarray.py:619); the logical array when no halos were
         exchanged."""
-        halos = self.halos
-        if halos is None:
+        if getattr(self, "_DNDarray__halos", None) is None:
             return self.larray
-        first = self.__comm.devices[0]
+        # the array first: a pending exchange of its chain rides the same
+        # program, reading the chain's result instead of computing it again
         shards = self._forced(_T_COLLECTIVE)
+        halos = self.halos
+        first = self.__comm.devices[0]
         return torch.cat(
             [torch.cat([a, s, b], dim=self.__split).to(first) for a, s, b in zip(halos[0], shards, halos[1])],
             dim=self.__split,
@@ -996,6 +1022,36 @@ def _tagged(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     for s in shards:
         memledger.tag(s, "dndarray")
     return shards
+
+
+def _halo_kernel(x, *, comm, halo_size: int):
+    """The halo exchange over the shards of ``x`` (a DNDarray, or a shard
+    view inside a fused program): two ``ppermute`` shifts, shard d + 1
+    receiving d's trailing ``halo_size`` physical rows and shard d - 1 its
+    leading ones, padding rows sent as zeros. Returns ``(from_prev,
+    from_next)``, one tensor per shard each."""
+    split, p = x.split, comm.size
+    shards = x.shards
+    block = shards[0].shape[split]
+    counts = x.counts_displs()[0]
+
+    def edge(t: torch.Tensor, count: int, lead: bool) -> torch.Tensor:
+        start = 0 if lead else block - halo_size
+        piece = t.narrow(split, start, halo_size)
+        if count < start + halo_size:  # padding goes as zeros
+            keep = max(count - start, 0)
+            zeros_shape = list(piece.shape)
+            zeros_shape[split] = halo_size - keep
+            piece = torch.cat([piece.narrow(split, 0, keep), piece.new_zeros(zeros_shape)], dim=split)
+        return piece.clone()
+
+    from_prev = comm.ppermute(
+        [edge(t, c, False) for t, c in zip(shards, counts)], perm=[(j, j + 1) for j in range(p - 1)]
+    )
+    from_next = comm.ppermute(
+        [edge(t, c, True) for t, c in zip(shards, counts)], perm=[(j, j - 1) for j in range(1, p)]
+    )
+    return from_prev, from_next
 
 
 def _distribute(array: torch.Tensor, split: Optional[int], comm: MeshCommunication) -> List[torch.Tensor]:

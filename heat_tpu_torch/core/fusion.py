@@ -1,5 +1,5 @@
 """The eager fusion recorder and its program cache (reference:
-heat_tpu/core/fusion.py, its collective nodes turned off).
+heat_tpu/core/fusion.py).
 
 The four engines of ``core/_operations.py`` defer: an elementwise,
 broadcast, cast, reduction or cumulative op records a node of an
@@ -7,8 +7,8 @@ expression DAG (:class:`LazyArray`, stored as the ``DNDarray``'s shard
 list) instead of running, and the whole chain runs as ONE cached program at
 a *forcing point*: a read of the shards (``shards``, ``parray``,
 ``larray``, ``lshards``, ``numpy()``, ``item()``, printing, I/O, indexing,
-``resplit_`` and the other collectives, linalg, ``out=`` buffers and the
-eager fallbacks).
+``out=`` buffers and the eager fallbacks; with the collective nodes off,
+``resplit_`` and the other collectives too).
 
 A node stands for all p shards of a value: its ``shape`` and ``dtype`` are
 one physical shard's, its ``width`` is the number of shard tensors (p for a
@@ -73,18 +73,37 @@ upper bound on what the fused program holds; flops come from a per-op
 table (one per output element for elementwise ops, one per input element
 for reductions).
 
-Knobs: ``HEAT_TPU_FUSION=0`` turns recording off (the eager engines run
-exactly as before; pending nodes still force), ``HEAT_TPU_FUSION_MAX_CHAIN``
-(deeper chains force their pending children first),
-``HEAT_TPU_FUSION_CACHE`` (programs kept) and
-``HEAT_TPU_FUSION_QUARANTINE`` (signatures kept in quarantine).
+**Collective nodes.** A collective of a pending chain records a node
+instead of forcing the chain: a resplit (:func:`defer_reshard`: the
+logical whole gathered, then cut into the new split's blocks by the eager
+``resplit_``'s own functions), a schedule over the shard list with its
+verbs (:func:`defer_apply`: the eager schedule's own code over shard
+views, its verbs the shard-order arithmetic of
+:class:`~.communication.MeshCommunication` without their telemetry and
+fault sites), a multi-output kernel (:func:`defer_multi`; one node,
+whose outputs :func:`record_multi`'s selectors pick, runs once in the
+program) and a 2-D matmul (:func:`defer_matmul`, the eager case table's
+per-shard products and combine order). Each is counted at record time
+(``telemetry.record_fused_collective``); its fault site fires at record
+time, before any metadata changes. :func:`program_hlo` gives a pending
+chain's program text without forcing it.
 
-Not here yet: collective nodes (a deferred resplit, shard-map kernels,
-matmul) and the batching of independent live roots into one multi-output
-program; a collective forces the chain, as the reference does with its
-collective nodes turned off. The live-root registry exists
-(the memory gate's ``drain`` policy and the stall diagnosis read it), but
-no force batches from it.
+**Batching.** A force takes other live pending roots into the same
+program (:func:`_gather_batch`): in registration order, at most
+:data:`_BATCH_MAX`, each of at most :data:`_BATCH_BYTES` (a selector whose
+kernel is already in the program rides along at any size), never one
+interior to the program, on another mesh, or while torch traces. Reading
+the three moments of one array is one dispatch.
+
+Knobs: ``HEAT_TPU_FUSION=0`` turns recording off (the eager engines run
+exactly as before; pending nodes still force),
+``HEAT_TPU_FUSION_COLLECTIVES=0`` turns the collective nodes and the
+batching off (a collective forces the chain, a force runs one root),
+``HEAT_TPU_FUSION_BATCH`` (roots per batch, 16) and
+``HEAT_TPU_FUSION_BATCH_BYTES`` (the largest root batched, 16384),
+``HEAT_TPU_FUSION_MAX_CHAIN`` (deeper chains force their pending children
+first), ``HEAT_TPU_FUSION_CACHE`` (programs kept) and
+``HEAT_TPU_FUSION_QUARANTINE`` (signatures kept in quarantine).
 """
 
 from __future__ import annotations
@@ -108,7 +127,7 @@ import torch
 import torch.fx
 
 from . import health_runtime, memledger, resilience, telemetry
-from .communication import _allreduce, _combine, _exscan
+from .communication import MeshCommunication, _combine, _exscan
 
 __all__ = [
     "ChainInputWrittenError",
@@ -119,15 +138,25 @@ __all__ = [
     "cast",
     "clear_cache",
     "clear_quarantine",
+    "collectives_active",
+    "collectives_disabled",
     "cost_error_count",
+    "defer_apply",
+    "defer_matmul",
+    "defer_multi",
+    "defer_reshard",
     "disabled",
     "force",
     "is_deferred",
+    "phys_node",
     "program_costs",
+    "program_hlo",
     "programs",
     "record",
+    "record_multi",
     "register_root",
     "release",
+    "set_collectives_enabled",
     "set_enabled",
     "wrap_node",
 ]
@@ -153,6 +182,16 @@ _QUARANTINE_SIZE = int(os.environ.get("HEAT_TPU_FUSION_QUARANTINE", "256"))
 #: :func:`set_enabled`/:func:`disabled`
 _ENABLED = os.environ.get("HEAT_TPU_FUSION", "1").lower() not in _OFF_VALUES
 
+#: the collective nodes and the batching of live roots; with them off a
+#: collective forces the chain and a force runs its one root
+_COLLECTIVES = os.environ.get("HEAT_TPU_FUSION_COLLECTIVES", "1").lower() not in _OFF_VALUES
+
+#: a force batches at most this many roots, each of at most this many bytes
+#: (a large disjoint root keeps its own dispatch: batching it would write an
+#: output nobody asked for yet)
+_BATCH_MAX = int(os.environ.get("HEAT_TPU_FUSION_BATCH", "16"))
+_BATCH_BYTES = int(os.environ.get("HEAT_TPU_FUSION_BATCH_BYTES", "16384"))
+
 
 def active() -> bool:
     """Whether the recorder is on (``HEAT_TPU_FUSION``, read at import)."""
@@ -174,6 +213,31 @@ def disabled():
         yield
     finally:
         set_enabled(prev)
+
+
+def collectives_active() -> bool:
+    """Whether collectives record nodes and forces batch live roots
+    (``HEAT_TPU_FUSION_COLLECTIVES``, read at import; the recorder on)."""
+    return _ENABLED and _COLLECTIVES
+
+
+def set_collectives_enabled(flag: bool) -> bool:
+    """Turn the collective nodes and the batching on or off in-process;
+    returns the previous state."""
+    global _COLLECTIVES
+    prev, _COLLECTIVES = _COLLECTIVES, bool(flag)
+    return prev
+
+
+@contextmanager
+def collectives_disabled():
+    """Run the block with the collective nodes and the batching off: every
+    collective forces its chain."""
+    prev = set_collectives_enabled(False)
+    try:
+        yield
+    finally:
+        set_collectives_enabled(prev)
 
 
 #: correlation ids: a fresh chain takes the next one at record time and the
@@ -294,45 +358,75 @@ def _blocks_op(whole, *, axis, devices):
     return tuple(_distribute(whole[0], axis, _ProgramComm(devices)))
 
 
-class _ShardView:
-    """What a reduction's across-split schedule reads of a ``DNDarray``
-    (``gshape``, ``split``, ``counts_displs()``, ``lshards``, ``comm``),
-    over the shard tensors of a program."""
+class _ProgramComm(MeshCommunication):
+    """The mesh a schedule sees inside a program: the verbs' shard-order
+    arithmetic of :class:`~.communication.MeshCommunication`, without their
+    telemetry and fault sites (the program records none; the recorder
+    counts its collective nodes at record time)."""
 
-    def __init__(self, shards, gshape, split, counts, displs, devices):
-        self._shards = shards
-        self.gshape = gshape
+    _records = False
+
+    def __init__(self, devices):
+        self._devices = tuple(devices)
+        self.rank = 0
+
+
+class _ShardView:
+    """What a schedule reads of a ``DNDarray`` (``shards``, ``lshards``,
+    ``larray``, ``gshape``, ``split``, ``counts_displs()``, ``padded``,
+    ``comm``), over the shard tensors of a program. A replicated value has
+    one tensor, which every shard shares, as the eager array's shards do."""
+
+    def __init__(self, shards, gshape, split, comm):
+        self._shards = list(shards)
+        self.gshape = self.shape = tuple(gshape)
+        self.ndim = len(self.gshape)
         self.split = split
-        self._cd = (counts, displs)
-        self.comm = _ProgramComm(devices)
+        self.comm = comm
+
+    @property
+    def shards(self):
+        if self.split is None and len(self._shards) == 1:
+            return self._shards * self.comm.size
+        return list(self._shards)
 
     def counts_displs(self):
-        return self._cd
+        return self.comm.counts_displs_shape(self.gshape, self.split)
+
+    def is_distributed(self) -> bool:
+        return self.split is not None and self.comm.is_distributed()
+
+    @property
+    def padded(self) -> bool:
+        s = self.split
+        return s is not None and self._shards[0].shape[s] * self.comm.size != self.gshape[s]
 
     @property
     def lshards(self):
-        return [s.narrow(self.split, 0, c) for s, c in zip(self._shards, self._cd[0])]
+        if self.split is None:
+            return self.shards
+        return [s.narrow(self.split, 0, c) for s, c in zip(self._shards, self.counts_displs()[0])]
 
-
-class _ProgramComm:
-    """The verbs a reduction's schedule calls inside a program: the same
-    shard-order arithmetic as :class:`~.communication.MeshCommunication`,
-    without its telemetry and fault sites (the program records none)."""
-
-    def __init__(self, devices):
-        self.devices = devices
-        self.size = len(devices)
-
-    def allreduce(self, shards, op="sum"):
-        return _allreduce(shards, op, self.devices)
+    @property
+    def larray(self):
+        """The logical whole on the first device, as ``DNDarray.larray``."""
+        shards, split = self._shards, self.split
+        if split is None or len(shards) == 1:
+            whole = shards[0]
+        else:
+            first = self.comm.devices[0]
+            whole = torch.cat([t.to(first) for t in shards], dim=split)
+        if split is not None and whole.shape[split] != self.gshape[split]:
+            whole = whole.narrow(split, 0, self.gshape[split])
+        return whole
 
 
 @_whole
-def _across_op(shards, *, reduction, across, axes, keepdims, gshape, split, counts, displs, devices, out_shape):
+def _across_op(shards, *, reduction, across, axes, keepdims, gshape, split, devices, out_shape):
     """A reduction over axes that include the split axis: the reduction's
     across-split schedule on the shards' valid rows, partials combined in
     shard order; the result lies on the first device."""
-    total = across(_ShardView(shards, gshape, split, counts, displs, devices), axes, reduction)
+    total = across(_ShardView(shards, gshape, split, _ProgramComm(devices)), axes, reduction)
     if not keepdims:
         total = total.reshape(out_shape)
     return (total,)
@@ -347,6 +441,35 @@ def _cum_split_op(shards, *, operation, combine, axis, devices):
     offsets = _exscan([s.narrow(axis, last, 1) for s in out], combine, devices)
     fn = _combine(combine)
     return tuple(fn(s, o) for s, o in zip(out, offsets))
+
+
+def _pick_op(t, *, i):
+    """Output ``i`` of a multi-output node (:func:`record_multi`): the
+    kernel runs once in the program, each selector reads one output."""
+    return t[i]
+
+
+def _run_kernel(shard_lists, kernel, metas, devices, kw):
+    comm = _ProgramComm(devices)
+    views = [_ShardView(s, g, sp, comm) for s, (g, sp) in zip(shard_lists, metas)]
+    return kernel(*views, comm=comm, **dict(kw))
+
+
+@_whole
+def _apply_op(*shard_lists, kernel, metas, devices, kw):
+    """A schedule over the shard list (:func:`defer_apply`): ``kernel``
+    over one shard view per operand, the program's mesh as ``comm``; it
+    returns the result's shard list."""
+    return tuple(_run_kernel(shard_lists, kernel, metas, devices, kw))
+
+
+@_whole
+def _apply_multi_op(*shard_lists, kernel, metas, devices, kw):
+    """:func:`_apply_op` of a kernel that returns several shard lists."""
+    return tuple(tuple(o) for o in _run_kernel(shard_lists, kernel, metas, devices, kw))
+
+
+_apply_multi_op._fusion_multi = True
 
 
 # ----------------------------------------------------------------------
@@ -396,15 +519,11 @@ def _infer_cached(fn, child_avals, kw, width):
     return tuple(out.shape), out.dtype, width
 
 
-def record(fn, children, width: Optional[int] = None, **kw) -> LazyArray:
-    """Record ``fn`` over ``children`` as a node without running it.
-
-    A per-shard op runs once per shard: ``width`` shards (default: the
-    widest child), a child of width 1 going whole to every shard. An op
-    marked whole-list runs once over the children's shard tuples. ``kw``
-    values must be hashable (callers check). Raises when the shape cannot
-    be inferred; callers route that through ``resilience.record_recoverable``
-    and fall back to the eager engine, which reproduces any error."""
+def _join(children, kw) -> tuple:
+    """What a new node takes from its children: the children (pending ones
+    forced first past :data:`_MAX_CHAIN`), the sorted static arguments, the
+    node's depth and its chain's correlation id (a pending child's, else a
+    fresh one)."""
     if resilience._ARMED:
         resilience.check("fusion.record")
     kw_t = tuple(sorted(kw.items()))
@@ -419,6 +538,19 @@ def record(fn, children, width: Optional[int] = None, **kw) -> LazyArray:
             break
     if not cid:
         cid = next(_CID_SEQ)
+    return tuple(children), kw_t, depth, cid
+
+
+def record(fn, children, width: Optional[int] = None, **kw) -> LazyArray:
+    """Record ``fn`` over ``children`` as a node without running it.
+
+    A per-shard op runs once per shard: ``width`` shards (default: the
+    widest child), a child of width 1 going whole to every shard. An op
+    marked whole-list runs once over the children's shard tuples. ``kw``
+    values must be hashable (callers check). Raises when the shape cannot
+    be inferred; callers route that through ``resilience.record_recoverable``
+    and fall back to the eager engine, which reproduces any error."""
+    children, kw_t, depth, cid = _join(children, kw)
     avals = tuple(_aval(c) for c in children)
     if width is None:
         width = max(a[0] for a in avals)
@@ -426,6 +558,42 @@ def record(fn, children, width: Optional[int] = None, **kw) -> LazyArray:
     if telemetry._MODE >= 2:
         telemetry.record_event("record", op=_name(fn), cid=cid, depth=depth)
     return LazyArray(fn, tuple(children), kw_t, shape, dtype, width, depth, cid)
+
+
+@functools.lru_cache(maxsize=4096)
+def _infer_multi_cached(fn, child_avals, kw):
+    """(shape, dtype, width) of each output of a multi-output op, from one
+    run on meta tensors (:func:`_infer_cached`'s multi-output form)."""
+    kw_d = _meta_kw(dict(kw))
+    try:
+        outs = fn(*[tuple(_meta(s, d) for _ in range(w)) for w, s, d in child_avals], **kw_d)
+    except RuntimeError as exc:
+        raise NotImplementedError(f"{_name(fn)} does not run on meta tensors: {exc}") from exc
+    avals = []
+    for o in outs:
+        if not o or any(tuple(t.shape) != tuple(o[0].shape) or t.dtype != o[0].dtype for t in o):
+            raise NotImplementedError(f"{_name(fn)} gave shards of unequal shapes")
+        avals.append((tuple(o[0].shape), o[0].dtype, len(o)))
+    return tuple(avals)
+
+
+def record_multi(fn, children, **kw) -> Tuple[LazyArray, ...]:
+    """Record a multi-output op (one that returns several shard lists) as
+    one parent node and one :func:`_pick_op` selector per output, and
+    return the selectors. The parent stays interior: forcing a selector
+    runs the op once in the program, and :func:`_gather_batch` takes the
+    selectors of live siblings along, so every output lands in one
+    dispatch (TSQR's Q and R, CholQR2's Q, R and ``ok``, a halo pair)."""
+    children, kw_t, depth, cid = _join(children, kw)
+    avals = _infer_multi_cached(fn, tuple(_aval(c) for c in children), kw_t)
+    if telemetry._MODE >= 2:
+        telemetry.record_event("record", op=_label(fn, kw_t), cid=cid, depth=depth)
+    # the parent's own shape is never read: only its selectors consume it
+    parent = LazyArray(fn, tuple(children), kw_t, avals[0][0], avals[0][1], len(avals), depth, cid)
+    return tuple(
+        LazyArray(_pick_op, (parent,), (("i", i),), shape, dtype, width, depth + 1, cid)
+        for i, (shape, dtype, width) in enumerate(avals)
+    )
 
 
 def cast(c, dtype: torch.dtype):
@@ -512,10 +680,18 @@ def _program_key(sig) -> str:
     return hashlib.sha1("|".join(parts).encode()).hexdigest()[:16]
 
 
+def _label(fn, kw) -> str:
+    """An op's name in the telemetry: a schedule's by its kernel
+    (``apply:<kernel>``)."""
+    if fn in (_apply_op, _apply_multi_op):
+        return "apply:" + _name(dict(kw)["kernel"])
+    return _name(fn)
+
+
 def _family(sig) -> tuple:
     """The op names of a signature, without leaf shapes: the retrace
     detector's key."""
-    return tuple(_name(e[0]) for e in sig if e[0] not in ("L", "R"))
+    return tuple(_label(e[0], e[2]) for e in sig if e[0] not in ("L", "R"))
 
 
 def _leaf_key(sig) -> tuple:
@@ -609,7 +785,8 @@ def _target(fn, kw, meta: bool = False):
     def call(*args):
         return fn(*args, **kw_d)
 
-    name = "".join(ch if ch.isalnum() or ch == "_" else "_" for ch in _name(fn)).strip("_") or "op"
+    label = _name(fn) + ("_" + _name(kw_d["kernel"]) if "kernel" in kw_d else "")
+    name = "".join(ch if ch.isalnum() or ch == "_" else "_" for ch in label).strip("_") or "op"
     call.__name__ = call.__qualname__ = name
     call.__module__ = __name__
     return call
@@ -631,8 +808,15 @@ def _build(sig, meta: bool = False) -> torch.fx.GraphModule:
             graph.output(tuple(n for i in e[1] for n in vals[i]))
         else:
             fn, idxs, kw, width = e
+            if fn is _pick_op:
+                # output i of a multi-output node, then its shards
+                out = graph.call_function(operator.getitem, (vals[idxs[0]][0], dict(kw)["i"]))
+                vals.append([graph.call_function(operator.getitem, (out, j)) for j in range(width)])
+                continue
             target = _target(fn, kw, meta)
-            if getattr(fn, "_fusion_whole", False):
+            if getattr(fn, "_fusion_multi", False):
+                vals.append([graph.call_function(target, tuple(tuple(vals[i]) for i in idxs))])
+            elif getattr(fn, "_fusion_whole", False):
                 node = graph.call_function(target, tuple(tuple(vals[i]) for i in idxs))
                 vals.append([graph.call_function(operator.getitem, (node, j)) for j in range(width)])
             else:
@@ -678,7 +862,7 @@ class _Program:
     def __init__(self, sig):
         self.gm = _build(sig)
         self.compiled = None
-        self.fuses = sum(1 for e in sig if e[0] not in ("L", "R") and e[0] is not _unpad_op) > 1
+        self.fuses = sum(1 for e in sig if e[0] not in ("L", "R") and e[0] not in (_unpad_op, _pick_op)) > 1
 
     def __call__(self, flat: list):
         if self.fuses and flat and _on_card(flat[0]):
@@ -715,6 +899,93 @@ def _live_root_keys() -> list:
         return sorted(_LIVE_ROOTS.keys())
 
 
+# the serving layer's seams (``core/serving.py`` sets them; one ``is None``
+# test per force until then): ``_ROOT_PRIORITY`` maps a root's session to a
+# sort key of the batch's candidates, or to ``_BATCH_EXCLUDED`` to keep the
+# root out of other sessions' batches; ``_SERVING_NOTE`` bills a shared
+# dispatch and an incident to each session
+_ROOT_PRIORITY = None
+_BATCH_EXCLUDED = object()
+_SERVING_NOTE = None
+
+#: the pending nodes of the signature held at the memory gate: while the
+#: ``drain`` policy forces other roots, neither it nor their batches may
+#: take one of them (the held program would dispatch them a second time)
+_DRAIN_EXCLUDE: frozenset = frozenset()
+
+
+def _node_nbytes(node: LazyArray) -> int:
+    """The bytes of a node's shards together."""
+    return node.width * math.prod(node.shape) * node.dtype.itemsize
+
+
+def _anchor_devices(node, comm) -> Optional[tuple]:
+    """The mesh devices of the chain a force runs: its array's mesh, or the
+    mesh of the registered array that holds it; None when neither is known
+    (the force then batches nothing)."""
+    if comm is not None:
+        return tuple(comm.devices)
+    for key in _live_root_keys():
+        wrapper = _LIVE_ROOTS.get(key)
+        if wrapper is not None and wrapper._payload is node:
+            return tuple(wrapper.comm.devices)
+    return None
+
+
+def _gather_batch(entries, leaves, memo, roots, devices) -> None:
+    """Walk other live pending roots into the signature being built, to run
+    in the same program as ``roots[0]``: in registration order (the
+    program's cache key must not churn), up to :data:`_BATCH_MAX` roots.
+    A candidate is skipped when it is interior to the walk (an output
+    nobody asked for, and whether a caller holds an intermediate must not
+    change the key), larger than :data:`_BATCH_BYTES` (unless it selects an
+    output of a multi-output node already in the walk: the kernel runs
+    once either way), held at the memory gate, on another mesh (a program
+    runs on one), or reading a tensor written in place around its array
+    (:class:`ChainInputWrittenError` is its own read's, not this one's)."""
+    keys = _live_root_keys()
+    prio = _ROOT_PRIORITY
+    if prio is not None:
+        ranked = []
+        for key in keys:
+            payload = getattr(_LIVE_ROOTS.get(key), "_payload", None)
+            p = prio(getattr(payload, "session", None))
+            if p is not _BATCH_EXCLUDED:
+                ranked.append(((1, float("inf")) if p is None else p, key))
+        keys = [key for _, key in sorted(ranked)]
+    stale = []
+    for key in keys:
+        if len(roots) >= _BATCH_MAX:
+            break
+        wrapper = _LIVE_ROOTS.get(key)
+        if wrapper is None:
+            continue
+        payload = wrapper._payload
+        if not (isinstance(payload, LazyArray) and payload._value is None):
+            stale.append(key)  # forced since it registered
+            continue
+        if id(payload) in memo or id(payload) in _DRAIN_EXCLUDE:
+            continue
+        if _node_nbytes(payload) > _BATCH_BYTES and not (
+            payload.fn is _pick_op and id(payload.children[0]) in memo
+        ):
+            continue
+        if tuple(wrapper.comm.devices) != devices:
+            continue
+        # a candidate whose input was written around its array stays pending
+        # and raises at its own read, never at this one's: its walk is undone
+        n_entries, n_leaves, saved = len(entries), len(leaves), dict(memo)
+        try:
+            _walk(payload, entries, leaves, memo)
+        except ChainInputWrittenError:
+            del entries[n_entries:], leaves[n_leaves:]
+            memo.clear()
+            memo.update(saved)
+            continue
+        roots.append(payload)
+    with _ROOTS_LOCK:
+        for key in stale:
+            _LIVE_ROOTS.pop(key, None)
 
 
 def _drain_pending_roots(exclude=()) -> int:
@@ -723,23 +994,28 @@ def _drain_pending_roots(exclude=()) -> int:
     every pending node of the gated signature, which is never forced here:
     it dispatches once, when the gate admits it. Returns the roots
     drained, each counted as a ``drain`` blocking sync."""
+    global _DRAIN_EXCLUDE
     drained = 0
-    for key in _live_root_keys():
-        wrapper = _LIVE_ROOTS.get(key)
-        if wrapper is None:
-            continue
-        payload = wrapper._payload
-        if not isinstance(payload, LazyArray) or id(payload) in exclude:
-            continue
-        if payload._value is None:
-            force(payload)
-        token = telemetry.record_blocking_sync("drain", cid=payload.cid) if telemetry._MODE else None
-        with health_runtime.watch("sync:drain", cid=payload.cid):
-            for t in payload._value:
-                if t.device.type == "cuda":
-                    torch.cuda.current_stream(t.device).synchronize()
-        telemetry.end_blocking_sync(token)
-        drained += 1
+    prev, _DRAIN_EXCLUDE = _DRAIN_EXCLUDE, frozenset(exclude) | _DRAIN_EXCLUDE
+    try:
+        for key in _live_root_keys():
+            wrapper = _LIVE_ROOTS.get(key)
+            if wrapper is None:
+                continue
+            payload = wrapper._payload
+            if not isinstance(payload, LazyArray) or id(payload) in exclude:
+                continue
+            if payload._value is None:
+                force(payload, wrapper.comm)
+            token = telemetry.record_blocking_sync("drain", cid=payload.cid) if telemetry._MODE else None
+            with health_runtime.watch("sync:drain", cid=payload.cid):
+                for t in payload._value:
+                    if t.device.type == "cuda":
+                        torch.cuda.current_stream(t.device).synchronize()
+            telemetry.end_blocking_sync(token)
+            drained += 1
+    finally:
+        _DRAIN_EXCLUDE = prev
     return drained
 
 
@@ -970,27 +1246,40 @@ def _degrade(sig, flat, exc, missed):
     return _build(sig)(*flat)
 
 
-def force(node):
+def force(node, comm=None):
     """Run a recorded chain as one cached program and return the root's
     shard tensors (a tuple of ``node.width``).
 
-    Asynchronous: the call installs the result tensors and reads no device
-    data. Guarded: a program that fails to build, compile or run degrades
-    to op-by-op replay (:func:`_degrade`); the policy signals (the memory
-    gate's refusal, the errstate and stall errors) propagate with the chain
-    still pending."""
+    With the collective nodes on, other small live pending roots of the
+    same mesh (``comm``, else the mesh of the array holding ``node``) run
+    in the same program (:func:`_gather_batch`), and their arrays find
+    their values installed. Asynchronous: the call installs the result
+    tensors and reads no device data. Guarded: a program that fails to
+    build, compile or run degrades to op-by-op replay (:func:`_degrade`);
+    the policy signals (the memory gate's refusal, the errstate and stall
+    errors) propagate with the chain still pending."""
     if not isinstance(node, LazyArray):
         return node
     if node._value is not None:
         return node._value
     with _FORCE_LOCK:
-        return _force_locked(node)
+        return _force_locked(node, comm)
 
 
-def _force_locked(node):
+def _force_locked(node, comm=None):
     if node._value is not None:
         return node._value
-    sig, leaves, memo = _signature(node)
+    roots = [node]
+    entries, leaves, memo = [], [], {}
+    _walk(node, entries, leaves, memo)
+    if _COLLECTIVES and _ENABLED and len(_LIVE_ROOTS) and not torch.compiler.is_compiling():
+        # never while torch traces: a batched root would come back as a
+        # value of the caller's graph
+        devices = _anchor_devices(node, comm)
+        if devices is not None:
+            _gather_batch(entries, leaves, memo, roots, devices)
+    entries.append(("R", tuple(memo[id(r)] for r in roots)))
+    sig = tuple(entries)
     flat = _flat(leaves)
     _STATS["forces"] += 1
     info = None
@@ -1036,15 +1325,16 @@ def _force_locked(node):
                 resilience.check("fusion.compile" if missed else "fusion.execute")
                 resilience.check("memory.exhausted")
             if telemetry._MODE or health_runtime._WD_ACTIVE:
+                cids = [r.cid for r in roots]
                 t_disp = time.perf_counter()
-                with health_runtime.watch("dispatch", program=info["key"], cid=node.cid, cids=[node.cid]):
+                with health_runtime.watch("dispatch", program=info["key"], cid=node.cid, cids=cids):
                     values = prog(flat)
                 if telemetry._MODE:
-                    health_runtime.note_dispatch(info["key"], [node.cid], missed, time.perf_counter() - t_disp)
+                    health_runtime.note_dispatch(info["key"], cids, missed, time.perf_counter() - t_disp)
             else:
                 values = prog(flat)
             info["dispatches"] += 1
-            info["roots"] += 1
+            info["roots"] += len(roots)
         except Exception as exc:  # noqa: BLE001 - routed through one policy
             if memledger.is_oom(exc):
                 # the forensic comes before the replay churns the evidence
@@ -1054,17 +1344,22 @@ def _force_locked(node):
                 raise
             values = _degrade(sig, flat, exc, missed)
             info = None
-    value = _leaf(values)
-    node._value = value
-    node.program = None if info is None else info["key"]
-    # the chain's operands become collectable; a later force of a consumer
-    # reads this node as a leaf
-    node.children = ()
-    for t in value:
-        memledger.tag(t, "fusion")
+    pos = 0
+    for root in roots:
+        value = _leaf(values[pos:pos + root.width])
+        pos += root.width
+        root._value = value
+        root.program = None if info is None else info["key"]
+        # the chain's operands become collectable; a later force of a
+        # consumer reads this node as a leaf
+        root.children = ()
+        for t in value:
+            memledger.tag(t, "fusion")
+    if _SERVING_NOTE is not None and info is not None:
+        _SERVING_NOTE("dispatch", program=info["key"], sessions=[getattr(r, "session", None) for r in roots])
     if telemetry._MODE:
-        telemetry.record_async_dispatch(1, cid=node.cid, cids=[node.cid], program=node.program)
-    return value
+        telemetry.record_async_dispatch(len(roots), cid=node.cid, cids=[r.cid for r in roots], program=node.program)
+    return node._value
 
 
 def is_deferred(x) -> bool:
@@ -1366,11 +1661,9 @@ def defer_reduce(reduction, across, x, axes, keepdims, gshape, split, dtype: Opt
             node = record(_reduce_op, (_phys_node(x),), reduction=reduction, axes=axes, keepdims=keepdims)
         else:
             # the padding never enters a reduction across the split
-            counts, displs = x.counts_displs()
             node = record(
                 _across_op, (_logical_node(x),), reduction=reduction, across=across, axes=axes, keepdims=keepdims,
-                gshape=x.gshape, split=x.split, counts=counts, displs=displs, devices=comm.devices,
-                out_shape=gshape,
+                gshape=x.gshape, split=x.split, devices=comm.devices, out_shape=gshape,
             )
         if dtype is not None:
             node = cast(node, dtype)
@@ -1411,3 +1704,169 @@ def defer_cum(operation, combine, x, axis: int, dtype: Optional[torch.dtype]):
     if node.shape != shape:
         return _unfused("cum", "shape_changed")
     return _wrap(node, x.gshape, x.split, x)
+
+
+# ----------------------------------------------------------------------
+# collective nodes: a deferred resplit, schedules over the shard list,
+# global-view ops, matmul
+# ----------------------------------------------------------------------
+def defer_reshard(payload: LazyArray, gshape, split, axis, comm):
+    """Record the redistribution of a pending chain from split ``split`` to
+    split ``axis``: the logical whole gathered (:func:`_gather_op`, the
+    padding cut off), then cut into the new split's pad+mask blocks
+    (:func:`_blocks_op`, the eager ``_distribute``), so the shards after the
+    force, padding included, are the eager ``resplit_``'s. Returns the new
+    payload node, or None when recording fails recoverably (the caller then
+    forces and resplits eagerly). The ``collective.reshard`` fault site is
+    the caller's, before any metadata changes."""
+    if DNDarray is None:
+        _resolve_siblings()
+    try:
+        node = payload
+        if split is not None:
+            node = record(_gather_op, (node,), axis=split, size=int(gshape[split]))
+        if axis is not None:
+            node = record(_blocks_op, (node,), axis=axis, devices=comm.devices)
+    except Exception as exc:  # narrowed: one policy decides what falls back
+        if not resilience.record_recoverable(exc):
+            raise
+        return _unfused("reshard", "record_failed:" + type(exc).__name__)
+    if telemetry._MODE:
+        detail = "replicated" if axis is None else f"split={int(axis)}"
+        telemetry.record_fused_collective("reshard", cid=node.cid, detail=detail)
+    return node
+
+
+def _operands(engine: str, comm, xs):
+    """The children and view layouts of a schedule's operands: a DNDarray's
+    physical payload with its (gshape, split), or a staged ``(node or
+    shard tensors, gshape, split)`` triple. None (after the unfused
+    breadcrumb) when one cannot be recorded."""
+    children, metas, arrays = [], [], []
+    for x in xs:
+        if isinstance(x, DNDarray):
+            if tuple(x.comm.devices) != tuple(comm.devices):
+                return _unfused(engine, "mixed_comm")
+            children.append(_phys_node(x))
+            metas.append((x.gshape, x.split))
+            arrays.append(x)
+        elif isinstance(x, tuple) and len(x) == 3:
+            child, gshape, split = x
+            if isinstance(child, LazyArray):
+                child = child if child._value is None else child._value
+            elif not isinstance(child, _Leaf):
+                child = _leaf(tuple(child))
+            children.append(child)
+            metas.append((tuple(gshape), split))
+        else:
+            return _unfused(engine, "foreign_operand")
+    if _small_on_card(*arrays) and not any(isinstance(c, LazyArray) for c in children):
+        return _unfused(engine, "small_on_card")
+    if _needs_grad(*children):
+        return _unfused(engine, "autograd")
+    return children, metas
+
+
+def _defer_kernel(engine: str, label: str, op, comm, kernel, xs, kw, site: bool = True, detail=None):
+    """Record ``kernel`` over the shard views of ``xs`` as one ``op`` node
+    (the selectors of a multi-output op), counted as the fused collective
+    ``label``; ``site`` fires ``collective.<engine>`` first. None
+    declines."""
+    if DNDarray is None:
+        _resolve_siblings()
+    if not (_ENABLED and _COLLECTIVES):
+        return None
+    if getattr(kernel, "_no_fusion", False):
+        return _unfused(engine, "no_fusion_op")
+    if not hashable_kwargs(kw):
+        return _unfused(engine, "unhashable_kwargs")
+    if not _one_device(comm):
+        return _unfused(engine, "multi_device")
+    got = _operands(engine, comm, xs)
+    if got is None:
+        return None
+    children, metas = got
+    if site and resilience._ARMED:
+        # record time is dispatch time for the fault contract
+        resilience.check("collective." + engine)
+    static = dict(kernel=kernel, metas=tuple(metas), devices=comm.devices, kw=tuple(sorted(kw.items())))
+    try:
+        if getattr(op, "_fusion_multi", False):
+            nodes = record_multi(op, tuple(children), **static)
+        else:
+            nodes = record(op, tuple(children), **static)
+    except Exception as exc:  # narrowed: one policy decides what falls back
+        if not resilience.record_recoverable(exc):
+            raise
+        return _unfused(engine, "record_failed:" + type(exc).__name__)
+    if telemetry._MODE:
+        cid = nodes[0].cid if isinstance(nodes, tuple) else nodes.cid
+        telemetry.record_fused_collective(label, cid=cid, detail=detail)
+    return nodes
+
+
+def defer_apply(comm, kernel, xs, out_split=None, **kw):
+    """Record a schedule over the shard list as one node of the chain (the
+    port's deferred ``MeshCommunication.apply``): ``kernel(*views,
+    comm=comm, **kw)`` over one shard view per operand of ``xs``
+    (DNDarrays, whose pending chains stay pending, or staged ``(node or
+    shard tensors, gshape, split)`` triples) returns the result's shard
+    list. Inside the program ``comm`` runs the verbs' shard-order
+    arithmetic, so the same kernel called eagerly with the arrays and their
+    mesh gives the same shards. A tuple ``out_split`` declares a kernel of
+    several outputs: a tuple of selector nodes comes back. Callers wrap the
+    nodes (:func:`wrap_node`); None declines (collectives off, another
+    mesh, record failures: the eager schedule). The ``collective.apply``
+    fault site fires here, at record time."""
+    op = _apply_multi_op if isinstance(out_split, (tuple, list)) else _apply_op
+    return _defer_kernel("apply", "apply:" + _name(kernel), op, comm, kernel, xs, kw)
+
+
+def defer_multi(fn, xs, comm=None, **kw):
+    """Record a multi-output kernel over the operands' shard views (a
+    view's ``larray`` is its global view), such as CholQR2's (Q, R, ok):
+    :func:`defer_apply`'s multi-output form, counted as ``multi:<fn>``.
+    Returns the tuple of selector nodes, or None to decline."""
+    if comm is None:
+        comm = next(x.comm for x in xs if isinstance(x, DNDarray))
+    return _defer_kernel("multi", "multi:" + _name(fn), _apply_multi_op, comm, fn, xs, kw)
+
+
+def defer_matmul(a, b, kernel, **kw):
+    """Record a 2-D ``a @ b`` as one node: ``kernel(a_view, b_view,
+    comm=comm, **kw)`` runs the eager case table's per-shard products and
+    combine order, so pending operands stay pending and the contraction's
+    combine runs inside the program. The case table: a split-0 ``a`` gives
+    a split-0 result, a split-1 ``b`` a split-1 one, anything else a
+    replicated one. Returns the wrapped DNDarray, or None to decline. The
+    ``collective.matmul`` fault site is the caller's."""
+    if DNDarray is None:
+        _resolve_siblings()
+    if a.ndim != 2 or b.ndim != 2:
+        return _unfused("matmul", "non_2d")
+    out_split = 0 if a.split == 0 else 1 if b.split == 1 else None
+    detail = f"{a.split}x{b.split}->{out_split}"
+    node = _defer_kernel("matmul", "matmul", _apply_op, a.comm, kernel, (a, b), kw, site=False, detail=detail)
+    return None if node is None else _wrap(node, (a.gshape[0], b.gshape[1]), out_split, a)
+
+
+def phys_node(x):
+    """Public :func:`_phys_node`: a DNDarray's physical payload as a
+    recordable child, for call sites that stage a cast before a schedule."""
+    if DNDarray is None:
+        _resolve_siblings()
+    return _phys_node(x)
+
+
+def program_hlo(x, optimized: bool = True) -> str:
+    """The text of the program that would force ``x``'s pending chain (a
+    DNDarray or a node): the GraphModule's code, one line per node, which
+    ``telemetry.hlo_collective_counts`` reads. Nothing is forced, built or
+    cached. ``optimized`` is accepted for the reference's signature: the
+    plain module is what the CPU runs and what Inductor compiles on a
+    card."""
+    node = getattr(x, "_payload", x)
+    if not (isinstance(node, LazyArray) and node._value is None):
+        raise ValueError("program_hlo needs a pending recorded chain")
+    sig, _, _ = _signature(node)
+    return _build(sig).code

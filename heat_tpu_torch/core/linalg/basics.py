@@ -23,8 +23,8 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .. import factories, resilience, types
-from ..dndarray import DNDarray, _wrap
+from .. import factories, fusion, resilience, types
+from ..dndarray import DNDarray, _distribute, _wrap
 from ..sanitation import sanitize_in, warn_replicated
 from ..stride_tricks import sanitize_axis
 
@@ -129,16 +129,28 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
 def _matmul_2d(a: DNDarray, b: DNDarray, dtype, tdt: torch.dtype) -> DNDarray:
     if a.gshape[1] != b.gshape[0]:
         raise ValueError(f"matmul: shapes {a.gshape} and {b.gshape} are not aligned")
+    # pending operands stay pending: the case table records one node
+    # (heat_tpu/core/linalg/basics.py:117)
+    ret = fusion.defer_matmul(a, b, _matmul_kernel, tdt=tdt)
+    if ret is not None:
+        return ret
     comm = a.comm
-    if a.split == 0:
-        out_split: Optional[int] = 0
-    elif b.split == 1:
-        out_split = 1
-    else:
-        out_split = None
-    gshape = (a.gshape[0], b.gshape[1])
+    out_split = 0 if a.split == 0 else 1 if b.split == 1 else None
+    shards = _matmul_kernel(a, b, comm=comm, tdt=tdt)
+    if out_split is None:
+        shards = _distribute(shards[0], None, comm)
+    return DNDarray(shards, (a.gshape[0], b.gshape[1]), dtype, out_split, a.device, comm)
+
+
+def _matmul_kernel(a, b, *, comm, tdt: torch.dtype) -> List[torch.Tensor]:
+    """The shards of a 2-D ``a @ b`` by the case table (``a`` and ``b``
+    DNDarrays, or shard views inside a fused program): split 0 for a
+    split-0 ``a``, split 1 for a split-1 ``b``, else one replicated
+    tensor."""
+    out_split = 0 if a.split == 0 else 1 if b.split == 1 else None
     if not comm.is_distributed() or (a.split is None and b.split is None):
-        return _wrap_like(torch.matmul(a.larray.to(tdt), b.larray.to(tdt)), out_split, a)
+        result = torch.matmul(a.larray.to(tdt), b.larray.to(tdt))
+        return [result] if out_split is None else _distribute(result, out_split, comm)
     if a.split == 0:
         # row shards times the gathered (k, n) factor; the padding rows
         # of a only reach the padding rows of the product
@@ -151,8 +163,8 @@ def _matmul_2d(a: DNDarray, b: DNDarray, dtype, tdt: torch.dtype) -> DNDarray:
         a_parts = a.lshards if a.split == 1 else _blocks(a, 1)
         b_parts = b.lshards if b.split == 0 else _blocks(b, 0)
         partials = [torch.matmul(x.to(tdt), y.to(tdt)) for x, y in zip(a_parts, b_parts)]
-        shards = comm.allreduce(partials)
-    return DNDarray(shards, gshape, dtype, out_split, a.device, comm)
+        shards = comm.allreduce(partials)[:1]
+    return shards
 
 
 def _both_bool(a: DNDarray, b: DNDarray) -> bool:

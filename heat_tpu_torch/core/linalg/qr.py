@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import types
+from .. import fusion, telemetry, types
 from ..communication import _declare, _declared
 from ..dndarray import DNDarray, _distribute
 from ..sanitation import sanitize_in, warn_replicated
@@ -56,6 +56,8 @@ QR = collections.namedtuple("QR", "Q, R")
 _REPLICATED_MAX_ELEMENTS = 1 << 22
 
 _METHODS = collections.Counter()
+
+_T_COLLECTIVE = telemetry.force_trigger("collective")
 
 # rows per GEMM of a CholeskyQR2 Gram matrix, the partial Grams added in
 # order. The float32 error of one GEMM grows with its reduction length, and
@@ -139,18 +141,49 @@ def _cholqr2(a: DNDarray, calc_q: bool):
     (heat_tpu/core/linalg/qr.py:485-583). A replicated or split-1 operand
     runs as one shard, its global view.
 
-    The Gram matrices sum each shard's valid rows (never its padding) in
-    shard order; the small (n, n) Cholesky factor and its inverse are
-    computed once, on the first device, and placed on the others; the tall
-    work is two GEMMs per pass (one without ``calc_q``)."""
+    The passes record one multi-output node of ``a``'s chain (Q, R and
+    ``ok``; ``fusion.defer_multi``, heat_tpu/core/linalg/qr.py:236-262):
+    forcing ``ok`` for the caller's one host read runs the Gram combines in
+    the chain's program and lands Q and R in the same dispatch."""
     comm = a.comm
-    acc = a.dtype.torch_type()
     n = a.gshape[1]
-    eye = torch.eye(n, dtype=acc, device=comm.devices[0])
+    if a.split == 0 and comm.size > 1:
+        _declare("allreduce", a.dtype.torch_type(), (n * n * a.dtype.torch_type().itemsize, 2))
+    nodes = fusion.defer_multi(_cholqr2_kernel, (a,), comm=comm, calc_q=calc_q)
+    if nodes is not None:
+        q = fusion.wrap_node(nodes[0], a.gshape, a.split, a) if calc_q else None
+        r = fusion.wrap_node(nodes[-2], (n, n), None, a)
+        with _T_COLLECTIVE:
+            ok = fusion.force(nodes[-1], comm)[0]
+        return q, r, ok
+    with _declared():
+        outs = _cholqr2_kernel(a, comm=comm, calc_q=calc_q)
+    r = _as_array(outs[-2], (n, n), None, a)
+    q = _as_array(outs[0], a.gshape, a.split, a) if calc_q else None
+    return q, r, outs[-1][0]
+
+
+def _as_array(shards, gshape, split, ref: DNDarray) -> DNDarray:
+    """A kernel's result shards as a DNDarray of ``ref``'s type and mesh
+    (one tensor for a replicated result)."""
+    if split is None:
+        shards = _distribute(shards[0], None, ref.comm)
+    return DNDarray(shards, gshape, ref.dtype, split, ref.device, ref.comm)
+
+
+def _cholqr2_kernel(a, *, comm, calc_q: bool):
+    """The CholeskyQR2 passes over ``a`` (a DNDarray, or a shard view in a
+    fused program): ``([Q shards], [R], [ok])``, without Q for ``calc_q``
+    false. The Gram matrices sum each shard's valid rows (never its
+    padding) in shard order; the small (n, n) Cholesky factor and its
+    inverse are computed once, on the first device, and placed on the
+    others; the tall work is two GEMMs per pass (one without ``calc_q``)."""
+    n = a.gshape[1]
     if a.split == 0:
         x, counts = a.shards, comm.counts_displs_shape(a.gshape, 0)[0]
     else:
         x, counts = [a.larray], (a.gshape[0],)
+    eye = torch.eye(n, dtype=x[0].dtype, device=comm.devices[0])
 
     def gram(rows):
         g = None
@@ -170,20 +203,17 @@ def _cholqr2(a: DNDarray, calc_q: bool):
         r_inv = torch.linalg.solve_triangular(r, eye, upper=True)
         return [s @ w for s, w in zip(shards, _distribute(r_inv, None, comm))]
 
-    if a.split == 0 and comm.size > 1:
-        _declare("allreduce", acc, (n * n * eye.element_size(), 2))
-    with _declared():
-        r1, info1, _ = gram_chol(x)
-        q1 = form_q(x, r1)
-        r2, info2, g2 = gram_chol(q1)
+    r1, info1, _ = gram_chol(x)
+    q1 = form_q(x, r1)
+    r2, info2, g2 = gram_chol(q1)
     ok = (info1 == 0) & (info2 == 0) & _cholqr2_probe_ok(r1, r2, g2, eye)
-    r = DNDarray(_distribute(r2 @ r1, None, comm), (n, n), a.dtype, None, a.device, comm)
+    r = [r2 @ r1]
     if not calc_q:
-        return None, r, ok
+        return r, [ok]
     q2 = form_q(q1, r2)
-    if a.split == 0:
-        return DNDarray(q2, a.gshape, a.dtype, 0, a.device, comm), r, ok
-    return _wrap_like(q2[0], a.split, a), r, ok
+    if a.split != 0:
+        q2 = [q2[0]] if a.split is None else _distribute(q2[0], a.split, comm)
+    return q2, r, [ok]
 
 
 def _tsqr(a: DNDarray, calc_q: bool) -> Tuple[Optional[DNDarray], DNDarray]:
@@ -195,9 +225,28 @@ def _tsqr(a: DNDarray, calc_q: bool) -> Tuple[Optional[DNDarray], DNDarray]:
     4. the local product ``Q₁ Q₂[d n:(d + 1) n]`` on each shard.
 
     A zero row of a shard gives a zero row of Q₁, so the padding rows of Q
-    are zero. Returns Q split 0 (None without ``calc_q``) and R replicated."""
+    are zero. Returns Q split 0 (None without ``calc_q``) and R replicated.
+    A pending ``a`` stays pending: the schedule records one multi-output
+    node of its chain (``fusion.defer_apply``, heat_tpu/core/linalg/qr.py:
+    283-325)."""
     comm = a.comm
     m, n = a.gshape
+    _declare("allgather", a.dtype.torch_type(), (comm.size * n * n * a.dtype.torch_type().itemsize, 1))
+    nodes = fusion.defer_apply(comm, _tsqr_kernel, (a,), out_split=(0, None) if calc_q else (None,), calc_q=calc_q)
+    if nodes is not None:
+        q = fusion.wrap_node(nodes[0], (m, n), 0, a) if calc_q else None
+        return q, fusion.wrap_node(nodes[-1], (n, n), None, a)
+    with _declared():
+        outs = _tsqr_kernel(a, comm=comm, calc_q=calc_q)
+    r_arr = _as_array(outs[-1], (n, n), None, a)
+    return (_as_array(outs[0], (m, n), 0, a) if calc_q else None), r_arr
+
+
+def _tsqr_kernel(a, *, comm, calc_q: bool):
+    """The TSQR schedule over the shards of ``a`` (a DNDarray, or a shard
+    view in a fused program): ``([Q shards], [R])``, without Q for
+    ``calc_q`` false."""
+    n = a.gshape[1]
     counts = a.counts_displs()[0]
     q1s, r1s = [], []
     for s, c in zip(a.shards, counts):
@@ -206,17 +255,12 @@ def _tsqr(a: DNDarray, calc_q: bool) -> Tuple[Optional[DNDarray], DNDarray]:
         q1, r1 = torch.linalg.qr(s, mode="reduced")
         q1s.append(q1)
         r1s.append(r1)
-    k1 = r1s[0].shape[0]
-    _declare("allgather", r1s[0].dtype, (comm.size * k1 * n * r1s[0].element_size(), 1))
-    with _declared():
-        stack = comm.allgather(r1s, dim=0)[0]
+    stack = comm.allgather(r1s, dim=0)[0]
     q2, r = torch.linalg.qr(stack, mode="reduced")
-    r_arr = DNDarray(_distribute(r, None, comm), (n, n), types.canonical_heat_type(r.dtype), None, a.device, comm)
     if not calc_q:
-        return None, r_arr
+        return ([r],)
     blocks = _distribute(q2, None, comm)
-    shards = [q1 @ b[d * n:(d + 1) * n] for d, (q1, b) in enumerate(zip(q1s, blocks))]
-    return DNDarray(shards, (m, n), a.dtype, 0, a.device, comm), r_arr
+    return [q1 @ b[d * n:(d + 1) * n] for d, (q1, b) in enumerate(zip(q1s, blocks))], [r]
 
 
 def _panel_qr_split1(a: DNDarray) -> Tuple[DNDarray, DNDarray]:

@@ -20,10 +20,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import factories, types
+from .. import factories, fusion, telemetry, types
 from ..communication import _declare, _declared
-from ..dndarray import DNDarray
+from ..dndarray import DNDarray, _distribute
 from ..sanitation import sanitize_in, warn_replicated
+from ._blocked import sanitize_slab, stage_grid
 from .basics import _wrap_like, matmul, norm, transpose
 
 __all__ = ["cg", "eigh", "eigvalsh", "lanczos", "solve", "solve_triangular"]
@@ -43,11 +44,29 @@ def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None) -
     if x0.ndim != 1:
         raise RuntimeError("c needs to be a 1D vector")
     dtype = types.result_type(A, b, x0).torch_type()
-    Al, x = A.larray.to(dtype), x0.larray.to(dtype)
-    r = b.larray.to(dtype) - Al @ x
+    if fusion.collectives_active() and telemetry._MODE:
+        # recording declines the sweep by name (see _cg_body)
+        telemetry.record_unfused("op", "cg_unrolled_loop")
+    ret = _wrap_like(_cg_body(A.larray, b.larray, x0.larray, dtype=dtype), None, x0)
+    ret.resplit_(x0.split)
+    if out is not None:
+        out._replace(ret.shards, ret.gshape, ret.split)
+        return out
+    return ret
+
+
+def _cg_body(Al: torch.Tensor, bl: torch.Tensor, x0l: torch.Tensor, *, dtype) -> torch.Tensor:
+    """The CG sweep over the global views: ``len(b)`` iterations, those
+    after convergence masked. A fused program would unroll the loop into
+    ``n`` copies of its body (Dynamo inlines a Python loop), so ``cg``
+    declines to record it, with the unfused reason ``cg_unrolled_loop``,
+    and forces its operands (the reference records its ``while_loop`` as
+    one node)."""
+    Al, x = Al.to(dtype), x0l.to(dtype)
+    r = bl.to(dtype) - Al @ x
     rs = r @ r
     p = r
-    for _ in range(b.gshape[0]):
+    for _ in range(bl.shape[0]):
         active = torch.sqrt(rs) >= 1e-10
         Ap = Al @ p
         alpha = torch.where(active, rs / (p @ Ap), 0)
@@ -56,12 +75,8 @@ def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None) -
         rs_new = r @ r
         p = torch.where(active, r + (rs_new / rs) * p, p)
         rs = torch.where(active, rs_new, rs)
-    ret = _wrap_like(x, None, x0)
-    ret.resplit_(x0.split)
-    if out is not None:
-        out._replace(ret.shards, ret.gshape, ret.split)
-        return out
-    return ret
+    return x
+
 
 
 def solve_triangular(A: DNDarray, b: DNDarray, lower: bool = False) -> DNDarray:
@@ -71,35 +86,58 @@ def solve_triangular(A: DNDarray, b: DNDarray, lower: bool = False) -> DNDarray:
     (split 1 resplit to 0 first): the blocked substitution over the stage
     grid of :func:`._blocked.stage_grid`; each stage moves one solved
     ``(ceil(n/p), k)`` block, never the operand. The result is split like
-    ``b``."""
-    from ._blocked import sanitize_slab, stage_grid
-
+    ``b``. A pending ``A`` or ``b`` stays pending: the schedule records
+    one node of their chain (``fusion.defer_apply``)."""
     if not isinstance(A, DNDarray) or not isinstance(b, DNDarray):
         raise TypeError("A and b must be DNDarrays")
     if A.ndim != 2 or A.gshape[0] != A.gshape[1]:
         raise ValueError("A must be a square 2-D matrix")
     if b.gshape[0] != A.gshape[0]:
         raise ValueError("b's leading dimension must match A")
-    vector_rhs = b.ndim == 1
-    n = A.gshape[0]
     dtype = types.promote_types(types.promote_types(A.dtype, b.dtype), types.float32)
     tdt = dtype.torch_type()
-    if A.split is None or A.comm.size == 1:
-        bl = b.larray.to(tdt)
-        x = torch.linalg.solve_triangular(A.larray.to(tdt), bl[:, None] if vector_rhs else bl, upper=not lower)
-        out = _wrap_like(x[:, 0] if vector_rhs else x, None, b)
-        out.resplit_(b.split)
-        return out
-    if A.split == 1:
+    blocked = A.split is not None and A.comm.size > 1
+    if blocked and A.split == 1:
         from ..manipulations import resplit
 
         A = resplit(A, 0)
     comm = A.comm
+    if blocked:
+        # declared: one allreduce of one solved block per stage (heat_tpu solver.py:322-333)
+        _, rows_loc, n_stages, _ = stage_grid(A)
+        k = 1 if b.ndim == 1 else b.gshape[1]
+        _declare("allreduce", tdt, (rows_loc * k * tdt.itemsize, n_stages))
+    out_split = 0 if blocked else None
+    # heat_tpu/core/linalg/solver.py:190-248
+    node = fusion.defer_apply(comm, _tri_solve_kernel, (A, b), out_split=out_split, lower=lower, tdt=tdt)
+    if node is not None:
+        out = fusion.wrap_node(node, b.gshape, out_split, b)
+    else:
+        with _declared():
+            shards = _tri_solve_kernel(A, b, comm=comm, lower=lower, tdt=tdt)
+        if not blocked:
+            shards = _distribute(shards[0], None, comm)
+        out = DNDarray(shards, tuple(b.gshape), dtype, out_split, b.device, b.comm)
+    if b.split != out_split:
+        out.resplit_(b.split)
+    return out
+
+
+def _tri_solve_kernel(A, b, *, comm, lower: bool, tdt: torch.dtype):
+    """The shards of ``A x = b`` (DNDarrays, or shard views in a fused
+    program): one ``torch.linalg.solve_triangular`` of the global views for
+    a replicated ``A`` (one tensor), else the blocked substitution over the
+    stage grid of a split-0 ``A`` (split-0 shards)."""
+    vector_rhs = b.ndim == 1
+    n = A.gshape[0]
+    bl = b.larray.to(tdt)
+    bl = bl[:, None] if vector_rhs else bl
+    if A.split is None or comm.size == 1:
+        x = torch.linalg.solve_triangular(A.larray.to(tdt), bl, upper=not lower)
+        return [x[:, 0] if vector_rhs else x]
     p, rows_loc, n_stages, owners = stage_grid(A)
     n_pad = p * rows_loc
     slabs, rhs = [], []
-    bl = b.larray.to(tdt)
-    bl = bl[:, None] if vector_rhs else bl
     k = bl.shape[1]
     b_pad = torch.cat([bl, bl.new_zeros((n_pad - n, k))]) if n_pad > n else bl
     for i, (s, d) in enumerate(zip(A.shards, comm.devices)):
@@ -108,22 +146,15 @@ def solve_triangular(A: DNDarray, b: DNDarray, lower: bool = False) -> DNDarray:
         # padding rows are identity rows against a zero right-hand side
         rhs.append(b_pad[i * rows_loc:(i + 1) * rows_loc].to(d))
     x_own = [torch.zeros((rows_loc, k), dtype=tdt, device=d) for d in comm.devices]
-    # declared: one allreduce of one solved block per stage (heat_tpu solver.py:322-333)
-    _declare("allreduce", tdt, (rows_loc * k * x_own[0].element_size(), n_stages))
     for i in range(n_stages):
         t = i if lower else n_stages - 1 - i
         start, owner = t * rows_loc, owners[t]
         tiles = [w[:, start:start + rows_loc] for w in slabs]
         cand = torch.linalg.solve_triangular(tiles[owner], rhs[owner], upper=not lower)
-        with _declared():
-            block = comm.allreduce([cand if j == owner else torch.zeros_like(cand).to(d) for j, d in enumerate(comm.devices)])
+        block = comm.allreduce([cand if j == owner else torch.zeros_like(cand).to(d) for j, d in enumerate(comm.devices)])
         x_own[owner] = block[owner]
         rhs = [r - tile @ blk for r, tile, blk in zip(rhs, tiles, block)]
-    shards = [x[:, 0] for x in x_own] if vector_rhs else x_own
-    out = DNDarray(shards, tuple(b.gshape), dtype, 0, b.device, b.comm)
-    if b.split != 0:
-        out.resplit_(b.split)
-    return out
+    return [x[:, 0] for x in x_own] if vector_rhs else x_own
 
 
 def solve(a: DNDarray, b: DNDarray) -> DNDarray:

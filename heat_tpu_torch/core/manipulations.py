@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import resilience, types
+from . import fusion, resilience, types
 from ._operations import _into_out
 from .dndarray import DNDarray, _wrap
 from .sanitation import sanitize_in, warn_replicated
@@ -239,7 +239,9 @@ def reshape(a: DNDarray, *shape, new_split: Optional[int] = None) -> DNDarray:
 
 def resplit(arr: DNDarray, axis: Optional[int] = None) -> DNDarray:
     """Out-of-place redistribution to a new split axis; a copy when the axis
-    is the same (reference manipulations.py:350)."""
+    is the same (reference manipulations.py:350). A pending chain stays
+    pending, the source's and the result's (heat_tpu/core/manipulations.py:
+    355-378)."""
     sanitize_in(arr)
     axis = sanitize_axis(arr.gshape, axis)
     if axis == arr.split:
@@ -248,6 +250,11 @@ def resplit(arr: DNDarray, axis: Optional[int] = None) -> DNDarray:
         return memory.copy(arr)
     if resilience._ARMED:
         resilience.check("collective.reshard")
+    payload = arr._payload
+    if isinstance(payload, fusion.LazyArray) and payload._value is None and fusion.collectives_active():
+        node = fusion.defer_reshard(payload, arr.gshape, arr.split, axis, arr.comm)
+        if node is not None:
+            return fusion.wrap_node(node, arr.gshape, axis, arr)
     return _wrap(arr.larray, axis, arr.device, arr.comm)
 
 

@@ -13,14 +13,18 @@ array is convolved on the first device.
 Every output element is one sum over the taps in tap order (a product
 and an add per tap, never fused), so a split array's result equals the
 unsplit one bit for bit.
+
+A pending signal stays pending (heat_tpu/core/signal.py:31-114): its halo
+exchange and the per-shard convolutions record into its chain
+(``fusion.defer_apply``), one program with the ops that made it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import factories, types
-from .dndarray import DNDarray, _wrap
+from . import factories, fusion, types
+from .dndarray import DNDarray, _distribute, _wrap
 
 __all__ = ["convolve"]
 
@@ -42,25 +46,44 @@ def _full_local(t: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return _stencil(torch.cat([zeros, t, zeros]), taps, t.shape[0] + k - 1)
 
 
-def _shard_pieces(a: DNDarray, taps: torch.Tensor, offset: int):
-    """Per shard, the full convolution's outputs from position ``displ +
-    offset`` on, as many as ``[prev | shard | next]`` with halos of ``k - 1``
-    rows determines; the shard's padding rows count as zeros. Returns None
-    when the halo is wider than a shard."""
+def _convolve_kernel(a, prev, nxt, v, *, comm, mode: str, start: int, stop: int):
+    """The split schedule over the shards of ``a`` (a DNDarray, or a shard
+    view inside a fused program) and its halos ``prev``/``nxt`` of ``k - 1``
+    rows: per shard, the full convolution's outputs from position ``displ
+    + offset`` on, the shard's padding rows counted as zeros. ``'same'``
+    keeps each shard's own block; ``'full'`` and ``'valid'`` re-cut the
+    outputs ``start:stop`` into the result's blocks. ``v`` holds the taps.
+    Returns the result's shards."""
+    taps = v.shards[0]
     k = taps.shape[0]
-    a.get_halo(k - 1)
-    if a.halos is None:
-        return None
+    offset = start if mode == "same" else 0
     counts = a.counts_displs()[0]
     pieces = []
-    for prev, shard, nxt, count in zip(a.halos[0], a.shards, a.halos[1], counts):
+    for p_, shard, n_, count in zip(prev.shards, a.shards, nxt.shards, counts):
         if count < shard.shape[0]:
             shard = torch.cat([shard[:count], shard.new_zeros(shard.shape[0] - count)])
         # ext starts k - 1 rows before the shard, so its i-th valid output is
         # the full convolution's output at displ + i
-        ext = torch.cat([prev, shard, nxt]).narrow(0, offset, shard.shape[0] + 2 * (k - 1) - offset)
+        ext = torch.cat([p_, shard, n_]).narrow(0, offset, shard.shape[0] + 2 * (k - 1) - offset)
         pieces.append(_stencil(ext, taps.to(ext.device), ext.shape[0] - k + 1))
-    return pieces
+    if mode == "same":
+        # each shard's own block of outputs: no other data moves
+        block = a.shards[0].shape[0]
+        return [p[:block] for p in pieces]
+    first = comm.devices[0]
+    last = [r for r, c in enumerate(counts) if c][-1]
+    full = [p[:c].to(first) for p, c in zip(pieces, counts)]
+    # the last shard with data also holds the k - 1 outputs past the end
+    full.append(pieces[last][counts[last] : counts[last] + k - 1].to(first))
+    return _distribute(torch.cat(full)[start:stop], 0, comm)
+
+
+def _convolve_whole_kernel(a, v, *, comm, start: int, stop: int):
+    """The convolution of the whole signal on the first device, outputs
+    ``start:stop``, cut into the signal's split (the schedule of one shard,
+    a replicated signal, or a halo wider than a shard)."""
+    result = _full_local(a.larray, v.shards[0])[start:stop]
+    return [result] if a.split is None else _distribute(result, a.split, comm)
 
 
 def convolve(a, v, mode: str = "full") -> DNDarray:
@@ -91,21 +114,18 @@ def convolve(a, v, mode: str = "full") -> DNDarray:
     start, stop = {"full": (0, n + k - 1), "same": ((k - 1) // 2, (k - 1) // 2 + n), "valid": (k - 1, n)}[mode]
     stop = max(stop, start)
     if a.split == 0 and a.comm.size > 1 and n and k > 1:
-        if mode == "same":
-            # each shard's own block of outputs: no other data moves
-            pieces = _shard_pieces(a, taps, start)
-            if pieces is not None:
-                block = a.shards[0].shape[0]
-                return DNDarray([p[:block] for p in pieces], (n,), promoted, 0, a.device, a.comm)
-        else:
-            counts = a.counts_displs()[0]
-            last = max(r for r, c in enumerate(counts) if c)
-            pieces = _shard_pieces(a, taps, 0)
-            if pieces is not None:
-                first = a.comm.devices[0]
-                full = [p[:c].to(first) for p, c in zip(pieces, counts)]
-                # the last shard with data also holds the k - 1 outputs past the end
-                full.append(pieces[last][counts[last] : counts[last] + k - 1].to(first))
-                return _wrap(torch.cat(full)[start:stop], 0, a.device, a.comm)
-    result = _full_local(a.larray, taps)[start:stop]
-    return _wrap(result, a.split, a.device, a.comm)
+        a.get_halo(k - 1)
+        halos = a._halo_arrays()
+        if halos is not None:
+            gshape = (n if mode == "same" else stop - start,)
+            kw = dict(mode=mode, start=start, stop=stop)
+            node = fusion.defer_apply(a.comm, _convolve_kernel, (a, *halos, ((taps,), (k,), None)), **kw)
+            if node is not None:
+                return fusion.wrap_node(node, gshape, 0, a)
+            shards = _convolve_kernel(a, *halos, factories.array(taps, comm=a.comm), comm=a.comm, **kw)
+            return DNDarray(shards, gshape, promoted, 0, a.device, a.comm)
+    gshape = (stop - start,)
+    node = fusion.defer_apply(a.comm, _convolve_whole_kernel, (a, ((taps,), (k,), None)), start=start, stop=stop)
+    if node is not None:
+        return fusion.wrap_node(node, gshape, a.split, a)
+    return _wrap(_full_local(a.larray, taps)[start:stop], a.split, a.device, a.comm)

@@ -26,7 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import factories, types
+from . import factories, fusion, types
 from ._operations import Reduction, _across_split, _reduced_shape, _reduced_split, _result
 from ._operations import __binary_op as _binary_op
 from ._operations import __local_op as _local_op
@@ -103,10 +103,28 @@ def argmin(x: DNDarray, axis: Optional[int] = None, out=None, **kwargs) -> DNDar
     return _arg_reduce(x, axis, out, torch.min, mpi_argmin)
 
 
+@torch.library.custom_op("heat_tpu_torch::extreme", mutates_args=())
+def _extreme_op(t: torch.Tensor, dim: int, largest: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.max`` (``largest``) or ``torch.min`` along ``dim``, values and
+    indices, as one op that a fused program calls as it is: Inductor does
+    not split an argmax reduction, so its own code for a column of a tall
+    shard ran 50x slower than ATen's (75 ms against 1.5 for argmax and
+    argmin along the split of BASELINE config 3's table on four shards of
+    an H100, chip_smoke.py phase 19)."""
+    return (torch.max if largest else torch.min)(t, dim=dim)
+
+
+@_extreme_op.register_fake
+def _(t, dim, largest):
+    # the meta kernel: shapes, and torch's error for an empty reduction
+    return (torch.max if largest else torch.min)(t, dim=dim)
+
+
 def _extreme(t: torch.Tensor, axis, extreme):
     """(values, indices) of ``extreme`` (torch.max or torch.min) along
     ``axis``, over the flattened tensor for ``axis=None``."""
-    return extreme(t.reshape(-1), dim=0) if axis is None else extreme(t, dim=axis)
+    flat = axis is None
+    return _extreme_op(t.reshape(-1) if flat else t, 0 if flat else axis, extreme is torch.max)
 
 
 def _arg_reduce(x: DNDarray, axis, out, extreme, combiner) -> DNDarray:
@@ -118,17 +136,29 @@ def _arg_reduce(x: DNDarray, axis, out, extreme, combiner) -> DNDarray:
         axis = None
     split = None if axis is None else _reduced_split(x.split, (axis,), False)
     gshape = () if axis is None else _reduced_shape(x.gshape, (axis,), False)
-    if x.split is None or (axis is not None and axis != x.split) or x.comm.size == 1:
-        source = x.shards if x.split is not None else x.shards[:1]
-        shards = [_extreme(s, axis, extreme)[1] for s in source]
-    else:
-        shards = [_arg_across_split(x, axis, extreme, combiner)]
-    ret = _result(shards, gshape, split, x)
+    kw = dict(axis=axis, extreme=extreme, combiner=combiner)
+    if out is None and (x.size if axis is None else x.gshape[axis]):
+        # a node of a pending chain (heat_tpu/core/statistics.py:105-122);
+        # an empty reduction raises torch's error at the call instead
+        node = fusion.defer_apply(x.comm, _arg_kernel, (x,), **kw)
+        if node is not None:
+            return fusion.wrap_node(node, gshape, split, x)
+    ret = _result(_arg_kernel(x, comm=x.comm, **kw), gshape, split, x)
     if out is not None:
         sanitize_out(out, ret.gshape, ret.split, ret.device)
         out._replace([s.to(out.dtype.torch_type()) for s in ret.shards], ret.gshape, ret.split)
         return out
     return ret
+
+
+def _arg_kernel(x, *, comm, axis, extreme, combiner) -> List[torch.Tensor]:
+    """The indices' shards of ``x`` (a DNDarray, or a shard view inside a
+    fused program): each shard alone where every result element's inputs
+    lie in one shard, else the split-axis schedule, one tensor."""
+    if x.split is None or (axis is not None and axis != x.split) or comm.size == 1:
+        source = x.shards if x.split is not None else x.shards[:1]
+        return [_extreme(s, axis, extreme)[1] for s in source]
+    return [_arg_across_split(x, axis, extreme, combiner)]
 
 
 def _arg_across_split(x: DNDarray, axis, extreme, combiner) -> torch.Tensor:

@@ -58,9 +58,14 @@ blocking sync into the latency histograms). :func:`reset` and
 :func:`scope` reset and scope their session state as well, and
 ``report()`` carries their ``memory`` ledger and ``health`` blocks.
 
-Not here yet: the fused-collective block (the recorder's collective
-nodes come later; :func:`record_fused_collective` records nothing until
-then), and the numerics, serving, elastic, autoscale and multi-process
+The recorder's collective nodes (a split-axis reduction's combine, a
+deferred resplit, a per-shard schedule, a matmul) run inside fused
+programs and call no verb: :func:`record_fused_collective` counts them at
+record time (``report()["fused_collectives"]``), and
+:func:`hlo_collective_counts` reads them back from a pending chain's
+program text (``fusion.program_hlo``).
+
+Not here yet: the numerics, serving, elastic, autoscale and multi-process
 blocks of ``report()``. Their modules come with later parts of the port.
 """
 
@@ -118,6 +123,7 @@ __all__ = [
     "record_fault",
     "record_force",
     "record_fused_collective",
+    "fused_collectives",
     "record_io_retry",
     "record_nonfinite",
     "record_retrace",
@@ -247,7 +253,7 @@ class _State:
     __slots__ = (
         "path", "t0", "wall_s", "calls", "collectives", "forces", "retraces",
         "compiles", "dispatches", "degraded", "unfused", "nonfinite",
-        "io_retries", "checkpoint", "async_", "blocking", "sync_wait",
+        "io_retries", "checkpoint", "fused_collectives", "async_", "blocking", "sync_wait",
         "faults", "spans", "events", "events_dropped",
     )
 
@@ -269,6 +275,7 @@ class _State:
         self.nonfinite: Dict[str, int] = {}
         self.io_retries: Dict[str, int] = {}
         self.checkpoint: Dict[str, int] = {}
+        self.fused_collectives: Dict[str, int] = {}
         self.async_ = {"dispatches": 0, "roots": 0, "multi_root_batches": 0}
         self.blocking: Dict[str, int] = {}
         self.sync_wait: Dict[str, Dict[str, float]] = {}
@@ -337,6 +344,7 @@ def _merge_state(dst: _State, src: _State) -> None:
     _add_int(dst.nonfinite, src.nonfinite)
     _add_int(dst.io_retries, src.io_retries)
     _add_int(dst.checkpoint, src.checkpoint)
+    _add_int(dst.fused_collectives, src.fused_collectives)
     _add_int(dst.async_, src.async_)
     _add_int(dst.blocking, src.blocking)
     for kind, rec in src.sync_wait.items():
@@ -538,6 +546,7 @@ def _counter_blocks(st: _State) -> Dict[str, Any]:
     return {
         "collectives": _render_collectives(st),
         "collective_counts": {op: rec["count"] for op, rec in st.collectives.items()},
+        "fused_collectives": dict(st.fused_collectives),
         "async_forcing": _render_async(st),
         "forcing_points": _render_forces(st),
         "dispatches": {k: dict(v) for k, v in st.dispatches.items()},
@@ -714,9 +723,10 @@ def end_blocking_sync(token: Optional[dict]) -> None:
 
 
 def record_async_dispatch(n_roots: int, cid: Optional[int] = None, cids=(), program: Optional[str] = None, sessions=None) -> None:
-    """Count one fused-program dispatch of ``n_roots`` roots (one: the
-    recorder does not batch roots yet). It installs the result tensors
-    without waiting. ``cid`` is the chain's correlation id, ``cids`` every
+    """Count one fused-program dispatch of ``n_roots`` roots (more than one
+    when the force batched other live roots into the program, a
+    ``multi_root_batches`` entry). It installs the result tensors without
+    waiting. ``cid`` is the chain's correlation id, ``cids`` every
     root's, ``program`` the program key (None for a degraded replay): the
     timeline's ``dispatch`` event joins the chain's record and its
     blocking sync."""
@@ -927,10 +937,22 @@ def retraces() -> Dict[str, Dict[str, Any]]:
 
 
 def record_fused_collective(kind: str, cid: Optional[int] = None, detail: Optional[str] = None) -> None:
-    """A collective node recorded into a fused program. The recorder has no
-    collective nodes yet (a collective forces the chain): they come with the
-    collective half of the fusion recorder (ROADMAP A11.2b), and this
-    records nothing until then."""
+    """Count one collective node recorded into a fused program: a
+    split-crossing reduction's combine (``reduce.psum``), a deferred
+    ``reshard``, a per-shard schedule (``apply:<kernel>``), a ``matmul``.
+    These run inside the program and call no verb, so
+    :func:`collective_counts` does not see them; ``detail`` (a reshard's
+    target split, a matmul's split pair) rides the timeline event only."""
+    if not _MODE:
+        return
+    for st in _states():
+        st.fused_collectives[kind] = st.fused_collectives.get(kind, 0) + 1
+    _note_event("fused_collective", op=kind, cid=cid, detail=detail)
+
+
+def fused_collectives() -> Dict[str, int]:
+    """Per-kind counts of the collective nodes recorded into fused programs."""
+    return dict(_cur().fused_collectives)
 
 
 def record_unfused(engine: str, reason: str) -> None:
@@ -1274,6 +1296,7 @@ def _us(ts: float) -> float:
 #: instant-event rendering: kind -> (category, name builder)
 _INSTANT_KINDS = {
     "collective": ("collective", lambda ev: ev.get("op", "collective")),
+    "fused_collective": ("collective", lambda ev: "fused:" + str(ev.get("op"))),
     "record": ("record", lambda ev: "record:" + str(ev.get("op"))),
     "compile": ("compile", lambda ev: "compile:" + str(ev.get("label") or ev.get("family") or ev.get("program"))),
     "force": ("force", lambda ev: "force:" + str(ev.get("trigger"))),
@@ -1652,11 +1675,33 @@ def hlo_collectives(hlo_text: str) -> List[Dict[str, str]]:
     return out
 
 
+#: the collective nodes of a fused program's text (``fusion.program_hlo``,
+#: a GraphModule's code): each node's target, by its op's name, and the
+#: collective it stands for
+_PROGRAM_COLLECTIVE_RE = re.compile(
+    r"= heat_tpu_torch_core_fusion_(across_op|cum_split_op|gather_op|blocks_op|apply(?:_multi)?_op\w*)\("
+)
+_PROGRAM_COLLECTIVE_KIND = {
+    "across_op": "all-reduce",
+    "cum_split_op": "exscan",
+    "gather_op": "all-gather",
+    "blocks_op": "scatter",
+}
+
+
 def hlo_collective_counts(hlo_text: str) -> Dict[str, int]:
-    """Per-type collective instruction counts of an HLO dump."""
+    """Per-type collective counts of an HLO dump, or of a fused program's
+    text (``fusion.program_hlo``): there a split-crossing reduction counts
+    as ``all-reduce``, a gather of split shards as ``all-gather``, a cut
+    into a split's blocks as ``scatter``, a cumulative op along the split
+    as ``exscan`` and a schedule over the shard list (a matmul among them)
+    as ``apply``."""
     counts: Dict[str, int] = {}
     for entry in hlo_collectives(hlo_text):
         counts[entry["op"]] = counts.get(entry["op"], 0) + 1
+    for m in _PROGRAM_COLLECTIVE_RE.finditer(hlo_text):
+        kind = _PROGRAM_COLLECTIVE_KIND.get(m.group(1), "apply")
+        counts[kind] = counts.get(kind, 0) + 1
     return counts
 
 

@@ -1,11 +1,13 @@
 """heat_tpu_torch.core.fusion, the eager fusion recorder, against heat_tpu's
 with its collective nodes off (tests/test_eager_chain.py: TestFusionCache
 and TestEagerChainLayout; tests/test_fused_collectives.py::
-TestEscapeHatches). CPU only.
+TestEscapeHatches). CPU only. The collective nodes and the batching have
+their own file, test_torch_fused_collectives.py.
 
 The same numpy inputs, made from a seed, go through both packages on
-meshes of 1, 3 and 5 shards, each with its recorder on and heat_tpu under
-``fusion.collectives_disabled()``:
+meshes of 1, 3 and 5 shards, each with its recorder on and under
+``fusion.collectives_disabled()`` (the reference's batching branch calls
+``jax.core.trace_state_clean()``, which this jax lacks):
 
 * the counts are held exactly: dispatches per engine (fused and eager),
   the reasons of the ops that did not defer, the forcing points with their
@@ -46,9 +48,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(autouse=True)
 def recorders(on_cpu):  # noqa: F811 - the harness's fixture, first
-    """Both recorders on (heat_tpu's without its collective nodes), clean
-    caches, telemetry at mode 1; restored after."""
+    """Both recorders on without their collective nodes, clean caches,
+    telemetry at mode 1; restored after."""
     was = ref.fusion.set_enabled(True), ref.fusion.set_collectives_enabled(False), fusion.set_enabled(True)
+    mine_collectives = fusion.set_collectives_enabled(False)
     modes = tel.set_mode(1), ref_tel.set_mode(1)
     ref.fusion.clear_cache()
     fusion.clear_cache()
@@ -58,6 +61,7 @@ def recorders(on_cpu):  # noqa: F811 - the harness's fixture, first
     ref.fusion.set_enabled(was[0])
     ref.fusion.set_collectives_enabled(was[1])
     fusion.set_enabled(was[2])
+    fusion.set_collectives_enabled(mine_collectives)
     tel.set_mode(modes[0])
     ref_tel.set_mode(modes[1])
     ref.fusion.clear_cache()
@@ -315,7 +319,9 @@ def test_every_recorded_program_traces_whole_under_dynamo(p):
     """On the card each program runs through ``torch.compile(fullgraph=
     True)``, where a graph break degrades it: Dynamo's tracing, with its
     eager backend (no Inductor), runs here on the programs of the engines'
-    ops, and gives the plain module's result bit for bit."""
+    ops and of the collective nodes (reshards, schedules over the shard
+    list, matmul, multi-output nodes, batched roots), and gives the plain
+    module's result bit for bit."""
     import torch._dynamo
 
     mine, _ = _pair(p)
@@ -333,8 +339,44 @@ def test_every_recorded_program_traces_whole_under_dynamo(p):
     assert all(fusion.is_deferred(o) for o in outs)
     for o in outs:
         o.shards
+    prev = fusion.set_collectives_enabled(True)
+    try:
+        # the collective nodes: a reshard, schedules over the shard list
+        # (argmax, the halo exchange and the convolution, TSQR, the blocked
+        # solve), a matmul, a multi-output node (CholQR2) and a batch of
+        # live roots (the three moments)
+        y = x * 2.0
+        y.resplit_(1)
+        sq = ht.array(np.triu(_data((n, n), 51)) + n * np.eye(n, dtype=np.float32), split=0, comm=mine) * 1.0
+        sig_in = ht.array(_data((6 * mine.size + 1,), 52), split=0, comm=mine) * 1.0
+        collective = [
+            y, ht.resplit(x * 3.0, None), ht.argmax(x * 1.0, axis=0), ht.argmin(x * 1.0, axis=1),
+            ht.matmul(x * 1.0, ht.array(_data((4, 3), 53), split=1, comm=mine)),
+            ht.matmul(ht.resplit(x * 1.0, 1), ht.array(_data((4, 2), 54), split=0, comm=mine)),
+            ht.linalg.solve_triangular(sq, ht.array(_data((n,), 55), split=0, comm=mine)),
+            ht.convolve(sig_in, ht.array(_data((3,), 56), comm=mine)),
+        ]
+        if mine.size > 1:
+            collective.append(ht.linalg.qr(ht.array(_data((8 * mine.size, 3), 57), split=0, comm=mine) * 1.0, method="tsqr")[0])
+        assert all(fusion.is_deferred(o) for o in collective)
+        for o in collective:
+            o.shards
+        ht.linalg.qr(ht.array(_data((8 * mine.size, 3), 58), split=0, comm=mine) * 1.0, method="cholqr2")
+        m, v = ht.mean(x * 1.0), ht.var(x * 1.0)
+        m.item()
+        assert not fusion.is_deferred(v)
+    finally:
+        fusion.set_collectives_enabled(prev)
     programs = list(fusion._PROGRAMS.items())
-    assert len(programs) >= len(outs)
+    assert len(programs) >= len(outs) + len(collective) + 2
+    families = {f for sig, _ in programs for f in fusion._family(sig)}
+    expected = {"_gather_op", "_blocks_op", "apply:_arg_kernel", "apply:_matmul_kernel", "apply:_tri_solve_kernel", "_pick_op"}
+    if mine.size > 1:
+        expected |= {"apply:_halo_kernel", "apply:_convolve_kernel", "apply:_tsqr_kernel"}
+    else:
+        expected.add("apply:_convolve_whole_kernel")
+    assert expected <= families, families
+    assert any(len(sig[-1][1]) > 1 for sig, _ in programs)  # a batched program of several roots
     for sig, prog in programs:
         flat = _leaves_of(sig)
         got = torch.compile(prog.gm, fullgraph=True, dynamic=False, backend="eager")(*flat)

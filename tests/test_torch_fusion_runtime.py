@@ -57,6 +57,7 @@ def runtime(on_cpu, tmp_path):  # noqa: F811 - the harness's fixture, first
     gates disarmed, ambient faults suspended, clean counters, dumps into a
     temporary directory; restored after."""
     was = ref.fusion.set_enabled(True), ref.fusion.set_collectives_enabled(False), fusion.set_enabled(True)
+    mine_collectives = fusion.set_collectives_enabled(False)
     budgets = ml.set_budget(None), ref_ml.set_budget(None)
     modes = tel.set_mode(1), ref_tel.set_mode(1)
     dirs = hr.set_dump_dir(str(tmp_path)), ref_hr.set_dump_dir(str(tmp_path))
@@ -76,6 +77,7 @@ def runtime(on_cpu, tmp_path):  # noqa: F811 - the harness's fixture, first
     ref_hr.set_dump_dir(dirs[1])
     ref.fusion.set_enabled(was[0])
     ref.fusion.set_collectives_enabled(was[1])
+    fusion.set_collectives_enabled(mine_collectives)
     fusion.set_enabled(was[2])
     tel.set_mode(modes[0])
     ref_tel.set_mode(modes[1])

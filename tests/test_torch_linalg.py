@@ -22,6 +22,7 @@ import torch
 
 import heat_tpu as ref
 import heat_tpu_torch as ht
+from heat_tpu_torch.core import fusion
 from heat_tpu_torch.core.linalg import _blocked
 from heat_tpu_torch.core.sanitation import ReplicationWarning
 from test_torch_parity import P, check, check_layout, on_cpu  # noqa: F401
@@ -50,18 +51,28 @@ def _poison(x: "ht.DNDarray") -> None:
 @pytest.fixture
 def collectives(monkeypatch):
     """Counts of the collectives the default CPU mesh runs, and the bytes
-    put into them."""
+    put into them: its verbs, and those of the fused programs that run a
+    schedule recorded on it (not the record-time runs on meta tensors)."""
     comm = ht.get_comm()
     calls, volume = {}, {}
     for verb in ("allgather", "allreduce", "bcast"):
         original = getattr(comm, verb)
 
-        def counted(shards, *args, _verb=verb, _original=original, **kwargs):
+        def note(shards, _verb=verb):
             calls[_verb] = calls.get(_verb, 0) + 1
             volume[_verb] = volume.get(_verb, 0) + sum(s.numel() * s.element_size() for s in shards)
+
+        def counted(shards, *args, _note=note, _original=original, **kwargs):
+            _note(shards)
             return _original(shards, *args, **kwargs)
 
+        def in_program(self, shards, *args, _note=note, _original=getattr(fusion._ProgramComm, verb), **kwargs):
+            if shards[0].device.type != "meta":
+                _note(shards)
+            return _original(self, shards, *args, **kwargs)
+
         monkeypatch.setattr(comm, verb, counted)
+        monkeypatch.setattr(fusion._ProgramComm, verb, in_program)
     return calls, volume
 
 

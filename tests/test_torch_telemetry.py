@@ -59,7 +59,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: it has not yet: the recorder's collective nodes (fused collectives),
 #: numerics, serving, elastic, autoscale and multi-process
 FUSION_BLOCKS = {"fusion_cache", "programs", "forcing_points", "unfused_reasons", "retraces", "degraded"}
-LATER_BLOCKS = {"fused_collectives", "numerics", "serving", "elastic", "autoscale", "multihost"}
+LATER_BLOCKS = {"numerics", "serving", "elastic", "autoscale", "multihost"}
 
 
 @pytest.fixture(autouse=True)
@@ -410,10 +410,9 @@ def test_counters_of_the_resilience_and_checkpoint_seams_match():
     for key in ("faults", "io_retries", "nonfinite", "checkpoint", "jit_compiles", "forcing_points",
                 "unfused_reasons", "retraces", "degraded", "async_forcing"):
         assert mine[key] == theirs[key], key
-    # the fused-collective entry point takes the reference's arguments and
-    # records nothing until the recorder has collective nodes
-    assert FUSION_BLOCKS <= set(mine) and "fused_collectives" not in mine
-    assert theirs["fused_collectives"] == {"reduce.psum": 1}
+    # the fused-collective entry point takes the reference's arguments
+    assert FUSION_BLOCKS <= set(mine)
+    assert mine["fused_collectives"] == theirs["fused_collectives"] == {"reduce.psum": 1}
 
 
 # ---------------------------------------------------------------------------
