@@ -250,7 +250,26 @@ collective nodes.
    9 taps within phase 15's bound; ``cg`` on an 8,192² SPD matrix declined
    by name, its residual checked; then phases 9, 10, 12, 16, 4 and 13's
    four-shard steps again, each path's programs, builds and batches;
-20. print the phase-9 to 19 numbers with the card, the collectives-off and
+20. the numerics lens and the serving layer (no kernel of their own; the
+   LM steps run the flash kernel, the ninth tenant's fit the Lloyd
+   kernel): the 10-op chain and the column moments of config 3's table
+   with the lens off, sampling and full, ms per chain; each root's
+   statistics against a float64 computation (counts, histogram and absmax
+   exact, rms within NS_RMS_ULPS); the drift of Inductor's code against
+   the plain module; four NaN-padded shards (the padding not counted); the
+   SDC canary on one and four shards, clean and with ``numeric.sdc.1``;
+   the README's LM under DataParallel with the lens off and on (12 flash
+   launches per step, the stream's loss the step's, the update ratio
+   against float64 norms) and DASO's merges on four shards; eight
+   sessions on eight threads with a table each and a ninth running the
+   fit (30 Lloyd launches), p50/p99 per session, cross-session batches,
+   0 retraces after the warm-up; admission under ``raise`` (the refused
+   chain dispatched after the refill bit for bit), ``wait`` (neighbours'
+   p99 under the sleep) and ``memledger.admission_hold``; a cold and a
+   warm fresh process on one new cache directory (``disk_hit`` and no
+   compile for every signature, Inductor's FX graph cache hit, results
+   bit for bit);
+21. print the phase-9 to 20 numbers with the card, the collectives-off and
    recorder-off legs of phases 9, 12 and 13, each path's seconds and
    program builds, the card's name and power limit, one JSON line of
    per-kernel numbers, and the result line ``{"ok": true, "device":
@@ -2163,7 +2182,7 @@ MESH_BATCH = 254  # 64, 64, 64, 62 rows over four shards
 MESH_STEPS = 3
 TRAIN_P = 4
 SWEEP = ((0, 0), (2, 1), (4, 1), (8, 2))  # (global_skip, local_skip)
-SWEEP_STEPS = 6
+SWEEP_STEPS = 3
 README_FILTERS = 64
 # Bounds of phase 11, float32 on the card with TF32 off, on the parameters
 # and on the buffers (the running averages), each on the scale of its
@@ -3557,7 +3576,7 @@ def estimators_path(ht, smi: str) -> dict:
 # port runs them as torch ops over its in-process collectives.
 LM_BATCH, LM_SEQ = 4, 4096  # the README's requests, 4 x 4096 tokens
 LM_LR = 3e-4  # Adam
-LM_STEPS = 10  # on one repeated batch; the warm median is over steps 2..10
+LM_STEPS = 5  # on one repeated batch; the warm median is over steps 2..5
 LONG_SEQ = 32_768  # the README model's max_len, batch 1
 MID_SEQ = 16_384  # a second reading of the long forward's error, batch 1
 SP_P = 4  # ring and Ulysses shards on the one card
@@ -6110,7 +6129,7 @@ FC_QR_SHAPE = (2_500_000, 512)
 FC_CONV_N, FC_CONV_TAPS = 100_000_000, 9
 FC_CG_N = 8_192  # a replicated SPD matrix of 268 MB, above the 192 MiB rule
 FC_LEGS = ("on", "off", "eager")
-FC_REPS = 3  # timed calls per leg after the first; the median is kept
+FC_REPS = 2  # timed calls per leg after the first; the median is kept
 # Tolerances of the legs against each other. The programs of the three legs
 # cut one chain into other Inductor programs, which may round otherwise
 # (an FMA contracted, a reduction split differently):
@@ -6455,6 +6474,707 @@ def four_shard_paths(ht, paths: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the numerics lens and the serving layer (phase 20): no kernel of their
+# own; the LM steps run B3 and the ninth tenant's fit B1. Everything runs
+# through the recorder: the lens samples at its dispatch seam, and a session
+# gates and bills there. On the card only operands of 192 MiB or more record
+# (fusion._EAGER_BELOW_BYTES) and only roots of at most 16 KiB batch across
+# sessions, so the tenants read small results of 640 MB tables.
+# ---------------------------------------------------------------------------
+NS_REPS = 16  # chains per lens mode timed (the sample mode samples 1 of 16)
+NS_RAGGED = (4_000_003, 16)  # 4 shards of 1,000,001 rows, 256 MB: one padding row
+NS_NANS = 7  # NaNs written into its logical rows
+NS_TENANTS = 8
+NS_ROUNDS = 20
+NS_LM_STEPS = 3
+# Bounds of phase 20:
+# * the lens's counts (nonfinite, subnormal) and its exponent histogram
+#   against a float64 computation that reads no bits (frexp's exponent):
+#   exact; absmax exact (a maximum rounds nothing); rms within
+#   NS_RMS_ULPS float32 ULPs of the float64 value: a float32 sum of up to
+#   1.6·10^8 squares in a tree order errs by at most ~log2(n) u ~ 28 u,
+#   then a division and a square root;
+# * the update ratio of a training stream against float64 norms of the
+#   parameters copied around the step: NS_RATIO_RTOL relative (float32
+#   sums of 1.2·10^8 squares, ~2 log2(n) u);
+# * the refused chain against the serving-off read of the same program:
+#   bit for bit (one compiled program, one input).
+NS_RMS_ULPS = 64
+NS_RATIO_RTOL = 1e-4
+
+
+def _ns_reference_stats(parts) -> dict:
+    """The lens's statistics of the logical elements ``parts`` in float64,
+    from values, not bits: the exponent from frexp."""
+    import numpy as np
+    import torch
+
+    n = sum(p.numel() for p in parts)
+    nonfinite = subnormal = 0
+    hist = torch.zeros(16, dtype=torch.float64, device="cuda")
+    absmax, sumsq = 0.0, 0.0
+    info = np.finfo(str(parts[0].dtype).replace("torch.", ""))
+    bias = info.maxexp - 1  # float32: 127, as the exponent field's
+    span = 2 * info.maxexp - 2  # the normal exponent codes: 254
+    minexp = 1 - bias
+    for p in parts:
+        v = p.reshape(-1).double()
+        finite = torch.isfinite(v)
+        nonfinite += int((~finite).sum())
+        v = torch.where(finite, v, torch.zeros_like(v))
+        a = v.abs()
+        subnormal += int(((a > 0) & (a < float(info.tiny))).sum())
+        absmax = max(absmax, float(a.max()))
+        _, e = torch.frexp(a)
+        floor_log2 = e.long() - 1
+        b = torch.clamp(((floor_log2 - minexp) * 16) // span, 0, 15)
+        counted = a > 0
+        hist += torch.bincount(b[counted], minlength=16).double()
+        sumsq += float(v.square().sum())
+    return {"n": n, "nonfinite": nonfinite, "subnormal": subnormal, "hist": [int(h) for h in hist.tolist()],
+            "absmax": absmax, "rms": math.sqrt(sumsq / n)}
+
+
+def _ns_check_stats(label, rr, parts) -> dict:
+    """The lens's record of one root against the float64 values."""
+    import numpy as np
+
+    want = _ns_reference_stats(parts)
+    got = {k: rr[k] for k in ("nonfinite", "subnormal", "hist", "absmax", "rms")}
+    rms_ulps = abs(rr["rms"] - want["rms"]) / np.spacing(np.float32(want["rms"]))
+    exact = (rr["elems"] == want["n"] and got["nonfinite"] == want["nonfinite"]
+             and got["subnormal"] == want["subnormal"] and got["hist"] == want["hist"]
+             and got["absmax"] == want["absmax"])
+    print(f"    {label}: {want['n']} elements, nonfinite {got['nonfinite']}, subnormal {got['subnormal']}, "
+          f"histogram {got['hist']}; rms {rr['rms']:.9g} ({rms_ulps:.2f} f32 ULP from float64, bound "
+          f"{NS_RMS_ULPS}), absmax {rr['absmax']:.9g}; counts, histogram and absmax equal float64's: {exact}",
+          flush=True)
+    if not exact or rms_ulps > NS_RMS_ULPS:
+        raise AssertionError(f"{label}: the lens's statistics {got} differ from float64's {want}")
+    return {"rms_ulps": float(rms_ulps), "elements": want["n"], "nonfinite": got["nonfinite"]}
+
+
+def _ns_chain_ms(ht, fn, reps: int) -> float:
+    """ms per chain between CUDA events, each chain's result read back to
+    the host (a sampled dispatch syncs the host anyway)."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+        for o in out if isinstance(out, tuple) else (out,):
+            o.larray.reshape(-1)[:1].item()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def numerics_lens_phase(ht, nl, fusion, x) -> dict:
+    """(a) The lens on the card: the 10-op chain and the column moments in
+    each mode; each root's statistics against float64; the drift ledger of
+    Inductor's code against the plain module; four NaN-padded shards; the
+    canary on one shard and four, clean and with ``numeric.sdc.1``."""
+    import torch
+
+    from heat_tpu_torch.core import resilience
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    out = {}
+    print(f"phase numerics: the lens over the 10-op chain and the column moments of {N} x {F} float32, modes off, "
+          "sample and full", flush=True)
+    b = ht.array(torch.randn(N, F, generator=torch.Generator(device="cuda").manual_seed(SEED + 20), device="cuda"),
+                 split=0)
+    chains = {"nine": lambda: _fu_nine(ht, x, b),
+              "moments": lambda: (ht.mean(x, axis=0), ht.var(x, axis=0), ht.std(x, axis=0))}
+    prev = nl.set_mode("full"), nl._SAMPLE_EVERY, nl._SHADOW_EVERY
+    try:
+        nl._SHADOW_EVERY = 1
+        for name, fn in chains.items():  # the builds, and the lens's first run at these shapes, untimed
+            for o in (fn() if name == "moments" else (fn(),)):
+                o.larray
+        out["ms"] = {}
+        for mode in ("off", "sample", "full"):
+            nl.set_mode(mode)
+            nl._SAMPLE_EVERY, nl._SHADOW_EVERY = 16, 4  # the knobs' defaults
+            row = {}
+            for name, fn in chains.items():
+                nl.reset()
+                row[name] = _ns_chain_ms(ht, fn, NS_REPS)
+                seen = nl.sampling_stats()
+                want = 0 if mode == "off" else (NS_REPS if mode == "full" else -(-NS_REPS // 16))
+                row[name + "_sampled"] = seen["dispatches_sampled"]
+                if seen["dispatches_sampled"] != want or (mode != "off" and seen["dispatches_seen"] != NS_REPS):
+                    raise AssertionError(f"lens {mode}, {name}: sampled {seen} of {NS_REPS} dispatches, not {want}")
+            out["ms"][mode] = row
+            print(f"  {mode}: 10-op chain {row['nine']:.4f} ms, moments {row['moments']:.4f} ms per chain "
+                  f"({row['nine_sampled']} and {row['moments_sampled']} of {NS_REPS} sampled)", flush=True)
+        # the statistics and the drift, every dispatch sampled and audited
+        nl.set_mode("full")
+        nl._SHADOW_EVERY = 1
+        nl.reset()
+        h = chains["nine"]()
+        hv = h.larray  # alone: a pending moment would ride its program
+        moments = chains["moments"]()
+        for m in moments:
+            m.larray
+        stats, drift = nl.tensor_stats(), nl.drift_ledger()
+        if len(stats) != 2 or len(drift["programs"]) != 2:
+            raise AssertionError(f"the lens recorded {len(stats)} programs and audited {len(drift['programs'])}, not 2")
+        print("  the lens's statistics of each root against float64:", flush=True)
+        out["stats"] = {}
+        for key, rec in stats.items():
+            roots = [h] if len(rec["roots"]) == 1 else list(moments)
+            for i, arr in enumerate(roots):
+                label = f"{rec['family'][:40]}[{i}]"
+                out["stats"][f"{key}[{i}]"] = _ns_check_stats(label, rec["roots"][i], [arr.larray])
+        out["drift"] = {}
+        for key, rec in drift["programs"].items():
+            kind = "elementwise" if len(stats[key]["roots"]) == 1 else "reduction"
+            out["drift"][kind] = {"program": key, "p50_ulp": rec["p50_ulp"], "max_ulp": rec["max_ulp"],
+                                  "nonfinite_mismatch": rec["nonfinite_mismatch"]}
+            print(f"  drift of Inductor's code against the plain module, {kind} ({key}, {rec['family'][:60]}): "
+                  f"p50 {rec['p50_ulp']} ULP, max {rec['max_ulp']} ULP", flush=True)
+        del h, hv, moments
+        # four shards with NaN in the padding and NS_NANS in the data
+        mesh = MeshCommunication([torch.device("cuda", 0)] * 4)
+        data = torch.randn(NS_RAGGED, generator=torch.Generator(device="cuda").manual_seed(SEED + 201), device="cuda")
+        rows = torch.randperm(NS_RAGGED[0], generator=torch.Generator(device="cuda").manual_seed(SEED + 202),
+                              device="cuda")[:NS_NANS]
+        data[rows, 3] = float("nan")
+        a4 = ht.array(data, split=0, comm=mesh)
+        pad = _poison_padding(a4)
+        nl.reset()
+        y = a4 * 2.0 + 1.0
+        if not fusion.is_deferred(y):
+            raise AssertionError("the four-shard chain did not record")
+        padded_nans = sum(int(torch.isnan(s[c:]).sum()) for s, c in zip(y.shards, y.counts_displs()[0]))
+        (rec,) = nl.tensor_stats().values()
+        rr = rec["roots"][0]
+        out["nan_padding"] = {"padding_elements": padded_nans, "nonfinite": rr["nonfinite"], "elements": rr["elems"]}
+        print(f"  {mesh.size} shards of {NS_RAGGED[0]} x {NS_RAGGED[1]}: {pad} padding row(s) of NaN, "
+              f"{padded_nans} NaN in the result's padding; the lens counts {rr['nonfinite']} nonfinite of "
+              f"{rr['elems']} elements (the data holds {NS_NANS})", flush=True)
+        if padded_nans == 0 or rr["nonfinite"] != NS_NANS or rr["elems"] != NS_RAGGED[0] * NS_RAGGED[1]:
+            raise AssertionError("the lens counted the padding, or missed the NaN in the data")
+        del a4, y, data
+        # the canary
+        out["canary"] = {}
+        one = MeshCommunication([torch.device("cuda", 0)])
+        for label, comm in (("one shard", one), ("four shards", mesh)):
+            r = nl.run_canary(comm=comm)
+            out["canary"][label] = {"mismatches": r["mismatches"], "ms": r["ms"]}
+            print(f"  canary on {label}: {r['devices']} device(s), mismatches {r['mismatches']}, {r['ms']:.3f} ms",
+                  flush=True)
+            if r["mismatches"]:
+                raise AssertionError(f"the canary flagged a healthy card on {label}")
+        resilience.reset_device_faults()
+        nl.reset()
+        with resilience.inject("numeric.sdc.1", times=1):
+            r = nl.run_canary(comm=mesh)
+        found = [f for f in nl.findings() if f["rule"] == "numlens.sdc"]
+        faults = resilience.device_fault_counts()
+        out["canary"]["injected"] = {"mismatches": r["mismatches"], "index": [f["index"] for f in found],
+                                     "device_faults": faults}
+        print(f"  canary on four shards with numeric.sdc.1 injected: mismatches {r['mismatches']}, finding at "
+              f"index {[f['index'] for f in found]}: {found[0]['message'] if found else None}; device faults "
+              f"{faults}", flush=True)
+        if [f["index"] for f in found] != [1] or r["mismatches"] != ["cuda:0"] or faults.get("cuda:0") != 1:
+            raise AssertionError("the injected SDC did not name index 1 or reach the device-fault ledger")
+        resilience.reset_device_faults()
+    finally:
+        nl.set_mode(prev[0])
+        nl._SAMPLE_EVERY, nl._SHADOW_EVERY = prev[1], prev[2]
+        nl.reset()
+    return out
+
+
+def numerics_training_phase(ht, nl) -> dict:
+    """(b) The training streams: the README's TransformerLM under
+    DataParallel, lens off and on; then DASO's merges on four shards."""
+    import copy
+
+    import torch
+
+    from heat_tpu_torch.core.communication import MeshCommunication
+    from heat_tpu_torch.ops import flash
+
+    out = {}
+    print(f"phase numerics: the README's TransformerLM under DataParallel, Adam({LM_LR}), {LM_BATCH} x {LM_SEQ} "
+          f"tokens, {NS_LM_STEPS} steps with the lens off and on", flush=True)
+    tokens = torch.randint(0, LM["vocab"], (LM_BATCH, LM_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 14))
+    model = _lm(ht, torch.float32)
+    dp = ht.nn.DataParallel(model, comm=MeshCommunication([torch.device("cuda", 0)]),
+                            optimizer=ht.optim.Adam(LM_LR), loss_fn=next_token_loss)
+    dp.init(SEED, tokens[:1])
+    prev = nl.set_mode(0)
+    try:
+        dp.train_step(tokens, tokens)  # the first step's allocations
+        for mode in ("off", "full"):
+            nl.set_mode(mode)
+            nl.reset()
+            times, launches, ratios = [], [], []
+            for _ in range(NS_LM_STEPS):
+                before = _flat(model.parameters()) if mode == "full" else None
+                flash.LAUNCHES = 0
+                loss = []
+                times.append(_time_step(lambda: loss.append(dp.train_step(tokens, tokens))))
+                launches.append(flash.LAUNCHES)
+                if mode == "full":
+                    after = _flat(model.parameters())
+                    want = float((after - before).norm() / (after.norm() + 1e-12))
+                    st = nl.training_stats()["data_parallel.step"]
+                    ratios.append((st["last_update_ratio"], want))
+                    if st["last_loss"] != loss[0]:
+                        raise AssertionError(f"the stream's loss {st['last_loss']} is not the step's {loss[0]}")
+                    del before, after
+            out[mode] = {"ms": sorted(times)[len(times) // 2], "step_ms": times, "launches": launches}
+            if mode == "full":
+                errs = [abs(g - w) / w for g, w in ratios]
+                out[mode].update(update_ratios=ratios, ratio_rel_err=max(errs),
+                                 stream=nl.training_stats()["data_parallel.step"])
+            print(f"  lens {mode}: {out[mode]['ms']:.2f} ms per step (median of {NS_LM_STEPS}: "
+                  f"{[round(t, 2) for t in times]}), B3 launches per step {launches}"
+                  + (f"; update ratio against float64 norms: {[(f'{g:.6e}', f'{w:.6e}') for g, w in ratios]}, "
+                     f"max rel err {max(errs):.2e} (bound {NS_RATIO_RTOL:g})" if mode == "full" else ""), flush=True)
+            if launches != [LM["depth"]] * NS_LM_STEPS:
+                raise AssertionError(f"lens {mode}: B3 launched {launches} per step, not {LM['depth']}")
+            if mode == "full" and not (all(w > 0 for _, w in ratios) and max(errs) <= NS_RATIO_RTOL):
+                raise AssertionError("the stream's update ratio disagrees with the parameters' float64 norms")
+    finally:
+        nl.set_mode(prev)
+    del dp, model
+    torch.cuda.empty_cache()
+
+    print(f"phase numerics: DASO on {TRAIN_P} shards of the card, ResNet-50 at batch {TRAIN_BATCH}, the lens on "
+          "until two merges", flush=True)
+    x, y = _cifar(TRAIN_BATCH, SEED + 11)
+    pristine = ht.nn.ResNet50(num_classes=TRAIN_CLASSES, generator=torch.Generator("cuda").manual_seed(SEED))
+    daso = ht.optim.DASO(ht.optim.SGD(TRAIN_LR), total_epochs=10, comm=MeshCommunication([torch.device("cuda", 0)] * TRAIN_P),
+                         nodes=2, warmup_epochs=1, cooldown_epochs=0)
+    daso.add_model(copy.deepcopy(pristine), SEED, x[:TRAIN_P])
+    merge, seen = daso._merge, []
+
+    def watched(waits):
+        before = torch.cat([_flat(r.parameters()) for r in daso.replicas])
+        merge(waits)
+        after = torch.cat([_flat(r.parameters()) for r in daso.replicas])
+        seen.append(float((after - before).norm() / (after.norm() + 1e-12)))
+
+    daso._merge = watched
+    nl.set_mode("full")
+    nl.reset()
+    try:
+        losses = []
+        while len(seen) < 2:
+            losses.append(daso.step(x, y))
+        st = nl.training_stats()["daso.merge"]
+    finally:
+        nl.set_mode(prev)
+        daso._merge = merge
+    err = max(abs(st_ratio - w) / w for st_ratio, w in zip([st["last_update_ratio"]], seen[-1:]))
+    out["daso"] = {"steps": len(losses), "merges": st["steps"], "last_loss": st["last_loss"],
+                   "update_ratio": st["last_update_ratio"], "float64": seen, "rel_err": err}
+    print(f"  {len(losses)} steps, {st['steps']} merges in the stream; last loss {st['last_loss']:.6f} (the step "
+          f"returned {losses[-1]:.6f}); update ratio {st['last_update_ratio']:.6e} against float64 {seen[-1]:.6e} "
+          f"(rel err {err:.2e})", flush=True)
+    if st["steps"] != 2 or st["last_loss"] != losses[-1] or err > NS_RATIO_RTOL:
+        raise AssertionError("DASO's merge stream disagrees with its steps or with float64")
+    del daso, pristine, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ns_moments(ht, x):
+    """A tenant's small read: the column std (its mean inside the same
+    program), one root of 64 bytes."""
+    return ht.std(x, axis=0)
+
+
+def _ns_read_ms(read) -> float:
+    t0 = time.perf_counter()
+    read()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def serving_sessions_phase(ht, fusion, serving, memledger, tel, tables, fit) -> dict:
+    """(c) Eight sessions on eight threads, each with its own table, and a
+    ninth running config 3's fit; then admission's three gates."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.ops import lloyd
+
+    out = {}
+    print(f"phase serving: {NS_TENANTS} sessions on {NS_TENANTS} threads, a {N} x {F} float32 table each, "
+          f"{NS_ROUNDS} rounds of the column moments and a z-score; a ninth session runs KMeans.fit", flush=True)
+    # warm-up: every batch one tenant's read can form (its own root and
+    # 0..7 other tenants' small roots, each of one structure)
+    t0, builds = time.perf_counter(), _fu_unique_graphs()
+    for k in range(NS_TENANTS):
+        for own in ("moments", "zscore"):
+            others = [_ns_moments(ht, t) for t in tables[1:k + 1]]
+            mine = _ns_moments(ht, tables[0]) if own == "moments" else _fc_zscore(ht, tables[0])
+            mine.larray.reshape(-1)[:1].item()
+            if any(fusion.is_deferred(o) for o in others):
+                raise AssertionError(f"the warm-up's batch of {k} roots left one pending")
+            del others, mine
+    out["warmup"] = {"seconds": time.perf_counter() - t0, "inductor_builds": _fu_unique_graphs() - builds}
+    print(f"  warm-up of the {2 * NS_TENANTS} batch shapes: {out['warmup']['seconds']:.1f} s, "
+          f"{out['warmup']['inductor_builds']} Inductor builds", flush=True)
+    compiles, lat = fusion.cache_stats()["compiles"], {}
+    sessions = [serving.Session(f"tenant{i}") for i in range(NS_TENANTS)]
+    barrier = threading.Barrier(NS_TENANTS + 1)
+    errors = []
+    prev_mode = tel.set_mode(1)
+    tel.reset()
+
+    def tenant(i):
+        try:
+            x = tables[i]
+            lat[i] = {"moments": [], "zscore": []}
+            with sessions[i]:
+                barrier.wait(timeout=60)
+                for _ in range(NS_ROUNDS):
+                    lat[i]["moments"].append(_ns_read_ms(lambda: _ns_moments(ht, x).larray.reshape(-1)[:1].item()))
+                    lat[i]["zscore"].append(_ns_read_ms(lambda: _fc_zscore(ht, x).larray.reshape(-1)[:1].item()))
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    def fitter():
+        try:
+            with serving.Session("kmeans") as sess:
+                barrier.wait(timeout=60)
+                t = time.perf_counter()
+                before = lloyd.LAUNCHES
+                fit["model"] = ht.cluster.KMeans(n_clusters=K, init=fit["init"], max_iter=ITERS, tol=-1.0).fit(fit["x"])
+                torch.cuda.synchronize()
+                fit["launches"], fit["seconds"], fit["stats"] = lloyd.LAUNCHES - before, time.perf_counter() - t, dict(sess.stats)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=tenant, args=(i,)) for i in range(NS_TENANTS)] + [threading.Thread(target=fitter)]
+    try:
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        out["seconds"] = time.perf_counter() - t0
+        async_ = tel.async_forcing()
+    finally:
+        tel.set_mode(prev_mode)
+        tel.reset()
+    if errors:
+        raise errors[0]
+    out["retraces_after_warmup"] = fusion.cache_stats()["compiles"] - compiles
+    out["batches"] = {"dispatches": async_["dispatches"], "roots": async_["roots_dispatched"],
+                      "multi_root_batches": async_["multi_root_batches"]}
+    out["sessions"] = {}
+    for i, sess in enumerate(sessions):
+        st = sess.report()["stats"]
+        row = {"dispatches": st["dispatches"], "roots": st["roots"]}
+        for kind in ("moments", "zscore"):
+            v = np.asarray(lat[i][kind])
+            row[f"{kind}_p50_ms"], row[f"{kind}_p99_ms"] = float(np.percentile(v, 50)), float(np.percentile(v, 99))
+        out["sessions"][sess.name] = row
+        print(f"  {sess.name}: moments p50 {row['moments_p50_ms']:.3f} / p99 {row['moments_p99_ms']:.3f} ms, z-score "
+              f"p50 {row['zscore_p50_ms']:.3f} / p99 {row['zscore_p99_ms']:.3f} ms; {row['dispatches']} dispatches "
+              f"billed, {row['roots']} roots", flush=True)
+    out["fit"] = {"launches": fit["launches"], "seconds": fit["seconds"], "stats": fit["stats"]}
+    print(f"  {out['seconds']:.2f} s for all; {async_['dispatches']} dispatches of {async_['roots_dispatched']} roots, "
+          f"{async_['multi_root_batches']} cross-session batches; retraces after the warm-up "
+          f"{out['retraces_after_warmup']}; the ninth session's fit {fit['seconds']:.2f} s, {fit['launches']} Lloyd "
+          f"launches, {fit['stats']['dispatches']} dispatches billed", flush=True)
+    roots = sum(r["roots"] for r in out["sessions"].values())
+    if out["retraces_after_warmup"] or fit["launches"] != ITERS or roots != 2 * NS_TENANTS * NS_ROUNDS:
+        raise AssertionError(f"sessions: {out['retraces_after_warmup']} retraces, {fit['launches']} Lloyd launches, "
+                             f"{roots} roots billed (not 0, {ITERS}, {2 * NS_TENANTS * NS_ROUNDS})")
+    if not out["batches"]["multi_root_batches"]:
+        raise AssertionError("no dispatch carried roots of two sessions")
+    del sessions
+
+    # admission: raise, then wait, then the memory gate's hold
+    x = tables[0]
+    want = _ns_moments(ht, x).larray.clone()  # serving off: no session, no bucket
+    with serving.Session("limited", admission_rate=2, admission_burst=1, policy="raise") as sess:
+        _ns_moments(ht, x).larray
+        pending = _ns_moments(ht, x)
+        try:
+            pending.larray
+            raise AssertionError("the limited session's second read was admitted")
+        except serving.AdmissionError as exc:
+            message = str(exc)
+        still = fusion.is_deferred(pending)
+        time.sleep(0.6)
+        got = pending.larray
+        refused = sess.stats["admission_refused"]
+    out["raise"] = {"message": message, "pending_after_refusal": still, "refused": refused,
+                    "bit_for_bit": bool(torch.equal(got, want))}
+    print(f"  raise policy, 2 tokens/s: {message[:150]}...; pending after the refusal {still}; after the refill "
+          f"equal to the serving-off read bit for bit: {out['raise']['bit_for_bit']}", flush=True)
+    if not (still and refused == 1 and "limited" in message and "session:limited" in message
+            and out["raise"]["bit_for_bit"]):
+        raise AssertionError("the raise policy's refusal or its later dispatch is wrong")
+    waiter, neighbours = serving.Session("patient", admission_rate=0.5, admission_burst=1), {}
+    errors = []
+
+    def patient():
+        try:
+            with waiter:
+                _ns_moments(ht, x).larray.reshape(-1)[:1].item()
+                _ns_moments(ht, x).larray.reshape(-1)[:1].item()  # waits ~2 s for its token
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    def neighbour(i):
+        try:
+            with serving.Session(f"neighbour{i}"):
+                neighbours[i] = [_ns_read_ms(lambda: _ns_moments(ht, tables[i]).larray.reshape(-1)[:1].item())
+                                 for _ in range(NS_ROUNDS)]
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    t = threading.Thread(target=patient)
+    t.start()
+    while not waiter.stats["admission_waits"] and t.is_alive():
+        time.sleep(0.005)
+    others = [threading.Thread(target=neighbour, args=(i,)) for i in (1, 2, 3)]
+    for o in others:
+        o.start()
+    for th in others + [t]:
+        th.join(timeout=120)
+    if errors:
+        raise errors[0]
+    p99 = float(np.percentile([v for vs in neighbours.values() for v in vs], 99))
+    slept = waiter.stats["admission_waited_s"] * 1e3
+    out["wait"] = {"waited_ms": slept, "neighbour_p99_ms": p99, "waits": waiter.stats["admission_waits"]}
+    print(f"  wait policy, 0.5 tokens/s: the tenant slept {slept:.1f} ms for its token; three neighbours' p99 "
+          f"meanwhile {p99:.3f} ms", flush=True)
+    if not (waiter.stats["admission_waits"] >= 1 and p99 < slept):
+        raise AssertionError("a neighbour waited behind the tenant's admission sleep")
+    with serving.Session("held") as sess:
+        pending = _ns_moments(ht, x)
+        with memledger.admission_hold("drain"):
+            try:
+                pending.larray
+                raise AssertionError("a read was admitted under the hold")
+            except memledger.MemoryBudgetExceeded as exc:
+                message = str(exc)
+            still = fusion.is_deferred(pending)
+        got = pending.larray
+        billed = sess.stats["mem_refused"]
+    out["hold"] = {"message": message, "pending": still, "bit_for_bit": bool(torch.equal(got, want)),
+                   "mem_refused": billed}
+    print(f"  memledger.admission_hold: {message[:100]}...; pending {still}; after the release equal bit for bit: "
+          f"{out['hold']['bit_for_bit']}", flush=True)
+    if not (still and "drain" in message and out["hold"]["bit_for_bit"] and billed == 1):
+        raise AssertionError("the admission hold did not refuse, or its release changed the result")
+    return out
+
+
+_NS_CACHE_SCRIPT = """
+import json, os, sys, time
+t_start = time.perf_counter()
+import torch
+t_torch = time.perf_counter() - t_start
+import heat_tpu_torch as ht
+from heat_tpu_torch.core import fusion, serving
+from torch._dynamo.utils import counters
+torch.backends.cuda.matmul.allow_tf32 = False
+ht.use_device("gpu")
+n, f, seed, cache, work, mode = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6]
+gen = torch.Generator(device="cuda").manual_seed(seed)
+a = ht.array(torch.randn(n, f, generator=gen, device="cuda"), split=0)
+b = ht.array(torch.randn(n, f, generator=gen, device="cuda"), split=0)
+torch.cuda.synchronize()
+t_ready = time.perf_counter() - t_start
+if mode == "warm":
+    # started beside the cold process: its start overlaps the cold work; it
+    # arms the cache (and loads the index) once the cold process is done
+    while not os.path.exists(os.path.join(work, "go")):
+        time.sleep(0.05)
+    serving.arm_cache(cache)
+t_go = time.perf_counter()
+
+
+def nine():
+    c = ht.exp((a + b) * 2.0) - b
+    d = ht.abs(c)
+    return ht.sqrt(ht.abs(d + a)) / (d + 1.0) * b
+
+
+items = (("10-op chain", nine), ("moments", lambda: (ht.mean(a, axis=0), ht.var(a, axis=0), ht.std(a, axis=0))),
+         ("z-score", lambda: (a - ht.mean(a, axis=0)) / ht.std(a, axis=0)))
+first, results = {}, {}
+for label, fn in items:
+    before = dict(fusion.cache_stats())
+    builds = counters["stats"]["unique_graphs"]
+    t0 = time.perf_counter()
+    out = fn()
+    values = [o.larray for o in (out if isinstance(out, tuple) else (out,))]
+    torch.cuda.synchronize()
+    after = fusion.cache_stats()
+    first[label] = {"seconds": time.perf_counter() - t0, "inductor_builds": counters["stats"]["unique_graphs"] - builds,
+                    "compiles": after["compiles"] - before["compiles"], "disk_hits": after["disk_hits"] - before["disk_hits"]}
+    results[label] = values
+t_work = time.perf_counter() - t_go
+path = os.path.join(work, "results.pt")
+if mode == "cold":
+    torch.save({k: [v.cpu() for v in vs] for k, vs in results.items()}, path)
+    equal = None
+else:
+    saved = torch.load(path)
+    equal = {k: all(torch.equal(v.cpu(), w) for v, w in zip(vs, saved[k])) for k, vs in results.items()}
+print("CACHE " + json.dumps({"first": first, "import_torch_s": t_torch, "ready_s": t_ready, "work_s": t_work,
+                              "seconds": time.perf_counter() - t_start,
+                              "fxgraph_cache_hit": counters["inductor"]["fxgraph_cache_hit"],
+                              "fxgraph_cache_miss": counters["inductor"]["fxgraph_cache_miss"],
+                              "index_keys": serving.cache_stats()["index_keys"], "equal": equal}))
+"""
+
+
+def serving_cache_phase(ht, serving) -> dict:
+    """(d) The persistent program cache: a cold, then a warm fresh process
+    on one new directory forcing the same three signatures (the cold one
+    armed by ``HEAT_TPU_PROGRAM_CACHE_DIR`` at import, the warm one by
+    ``arm_cache`` before its first build; the warm one starts beside the
+    cold one and waits for it before it arms); then whether this process's
+    Inductor follows an arm after its earlier builds."""
+    out = {}
+    cache, work = tempfile.mkdtemp(prefix="heat_ns_cache_"), tempfile.mkdtemp(prefix="heat_ns_work_")
+    try:
+        print(f"phase serving: the persistent program cache, two fresh processes on the empty {cache}", flush=True)
+        args = [str(N), str(F), str(SEED + 21), cache, work]
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        procs, logs = {}, {}
+        for mode in ("cold", "warm"):
+            logs[mode] = open(os.path.join(work, f"{mode}.stderr"), "w+")
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-c", _NS_CACHE_SCRIPT, *args, mode], stdout=subprocess.PIPE, stderr=logs[mode],
+                text=True, cwd=here, env=dict(os.environ, HEAT_TPU_PROGRAM_CACHE_DIR=cache) if mode == "cold" else None,
+            )
+        try:
+            for mode in ("cold", "warm"):
+                # the result line, not the exit: a process's teardown (its
+                # compile workers') overlaps the next step
+                line = next((ln for ln in procs[mode].stdout if ln.startswith("CACHE ")), None)
+                wall = time.perf_counter() - t0
+                if line is None:
+                    procs[mode].wait(timeout=60)
+                    logs[mode].seek(0)
+                    raise AssertionError(f"the {mode} process failed: {logs[mode].read()[-3000:]}")
+                if mode == "cold":
+                    open(os.path.join(work, "go"), "w").close()
+                rec = json.loads(line[len("CACHE "):])
+                rec["wall_s"] = wall
+                out[mode] = rec
+                firsts = "; ".join(f"{k} {v['seconds']:.2f} s ({v['inductor_builds']} built, {v['compiles']} "
+                                   f"compile, {v['disk_hits']} disk hit)" for k, v in rec["first"].items())
+                print(f"  {mode}: {rec['seconds']:.1f} s in the process ({rec['import_torch_s']:.1f} s importing torch, "
+                      f"{rec['ready_s']:.1f} s to its tables), the three signatures' work {rec['work_s']:.2f} s; "
+                      f"first results: {firsts}; FX graph cache {rec['fxgraph_cache_hit']} hit(s), "
+                      f"{rec['fxgraph_cache_miss']} miss(es); index {rec['index_keys']} keys"
+                      + (f"; results equal the cold process's bit for bit: {rec['equal']}" if mode == "warm" else ""),
+                      flush=True)
+            cold, warm = out["cold"], out["warm"]
+            if any(v["disk_hits"] or not v["compiles"] for v in cold["first"].values()):
+                raise AssertionError("the cold process found its programs in the index")
+            if any(v["compiles"] or v["disk_hits"] != 1 for v in warm["first"].values()):
+                raise AssertionError("the warm process compiled a signature the cold one indexed")
+            if not all(warm["equal"].values()):
+                raise AssertionError("the warm process's results differ from the cold one's")
+            if warm["fxgraph_cache_miss"] or warm["fxgraph_cache_hit"] < len(warm["first"]):
+                raise AssertionError("Inductor's FX graph cache did not serve the warm process")
+            out["in_process"] = _ns_cache_in_process(ht, serving)
+            for mode, proc in procs.items():
+                if proc.wait(timeout=300):
+                    logs[mode].seek(0)
+                    raise AssertionError(f"the {mode} process exited with {proc.returncode}: {logs[mode].read()[-3000:]}")
+        finally:
+            for mode, proc in procs.items():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                proc.stdout.close()
+                logs[mode].close()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _ns_cache_in_process(ht, serving) -> dict:
+    """This process built programs before: does an arm move Inductor's
+    cache, and does a disarm restore it?"""
+    import torch
+
+    moved = tempfile.mkdtemp(prefix="heat_ns_moved_")
+    before_env = os.environ.get("TORCHINDUCTOR_CACHE_DIR")
+    try:
+        serving.arm_cache(moved)
+        a = ht.array(torch.randn(N, F, generator=torch.Generator(device="cuda").manual_seed(SEED + 22), device="cuda"),
+                     split=0)
+        ht.sum(ht.abs(a * 3.25) + 0.5, axis=1).larray  # a signature no phase built
+        files = sum(len(fs) for _, _, fs in os.walk(os.path.join(moved, "inductor")))
+        serving.disarm_cache()
+        restored = os.environ.get("TORCHINDUCTOR_CACHE_DIR") == before_env
+    finally:
+        serving.disarm_cache()
+        shutil.rmtree(moved, ignore_errors=True)
+    print(f"  in this process, after its earlier builds: an arm moved Inductor's cache: {files > 0} ({files} files "
+          f"under the armed directory); disarm_cache restored TORCHINDUCTOR_CACHE_DIR: {restored}", flush=True)
+    if not restored:
+        raise AssertionError("disarm_cache left Inductor's cache directory moved")
+    return {"files_in_armed_dir": files, "moved": files > 0, "disarm_restored": restored}
+
+
+def numerics_serving_path(ht, smi: str) -> dict:
+    """Phase 20: the numerics lens and the serving layer on the card;
+    returns its numbers."""
+    import torch
+
+    from heat_tpu_torch.core import fusion, memledger, serving
+    from heat_tpu_torch.core import numlens as nl
+    from heat_tpu_torch.core import telemetry as tel
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 20 needs CUDA")
+    numbers = {"card": smi, "seconds": {}}
+    t0, builds = time.perf_counter(), _fu_unique_graphs()
+    x, init = kmeans_table(ht)
+    lap = time.perf_counter()
+    numbers["lens"] = numerics_lens_phase(ht, nl, fusion, x)
+    numbers["seconds"]["lens"] = time.perf_counter() - lap
+    torch.cuda.empty_cache()
+    lap = time.perf_counter()
+    numbers["training"] = numerics_training_phase(ht, nl)
+    numbers["seconds"]["training"] = time.perf_counter() - lap
+    lap = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    tables = [ht.array(torch.randn(N, F, generator=gen.manual_seed(SEED + 300 + i), device="cuda"), split=0)
+              for i in range(NS_TENANTS)]
+    numbers["sessions"] = serving_sessions_phase(ht, fusion, serving, memledger, tel, tables,
+                                                 {"x": x, "init": init})
+    numbers["seconds"]["sessions"] = time.perf_counter() - lap
+    del tables
+    torch.cuda.empty_cache()
+    lap = time.perf_counter()
+    numbers["cache"] = serving_cache_phase(ht, serving)
+    numbers["seconds"]["cache"] = time.perf_counter() - lap
+    numbers["seconds"]["all"] = time.perf_counter() - t0
+    numbers["inductor_builds"] = _fu_unique_graphs() - builds
+    print(f"phase 20: {numbers['seconds']['all']:.1f} s, {numbers['inductor_builds']} Inductor builds "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in numbers['seconds'].items() if k != 'all')})", flush=True)
+    return numbers
+
+
 def recorded_path(fusion, paths: dict, label: str, fn, off=None):
     """Run one path with the recorder on, as a user gets the package: its
     seconds, programs (cache misses), Inductor builds (Dynamo graphs),
@@ -6571,6 +7291,7 @@ def main() -> int:
     fusion = fusion_path(ht, smi)
     collectives = run("fused_collectives", lambda: fused_collectives_path(ht, smi))
     collectives["four_shard_launches"] = four_shard_paths(ht, paths)
+    serving_numbers = run("numerics_serving", lambda: numerics_serving_path(ht, smi))
     for entry, name in ((kernels[0], "lloyd"), (kernels[2], "pairwise")):
         entry["launches_four_shard_paths"] = sum(v[name] for v in collectives["four_shard_launches"].values())
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
@@ -6593,6 +7314,8 @@ def main() -> int:
     kernels[0]["launches_ledger_fit"] = health["fit"]["launches"]
     kernels[0]["launches_fused_fit"] = fusion["fit"]["launches"]
     kernels[1]["launches_ledger_step"] = health["lm"]["launches"]
+    kernels[0]["launches_serving_fit"] = serving_numbers["sessions"]["fit"]["launches"]
+    kernels[1]["launches_numlens_step"] = serving_numbers["training"]["full"]["launches"][-1]
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
@@ -6605,6 +7328,7 @@ def main() -> int:
     print("health: " + json.dumps(health))
     print("fusion: " + json.dumps(fusion))
     print("fused_collectives: " + json.dumps(collectives))
+    print("numerics_serving: " + json.dumps(serving_numbers, default=str))
     for label, numbers in off.items():
         print(f"{label}: " + json.dumps(numbers))
     print("paths: " + json.dumps(paths))

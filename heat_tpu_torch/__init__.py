@@ -28,11 +28,13 @@ from .core import (
     logical,
     manipulations,
     memory,
+    numlens,
     printing,
     relational,
     resilience,
     rounding,
     sanitation,
+    serving,
     signal,
     statistics,
     stride_tricks,

@@ -81,9 +81,9 @@ def _aligned(x, out_shape, out_split, comm: MeshCommunication, dtype: torch.dtyp
 def _nonfinite_checked(res: DNDarray) -> DNDarray:
     """The numeric error policy (``ht.errstate``) on an engine's result: its
     logical shards (never the padding) take one ``isfinite`` reduction each
-    and one scalar read. One module-attribute read when no policy is
-    active."""
-    if resilience._ERRSTATE is not None:
+    and one scalar read. Two module-attribute reads when no policy is
+    active (the global one or a session's)."""
+    if resilience._ERRSTATE is not None or resilience._TLS_ARMED:
         resilience.check_nonfinite(res.lshards if res.split is not None else res.shards[:1], "eager")
     return res
 

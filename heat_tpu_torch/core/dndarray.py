@@ -235,7 +235,7 @@ class DNDarray:
                 value = fusion.force(lazy, self.__comm)
         split = self.__split
         shards = list(value) if split is not None else _distribute(value[0], None, self.__comm)
-        if resilience._ERRSTATE is not None:
+        if resilience._ERRSTATE is not None or resilience._TLS_ARMED:
             if split is not None:
                 counts = self.__comm.counts_displs_shape(self.__gshape, split)[0]
                 logical = [s.narrow(split, 0, c) for s, c in zip(shards, counts)]

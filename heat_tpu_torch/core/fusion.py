@@ -95,6 +95,14 @@ kernel is already in the program rides along at any size), never one
 interior to the program, on another mesh, or while torch traces. Reading
 the three moments of one array is one dispatch.
 
+**The serving layer and the numerics lens** (``core/serving.py``,
+``core/numlens.py``) set seams here, each one ``is None`` test while unset:
+a node records the session of its thread, a top-level :func:`force` sleeps
+the cross-session batch window and passes the admission gate before it
+takes the lock (a recursive force passes both), the persistent index turns
+a known program key's miss into a ``disk_hit``, each dispatch bills its
+sessions, and the lens reads the values a program landed.
+
 Knobs: ``HEAT_TPU_FUSION=0`` turns recording off (the eager engines run
 exactly as before; pending nodes still force),
 ``HEAT_TPU_FUSION_COLLECTIVES=0`` turns the collective nodes and the
@@ -256,9 +264,16 @@ class LazyArray:
     tensors. ``cid`` is the chain's correlation id, ``program`` the key of
     the program that produced the value (None while pending or after a
     degraded replay) and ``_value`` the tuple of shard tensors once forced.
+    ``session`` names the serving session the node was recorded under (None
+    outside one), so a batch of several sessions' roots bills each its own;
+    ``extent`` is the ``(gshape, split)`` of the array that holds the node
+    (None for an interior node), which tells the numerics lens the logical
+    elements from the padding.
     """
 
-    __slots__ = ("fn", "children", "kw", "shape", "dtype", "width", "depth", "cid", "program", "_value")
+    __slots__ = (
+        "fn", "children", "kw", "shape", "dtype", "width", "depth", "cid", "program", "session", "extent", "_value",
+    )
 
     def __init__(self, fn, children, kw, shape, dtype, width, depth, cid=0):
         self.fn = fn
@@ -270,6 +285,8 @@ class LazyArray:
         self.depth = depth
         self.cid = cid
         self.program = None
+        self.session = None
+        self.extent = None
         self._value = None
 
     @property
@@ -557,7 +574,10 @@ def record(fn, children, width: Optional[int] = None, **kw) -> LazyArray:
     shape, dtype, width = _infer_cached(fn, avals, kw_t, width)
     if telemetry._MODE >= 2:
         telemetry.record_event("record", op=_name(fn), cid=cid, depth=depth)
-    return LazyArray(fn, tuple(children), kw_t, shape, dtype, width, depth, cid)
+    node = LazyArray(fn, tuple(children), kw_t, shape, dtype, width, depth, cid)
+    if _SESSION_OF is not None:
+        node.session = _SESSION_OF()
+    return node
 
 
 @functools.lru_cache(maxsize=4096)
@@ -590,10 +610,15 @@ def record_multi(fn, children, **kw) -> Tuple[LazyArray, ...]:
         telemetry.record_event("record", op=_label(fn, kw_t), cid=cid, depth=depth)
     # the parent's own shape is never read: only its selectors consume it
     parent = LazyArray(fn, tuple(children), kw_t, avals[0][0], avals[0][1], len(avals), depth, cid)
-    return tuple(
+    picks = tuple(
         LazyArray(_pick_op, (parent,), (("i", i),), shape, dtype, width, depth + 1, cid)
         for i, (shape, dtype, width) in enumerate(avals)
     )
+    if _SESSION_OF is not None:
+        parent.session = _SESSION_OF()
+        for pick in picks:
+            pick.session = parent.session
+    return picks
 
 
 def cast(c, dtype: torch.dtype):
@@ -603,8 +628,10 @@ def cast(c, dtype: torch.dtype):
     return record(_astype_op, (c,), dtype=dtype)
 
 
-#: 0-d leaves of the scalar operands, by (type, repr, device): a loop
-#: multiplying by the same constant reuses one tensor
+#: 0-d leaves of the scalar operands, by (type, repr, device), least
+#: recently used first: a loop multiplying by the same constant reuses one
+#: tensor, and a constant in constant use keeps it (chains batched together
+#: then share its leaf, whatever other scalars passed meanwhile)
 _SCALAR_LEAVES: "OrderedDict[tuple, tuple]" = OrderedDict()
 
 
@@ -617,7 +644,12 @@ def _scalar_leaf(value, device: torch.device) -> tuple:
     ``torch.full((), value, dtype=promoted)``."""
     key = (type(value), repr(value), device)
     leaf = _SCALAR_LEAVES.get(key)
-    if leaf is None:
+    if leaf is not None:
+        try:
+            _SCALAR_LEAVES.move_to_end(key)
+        except KeyError:  # another thread evicted it meanwhile
+            pass
+    else:
         dtype = _types.canonical_heat_type(np.result_type(type(value))).torch_type()
         leaf = _SCALAR_LEAVES[key] = (torch.full((), value, dtype=dtype, device=device),)
         if len(_SCALAR_LEAVES) > 256:
@@ -651,6 +683,9 @@ _STATS = {
 #: one force at a time; reentrant for the ``drain`` policy, which forces
 #: other roots from inside the gate
 _FORCE_LOCK = threading.RLock()
+#: ``.held``: how deep the calling thread is inside :func:`force` (a
+#: recursive force passes the batch window and the admission gate)
+_FORCE_TLS = threading.local()
 
 
 def _kw_repr(kw) -> str:
@@ -888,7 +923,11 @@ _ROOTS_LOCK = threading.Lock()
 
 
 def register_root(wrapper) -> None:
-    """Track a DNDarray whose payload is a pending chain."""
+    """Track a DNDarray whose payload is a pending chain, and stamp the
+    chain's root with the array's logical extent."""
+    payload = wrapper._payload
+    if isinstance(payload, LazyArray):
+        payload.extent = (wrapper.gshape, wrapper.split)
     with _ROOTS_LOCK:
         _LIVE_ROOTS[next(_ROOT_SEQ)] = wrapper
 
@@ -903,10 +942,29 @@ def _live_root_keys() -> list:
 # test per force until then): ``_ROOT_PRIORITY`` maps a root's session to a
 # sort key of the batch's candidates, or to ``_BATCH_EXCLUDED`` to keep the
 # root out of other sessions' batches; ``_SERVING_NOTE`` bills a shared
-# dispatch and an incident to each session
+# dispatch and an incident to each session; ``_SESSION_OF`` names the
+# calling thread's session, stamped on each node at record time;
+# ``_ADMIT_HOOK(cid)`` is the token-bucket gate, called by :func:`force`
+# before it takes ``_FORCE_LOCK`` (a tenant sleeping for tokens blocks only
+# itself), returning a refund for a dispatch that never runs or None;
+# ``_DISK_INDEX`` is the persistent program-key index, whose known keys
+# count as ``disk_hits`` instead of ``compiles``
 _ROOT_PRIORITY = None
 _BATCH_EXCLUDED = object()
 _SERVING_NOTE = None
+_SESSION_OF = None
+_ADMIT_HOOK = None
+_DISK_INDEX = None
+
+#: the cross-session batch window (seconds; serving arms it while two or
+#: more sessions are active): a top-level force sleeps this long before it
+#: takes the lock, so other clients' threads register their roots and ride
+#: the same program
+_BATCH_WINDOW_S = 0.0
+#: ids of the nodes some thread is forcing right now, while the serving
+#: layer is in use: a root of another session rides a batch only when its
+#: own thread is reading it (see :func:`_gather_batch`)
+_FORCING: set = set()
 
 #: the pending nodes of the signature held at the memory gate: while the
 #: ``drain`` policy forces other roots, neither it nor their batches may
@@ -942,8 +1000,17 @@ def _gather_batch(entries, leaves, memo, roots, devices) -> None:
     output of a multi-output node already in the walk: the kernel runs
     once either way), held at the memory gate, on another mesh (a program
     runs on one), or reading a tensor written in place around its array
-    (:class:`ChainInputWrittenError` is its own read's, not this one's)."""
+    (:class:`ChainInputWrittenError` is its own read's, not this one's).
+
+    While the serving layer is in use, a root recorded under another
+    session rides only while its own thread forces it (:data:`_FORCING`): a
+    tenant's chain still being built is never cut by a neighbour's dispatch
+    (its intermediates are registered arrays too), and a batch's structure
+    depends only on the roots being read, so steady traffic keeps its
+    programs."""
     keys = _live_root_keys()
+    serving = _SESSION_OF is not None
+    own = roots[0].session
     prio = _ROOT_PRIORITY
     if prio is not None:
         ranked = []
@@ -965,6 +1032,8 @@ def _gather_batch(entries, leaves, memo, roots, devices) -> None:
             stale.append(key)  # forced since it registered
             continue
         if id(payload) in memo or id(payload) in _DRAIN_EXCLUDE:
+            continue
+        if serving and payload.session not in (None, own) and id(payload) not in _FORCING:
             continue
         if _node_nbytes(payload) > _BATCH_BYTES and not (
             payload.fn is _pick_op and id(payload.children[0]) in memo
@@ -1232,6 +1301,9 @@ def _degrade(sig, flat, exc, missed):
     _STATS["degraded"] += 1
     stage = "compile" if missed else "execute"
     family = _family(sig)
+    if _SERVING_NOTE is not None:
+        # billed to the tripping tenant only
+        _SERVING_NOTE("degraded", program=_program_key(sig), stage=stage)
     if telemetry._MODE:
         telemetry.record_degraded(family, stage, repr(exc))
     warnings.warn(
@@ -1256,14 +1328,46 @@ def force(node, comm=None):
     their values installed. Asynchronous: the call installs the result
     tensors and reads no device data. Guarded: a program that fails to
     build, compile or run degrades to op-by-op replay (:func:`_degrade`);
-    the policy signals (the memory gate's refusal, the errstate and stall
-    errors) propagate with the chain still pending."""
+    the policy signals (the memory gate's refusal, the serving layer's
+    admission refusal, the errstate and stall errors) propagate with the
+    chain still pending.
+
+    Under the serving layer, a top-level force first sleeps the batch
+    window (other sessions' roots register meanwhile) and passes the
+    admission gate, both before it takes the lock."""
     if not isinstance(node, LazyArray):
         return node
     if node._value is not None:
         return node._value
+    if _SESSION_OF is None:
+        return _force_top(node, comm)
+    _FORCING.add(id(node))
+    try:
+        return _force_top(node, comm)
+    finally:
+        _FORCING.discard(id(node))
+
+
+def _force_top(node, comm):
+    if _BATCH_WINDOW_S > 0.0 and not getattr(_FORCE_TLS, "held", 0):
+        time.sleep(_BATCH_WINDOW_S)
+        if node._value is not None:
+            return node._value
+    admit = _ADMIT_HOOK  # a last session's exit may clear the seam meanwhile
+    if admit is not None and not getattr(_FORCE_TLS, "held", 0):
+        refund = admit(node.cid)
+        if node._value is not None:
+            # a neighbour's batch landed this node during the wait: the
+            # token goes back, nothing dispatches
+            if refund is not None:
+                refund()
+            return node._value
     with _FORCE_LOCK:
-        return _force_locked(node, comm)
+        _FORCE_TLS.held = getattr(_FORCE_TLS, "held", 0) + 1
+        try:
+            return _force_locked(node, comm)
+        finally:
+            _FORCE_TLS.held -= 1
 
 
 def _force_locked(node, comm=None):
@@ -1283,8 +1387,12 @@ def _force_locked(node, comm=None):
     flat = _flat(leaves)
     _STATS["forces"] += 1
     info = None
+    missed = disk_warm = False
     if _QUARANTINE and sig in _QUARANTINE:
         _STATS["quarantine_hits"] += 1
+        if _SERVING_NOTE is not None:
+            _SERVING_NOTE("quarantine_hit", program=_program_key(sig), cid=node.cid,
+                          sessions=[r.session for r in roots])
         if telemetry._MODE:
             telemetry.record_force(telemetry.current_trigger(), node.depth, compiled=False, cid=node.cid)
         values = _build(sig)(*flat)
@@ -1294,12 +1402,20 @@ def _force_locked(node, comm=None):
         info = _program_info(sig)
         if missed:
             prog = _PROGRAMS[sig] = _Program(sig)
-            _STATS["compiles"] += 1
-            info["compiles"] += 1
+            # a key the persistent index knows is a disk hit: Inductor's FX
+            # graph cache, in the same directory, serves its compiled code
+            disk_warm = _DISK_INDEX is not None and _DISK_INDEX.has(info["key"])
+            if disk_warm:
+                _STATS["disk_hits"] += 1
+            else:
+                _STATS["compiles"] += 1
+                info["compiles"] += 1
+            if _DISK_INDEX is not None:
+                _DISK_INDEX.note(info["key"], info["family"])
             while len(_PROGRAMS) > _CACHE_SIZE:
                 _PROGRAMS.popitem(last=False)
                 _STATS["evictions"] += 1
-            if telemetry._MODE:
+            if telemetry._MODE and not disk_warm:
                 telemetry.record_retrace(_family(sig), _leaf_key(sig))
                 telemetry.record_event("compile", program=info["key"], family=info["family"], cid=node.cid)
         else:
@@ -1307,15 +1423,23 @@ def _force_locked(node, comm=None):
             _STATS["hits"] += 1
         if telemetry._MODE:
             telemetry.record_force(telemetry.current_trigger(), node.depth, compiled=missed, cid=node.cid)
-        if memledger._BUDGET_RAW is not None:
-            # the headroom gate sits before the guarded call: a refusal
-            # surfaces with the chain still pending, never degraded
+        if memledger._BUDGET_RAW is not None or memledger._HOLD is not None:
+            # the headroom gate (and an admission hold) sits before the
+            # guarded call: a refusal surfaces with the chain still pending,
+            # never degraded
             peak, peak_src = _static_peak(info["key"], sig)
             exclude = frozenset(k for k in memo if isinstance(k, int))
-            memledger.admit(
-                info["key"], info["family"], peak, peak_src,
-                drain_fn=lambda: _drain_pending_roots(exclude),
-            )
+            try:
+                memledger.admit(
+                    info["key"], info["family"], peak, peak_src,
+                    drain_fn=lambda: _drain_pending_roots(exclude),
+                )
+            except memledger.MemoryBudgetExceeded:
+                if _SERVING_NOTE is not None:
+                    # billed to the refused tenant only
+                    _SERVING_NOTE("mem_refused", program=info["key"], cid=node.cid,
+                                  sessions=[r.session for r in roots])
+                raise
             if node._value is not None:  # pragma: no cover - a drain forced this chain
                 return node._value
         try:
@@ -1355,10 +1479,21 @@ def _force_locked(node, comm=None):
         root.children = ()
         for t in value:
             memledger.tag(t, "fusion")
+    if telemetry._NUMLENS_HOOK is not None and info is not None:
+        # the numerics lens over the landed values: it never raises and
+        # never forces
+        telemetry._NUMLENS_HOOK(sig, leaves, roots, [r._value for r in roots], info)
+    sessions = None
+    if _SESSION_OF is not None or any(r.session is not None for r in roots):
+        sessions = [r.session for r in roots]
     if _SERVING_NOTE is not None and info is not None:
-        _SERVING_NOTE("dispatch", program=info["key"], sessions=[getattr(r, "session", None) for r in roots])
+        # each tenant is billed its own roots of a shared dispatch, and the
+        # compile (a disk hit is none) the triggering tenant
+        _SERVING_NOTE("dispatch", program=info["key"], sessions=sessions, compiled=missed and not disk_warm,
+                      trigger=node.session)
     if telemetry._MODE:
-        telemetry.record_async_dispatch(len(roots), cid=node.cid, cids=[r.cid for r in roots], program=node.program)
+        telemetry.record_async_dispatch(len(roots), cid=node.cid, cids=[r.cid for r in roots], program=node.program,
+                                        sessions=sessions)
     return node._value
 
 
@@ -1370,7 +1505,9 @@ def is_deferred(x) -> bool:
 
 def cache_stats() -> dict:
     """Program-cache counters: ``compiles`` (program builds, one per cache
-    miss), ``hits``, ``disk_hits`` (0: no persistent index yet),
+    miss whose key the persistent index does not know), ``hits``,
+    ``disk_hits`` (misses whose key the index of ``serving.arm_cache``
+    knows),
     ``forces``, ``misses``, ``evictions``, the cache ``size``, the
     ``program_keys``, and the guarded-forcing counters ``degraded``,
     ``quarantine_hits`` and ``quarantined``."""

@@ -209,7 +209,8 @@ def dump_flight(path: Optional[str] = None, reason: str = "manual") -> Dict[str,
     """Export the ring as a Chrome/Perfetto trace (``<base>.trace.json``)
     checked by ``telemetry.validate_trace``, and a JSON bundle
     (``<base>.json``): the watchdog's state and stall diagnoses, the latency
-    and SLO picture, and the memory watermark. Module state and metadata
+    and SLO picture, the memory watermark and the numerics lens's findings,
+    drift ledger and canary. Module state and metadata
     only. Returns ``{"path", "trace_path", "problems"}``, ``problems`` being
     ``validate_trace``'s findings (empty for a well-formed dump)."""
     global _DUMP_COUNT, _LAST_DUMP
@@ -245,6 +246,13 @@ def dump_flight(path: Optional[str] = None, reason: str = "manual") -> Dict[str,
             "budget": memledger.budget_info(),
             "last_oom": memledger.last_oom(),
         },
+    }
+    from . import numlens
+
+    # the value plane beside the runtime's: the numeric findings (SDC hits,
+    # drift breaches, nonfinite provenance), the drift ledger and the canary
+    bundle["numerics"] = {
+        "findings": numlens.findings(), "drift": numlens.drift_ledger(), "canary": numlens.numerics_block()["canary"],
     }
     with open(bundle_path, "w") as fh:
         json.dump(telemetry._jsonable(bundle), fh, indent=1, default=str)
@@ -464,17 +472,31 @@ _SLO_LIMITS: Dict[str, Optional[float]] = {  # seconds; None = no SLO set
     "compile": _env_ms("HEAT_TPU_SLO_COMPILE_MS"),
 }
 _SLO_WINDOW_S = max(1.0, _env_float("HEAT_TPU_SLO_WINDOW_S", 300.0))
-#: samples are ``(perf_counter_ts, seconds)``
+#: samples are ``(perf_counter_ts, seconds, tenant)``: the tenant is the
+#: serving session active on the recording thread (None outside one)
 _SLO_SAMPLES: Dict[str, deque] = {m: deque(maxlen=2048) for m in _METRICS}
 _SLO_BREACHES: Dict[str, int] = {m: 0 for m in _METRICS}
 
+#: the serving layer installs its current-session lookup here, so that a
+#: sample carries its tenant without this module importing that layer
+_TENANT_HOOK = None
+
 
 def _slo_observe(metric: str, v: float) -> None:
-    _SLO_SAMPLES[metric].append((time.perf_counter(), v))
+    tenant = None
+    if _TENANT_HOOK is not None:
+        try:
+            tenant = _TENANT_HOOK()
+        # the tag is best effort: a latency sample always lands
+        except Exception:  # noqa: BLE001
+            tenant = None
+    _SLO_SAMPLES[metric].append((time.perf_counter(), v, tenant))
     limit = _SLO_LIMITS.get(metric)
     if limit is not None and v > limit:
         _SLO_BREACHES[metric] += 1
-        telemetry.record_event("slo_breach", metric=metric, value_ms=round(v * 1e3, 3), limit_ms=round(limit * 1e3, 3))
+        telemetry.record_event(
+            "slo_breach", metric=metric, value_ms=round(v * 1e3, 3), limit_ms=round(limit * 1e3, 3), tenant=tenant,
+        )
 
 
 def set_slo(sync_ms=_UNSET, dispatch_ms=_UNSET, compile_ms=_UNSET, window_s=None) -> Dict[str, Optional[float]]:

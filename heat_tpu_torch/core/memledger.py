@@ -60,6 +60,9 @@ raises past a tensor that cannot name its storage.
   (:class:`MemoryBudgetExceeded` before the dispatch, the chain left
   pending) or ``drain`` (force and wait for every other pending root, then
   check again and warn if still over). :func:`gate_stats` counts.
+  :func:`admission_hold` refuses every new admission for a block, naming
+  its reason (the chain stays pending), and :func:`gate_exempt` holds the
+  gate open; the serving layer's token buckets compose before this gate.
 * **OOM forensics** (:func:`is_oom`, :func:`record_oom`, :func:`last_oom`).
   A dispatch that dies of ``torch.cuda.OutOfMemoryError`` (or
   ``MemoryError``, or an injected ``memory.exhausted`` fault) gets a ranked
@@ -71,8 +74,6 @@ raises past a tensor that cannot name its storage.
 The fusion recorder tags the results of a force ``fusion`` until a
 ``DNDarray`` claims them (``dndarray``).
 
-Not here yet: the admission hold and the gate exemption, which come with
-autoscale and elastic.
 """
 
 from __future__ import annotations
@@ -475,12 +476,50 @@ if _POLICY not in _POLICIES:
 #: a fractional budget resolved to bytes at the first gate check
 _RESOLVED_BUDGET: Optional[int] = None
 
-_GATE_STATS = {"checks": 0, "allowed": 0, "exceeded": 0, "drains": 0, "drained_roots": 0, "warned": 0, "raised": 0}
+_GATE_STATS = {
+    "checks": 0, "allowed": 0, "exceeded": 0, "drains": 0, "drained_roots": 0, "warned": 0, "raised": 0, "held": 0,
+}
 _WARNED_KEYS: set = set()
 
 #: set while a drain forces other roots: their forces are the freeing, not
 #: new admissions
 _IN_GATE = False
+
+#: the reason of an active :func:`admission_hold`: while set, every new
+#: fused-dispatch admission is refused, naming it
+_HOLD: Optional[str] = None
+
+
+@contextmanager
+def admission_hold(reason: str):
+    """Refuse every new fused-dispatch admission for the block:
+    :func:`admit` raises :class:`MemoryBudgetExceeded` naming ``reason``
+    and the refused chain stays pending, to dispatch after the release (the
+    budget's ``raise`` policy). The forces of a drain and of a
+    :func:`gate_exempt` block pass: they are the draining, not new work."""
+    global _HOLD
+    prev, _HOLD = _HOLD, str(reason)
+    try:
+        yield
+    finally:
+        _HOLD = prev
+
+
+@contextmanager
+def gate_exempt():
+    """Run the block with the gate held open: every :func:`admit` inside
+    returns at once."""
+    global _IN_GATE
+    prev, _IN_GATE = _IN_GATE, True
+    try:
+        yield
+    finally:
+        _IN_GATE = prev
+
+
+def hold_info() -> Optional[str]:
+    """The active admission hold's reason, or None."""
+    return _HOLD
 
 
 def invalidate_resolved_budget() -> None:
@@ -556,18 +595,27 @@ def budget_info(resolve: bool = False) -> Dict[str, Any]:
 
 
 def gate_stats() -> Dict[str, int]:
-    """The gate's counters: ``checks``, ``allowed``, ``exceeded`` and the
+    """The gate's counters: ``checks``, ``allowed``, ``exceeded``, the
     policies' outcomes ``warned``, ``raised``, ``drains``,
-    ``drained_roots``."""
+    ``drained_roots``, and ``held``, the refusals of an admission hold."""
     return dict(_GATE_STATS)
 
 
 def admit(program: str, family: str, static_peak: int, source: str, drain_fn=None) -> None:
     """The headroom check at the fused-program dispatch seam: live bytes
     plus ``static_peak`` against the budget. Within it: returns. Over it:
-    the policy acts (module docstring). The forces of a drain pass."""
+    the policy acts (module docstring). The forces of a drain pass; an
+    active :func:`admission_hold` refuses whatever the budget."""
     global _IN_GATE
-    if _IN_GATE or _BUDGET_RAW is None:
+    if _IN_GATE:
+        return
+    if _HOLD is not None:
+        _GATE_STATS["held"] += 1
+        raise MemoryBudgetExceeded(
+            f"dispatch admission held ({_HOLD}) for program {program} ({family}) — the chain is left "
+            "pending and dispatches once the hold lifts"
+        )
+    if _BUDGET_RAW is None:
         return
     budget = _resolve_budget()
     if budget is None:

@@ -26,6 +26,9 @@ site                     where it fires
                          which turns the fault into a real stall past its
                          deadline; ``watchdog.stall:<site>`` targets one
                          site (``watchdog.stall:sync:numpy``)
+``numeric.sdc.<index>``  the numerics lens's canary on the mesh device of
+                         that index (``core/numlens.run_canary``): the
+                         device is reported as returning wrong bits
 =======================  ==================================================
 
 :func:`inject` arms a site for a block::
@@ -49,7 +52,9 @@ that decides which failures fall back (the fusion recorder's seams).
 ``ht.errstate(nonfinite="warn"|"raise"|"ignore")``: the eager engines check
 each result for inf/NaN with one ``isfinite`` reduction and one scalar read,
 and warn or raise :class:`NonFiniteError`. Off by default, when the check
-costs one module-attribute read per op.
+costs two module-attribute reads per op. A serving ``Session`` pushes a
+policy of its own for its thread (:func:`_push_errstate`), which shadows
+the global one there.
 
 Atomic and retrying I/O
 -----------------------
@@ -72,6 +77,7 @@ import os
 import random
 import re
 import shutil
+import threading
 import time
 import warnings
 from contextlib import contextmanager
@@ -411,6 +417,43 @@ _env_nonfinite = os.environ.get("HEAT_TPU_NONFINITE", "ignore").strip().lower()
 if _env_nonfinite in ("warn", "raise"):
     _ERRSTATE = _env_nonfinite
 
+# The per-thread overrides of the serving layer's sessions, over the global
+# policy. ``_TLS_ARMED`` counts the pushed overrides of every thread, so the
+# engines' gates stay two module-attribute reads while no session has one.
+_ERR_TLS = threading.local()
+_TLS_ARMED = 0
+_TLS_LOCK = threading.Lock()
+
+
+def _push_errstate(mode: Optional[str]) -> None:
+    """Push a policy for the calling thread only (``None`` = ignore, "warn"
+    or "raise"), shadowing the global one until :func:`_pop_errstate`."""
+    global _TLS_ARMED
+    stack = getattr(_ERR_TLS, "stack", None)
+    if stack is None:
+        stack = _ERR_TLS.stack = []
+    stack.append(mode)
+    with _TLS_LOCK:
+        _TLS_ARMED += 1
+
+
+def _pop_errstate() -> None:
+    global _TLS_ARMED
+    stack = getattr(_ERR_TLS, "stack", None)
+    if stack:
+        stack.pop()
+        with _TLS_LOCK:
+            _TLS_ARMED -= 1
+
+
+def _effective_errstate() -> Optional[str]:
+    """The policy of the calling thread: its innermost override, else the
+    global ``ht.errstate`` policy."""
+    stack = getattr(_ERR_TLS, "stack", None)
+    if stack:
+        return stack[-1]
+    return _ERRSTATE
+
 
 class errstate:
     """Numeric error policy scope: ``ht.errstate(nonfinite="warn")``.
@@ -445,8 +488,9 @@ def check_nonfinite(value, where: str = "force", *, program=None, cid=None) -> N
     bfloat16 included. Each tensor reduces to one ``isfinite(x).all()`` on
     its own device, the flags combine on the first one, and one scalar read
     is the only sync added. ``program``/``cid`` name a producing fused
-    program in the message."""
-    mode = _ERRSTATE
+    program in the message, and, with the numerics lens on, in its
+    ``numlens.nonfinite`` finding."""
+    mode = _effective_errstate()
     if mode is None:
         return
     parts = list(value) if isinstance(value, (list, tuple)) else [value]
@@ -472,6 +516,10 @@ def check_nonfinite(value, where: str = "force", *, program=None, cid=None) -> N
         f"non-finite values (inf/NaN) detected at {where} point "
         f"(shape {shape}, dtype {str(dtype).replace('torch.', '')}){origin} under ht.errstate"
     )
+    from . import numlens
+
+    if numlens.active():
+        numlens._add_finding("numlens.nonfinite", "error", msg, where=where, program=program, cid=cid)
     if mode == "raise":
         raise NonFiniteError(msg)
     warnings.warn(NonFiniteWarning(msg), stacklevel=3)

@@ -65,8 +65,16 @@ record time (``report()["fused_collectives"]``), and
 :func:`hlo_collective_counts` reads them back from a pending chain's
 program text (``fusion.program_hlo``).
 
-Not here yet: the numerics, serving, elastic, autoscale and multi-process
-blocks of ``report()``. Their modules come with later parts of the port.
+Two more hooks are set by the modules that read them:
+``core/numlens.py`` installs ``_NUMLENS_HOOK`` while the numerics lens is
+on (the fusion recorder calls it after a program's values land), and
+``report()`` carries its ``numerics`` block and, once the serving layer has
+sessions, ``core/serving.py``'s ``serving`` block. The lens's ``numeric``
+timeline events export as instants, its sampled statistics also as
+Perfetto counter tracks beside the memory ledger's.
+
+Not here yet: the elastic, autoscale and multi-process blocks of
+``report()``. Their modules come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -209,6 +217,13 @@ _FLIGHT_HOOK = None
 #: ``_SYNC_HOOK(kind, cid, dur_s)`` when :func:`end_blocking_sync` closes a
 #: token, feeding the host-wait latency histograms.
 _SYNC_HOOK = None
+
+#: the numerics lens's sampling hook (``core/numlens.py`` installs it while
+#: the lens is on): called by ``fusion.force`` as ``_NUMLENS_HOOK(sig,
+#: leaves, roots, values, info)`` after a program's values land, ``values``
+#: holding each root's shard tensors. None while the lens is off, so the
+#: dispatch seam pays one attribute read.
+_NUMLENS_HOOK = None
 
 
 def active() -> bool:
@@ -424,8 +439,9 @@ def reset() -> None:
     """Clear every counter, span, event and completed scope of every active
     state, and with them the session state of the surfaces ``report()``
     joins: the ``utils.profiling`` timer registry, the memory ledger's
-    watermark and the health layer's ring, histograms, SLO windows and
-    stall log. The mode and the other modules' settings are kept; active
+    watermark, the health layer's ring, histograms, SLO windows and stall
+    log, the numerics lens's statistics, drift ledger, canary, training
+    streams and findings, and the serving layer's exited sessions. The mode and the other modules' settings are kept; active
     scopes and spans keep recording."""
     global _DROP_WARNED
     _DROP_WARNED = False
@@ -440,6 +456,10 @@ def reset() -> None:
     profiling.reset()
     memledger.reset()
     health_runtime.reset()
+    from . import numlens, serving
+
+    numlens.reset()
+    serving.reset()
 
 
 # ----------------------------------------------------------------------
@@ -729,7 +749,8 @@ def record_async_dispatch(n_roots: int, cid: Optional[int] = None, cids=(), prog
     waiting. ``cid`` is the chain's correlation id, ``cids`` every
     root's, ``program`` the program key (None for a degraded replay): the
     timeline's ``dispatch`` event joins the chain's record and its
-    blocking sync."""
+    blocking sync. ``sessions`` (aligned with ``cids``) names each root's
+    serving session, when the serving layer is in use."""
     if not _MODE:
         return
     for st in _states():
@@ -737,7 +758,8 @@ def record_async_dispatch(n_roots: int, cid: Optional[int] = None, cids=(), prog
         st.async_["roots"] += int(n_roots)
         if n_roots > 1:
             st.async_["multi_root_batches"] += 1
-    _note_event("dispatch", roots=int(n_roots), cid=cid, cids=list(cids), program=program)
+    fields = {"sessions": list(sessions)} if sessions is not None else {}
+    _note_event("dispatch", roots=int(n_roots), cid=cid, cids=list(cids), program=program, **fields)
     if _MEM_HOOK is not None:
         _MEM_HOOK("dispatch")
 
@@ -1222,8 +1244,9 @@ def report(*, _state: Optional[_State] = None) -> Dict[str, Any]:
     """The whole telemetry picture as one dict (JSON-ready through
     :func:`report_json`): the counter blocks (the scope's own view inside a
     :func:`scope`), the archived scopes, the memory block, the fusion
-    recorder's program cache and top programs, and the
-    ``utils.profiling`` timers. ``_state`` lets the metrics sink read the
+    recorder's program cache and top programs, the ``utils.profiling``
+    timers, the numerics lens's block and, once sessions exist, the serving
+    layer's. ``_state`` lets the metrics sink read the
     global state whatever scope another thread is in."""
     st = _state if _state is not None else _cur()
     doc: Dict[str, Any] = {"enabled": active(), "mode": _MODE_NAMES[_MODE]}
@@ -1238,6 +1261,11 @@ def report(*, _state: Optional[_State] = None) -> Dict[str, Any]:
     from ..utils import profiling
 
     doc["timers"] = profiling.report()
+    from . import numlens, serving
+
+    doc["numerics"] = numlens.numerics_block()
+    if serving._SESSIONS:
+        doc["serving"] = serving.sessions_block()
     if _MODE >= 2:
         doc["events"] = list(st.events)
     return doc
@@ -1312,6 +1340,9 @@ _INSTANT_KINDS = {
     "stall": ("health", lambda ev: "stall:" + str(ev.get("site"))),
     "slo_breach": ("health", lambda ev: "slo:" + str(ev.get("metric"))),
     "flight_dump": ("health", lambda ev: "flight_dump:" + str(ev.get("reason"))),
+    # the lens's drift, sdc and train instants (its stats also render as
+    # counter tracks, see trace_events)
+    "numeric": ("numeric", lambda ev: "numeric:" + str(ev.get("event"))),
 }
 
 
@@ -1339,7 +1370,8 @@ def async_pairs(evs: Optional[List[dict]] = None) -> List[tuple]:
 def trace_events(evs: Optional[List[dict]] = None, pid: Optional[int] = None) -> List[dict]:
     """The timeline as Chrome trace-event dicts: spans and timers as B/E
     pairs, blocking syncs with their duration as X events, memory samples
-    as counter (C) tracks, each dispatch and the blocking sync that waited
+    and the numerics lens's sampled statistics as counter (C) tracks, each
+    dispatch and the blocking sync that waited
     on it as an async b/e pair keyed by cid, everything else as
     thread-scoped instants; one process row, tid 0."""
     if evs is None:
@@ -1386,6 +1418,16 @@ def trace_events(evs: Optional[List[dict]] = None, pid: Optional[int] = None) ->
                             args={"watermark": int(ev.get("watermark", 0))}))
         elif kind == "dispatch":
             out.append(dict(common, ph="i", s="t", cat="dispatch", name="dispatch", args=args_of(ev)))
+        elif kind == "numeric" and ev.get("event") == "stats":
+            # the lens's counter tracks beside the ledger's: one per sampled
+            # program root (rms and absmax), and its saturation counts
+            label = f"numerics:{ev.get('program')}[{ev.get('root')}]"
+            out.append(dict(common, ph="C", cat="numeric", name=label,
+                            args={"rms": float(ev.get("rms", 0.0)), "absmax": float(ev.get("absmax", 0.0))}))
+            out.append(dict(common, ph="C", cat="numeric", name=label + ":saturation", args={
+                "nonfinite": int(ev.get("nonfinite", 0)), "edge_low": int(ev.get("edge_low", 0)),
+                "edge_high": int(ev.get("edge_high", 0)),
+            }))
         else:
             cat, name_of = _INSTANT_KINDS.get(kind, ("event", lambda e, k=kind: str(k)))
             out.append(dict(common, ph="i", s="t", cat=cat, name=name_of(ev), args=args_of(ev)))
@@ -1604,6 +1646,11 @@ class _MetricsSink:
         try:
             doc = report(_state=_GLOBAL)
             doc.pop("events", None)  # the timeline has its own exporter
+            if "serving" not in doc:
+                # every line carries the same keys, sessions or none
+                from . import serving
+
+                doc["serving"] = serving.sessions_block()
             line = json.dumps(_jsonable({"ts": time.time(), "event": event, "report": doc}), default=str)
             with open(self.path, "a") as fh:
                 fh.write(line + "\n")

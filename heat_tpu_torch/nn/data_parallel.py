@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import numlens
 from ..core.communication import MeshCommunication, sanitize_comm
 from ..core.dndarray import DNDarray
 from . import _init, _lockstep
@@ -203,9 +204,16 @@ class DataParallel:
             summed = self.comm.allreduce([flat_grads(r) for r in self.replicas])
             for replica, flat in zip(self.replicas, summed):
                 set_grads(replica, flat)
+        # the numerics lens's stream: the optimizers update in place, so the
+        # parameters before the step are copied, and only with the lens on
+        prev = [p.detach().clone() for p in self.module.parameters()] if numlens._MODE else None
         for opt in self.optimizers:
             opt.step()
-        return loss.item()
+        value = loss.item()
+        if prev is not None:
+            numlens.note_training("data_parallel.step", loss=value, params=list(self.module.parameters()),
+                                  prev_params=prev)
+        return value
 
     # ------------------------------------------------------------------
     # checkpoint / resume: the JAX package's full-trainer-state meaning

@@ -21,6 +21,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ..core import numlens
 from ..core.communication import MeshCommunication, sanitize_comm
 from ..nn.data_parallel import as_tensor, bind, cross_entropy, flat_grads, load_tree, replicate, set_grads
 from .utils import DetectMetricPlateau
@@ -296,10 +297,17 @@ class DASO:
                 _copy_flat(r.buffers(), flat)
 
         self.current_batch += 1
+        value = sum(loss.item() for loss in losses) / n_dev
         gs = self._effective_global_skip()
         if gs == 0 or self.current_batch % (gs + 1) == 0:
+            # the numerics lens's per-merge stream over every replica (the
+            # flat copies are taken before the merge writes in place)
+            pre = [_flat(r.parameters()) for r in self.replicas] if numlens._MODE else None
             self._merge(float(min(self.batches_to_wait, gs)))
-        return sum(loss.item() for loss in losses) / n_dev
+            if pre is not None:
+                numlens.note_training("daso.merge", loss=value, params=[_flat(r.parameters()) for r in self.replicas],
+                                      prev_params=pre)
+        return value
 
     def _merge(self, waits: float) -> None:
         """Stale-weighted global merge (reference dp_optimizer.py:501-589):

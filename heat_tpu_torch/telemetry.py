@@ -13,12 +13,13 @@ exported Chrome/Perfetto trace files:
     $ python -m heat_tpu_torch.telemetry memory report.json --json
     $ python -m heat_tpu_torch.telemetry health                 # flight, watchdog, SLO
     $ python -m heat_tpu_torch.telemetry health flight_dump.json
+    $ python -m heat_tpu_torch.telemetry numerics               # the numerics lens
+    $ python -m heat_tpu_torch.telemetry sessions report.json   # the serving layer
 
 The state lives in :mod:`heat_tpu_torch.core.telemetry`; this module proxies
 its names (``heat_tpu_torch.telemetry.report`` and the rest) so that the
-command line has a stable ``-m`` entry point. The reference's ``numerics``,
-``sessions``, ``analyze`` and ``ops`` commands come with the modules they
-read.
+command line has a stable ``-m`` entry point. The reference's ``analyze``
+and ``ops`` commands come with the modules they read.
 """
 
 from __future__ import annotations
@@ -322,6 +323,161 @@ def _show_health(doc: Dict[str, Any], out) -> None:
 
 
 # ----------------------------------------------------------------------
+# numerics and sessions (the numerics lens and the serving layer)
+# ----------------------------------------------------------------------
+def _numerics_doc(report_path: Optional[str]) -> Dict[str, Any]:
+    """The numerics picture to render: a saved report's (or flight-dump
+    bundle's) ``numerics`` block when a path is given, else THIS process's
+    live block — pure module state, no mesh bring-up (the same
+    never-initialize contract as ``health``)."""
+    if report_path is not None:
+        doc = _load(report_path)
+        return {"source": report_path, "numerics": doc.get("numerics") or {}}
+    from heat_tpu_torch.core import numlens
+
+    return {"source": "<live>", "numerics": numlens.numerics_block()}
+
+
+def _show_numerics(doc: Dict[str, Any], out) -> None:
+    blk = doc.get("numerics") or {}
+    print(f"numerics ({doc.get('source', '?')}):", file=out)
+    print(
+        f"  lens: {blk.get('mode', 'off')}, sampled "
+        f"{blk.get('dispatches_sampled', 0)}/{blk.get('dispatches_seen', 0)} "
+        f"dispatches (every {blk.get('sample_every', '?')})",
+        file=out,
+    )
+    stats = blk.get("tensor_stats") or {}
+    if stats:
+        print("  tensor stats:", file=out)
+        rows = sorted(stats.items(), key=lambda kv: -kv[1].get("samples", 0))
+        for key, rec in rows[:8]:
+            for i, rr in sorted((rec.get("roots") or {}).items()):
+                flags = []
+                if rr.get("nonfinite"):
+                    flags.append(f"NONFINITE x{rr['nonfinite']}")
+                if rr.get("subnormal"):
+                    flags.append(f"subnormal {rr.get('subnormal_pct', 0)}%")
+                if rr.get("edge_high"):
+                    flags.append(f"edge_high {rr['edge_high']}")
+                print(
+                    f"    {key}[{i}] {rr.get('dtype')}  rms {rr.get('rms', 0):.4g}  "
+                    f"absmax {rr.get('absmax', 0):.4g}  x{rr.get('samples', 0)}"
+                    + ("  " + " ".join(flags) if flags else ""),
+                    file=out,
+                )
+    drift = blk.get("drift") or {}
+    progs = drift.get("programs") or {}
+    if progs:
+        print(
+            f"  drift ledger (max {drift.get('max_ulp', 0)} ULP, worst family "
+            f"{drift.get('worst_family')}):",
+            file=out,
+        )
+        for key, rec in sorted(progs.items(), key=lambda kv: -kv[1].get("max_ulp", 0))[:8]:
+            print(
+                f"    {key}  p50 {rec.get('p50_ulp', 0)} ULP  max "
+                f"{rec.get('max_ulp', 0)} ULP  x{rec.get('samples', 0)}",
+                file=out,
+            )
+    canary = blk.get("canary") or {}
+    if canary.get("runs"):
+        sick = canary.get("last_sick") or []
+        print(
+            f"  sdc canary: {canary['runs']} run(s) over "
+            f"{canary.get('devices', '?')} device(s), "
+            f"{canary.get('mismatches', 0)} mismatch(es), last "
+            f"{canary.get('last_ms', '?')}ms"
+            + (f"  SICK: {', '.join(sick)}" if sick else ""),
+            file=out,
+        )
+    for tag, rec in (blk.get("training") or {}).items():
+        extras = []
+        if rec.get("overflows"):
+            extras.append(f"OVERFLOWS x{rec['overflows']}")
+        if rec.get("plateau"):
+            extras.append("PLATEAU")
+        ratio = rec.get("last_update_ratio")
+        print(
+            f"  train[{tag}]: {rec.get('steps', 0)} step(s), loss "
+            f"{rec.get('last_loss')}"
+            + (f", update_ratio {ratio:.3g}" if ratio is not None else "")
+            + ("  " + " ".join(extras) if extras else ""),
+            file=out,
+        )
+    for f in (blk.get("findings") or [])[-5:]:
+        print(f"  {f.get('severity', '?').upper()}: {f.get('message')}", file=out)
+
+
+def _sessions_doc(report_path: Optional[str]) -> Dict[str, Any]:
+    """The serving picture to render: a saved report's ``serving`` block
+    when a path is given, else THIS process's live block — pure module
+    state, no mesh bring-up (the same never-initialize contract as
+    ``health``/``numerics``)."""
+    if report_path is not None:
+        doc = _load(report_path)
+        return {"source": report_path, "serving": doc.get("serving") or {}}
+    from heat_tpu_torch.core import serving
+
+    return {"source": "<live>", "serving": serving.sessions_block()}
+
+
+def _show_sessions(doc: Dict[str, Any], out) -> None:
+    blk = doc.get("serving") or {}
+    print(f"serving ({doc.get('source', '?')}):", file=out)
+    sessions = blk.get("sessions") or []
+    if not sessions:
+        print("  no sessions recorded", file=out)
+    adm = blk.get("admission") or {}
+    gbl = adm.get("global")
+    if gbl:
+        print(
+            f"  admission: policy {adm.get('policy', 'wait')}, global bucket "
+            f"{gbl.get('rate')}/s burst {gbl.get('burst')} — "
+            f"{gbl.get('admitted', 0)} admitted, {gbl.get('refused', 0)} "
+            f"refused, {gbl.get('waited_s', 0)}s waited",
+            file=out,
+        )
+    cache = blk.get("cache") or {}
+    if cache.get("persistent_dir"):
+        print(
+            f"  persistent cache: {cache['persistent_dir']} "
+            f"({cache.get('index_keys', 0)} indexed keys, "
+            f"{cache.get('disk_hits', 0)} disk hits)",
+            file=out,
+        )
+    for sess in sessions:
+        st = sess.get("stats") or {}
+        state = "active" if sess.get("active") else "exited"
+        print(
+            f"  {sess.get('name', '?')} ({state}): "
+            f"{st.get('dispatches', 0)} dispatches "
+            f"({st.get('roots', 0)} roots, {st.get('compiles', 0)} compiles), "
+            f"errstate {sess.get('errstate', 'inherit')}, "
+            f"numlens {sess.get('numlens', 'inherit')}",
+            file=out,
+        )
+        trouble = {
+            k: st.get(k, 0)
+            for k in ("degraded", "quarantine_hits", "mem_refused",
+                      "admission_refused", "admission_waits")
+            if st.get(k)
+        }
+        if trouble:
+            print(f"    incidents: {trouble}", file=out)
+        if sess.get("quarantine"):
+            print(f"    quarantine view: {sess['quarantine']}", file=out)
+        bucket = sess.get("bucket")
+        if bucket:
+            print(
+                f"    bucket: {bucket.get('rate')}/s burst {bucket.get('burst')} "
+                f"— {bucket.get('admitted', 0)} admitted, "
+                f"{bucket.get('refused', 0)} refused",
+                file=out,
+            )
+
+
+# ----------------------------------------------------------------------
 # diff
 # ----------------------------------------------------------------------
 def _flatten_numeric(doc, prefix="") -> Dict[str, float]:
@@ -391,6 +547,25 @@ def main(argv: Optional[List[str]] = None, out=None) -> int:
         help="a report_json artifact or flight-dump bundle; omitted = this process's live health block",
     )
     p_health.add_argument("--json", action="store_true", help="emit JSON instead of text")
+    p_num = sub.add_parser(
+        "numerics",
+        help="numerics lens: tensor statistics, the drift ledger, the SDC canary and the training streams "
+        "(from a report_json artifact or a flight-dump bundle, or live from this process)",
+    )
+    p_num.add_argument(
+        "report", nargs="?", default=None,
+        help="a report_json artifact or flight-dump bundle; omitted = this process's live numerics block",
+    )
+    p_num.add_argument("--json", action="store_true", help="emit JSON instead of text")
+    p_sess = sub.add_parser(
+        "sessions",
+        help="serving layer: per-session billing and incidents, the admission buckets and the persistent "
+        "program cache (from a report_json artifact, or live from this process)",
+    )
+    p_sess.add_argument(
+        "report", nargs="?", default=None, help="a report_json artifact; omitted = this process's live serving block",
+    )
+    p_sess.add_argument("--json", action="store_true", help="emit JSON instead of text")
     p_val = sub.add_parser("validate-trace", help="check a Chrome/Perfetto trace-event JSON file")
     p_val.add_argument("trace", help="path to an export_trace/merge_traces output")
     p_val.add_argument(
@@ -411,12 +586,20 @@ def main(argv: Optional[List[str]] = None, out=None) -> int:
     if args.cmd == "diff":
         _diff(_load(args.a), _load(args.b), out)
         return 0
-    if args.cmd in ("memory", "health"):
-        doc = _memory_doc(args.report, top=args.top) if args.cmd == "memory" else _health_doc(args.report)
+    if args.cmd in ("memory", "health", "numerics", "sessions"):
+        if args.cmd == "memory":
+            doc, show = _memory_doc(args.report, top=args.top), _show_memory
+        else:
+            doc_of, show = {
+                "health": (_health_doc, _show_health),
+                "numerics": (_numerics_doc, _show_numerics),
+                "sessions": (_sessions_doc, _show_sessions),
+            }[args.cmd]
+            doc = doc_of(args.report)
         if args.json:
             print(json.dumps(_core._jsonable(doc), indent=2, sort_keys=True), file=out)
         else:
-            (_show_memory if args.cmd == "memory" else _show_health)(doc, out)
+            show(doc, out)
         return 0
     problems = _core.validate_trace(args.trace, cross_host=args.cross_host)
     if problems:

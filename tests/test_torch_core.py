@@ -290,7 +290,7 @@ FORBIDDEN = ("jax", "jaxlib", "heat_tpu", "flax", "optax", "ml_dtypes")
 MODULES = (
     "_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset",
     "core.version", "core.telemetry", "core.resilience", "utils.profiling", "telemetry",
-    "core.memledger", "core.health_runtime", "utils.health", "core.fusion",
+    "core.memledger", "core.health_runtime", "utils.health", "core.fusion", "core.numlens", "core.serving",
 )
 
 
@@ -309,17 +309,33 @@ def test_port_imports_neither_jax_nor_heat_tpu():
             assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
+#: the knobs each runtime module must read, as its reference module does
+REQUIRED_KNOBS = {
+    "core/numlens.py": {
+        "HEAT_TPU_NUMLENS", "HEAT_TPU_NUMLENS_SAMPLE_EVERY", "HEAT_TPU_NUMLENS_SHADOW_EVERY",
+        "HEAT_TPU_NUMLENS_CANARY_EVERY", "HEAT_TPU_NUMLENS_MAX_ULP",
+    },
+    "core/serving.py": {
+        "HEAT_TPU_ADMISSION_RATE", "HEAT_TPU_ADMISSION_BURST", "HEAT_TPU_ADMISSION_POLICY",
+        "HEAT_TPU_PROGRAM_CACHE_DIR",
+    },
+}
+
+
 @pytest.mark.parametrize(
-    "module", ["core/memledger.py", "core/health_runtime.py", "utils/health.py", "core/fusion.py", "core/telemetry.py"]
+    "module", ["core/memledger.py", "core/health_runtime.py", "utils/health.py", "core/fusion.py", "core/telemetry.py",
+               "core/numlens.py", "core/serving.py"]
 )
 def test_runtime_modules_read_only_the_references_knobs(module):
     """Every HEAT_TPU_* variable a runtime module of the port reads is one
     the reference module of the same name reads: no knob of the port's own.
     The recorder reads the knobs of its collective half too (its collective
-    nodes and root batching)."""
+    nodes and root batching); the numerics lens and the serving layer read
+    every knob of theirs."""
     mine = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu_torch" / module).read_text()))
     theirs = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu" / module).read_text()))
     assert mine <= theirs, sorted(mine - theirs)
+    assert REQUIRED_KNOBS.get(module, set()) <= mine, sorted(REQUIRED_KNOBS[module] - mine)
     if module != "utils/health.py":
         assert mine
     collective = {"HEAT_TPU_FUSION_COLLECTIVES", "HEAT_TPU_FUSION_BATCH", "HEAT_TPU_FUSION_BATCH_BYTES"}

@@ -172,8 +172,9 @@ def test_manual_dumps_validate_in_both_packages(tmp_path):
         bundle = json.load(fh)
     with open(dumps[1]["path"]) as fh:
         ref_bundle = json.load(fh)
-    # the reference's keys less those of modules the port does not have yet
-    assert set(bundle) == set(ref_bundle) - {"diagnosis", "numerics"}
+    # the reference's keys less the diagnosis, which comes with tracelens
+    assert set(bundle) == set(ref_bundle) - {"diagnosis"}
+    assert set(bundle["numerics"]) == set(ref_bundle["numerics"]) == {"findings", "drift", "canary"}
     assert bundle["reason"] == "manual" and bundle["trace_problems"] == [] and bundle["events"] > 0
     assert set(bundle["memory"]) == set(ref_bundle["memory"]) == {"watermark", "budget", "last_oom"}
     assert set(bundle["programs"]) == set(ref_bundle["programs"])
