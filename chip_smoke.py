@@ -269,7 +269,30 @@ collective nodes.
    warm fresh process on one new cache directory (``disk_hit`` and no
    compile for every signature, Inductor's FX graph cache hit, results
    bit for bit);
-21. print the phase-9 to 20 numbers with the card, the collectives-off and
+21. the trace analyzer and the live ops plane (no kernel of their own; the
+   analyzed fit and the scraped ninth tenant run the Lloyd kernel), with
+   the timeline verbose: the ops server at an ephemeral port, its sampler
+   every 0.25 s, every route answering once with a 640 MB chain left
+   pending and no dispatch added, ``ops check`` in its own process; eight
+   sessions with a table each and a ninth fitting config 3, twice scraped
+   at 10 Hz (every exposition valid and inside the schema, the nine
+   tenants labelled, no counter falling) and twice not, in the order A B
+   B A, p50/p99 of the reads and the scrapes, the per-tenant counters
+   equal to the sessions' billing; a dispatch SLO of 1 µs under the tenants' traffic firing the
+   two-window burn alert (the gauge, /healthz 503, ``ops check`` exit 1,
+   ``slo_burn``), cleared within the fast window once lifted, the
+   sampler's series at its cadence; then phase 18's 10-op chain on config
+   3's table, one cold signature and 50 warm chains each read, analyzed:
+   at most 5% unattributed, one dispatch and one sync per chain, the
+   per-program keys the cache's, ``device_execute`` against the programs'
+   CUDA-event time, the compile bucket against the cold chain's extra
+   wall time, the exported file's analysis by ``python -m
+   heat_tpu_torch.telemetry analyze --json`` in its own process (CUDA
+   untouched there) equal to the live one, the flight bundle's diagnosis;
+   the sync storm, retrace storm, resplit ping-pong (four shards) and
+   injected SDC detectors, each in its own window; the fit's buckets
+   beside the profiler's busy share;
+22. print the phase-9 to 21 numbers with the card, the collectives-off and
    recorder-off legs of phases 9, 12 and 13, each path's seconds and
    program builds, the card's name and power limit, one JSON line of
    per-kernel numbers, and the result line ``{"ok": true, "device":
@@ -7175,6 +7198,713 @@ def numerics_serving_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the trace analyzer and the live ops plane (phase 21): no kernel of their
+# own; the analyzed fit and the scraped ninth tenant run B1. Both read the
+# timeline and the gauges only: a chain's dispatch and its read are on the
+# timeline when the recorder ran it (operands of 192 MiB or more on the
+# card), a Lloyd launch of ops/lloyd.py is not, so a read after a fit is
+# ``sync_wait``.
+# ---------------------------------------------------------------------------
+OT_WARM = 50  # warm chains of the 10-op chain, each read back
+OT_DEVICE_REPS = 20  # back-to-back calls of the chain's program: its device time per call
+OT_STORM_READS = 32  # reads of a recorded reduction inside one span
+OT_LAYOUT_ROWS = (9_000_000, 8_000_000, 7_000_000, 6_000_000, 5_000_000)  # one-op layouts, each over 192 MiB
+OT_P = 4
+OT_INTERVAL_S = 0.25  # the sampler's cadence
+OT_SCRAPE_S = 0.1  # the scraper's cadence, 10 Hz
+OT_ROUNDS = 30  # reads of each kind per tenant per leg
+OT_LEGS = (("scraped", True), ("quiet", False), ("quiet2", False), ("scraped2", True))  # ABBA against drift
+OT_BURN = dict(target=0.99, fast_s=2.0, slow_s=6.0, threshold=1.0, min_samples=8)
+OT_WAIT_S = 10.0  # the longest wait for an alert edge
+OT_ROUTES = {"/metrics": 200, "/healthz": 200, "/readyz": 200, "/debug/report": 200,
+             "/debug/trace?analyze=1": 200, "/debug/numerics": 200, "/debug/flight": 200}
+# Bounds of phase 21:
+# * the window's accounting: unattributed at most OT_UNATTRIBUTED_PCT of
+#   it (tests/test_tracelens.py:84);
+# * device_execute, the host's wait from a warm chain's dispatch stamp to
+#   its value, within OT_EXECUTE_RANGE of the chains' device time (CUDA
+#   events around OT_DEVICE_REPS back-to-back calls of the program, which
+#   keep the card busy, times OT_WARM): less, by the host work between the
+#   first launch and the stamp, and more only by the read's copy and
+#   return. Events around each of the warm calls also count the card's
+#   wait for the first launch, and are printed beside;
+# * the compile bucket at least OT_COMPILE_SHARE of what the cold chain
+#   took beyond a warm one: the build runs inside the interval from the
+#   compile event to the dispatch stamp;
+# * the command line's analysis of the exported file: buckets within
+#   OT_BUCKET_TOL_S of the live analysis (the export stamps microseconds
+#   with three decimals), findings equal.
+OT_UNATTRIBUTED_PCT = 5.0
+OT_EXECUTE_RANGE = (0.5, 1.05)
+OT_COMPILE_SHARE = 0.9
+OT_BUCKET_TOL_S = 1e-6
+
+#: a command-line process of the phase: it imports torch and the package
+#: while the phase runs, then waits for its arguments in ``go`` (a JSON
+#: list) and runs ``heat_tpu_torch.telemetry`` as ``python -m`` would
+_OT_CLI_SCRIPT = """
+import json, os, runpy, sys, time
+import torch
+import heat_tpu_torch
+go = sys.argv[1]
+while not os.path.exists(go):
+    time.sleep(0.02)
+with open(go) as fh:
+    sys.argv = ["heat_tpu_torch.telemetry"] + json.load(fh)
+rc = 0
+try:
+    runpy.run_module("heat_tpu_torch.telemetry", run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    rc = exc.code or 0
+sys.stdout.flush()
+print("CUDA_INITIALIZED " + str(torch.cuda.is_initialized()), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+class _OtCli:
+    """One command-line process, started at once and given its arguments
+    later."""
+
+    def __init__(self, tmp: str, name: str):
+        self.go = os.path.join(tmp, f"{name}.go")
+        self.proc = subprocess.Popen([sys.executable, "-c", _OT_CLI_SCRIPT, self.go], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def run(self, args, timeout: float = 180.0) -> dict:
+        with open(self.go + ".tmp", "w") as fh:
+            json.dump(list(args), fh)
+        os.replace(self.go + ".tmp", self.go)
+        out, err = self.proc.communicate(timeout=timeout)
+        return {"rc": self.proc.returncode, "stdout": out, "stderr": err,
+                "cuda_initialized": "CUDA_INITIALIZED True" in err}
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def _ot_get(port: int, route: str, timeout: float = 30.0):
+    """One GET of the local ops server: (status, body, ms)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=timeout) as resp:
+            code, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        code, body = exc.code, exc.read().decode()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+class _OtTimed:
+    """A cached program whose calls are bracketed by CUDA events (before the
+    first launch and after the last) and by the host clock."""
+
+    def __init__(self, prog):
+        self.prog = prog
+        self.pairs = []
+        self.host = []  # (call, return) perf_counter stamps
+
+    def __call__(self, flat):
+        import torch
+
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = self.prog(flat)
+        stop.record()
+        self.host.append((t0, time.perf_counter()))
+        self.pairs.append((start, stop))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.prog, name)
+
+
+def _ot_buckets(ana) -> dict:
+    return {b: rec["s"] for b, rec in ana["attribution"]["overall"].items()}
+
+
+def _ot_print_analysis(label: str, ana) -> None:
+    overall = ana["attribution"]["overall"]
+    print(f"  {label}: window {ana['window_s'] * 1e3:.3f} ms, {ana['events']} events; "
+          + ", ".join(f"{b} {r['s'] * 1e3:.3f} ms ({r['pct']:.2f}%)"
+                      for b, r in sorted(overall.items(), key=lambda kv: -kv[1]["s"]))
+          + f", unattributed {ana['attribution']['unattributed_pct']:.3f}%", flush=True)
+    crit = ana["critical_path"]
+    print(f"    critical path {crit['total_s'] * 1e3:.3f} ms, {crit['sync_pct']}% waiting on the card, "
+          f"{len(crit['steps'])} steps; first five: "
+          + "; ".join(f"{s['bucket']} {s['dur_s'] * 1e3:.3f} ms cid {s['cid']}" for s in crit["steps"][:5]), flush=True)
+    for key, rec in list(ana["attribution"]["per_program"].items())[:5]:
+        print(f"    program {key}: {rec['dispatches']} dispatches, {rec['syncs']} syncs, compile "
+              f"{rec['compile'] * 1e3:.3f} ms, dispatch_queue {rec['dispatch_queue'] * 1e3:.3f} ms, device_execute "
+              f"{rec['device_execute'] * 1e3:.3f} ms", flush=True)
+    for f in ana["findings"]:
+        print(f"    finding [{f['severity']}] {f['rule']}: {f['message']}", flush=True)
+
+
+def ot_analyzer_phase(ht, tel, fusion, tl, hr, x, b, tmp: str, cli: "_OtCli") -> dict:
+    """(a) The analyzer on a recorded workload: phase 18's 10-op chain on
+    the table, one cold signature and OT_WARM warm chains, each read."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    print(f"phase ops_trace: the analyzer over the 10-op chain on {N} x {F} float32, one cold signature and "
+          f"{OT_WARM} warm chains, each read back", flush=True)
+    out = {}
+    fusion.clear_cache()
+    tel.reset()
+    gc.collect()  # not inside the window
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = ht.sum(_fu_nine(ht, x, b)).item()
+    out["cold_s"] = time.perf_counter() - t0
+    (sig,) = list(fusion._PROGRAMS)
+    timed = fusion._PROGRAMS[sig] = _OtTimed(fusion._PROGRAMS[sig])
+    warm_from, walls, values = time.perf_counter(), [], []
+    try:
+        for _ in range(OT_WARM):
+            t0 = time.perf_counter()
+            values.append(ht.sum(_fu_nine(ht, x, b)).item())
+            walls.append(time.perf_counter() - t0)
+    finally:
+        fusion._PROGRAMS[sig] = timed.prog
+    torch.cuda.synchronize()
+    event_s = sum(s.elapsed_time(e) for s, e in timed.pairs) / 1e3
+    ana = tl.analyze()
+    path = os.path.join(tmp, "ops_trace.json")
+    tel.export_trace(path)  # the window just analyzed
+    # the program's device time per call, with the card kept busy
+    pending = ht.sum(_fu_nine(ht, x, b))
+    _, leaves, _ = fusion._signature(pending._payload)
+    flat = fusion._flat(leaves)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    timed.prog(flat)
+    start.record()
+    for _ in range(OT_DEVICE_REPS):
+        timed.prog(flat)
+    stop.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(stop) / OT_DEVICE_REPS
+    del pending, leaves, flat
+    _ot_print_analysis("the whole window", ana)
+    warm_events = [e for e in tel.events() if e["ts"] >= warm_from]
+    stamps = [e["ts"] for e in warm_events if e["kind"] == "dispatch"]
+    warm = tl.analyze(warm_events)
+    _ot_print_analysis(f"the {OT_WARM} warm chains", warm)
+    chains = ana["chains"]
+    keys = set(fusion.cache_stats()["program_keys"])
+    buckets = _ot_buckets(ana)
+    execute = _ot_buckets(warm).get("device_execute", 0.0)
+    wall_warm = float(np.median(walls))
+    out.update({
+        "window_s": ana["window_s"], "buckets_s": buckets, "unattributed_pct": ana["attribution"]["unattributed_pct"],
+        "warm_buckets_s": _ot_buckets(warm), "warm_unattributed_pct": warm["attribution"]["unattributed_pct"],
+        "critical_path": ana["critical_path"]["steps"][:5], "per_program": ana["attribution"]["per_program"],
+        "findings": ana["findings"], "warm_findings": warm["findings"],
+        "warm_chain_wall_ms": {"p50": wall_warm * 1e3, "p99": float(np.percentile(walls, 99)) * 1e3},
+        "device_execute_s": execute, "device_s": OT_WARM * device_ms / 1e3, "device_ms_per_call": device_ms,
+        "execute_over_device": execute / (OT_WARM * device_ms / 1e3), "cuda_event_s": event_s,
+        "execute_over_events": execute / event_s,
+        "call_host_ms_p50": float(np.median([r - c for c, r in timed.host])) * 1e3,
+        "return_to_stamp_ms_p50": float(np.median([s - r for s, (_, r) in zip(stamps, timed.host)])) * 1e3,
+        "compile_s": buckets.get("compile", 0.0), "cold_minus_warm_s": out["cold_s"] - wall_warm,
+    })
+    print(f"  device_execute of the warm chains {execute * 1e3:.3f} ms against their device time "
+          f"{out['device_s'] * 1e3:.3f} ms ({device_ms:.4f} ms a call back to back; {out['execute_over_device']:.3f}x) "
+          f"and against events around each call {event_s * 1e3:.3f} ms ({out['execute_over_events']:.3f}x); a "
+          f"program call's host time p50 {out['call_host_ms_p50']:.3f} ms, its return to the dispatch stamp p50 "
+          f"{out['return_to_stamp_ms_p50']:.3f} ms; a warm chain's wall p50 {wall_warm * 1e3:.3f} ms; the compile "
+          f"bucket {out['compile_s']:.3f} s against the cold chain's {out['cold_s']:.3f} s less a warm one's "
+          f"({out['cold_minus_warm_s']:.3f} s)", flush=True)
+    if ana["attribution"]["unattributed_pct"] > OT_UNATTRIBUTED_PCT:
+        raise AssertionError(f"ops_trace: {ana['attribution']['unattributed_pct']}% of the window unattributed")
+    if len(chains) != OT_WARM + 1 or [(c["dispatches"], c["syncs"]) for c in chains] != [(1, 1)] * (OT_WARM + 1) \
+            or [c["compiled"] for c in chains] != [True] + [False] * OT_WARM:
+        raise AssertionError(f"ops_trace: the chains are not one dispatch and one sync each: {chains[:3]}")
+    if set(ana["attribution"]["per_program"]) != keys or len(keys) != 1:
+        raise AssertionError(f"ops_trace: per-program keys {sorted(ana['attribution']['per_program'])} are not the "
+                             f"cache's {sorted(keys)}")
+    with fusion.disabled():
+        h = _fu_nine(ht, x, b)
+        eager = float(ht.sum(h).larray)
+    abs_sum = h.larray.double().abs().sum().item()
+    del h
+    out["fused_vs_eager"] = _fu_sum_check("ops_trace cold chain vs eager", cold, eager, abs_sum)
+    if any(v != cold for v in values):
+        raise AssertionError("ops_trace: a warm chain's value differs from the cold one's")
+    # the read-per-chain loop is a sync storm by the detector's definition
+    # (more than HEAT_TPU_TRACELENS_SYNC_STORM_K blocking syncs within 1 s);
+    # with the threshold at the loop's own count of reads the warm window
+    # names nothing
+    storm = [f for f in warm["findings"] if f["rule"] == "tracelens.sync_storm"]
+    others = [f for f in warm["findings"] if f["rule"] != "tracelens.sync_storm" and f["severity"] != "info"]
+    quiet = tl.analyze(warm_events, sync_storm_k=OT_WARM)
+    out["warm_findings_at_k"] = quiet["findings"]
+    if others or len(storm) != 1 or storm[0]["data"]["syncs"] <= tl._SYNC_STORM_K or \
+            [f for f in quiet["findings"] if f["severity"] != "info"]:
+        raise AssertionError(f"ops_trace: the warm window's findings {warm['findings']}")
+    if not OT_EXECUTE_RANGE[0] * out["device_s"] <= execute <= OT_EXECUTE_RANGE[1] * out["device_s"]:
+        raise AssertionError(f"ops_trace: device_execute {execute:.6f} s outside {OT_EXECUTE_RANGE} x the chains' "
+                             f"device time {out['device_s']:.6f} s")
+    if not out["compile_s"] >= OT_COMPILE_SHARE * out["cold_minus_warm_s"]:
+        raise AssertionError(f"ops_trace: compile bucket {out['compile_s']:.3f} s under {OT_COMPILE_SHARE} x "
+                             f"{out['cold_minus_warm_s']:.3f} s")
+    # the exported file through the command line, in its own process
+    res = cli.run(["analyze", path, "--json"])
+    doc = json.loads(res["stdout"])
+    diffs = {bk: abs(doc["attribution"]["overall"].get(bk, {}).get("s", 0.0) - s) for bk, s in buckets.items()}
+    out["cli"] = {"rc": res["rc"], "max_bucket_diff_s": max(diffs.values()), "cuda_initialized": res["cuda_initialized"],
+                  "same_findings": doc["findings"] == json.loads(json.dumps(ana["findings"]))}
+    print(f"  python -m heat_tpu_torch.telemetry analyze {os.path.basename(path)} --json in its own process: exit "
+          f"{res['rc']}, buckets within {out['cli']['max_bucket_diff_s']:.3e} s of the live analysis, the same "
+          f"findings {out['cli']['same_findings']}, CUDA initialized there {res['cuda_initialized']}", flush=True)
+    gate = int(any(f["severity"] in ("error", "warning") for f in ana["findings"]))
+    if set(doc["attribution"]["overall"]) != set(buckets) or out["cli"]["max_bucket_diff_s"] > OT_BUCKET_TOL_S \
+            or not out["cli"]["same_findings"] or res["cuda_initialized"] or res["rc"] != gate:
+        raise AssertionError(f"ops_trace: the command line's analysis differs: {out['cli']}, {res['stderr'][-2000:]}")
+    # the flight bundle's diagnosis of the ring
+    dump = hr.dump_flight(os.path.join(tmp, "ops_trace_flight.json"), reason="ops_trace")
+    with open(dump["path"]) as fh:
+        diag = json.load(fh)["diagnosis"]
+    want = {"text", "window_s", "attribution", "unattributed_pct", "critical_path", "stragglers", "findings"}
+    out["flight"] = {"problems": dump["problems"], "diagnosis_keys": sorted(diag),
+                     "unattributed_pct": diag.get("unattributed_pct")}
+    print(f"  flight dump: trace problems {dump['problems']}, diagnosis keys {sorted(diag)}, its window "
+          f"{diag.get('window_s')} s, unattributed {diag.get('unattributed_pct')}%", flush=True)
+    if dump["problems"] or set(diag) != want or "trace window" not in diag["text"]:
+        raise AssertionError(f"ops_trace: the flight bundle's diagnosis does not validate: {diag}")
+    return out
+
+
+def ot_detectors_phase(ht, tel, tl, nl, x) -> dict:
+    """(b) Each detector in its own telemetry window: a sync storm, a
+    retrace storm of one-op layouts, a resplit ping-pong on four shards and
+    the canary's injected SDC."""
+    import torch
+
+    from heat_tpu_torch.core import resilience
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    out = {}
+    print(f"phase ops_trace: the detectors: {OT_STORM_READS} reads in one span, {len(OT_LAYOUT_ROWS)} one-op layouts, "
+          f"resplits 0 -> 1 -> 0 -> 1 on {OT_P} shards, numeric.sdc.1 under the full lens", flush=True)
+
+    def hits(ana, rule):
+        return [f for f in ana["findings"] if f["rule"] == rule]
+
+    tel.reset()
+    want = ht.sum(x).item()
+    with tel.span("reads"):
+        got = [ht.sum(x).item() for _ in range(OT_STORM_READS)]
+    storm = hits(tl.analyze(), "tracelens.sync_storm")
+    out["sync_storm"] = storm
+    print(f"  sync storm: {storm}", flush=True)
+    if len(storm) != 1 or storm[0]["data"] != {"span": "reads", "syncs": OT_STORM_READS} or set(got) != {want}:
+        raise AssertionError(f"ops_trace: the span's reads gave {storm}")
+
+    tel.reset()
+    sums = [ht.sum(x[:m]).item() for m in OT_LAYOUT_ROWS]
+    retrace = hits(tl.analyze(), "tracelens.retrace_storm")
+    compiles = [e for e in tel.events() if e["kind"] == "compile"]
+    out["retrace_storm"] = retrace
+    print(f"  retrace storm: {len(compiles)} compile events, family {compiles[0].get('family') if compiles else None}; "
+          f"{retrace}", flush=True)
+    if len(retrace) != 1 or retrace[0]["data"]["compiles"] != len(OT_LAYOUT_ROWS) or len(set(sums)) < 2:
+        raise AssertionError(f"ops_trace: {len(OT_LAYOUT_ROWS)} one-op layouts gave {retrace}")
+
+    mesh = MeshCommunication([torch.device("cuda", 0)] * OT_P)
+    x4 = ht.array(x.larray, split=0, comm=mesh)
+    tel.reset()
+    z = x4 * 1.0
+    for split in (1, 0, 1):
+        z = ht.resplit(z, split)
+    trail = [e.get("detail") for e in tel.events() if e["kind"] == "fused_collective" and e["op"] == "reshard"]
+    equal = bool(torch.equal(torch.cat(z.shards, dim=1), x.larray))
+    pingpong = hits(tl.analyze(), "tracelens.reshard_pingpong")
+    out["reshard_pingpong"] = {"findings": pingpong, "details": trail, "bit_for_bit": equal}
+    print(f"  reshard ping-pong: reshard details {trail}, the result equal to the table bit for bit {equal}; "
+          f"{pingpong}", flush=True)
+    if len(pingpong) != 1 or pingpong[0]["data"]["targets"] != ["split=1", "split=0", "split=1"] or not equal:
+        raise AssertionError(f"ops_trace: resplits 0 -> 1 -> 0 -> 1 gave {pingpong}, details {trail}")
+    del x4, z
+
+    tel.reset()
+    prev = nl.set_mode("full")
+    try:
+        resilience.reset_device_faults()
+        with resilience.inject("numeric.sdc.1", times=1):
+            nl.run_canary(comm=mesh)
+        diag = tl.diagnose(tel.events())
+    finally:
+        nl.set_mode(prev)
+        resilience.reset_device_faults()
+        nl.reset()
+    sdc = hits(diag, "tracelens.sdc")
+    out["sdc"] = sdc
+    print(f"  numeric.sdc.1 under the full lens: {sdc}", flush=True)
+    if len(sdc) != 1 or sdc[0]["severity"] != "error" or sdc[0]["data"]["device"] != "cuda:0":
+        raise AssertionError(f"ops_trace: diagnose did not surface the injected SDC: {diag['findings']}")
+    return out
+
+
+def ot_fit_phase(ht, tel, tl, x, init) -> dict:
+    """(c) Config 3's fit under the verbose timeline, analyzed, beside the
+    profiler's busy share of the same fit: a reading. The fit's Lloyd
+    launches come from ops/lloyd.py and record nothing; the window is the
+    user's span around the fit and the read of its centres."""
+    import torch
+
+    from heat_tpu_torch.ops import lloyd
+
+    tel.reset()
+    before = lloyd.LAUNCHES
+    with _profiled() as prof:
+        t0 = time.perf_counter()
+        with tel.span("fit"):
+            model = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+            model.cluster_centers_.numpy()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = lloyd.LAUNCHES - before
+    busy = sum(r[0] for r in _device_rows(prof))
+    ana = tl.analyze()
+    print(f"phase ops_trace: KMeans.fit on {N} x {F}, {launches} Lloyd launches, wall {wall_ms:.3f} ms (profiler on), "
+          f"the profiler's busy share {100 * busy / wall_ms:.1f}%", flush=True)
+    _ot_print_analysis("the fit's window", ana)
+    if launches != ITERS:
+        raise AssertionError(f"ops_trace: the fit launched the Lloyd kernel {launches} times, not {ITERS}")
+    return {"launches": launches, "wall_ms": wall_ms, "busy_ms": busy, "busy_pct": 100 * busy / wall_ms,
+            "buckets_s": _ot_buckets(ana), "unattributed_pct": ana["attribution"]["unattributed_pct"],
+            "window_s": ana["window_s"], "chains": len(ana["chains"]), "findings": ana["findings"]}
+
+
+def _ot_counters(text: str, kinds: dict) -> dict:
+    """The counter samples of one exposition, ``{name{labels}: value}``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        name = key.split("{")[0]
+        if kinds.get(name) == "counter" or name.endswith("_count"):
+            out[key] = float(value)
+    return out
+
+
+def _ot_traffic(ht, serving, opsplane, tables, fit, port, leg: str, scrape: bool) -> dict:
+    """Eight sessions on eight threads reading their tables OT_ROUNDS times
+    (the column moments and a z-score), a ninth fitting config 3, and with
+    ``scrape`` a scraper reading /metrics at 10 Hz."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.ops import lloyd
+
+    kinds = {name: spec[0] for name, spec in opsplane.SCHEMA.items()}
+    names = [f"{leg}-tenant{i}" for i in range(NS_TENANTS)] + [f"{leg}-kmeans"]
+    barrier = threading.Barrier(NS_TENANTS + 1 + int(scrape))
+    stop, errors, lat = threading.Event(), [], {}
+    scrapes = {"ms": [], "bytes": 0, "samples": 0, "problems": [], "unknown": set(), "fell": [], "tenants": set()}
+
+    def tenant(i):
+        try:
+            lat[i] = []
+            with serving.Session(names[i]):
+                barrier.wait(timeout=60)
+                for _ in range(OT_ROUNDS):
+                    lat[i].append(_ns_read_ms(lambda: _ns_moments(ht, tables[i]).larray.reshape(-1)[:1].item()))
+                    lat[i].append(_ns_read_ms(lambda: _fc_zscore(ht, tables[i]).larray.reshape(-1)[:1].item()))
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    def fitter():
+        try:
+            with serving.Session(names[-1]):
+                barrier.wait(timeout=60)
+                before = lloyd.LAUNCHES
+                ht.cluster.KMeans(n_clusters=K, init=fit["init"], max_iter=ITERS, tol=-1.0).fit(fit["x"])
+                torch.cuda.synchronize()
+                fit["launches"] = lloyd.LAUNCHES - before
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    def scraper():
+        try:
+            last = {}
+            barrier.wait(timeout=60)
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                code, text, ms = _ot_get(port, "/metrics")
+                scrapes["ms"].append(ms)
+                scrapes["problems"] += opsplane.validate_exposition(text) + ([f"code {code}"] if code != 200 else [])
+                fams = {ln.split("{")[0].split()[0] for ln in text.splitlines() if ln and not ln.startswith("#")}
+                known = set(kinds) | {"heat_tpu_latency_seconds" + s for s in ("_bucket", "_sum", "_count")}
+                scrapes["unknown"] |= fams - known
+                counters = _ot_counters(text, kinds)
+                scrapes["fell"] += [k for k, v in counters.items() if v < last.get(k, 0.0)]
+                last.update(counters)
+                scrapes["tenants"] |= {k.split('tenant="')[1].split('"')[0] for k in counters if 'tenant="' in k}
+                scrapes["bytes"], scrapes["samples"] = len(text.encode()), sum(
+                    1 for ln in text.splitlines() if ln and not ln.startswith("#"))
+                stop.wait(max(0.0, OT_SCRAPE_S - (time.perf_counter() - t0)))
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=tenant, args=(i,)) for i in range(NS_TENANTS)] + [threading.Thread(target=fitter)]
+    extra = [threading.Thread(target=scraper)] if scrape else []
+    t0 = time.perf_counter()
+    for t in threads + extra:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    stop.set()
+    for t in extra:
+        t.join(timeout=60)
+    if errors:
+        raise errors[0]
+    reads = np.concatenate([np.asarray(v) for v in lat.values()])
+    out = {"seconds": time.perf_counter() - t0, "reads_ms": reads.tolist(), "read_p50_ms": float(np.percentile(reads, 50)),
+           "read_p99_ms": float(np.percentile(reads, 99)), "fit_launches": fit["launches"], "names": names}
+    if scrape:
+        out.update({"scrapes_ms": scrapes["ms"], "scrape_p50_ms": float(np.percentile(scrapes["ms"], 50)),
+                    "scrape_p99_ms": float(np.percentile(scrapes["ms"], 99)), "exposition_bytes": scrapes["bytes"],
+                    "exposition_samples": scrapes["samples"], "problems": scrapes["problems"][:5],
+                    "unknown_families": sorted(scrapes["unknown"]), "counters_fell": scrapes["fell"][:5],
+                    "tenants": sorted(scrapes["tenants"] & set(names))})
+    return out
+
+
+def ot_ops_phase(ht, tel, fusion, serving, opsplane, hr, tables, fit, tmp: str, clis: dict) -> dict:
+    """(d) The ops plane under serving traffic, scraped and not; (e) the
+    burn-rate alert under the tenants' traffic."""
+    import numpy as np
+
+    out = {}
+    print(f"phase ops_trace: the ops plane: {NS_TENANTS} sessions and a fitting ninth, scraped at "
+          f"{1 / OT_SCRAPE_S:.0f} Hz and not, the sampler at {OT_INTERVAL_S} s; then a dispatch SLO's burn alert",
+          flush=True)
+    # every batch one tenant's read can form: phase 20's programs when the
+    # cache still holds them, so that no build falls in the windows
+    t0, builds = time.perf_counter(), _fu_unique_graphs()
+    for k in range(NS_TENANTS):
+        for own in ("moments", "zscore"):
+            others = [_ns_moments(ht, t) for t in tables[1:k + 1]]
+            mine = _ns_moments(ht, tables[0]) if own == "moments" else _fc_zscore(ht, tables[0])
+            mine.larray.reshape(-1)[:1].item()
+            del others, mine
+    out["warmup"] = {"seconds": time.perf_counter() - t0, "inductor_builds": _fu_unique_graphs() - builds}
+    prev_interval, opsplane._INTERVAL_S = opsplane._INTERVAL_S, OT_INTERVAL_S
+    prev_dir = hr.set_dump_dir(tmp)
+    port = opsplane.serve(port=0)  # a bind that fails raises: the phase fails
+    try:
+        # every route once, a 640 MB chain pending throughout
+        tel.reset()
+        _ns_moments(ht, tables[0]).larray.reshape(-1)[:1].item()
+        pending = _ns_moments(ht, tables[1])
+        dispatches = sum(1 for e in tel.events() if e["kind"] == "dispatch")
+        codes = {route: _ot_get(port, route)[0] for route in OT_ROUTES}
+        still = fusion.is_deferred(pending)
+        added = sum(1 for e in tel.events() if e["kind"] == "dispatch") - dispatches
+        pending.larray
+        out["routes"] = {"codes": codes, "pending_after": still, "dispatches_added": added}
+        print(f"  routes: {codes}; the pending 640 MB chain pending after them {still}, dispatch events added "
+              f"{added}", flush=True)
+        if codes != OT_ROUTES or not still or added:
+            raise AssertionError(f"ops_trace: the routes answered {codes}, pending {still}, {added} dispatches")
+        res = clis["check"].run(["ops", "check", "--port", str(port)])
+        out["ops_check"] = {"rc": res["rc"], "stdout": res["stdout"].strip().splitlines()}
+        print(f"  ops check --port {port} in its own process: exit {res['rc']}: {out['ops_check']['stdout']}",
+              flush=True)
+        oks = [ln for ln in out["ops_check"]["stdout"] if ln.startswith("OK: ")]
+        if res["rc"] or len(oks) != 2:
+            raise AssertionError(f"ops_trace: ops check failed: {res['stdout']} {res['stderr'][-2000:]}")
+        # the traffic, scraped and not, in the order A B B A
+        compiles, legs = fusion.cache_stats()["compiles"], {}
+        for leg, scrape in OT_LEGS:
+            rec = legs[leg] = _ot_traffic(ht, serving, opsplane, tables, fit, port, leg, scrape)
+            print(f"  {leg}: {rec['seconds']:.2f} s, a tenant's read p50 {rec['read_p50_ms']:.3f} / p99 "
+                  f"{rec['read_p99_ms']:.3f} ms; the fit {rec['fit_launches']} Lloyd launches"
+                  + (f"; {len(rec['scrapes_ms'])} scrapes p50 {rec['scrape_p50_ms']:.3f} / p99 "
+                     f"{rec['scrape_p99_ms']:.3f} ms, {rec['exposition_bytes']} bytes and "
+                     f"{rec['exposition_samples']} samples each; problems {rec['problems']}, unknown families "
+                     f"{rec['unknown_families']}, counters that fell {rec['counters_fell']}, tenants "
+                     f"{len(rec['tenants'])}" if scrape else ""), flush=True)
+            if rec["fit_launches"] != ITERS:
+                raise AssertionError(f"ops_trace: the {leg} fit launched {rec['fit_launches']} times")
+            if scrape and (rec["problems"] or rec["unknown_families"] or rec["counters_fell"]
+                           or not rec["scrapes_ms"] or len(rec["tenants"]) != NS_TENANTS + 1):
+                raise AssertionError(f"ops_trace: the scrapes under traffic: {rec}")
+        for label, scrape in (("scraped", True), ("quiet", False)):
+            reads = np.concatenate([legs[leg].pop("reads_ms") for leg, sc in OT_LEGS if sc == scrape])
+            out[label] = {"read_p50_ms": float(np.percentile(reads, 50)), "read_p99_ms": float(np.percentile(reads, 99)),
+                          "legs": {leg: legs[leg] for leg, sc in OT_LEGS if sc == scrape}}
+            if scrape:
+                ms = np.concatenate([legs[leg].pop("scrapes_ms") for leg, sc in OT_LEGS if sc])
+                out[label].update({"scrapes": len(ms), "scrape_p50_ms": float(np.percentile(ms, 50)),
+                                   "scrape_p99_ms": float(np.percentile(ms, 99))})
+        print(f"  pooled over two legs each: a tenant's read with the scraper p50 {out['scraped']['read_p50_ms']:.3f} "
+              f"/ p99 {out['scraped']['read_p99_ms']:.3f} ms, without p50 {out['quiet']['read_p50_ms']:.3f} / p99 "
+              f"{out['quiet']['read_p99_ms']:.3f} ms; {out['scraped']['scrapes']} scrapes p50 "
+              f"{out['scraped']['scrape_p50_ms']:.3f} / p99 {out['scraped']['scrape_p99_ms']:.3f} ms", flush=True)
+        out["retraces"] = fusion.cache_stats()["compiles"] - compiles
+        billed = {r["name"]: r["stats"]["dispatches"] for r in serving.session_reports()}
+        exported = {labels["tenant"]: v for name, labels, v in opsplane.collect()
+                    if name == "heat_tpu_session_dispatches_total"}
+        names = [n for leg in legs.values() for n in leg["names"]]
+        out["billing_parity"] = all(exported.get(n) == float(billed[n]) for n in names)
+        print(f"  per-tenant dispatch counters equal serving.session_reports(): {out['billing_parity']} "
+              f"({sum(billed[n] for n in names)} dispatches over {len(names)} sessions); retraces "
+              f"{out['retraces']}", flush=True)
+        if not out["billing_parity"] or out["retraces"]:
+            raise AssertionError(f"ops_trace: exported {exported}, billed {billed}, {out['retraces']} retraces")
+        out["burn"] = _ot_burn(ht, serving, opsplane, hr, tel, tables, port, clis["alert"])
+    finally:
+        opsplane.shutdown()
+        opsplane._INTERVAL_S = prev_interval
+        hr.set_dump_dir(prev_dir)
+        hr.set_slo(dispatch_ms=None)
+    return out
+
+
+def _ot_burn(ht, serving, opsplane, hr, tel, tables, port, cli) -> dict:
+    """(e) ``set_slo(dispatch_ms=0.001)`` under the tenants' traffic: the
+    two-window alert fires, /healthz answers 503 and ``ops check`` fails;
+    the SLO lifted, the alert clears within the fast window."""
+    import threading
+
+    import numpy as np
+
+    out, edges, stop, errors = {}, [], threading.Event(), []
+    unsubscribe = opsplane.on_burn(lambda m, t, rising, s: edges.append((time.perf_counter(), m, t, rising)))
+
+    def tenant(i):
+        try:
+            with serving.Session(f"burn-tenant{i}"):
+                while not stop.is_set():
+                    # a host read of the pending chain: its dispatch-to-done
+                    # time is a ``dispatch`` latency sample
+                    _ns_moments(ht, tables[i]).numpy()
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    def alert_active() -> bool:
+        return bool(opsplane.burn_report()["alerts"].get("dispatch/*", {}).get("active"))
+
+    threads = [threading.Thread(target=tenant, args=(i,)) for i in range(NS_TENANTS)]
+    prev_burn = opsplane.set_burn(**OT_BURN)
+    t_start = time.time()
+    try:
+        for t in threads:
+            t.start()
+        hr.set_slo(dispatch_ms=0.001)
+        t0 = time.perf_counter()
+        while not alert_active() and time.perf_counter() - t0 < OT_WAIT_S:
+            time.sleep(0.02)
+        out["to_alert_s"] = time.perf_counter() - t0
+        fired = [e for e in tel.events() if e["kind"] == "slo_burn" and e.get("tenant") == "*"]
+        _, text, _ = _ot_get(port, "/metrics")
+        gauge = 'heat_tpu_slo_burn_alert{metric="dispatch",tenant="*"} 1' in text
+        healthz = _ot_get(port, "/healthz")[0]
+        res = cli.run(["ops", "check", "--port", str(port)])
+        out.update({"alert": alert_active(), "gauge": gauge, "healthz_alerting": healthz, "slo_burn_events": len(fired),
+                    "ops_check_rc": res["rc"], "ops_check": res["stdout"].strip().splitlines()})
+        hr.set_slo(dispatch_ms=None)
+        t0 = time.perf_counter()
+        while alert_active() and time.perf_counter() - t0 < OT_WAIT_S:
+            time.sleep(0.02)
+        out["to_clear_s"] = time.perf_counter() - t0
+        cleared = [e for e in tel.events() if e["kind"] == "slo_burn_clear" and e.get("tenant") == "*"]
+        out.update({"cleared": not alert_active(), "slo_burn_clear_events": len(cleared),
+                    "healthz_after": _ot_get(port, "/healthz")[0]})
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        hr.set_slo(dispatch_ms=None)
+        opsplane.set_burn(**{k: prev_burn[k] for k in OT_BURN})
+        unsubscribe()
+    if errors:
+        raise errors[0]
+    pts = [ts for ts, _ in opsplane.series("heat_tpu_fusion_forces_total", {}) if ts >= t_start]
+    gaps = np.diff(pts) if len(pts) > 1 else np.asarray([math.inf])
+    out.update({"series_points": len(pts), "series_gap_median_s": float(np.median(gaps)),
+                "edges": [(round(t - edges[0][0], 3), m, tn, r) for t, m, tn, r in edges if tn == "*"] if edges else []})
+    print(f"  burn: alert after {out['to_alert_s']:.2f} s, gauge 1 {out['gauge']}, /healthz {out['healthz_alerting']}, "
+          f"{out['slo_burn_events']} slo_burn event(s); ops check exit {out['ops_check_rc']} "
+          f"({out['ops_check']}); lifted, cleared after {out['to_clear_s']:.2f} s with "
+          f"{out['slo_burn_clear_events']} slo_burn_clear event(s), /healthz {out['healthz_after']}; "
+          f"heat_tpu_fusion_forces_total {out['series_points']} points, median gap {out['series_gap_median_s']:.3f} s",
+          flush=True)
+    if not (out["alert"] and out["gauge"] and out["healthz_alerting"] == 503 and out["slo_burn_events"] >= 1
+            and out["ops_check_rc"] == 1 and out["cleared"] and out["to_clear_s"] <= OT_BURN["fast_s"]
+            and out["slo_burn_clear_events"] >= 1 and out["healthz_after"] == 200
+            and abs(out["series_gap_median_s"] - OT_INTERVAL_S) <= 0.5 * OT_INTERVAL_S):
+        raise AssertionError(f"ops_trace: the burn alert: {out}")
+    return out
+
+
+def ops_trace_path(ht, smi: str) -> dict:
+    """Phase 21: the trace analyzer and the live ops plane on the card;
+    returns its numbers."""
+    import torch
+
+    from heat_tpu_torch.core import fusion, opsplane, serving
+    from heat_tpu_torch.core import health_runtime as hr
+    from heat_tpu_torch.core import numlens as nl
+    from heat_tpu_torch.core import telemetry as tel
+    from heat_tpu_torch.core import tracelens as tl
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 21 needs CUDA")
+    numbers = {"card": smi, "seconds": {}}
+    t0, builds = time.perf_counter(), _fu_unique_graphs()
+    tmp = tempfile.mkdtemp(prefix="heat_ops_trace_")
+    clis = {name: _OtCli(tmp, name) for name in ("analyze", "check", "alert")}
+    prev_mode = tel.set_mode(2)
+    try:
+        x, init = kmeans_table(ht)
+        gen = torch.Generator(device="cuda")
+        tables = [ht.array(torch.randn(N, F, generator=gen.manual_seed(SEED + 300 + i), device="cuda"), split=0)
+                  for i in range(NS_TENANTS)]
+        lap = time.perf_counter()
+        numbers["ops"] = ot_ops_phase(ht, tel, fusion, serving, opsplane, hr, tables, {"x": x, "init": init}, tmp,
+                                      clis)
+        numbers["seconds"]["ops"] = time.perf_counter() - lap
+        del tables
+        torch.cuda.empty_cache()
+        lap = time.perf_counter()
+        b = ht.array(torch.randn(N, F, generator=gen.manual_seed(SEED + 21), device="cuda"), split=0)
+        numbers["analyzer"] = ot_analyzer_phase(ht, tel, fusion, tl, hr, x, b, tmp, clis["analyze"])
+        numbers["seconds"]["analyzer"] = time.perf_counter() - lap
+        del b
+        lap = time.perf_counter()
+        numbers["detectors"] = ot_detectors_phase(ht, tel, tl, nl, x)
+        numbers["seconds"]["detectors"] = time.perf_counter() - lap
+        lap = time.perf_counter()
+        numbers["fit"] = ot_fit_phase(ht, tel, tl, x, init)
+        numbers["seconds"]["fit"] = time.perf_counter() - lap
+    finally:
+        for cli in clis.values():
+            cli.stop()
+        tel.set_mode(prev_mode)
+        tel.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["seconds"]["all"] = time.perf_counter() - t0
+    numbers["inductor_builds"] = _fu_unique_graphs() - builds
+    print(f"phase 21: {numbers['seconds']['all']:.1f} s, {numbers['inductor_builds']} Inductor builds "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in numbers['seconds'].items() if k != 'all')})", flush=True)
+    return numbers
+
+
 def recorded_path(fusion, paths: dict, label: str, fn, off=None):
     """Run one path with the recorder on, as a user gets the package: its
     seconds, programs (cache misses), Inductor builds (Dynamo graphs),
@@ -7292,6 +8022,7 @@ def main() -> int:
     collectives = run("fused_collectives", lambda: fused_collectives_path(ht, smi))
     collectives["four_shard_launches"] = four_shard_paths(ht, paths)
     serving_numbers = run("numerics_serving", lambda: numerics_serving_path(ht, smi))
+    ops_trace = run("ops_trace", lambda: ops_trace_path(ht, smi))
     for entry, name in ((kernels[0], "lloyd"), (kernels[2], "pairwise")):
         entry["launches_four_shard_paths"] = sum(v[name] for v in collectives["four_shard_launches"].values())
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
@@ -7316,6 +8047,8 @@ def main() -> int:
     kernels[1]["launches_ledger_step"] = health["lm"]["launches"]
     kernels[0]["launches_serving_fit"] = serving_numbers["sessions"]["fit"]["launches"]
     kernels[1]["launches_numlens_step"] = serving_numbers["training"]["full"]["launches"][-1]
+    kernels[0]["launches_tracelens_fit"] = ops_trace["fit"]["launches"]
+    kernels[0]["launches_scraped_fit"] = ops_trace["ops"]["scraped"]["legs"]["scraped"]["fit_launches"]
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
@@ -7329,6 +8062,7 @@ def main() -> int:
     print("fusion: " + json.dumps(fusion))
     print("fused_collectives: " + json.dumps(collectives))
     print("numerics_serving: " + json.dumps(serving_numbers, default=str))
+    print("ops_trace: " + json.dumps(ops_trace, default=str))
     for label, numbers in off.items():
         print(f"{label}: " + json.dumps(numbers))
     print("paths: " + json.dumps(paths))

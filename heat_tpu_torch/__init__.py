@@ -29,6 +29,7 @@ from .core import (
     manipulations,
     memory,
     numlens,
+    opsplane,
     printing,
     relational,
     resilience,
@@ -40,6 +41,7 @@ from .core import (
     stride_tricks,
     telemetry,
     tiling,
+    tracelens,
     trigonometrics,
     types,
     version,

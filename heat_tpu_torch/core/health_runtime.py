@@ -37,8 +37,8 @@ watchdog and streaming latency histograms with rolling SLO gauges
   each wait into a pass or a breach over a rolling window
   (``HEAT_TPU_SLO_WINDOW_S``); a breach lands on the ring. The fusion
   recorder's dispatches feed two more tables through :func:`note_dispatch`,
-  keyed by program key: ``compile`` (the call of a fresh program, which
-  builds it) and ``dispatch`` (from the call to the blocking sync that
+  keyed by program key and capped at the 64 most recent keys (LRU):
+  ``compile`` (the call of a fresh program, which builds it) and ``dispatch`` (from the call to the blocking sync that
   waited on its chain), with their SLOs ``HEAT_TPU_SLO_COMPILE_MS`` and
   ``HEAT_TPU_SLO_DISPATCH_MS``. A fused dispatch is a guarded site
   (``dispatch``), and a stall's diagnosis names the in-flight program and
@@ -46,7 +46,8 @@ watchdog and streaming latency histograms with rolling SLO gauges
 * **Auto-dumps.** A degraded fused program (``degrade``), a memory
   exhaustion (``oom``) and a watchdog trip under ``dump``/``raise`` dump
   the ring, throttled per reason; the bundle carries the recorder's cache
-  counters under ``programs``.
+  counters under ``programs`` and ``tracelens``'s diagnosis of the ring
+  under ``diagnosis``.
 
 The port counts every host read as a blocking sync (the reference counts
 only a pending chain's), so its ``sync`` histograms fill where the
@@ -209,8 +210,9 @@ def dump_flight(path: Optional[str] = None, reason: str = "manual") -> Dict[str,
     """Export the ring as a Chrome/Perfetto trace (``<base>.trace.json``)
     checked by ``telemetry.validate_trace``, and a JSON bundle
     (``<base>.json``): the watchdog's state and stall diagnoses, the latency
-    and SLO picture, the memory watermark and the numerics lens's findings,
-    drift ledger and canary. Module state and metadata
+    and SLO picture, the memory watermark, ``tracelens``'s one-page
+    diagnosis of the ring and the numerics lens's findings, drift ledger and
+    canary. Module state and metadata
     only. Returns ``{"path", "trace_path", "problems"}``, ``problems`` being
     ``validate_trace``'s findings (empty for a well-formed dump)."""
     global _DUMP_COUNT, _LAST_DUMP
@@ -247,8 +249,14 @@ def dump_flight(path: Optional[str] = None, reason: str = "manual") -> Dict[str,
             "last_oom": memledger.last_oom(),
         },
     }
-    from . import numlens
+    from . import numlens, tracelens
 
+    try:
+        # the one-page verdict over the ring's window (a ring is partial by
+        # construction): a bundle ships a diagnosis, not just raw events
+        bundle["diagnosis"] = tracelens.diagnose(evs)
+    except Exception as exc:  # noqa: BLE001 - forensics never fail the dump
+        bundle["diagnosis"] = {"error": repr(exc)}
     # the value plane beside the runtime's: the numeric findings (SDC hits,
     # drift breaches, nonfinite provenance), the drift ledger and the canary
     bundle["numerics"] = {
@@ -352,6 +360,10 @@ class _Hist:
         }
 
 
+#: distinct per-program rows kept in the ``dispatch`` and ``compile``
+#: tables (LRU; the '*' overall row is a slot of its own and never evicted):
+#: a long-running server with many program keys keeps a bounded picture
+_PROGRAM_CAP = 64
 _METRICS = ("sync", "dispatch", "compile")
 
 
@@ -369,8 +381,8 @@ class _HState:
     def clear(self) -> None:
         self.overall: Dict[str, _Hist] = {m: _Hist() for m in _METRICS}
         self.sync: Dict[str, _Hist] = {}
-        self.dispatch: Dict[str, _Hist] = {}
-        self.compile: Dict[str, _Hist] = {}
+        self.dispatch: "OrderedDict[str, _Hist]" = OrderedDict()
+        self.compile: "OrderedDict[str, _Hist]" = OrderedDict()
 
 
 def _merge_hstate(dst: _HState, src: _HState) -> None:
@@ -439,9 +451,10 @@ def _pop_scope(path: str) -> None:
 
 def _observe(metric: str, key: Optional[str], v: float) -> None:
     """Fold one latency sample into every active state (the '*' overall row
-    and the row of ``key``, the sync trigger) and the SLO window. Host
-    reads on several threads share the global tables: the lock keeps each
-    fold whole."""
+    and the row of ``key``, the sync trigger or the program key) and the
+    SLO window. The program tables keep their :data:`_PROGRAM_CAP` most
+    recently observed keys. Host reads on several threads share the global
+    tables: the lock keeps each fold whole."""
     with _H_LOCK:
         for st in _h_states():
             st.overall[metric].observe(v)
@@ -451,6 +464,11 @@ def _observe(metric: str, key: Optional[str], v: float) -> None:
             h = table.get(key)
             if h is None:
                 h = table[key] = _Hist()
+                if metric != "sync":
+                    while len(table) > _PROGRAM_CAP:
+                        table.popitem(last=False)
+            elif metric != "sync":
+                table.move_to_end(key)
             h.observe(v)
     _slo_observe(metric, v)
 

@@ -29,6 +29,9 @@ site                     where it fires
 ``numeric.sdc.<index>``  the numerics lens's canary on the mesh device of
                          that index (``core/numlens.run_canary``): the
                          device is reported as returning wrong bits
+``trace.hostdelay``      each collective record of ``core/telemetry``,
+                         which sleeps ``HEAT_TPU_TRACE_DELAY_MS`` instead
+                         of raising: one slow host for ``tracelens``
 =======================  ==================================================
 
 :func:`inject` arms a site for a block::

@@ -73,8 +73,17 @@ sessions, ``core/serving.py``'s ``serving`` block. The lens's ``numeric``
 timeline events export as instants, its sampled statistics also as
 Perfetto counter tracks beside the memory ledger's.
 
-Not here yet: the elastic, autoscale and multi-process blocks of
-``report()``. Their modules come with later parts of the port.
+``_ELASTIC_HOOK``, ``_AUTOSCALE_HOOK`` and ``_MULTIHOST_HOOK`` are the
+slots of the elastic supervisor, the autoscale controller and the
+multi-process runtime: ``report()`` joins each as its block and the ops
+plane (``core/opsplane.py``) exports their gauges. They stay None until
+those modules come with later parts of the port. :func:`reset` clears the
+ops plane's series and alerts too.
+
+``record_collective`` and ``record_fused_collective`` carry the
+``trace.hostdelay`` fault site: while it is armed each record sleeps
+``HEAT_TPU_TRACE_DELAY_MS`` (20), one slow host for ``core/tracelens.py``'s
+straggler attribution to name.
 """
 
 from __future__ import annotations
@@ -83,6 +92,7 @@ import atexit
 import json
 import os
 import re
+import sys
 import threading
 import time
 import warnings
@@ -224,6 +234,15 @@ _SYNC_HOOK = None
 #: holding each root's shard tensors. None while the lens is off, so the
 #: dispatch seam pays one attribute read.
 _NUMLENS_HOOK = None
+
+#: the stats hooks of the elastic supervisor, the autoscale controller and
+#: the multi-process runtime (reference ``core/elastic.py``,
+#: ``core/autoscale.py``, ``core/multihost.py``), installed by those modules
+#: at import: ``report()`` joins each as its block and ``core/opsplane.py``
+#: exports their gauges. None until the port has those modules.
+_ELASTIC_HOOK = None
+_AUTOSCALE_HOOK = None
+_MULTIHOST_HOOK = None
 
 
 def active() -> bool:
@@ -441,7 +460,9 @@ def reset() -> None:
     joins: the ``utils.profiling`` timer registry, the memory ledger's
     watermark, the health layer's ring, histograms, SLO windows and stall
     log, the numerics lens's statistics, drift ledger, canary, training
-    streams and findings, and the serving layer's exited sessions. The mode and the other modules' settings are kept; active
+    streams and findings, the serving layer's exited sessions and the ops
+    plane's series, burn alerts and scrape counts. The mode and the other
+    modules' settings (an armed ops server among them) are kept; active
     scopes and spans keep recording."""
     global _DROP_WARNED
     _DROP_WARNED = False
@@ -456,10 +477,11 @@ def reset() -> None:
     profiling.reset()
     memledger.reset()
     health_runtime.reset()
-    from . import numlens, serving
+    from . import numlens, opsplane, serving
 
     numlens.reset()
     serving.reset()
+    opsplane.reset()
 
 
 # ----------------------------------------------------------------------
@@ -649,6 +671,27 @@ def record_collective_operand(op: str, axis: Optional[str], x, count: int = 1) -
     record_collective(op, axis, total, dtype, count)
 
 
+#: the sleep per recorded collective while the ``trace.hostdelay`` fault
+#: site is armed in this process
+_TRACE_DELAY_S = float(os.environ.get("HEAT_TPU_TRACE_DELAY_MS", "20")) / 1e3
+
+
+def _maybe_host_delay() -> None:
+    """The ``trace.hostdelay`` fault site, the straggler seam: while
+    injection arms it in this process, every collective record sleeps
+    ``HEAT_TPU_TRACE_DELAY_MS`` before its event is stamped, one slow host
+    whose growing lag ``tracelens`` must name. The resilience module is
+    looked up in ``sys.modules`` (it imports this one), so an idle injector
+    costs one dict probe and one attribute read."""
+    res = sys.modules.get("heat_tpu_torch.core.resilience")
+    if res is None or not getattr(res, "_ARMED", False):
+        return
+    try:
+        res.check("trace.hostdelay")
+    except Exception:  # noqa: BLE001 - the raised fault is the trigger
+        time.sleep(_TRACE_DELAY_S)
+
+
 def record_collective(
     op: str,
     axis: Optional[str] = None,
@@ -661,6 +704,7 @@ def record_collective(
     linear-algebra schedules call this. No-op when off."""
     if not _MODE:
         return
+    _maybe_host_delay()
     for st in _states():
         rec = st.collectives.get(op)
         if rec is None:
@@ -967,6 +1011,7 @@ def record_fused_collective(kind: str, cid: Optional[int] = None, detail: Option
     target split, a matmul's split pair) rides the timeline event only."""
     if not _MODE:
         return
+    _maybe_host_delay()
     for st in _states():
         st.fused_collectives[kind] = st.fused_collectives.get(kind, 0) + 1
     _note_event("fused_collective", op=kind, cid=cid, detail=detail)
@@ -1266,6 +1311,12 @@ def report(*, _state: Optional[_State] = None) -> Dict[str, Any]:
     doc["numerics"] = numlens.numerics_block()
     if serving._SESSIONS:
         doc["serving"] = serving.sessions_block()
+    for name, hook in (("elastic", _ELASTIC_HOOK), ("autoscale", _AUTOSCALE_HOOK), ("multihost", _MULTIHOST_HOOK)):
+        if hook is not None:
+            try:
+                doc[name] = hook()
+            except Exception:  # noqa: BLE001 - the report never fails
+                pass
     if _MODE >= 2:
         doc["events"] = list(st.events)
     return doc
@@ -1651,6 +1702,9 @@ class _MetricsSink:
                 from . import serving
 
                 doc["serving"] = serving.sessions_block()
+            for name, hook in (("elastic", _ELASTIC_HOOK), ("autoscale", _AUTOSCALE_HOOK)):
+                if name not in doc:
+                    doc[name] = {} if hook is None else hook()
             line = json.dumps(_jsonable({"ts": time.time(), "event": event, "report": doc}), default=str)
             with open(self.path, "a") as fh:
                 fh.write(line + "\n")

@@ -15,11 +15,17 @@ exported Chrome/Perfetto trace files:
     $ python -m heat_tpu_torch.telemetry health flight_dump.json
     $ python -m heat_tpu_torch.telemetry numerics               # the numerics lens
     $ python -m heat_tpu_torch.telemetry sessions report.json   # the serving layer
+    $ python -m heat_tpu_torch.telemetry analyze trace.json --against base.json
+    $ python -m heat_tpu_torch.telemetry ops check --port 9100  # a live ops plane
+
+``analyze`` exits 0 on a clean window, 1 on a warning or error finding or a
+regression against ``--against``, 2 on input it cannot read or a truncated
+window (unless ``--allow-partial``); ``ops check`` exits 1 unless
+``/metrics`` validates and ``/healthz`` answers 200.
 
 The state lives in :mod:`heat_tpu_torch.core.telemetry`; this module proxies
 its names (``heat_tpu_torch.telemetry.report`` and the rest) so that the
-command line has a stable ``-m`` entry point. The reference's ``analyze``
-and ``ops`` commands come with the modules they read.
+command line has a stable ``-m`` entry point.
 """
 
 from __future__ import annotations
@@ -478,6 +484,149 @@ def _show_sessions(doc: Dict[str, Any], out) -> None:
 
 
 # ----------------------------------------------------------------------
+# ops: scrape, check or serve a live ops plane
+# ----------------------------------------------------------------------
+def _ops_base(args) -> str:
+    if args.url:
+        return args.url.rstrip("/")
+    if args.port is None:
+        raise SystemExit("ops: pass --url or --port to reach a live endpoint")
+    return f"http://{args.host}:{int(args.port)}"
+
+
+def _ops_get(url: str, timeout: float):
+    """One GET: ``(status, body)``; an HTTP error status is a result to
+    report, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read().decode("utf-8", "replace")
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode("utf-8", "replace")
+
+
+def _ops_scrape(args, out) -> int:
+    url = _ops_base(args) + args.path
+    try:
+        code, body = _ops_get(url, args.timeout)
+    except OSError as exc:
+        print(f"ERROR: {url}: {exc}", file=out)
+        return 1
+    print(body, end="" if body.endswith("\n") else "\n", file=out)
+    return 0 if code == 200 else 1
+
+
+def _ops_check(args, out) -> int:
+    """The strict check of a live endpoint: ``/metrics`` validates as an
+    exposition (types, HELP lines, no duplicate sample, only the schema's
+    names) and ``/healthz`` answers 200."""
+    from heat_tpu_torch.core import opsplane
+
+    base = _ops_base(args)
+    rc = 0
+    try:
+        code, text = _ops_get(base + "/metrics", args.timeout)
+    except OSError as exc:
+        print(f"ERROR: {base}/metrics: {exc}", file=out)
+        return 1
+    if code != 200:
+        print(f"FAIL: /metrics answered {code}", file=out)
+        return 1
+    problems = opsplane.validate_exposition(text)
+    names = {line.split("{")[0].split()[0] for line in text.splitlines() if line and not line.startswith("#")}
+    known = set(opsplane.SCHEMA)
+    for name, spec in opsplane.SCHEMA.items():
+        if spec[0] == "histogram":
+            known.update(name + s for s in ("_bucket", "_sum", "_count"))
+    for name in sorted(names - known):
+        problems.append(f"unschema'd metric name {name!r} (doc/metrics_schema.json)")
+    if problems:
+        for p in problems[:20]:
+            print(f"INVALID: {p}", file=out)
+        rc = 1
+    else:
+        samples = sum(1 for ln in text.splitlines() if ln and not ln.startswith("#"))
+        print(f"OK: /metrics parses as Prometheus exposition ({len(names)} families, {samples} samples)", file=out)
+    try:
+        code, body = _ops_get(base + "/healthz", args.timeout)
+    except OSError as exc:
+        print(f"ERROR: {base}/healthz: {exc}", file=out)
+        return 1
+    if code == 200:
+        print("OK: /healthz answers 200", file=out)
+    else:
+        print(f"FAIL: /healthz answered {code}: {body.strip()[:200]}", file=out)
+        rc = 1
+    return rc
+
+
+def _ops_serve(args, out) -> int:
+    """Arm this process's ops plane and block until interrupted: a scrape
+    target for checking the wiring (an idle process exports mostly zeros)."""
+    import time
+
+    from heat_tpu_torch.core import opsplane
+
+    try:
+        port = opsplane.serve(port=args.port, host=args.host)
+    except ValueError as exc:
+        print(f"ERROR: {exc}", file=out)
+        return 2
+    print(f"ops plane listening on http://{args.host}:{port}", file=out, flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        opsplane.shutdown()
+    return 0
+
+
+# ----------------------------------------------------------------------
+# analyze
+# ----------------------------------------------------------------------
+def _analyze(args, out) -> int:
+    from heat_tpu_torch.core import tracelens
+
+    try:
+        analysis = tracelens.analyze(args.trace, allow_partial=args.allow_partial)
+    except tracelens.TraceIncompleteError as exc:
+        print(f"REFUSED: {exc}", file=out)
+        return 2
+    except (ValueError, OSError) as exc:
+        print(f"ERROR: {exc}", file=out)
+        return 2
+    delta = None
+    if args.against is not None:
+        try:
+            baseline = tracelens.load_analysis(args.against)
+        except (ValueError, OSError) as exc:
+            print(f"ERROR: cannot load baseline: {exc}", file=out)
+            return 2
+        delta = tracelens.diff(baseline, analysis)
+    if args.json:
+        doc = dict(analysis)
+        if delta is not None:
+            doc["against"] = delta
+        print(json.dumps(_core._jsonable(doc), indent=2, sort_keys=True), file=out)
+    else:
+        print(tracelens.render(analysis), file=out)
+        if delta is not None:
+            shifts = delta["bucket_shifts_pts"]
+            if shifts:
+                print("vs baseline (bucket shifts, pts):", file=out)
+                for bucket, pts in sorted(shifts.items(), key=lambda kv: -abs(kv[1])):
+                    print(f"  {bucket:<16} {pts:+.2f}", file=out)
+            for f in delta["new_findings"]:
+                print(f"NEW [{f.get('severity', '?')}] {f.get('rule')}: {f.get('message')}", file=out)
+            for r in delta["regressions"]:
+                print(f"REGRESSION: {r}", file=out)
+    gate = any(f.get("severity") in ("error", "warning") for f in analysis["findings"])
+    return 1 if gate or (delta is not None and not delta["ok"]) else 0
+
+
+# ----------------------------------------------------------------------
 # diff
 # ----------------------------------------------------------------------
 def _flatten_numeric(doc, prefix="") -> Dict[str, float]:
@@ -521,7 +670,8 @@ def main(argv: Optional[List[str]] = None, out=None) -> int:
     out = out if out is not None else sys.stdout
     parser = argparse.ArgumentParser(
         prog="python -m heat_tpu_torch.telemetry",
-        description="Pretty-print/diff heat_tpu_torch telemetry reports and validate trace files.",
+        description="Pretty-print/diff heat_tpu_torch telemetry reports, analyze and validate trace files, and "
+        "check a live ops plane.",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_show = sub.add_parser("show", help="pretty-print a report_json artifact")
@@ -566,6 +716,35 @@ def main(argv: Optional[List[str]] = None, out=None) -> int:
         "report", nargs="?", default=None, help="a report_json artifact; omitted = this process's live serving block",
     )
     p_sess.add_argument("--json", action="store_true", help="emit JSON instead of text")
+    p_ana = sub.add_parser(
+        "analyze",
+        help="tracelens's diagnosis of a trace: time per bucket, the critical path, cross-host stragglers and "
+        "findings; exit 1 on a warning or error finding or a regression against --against",
+    )
+    p_ana.add_argument(
+        "trace", nargs="?", default=None,
+        help="an export_trace/merge_traces file; omitted = this process's live verbose timeline",
+    )
+    p_ana.add_argument(
+        "--against", default=None,
+        help="the baseline: a saved `analyze --json` output or another trace file (bucket shifts, new findings, "
+        "critical-path growth; a regression exits 1)",
+    )
+    p_ana.add_argument("--json", action="store_true", help="emit JSON instead of text")
+    p_ana.add_argument(
+        "--allow-partial", action="store_true",
+        help="analyze a window with dropped events anyway (refused with exit 2 otherwise)",
+    )
+    p_ops = sub.add_parser(
+        "ops",
+        help="the live ops plane: scrape a route, check /metrics and /healthz strictly, or serve this process's plane",
+    )
+    p_ops.add_argument("action", choices=("scrape", "check", "serve"))
+    p_ops.add_argument("--url", default=None, help="the endpoint's base URL (overrides --host/--port)")
+    p_ops.add_argument("--host", default="127.0.0.1")
+    p_ops.add_argument("--port", type=int, default=None)
+    p_ops.add_argument("--path", default="/metrics", help="the route of 'scrape' (default /metrics)")
+    p_ops.add_argument("--timeout", type=float, default=10.0)
     p_val = sub.add_parser("validate-trace", help="check a Chrome/Perfetto trace-event JSON file")
     p_val.add_argument("trace", help="path to an export_trace/merge_traces output")
     p_val.add_argument(
@@ -601,6 +780,10 @@ def main(argv: Optional[List[str]] = None, out=None) -> int:
         else:
             show(doc, out)
         return 0
+    if args.cmd == "ops":
+        return {"scrape": _ops_scrape, "check": _ops_check, "serve": _ops_serve}[args.action](args, out)
+    if args.cmd == "analyze":
+        return _analyze(args, out)
     problems = _core.validate_trace(args.trace, cross_host=args.cross_host)
     if problems:
         for p in problems[:20]:

@@ -291,6 +291,7 @@ MODULES = (
     "_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset",
     "core.version", "core.telemetry", "core.resilience", "utils.profiling", "telemetry",
     "core.memledger", "core.health_runtime", "utils.health", "core.fusion", "core.numlens", "core.serving",
+    "core.tracelens", "core.opsplane",
 )
 
 
@@ -319,19 +320,30 @@ REQUIRED_KNOBS = {
         "HEAT_TPU_ADMISSION_RATE", "HEAT_TPU_ADMISSION_BURST", "HEAT_TPU_ADMISSION_POLICY",
         "HEAT_TPU_PROGRAM_CACHE_DIR",
     },
+    "core/telemetry.py": {"HEAT_TPU_TRACE_DELAY_MS"},
+    "core/tracelens.py": {
+        "HEAT_TPU_TRACELENS_SYNC_STORM_K", "HEAT_TPU_TRACELENS_RETRACE_K", "HEAT_TPU_TRACELENS_IDLE_GAP_MS",
+        "HEAT_TPU_TRACELENS_STRAGGLER_MS",
+    },
+    "core/opsplane.py": {
+        "HEAT_TPU_OPS_PORT", "HEAT_TPU_OPS_HOST", "HEAT_TPU_OPS_INTERVAL_S", "HEAT_TPU_OPS_RETAIN",
+        "HEAT_TPU_SLO_TARGET", "HEAT_TPU_SLO_FAST_S", "HEAT_TPU_SLO_SLOW_S", "HEAT_TPU_SLO_BURN",
+        "HEAT_TPU_SLO_BURN_MIN",
+    },
 }
 
 
 @pytest.mark.parametrize(
     "module", ["core/memledger.py", "core/health_runtime.py", "utils/health.py", "core/fusion.py", "core/telemetry.py",
-               "core/numlens.py", "core/serving.py"]
+               "core/numlens.py", "core/serving.py", "core/tracelens.py", "core/opsplane.py"]
 )
 def test_runtime_modules_read_only_the_references_knobs(module):
     """Every HEAT_TPU_* variable a runtime module of the port reads is one
     the reference module of the same name reads: no knob of the port's own.
     The recorder reads the knobs of its collective half too (its collective
-    nodes and root batching); the numerics lens and the serving layer read
-    every knob of theirs."""
+    nodes and root batching); the numerics lens, the serving layer, the
+    trace analyzer and the ops plane read every knob of theirs, telemetry
+    the straggler seam's delay."""
     mine = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu_torch" / module).read_text()))
     theirs = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu" / module).read_text()))
     assert mine <= theirs, sorted(mine - theirs)

@@ -40,6 +40,7 @@ from heat_tpu.core import health_runtime as ref_hr
 from heat_tpu.core import memledger as ref_ml
 from heat_tpu.core import resilience as ref_res
 from heat_tpu.core import telemetry as ref_tel
+from heat_tpu.core import tracelens as ref_tl
 from heat_tpu.core.communication import MeshCommunication as RefMesh
 from heat_tpu_torch.core import health_runtime as hr
 from heat_tpu_torch.core import resilience as res
@@ -172,8 +173,12 @@ def test_manual_dumps_validate_in_both_packages(tmp_path):
         bundle = json.load(fh)
     with open(dumps[1]["path"]) as fh:
         ref_bundle = json.load(fh)
-    # the reference's keys less the diagnosis, which comes with tracelens
-    assert set(bundle) == set(ref_bundle) - {"diagnosis"}
+    assert set(bundle) == set(ref_bundle)
+    # the reference's ring is empty here (only the port recorded), so its
+    # diagnosis is an error; the port's has the keys of the reference's
+    # diagnosis of a window
+    assert "error" in ref_bundle["diagnosis"] and "error" not in bundle["diagnosis"]
+    assert set(bundle["diagnosis"]) == set(ref_tl.diagnose([{"kind": "collective", "ts": 0.0}]))
     assert set(bundle["numerics"]) == set(ref_bundle["numerics"]) == {"findings", "drift", "canary"}
     assert bundle["reason"] == "manual" and bundle["trace_problems"] == [] and bundle["events"] > 0
     assert set(bundle["memory"]) == set(ref_bundle["memory"]) == {"watermark", "budget", "last_oom"}
@@ -348,6 +353,27 @@ def test_observed_waits_render_the_same_tables():
     assert mine["dispatch"] == theirs["dispatch"] == {"*": {"count": 0}}
     assert mine["compile"] == theirs["compile"] == {"*": {"count": 0}}
     assert set(mine) == set(theirs)
+
+
+@pytest.mark.parametrize("metric", ["dispatch", "compile"])
+def test_program_tables_keep_the_references_lru_cap(metric):
+    """Fault C18 of ROADMAP queue C: the per-program tables keep the
+    reference's :data:`_PROGRAM_CAP` = 64 most recent keys, LRU, and the
+    ``sync`` table stays uncapped. The same 70 keys in the same order, then
+    a hit on the oldest survivor, leave the same 64 keys plus '*' in the
+    same order in both packages."""
+    waits = np.random.default_rng(SEED).lognormal(mean=-6.0, sigma=1.0, size=72)
+    keys = [f"prog{i:02d}" for i in range(70)] + ["prog06", "prog69"]
+    for mod, _, _ in PACKAGES:
+        assert mod._PROGRAM_CAP == 64
+        for key, w in zip(keys, waits):
+            mod._observe(metric, key, float(w))
+            mod._observe("sync", key, float(w))
+    mine, theirs = hr.health_block(), ref_hr.health_block()
+    assert list(mine[metric]) == list(theirs[metric]) == ["*"] + [f"prog{i:02d}" for i in range(7, 69)] + ["prog06", "prog69"]
+    assert mine[metric] == theirs[metric]
+    assert mine[metric]["*"]["count"] == 72 and mine[metric]["prog69"]["count"] == 2
+    assert len(mine["sync"]) == len(theirs["sync"]) == 71, "the sync table is not capped"
 
 
 def test_host_reads_fill_the_sync_histograms():

@@ -15,8 +15,9 @@ program's output differ from its replay by a known number of ULP; the
 natural drift (Inductor's code against the plain module) is read on the
 card by ``chip_smoke.py``'s phase 20.
 
-Waits for a later part of the port: ``test_tracelens_diagnose_*``
-(tests/test_numlens.py:572-609) come with ``tracelens`` (ROADMAP A11.6).
+The lens's events read by the trace analyzer
+(``test_tracelens_diagnose_*``, tests/test_numlens.py:572-609) are held
+against heat_tpu's ``tracelens.diagnose`` on the same events.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ import heat_tpu_torch as ht
 from heat_tpu.core import numlens as ref_nl
 from heat_tpu.core import resilience as ref_res
 from heat_tpu.core import telemetry as ref_tel
+from heat_tpu.core import tracelens as ref_tl
 from heat_tpu.core.communication import MeshCommunication as RefMesh
-from heat_tpu_torch.core import fusion, health_runtime, numlens, resilience, telemetry
+from heat_tpu_torch.core import fusion, health_runtime, numlens, resilience, telemetry, tracelens
 from heat_tpu_torch.core.communication import MeshCommunication
 from heat_tpu_torch.utils.interop import mlp_from_flax
 from test_torch_parity import on_cpu  # noqa: F401
@@ -677,8 +679,7 @@ def test_errstate_nonfinite_names_the_producing_program():
 
 
 def test_flight_bundle_embeds_numeric_findings(tmp_path):
-    """tests/test_numlens.py:551 (the bundle's ``diagnosis`` comes with
-    tracelens)."""
+    """tests/test_numlens.py:551."""
     prev_flight = health_runtime.set_flight(True, 256)
     prev_dir = health_runtime.set_dump_dir(str(tmp_path))
     try:
@@ -688,9 +689,46 @@ def test_flight_bundle_embeds_numeric_findings(tmp_path):
             bundle = json.load(fh)
         assert "numlens.sdc" in [f.get("rule") for f in bundle["numerics"]["findings"]]
         assert "drift" in bundle["numerics"] and "canary" in bundle["numerics"]
+        assert "diagnosis" in bundle and "error" not in bundle["diagnosis"]
     finally:
         health_runtime.set_dump_dir(prev_dir)
         health_runtime.set_flight(prev_flight[0], prev_flight[1])
+
+
+def test_tracelens_diagnose_surfaces_sdc_and_drift():
+    """tests/test_numlens.py:572: an SDC event is an error naming the
+    device, a drift past the threshold a warning; the same events give the
+    reference's findings."""
+    evs = [
+        {"kind": "dispatch", "ts": 0.0, "cid": 1, "cids": [1], "roots": 1, "program": "p1"},
+        {"kind": "blocking_sync", "ts": 0.0, "cid": 1, "dur": 0.1, "where": "item"},
+        {"kind": "numeric", "ts": 0.02, "event": "sdc", "device": "cpu:3", "index": 3, "why": "bitwise mismatch"},
+        {"kind": "numeric", "ts": 0.03, "event": "drift", "program": "p1", "family": "sum", "p50_ulp": 4,
+         "max_ulp": 4096},
+        {"kind": "numeric", "ts": 0.04, "event": "stats", "program": "p1", "root": 0, "rms": 1.0, "absmax": 2.0,
+         "nonfinite": 0},
+    ]
+    diag = tracelens.diagnose(evs)
+    assert {f["rule"] for f in diag["findings"]} >= {"tracelens.sdc", "tracelens.numeric_drift"}
+    sdc = next(f for f in diag["findings"] if f["rule"] == "tracelens.sdc")
+    assert "cpu:3" in sdc["message"] and sdc["severity"] == "error"
+    assert diag["findings"] == ref_tl.diagnose(evs)["findings"]
+
+
+def test_tracelens_stays_silent_on_plain_stats():
+    """tests/test_numlens.py:593: plain statistics and a drift under the
+    threshold give no numeric finding, in both analyzers."""
+    evs = [
+        {"kind": "dispatch", "ts": 0.0, "cid": 1, "cids": [1], "roots": 1, "program": "p1"},
+        {"kind": "blocking_sync", "ts": 0.0, "cid": 1, "dur": 0.01, "where": "item"},
+        {"kind": "numeric", "ts": 0.02, "event": "stats", "program": "p1", "root": 0, "rms": 1.0, "absmax": 2.0,
+         "nonfinite": 0},
+        {"kind": "numeric", "ts": 0.03, "event": "drift", "program": "p1", "family": "sum", "p50_ulp": 0,
+         "max_ulp": 1},
+    ]
+    for diagnose in (tracelens.diagnose, ref_tl.diagnose):
+        rules = [f for f in diagnose(evs)["findings"] if f["rule"] in ("tracelens.sdc", "tracelens.numeric_drift")]
+        assert rules == []
 
 
 # ---------------------------------------------------------------------------
