@@ -292,7 +292,22 @@ collective nodes.
    the sync storm, retrace storm, resplit ping-pong (four shards) and
    injected SDC detectors, each in its own window; the fit's buckets
    beside the profiler's busy share;
-22. print the phase-9 to 21 numbers with the card, the collectives-off and
+22. the multi-process runtime (no kernel of its own; the fit across two
+   processes runs the Lloyd kernel): a one-process NCCL world on the card,
+   each verb of the process-spanning mesh against the in-process mesh bit
+   for bit, a named barrier, a hung barrier's ``StallError``, the report's
+   multihost block and the ops plane's peer gauges; one attempt at a
+   two-rank NCCL world on the one card, with NCCL's answer printed; the
+   lstsq trainer in two processes on the card over gloo (and over NCCL
+   where it accepts two ranks), clean against one process (rtol 1e-5) and
+   numpy's float64 descent, rank 1 SIGKILLed at step 3 (one reform into a
+   world of one under epoch 1, the final w within 1e-5 of the clean run,
+   at most 2 steps replayed) and rank 1 hung at step 3 (detected, reaped,
+   its generation under 60 s); config 3's fit across two processes, 30
+   Lloyd launches in each, centers, inertia and labels equal bit for bit
+   to the one-process fit of the same two shards, ms per iteration and
+   the cross-process allreduce's beside that fit's;
+23. print the phase-9 to 22 numbers with the card, the collectives-off and
    recorder-off legs of phases 9, 12 and 13, each path's seconds and
    program builds, the card's name and power limit, one JSON line of
    per-kernel numbers, and the result line ``{"ok": true, "device":
@@ -7905,6 +7920,354 @@ def ops_trace_path(ht, smi: str) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the multi-process runtime (phase 22): the port's torch.distributed world,
+# a one-rank NCCL world on the card, two processes on the card over gloo
+# (the clean, killed and hung trainer) and config 3's fit across two
+# processes through the Lloyd kernel
+# ---------------------------------------------------------------------------
+MP_STEPS = 8  # the lstsq trainer's steps, its checkpoint every MP_EVERY
+MP_EVERY = 2
+MP_KILL_STEP = 3
+MP_RTOL = 1e-5  # world-size invariance, and the reform's final w against the clean run
+MP_NUMPY_RTOL = 1e-12  # the clean 2-process w against numpy's float64 descent
+MP_HANG_WALL_S = 60.0  # the hung peer's generation must end within this
+MP_TIMEOUT_S = 240.0  # each launch, as the launcher's generation bound
+MP_BARRIER_MS = 200.0  # the patched barrier's bound in the StallError check
+MP_LAUNCH_KEYS = ("epoch", "world", "exits", "lost", "duration_s", "timed_out")
+
+_MP_NCCL_PROBE = """
+import json, os, sys, torch
+import heat_tpu_torch as ht
+from heat_tpu_torch.core import multihost
+out = sys.argv[1]
+doc = {"rank": int(os.environ["HEAT_TPU_PROCESS_ID"])}
+try:
+    comm = multihost.initialize_distributed(backend="nccl", device="gpu", heartbeat=False, timeout_s=60)
+    got = comm.allreduce([torch.full((4,), float(doc["rank"] + 1), device="cuda")])[0]
+    torch.cuda.synchronize()
+    doc.update(ok=True, value=got.tolist())
+except Exception as exc:
+    doc.update(ok=False, error=f"{type(exc).__name__}: {exc}"[:2000])
+with open(os.path.join(out, f"nccl-{doc['rank']}.json"), "w") as fh:
+    json.dump(doc, fh)
+os._exit(0)
+"""
+
+
+def _mp_env() -> dict:
+    """The workers' environment: the package beside this script on the path."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH", "")
+    return {"PYTHONPATH": root + (os.pathsep + path if path else "")}
+
+
+def _mp_results(out: str) -> dict:
+    """The trainer's result documents under ``out``, keyed (epoch, rank)."""
+    docs = {}
+    if os.path.isdir(out):
+        for name in sorted(os.listdir(out)):
+            if name.startswith("result-") and name.endswith(".json"):
+                with open(os.path.join(out, name)) as fh:
+                    doc = json.load(fh)
+                docs[(doc["epoch"], doc["rank"])] = doc
+    return docs
+
+
+def _mp_final_w(docs: dict):
+    import numpy as np
+
+    done = [d for d in docs.values() if d["status"] == "done" and d["final_w"]]
+    if not done:
+        raise AssertionError(f"no finished trainer in {sorted(docs)}")
+    return np.asarray(max(done, key=lambda d: d["epoch"])["final_w"])
+
+
+def _mp_launch(multihost, n: int, args, root: str, log: str, **kwargs) -> dict:
+    """``n`` trainer processes under ``spawn_local``; their output goes to
+    ``log``. Returns the launcher's summary and the result documents."""
+    cmd = [sys.executable, "-m", "heat_tpu_torch.scripts.multiproc_trainer", "--out", os.path.join(root, "out"),
+           *args]
+    kwargs.setdefault("timeout_s", MP_TIMEOUT_S)
+    t0 = time.perf_counter()
+    with open(log, "ab") as fh:
+        result = multihost.spawn_local(n, cmd, env=_mp_env(), stdout=fh, mesh=os.path.join(root, "mesh"),
+                                       **kwargs)
+    result["seconds"] = time.perf_counter() - t0
+    result["docs"] = _mp_results(os.path.join(root, "out"))
+    return result
+
+
+def _mp_gens(result: dict) -> list:
+    return [{k: g.get(k) for k in MP_LAUNCH_KEYS} for g in result["generations"]]
+
+
+def _mp_tail(log: str, n: int = 4000) -> str:
+    with open(log, "rb") as fh:
+        return fh.read()[-n:].decode(errors="replace")
+
+
+def mp_one_rank_phase(ht, device: str) -> dict:
+    """(a) A one-process world on the card: every verb of the
+    process-spanning mesh against the in-process mesh bit for bit, a named
+    barrier, a patched barrier's StallError, the report's multihost block
+    and the ops plane's peer gauges."""
+    import torch
+    import torch.distributed as dist
+
+    from heat_tpu_torch.core import communication, multihost, opsplane, resilience
+    from heat_tpu_torch.core import telemetry as tel
+
+    backend = "nccl" if device == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    comm = multihost.initialize_distributed(f"127.0.0.1:{multihost._free_port()}", 1, 0, backend=backend,
+                                            device="gpu" if device == "cuda" else "cpu", heartbeat=False)
+    out = {"backend": dist.get_backend(), "init_s": time.perf_counter() - t0, "ranks": comm.size}
+    try:
+        if out["backend"] != backend or multihost.process_count() != 1 or multihost.process_index() != 0:
+            raise AssertionError(f"one-rank world: {out}, {multihost.process_count()} processes")
+        local = communication.MeshCommunication(list(comm.local_devices))
+        gen = torch.Generator(device=comm.local_devices[0]).manual_seed(SEED + 22)
+        checked = 0
+        for dt in (torch.float32, torch.float64, torch.int64):
+            def draw(shape):
+                x = torch.randn(*shape, generator=gen, device=comm.local_devices[0]) * 100
+                return [(x if dt.is_floating_point else x.round()).to(dt) for _ in comm.local_devices]
+
+            a, b = draw((6, 4)), draw((6, 4))
+            cases = {
+                "allreduce": lambda m: m.allreduce(a),
+                "allreduce max": lambda m: m.allreduce(a, "max"),
+                "allreduce tuple": lambda m: m.allreduce([(x, y) for x, y in zip(a, b)]),
+                "bcast": lambda m: m.bcast(a, root=0),
+                "exscan": lambda m: m.exscan(a),
+                "scan": lambda m: m.scan(a, "prod"),
+                "allgather": lambda m: m.allgather(a, dim=1),
+                "ppermute": lambda m: m.ppermute(a, shift=1),
+                "alltoall": lambda m: m.alltoall(a, split_axis=0, concat_axis=1),
+            }
+            for name, fn in cases.items():
+                got, want = fn(comm), fn(local)
+                flat = [t for v in got for t in (v if isinstance(v, tuple) else (v,))]
+                ref = [t for v in want for t in (v if isinstance(v, tuple) else (v,))]
+                if len(flat) != len(ref) or any(
+                        g.dtype != w.dtype or g.device != w.device or not torch.equal(g, w) for g, w in zip(flat, ref)):
+                    raise AssertionError(f"{name} {dt}: the {backend} world differs from the in-process mesh")
+                checked += 1
+        out["verbs_bit_for_bit"] = checked
+        multihost.sync_processes("chip_smoke.phase22")
+        release = __import__("threading").Event()
+        real_count, real_barrier = multihost.process_count, multihost._barrier
+        multihost.process_count = lambda: 2
+        multihost._barrier = lambda tag, timeout_ms: release.wait(30.0)
+        t1 = time.perf_counter()
+        try:
+            with __import__("warnings").catch_warnings():
+                __import__("warnings").simplefilter("ignore")
+                multihost.sync_processes("chip_smoke.hung", timeout_ms=MP_BARRIER_MS)
+            raise AssertionError("the hung barrier returned")
+        except resilience.StallError as exc:
+            if "chip_smoke.hung" not in str(exc):
+                raise
+            out["stall_error_ms"] = (time.perf_counter() - t1) * 1e3
+        finally:
+            multihost.process_count, multihost._barrier = real_count, real_barrier
+            release.set()
+        block = tel.report()["multihost"]
+        want = {"world", "epoch", "barriers", "barrier_timeouts", "abandoned_threads", "heartbeats",
+                "heartbeat_errors", "init_retries", "peers_lost", "heartbeat_running", "abandoned_alive"}
+        if set(block) != want or block["barrier_timeouts"] < 1 or block["peers_lost"]:
+            raise AssertionError(f"report()['multihost']: {block}")
+        gauges = {n: v for n, _, v in opsplane.collect() if n.startswith(("heat_tpu_peer", "heat_tpu_barrier"))}
+        if gauges.get("heat_tpu_peers_expected") != 1.0 or gauges.get("heat_tpu_peers_lost") != 0.0:
+            raise AssertionError(f"the ops plane's peer gauges: {gauges}")
+        if not opsplane.ready_status()["checks"]["peers"]:
+            raise AssertionError("/readyz's peers check is down in a whole world")
+        out["report"], out["gauges"] = block, gauges
+    finally:
+        ht.use_comm(None)
+        dist.destroy_process_group()
+        communication._CONTROL = None
+    print(f"  one-rank {backend} world: init {out['init_s']:.2f} s, {out['verbs_bit_for_bit']} verb cases bit for "
+          f"bit against the in-process mesh, StallError after {out['stall_error_ms']:.0f} ms", flush=True)
+    return out
+
+
+def mp_nccl_probe_phase(multihost, tmp: str) -> dict:
+    """One attempt at a two-rank NCCL world on the one card; what NCCL
+    answers is printed."""
+    out_dir = os.path.join(tmp, "nccl")
+    os.makedirs(out_dir)
+    log = os.path.join(tmp, "nccl.log")
+    with open(log, "wb") as fh:
+        result = multihost.spawn_local(2, [sys.executable, "-c", _MP_NCCL_PROBE, out_dir], env=_mp_env(),
+                                       stdout=fh, max_reforms=0, timeout_s=120.0,
+                                       mesh=os.path.join(tmp, "nccl-mesh"))
+    docs = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as fh:
+            docs.append(json.load(fh))
+    accepted = len(docs) == 2 and all(d["ok"] for d in docs)
+    answer = "accepted" if accepted else "; ".join(sorted({d.get("error", "?") for d in docs})) or _mp_tail(log)
+    print(f"  two-rank NCCL world on one card: {answer[:1500]}", flush=True)
+    return {"accepted": accepted, "answer": answer, "exits": result["generations"][0]["exits"],
+            "timed_out": result["generations"][0]["timed_out"]}
+
+
+def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str) -> dict:
+    """(b) the lstsq trainer on two processes over ``backend``: clean
+    against one process and numpy, rank 1 killed at step 3 (one reform),
+    rank 1 hung at step 3 (detected and reaped)."""
+    import numpy as np
+
+    base = ["--device", device, "--backend", backend, "--steps", str(MP_STEPS), "--checkpoint-every", str(MP_EVERY)]
+    runs = {}
+    for label, n, extra, kw in (
+        ("clean1", 1, [], {}),
+        ("clean2", 2, [], {}),
+        ("kill", 2, ["--die-rank", "1", "--die-at-step", str(MP_KILL_STEP)], {"max_reforms": 1}),
+        ("hang", 2, ["--hang-rank", "1", "--hang-at-step", str(MP_KILL_STEP)], {"max_reforms": 1}),
+    ):
+        root = os.path.join(tmp, f"{backend}-{label}")
+        runs[label] = _mp_launch(multihost, n, base + ["--ckpt-dir", os.path.join(root, "ckpt"), *extra], root,
+                                 os.path.join(tmp, f"{backend}-{label}.log"), **kw)
+        if not runs[label]["ok"]:
+            raise AssertionError(f"lstsq {label} over {backend}: {_mp_gens(runs[label])}\n"
+                                 f"{_mp_tail(os.path.join(tmp, f'{backend}-{label}.log'))}")
+    out = {label: {"seconds": r["seconds"], "generations": _mp_gens(r), "reforms": r["reforms"]}
+           for label, r in runs.items()}
+    # clean: both processes hold the same w, equal to one process's and to numpy's
+    docs2 = runs["clean2"]["docs"]
+    if sorted(docs2) != [(0, 0), (0, 1)] or docs2[(0, 0)]["final_w"] != docs2[(0, 1)]["final_w"]:
+        raise AssertionError(f"clean 2-process run: {sorted(docs2)}")
+    w1, w2 = _mp_final_w(runs["clean1"]["docs"]), _mp_final_w(docs2)
+    rng = np.random.default_rng(7)
+    X, y = rng.standard_normal((64, 16)), rng.standard_normal(64)
+    w = np.zeros(16)
+    for _ in range(MP_STEPS):
+        w = w - 0.05 * (X.T @ (X @ w - y)) / 64
+    out["clean2"]["rel_err_1proc"] = float(np.max(np.abs(w2 - w1) / np.abs(w1)))
+    out["clean2"]["rel_err_numpy"] = float(np.max(np.abs(w2 - w) / np.abs(w)))
+    if not (np.allclose(w2, w1, rtol=MP_RTOL, atol=0) and np.allclose(w2, w, rtol=MP_NUMPY_RTOL, atol=0)):
+        raise AssertionError(f"clean w: {out['clean2']}")
+    # kill: one reform into a world of one under epoch 1, replay <= every
+    kill = runs["kill"]
+    g0, g1 = kill["generations"]
+    final = kill["docs"][(1, 0)]
+    survivor = kill["docs"].get((0, 0))
+    if (kill["reforms"], g0["lost"], g1["world"], g1["epoch"], g1["exits"]) != (1, [1], 1, 1, [0]):
+        raise AssertionError(f"kill: {_mp_gens(kill)}")
+    replayed = (survivor["completed_steps"] if survivor else MP_KILL_STEP) - final["resumed_from"]
+    if final["resumed_from"] is None or replayed > MP_EVERY:
+        raise AssertionError(f"kill: resumed from {final['resumed_from']}, survivor {survivor}")
+    wk = _mp_final_w(kill["docs"])
+    # the death is rank 1's last beacon (step 3); the downtime ends at the
+    # first step of generation 1
+    death = os.stat(multihost._progress_path(kill["mesh"], 0, 1)).st_mtime
+    out["kill"].update(rel_err_clean=float(np.max(np.abs(wk - w2) / np.abs(w2))), replayed=replayed,
+                       resumed_from=final["resumed_from"], downtime_s=g1["t_first_progress"] - death)
+    if not np.allclose(wk, w2, rtol=MP_RTOL, atol=0):
+        raise AssertionError(f"kill: final w {out['kill']}")
+    # hang: detected, reaped, the generation bounded
+    hang = runs["hang"]
+    h0, h1 = hang["generations"]
+    if (hang["reforms"], h0["lost"], h0["timed_out"], h1["exits"]) != (1, [1], False, [0]) or h0["exits"][1] == 0:
+        raise AssertionError(f"hang: {_mp_gens(hang)}")
+    if h0["duration_s"] > MP_HANG_WALL_S or hang["docs"][(1, 0)]["completed_steps"] != MP_STEPS:
+        raise AssertionError(f"hang: generation 0 took {h0['duration_s']} s")
+    out["hang"]["wall_s"] = h0["duration_s"]
+    print(f"  lstsq over {backend}: clean 2 processes {runs['clean2']['seconds']:.1f} s (w against 1 process "
+          f"{out['clean2']['rel_err_1proc']:.2e}, against numpy {out['clean2']['rel_err_numpy']:.2e}); kill at step "
+          f"{MP_KILL_STEP}: 1 reform, epoch 1, world 1, resumed from {final['resumed_from']} ({replayed} replayed), "
+          f"w within {out['kill']['rel_err_clean']:.2e}, downtime {out['kill']['downtime_s']:.2f} s; hung peer reaped, "
+          f"generation 0 {h0['duration_s']:.1f} s", flush=True)
+    return out
+
+
+def mp_lloyd_phase(ht, multihost, tmp: str, device: str, rows: int) -> dict:
+    """(c) config 3's fit over two processes on the card through the Lloyd
+    kernel, against the one-process fit of the same two shards."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core import communication
+    from heat_tpu_torch.ops import lloyd
+    from heat_tpu_torch.scripts import multiproc_trainer as trainer
+
+    root = os.path.join(tmp, "lloyd")
+    run = _mp_launch(multihost, 2, ["--workload", "lloyd", "--device", device, "--backend", "gloo",
+                                    "--lloyd-rows", str(rows), "--iters", str(ITERS)], root,
+                     os.path.join(tmp, "lloyd.log"))
+    if not run["ok"]:
+        raise AssertionError(f"lloyd: {_mp_gens(run)}\n{_mp_tail(os.path.join(tmp, 'lloyd.log'))}")
+    docs = [run["docs"][(0, r)] for r in range(2)]
+    card = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    data, init = trainer.lloyd_table(rows, F, K, SEED, card)
+    shards = trainer.lloyd_shards(data, 2, range(2))
+    del data
+    one = trainer.lloyd_fit(communication.MeshCommunication([card, card]), shards, init, K, rows, ITERS)
+    del shards
+    labels = np.concatenate([np.load(os.path.join(root, "out", f"labels-epoch0000-rank{r:05d}.npy")) for r in range(2)])
+    want_labels = one["labels"].to(torch.int32).cpu().numpy()
+    centers = one["centers"].float().cpu().numpy().tobytes().hex()
+    out = {
+        "seconds": run["seconds"],
+        "launches": [d["launches"] for d in docs],
+        "launches_one_process": one["launches"],
+        "ms_per_iter": [d["ms_per_iter"] for d in docs],
+        "allreduce_ms_per_iter": [d["allreduce_ms_per_iter"] for d in docs],
+        "one_process_ms_per_iter": one["ms_per_iter"],
+        "one_process_allreduce_ms_per_iter": one["allreduce_ms_per_iter"],
+        "inertia": docs[0]["inertia"],
+        "generations": _mp_gens(run),
+    }
+    if device == "cuda" and (out["launches"] != [ITERS, ITERS] or one["launches"] != 2 * ITERS):
+        raise AssertionError(f"Lloyd launches: {out['launches']} per process, {one['launches']} in one process")
+    if any(d["centers_hex"] != centers or d["inertia"] != float(one["inertia"]) for d in docs):
+        raise AssertionError(f"the two-process fit differs from the one-process fit: {docs[0]['inertia']} against "
+                             f"{float(one['inertia'])}")
+    if labels.shape != want_labels.shape or not np.array_equal(labels, want_labels):
+        raise AssertionError("the two-process labels differ from the one-process fit's")
+    print(f"  config 3 over 2 processes: {out['launches']} Lloyd launches, centers, inertia and labels bit for bit "
+          f"with the one-process 2-shard fit; ms per iteration {out['ms_per_iter']} against "
+          f"{one['ms_per_iter']:.4f}, cross-process allreduce {out['allreduce_ms_per_iter']} ms against "
+          f"{one['allreduce_ms_per_iter']:.4f} in one process", flush=True)
+    return out
+
+
+def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict:
+    """Phase 22: the multi-process runtime on the card; returns its numbers."""
+    from heat_tpu_torch.core import multihost
+
+    numbers = {"card": smi, "seconds": {}}
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="heat_multiproc_")
+    try:
+        lap = time.perf_counter()
+        numbers["one_rank"] = mp_one_rank_phase(ht, device)
+        numbers["seconds"]["one_rank"] = time.perf_counter() - lap
+        backends = ["gloo"]
+        if device == "cuda":
+            lap = time.perf_counter()
+            numbers["nccl_two_ranks"] = mp_nccl_probe_phase(multihost, tmp)
+            numbers["seconds"]["nccl_probe"] = time.perf_counter() - lap
+            if numbers["nccl_two_ranks"]["accepted"]:
+                backends.append("nccl")
+        for backend in backends:
+            lap = time.perf_counter()
+            numbers[f"lstsq_{backend}"] = mp_lstsq_phase(multihost, tmp, device, backend)
+            numbers["seconds"][f"lstsq_{backend}"] = time.perf_counter() - lap
+        lap = time.perf_counter()
+        numbers["lloyd"] = mp_lloyd_phase(ht, multihost, tmp, device, rows)
+        numbers["seconds"]["lloyd"] = time.perf_counter() - lap
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["seconds"]["all"] = time.perf_counter() - t0
+    print(f"phase 22: {numbers['seconds']['all']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in numbers['seconds'].items() if k != 'all')})", flush=True)
+    return numbers
+
+
 def recorded_path(fusion, paths: dict, label: str, fn, off=None):
     """Run one path with the recorder on, as a user gets the package: its
     seconds, programs (cache misses), Inductor builds (Dynamo graphs),
@@ -8023,6 +8386,7 @@ def main() -> int:
     collectives["four_shard_launches"] = four_shard_paths(ht, paths)
     serving_numbers = run("numerics_serving", lambda: numerics_serving_path(ht, smi))
     ops_trace = run("ops_trace", lambda: ops_trace_path(ht, smi))
+    multiprocess = run("multiprocess", lambda: multiprocess_path(ht, smi))
     for entry, name in ((kernels[0], "lloyd"), (kernels[2], "pairwise")):
         entry["launches_four_shard_paths"] = sum(v[name] for v in collectives["four_shard_launches"].values())
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
@@ -8049,6 +8413,7 @@ def main() -> int:
     kernels[1]["launches_numlens_step"] = serving_numbers["training"]["full"]["launches"][-1]
     kernels[0]["launches_tracelens_fit"] = ops_trace["fit"]["launches"]
     kernels[0]["launches_scraped_fit"] = ops_trace["ops"]["scraped"]["legs"]["scraped"]["fit_launches"]
+    kernels[0]["launches_multiprocess_fit"] = multiprocess["lloyd"]["launches"]
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
@@ -8063,6 +8428,7 @@ def main() -> int:
     print("fused_collectives: " + json.dumps(collectives))
     print("numerics_serving: " + json.dumps(serving_numbers, default=str))
     print("ops_trace: " + json.dumps(ops_trace, default=str))
+    print("multiprocess: " + json.dumps(multiprocess, default=str))
     for label, numbers in off.items():
         print(f"{label}: " + json.dumps(numbers))
     print("paths: " + json.dumps(paths))

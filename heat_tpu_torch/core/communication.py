@@ -22,7 +22,7 @@ import math
 import os
 import threading
 from contextlib import contextmanager
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,8 +32,11 @@ from . import resilience, telemetry
 
 __all__ = [
     "Communication",
+    "CrossProcessMeshError",
     "MeshCommunication",
+    "ProcessMeshCommunication",
     "get_comm",
+    "initialize",
     "sanitize_comm",
     "use_comm",
 ]
@@ -126,6 +129,23 @@ class MeshCommunication(Communication):
     def device_type(self) -> str:
         """``"cpu"`` or ``"gpu"``, the :class:`~.devices.Device` kind of the mesh."""
         return "gpu" if self._devices[0].type == "cuda" else "cpu"
+
+    #: whether the ranks of this mesh live in more than one process
+    spans_processes = False
+    #: the global rank of this process's first shard
+    first_rank = 0
+
+    @property
+    def local_devices(self) -> Tuple[torch.device, ...]:
+        """The devices of the shards this process holds: every device here."""
+        return self._devices
+
+    @property
+    def placements(self) -> Tuple:
+        """One entry per rank, what the per-process seam of
+        :mod:`.multihost` reads: here the torch devices, which carry no
+        ``process_index`` and so are all this process's."""
+        return self._devices
 
     def is_distributed(self) -> bool:
         return self.size > 1
@@ -392,6 +412,267 @@ def _combine(op: Union[str, Callable]) -> Callable:
     return lambda a, b: tuple(map(fn, a, b)) if isinstance(a, tuple) else fn(a, b)
 
 
+class CrossProcessMeshError(NotImplementedError):
+    """A DNDarray engine, factory, ring/Ulysses schedule or ``parallel``
+    layout was asked to run over a mesh whose ranks live in several
+    processes. The process-spanning verbs exist (:class:`ProcessMeshCommunication`);
+    the layers above them over such a mesh are ROADMAP A11.5b."""
+
+
+def _spanning(what: str) -> CrossProcessMeshError:
+    return CrossProcessMeshError(
+        f"{what} over a mesh whose ranks span processes is not ported yet (ROADMAP A11.5b): "
+        "the verbs of ProcessMeshCommunication run across processes, the DNDarray engines, "
+        "factories, I/O, ring/Ulysses and parallel/ above them do not"
+    )
+
+
+class RankPlacement(NamedTuple):
+    """Where one rank of a process-spanning mesh lives: its global ``rank``,
+    the ``process_index`` that holds it and, in that process, its torch
+    ``device`` (None in the others)."""
+
+    rank: int
+    process_index: int
+    device: Optional[torch.device]
+
+
+#: the axis a cross-process verb records when its CUDA shards went through
+#: the host: gloo is a host transport
+HOST_STAGED_AXIS = "split:host"
+
+
+class ProcessMeshCommunication(MeshCommunication):
+    """A mesh whose ranks live in several processes of a ``torch.distributed``
+    world (heat_tpu/core/communication.py:574-637, where XLA's global arrays
+    span processes).
+
+    The global ranks are each process's local mesh concatenated in process
+    order; ``counts[q]`` is process q's number of ranks. ``chunk``,
+    ``counts_displs_shape`` and ``lshape_map`` stay global. A process holds
+    the shards of its own ranks only, ``first_rank`` to ``first_rank +
+    len(local_devices)``, and each verb takes those shards, in rank order,
+    and returns this process's results.
+
+    Every verb gathers the values it needs from every process (``group``
+    carries the payload, the gloo ``control`` group its shapes and types),
+    then runs the one-process arithmetic on them in rank order: a
+    reduction or a scan folds with ``_allreduce``/``_prefixes``/``_exscan``
+    on this process's own device type, so a world of N processes gives,
+    bit for bit, what the one-process mesh of the same p gives. On a gloo
+    ``group`` CUDA shards go through the host, and the verb records the axis
+    :data:`HOST_STAGED_AXIS`.
+
+    ``devices`` is the global device list, which a process cannot hold once
+    the ranks span processes: it raises :class:`CrossProcessMeshError` then,
+    and so does every engine that reaches for it (ROADMAP A11.5b). In a
+    world of one process it is the local list, and the mesh is the
+    in-process mesh whose verbs go through ``torch.distributed``."""
+
+    def __init__(self, local_devices: Sequence[torch.device], counts: Sequence[int], process: int, group, control):
+        super().__init__(local_devices)
+        counts = tuple(int(c) for c in counts)
+        if counts[process] != len(self._devices):
+            raise ValueError(f"process {process} holds {len(self._devices)} ranks, counts say {counts[process]}")
+        self.counts = counts
+        self.process = int(process)
+        self.group = group
+        self.control = control
+        self.first_rank = sum(counts[:process])
+        self._size = sum(counts)
+        self.spans_processes = len(counts) > 1
+        self._placements = tuple(
+            RankPlacement(r, q, self._devices[r - self.first_rank] if q == process else None)
+            for q, c in enumerate(counts)
+            for r in range(sum(counts[:q]), sum(counts[:q]) + c)
+        )
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        if self.spans_processes:
+            raise _spanning("a global device list")
+        return self._devices
+
+    @property
+    def placements(self) -> Tuple[RankPlacement, ...]:
+        return self._placements
+
+    @property
+    def _staged(self) -> bool:
+        """Whether the payload goes through the host: CUDA shards on gloo."""
+        import torch.distributed as dist
+
+        return self._devices[0].type == "cuda" and dist.get_backend(self.group) == "gloo"
+
+    def sub(self, ranks: Sequence[int]) -> "MeshCommunication":
+        if self.spans_processes:
+            raise _spanning("a sub-mesh")
+        return MeshCommunication([self._devices[r] for r in ranks])
+
+    # ------------------------------------------------------------------
+    # the exchange under every verb
+    # ------------------------------------------------------------------
+    def _fire(self, verb: str) -> None:
+        if self._records and resilience._ARMED and not getattr(_DECLARED, "depth", 0):
+            resilience.check("collective." + verb)
+
+    def _record(self, verb: str, payload) -> None:
+        if self._records and telemetry._MODE and not getattr(_DECLARED, "depth", 0):
+            telemetry.record_collective_operand(verb, HOST_STAGED_AXIS if self._staged else SPLIT_AXIS, payload)
+
+    def _gather(self, contrib: Dict[int, object]) -> Dict[int, object]:
+        """Every process's ``{rank: value}`` (a value is a tensor or a tuple
+        of tensors) merged into one dict, the tensors on the transport's
+        device: the shapes and types go over the control group, the bytes of
+        every process in one ``all_gather`` over ``group``."""
+        import torch.distributed as dist
+
+        transport = torch.device("cpu") if self._staged or self._devices[0].type == "cpu" else self._devices[0]
+        header, parts = [], []
+        for rank, value in contrib.items():
+            leaves = value if isinstance(value, tuple) else (value,)
+            header.append((rank, isinstance(value, tuple),
+                           [(tuple(t.shape), str(t.dtype).split(".")[1]) for t in leaves]))
+            parts.extend(t.detach().contiguous().reshape(-1).view(torch.uint8).to(transport) for t in leaves)
+        buf = torch.cat(parts) if parts else torch.empty(0, dtype=torch.uint8, device=transport)
+        world = len(self.counts)
+        headers = [None] * world
+        dist.all_gather_object(headers, (header, int(buf.numel())), group=self.control)
+        longest = max(n for _, n in headers)
+        bufs = [buf] * world
+        if longest:
+            padded = torch.zeros(longest, dtype=torch.uint8, device=transport)
+            padded[: buf.numel()] = buf
+            bufs = [torch.empty_like(padded) for _ in range(world)]
+            dist.all_gather(bufs, padded, group=self.group)
+        out: Dict[int, object] = {}
+        for (entries, _), raw in zip(headers, bufs):
+            at = 0
+            for rank, is_tuple, leaves in entries:
+                got = []
+                for shape, dtype in leaves:
+                    dt = getattr(torch, dtype)
+                    nbytes = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                    got.append(raw[at : at + nbytes].clone().view(dt).reshape(shape))
+                    at += nbytes
+                out[rank] = tuple(got) if is_tuple else got[0]
+        return out
+
+    def _everyone(self, shards: Sequence) -> List:
+        """Every rank's value, in rank order."""
+        got = self._gather({self.first_rank + i: s for i, s in enumerate(shards)})
+        return [got[r] for r in range(self._size)]
+
+    def _standins(self) -> List[torch.device]:
+        """A device per global rank for the one-process arithmetic: this
+        process's own for its ranks, its first device for the others (the
+        same device type everywhere, so the same rounding)."""
+        devs = [self._devices[0]] * self._size
+        devs[self.first_rank : self.first_rank + len(self._devices)] = self._devices
+        return devs
+
+    def _mine(self, values: Sequence) -> List:
+        return list(values[self.first_rank : self.first_rank + len(self._devices)])
+
+    # ------------------------------------------------------------------
+    # the verbs, across processes
+    # ------------------------------------------------------------------
+    def allreduce(self, shards: Sequence, op: Union[str, Callable] = "sum") -> List:
+        self._check(shards)
+        self._fire("allreduce")
+        values = self._everyone(shards)
+        self._record("allreduce", shards[0])
+        return _allreduce(values, op, self._devices)
+
+    def bcast(self, shards: Sequence, root: int = 0) -> List:
+        self._check(shards)
+        self._fire("bcast")
+        mine = root - self.first_rank
+        got = self._gather({root: shards[mine]} if 0 <= mine < len(self._devices) else {})[root]
+        self._record("bcast", got)
+        return [_to(got, d) for d in self._devices]
+
+    def exscan(self, shards: Sequence, op: Union[str, Callable] = "sum", neutral=None) -> List:
+        self._check(shards)
+        if neutral is None and callable(op):
+            raise ValueError("a callable op requires an explicit neutral element")
+        self._fire("exscan")
+        values = self._everyone(shards)
+        self._record("exscan", shards[0])
+        return self._mine(_exscan(values, op, self._standins(), neutral))
+
+    def scan(self, shards: Sequence, op: Union[str, Callable] = "sum") -> List:
+        self._check(shards)
+        self._fire("scan")
+        values = self._everyone(shards)
+        self._record("scan", shards[0])
+        return self._mine(_prefixes(values, op, self._standins()))
+
+    def allgather(self, shards: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:
+        self._check(shards)
+        self._fire("allgather")
+        values = self._everyone(shards)
+        self._record("allgather", shards[0])
+        first = self._devices[0]
+        whole = torch.cat([v.to(first) for v in values], dim=dim)
+        return [whole if whole.device == d else whole.to(d) for d in self._devices]
+
+    def ppermute(
+        self,
+        shards: Sequence[torch.Tensor],
+        shift: int = 1,
+        perm: Optional[Sequence[Tuple[int, int]]] = None,
+    ) -> List[torch.Tensor]:
+        self._check(shards)
+        self._fire("ppermute")
+        p, first, local = self._size, self.first_rank, len(self._devices)
+        if perm is None:
+            perm = [((d + shift) % p, d) for d in range(p)]
+        sources: Dict[int, int] = {}
+        for src, dst in perm:
+            if dst in sources:
+                raise ValueError(f"perm names destination {dst} twice")
+            sources[dst] = src
+        got = self._gather({src: shards[src - first] for src, _ in perm if first <= src < first + local})
+        self._record("ppermute", shards[0])
+        return [
+            got[sources[d]].to(dev) if d in sources else torch.zeros_like(shards[d - first])
+            for d, dev in zip(range(first, first + local), self._devices)
+        ]
+
+    def alltoall(
+        self, shards: Sequence[torch.Tensor], split_axis: int = 0, concat_axis: int = 0
+    ) -> List[torch.Tensor]:
+        self._check(shards)
+        p = self._size
+        for s in shards:
+            if s.shape[split_axis] % p:
+                raise ValueError(
+                    f"alltoall splits axis {split_axis} of size {s.shape[split_axis]} into {p} equal pieces"
+                )
+        self._fire("alltoall")
+        values = self._everyone(shards)
+        self._record("alltoall", shards[0])
+        pieces = [v.tensor_split(p, dim=split_axis) for v in values]
+        return [
+            torch.cat([pieces[d][j].to(dev) for d in range(p)], dim=concat_axis)
+            for j, dev in zip(range(self.first_rank, self.first_rank + len(self._devices)), self._devices)
+        ]
+
+    def _check(self, shards: Sequence) -> None:
+        if len(shards) != len(self._devices):
+            raise ValueError(f"expected this process's {len(self._devices)} shards, got {len(shards)}")
+
+    def __repr__(self) -> str:
+        return (f"ProcessMeshCommunication({self._size} {self._devices[0].type} rank(s) over "
+                f"{len(self.counts)} process(es), this one process {self.process} holding "
+                f"ranks {self.first_rank}..{self.first_rank + len(self._devices) - 1})")
+
+
 def _cpu_mesh_size() -> int:
     return int(os.environ.get("HEAT_TPU_TEST_DEVICES", "8"))
 
@@ -455,7 +736,7 @@ def use_comm(comm: Optional[Communication] = None) -> None:
     prev = _built_comm()
     __default_comm = None if comm is None else sanitize_comm(comm)
     new = _built_comm()
-    if prev is not None and new is not None and new.devices != prev.devices:
+    if prev is not None and new is not None and new.placements != prev.placements:
         _refresh_world_state()
 
 
@@ -468,3 +749,76 @@ def _refresh_world_state() -> None:
 
     fusion.clear_cache()
     memledger.invalidate_resolved_budget()
+
+
+#: the gloo group of the live process world that carries barriers and the
+#: verbs' shapes and types, whatever the payload's backend
+_CONTROL = None
+
+
+def _control_group():
+    """The live process world's control group, or None before
+    :func:`initialize`."""
+    return _CONTROL
+
+
+def initialize(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    *,
+    backend: Optional[str] = None,
+    device: Optional[str] = None,
+    timeout_s: float = 600.0,
+) -> ProcessMeshCommunication:
+    """Join this process to a ``torch.distributed`` world and make the
+    default mesh span every process's devices (heat_tpu/core/communication.py:574-637,
+    over ``jax.distributed.initialize``).
+
+    ``coordinator_address`` (``host:port``) is where process 0's TCPStore
+    listens; without one, a world of one process listens on a free port of
+    this host. ``backend`` is ``"gloo"`` for a CPU mesh and ``"nccl"`` for a
+    CUDA one unless named; ``device`` is the device kind of this process's
+    local mesh (default: the default device), which is every CUDA device or
+    the CPU repeated ``HEAT_TPU_TEST_DEVICES`` times. ``timeout_s`` bounds
+    every collective of the groups. A gloo control group carries barriers
+    and the verbs' metadata in every world.
+
+    Idempotent: with a live world it builds the mesh again over it. Returns
+    the :class:`ProcessMeshCommunication`, installed with :func:`use_comm`
+    (which refreshes the mesh-keyed state)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from .multihost import _free_port
+
+    global _CONTROL
+    kind = devices_module.sanitize_device(device).device_type if device is not None else (
+        devices_module.get_device().device_type)
+    local = list(_world(kind).local_devices)
+    if kind == "gpu":
+        torch.cuda.set_device(local[0])
+    timeout = datetime.timedelta(seconds=float(timeout_s))
+    if not dist.is_initialized():
+        world = 1 if num_processes is None else int(num_processes)
+        if coordinator_address is None:
+            if world != 1:
+                raise ValueError(f"a world of {world} processes needs a coordinator address")
+            coordinator_address = f"127.0.0.1:{_free_port()}"
+        rank = 0 if process_id is None else int(process_id)
+        if backend is None:
+            backend = "nccl" if kind == "gpu" else "gloo"
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}", world_size=world, rank=rank,
+                                timeout=timeout)
+        _CONTROL = None
+    if _CONTROL is None:
+        _CONTROL = dist.new_group(backend="gloo", timeout=timeout)
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, (len(local), kind), group=_CONTROL)
+    kinds = {k for _, k in counts}
+    if kinds != {kind}:
+        raise ValueError(f"the processes' meshes hold devices of different kinds: {[k for _, k in counts]}")
+    comm = ProcessMeshCommunication(local, [c for c, _ in counts], dist.get_rank(), dist.group.WORLD, _CONTROL)
+    use_comm(comm)
+    return comm

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from . import fusion, health_runtime, memledger, resilience, telemetry, types
-from .communication import MeshCommunication
+from .communication import MeshCommunication, _spanning
 from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray", "LocalIndex"]
@@ -91,6 +91,8 @@ class DNDarray:
         device,
         comm: MeshCommunication,
     ):
+        if getattr(comm, "spans_processes", False):
+            raise _spanning("a DNDarray")
         if len(shards) != comm.size:
             raise ValueError(f"expected {comm.size} shards, got {len(shards)}")
         self.__shards = _tagged(shards)
@@ -150,8 +152,12 @@ class DNDarray:
 
     @property
     def lshape(self) -> Tuple[int, ...]:
-        """Logical shape of the first shard (reference dndarray.py:404)."""
-        return self.__comm.chunk(self.__gshape, self.__split, rank=0)[1]
+        """Logical shape of this process's representative shard, the first
+        rank it holds (reference dndarray.py:404-415)."""
+        from . import multihost
+
+        rank = multihost.representative_rank(self.__comm.placements)
+        return self.__comm.chunk(self.__gshape, self.__split, rank=rank)[1]
 
     @property
     def stride(self) -> Tuple[int, ...]:

@@ -48,7 +48,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import factories, memledger, resilience, telemetry, types
+from . import communication, factories, memledger, resilience, telemetry, types
 from .dndarray import DNDarray
 
 # the forcing-point attribution of the saves: a pending chain runs here
@@ -197,7 +197,13 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
     of a memory map included, is retried at the ``io.read`` site. The
     memory ledger attributes each staged shard to ``io``, or to the
     enclosing :func:`~.memledger.owner_scope` (a checkpoint restore's),
-    until the array that wraps it claims it."""
+    until the array that wraps it claims it. This process reads only the
+    blocks of the ranks it holds, ``multihost.ranks_to_read``
+    (heat_tpu/core/io.py:160-180)."""
+    from . import multihost
+
+    if getattr(comm, "spans_processes", False):
+        raise communication._spanning("a sharded ingest")
     dtype = types.canonical_heat_type(dtype)
     tdt = dtype.torch_type()
     gshape = tuple(int(s) for s in gshape)
@@ -206,7 +212,8 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
     counts, displs = comm.counts_displs_shape(gshape, split)
     shards = []
     read_bytes = 0
-    for dev, count, displ in zip(comm.devices, counts, displs):
+    for r, dev in multihost.ranks_to_read(comm.placements):
+        count, displ = counts[r], displs[r]
         sl = [slice(None)] * len(gshape)
         sl[split] = slice(displ, displ + count)
         host = resilience.call_with_retries("io.read", lambda: np.asarray(read_block(tuple(sl))))
@@ -233,7 +240,20 @@ def _replicated(values: np.ndarray, dtype, device, comm) -> DNDarray:
 
 def _shard_blocks(data: DNDarray) -> Iterator[Tuple[int, int, np.ndarray]]:
     """``(rank, start, block)`` for every shard with logical rows, in shard
-    order: the shard's logical block copied to the host, one at a time."""
+    order: the shard's logical block copied to the host, one at a time.
+
+    A process that does not hold every rank refuses (heat_tpu/core/io.py:296-312):
+    its blocks alone would make a file whose header declares the global
+    shape over a short payload."""
+    from . import multihost
+
+    proc = multihost.process_index()
+    if not all(multihost.is_addressable(d, proc) for d in data.comm.placements):
+        raise NotImplementedError(
+            "streaming save of a split array under a mesh whose ranks span processes: this process holds "
+            "only part of the array, so a single-file write would be incomplete. Gather first "
+            "(resplit_(None)), save per-process files, or use ht.checkpoint (per-process shard files)."
+        )
     counts, displs = data.counts_displs()
     written = blocks = 0
     for r, (shard, count, displ) in enumerate(zip(data.shards, counts, displs)):

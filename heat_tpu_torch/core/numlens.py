@@ -531,7 +531,7 @@ def run_canary(repeats: int = 2, comm=None) -> Optional[Dict[str, Any]]:
     t0 = time.perf_counter()
     outs: Dict[int, Optional[bytes]] = {}
     sick: Dict[int, str] = {}
-    devs = list(comm.devices)
+    devs = list(comm.local_devices)
     for idx, dev in enumerate(devs):
         try:
             resilience.check(f"numeric.sdc.{idx}")

@@ -32,6 +32,14 @@ site                     where it fires
 ``trace.hostdelay``      each collective record of ``core/telemetry``,
                          which sleeps ``HEAT_TPU_TRACE_DELAY_MS`` instead
                          of raising: one slow host for ``tracelens``
+``multihost.init``       each connect attempt of
+                         ``multihost.initialize_distributed``: an injected
+                         ``ConnectionResetError`` takes the retry path
+``multihost.barrier``    every ``multihost.sync_processes`` entry, before
+                         the one-process early out
+``multihost.heartbeat``  each lease beat of the peer-liveness daemon: a
+                         fired fault is a missed beat, counted, never a
+                         daemon crash
 =======================  ==================================================
 
 :func:`inject` arms a site for a block::
@@ -67,9 +75,10 @@ transient ``OSError``s with capped exponential backoff (:data:`retry_policy`,
 seeded by ``HEAT_TPU_IO_RETRIES`` and ``HEAT_TPU_IO_RETRY_DELAY``);
 non-transient errnos never retry.
 
-One process drives every device here, so :func:`atomic_write`'s publishing
-process is always this one; ``force_recoverable`` does not yet know the
-memory ledger's budget refusal, which comes with the ledger.
+Under several processes every one runs the same ``save_*`` against the
+same path: each writes a private temporary file and only
+``multihost.io_owner()`` renames. ``force_recoverable`` does not yet know
+the memory ledger's budget refusal, which comes with the ledger.
 """
 
 from __future__ import annotations
@@ -609,9 +618,18 @@ def atomic_write(path: str, preserve: bool = False):
     fails, so ``path`` only ever holds a complete file, the old one or the
     new one. ``preserve`` seeds the temporary file with a copy of the
     target (the append modes). A block that writes nothing publishes
-    nothing. The ``io.rename`` site fires before the rename."""
+    nothing. The ``io.rename`` site fires before the rename.
+
+    The temporary name holds the pid and the process index. Under several
+    processes, each running the same save, only ``multihost.io_owner()``
+    renames; the others discard their temporary file. There is no
+    completion barrier: a process that does not own the rename may return
+    before the owner's lands (reference resilience.py:773-840)."""
+    from . import multihost
+
     directory = os.path.dirname(os.path.abspath(path)) or "."
-    tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp-{os.getpid()}-0")
+    proc = multihost.process_index()
+    tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp-{os.getpid()}-{proc}")
     if preserve and os.path.exists(path):
         try:
             shutil.copy2(path, tmp)
@@ -624,6 +642,9 @@ def atomic_write(path: str, preserve: bool = False):
         _unlink_quiet(tmp)
         raise
     if not os.path.exists(tmp):
+        return
+    if not multihost.io_owner(proc):
+        _unlink_quiet(tmp)
         return
     try:
         if _ARMED:

@@ -1363,9 +1363,10 @@ def report_json(path: Optional[str] = None, indent: int = 2) -> str:
 # Chrome/Perfetto trace export
 # ----------------------------------------------------------------------
 def _host_index() -> int:
-    """This process's row in a trace: 0, since one process drives every
-    device."""
-    return 0
+    """This process's row in a trace: ``multihost.process_index()``."""
+    from . import multihost
+
+    return multihost.process_index()
 
 
 def _us(ts: float) -> float:
@@ -1702,7 +1703,8 @@ class _MetricsSink:
                 from . import serving
 
                 doc["serving"] = serving.sessions_block()
-            for name, hook in (("elastic", _ELASTIC_HOOK), ("autoscale", _AUTOSCALE_HOOK)):
+            for name, hook in (("elastic", _ELASTIC_HOOK), ("autoscale", _AUTOSCALE_HOOK),
+                               ("multihost", _MULTIHOST_HOOK)):
                 if name not in doc:
                     doc[name] = {} if hook is None else hook()
             line = json.dumps(_jsonable({"ts": time.time(), "event": event, "report": doc}), default=str)

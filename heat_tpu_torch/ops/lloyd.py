@@ -270,19 +270,26 @@ def fused_lloyd_run(
     return c, _assign_labels(x, used), inertia, shift
 
 
-def _local_valid(n_global: int, rows: int, p: int) -> List[int]:
-    """Rows of each shard inside the logical extent ``n_global``."""
-    return [min(max(n_global - i * rows, 0), rows) for i in range(p)]
+def _local_valid(n_global: int, rows: int, p: int, first_rank: int = 0) -> List[int]:
+    """Rows inside the logical extent ``n_global`` of each of the ``p``
+    shards of global ranks ``first_rank`` on."""
+    return [min(max(n_global - (first_rank + i) * rows, 0), rows) for i in range(p)]
 
 
-def logical_xsq_sum(shards: Sequence[torch.Tensor], n_global: int) -> torch.Tensor:
+def logical_xsq_sum(shards: Sequence[torch.Tensor], n_global: int, comm=None, first_rank: int = 0) -> torch.Tensor:
     """Σ|x|² over the logical rows of row-sharded data, shards in order; the
-    padding's content is unspecified and never summed."""
-    valid = _local_valid(n_global, shards[0].shape[0], len(shards))
+    padding's content is unspecified and never summed. ``shards`` are the
+    global ranks ``first_rank`` on; with a ``comm`` whose ranks span
+    processes, the per-shard sums of every process are folded in rank order
+    by ``comm.allreduce``, as one process folds its own."""
+    valid = _local_valid(n_global, shards[0].shape[0], len(shards), first_rank)
+    parts = [_sum_squares(s[:v]) for s, v in zip(shards, valid)]
+    if getattr(comm, "spans_processes", False):
+        return comm.allreduce(parts)[0]
     first = shards[0].device
     total = None
-    for s, v in zip(shards, valid):
-        part = _sum_squares(s[:v]).to(first)
+    for part in parts:
+        part = part.to(first)
         total = part if total is None else total + part
     return total
 
@@ -299,43 +306,51 @@ def fused_lloyd_run_sharded(
     """``n_steps`` fused iterations over row-sharded data (the physical
     shards of a split=0 DNDarray, each ``ceil(n/p)`` rows, the padding a
     suffix of the global rows), then the labels. Returns ``(centers, labels
-    (n_global,), inertia, shift)`` on the first shard's device."""
+    (n_global,), inertia, shift)`` on the first shard's device.
+
+    Over a ``comm`` whose ranks span processes (``ProcessMeshCommunication``),
+    ``shards`` are this process's, global ranks ``comm.first_rank`` on, the
+    accumulators are summed across processes, and the labels are those of
+    this process's logical rows."""
+    first_rank = comm.first_rank if comm is not None else 0
     xs = [stream_operand(s) for s in shards]
     if xsq_sum is None:
-        xsq_sum = logical_xsq_sum(xs, n_global)
-    c, used, inertia, shift = run_steps(xs, centers, k, comm, n_global, n_steps, xsq_sum)
-    return c, sharded_labels(xs, used, n_global), inertia, shift
+        xsq_sum = logical_xsq_sum(xs, n_global, comm, first_rank)
+    c, used, inertia, shift = run_steps(xs, centers, k, comm, n_global, n_steps, xsq_sum, first_rank)
+    return c, sharded_labels(xs, used, n_global, first_rank), inertia, shift
 
 
-def run_steps(xs, centers, k: int, comm, n_global: int, n_steps: int, xsq_sum):
+def run_steps(xs, centers, k: int, comm, n_global: int, n_steps: int, xsq_sum, first_rank: int = 0):
     """The iteration loop of the fused runs, without the label epilogue:
     ``(centers, used, inertia, shift)``, where ``used`` are the last
     iteration's input centers, which the labels are taken against.
 
-    ``xs`` are row shards as the kernel streams them (:func:`stream_operand`); each
-    shard's pass masks its own share of the padding,
-    ``clip(n_global − i·rows, 0, rows)``, and with more than one shard the
-    packed accumulators are summed over the shards with one
+    ``xs`` are row shards as the kernel streams them (:func:`stream_operand`),
+    global ranks ``first_rank`` on; each shard's pass masks its own share of
+    the padding, ``clip(n_global − i·rows, 0, rows)`` for global rank i, and
+    with more than one shard, or a ``comm`` whose ranks span processes, the
+    packed accumulators are summed over the ranks with one
     ``comm.allreduce`` per iteration."""
     if centers.shape[0] != k:
         raise ValueError(f"centers hold {centers.shape[0]} clusters, not k={k}")
-    valid = _local_valid(n_global, xs[0].shape[0], len(xs))
+    valid = _local_valid(n_global, xs[0].shape[0], len(xs), first_rank)
     f = xs[0].shape[1]
     c = used = centers
     inertia = shift = None
     for _ in range(n_steps):
         c32 = c.float().contiguous()
         parts = [_accumulate(x, c32.to(x.device), v)[0] for x, v in zip(xs, valid)]
-        packed = comm.allreduce(parts)[0] if len(parts) > 1 else parts[0]
+        several = len(parts) > 1 or getattr(comm, "spans_processes", False)
+        packed = comm.allreduce(parts)[0] if several else parts[0]
         new, inertia, shift = _finalize(*_unpack(packed, k, f), c, xsq_sum)
         used, c = c, new
     return c, used, inertia, shift
 
 
-def sharded_labels(xs, centers: torch.Tensor, n_global: int) -> torch.Tensor:
-    """Labels of the logical rows of row shards against ``centers``, on the
-    first shard's device."""
-    valid = _local_valid(n_global, xs[0].shape[0], len(xs))
+def sharded_labels(xs, centers: torch.Tensor, n_global: int, first_rank: int = 0) -> torch.Tensor:
+    """Labels of the logical rows of row shards (global ranks ``first_rank``
+    on) against ``centers``, on the first shard's device."""
+    valid = _local_valid(n_global, xs[0].shape[0], len(xs), first_rank)
     first = xs[0].device
     return torch.cat(
         [_assign_labels(x[:v], centers.to(x.device)).to(first) for x, v in zip(xs, valid)]

@@ -340,13 +340,19 @@ class _HashingWriter:
         return self.fh.write(b)
 
 
+def _proc() -> int:
+    from ..core import multihost
+
+    return multihost.process_index()
+
+
 def _write_payload_file(path: str, arr: np.ndarray, raw: bool) -> Tuple[str, int]:
     """Write one payload file under a temporary name and rename it; return
     its ``(sha256, bytes)``. A transient ``OSError`` re-runs the attempt
     (``checkpoint.write``)."""
 
     def _attempt() -> Tuple[str, int]:
-        tmp = f"{path}.tmp-{os.getpid()}-0"
+        tmp = f"{path}.tmp-{os.getpid()}-{_proc()}"
         try:
             with open(tmp, "wb") as fh:
                 w = _HashingWriter(fh)
@@ -380,8 +386,10 @@ def _write_frag(frag: dict, payload_dir: str, fname: str, arr: np.ndarray) -> No
     )
 
 
-def _save_dndarray(payload_dir: str, payload_rel: str, base: str, leaf) -> dict:
-    """Write a DNDarray leaf, shard by shard; return its manifest entry."""
+def _save_dndarray(payload_dir: str, payload_rel: str, base: str, leaf, write: bool = True) -> dict:
+    """Write a DNDarray leaf, shard by shard; return its manifest entry.
+    Without ``write`` only the entry is made: its files are another
+    process's to write."""
     split = leaf.split
     name = _dtype_name(leaf.dtype.torch_type())
     entry: dict = {
@@ -396,7 +404,8 @@ def _save_dndarray(payload_dir: str, payload_rel: str, base: str, leaf) -> dict:
         fname = f"{base}.shard_full"
         frag = _file_entry(payload_rel, fname, name, leaf.shape)
         frag["rank"] = None
-        _write_frag(frag, payload_dir, fname, _host(leaf.shards[0])[0])
+        if write:
+            _write_frag(frag, payload_dir, fname, _host(leaf.shards[0])[0])
         entry["files"].append(frag)
         return entry
     counts, displs = leaf.comm.counts_displs_shape(leaf.shape, split)
@@ -410,7 +419,8 @@ def _save_dndarray(payload_dir: str, payload_rel: str, base: str, leaf) -> dict:
         frag["rank"] = r
         frag["start"] = int(displ)
         frag["stop"] = int(displ + count)
-        _write_frag(frag, payload_dir, fname, _host(shard.narrow(split, 0, count))[0])
+        if write:
+            _write_frag(frag, payload_dir, fname, _host(shard.narrow(split, 0, count))[0])
         entry["files"].append(frag)
     return entry
 
@@ -442,53 +452,133 @@ def save_checkpoint(directory: str, tree: Any, step: int = 0, keep: int = 3) -> 
     payload files, then ``ckpt_<step>.manifest.json`` with every file's
     SHA-256, renamed into place as the commit point; then keep-N retention
     and the debris sweep (``keep <= 0`` keeps every step). Returns the
-    manifest's path."""
+    manifest's path.
+
+    Under several processes (heat_tpu/utils/checkpoint.py:486-650) every
+    process runs the same save. A lost peer fails it at once with
+    ``multihost.PeerLostError``. The leaves are each process's own values,
+    the same in every process, so ``multihost.io_owner()`` writes the
+    payload. Each process publishes a receipt of the checksums it wrote in
+    this attempt (a stale receipt of a crashed attempt is dropped first),
+    all meet at a barrier, and the owner fills the checksums it did not
+    write from the receipts, never from whatever file lies at a path,
+    before it publishes the manifest; all meet again after the commit. A
+    local failure is raised only after both barriers, so no process is left
+    waiting in one."""
+    from ..core import multihost
     from ..core.dndarray import DNDarray
 
     step = int(step)
+    lost = multihost.lost_peers()
+    if lost:
+        raise multihost.PeerLostError(
+            f"checkpoint save at step {step} aborted: peer process(es) {sorted(lost)} lost; a cross-process "
+            "commit cannot complete",
+            peers=lost,
+        )
     os.makedirs(directory, exist_ok=True)
     payload_rel = _payload_rel_for_save(directory, step)
     payload_dir = os.path.join(directory, payload_rel)
     os.makedirs(payload_dir, exist_ok=True)
+    several = multihost.process_count() > 1
+    receipt_path = os.path.join(payload_dir, f".receipt-{multihost.process_index()}.json")
+    if several:
+        resilience._unlink_quiet(receipt_path)
+    owner = multihost.io_owner()
     leaves = _flatten(tree)
     _phase("save_begin", step, leaves=len(leaves))
     _phase("save_materialized", step)
+    err: Optional[BaseException] = None
     entries: List[dict] = []
-    for i, (path, leaf) in enumerate(leaves):
-        base = f"leaf_{i:05d}"
-        if isinstance(leaf, DNDarray):
-            with _T_IO:
-                entry = _save_dndarray(payload_dir, payload_rel, base, leaf)
-        elif _is_arraylike(leaf):
-            with _T_IO:
-                arr, name = _host(leaf)
-            fname = f"{base}.arr"
-            frag = _file_entry(payload_rel, fname, name, arr.shape)
-            _write_frag(frag, payload_dir, fname, arr)
-            entry = {"kind": "array", "files": [frag]}
-        else:
-            entry = {"kind": "py", "value": _encode_py(leaf)}
-        entry["path"] = path
-        entries.append(entry)
-    doc = {
-        "format": _FORMAT_NAME,
-        "version": MANIFEST_VERSION,
-        "step": step,
-        "payload": payload_rel,
-        "leaves": entries,
-    }
+    try:
+        for i, (path, leaf) in enumerate(leaves):
+            base = f"leaf_{i:05d}"
+            if isinstance(leaf, DNDarray):
+                with _T_IO:
+                    entry = _save_dndarray(payload_dir, payload_rel, base, leaf, owner)
+            elif _is_arraylike(leaf):
+                with _T_IO:
+                    arr, name = _host(leaf)
+                fname = f"{base}.arr"
+                frag = _file_entry(payload_rel, fname, name, arr.shape)
+                if owner:
+                    _write_frag(frag, payload_dir, fname, arr)
+                entry = {"kind": "array", "files": [frag]}
+            else:
+                entry = {"kind": "py", "value": _encode_py(leaf)}
+            entry["path"] = path
+            entries.append(entry)
+    except BaseException as exc:  # noqa: BLE001 - raised after the barriers
+        err = exc
+    if err is None and several:
+        try:
+            receipt = {frag["file"]: [frag["sha256"], frag["bytes"]]
+                       for entry in entries for frag in entry.get("files", ()) if frag["sha256"] is not None}
+
+            def _publish_receipt():
+                tmp = f"{receipt_path}.tmp-{os.getpid()}-{_proc()}"
+                try:
+                    with open(tmp, "w") as fh:
+                        json.dump(receipt, fh)
+                    os.replace(tmp, receipt_path)
+                except BaseException:
+                    resilience._unlink_quiet(tmp)
+                    raise
+
+            resilience.call_with_retries("checkpoint.write", _publish_receipt)
+        except BaseException as exc:  # noqa: BLE001 - raised after the barriers
+            err = exc
     _phase("save_staged", step, leaves=len(entries))
+    # every process's files and receipts are on disk before the owner
+    # builds the manifest that names them
+    multihost.sync_processes(f"heat_tpu.checkpoint.save.{step}")
     manifest_path = _manifest_path(directory, step)
+    if owner and err is None:
+        try:
+            needed = [frag for entry in entries for frag in entry.get("files", ()) if frag["sha256"] is None]
+            if needed:
+                receipts: Dict[str, list] = {}
+                for p in range(multihost.process_count()):
+                    rpath = os.path.join(payload_dir, f".receipt-{p}.json")
 
-    def _commit():
-        with resilience.atomic_write(manifest_path) as tmp:
-            with open(tmp, "w") as fh:
-                json.dump(doc, fh, indent=1)
-                fh.write("\n")
+                    def _read_receipt(rp=rpath):
+                        with open(rp) as fh:
+                            return json.load(fh)
 
-    resilience.call_with_retries("checkpoint.commit", _commit)
-    telemetry.record_checkpoint("save", step)
-    _phase("save_committed", step)
+                    try:
+                        receipts.update(resilience.call_with_retries("checkpoint.restore", _read_receipt))
+                    except FileNotFoundError:
+                        pass  # that process's writes failed: its files stay unfilled
+                for frag in needed:
+                    if frag["file"] not in receipts:
+                        raise RuntimeError(
+                            f"payload file {frag['file']} was never published in this attempt (a peer's write "
+                            "failed): refusing to commit a manifest that names stale bytes"
+                        )
+                    frag["sha256"], frag["bytes"] = receipts[frag["file"]]
+            doc = {
+                "format": _FORMAT_NAME,
+                "version": MANIFEST_VERSION,
+                "step": step,
+                "payload": payload_rel,
+                "leaves": entries,
+            }
+
+            def _commit():
+                with resilience.atomic_write(manifest_path) as tmp:
+                    with open(tmp, "w") as fh:
+                        json.dump(doc, fh, indent=1)
+                        fh.write("\n")
+
+            resilience.call_with_retries("checkpoint.commit", _commit)
+            telemetry.record_checkpoint("save", step)
+            _phase("save_committed", step)
+        except BaseException as exc:  # noqa: BLE001 - raised after the barrier
+            err = exc
+    # no process returns, and perhaps restores, before the manifest exists
+    multihost.sync_processes(f"heat_tpu.checkpoint.commit.{step}")
+    if err is not None:
+        raise err
     gc_checkpoints(directory, keep=keep, protect_step=step)
     return manifest_path
 

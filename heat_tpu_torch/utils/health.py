@@ -102,7 +102,7 @@ def memory_report(comm: Optional[MeshCommunication] = None, top: int = 5) -> dic
     are its allocator's count (``core/memledger.py``). It reads the tagged
     storages and the allocator, never the heap: ``report()`` carries it."""
     comm = sanitize_comm(comm)
-    scan = memledger._scan(top=max(0, int(top)), devices={str(d) for d in comm.devices})
+    scan = memledger._scan(top=max(0, int(top)), devices={str(d) for d in comm.local_devices})
     return {
         "total_bytes": scan["total_bytes"],
         "per_device_bytes": dict(scan["per_device"]),

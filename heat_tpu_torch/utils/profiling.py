@@ -106,7 +106,7 @@ def _sync_all_devices() -> None:
     on a CPU mesh. Errors the device reports propagate."""
     from ..core.communication import get_comm
 
-    for d in dict.fromkeys(get_comm().devices):
+    for d in dict.fromkeys(get_comm().local_devices):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
 
@@ -163,7 +163,7 @@ def device_memory_stats() -> Dict[str, Dict[str, int]]:
     from ..core.communication import get_comm
 
     out: Dict[str, Dict[str, int]] = {}
-    for d in dict.fromkeys(get_comm().devices):
+    for d in dict.fromkeys(get_comm().local_devices):
         if d.type != "cuda":
             continue
         stats = torch.cuda.memory_stats(d)

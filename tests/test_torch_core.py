@@ -291,7 +291,8 @@ MODULES = (
     "_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset",
     "core.version", "core.telemetry", "core.resilience", "utils.profiling", "telemetry",
     "core.memledger", "core.health_runtime", "utils.health", "core.fusion", "core.numlens", "core.serving",
-    "core.tracelens", "core.opsplane",
+    "core.tracelens", "core.opsplane", "core.multihost", "scripts", "scripts.launch_multiproc",
+    "scripts.multiproc_trainer",
 )
 
 

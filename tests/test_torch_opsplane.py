@@ -9,8 +9,9 @@ the server and the command line run on the port's own gauges: their cases
 copy the counts and states the reference case asserts, citing it, because
 the reference's live serving cases stop here on
 ``jax.core.trace_state_clean`` (its batching). The elastic, autoscale and
-multi-process families read ``telemetry``'s hook slots, None until those
-modules are ported; a hook installed by hand is read.
+multi-process families read ``telemetry``'s hook slots: the multi-process
+one is ``core/multihost.py``'s, the others are None until their modules
+are ported; a hook installed by hand is read.
 """
 
 from __future__ import annotations
@@ -662,13 +663,12 @@ def test_malformed_port_warns_and_disarms():
 # the JSON-lines metrics sink (TestMetricsSinkSchema)
 # ---------------------------------------------------------------------------
 #: the reference's pinned key set of a sink line's report
-#: (tests/test_opsplane.py:593) less ``multihost``, whose block needs its
-#: module's hook (ROADMAP A11.5)
+#: (tests/test_opsplane.py:593)
 LINE_KEYS = {
     "enabled", "mode", "collectives", "collective_counts", "fused_collectives", "async_forcing",
     "forcing_points", "dispatches", "unfused_reasons", "retraces", "degraded", "nonfinite", "io_retries",
     "checkpoint", "faults", "jit_compiles", "spans", "timeline", "scopes", "memory", "health", "numerics",
-    "fusion_cache", "programs", "timers", "serving", "elastic", "autoscale",
+    "fusion_cache", "programs", "timers", "serving", "elastic", "autoscale", "multihost",
 }
 
 
@@ -679,7 +679,8 @@ def _sink_lines(path):
 
 def test_sink_line_carries_every_block_with_no_sessions(tmp_path):
     """tests/test_opsplane.py:602; the elastic and autoscale blocks are
-    empty until their modules install the hooks."""
+    empty until their modules install the hooks, the multihost block is
+    ``core/multihost.py``'s."""
     assert serving._ACTIVE == 0
     path = str(tmp_path / "metrics.jsonl")
     sink = telemetry.set_metrics_sink(path, interval=0)
@@ -693,6 +694,7 @@ def test_sink_line_carries_every_block_with_no_sessions(tmp_path):
     assert set(rep) == LINE_KEYS
     assert "sessions" in rep["serving"] and "slo" in rep["health"] and "mode" in rep["numerics"]
     assert rep["elastic"] == {} and rep["autoscale"] == {}
+    assert rep["multihost"]["world"] == 1 and rep["multihost"]["peers_lost"] == []
 
 
 def test_sink_line_schema_identical_with_traffic(tmp_path):
@@ -714,12 +716,20 @@ def test_sink_line_schema_identical_with_traffic(tmp_path):
 def test_hook_slots_feed_the_report_and_the_exposition(monkeypatch):
     """The elastic, autoscale and multi-process slots (reference
     telemetry.py:258-276 and :1588-1600): None adds no block and no
-    family; a hook's snapshot becomes its report block and its gauges, as
-    the reference's collectors read them."""
+    family; the multi-process slot holds ``multihost.report_stats``, a live
+    block of a world of one with its gauges, as the reference's; a hook's
+    snapshot becomes its report block and its gauges, as the reference's
+    collectors read them."""
+    from heat_tpu.core import multihost as ref_mh
+    from heat_tpu_torch.core import multihost
+
     rep = telemetry.report()
-    assert not {"elastic", "autoscale", "multihost"} & set(rep)
-    assert not [n for n, _, _ in opsplane.collect() if n.startswith(("heat_tpu_elastic", "heat_tpu_autoscale",
-                                                                       "heat_tpu_peer"))]
+    assert not {"elastic", "autoscale"} & set(rep)
+    assert telemetry._MULTIHOST_HOOK is multihost.report_stats and ref_tel._MULTIHOST_HOOK is ref_mh.report_stats
+    assert set(rep["multihost"]) == set(ref_mh.report_stats()) and rep["multihost"]["peers_lost"] == []
+    assert not [n for n, _, _ in opsplane.collect() if n.startswith(("heat_tpu_elastic", "heat_tpu_autoscale"))]
+    live = {n: v for n, _, v in opsplane.collect() if n.startswith(("heat_tpu_peer", "heat_tpu_barrier"))}
+    assert live["heat_tpu_peers_expected"] == 1.0 and live["heat_tpu_peers_lost"] == 0.0
     elastic = {"preemptions": 1, "reforms": 2, "downtime_ms": 30.0}
     autoscale = {"armed": True, "shedding": False, "mesh": {"devices": 4, "baseline": 8}, "decisions": {"shed": 3},
                  "shed_refusals": 5, "state": "steady"}

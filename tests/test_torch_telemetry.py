@@ -56,10 +56,10 @@ MESHES = [1, 3, 5]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: report() blocks of the fusion recorder, which the port has, and of what
-#: it has not yet: elastic, autoscale and multi-process; the serving block
+#: it has not yet: elastic and autoscale; the serving block
 #: is there once the serving layer has sessions, in either package
 FUSION_BLOCKS = {"fusion_cache", "programs", "forcing_points", "unfused_reasons", "retraces", "degraded"}
-LATER_BLOCKS = {"elastic", "autoscale", "multihost"}
+LATER_BLOCKS = {"elastic", "autoscale"}
 SESSION_BLOCKS = {"serving"}
 
 
