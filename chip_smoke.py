@@ -307,7 +307,31 @@ collective nodes.
    Lloyd launches in each, centers, inertia and labels equal bit for bit
    to the one-process fit of the same two shards, ms per iteration and
    the cross-process allreduce's beside that fit's;
-23. print the phase-9 to 22 numbers with the card, the collectives-off and
+23. the elastic supervisor and the autoscale controller (no kernel of
+   their own; the LM steps run the flash kernel, the interactive tenant's
+   fit the Lloyd kernel): the README's TransformerLM in float32 under
+   ``DataParallel`` with Adam on four shards of the card, eight batches of
+   4 x 4096 tokens, uninterrupted, then through ``DataParallel.fit`` with
+   ``elastic.preempt`` injected at the fifth poll, a checkpoint every 3
+   steps and two ranks lost: one preemption, one reform onto two shards,
+   at most 3 steps replayed, 12 flash launches per replica per step
+   forward, each commit's bytes and seconds, the losses within
+   EL_LOSS_RTOL of the uninterrupted run's; the DASO kill-a-host case of
+   tests/test_elastic.py at p = 4 within 1e-5 of its uninterrupted run;
+   then eight tenants (four interactive with a 100 ms deadline, four
+   batch), a 10^7 x 16 table each on four shards of the card, under a
+   1 ms dispatch SLO and its burn alert: the armed controller sheds the
+   batch tier and shrinks the mesh to three shards while a ninth,
+   interactive tenant fits config 3 on the card (30 Lloyd launches,
+   centers equal bit for bit to the unloaded fit), then recovers to four
+   shards once the burn has cleared: exactly one shed_on, shed_off,
+   shrink and recover, no error, no failed interactive read, at least one
+   refused batch read, the reforms' wall ms and the interactive reads'
+   p50/p99 and deadline misses before, while shedding and after (a read
+   misses its deadline only behind a program built in its leg: on the
+   shrunk, ragged mesh each new batch of the tenants' small roots is one,
+   so the shedding leg's times are mostly those builds);
+24. print the phase-9 to 23 numbers with the card, the collectives-off and
    recorder-off legs of phases 9, 12 and 13, each path's seconds and
    program builds, the card's name and power limit, one JSON line of
    per-kernel numbers, and the result line ``{"ok": true, "device":
@@ -8117,22 +8141,41 @@ def mp_nccl_probe_phase(multihost, tmp: str) -> dict:
 def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str) -> dict:
     """(b) the lstsq trainer on two processes over ``backend``: clean
     against one process and numpy, rank 1 killed at step 3 (one reform),
-    rank 1 hung at step 3 (detected and reaped)."""
+    rank 1 hung at step 3 (detected and reaped). The kill run goes alone,
+    the other three side by side."""
+    import threading
+
     import numpy as np
 
     base = ["--device", device, "--backend", backend, "--steps", str(MP_STEPS), "--checkpoint-every", str(MP_EVERY)]
+    legs = {
+        "clean1": (1, [], {}),
+        "clean2": (2, [], {}),
+        "kill": (2, ["--die-rank", "1", "--die-at-step", str(MP_KILL_STEP)], {"max_reforms": 1}),
+        "hang": (2, ["--hang-rank", "1", "--hang-at-step", str(MP_KILL_STEP)], {"max_reforms": 1}),
+    }
     runs = {}
-    for label, n, extra, kw in (
-        ("clean1", 1, [], {}),
-        ("clean2", 2, [], {}),
-        ("kill", 2, ["--die-rank", "1", "--die-at-step", str(MP_KILL_STEP)], {"max_reforms": 1}),
-        ("hang", 2, ["--hang-rank", "1", "--hang-at-step", str(MP_KILL_STEP)], {"max_reforms": 1}),
-    ):
+
+    def launch(label):
+        n, extra, kw = legs[label]
         root = os.path.join(tmp, f"{backend}-{label}")
-        runs[label] = _mp_launch(multihost, n, base + ["--ckpt-dir", os.path.join(root, "ckpt"), *extra], root,
-                                 os.path.join(tmp, f"{backend}-{label}.log"), **kw)
+        try:
+            runs[label] = _mp_launch(multihost, n, base + ["--ckpt-dir", os.path.join(root, "ckpt"), *extra], root,
+                                     os.path.join(tmp, f"{backend}-{label}.log"), **kw)
+        except Exception as exc:  # noqa: BLE001 - raised below with the leg's log
+            runs[label] = {"ok": False, "generations": [], "error": repr(exc)}
+
+    # the kill run alone, its downtime being a respawn's; the clean runs and
+    # the hang run (whose hung rank only sleeps) side by side
+    launch("kill")
+    threads = [threading.Thread(target=launch, args=(label,)) for label in ("clean1", "clean2", "hang")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for label in legs:
         if not runs[label]["ok"]:
-            raise AssertionError(f"lstsq {label} over {backend}: {_mp_gens(runs[label])}\n"
+            raise AssertionError(f"lstsq {label} over {backend}: {runs[label].get('error')} {_mp_gens(runs[label])}\n"
                                  f"{_mp_tail(os.path.join(tmp, f'{backend}-{label}.log'))}")
     out = {label: {"seconds": r["seconds"], "generations": _mp_gens(r), "reforms": r["reforms"]}
            for label, r in runs.items()}
@@ -8268,6 +8311,430 @@ def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the elastic supervisor and the autoscale controller (phase 23): no kernel
+# of their own. The README LM's steps under DataParallel.fit run B3 (12
+# launches per replica per step forward, none in the backward), the
+# interactive tenant's fit of config 3 runs B1 (30 launches). Bounds:
+# * the elastic run's losses against the uninterrupted run's: the same
+#   weights, batches and Adam; after the reform each replica takes two
+#   sequences instead of one and the gradient is summed over two shards
+#   instead of four, so the products run over other row counts and the sum
+#   in another order (float association only; the model has no BatchNorm).
+#   Phase 14's bound on four shards against one, MESH_TRAIN_BOUND relative,
+#   holds each step's loss;
+# * the DASO acceptance of tests/test_elastic.py:448-495 at p = 4, its own
+#   bound 1e-5 on the losses and the probe's logits;
+# * the fit during the shed and the shrink against the same fit unloaded:
+#   bit for bit (its one-shard mesh of the card is never re-formed, B1's
+#   launches are not dispatches and are never shed).
+# ---------------------------------------------------------------------------
+EL_P, EL_LOSE = 4, 2  # four shards of the card, two lost at the reform
+EL_STEPS, EL_EVERY, EL_PREEMPT_AT = 8, 3, 5  # steps, checkpoint cadence, the poll that is preempted
+EL_LOSS_RTOL = MESH_TRAIN_BOUND
+EL_DASO_TOL = 1e-5
+AS_P = 4
+AS_INTERACTIVE = AS_BATCH = 4
+AS_ROUNDS = 10  # z-score reads per tenant per leg
+AS_DEADLINE_MS = 100.0
+AS_SLO_MS = 1.0
+AS_BURN = dict(target=0.9, fast_s=1.0, slow_s=4.0, threshold=1.0, min_samples=4)  # tests/test_autoscale.py:78-86
+AS_ARM = dict(interval_s=60.0, cooldown_s=0.3, shrink_after_s=0.0, max_actions=4, min_devices=1, shrink_n=1)
+AS_DECISIONS = {"shed_on": 1, "shed_off": 1, "shrink": 1, "recover": 1, "bound": 0, "errors": 0}
+
+
+def _el_commits(elastic):
+    """Wrap ``Supervisor.commit`` to time each commit and count its bytes
+    (every tensor and array of the committed tree); returns the record list
+    and the restore."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.utils.checkpoint import _flatten
+
+    records, real = [], elastic.Supervisor.commit
+
+    def commit(self, tree, step):
+        nbytes = sum(leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor)
+                     else leaf.nbytes if isinstance(leaf, np.ndarray) else 0 for _, leaf in _flatten(tree))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(self, tree, step)
+        records.append({"step": int(step), "bytes": nbytes, "seconds": time.perf_counter() - t0})
+
+    elastic.Supervisor.commit = commit
+    return records, lambda: setattr(elastic.Supervisor, "commit", real)
+
+
+def elastic_lm_phase(ht, tel, tmp: str) -> dict:
+    """(a) The README LM under DataParallel on four shards of the card,
+    uninterrupted and through DataParallel.fit with a preemption."""
+    import torch
+
+    from heat_tpu_torch.core import communication, elastic, resilience
+    from heat_tpu_torch.ops import flash
+
+    card = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batches = [(t, t) for t in (torch.randint(0, LM["vocab"], (LM_BATCH, LM_SEQ), device="cuda", generator=gen)
+                                for _ in range(EL_STEPS))]
+    forward = []
+
+    def loss_fn(logits, labels):
+        # between the forward and the backward: the launches so far are the forward's
+        forward.append(flash.LAUNCHES)
+        flash.LAUNCHES = 0
+        return next_token_loss(logits, labels)
+
+    def trainer():
+        dp = ht.nn.DataParallel(_lm(ht, torch.float32), comm=communication.get_comm(), optimizer=ht.optim.Adam(LM_LR),
+                                loss_fn=loss_fn)
+        return dp.init(SEED, batches[0][0][:1])
+
+    print(f"phase elastic: the README's TransformerLM in float32 under DataParallel, Adam({LM_LR}), {EL_P} shards "
+          f"of the card, {EL_STEPS} batches of {LM_BATCH} x {LM_SEQ} tokens: uninterrupted, then DataParallel.fit "
+          f"with elastic.preempt at poll {EL_PREEMPT_AT}, a checkpoint every {EL_EVERY} steps, {EL_LOSE} ranks lost",
+          flush=True)
+    out = {}
+    communication.reform([card] * EL_P)
+    plain = trainer()
+    t0 = time.perf_counter()
+    plain_losses = [plain.train_step(x, y) for x, y in batches]
+    torch.cuda.synchronize()
+    out["uninterrupted_s"] = time.perf_counter() - t0
+    del plain
+    torch.cuda.empty_cache()
+    communication.reform([card] * EL_P)
+    dp = trainer()
+    forward.clear()
+    records, restore = _el_commits(elastic)
+    prev = tel.set_mode(2)
+    tel.reset()
+    try:
+        flash.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with resilience.inject("elastic.preempt", every=EL_PREEMPT_AT, times=1):
+            res = dp.fit(batches, directory=tmp, checkpoint_every=EL_EVERY, lose=EL_LOSE, install_signals=False)
+        torch.cuda.synchronize()
+        out["elastic_s"] = time.perf_counter() - t0
+        backward = flash.LAUNCHES
+        block = tel.report()["elastic"]
+        kinds = [e["kind"] for e in tel.report()["events"] if str(e["kind"]).startswith("elastic_")]
+    finally:
+        restore()
+        tel.set_mode(prev)
+    out["report"] = block
+    out["events"] = kinds
+    out["mesh_after"] = dp.comm.size
+    out["default_mesh_after"] = communication.get_comm().size
+    out["forward_launches"] = list(forward)
+    after = EL_STEPS - block["last_reform"]["step"]  # the steps run on the new mesh
+    out["replicas"] = [EL_P] * (len(forward) - after) + [dp.comm.size] * after
+    out["commits"] = records
+    out["losses"], out["uninterrupted_losses"] = res["losses"], plain_losses
+    rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"], plain_losses)]
+    out["loss_rel_max"], out["loss_rel"] = max(rel), rel
+    print(f"  report()['elastic']: {block['preemptions']} preemption, {block['reforms']} reform, "
+          f"{block['steps_replayed']} steps replayed, downtime {block['downtime_ms']:.1f} ms, {block['checkpoints']} "
+          f"checkpoints, {block['drained_roots']} roots drained; events {kinds}", flush=True)
+    print(f"  the mesh after the reform: {out['mesh_after']} shards (the default mesh {out['default_mesh_after']}); "
+          f"flash launches per step forward {forward} ({LM['depth']} per replica), {backward} in the last backward", flush=True)
+    for r in records:
+        print(f"  commit of step {r['step']}: {r['bytes'] / 1e9:.3f} GB in {r['seconds']:.2f} s "
+              f"({r['bytes'] / 1e9 / r['seconds']:.3f} GB/s)", flush=True)
+    print(f"  losses {[round(v, 5) for v in res['losses']]} against uninterrupted "
+          f"{[round(v, 5) for v in plain_losses]}: max relative {out['loss_rel_max']:.3e} (bound {EL_LOSS_RTOL:g}: "
+          f"float association of the products and of the gradient's sum over {dp.comm.size} shards instead of "
+          f"{EL_P}; no BatchNorm); uninterrupted {out['uninterrupted_s']:.1f} s, elastic {out['elastic_s']:.1f} s",
+          flush=True)
+    if not (block["preemptions"] == 1 and block["reforms"] == 1 and block["steps_replayed"] <= EL_EVERY
+            and res["steps"] == EL_STEPS and out["mesh_after"] == EL_P - EL_LOSE == out["default_mesh_after"]):
+        raise AssertionError(f"the elastic run did not preempt, reform and finish as set: {block}, {res['steps']} "
+                             f"steps, mesh {out['mesh_after']}")
+    if forward != [LM["depth"] * n for n in out["replicas"]] or backward != 0:
+        raise AssertionError(f"flash launches per step forward {forward}, {backward} in the backward")
+    if not all(math.isfinite(v) for v in res["losses"]) or out["loss_rel_max"] > EL_LOSS_RTOL:
+        raise AssertionError(f"the elastic run's losses leave the uninterrupted run's: {rel}")
+    out["launches"] = sum(forward) + backward
+    del dp, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_daso_phase(ht, tmp: str) -> dict:
+    """(b) tests/test_elastic.py:448-495 at p = 4 on the card: DASO with an
+    MLP (8, 4), SGD 0.05 and an f32 wire, lose = p // 2."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core import communication, elastic, resilience
+
+    card = torch.device("cuda", 0)
+    p, lose = EL_P, EL_P // 2
+    lcm = math.lcm(p, p - lose)
+    n = lcm * max(1, 24 // lcm)
+    rng = np.random.default_rng(7)
+    batches = [(rng.standard_normal((n, 6)).astype(np.float32), rng.integers(0, 4, n).astype(np.int32))
+               for _ in range(10)]
+    probe = batches[0][0]
+
+    def make():
+        daso = ht.optim.DASO(local_optimizer=ht.optim.SGD(0.05), total_epochs=4, warmup_epochs=0, cooldown_epochs=0,
+                             nodes=2, downcast_type=torch.float32)
+        return daso.add_model(ht.nn.MLP(features=(8, 4), device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(0)), 0, probe[:2])
+
+    communication.reform([card] * p)
+    ref = make()
+    ref_losses = [ref.step(x, y) for x, y in batches]
+    ref_logits = ref(probe).detach().cpu().numpy()
+    communication.reform([card] * p)
+    daso = make()
+    elastic.reset()
+    with resilience.inject("elastic.preempt", every=6, times=1):
+        res = elastic.fit(daso, batches, directory=tmp, checkpoint_every=3, max_reforms=2, lose=lose,
+                          install_signals=False)
+    out = {"mesh_after": daso.comm.size, "elastic": res["elastic"],
+           "loss_abs_max": float(np.max(np.abs(np.asarray(res["losses"]) - np.asarray(ref_losses)))),
+           "logits_abs_max": float(np.max(np.abs(daso(probe).detach().cpu().numpy() - ref_logits)))}
+    print(f"  DASO kill-a-host (tests/test_elastic.py:448) at p = {p}: {res['elastic']['reforms']} reform onto "
+          f"{out['mesh_after']} shards, {res['elastic']['steps_replayed']} replayed; losses within "
+          f"{out['loss_abs_max']:.3e}, logits within {out['logits_abs_max']:.3e} of the uninterrupted run "
+          f"(bound {EL_DASO_TOL:g})", flush=True)
+    np.testing.assert_allclose(res["losses"], ref_losses, rtol=EL_DASO_TOL, atol=EL_DASO_TOL)
+    np.testing.assert_allclose(daso(probe).detach().cpu().numpy(), ref_logits, rtol=EL_DASO_TOL, atol=EL_DASO_TOL)
+    if res["elastic"]["reforms"] != 1 or out["mesh_after"] != p - lose or res["steps"] != len(batches):
+        raise AssertionError(f"the DASO run did not reform once onto {p - lose} shards: {res['elastic']}")
+    return out
+
+
+def _as_leg(ht, serving, bases, rounds: int, fit=None) -> dict:
+    """One leg of the tenants' traffic: each tenant builds its table on the
+    default mesh inside its session and reads its z-score ``rounds`` times;
+    interactive reads are timed and those over AS_DEADLINE_MS counted,
+    batch reads refused by a shed are counted. ``fit`` runs in a ninth,
+    interactive session meanwhile."""
+    import threading
+
+    import numpy as np
+
+    lat = {i: [] for i in range(AS_INTERACTIVE)}
+    failures, refused, served = [], [], []
+    barrier = threading.Barrier(len(bases) + (fit is not None))
+
+    def tenant(i):
+        interactive = i < AS_INTERACTIVE
+        try:
+            session = serving.Session(f"{'fg' if interactive else 'bg'}{i}",
+                                      tier="interactive" if interactive else "batch",
+                                      deadline_ms=AS_DEADLINE_MS if interactive else None)
+            with session:
+                x = ht.array(bases[i], split=0, copy=False)
+                barrier.wait(timeout=120)
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    try:
+                        _fc_zscore(ht, x).larray.reshape(-1)[:1].item()
+                    except serving.ShedError:
+                        if interactive:
+                            raise
+                        refused.append(i)
+                        continue
+                    (lat[i] if interactive else served).append((time.perf_counter() - t0) * 1e3)
+        except Exception as exc:  # noqa: BLE001 - counted, raised by the caller
+            failures.append((i, repr(exc)))
+
+    def fitter():
+        try:
+            with serving.Session("kmeans", tier="interactive", deadline_ms=AS_DEADLINE_MS):
+                barrier.wait(timeout=120)
+                fit["run"]()
+        except Exception as exc:  # noqa: BLE001 - counted, raised by the caller
+            failures.append(("fit", repr(exc)))
+
+    from heat_tpu_torch.core import fusion
+
+    threads = [threading.Thread(target=tenant, args=(i,)) for i in range(len(bases))]
+    if fit is not None:
+        threads.append(threading.Thread(target=fitter))
+    t0, builds, stats = time.perf_counter(), _fu_unique_graphs(), fusion.cache_stats()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    reads = np.asarray([v for vs in lat.values() for v in vs])
+    after = fusion.cache_stats()
+    return {"seconds": time.perf_counter() - t0, "failures": failures, "refused": len(refused),
+            "inductor_builds": _fu_unique_graphs() - builds, "programs_built": after["compiles"] - stats["compiles"],
+            "forces": after["forces"] - stats["forces"],
+            "batch_served": len(served), "interactive_reads": int(reads.size),
+            "deadline_misses": int((reads > AS_DEADLINE_MS).sum()),
+            "p50_ms": float(np.percentile(reads, 50)) if reads.size else None,
+            "p99_ms": float(np.percentile(reads, 99)) if reads.size else None}
+
+
+def autoscale_phase(ht, tel) -> dict:
+    """(c) Eight tenants on four shards of the card under a burning SLO: the
+    controller sheds, shrinks to three shards, and recovers to four."""
+    import torch
+
+    from heat_tpu_torch.core import autoscale, communication, health_runtime, opsplane, serving
+    from heat_tpu_torch.ops import lloyd
+
+    card = torch.device("cuda", 0)
+    out = {}
+    print(f"phase autoscale: {AS_INTERACTIVE} interactive tenants ({AS_DEADLINE_MS:g} ms deadline) and {AS_BATCH} "
+          f"batch tenants, a {N} x {F} float32 table each on {AS_P} shards of the card, {AS_ROUNDS} z-score reads "
+          f"per leg; a ninth, interactive tenant fits config 3 through the Lloyd kernel", flush=True)
+    x, init = kmeans_table(ht)  # on the card's one-shard mesh, which no reform touches
+    fits = {}
+
+    def fit(label):
+        def run():
+            torch.cuda.synchronize()
+            lloyd.LAUNCHES = 0
+            t0 = time.perf_counter()
+            model = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(x)
+            centers = model.cluster_centers_.larray.clone()
+            torch.cuda.synchronize()
+            fits[label] = {"launches": lloyd.LAUNCHES, "seconds": time.perf_counter() - t0, "centers": centers}
+        return {"run": run}
+
+    fit("unloaded")["run"]()
+    gen = torch.Generator(device="cuda")
+    bases = [torch.randn(N, F, generator=gen.manual_seed(SEED + 2300 + i), device="cuda")
+             for i in range(AS_INTERACTIVE + AS_BATCH)]
+    baseline = communication.reform([card] * AS_P)
+
+    warms = []
+
+    def warm():
+        # the new mesh's program built outside the timed reads
+        t0, builds = time.perf_counter(), _fu_unique_graphs()
+        with serving.Session("warm", tier="interactive"):
+            _fc_zscore(ht, ht.array(bases[0], split=0, copy=False)).larray.reshape(-1)[:1].item()
+        warms.append({"seconds": time.perf_counter() - t0, "inductor_builds": _fu_unique_graphs() - builds})
+
+    warm()
+    out["before"] = _as_leg(ht, serving, bases, AS_ROUNDS)
+    prev_slo = health_runtime.set_slo(dispatch_ms=AS_SLO_MS)
+    prev_burn = opsplane.set_burn(**AS_BURN)
+    prev_mode = tel.set_mode(2)
+    ctl = autoscale.arm(**AS_ARM)
+    try:
+        for _ in range(16):  # tests/test_autoscale.py:86: the injected latency fault
+            health_runtime._slo_observe("dispatch", 0.05)
+        opsplane.sample()
+        actions = [autoscale.poll()]
+        t0 = time.perf_counter()
+        actions.append(autoscale.poll())
+        out["shrink_ms"] = (time.perf_counter() - t0) * 1e3
+        out["mesh_shrunk"] = communication.get_comm().size
+        warm()
+        out["shedding"] = _as_leg(ht, serving, bases, AS_ROUNDS, fit=fit("shedding"))
+        out["shed_refusals_total"] = serving.shed_state()["refusals"]
+        time.sleep(AS_BURN["fast_s"] + 0.1)  # the fast window drains
+        opsplane.sample()
+        actions.append(autoscale.poll())
+        time.sleep(AS_ARM["cooldown_s"] + 0.05)
+        t0 = time.perf_counter()
+        actions.append(autoscale.poll())
+        out["recover_ms"] = (time.perf_counter() - t0) * 1e3
+        out["mesh_recovered"] = communication.get_comm().size
+        out["recovered_to_baseline"] = communication.get_comm().devices == baseline.devices
+        health_runtime.set_slo(dispatch_ms=None)  # the burn is over: the after leg's reads breach nothing
+        warm()
+        out["after"] = _as_leg(ht, serving, bases, AS_ROUNDS)
+        snap = ctl.snapshot()
+        opsplane.sample()
+        line = 'heat_tpu_autoscale_decisions_total{action="shed_on"} 1'
+        out["exposition_has_shed_on"] = line in opsplane.render().splitlines()
+        events = [e["kind"] for e in tel.report()["events"] if str(e["kind"]).startswith("autoscale_")]
+    finally:
+        autoscale.disarm()
+        serving.shed(())
+        tel.set_mode(prev_mode)
+        health_runtime.set_slo(**{f"{m}_ms": None if v is None else v * 1e3 for m, v in prev_slo.items()})
+        opsplane.set_burn(**{k: prev_burn[k] for k in AS_BURN})
+        communication.reform()
+    out["actions"], out["decisions"], out["events"], out["warmups"] = actions, snap["decisions"], events, warms
+    out["fit"] = {k: {"launches": v["launches"], "seconds": v["seconds"]} for k, v in fits.items()}
+    out["fit_bit_for_bit"] = bool(torch.equal(fits["shedding"]["centers"], fits["unloaded"]["centers"]))
+    failures = [f for leg in ("before", "shedding", "after") for f in out[leg]["failures"]]
+    print(f"  decisions {snap['decisions']} (actions {actions}); events {events}", flush=True)
+    print(f"  shrink to {out['mesh_shrunk']} shards in {out['shrink_ms']:.1f} ms, recovery to "
+          f"{out['mesh_recovered']} shards in {out['recover_ms']:.1f} ms (the baseline's devices: "
+          f"{out['recovered_to_baseline']})", flush=True)
+    for leg in ("before", "shedding", "after"):
+        r = out[leg]
+        print(f"  {leg}: interactive reads p50 {r['p50_ms']:.3f} / p99 {r['p99_ms']:.3f} ms over "
+              f"{r['interactive_reads']} reads, {r['deadline_misses']} over the {AS_DEADLINE_MS:g} ms deadline; "
+              f"batch reads served {r['batch_served']}, refused {r['refused']}; failures {r['failures']}; "
+              f"{r['seconds']:.2f} s, {r['forces']} forces, {r['programs_built']} programs built "
+              f"({r['inductor_builds']} by Inductor)", flush=True)
+    print(f"  warm-ups of each mesh's read (before, shrunk, recovered): "
+          f"{[(round(w['seconds'], 2), w['inductor_builds']) for w in warms]} (seconds, Inductor builds)", flush=True)
+    print(f"  the fit: {fits['unloaded']['launches']} Lloyd launches unloaded ({fits['unloaded']['seconds']:.2f} s), "
+          f"{fits['shedding']['launches']} during the shed and the shrink ({fits['shedding']['seconds']:.2f} s), "
+          f"centers bit for bit {out['fit_bit_for_bit']}; shed refusals {out['shed_refusals_total']}; "
+          f"exposition {line!r}: {out['exposition_has_shed_on']}", flush=True)
+    if {k: snap["decisions"].get(k, 0) for k in AS_DECISIONS} != AS_DECISIONS or actions != [
+            "shed_on", "shrink", None, "recover"]:
+        raise AssertionError(f"the controller's decisions are not one shed_on, shrink, recover and shed_off: "
+                             f"{snap['decisions']}, {actions}")
+    if failures or out["shedding"]["refused"] < 1 or out["before"]["refused"] or out["after"]["refused"]:
+        raise AssertionError(f"failures {failures}; refusals {[out[k]['refused'] for k in ('before', 'shedding', 'after')]}")
+    # a read misses its deadline only behind a program built in its leg
+    # (on the shrunk mesh the tenants' small roots batch in new orders, one
+    # program each), which stalls at most one read of each interactive
+    # tenant
+    misses = {leg: (out[leg]["deadline_misses"], max(out[leg]["programs_built"], out[leg]["inductor_builds"]))
+              for leg in ("before", "shedding", "after")}
+    if any(m > AS_INTERACTIVE * b for m, b in misses.values()):
+        raise AssertionError(f"interactive reads over the {AS_DEADLINE_MS:g} ms deadline (misses, programs built): "
+                             f"{misses}")
+    if not (out["mesh_shrunk"] == AS_P - 1 and out["mesh_recovered"] == AS_P and out["recovered_to_baseline"]):
+        raise AssertionError(f"the mesh went to {out['mesh_shrunk']} and back to {out['mesh_recovered']} shards")
+    if not (fits["unloaded"]["launches"] == fits["shedding"]["launches"] == ITERS and out["fit_bit_for_bit"]
+            and out["exposition_has_shed_on"]):
+        raise AssertionError("the fit's launches or centers, or the exposition's decision count, are wrong")
+    del x, init, bases
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_autoscale_path(ht, smi: str) -> dict:
+    """Phase 23: the elastic supervisor and the autoscale controller on the
+    card; returns its numbers."""
+    import torch
+
+    from heat_tpu_torch.core import telemetry as tel
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 23 needs CUDA")
+    numbers = {"card": smi, "seconds": {}}
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="heat_elastic_")
+    try:
+        lap = time.perf_counter()
+        numbers["lm"] = elastic_lm_phase(ht, tel, os.path.join(tmp, "lm"))
+        numbers["seconds"]["lm"] = time.perf_counter() - lap
+        lap = time.perf_counter()
+        numbers["daso"] = elastic_daso_phase(ht, os.path.join(tmp, "daso"))
+        numbers["seconds"]["daso"] = time.perf_counter() - lap
+    finally:
+        ht.core.communication.reform()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    lap = time.perf_counter()
+    numbers["autoscale"] = autoscale_phase(ht, tel)
+    numbers["seconds"]["autoscale"] = time.perf_counter() - lap
+    numbers["seconds"]["all"] = time.perf_counter() - t0
+    print(f"phase 23: {numbers['seconds']['all']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in numbers['seconds'].items() if k != 'all')}); {smi}", flush=True)
+    return numbers
+
+
 def recorded_path(fusion, paths: dict, label: str, fn, off=None):
     """Run one path with the recorder on, as a user gets the package: its
     seconds, programs (cache misses), Inductor builds (Dynamo graphs),
@@ -8387,6 +8854,7 @@ def main() -> int:
     serving_numbers = run("numerics_serving", lambda: numerics_serving_path(ht, smi))
     ops_trace = run("ops_trace", lambda: ops_trace_path(ht, smi))
     multiprocess = run("multiprocess", lambda: multiprocess_path(ht, smi))
+    elastic = run("elastic_autoscale", lambda: elastic_autoscale_path(ht, smi))
     for entry, name in ((kernels[0], "lloyd"), (kernels[2], "pairwise")):
         entry["launches_four_shard_paths"] = sum(v[name] for v in collectives["four_shard_launches"].values())
     train_f32, train_bf16, forward_bf16 = nn["train_f32"], nn["train_bf16"], nn["forward_bf16"]
@@ -8414,6 +8882,9 @@ def main() -> int:
     kernels[0]["launches_tracelens_fit"] = ops_trace["fit"]["launches"]
     kernels[0]["launches_scraped_fit"] = ops_trace["ops"]["scraped"]["legs"]["scraped"]["fit_launches"]
     kernels[0]["launches_multiprocess_fit"] = multiprocess["lloyd"]["launches"]
+    kernels[0]["launches_autoscale_fit"] = elastic["autoscale"]["fit"]["shedding"]["launches"]
+    kernels[1]["launches_elastic_fit"] = elastic["lm"]["launches"]
+    kernels[1]["launches_elastic_step_forward"] = elastic["lm"]["forward_launches"]
 
     print("moments: " + json.dumps(moments))
     print("linalg: " + json.dumps(linalg))
@@ -8429,6 +8900,7 @@ def main() -> int:
     print("numerics_serving: " + json.dumps(serving_numbers, default=str))
     print("ops_trace: " + json.dumps(ops_trace, default=str))
     print("multiprocess: " + json.dumps(multiprocess, default=str))
+    print("elastic_autoscale: " + json.dumps(elastic, default=str))
     for label, numbers in off.items():
         print(f"{label}: " + json.dumps(numbers))
     print("paths: " + json.dumps(paths))

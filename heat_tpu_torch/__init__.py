@@ -16,11 +16,13 @@ from .utils import checkpoint  # ht.checkpoint, as heat_tpu/__init__.py:12 expor
 from .core import health_runtime as flight  # ht.flight, as heat_tpu/__init__.py:52 exports it
 from .core import (
     arithmetics,
+    autoscale,
     base,
     communication,
     complex_math,
     constants,
     devices,
+    elastic,
     exponential,
     factories,
     indexing,

@@ -37,6 +37,7 @@ __all__ = [
     "ProcessMeshCommunication",
     "get_comm",
     "initialize",
+    "reform",
     "sanitize_comm",
     "use_comm",
 ]
@@ -744,11 +745,44 @@ def _refresh_world_state() -> None:
     """Invalidate the mesh-keyed state after the default mesh changed
     (heat_tpu/core/communication.py:530-551): the fusion recorder's program
     cache and the memory gate's resolved budget, a fraction of the old
-    mesh's memory."""
+    mesh's memory, and the recorder's shape inference, whose keys hold the
+    shard count and whose ops may close over a mesh (the reference's
+    ``_apply_program.cache_clear()``). The other caches of the package hold
+    no mesh: ``spatial.distance._gaussian_metric`` is keyed by sigma,
+    ``statistics._var_reduction`` by ddof, ``types._promote`` by types, and
+    the serving layer's ``programs.jsonl`` index by program keys, which name
+    their shard count and stay true for the mesh they name."""
     from . import fusion, memledger
 
     fusion.clear_cache()
+    fusion._infer_cached.cache_clear()
+    fusion._infer_multi_cached.cache_clear()
     memledger.invalidate_resolved_budget()
+
+
+def reform(devices: Optional[Sequence] = None) -> MeshCommunication:
+    """Re-form the default mesh on ``devices``, or on the default mesh of
+    the default device when None (heat_tpu/core/communication.py:557-571):
+    the elastic supervisor's and the autoscaler's rebuild, and the idiom
+    that restores the whole world after an elastic test. The new mesh
+    becomes the default one, as with :func:`use_comm`, and every
+    mesh-keyed cache is dropped, whether or not the devices changed.
+    Arrays made before keep their old mesh.
+
+    Raises :class:`CrossProcessMeshError` while the default mesh spans
+    processes: a lost peer process is the launcher's reform
+    (:mod:`.multihost`), not one inside this process."""
+    global __default_comm
+    current = _built_comm()
+    if current is not None and current.spans_processes:
+        raise CrossProcessMeshError(
+            f"cannot re-form {current!r} inside one process: a world of several processes shrinks through "
+            "its launcher (multihost.PeerLostError, exit multihost.REFORM_EXIT, a respawn under a new epoch)"
+        )
+    comm = None if devices is None else MeshCommunication(devices)
+    __default_comm = comm
+    _refresh_world_state()
+    return get_comm()
 
 
 #: the gloo group of the live process world that carries barriers and the

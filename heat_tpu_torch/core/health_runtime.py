@@ -80,6 +80,7 @@ __all__ = [
     "StallError",
     "StallWarning",
     "auto_dump",
+    "breach_fraction",
     "dump_flight",
     "flight_events",
     "flight_stats",
@@ -88,6 +89,7 @@ __all__ = [
     "last_stall",
     "note_dispatch",
     "reset",
+    "reset_guards",
     "set_dump_dir",
     "set_flight",
     "set_slo",
@@ -531,6 +533,26 @@ def set_slo(sync_ms=_UNSET, dispatch_ms=_UNSET, compile_ms=_UNSET, window_s=None
     return prev
 
 
+def breach_fraction(metric: str, window_s: Optional[float] = None, tenant: Optional[str] = None) -> Optional[float]:
+    """The fraction of ``metric``'s SLO samples in the trailing ``window_s``
+    (default the rolling SLO window) that breached its limit, of one
+    ``tenant`` when given; None when no SLO is set or no sample lies in the
+    window (heat_tpu/core/health_runtime.py:556-584). The autoscaler's read:
+    module state only, it never forces and never builds a mesh."""
+    limit = _SLO_LIMITS.get(metric)
+    if limit is None:
+        return None
+    window = _SLO_WINDOW_S if window_s is None else max(0.0, float(window_s))
+    now = time.perf_counter()
+    n = bad = 0
+    for ts, value, who in list(_SLO_SAMPLES.get(metric, ())):
+        if now - ts > window or (tenant is not None and who != tenant):
+            continue
+        n += 1
+        bad += value > limit
+    return bad / n if n else None
+
+
 def _slo_block() -> Dict[str, Any]:
     now = time.perf_counter()
     out: Dict[str, Any] = {"window_s": _SLO_WINDOW_S}
@@ -701,6 +723,17 @@ def watch(site: str, program=None, cid=None, cids=(), deadline_ms=None):
     else:
         deadline_s = max(0.001, float(deadline_ms) / 1e3)
     return _Guard(site, deadline_s, program, cid, cids)
+
+
+def reset_guards() -> int:
+    """Drop every armed watchdog guard and return how many were dropped
+    (heat_tpu/core/health_runtime.py:772-786): after a reform, a guard over
+    a region the drain abandoned must not trip against the new mesh. The
+    owning thread's exit still pops its missing entry, and a guard that
+    never tripped raises nothing."""
+    dropped = len(_WD_GUARDS)
+    _WD_GUARDS.clear()
+    return dropped
 
 
 def _ensure_thread() -> None:

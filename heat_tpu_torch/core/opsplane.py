@@ -52,8 +52,9 @@ falling edge ``slo_burn_clear``; :func:`on_burn` subscribers hear both.
 The metric names keep the reference's ``heat_tpu_`` prefix and its schema
 (:data:`SCHEMA`, equal to ``doc/metrics_schema.json``), so a dashboard
 built on the reference reads the port. The elastic, autoscale and
-multi-process families read ``telemetry``'s hook slots, which stay None
-until those modules are ported. Malformed knobs warn and disarm, never
+multi-process families read ``telemetry``'s hook slots, which
+``core/elastic.py``, ``core/autoscale.py`` and ``core/multihost.py`` fill
+at import. Malformed knobs warn and disarm, never
 fail an import. ``telemetry.reset()`` clears the series, alerts, findings
 and scrape counts; the configuration and an armed server stay.
 """
@@ -372,7 +373,7 @@ def _collect_numerics(out: List[Sample]) -> None:
 
 
 def _collect_elastic(out: List[Sample]) -> None:
-    # the elastic supervisor's slot on telemetry (None until ported)
+    # the elastic supervisor's slot on telemetry (core/elastic.py installs it)
     hook = telemetry._ELASTIC_HOOK
     if hook is None:
         return
@@ -387,7 +388,7 @@ def _collect_elastic(out: List[Sample]) -> None:
 
 
 def _collect_multihost(out: List[Sample]) -> None:
-    # the multi-process runtime's slot on telemetry (None until ported)
+    # the multi-process runtime's slot on telemetry (core/multihost.py installs it)
     hook = telemetry._MULTIHOST_HOOK
     if hook is None:
         return
@@ -462,7 +463,7 @@ def _collect_serving(out: List[Sample]) -> None:
 
 
 def _collect_autoscale(out: List[Sample]) -> None:
-    # the autoscale controller's slot on telemetry (None until ported)
+    # the autoscale controller's slot on telemetry (core/autoscale.py installs it)
     hook = telemetry._AUTOSCALE_HOOK
     if hook is None:
         return

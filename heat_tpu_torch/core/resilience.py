@@ -40,6 +40,9 @@ site                     where it fires
 ``multihost.heartbeat``  each lease beat of the peer-liveness daemon: a
                          fired fault is a missed beat, counted, never a
                          daemon crash
+``elastic.preempt``      the elastic supervisor's poll between steps
+                         (``core/elastic.py``): a fired fault is a
+                         preemption notice, which kills one host
 =======================  ==================================================
 
 :func:`inject` arms a site for a block::

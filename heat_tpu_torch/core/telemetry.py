@@ -76,9 +76,9 @@ Perfetto counter tracks beside the memory ledger's.
 ``_ELASTIC_HOOK``, ``_AUTOSCALE_HOOK`` and ``_MULTIHOST_HOOK`` are the
 slots of the elastic supervisor, the autoscale controller and the
 multi-process runtime: ``report()`` joins each as its block and the ops
-plane (``core/opsplane.py``) exports their gauges. They stay None until
-those modules come with later parts of the port. :func:`reset` clears the
-ops plane's series and alerts too.
+plane (``core/opsplane.py``) exports their gauges. Each module installs
+its own at import. :func:`reset` clears the ops plane's series and alerts
+too.
 
 ``record_collective`` and ``record_fused_collective`` carry the
 ``trace.hostdelay`` fault site: while it is armed each record sleeps
@@ -239,7 +239,7 @@ _NUMLENS_HOOK = None
 #: the multi-process runtime (reference ``core/elastic.py``,
 #: ``core/autoscale.py``, ``core/multihost.py``), installed by those modules
 #: at import: ``report()`` joins each as its block and ``core/opsplane.py``
-#: exports their gauges. None until the port has those modules.
+#: exports their gauges. None until the module is imported.
 _ELASTIC_HOOK = None
 _AUTOSCALE_HOOK = None
 _MULTIHOST_HOOK = None
@@ -460,10 +460,12 @@ def reset() -> None:
     joins: the ``utils.profiling`` timer registry, the memory ledger's
     watermark, the health layer's ring, histograms, SLO windows and stall
     log, the numerics lens's statistics, drift ledger, canary, training
-    streams and findings, the serving layer's exited sessions and the ops
-    plane's series, burn alerts and scrape counts. The mode and the other
-    modules' settings (an armed ops server among them) are kept; active
-    scopes and spans keep recording."""
+    streams and findings, the serving layer's exited sessions, the ops
+    plane's series, burn alerts and scrape counts, the elastic supervisor's
+    counters, and the autoscale controller, which is disarmed without
+    moving the mesh (heat_tpu/core/telemetry.py:549-577). The mode and the
+    other modules' settings (an armed ops server among them) are kept;
+    active scopes and spans keep recording."""
     global _DROP_WARNED
     _DROP_WARNED = False
     _GLOBAL.clear()
@@ -477,11 +479,13 @@ def reset() -> None:
     profiling.reset()
     memledger.reset()
     health_runtime.reset()
-    from . import numlens, opsplane, serving
+    from . import autoscale, elastic, numlens, opsplane, serving
 
+    elastic.reset()
     numlens.reset()
     serving.reset()
     opsplane.reset()
+    autoscale.reset()
 
 
 # ----------------------------------------------------------------------

@@ -276,6 +276,14 @@ class DataParallel:
             self.load_state_dict(sd)
         return self
 
+    def fit(self, batches, **kwargs) -> dict:
+        """Preemption-tolerant training over ``batches``, ``(x, y)`` pairs:
+        :func:`heat_tpu_torch.elastic.fit` (its knobs in ``core/elastic.py``;
+        reference data_parallel.py:236-241)."""
+        from ..core import elastic
+
+        return elastic.fit(self, batches, **kwargs)
+
 
 class DataParallelMultiGPU(DataParallel):
     """Node-local data parallelism bound to a DASO optimizer (reference

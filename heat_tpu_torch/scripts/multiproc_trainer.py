@@ -73,18 +73,6 @@ def _comm_failure(exc: BaseException) -> bool:
     )
 
 
-def newest_verified_step(directory: str):
-    """The newest step in ``directory`` whose checkpoint verifies, or None
-    (reference heat_tpu/core/elastic.py:210-220; it moves to
-    ``core/elastic.py`` with ROADMAP A11.4d)."""
-    from ..utils import checkpoint as ckpt
-
-    for s in sorted(ckpt.all_steps(directory), reverse=True):
-        if not ckpt.verify_checkpoint(directory, s):
-            return int(s)
-    return None
-
-
 def row_blocks(rows: int, p: int):
     """(start, stop) of each of the ``p`` ranks' rows under the
     ``ceil(rows/p)`` block rule."""
@@ -202,7 +190,7 @@ def run_lloyd(args, comm, doc) -> int:
 
 
 def run_lstsq(args, comm, doc) -> int:
-    from ..core import multihost, resilience
+    from ..core import elastic, multihost, resilience
     from ..utils.checkpoint import load_checkpoint, save_checkpoint
 
     rank = doc["rank"]
@@ -226,7 +214,7 @@ def run_lstsq(args, comm, doc) -> int:
         return w - lr * g
 
     start = 0
-    newest = newest_verified_step(args.ckpt_dir)
+    newest = elastic.newest_verified_step(args.ckpt_dir)
     if newest is not None:
         restored = load_checkpoint(args.ckpt_dir, {"w": np.zeros(dim)}, step=newest)
         w = torch.as_tensor(np.asarray(restored["w"], dtype=np.float64)).to(home)

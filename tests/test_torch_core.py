@@ -291,8 +291,8 @@ MODULES = (
     "_native", "core.io", "core.signal", "utils.checkpoint", "utils.data", "utils.data.partial_dataset",
     "core.version", "core.telemetry", "core.resilience", "utils.profiling", "telemetry",
     "core.memledger", "core.health_runtime", "utils.health", "core.fusion", "core.numlens", "core.serving",
-    "core.tracelens", "core.opsplane", "core.multihost", "scripts", "scripts.launch_multiproc",
-    "scripts.multiproc_trainer",
+    "core.tracelens", "core.opsplane", "core.multihost", "core.elastic", "core.autoscale", "scripts",
+    "scripts.launch_multiproc", "scripts.multiproc_trainer",
 )
 
 
@@ -331,12 +331,19 @@ REQUIRED_KNOBS = {
         "HEAT_TPU_SLO_TARGET", "HEAT_TPU_SLO_FAST_S", "HEAT_TPU_SLO_SLOW_S", "HEAT_TPU_SLO_BURN",
         "HEAT_TPU_SLO_BURN_MIN",
     },
+    "core/elastic.py": {"HEAT_TPU_ELASTIC_SIGNALS", "HEAT_TPU_ELASTIC_DRAIN_MS"},
+    "core/autoscale.py": {
+        "HEAT_TPU_AUTOSCALE", "HEAT_TPU_AUTOSCALE_INTERVAL_S", "HEAT_TPU_AUTOSCALE_COOLDOWN_S",
+        "HEAT_TPU_AUTOSCALE_SHRINK_AFTER_S", "HEAT_TPU_AUTOSCALE_MAX_ACTIONS", "HEAT_TPU_AUTOSCALE_MIN_DEVICES",
+        "HEAT_TPU_AUTOSCALE_SHRINK", "HEAT_TPU_AUTOSCALE_SHED_TIERS",
+    },
 }
 
 
 @pytest.mark.parametrize(
     "module", ["core/memledger.py", "core/health_runtime.py", "utils/health.py", "core/fusion.py", "core/telemetry.py",
-               "core/numlens.py", "core/serving.py", "core/tracelens.py", "core/opsplane.py"]
+               "core/numlens.py", "core/serving.py", "core/tracelens.py", "core/opsplane.py", "core/elastic.py",
+               "core/autoscale.py"]
 )
 def test_runtime_modules_read_only_the_references_knobs(module):
     """Every HEAT_TPU_* variable a runtime module of the port reads is one
@@ -344,7 +351,8 @@ def test_runtime_modules_read_only_the_references_knobs(module):
     The recorder reads the knobs of its collective half too (its collective
     nodes and root batching); the numerics lens, the serving layer, the
     trace analyzer and the ops plane read every knob of theirs, telemetry
-    the straggler seam's delay."""
+    the straggler seam's delay, the elastic supervisor and the autoscale
+    controller every knob of theirs."""
     mine = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu_torch" / module).read_text()))
     theirs = set(re.findall(r"HEAT_TPU_[A-Z0-9_]+", (ROOT / "heat_tpu" / module).read_text()))
     assert mine <= theirs, sorted(mine - theirs)

@@ -9,9 +9,9 @@ the server and the command line run on the port's own gauges: their cases
 copy the counts and states the reference case asserts, citing it, because
 the reference's live serving cases stop here on
 ``jax.core.trace_state_clean`` (its batching). The elastic, autoscale and
-multi-process families read ``telemetry``'s hook slots: the multi-process
-one is ``core/multihost.py``'s, the others are None until their modules
-are ported; a hook installed by hand is read.
+multi-process families read ``telemetry``'s hook slots, which
+``core/elastic.py``, ``core/autoscale.py`` and ``core/multihost.py`` fill
+at import; a hook installed by hand is read.
 """
 
 from __future__ import annotations
@@ -678,9 +678,10 @@ def _sink_lines(path):
 
 
 def test_sink_line_carries_every_block_with_no_sessions(tmp_path):
-    """tests/test_opsplane.py:602; the elastic and autoscale blocks are
-    empty until their modules install the hooks, the multihost block is
-    ``core/multihost.py``'s."""
+    """tests/test_opsplane.py:602: every block is a real dict, the elastic
+    block the supervisor's counters and the autoscale block the
+    controller's snapshot (tests/test_opsplane.py:626-627), the multihost
+    block ``core/multihost.py``'s."""
     assert serving._ACTIVE == 0
     path = str(tmp_path / "metrics.jsonl")
     sink = telemetry.set_metrics_sink(path, interval=0)
@@ -693,7 +694,7 @@ def test_sink_line_carries_every_block_with_no_sessions(tmp_path):
     rep = lines[0]["report"]
     assert set(rep) == LINE_KEYS
     assert "sessions" in rep["serving"] and "slo" in rep["health"] and "mode" in rep["numerics"]
-    assert rep["elastic"] == {} and rep["autoscale"] == {}
+    assert "reforms" in rep["elastic"] and "state" in rep["autoscale"]
     assert rep["multihost"]["world"] == 1 and rep["multihost"]["peers_lost"] == []
 
 
@@ -715,19 +716,26 @@ def test_sink_line_schema_identical_with_traffic(tmp_path):
 
 def test_hook_slots_feed_the_report_and_the_exposition(monkeypatch):
     """The elastic, autoscale and multi-process slots (reference
-    telemetry.py:258-276 and :1588-1600): None adds no block and no
-    family; the multi-process slot holds ``multihost.report_stats``, a live
-    block of a world of one with its gauges, as the reference's; a hook's
-    snapshot becomes its report block and its gauges, as the reference's
-    collectors read them."""
+    telemetry.py:258-276 and :1588-1600) hold ``elastic.stats``,
+    ``autoscale.stats`` and ``multihost.report_stats``, installed at import
+    as the reference's: live blocks with the reference's keys and their
+    gauges; a hook's snapshot becomes its report block and its gauges, as
+    the reference's collectors read them."""
+    from heat_tpu.core import autoscale as ref_as
+    from heat_tpu.core import elastic as ref_el
     from heat_tpu.core import multihost as ref_mh
-    from heat_tpu_torch.core import multihost
+    from heat_tpu_torch.core import autoscale, elastic, multihost
 
     rep = telemetry.report()
-    assert not {"elastic", "autoscale"} & set(rep)
-    assert telemetry._MULTIHOST_HOOK is multihost.report_stats and ref_tel._MULTIHOST_HOOK is ref_mh.report_stats
-    assert set(rep["multihost"]) == set(ref_mh.report_stats()) and rep["multihost"]["peers_lost"] == []
-    assert not [n for n, _, _ in opsplane.collect() if n.startswith(("heat_tpu_elastic", "heat_tpu_autoscale"))]
+    for name, mine, theirs in (("elastic", elastic.stats, ref_el.stats), ("autoscale", autoscale.stats, ref_as.stats),
+                               ("multihost", multihost.report_stats, ref_mh.report_stats)):
+        assert getattr(telemetry, f"_{name.upper()}_HOOK") is mine and getattr(ref_tel, f"_{name.upper()}_HOOK") is theirs
+        assert set(rep[name]) == set(theirs())
+    assert "reforms" in rep["elastic"] and rep["autoscale"]["state"] == "disarmed"
+    assert rep["multihost"]["peers_lost"] == []
+    families = {n for n, _, _ in opsplane.collect()}
+    assert {"heat_tpu_elastic_total", "heat_tpu_elastic_downtime_ms_total", "heat_tpu_autoscale_armed",
+            "heat_tpu_autoscale_shed_refusals_total"} <= families
     live = {n: v for n, _, v in opsplane.collect() if n.startswith(("heat_tpu_peer", "heat_tpu_barrier"))}
     assert live["heat_tpu_peers_expected"] == 1.0 and live["heat_tpu_peers_lost"] == 0.0
     elastic = {"preemptions": 1, "reforms": 2, "downtime_ms": 30.0}

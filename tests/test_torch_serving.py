@@ -9,11 +9,6 @@ case asserts, citing it. The seams' own cases (the memory gate's
 ``admission_hold``/``gate_exempt``/``hold_info``, the per-thread errstate
 stack, ``health_runtime``'s tenant hook, a force that waits for admission
 without holding ``fusion._FORCE_LOCK``) close the file.
-
-Waits for a later part of the port:
-``test_elastic_hold_composes_with_session_gates`` (tests/test_serving.py:531)
-comes with ``elastic`` (ROADMAP A11.4d); the hold's own composition with a
-session is held here by ``test_admission_hold_refuses_then_releases``.
 """
 
 from __future__ import annotations
@@ -512,6 +507,33 @@ def test_admission_hold_refuses_then_releases():
         assert fusion.is_deferred(pending) and fusion.cache_stats()["degraded"] == 0
         assert float(pending) == want
     assert sess.stats["mem_refused"] == 1 and memledger.gate_stats()["held"] == 1
+
+
+def test_elastic_hold_composes_with_session_gates(tmp_path):
+    """tests/test_serving.py:531: a session's pending read under the elastic
+    supervisor's hold is refused naming it, stays pending and undegraded,
+    and reads the serving-off value after the release; the supervisor's own
+    drain inside the same hold forces it (gate-exempt)."""
+    from heat_tpu_torch.core import elastic
+
+    a = _client_input(13)
+    want = _serving_off(lambda: float(ht.sum(a * 8.0)))
+    sup = elastic.Supervisor(str(tmp_path), install_signals=False)
+    try:
+        with serving.Session("held", admission_rate=1000, admission_burst=8):
+            pending = ht.sum(a * 8.0)
+            with memledger.admission_hold("reform"):
+                with pytest.raises(memledger.MemoryBudgetExceeded) as err:
+                    float(pending)
+                assert "reform" in str(err.value)
+            assert fusion.is_deferred(pending) and fusion.cache_stats()["degraded"] == 0
+            assert float(pending) == want
+            drained = ht.sum(a * 8.0)
+            with memledger.admission_hold("reform"):
+                assert sup.drain() >= 1 and not fusion.is_deferred(drained)
+            assert float(drained) == want
+    finally:
+        sup.close()
 
 
 def test_refused_chain_absorbed_by_neighbor_batch_not_redispatched():

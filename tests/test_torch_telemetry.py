@@ -55,11 +55,9 @@ ref_cli = importlib.import_module("heat_tpu.telemetry")
 MESHES = [1, 3, 5]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: report() blocks of the fusion recorder, which the port has, and of what
-#: it has not yet: elastic and autoscale; the serving block
-#: is there once the serving layer has sessions, in either package
+#: report() blocks of the fusion recorder; the serving block is there once
+#: the serving layer has sessions, in either package
 FUSION_BLOCKS = {"fusion_cache", "programs", "forcing_points", "unfused_reasons", "retraces", "degraded"}
-LATER_BLOCKS = {"elastic", "autoscale"}
 SESSION_BLOCKS = {"serving"}
 
 
@@ -348,9 +346,9 @@ def test_report_has_the_references_keys_less_the_later_blocks():
     for mode in (1, 2):
         tel.set_mode(mode)
         ref_tel.set_mode(mode)
-        assert set(tel.report()) - SESSION_BLOCKS == set(ref_tel.report()) - LATER_BLOCKS - SESSION_BLOCKS
+        assert set(tel.report()) - SESSION_BLOCKS == set(ref_tel.report()) - SESSION_BLOCKS
         for path, doc in tel.scope_reports().items():
-            assert set(doc) == set(ref_tel.scope_reports()[path]) - LATER_BLOCKS - SESSION_BLOCKS
+            assert set(doc) == set(ref_tel.scope_reports()[path]) - SESSION_BLOCKS
 
 
 def test_report_json_round_trips_and_is_deterministic():
