@@ -46,7 +46,7 @@ import torch
 from . import fusion, resilience, telemetry, types
 from .communication import SPLIT_AXIS, MeshCommunication, _combine, _neutral
 from .dndarray import DNDarray, _distribute
-from .sanitation import sanitize_in, sanitize_out
+from .sanitation import sanitize_in, sanitize_mesh, sanitize_out
 from .stride_tricks import broadcast_shapes, sanitize_axis
 
 __all__: List[str] = []  # private module, mirrors the reference
@@ -137,6 +137,7 @@ def __binary_op(
         raise TypeError(
             f"Only DNDarrays and numeric scalars are supported, but input was {type(t1)}, {type(t2)}"
         )
+    sanitize_mesh(t1, t2, where, out)
     ref = t1 if isinstance(t1, DNDarray) else t2
     comm = ref.comm
     if (
@@ -152,6 +153,7 @@ def __binary_op(
         if telemetry._MODE:
             # the same-shape operand on another split axis moves to the first
             # operand's (heat_tpu/core/_operations.py:93-102)
+            # heat-lint: disable=H005 — one dispatch, one site (collective.reshard fires in resplit below)
             telemetry.record_collective(
                 "reshard", SPLIT_AXIS, t2.nbytes, telemetry._dtype_name(t2.dtype.torch_type())
             )

@@ -7,7 +7,7 @@ import torch
 from . import types
 from ._operations import _aligned, _result, _shape
 from .dndarray import DNDarray, _wrap
-from .sanitation import sanitize_in
+from .sanitation import sanitize_in, sanitize_mesh
 from .stride_tricks import broadcast_shapes
 
 __all__ = ["nonzero", "where"]
@@ -33,6 +33,7 @@ def where(cond: DNDarray, x=None, y=None) -> DNDarray:
     if x is None or y is None:
         raise TypeError("either both or neither of x and y should be given")
     sanitize_in(cond)
+    sanitize_mesh(cond, x, y)
     operands = (x, y) if isinstance(x, DNDarray) or isinstance(y, DNDarray) else (cond,)
     out_shape = broadcast_shapes(*[_shape(t) for t in (cond, x, y)])
     out_split = None

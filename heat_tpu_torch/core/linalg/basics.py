@@ -25,7 +25,7 @@ import torch
 
 from .. import factories, fusion, resilience, types
 from ..dndarray import DNDarray, _distribute, _wrap
-from ..sanitation import sanitize_in, warn_replicated
+from ..sanitation import sanitize_in, sanitize_mesh, warn_replicated
 from ..stride_tricks import sanitize_axis
 
 __all__ = [
@@ -105,6 +105,7 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     """
     sanitize_in(a)
     sanitize_in(b)
+    sanitize_mesh(a, b)
     if a.ndim == 1 and b.ndim == 1:
         return dot(a, b)
     if _both_bool(a, b):
@@ -193,6 +194,7 @@ def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> Union[DNDar
 
 
 def _inner(a: DNDarray, b: DNDarray) -> DNDarray:
+    sanitize_mesh(a, b)
     if a.gshape != b.gshape:
         raise ValueError(f"dot: shapes {a.gshape} and {b.gshape} are not aligned")
     dtype = types.promote_types(a.dtype, b.dtype)
@@ -208,6 +210,7 @@ def _inner(a: DNDarray, b: DNDarray) -> DNDarray:
 def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
     """Dot product of the flattened inputs, the first conjugated (reference
     basics.py:2236)."""
+    sanitize_mesh(x1, x2)
     if _both_bool(x1, x2):
         return _nonzero(vdot(x1.astype(types.int64), x2.astype(types.int64)))
     tdt = types.promote_types(x1.dtype, x2.dtype).torch_type()
@@ -286,6 +289,7 @@ def cross(
 ) -> DNDarray:
     """Cross product of 3-vectors (reference basics.py:46-159). As in
     heat_tpu, ``axis`` (default -1) overrides ``axisa``/``axisb``/``axisc``."""
+    sanitize_mesh(x1, x2)
     if axis is not None:
         axisa = axisb = axisc = axis
     tdt = types.promote_types(x1.dtype, x2.dtype).torch_type()
@@ -578,6 +582,7 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optio
     along 0 when ``a`` is split, else 1 when ``b`` is, unless given."""
     sanitize_in(a)
     sanitize_in(b)
+    sanitize_mesh(a, b)
     tdt = types.promote_types(a.dtype, b.dtype).torch_type()
     result = torch.outer(a.larray.reshape(-1).to(tdt), b.larray.reshape(-1).to(tdt))
     if split is None:

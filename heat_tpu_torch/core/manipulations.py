@@ -25,7 +25,7 @@ import torch
 from . import fusion, resilience, types
 from ._operations import _into_out
 from .dndarray import DNDarray, _wrap
-from .sanitation import sanitize_in, warn_replicated
+from .sanitation import sanitize_in, sanitize_mesh, warn_replicated
 from .stride_tricks import broadcast_shapes, sanitize_axis, sanitize_shape
 
 __all__ = [
@@ -118,6 +118,7 @@ def concatenate(arrays: Sequence[DNDarray], axis: int = 0) -> DNDarray:
         raise ValueError("need at least one array to concatenate")
     for a in arrays:
         sanitize_in(a)
+    sanitize_mesh(*arrays)
     axis = sanitize_axis(arrays[0].gshape, axis)
     first_shape = arrays[0].gshape
     for i, a in enumerate(arrays[1:], 1):
@@ -297,6 +298,7 @@ def stack(arrays: Sequence[DNDarray], axis: int = 0, out=None) -> DNDarray:
             raise ValueError(
                 f"all input arrays must have the same shape, got {[a.gshape for a in arrays]}"
             )
+    sanitize_mesh(*arrays)
     axis = sanitize_axis(tuple(arrays[0].gshape) + (1,), axis)
     return _into_out(concatenate([expand_dims(a, axis) for a in arrays], axis=axis), out)
 

@@ -96,10 +96,13 @@ __all__ = [
     "MemoryBudgetWarning",
     "MemoryExhaustedWarning",
     "UNATTRIBUTED",
+    "admission_hold",
     "admit",
     "budget_info",
     "current_owner",
+    "gate_exempt",
     "gate_stats",
+    "hold_info",
     "invalidate_resolved_budget",
     "is_oom",
     "last_oom",

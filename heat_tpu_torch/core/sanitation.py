@@ -16,6 +16,7 @@ __all__ = [
     "sanitize_in_tensor",
     "sanitize_infinity",
     "sanitize_lshape",
+    "sanitize_mesh",
     "sanitize_out",
     "sanitize_sequence",
     "scalar_to_1d",
@@ -48,6 +49,31 @@ def sanitize_distribution(*args, target: DNDarray, diff_map=None):
             x = manipulations.resplit(x, target.split)
         out.append(x)
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def _mesh_devices(comm):
+    return None if comm.spans_processes else comm.devices
+
+
+def sanitize_mesh(*operands) -> None:
+    """Raise ValueError when two DNDarray operands lie on different meshes,
+    as the reference's jitted computation refuses incompatible devices.
+    Meshes compare by their device lists: a mesh re-formed onto the same
+    devices (the autoscaler's recovery) and a sub-mesh's own arrays
+    combine; a spanning mesh compares by identity."""
+    first = None
+    for x in operands:
+        if not isinstance(x, DNDarray):
+            continue
+        if first is None:
+            first = x.comm
+        elif x.comm is not first and (
+            _mesh_devices(x.comm) is None or _mesh_devices(x.comm) != _mesh_devices(first)
+        ):
+            raise ValueError(
+                f"operands lie on different meshes ({first.size} and {x.comm.size} shards): move an "
+                "array made before a reform onto the current mesh before combining them"
+            )
 
 
 def sanitize_lshape(array: DNDarray, tensor) -> None:

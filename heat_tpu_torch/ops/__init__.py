@@ -10,6 +10,16 @@
 
 from . import flash, lloyd, pairwise
 from .flash import flash_attention_kernel
+from .lloyd import fused_lloyd_iter, fused_lloyd_iter_sharded, fused_lloyd_run
 from .pairwise import pairwise_distance
 
-__all__ = ["flash", "lloyd", "pairwise", "flash_attention_kernel", "pairwise_distance"]
+__all__ = [
+    "flash",
+    "lloyd",
+    "pairwise",
+    "flash_attention_kernel",
+    "fused_lloyd_iter",
+    "fused_lloyd_iter_sharded",
+    "fused_lloyd_run",
+    "pairwise_distance",
+]

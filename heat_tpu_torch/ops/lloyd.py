@@ -29,6 +29,7 @@ from . import _build
 __all__ = [
     "LAUNCHES",
     "fused_lloyd_iter",
+    "fused_lloyd_iter_sharded",
     "fused_lloyd_run",
     "fused_lloyd_run_sharded",
     "fused_supported",
@@ -318,6 +319,21 @@ def fused_lloyd_run_sharded(
         xsq_sum = logical_xsq_sum(xs, n_global, comm, first_rank)
     c, used, inertia, shift = run_steps(xs, centers, k, comm, n_global, n_steps, xsq_sum, first_rank)
     return c, sharded_labels(xs, used, n_global, first_rank), inertia, shift
+
+
+def fused_lloyd_iter_sharded(
+    shards: Sequence[torch.Tensor],
+    centers: torch.Tensor,
+    k: int,
+    comm,
+    n_global: int,
+    xsq_sum: Optional[torch.Tensor] = None,
+):
+    """One fused Lloyd iteration over row-sharded data: ``(new_centers,
+    labels (n_global,), inertia, shift)``, the return contract of
+    heat_tpu.ops.lloyd.fused_lloyd_iter_sharded (labels against the input
+    centers). :func:`fused_lloyd_run_sharded` with one step."""
+    return fused_lloyd_run_sharded(shards, centers, k, comm, n_global, 1, xsq_sum=xsq_sum)
 
 
 def run_steps(xs, centers, k: int, comm, n_global: int, n_steps: int, xsq_sum, first_rank: int = 0):

@@ -141,6 +141,7 @@ def _dist(X: DNDarray, Y: Optional[DNDarray], metric: Callable) -> DNDarray:
         Y = X
     else:
         sanitation.sanitize_in(Y)
+        sanitation.sanitize_mesh(X, Y)
         if Y.ndim != 2:
             raise NotImplementedError(f"Y should be 2D, but was {Y.ndim}D")
         if X.shape[1] != Y.shape[1]:

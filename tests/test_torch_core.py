@@ -377,6 +377,44 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+#: names of heat_tpu's ``__all__`` that exist only because of jax (ROADMAP
+#: "Only a difference from numpy ... counts as a fault"), and ``defer_op``,
+#: a kept divergence of the recorder
+JAX_ONLY_NAMES = {
+    "heat_tpu.core.devices": {"tpu"},
+    "heat_tpu.core.fusion": {"defer_op"},
+    "heat_tpu.core.sanitation": {"is_concrete"},
+    "heat_tpu.ops": {"flash_attention_tpu"},
+    "heat_tpu.ops.flash": {"flash_attention_tpu", "pallas_attention_supported"},
+    "heat_tpu.ops.lloyd": {"fused_sharded_supported"},
+    "heat_tpu.ops.pairwise": {"pallas_supported"},
+}
+#: heat_tpu's modules that declare ``__all__``, by their dotted names
+REFERENCE_MODULES = sorted(
+    ".".join(path.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for path in (ROOT / "heat_tpu").rglob("*.py")
+    if "__all__" in path.read_text() and path.name != "_compat.py"
+)
+
+
+@pytest.mark.parametrize("module", REFERENCE_MODULES)
+def test_c21_every_public_name_of_the_reference_is_the_ports(module):
+    """C21 (ROADMAP Queue C): every name in a heat_tpu module's ``__all__``
+    is in the ``__all__`` of the port's module of the same path, less the
+    jax-only names (:data:`JAX_ONLY_NAMES`); ``core/_compat.py`` holds jax
+    shims and has no counterpart."""
+    import importlib
+
+    theirs = importlib.import_module(module)
+    if not hasattr(theirs, "__all__"):
+        pytest.skip(f"{module} builds no __all__")
+    mine = importlib.import_module("heat_tpu_torch" + module.removeprefix("heat_tpu"))
+    missing = set(theirs.__all__) - set(getattr(mine, "__all__", ())) - JAX_ONLY_NAMES.get(module, set())
+    assert not missing, sorted(missing)
+    for name in getattr(mine, "__all__", ()):
+        assert hasattr(mine, name), name
+
+
 # ---------------------------------------------------------------------------
 # fault C11 of ROADMAP queue C: the reference's surface, on explicit meshes of
 # 3 and 5 shards

@@ -343,8 +343,58 @@ def test_arrays_keep_their_mesh_across_a_reform():
     b = ht.array(np.arange(4.0 * P), split=0)
     assert a.comm.size == P and b.comm is small
     np.testing.assert_array_equal((a * 2.0).numpy(), np.arange(4.0 * P) * 2.0)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(ValueError, match=f"different meshes \\({P} and {P - 1} shards\\)"):
         (a + b).numpy()
+
+
+#: C19's three cases (ROADMAP Queue C): an array made on one mesh meets one
+#: made after a reform, split against split, split against replicated, and
+#: through matmul
+C19_CASES = {
+    "split_split": lambda pkg, old, new: old + new,
+    "split_replicated": lambda pkg, old, new: old + pkg.array(np.arange(10.0)),
+    "matmul": lambda pkg, old, new: pkg.matmul(old.reshape((10, 1)), new.reshape((1, 10))),
+}
+
+
+def _across_reform(pkg, reform, before, after):
+    reform(before)
+    old = pkg.array(np.arange(10.0), split=0) * 2.0
+    reform(after)
+    return old, pkg.array(np.arange(10.0), split=0) * 2.0
+
+
+@pytest.mark.parametrize("meshes", [(5, 3), (3, 5)], ids=["5to3", "3to5"])
+@pytest.mark.parametrize("case", sorted(C19_CASES))
+def test_c19_an_operand_from_another_mesh_is_refused(case, meshes):
+    """C19: an operation between arrays of two meshes raises ValueError
+    naming both sizes, where the parent computed silently on the dead mesh
+    or raised torch's size error. heat_tpu raises too ("Received
+    incompatible devices for jitted computation"); in the 3-to-5 order its
+    split+split case meets the padded shapes first and raises TypeError."""
+    before, after = meshes
+    old, new = _across_reform(ht, lambda n: communication.reform([torch.device("cpu")] * n), before, after)
+    with pytest.raises(ValueError, match=f"different meshes \\({before} and {after} shards\\)"):
+        C19_CASES[case](ht, old, new)
+    if len(jax.devices()) >= max(meshes):
+        ref_old, ref_new = _across_reform(ref, lambda n: ref_comm.reform(jax.devices()[:n]), before, after)
+        expected = TypeError if (case, meshes) == ("split_split", (3, 5)) else ValueError
+        with pytest.raises(expected):
+            np.asarray(C19_CASES[case](ref, ref_old, ref_new).numpy())
+
+
+def test_c19_meshes_on_the_same_devices_still_combine():
+    """What C19 keeps: meshes compare by their device lists, so an array
+    from before a reform onto the same devices (the autoscaler's recovery)
+    combines with one made after, and a sub-mesh's arrays with each
+    other."""
+    devices = [torch.device("cpu")] * 3
+    old, new = _across_reform(ht, communication.reform, devices, devices)
+    assert old.comm is not new.comm
+    np.testing.assert_array_equal((old + new).numpy(), np.arange(10.0) * 4.0)
+    sub = communication.get_comm().sub([0, 1])
+    a = ht.array(np.arange(6.0), split=0, comm=sub)
+    np.testing.assert_array_equal(ht.matmul(a.reshape((6, 1)), a.reshape((1, 6))).numpy(), np.outer(np.arange(6.0), np.arange(6.0)))
 
 
 def test_initialize_reentry_refreshes_mesh_keyed_state():

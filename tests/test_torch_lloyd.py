@@ -183,3 +183,31 @@ def test_kernel_source_is_shipped_and_not_built_on_import():
     assert (_build.SOURCE_DIR / "lloyd.cu").is_file()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "lloyd" not in _build._LOADED
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("rows", ["ragged", "even"])
+def test_c21_fused_iter_sharded_keeps_the_reference_contract(p, rows):
+    """C21: ``ops.lloyd.fused_lloyd_iter_sharded`` is one step of the fused
+    sharded run, with heat_tpu's return contract (tests/test_lloyd_fused.py:78,
+    :198, :267): new centers, labels of the n_global logical rows against
+    the input centers, inertia and shift, held against the reference's
+    Pallas kernel in interpret mode on a mesh of the same size."""
+    from heat_tpu.core.communication import MeshCommunication as RefMesh
+
+    if len(jax.devices()) < p:
+        pytest.skip(f"the reference's CPU mesh has {len(jax.devices())} devices")
+    n = 4 * p + 3 if rows == "ragged" else 8 * p
+    f, k = (6, 4) if rows == "ragged" else (5, 3)
+    data, centers = _inputs(n, f, k, seed=7 + p)
+    mine = ht.array(data, split=0, comm=ht.communication.MeshCommunication([torch.device("cpu")] * p))
+    theirs = ref.array(data, split=0, comm=RefMesh(jax.devices()[:p]))
+    got = lloyd.fused_lloyd_iter_sharded(mine.shards, torch.from_numpy(centers), k, mine.comm, n)
+    want = ref_lloyd.fused_lloyd_iter_sharded(theirs.parray, jnp.asarray(centers), k, theirs.comm, n, interpret=True)
+    assert got[1].shape == (n,)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1])[:n])
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-4)
+    np.testing.assert_allclose(float(got[3]), float(want[3]), rtol=1e-4, atol=1e-6)
+    assert ht.ops.fused_lloyd_iter_sharded is lloyd.fused_lloyd_iter_sharded
+    assert (ht.ops.fused_lloyd_iter, ht.ops.fused_lloyd_run) == (lloyd.fused_lloyd_iter, lloyd.fused_lloyd_run)
