@@ -291,7 +291,15 @@ collective nodes.
    untouched there) equal to the live one, the flight bundle's diagnosis;
    the sync storm, retrace storm, resplit ping-pong (four shards) and
    injected SDC detectors, each in its own window; the fit's buckets
-   beside the profiler's busy share;
+   beside the profiler's busy share; the static analyzer's leg after the
+   warm chains, building nothing: ``audit_programs()`` over the programs
+   those chains cached (no replication error, the cache's compiles
+   unchanged), ``lint_paths`` and ``verify_paths`` over
+   ``heat_tpu_torch`` (0 unsuppressed findings; they run in a process of
+   their own, started with the script, that touches no device and loads
+   neither jax nor heat_tpu; their times are printed) and
+   ``drift_report()`` on the card's mesh and on four shards of it (every
+   workload within 2x, eager there: nothing built);
 22. the multi-process runtime (no kernel of its own; the fit across two
    processes runs the Lloyd kernel): a one-process NCCL world on the card,
    each verb of the process-spanning mesh against the in-process mesh bit
@@ -7386,6 +7394,131 @@ def _ot_print_analysis(label: str, ana) -> None:
         print(f"    finding [{f['severity']}] {f['rule']}: {f['message']}", flush=True)
 
 
+#: the static analyzer's lint and verifier over the package, in a process
+#: of their own: pure static analysis that needs no card and takes minutes
+#: of one CPU core on the card's host, so the script starts it, at the
+#: lowest priority, with the kernels' builds and phase 21's analyzer leg
+#: reads its result
+_STATIC_ANALYSIS_SCRIPT = """
+import json, os, sys, time
+os.nice(19)
+import torch
+from heat_tpu_torch.analysis import dataflow, engine
+t0 = time.perf_counter()
+lint = engine.lint_paths(["heat_tpu_torch"])
+t1 = time.perf_counter()
+verify, stats = dataflow.verify_paths(["heat_tpu_torch"])
+t2 = time.perf_counter()
+print(json.dumps({
+    "lint_s": t1 - t0, "verify_s": t2 - t1, "lint": engine.summarize(lint), "verify": engine.summarize(verify),
+    "active": [f.as_dict() for f in lint + verify if not (f.suppressed or f.baselined)],
+    "modules": stats["modules"], "functions": stats["functions"], "cuda_initialized": torch.cuda.is_initialized(),
+    "forbidden": sorted({"jax", "jaxlib", "heat_tpu", "flax", "optax"} & set(sys.modules)),
+}))
+"""
+_STATIC_ANALYSIS = {}
+
+
+def start_static_analysis() -> None:
+    """Start the lint and the verifier over ``heat_tpu_torch`` in their own
+    process (once)."""
+    if "proc" not in _STATIC_ANALYSIS:
+        _STATIC_ANALYSIS["started"] = time.perf_counter()
+        _STATIC_ANALYSIS["proc"] = subprocess.Popen(
+            [sys.executable, "-c", _STATIC_ANALYSIS_SCRIPT], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def stop_static_analysis() -> None:
+    proc = _STATIC_ANALYSIS.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def static_analysis_result(timeout: float = 600.0) -> dict:
+    """The lint's and the verifier's result; the seconds this call waited
+    for it as ``waited_s``."""
+    start_static_analysis()
+    t0 = time.perf_counter()
+    out, err = _STATIC_ANALYSIS["proc"].communicate(timeout=timeout)
+    if _STATIC_ANALYSIS["proc"].returncode != 0:
+        raise AssertionError(f"the static analysis process failed: {err[-3000:]}")
+    return dict(json.loads(out.strip().splitlines()[-1]), waited_s=time.perf_counter() - t0)
+
+
+def ot_static_analysis_leg(ht, fusion) -> dict:
+    """The static analyzer over what the warm chains left: the program
+    audit of the cached programs (static: nothing built), the lint's and
+    the verifier's result over the package, and the drift check of the
+    verifier's cost model against telemetry's bytes on the card's mesh and
+    on OT_P shards of it (its workloads stay eager there)."""
+    import torch
+
+    from heat_tpu_torch import analysis
+    from heat_tpu_torch.analysis import dataflow
+    from heat_tpu_torch.core.communication import MeshCommunication
+
+    t0 = time.perf_counter()
+    compiles = fusion.cache_stats()["compiles"]
+    keys = fusion.cache_stats()["program_keys"]
+    findings = analysis.audit_programs()
+    audit_s = time.perf_counter() - t0
+    info = fusion.program_audit_info()
+    print(f"phase ops_trace: the static analyzer's leg: audit_programs() over {len(keys)} cached program(s) in "
+          f"{audit_s:.3f} s, {len(findings)} finding(s)", flush=True)
+    for key, rec in info.items():
+        cost, repl = rec["cost"], rec["replicated_cost"]
+        print(f"    program {key} [{rec['family'][:80]}]: mesh {rec['mesh_size']}, {rec['split_leaves']} split "
+              f"leaves, bytes accessed per rank {cost.get('bytes_accessed')}, whole on every rank "
+              f"{repl.get('bytes_accessed')}, collectives {cost.get('collectives')}, static peak "
+              f"{(cost.get('memory') or {}).get('peak_bytes')} B", flush=True)
+    print(analysis.render_audit(findings, len(keys)), flush=True)
+    static = static_analysis_result()
+    print(f"  lint_paths(['heat_tpu_torch']) {static['lint_s']:.2f} s: {static['lint']}; "
+          f"verify_paths(['heat_tpu_torch']) {static['verify_s']:.2f} s over {static['modules']} modules, "
+          f"{static['functions']} functions: {static['verify']}; in their own process, started with the "
+          f"script ({static['waited_s']:.2f} s waited here), CUDA initialized there {static['cuda_initialized']}, "
+          f"forbidden modules loaded {static['forbidden']}", flush=True)
+    t1 = time.perf_counter()
+    drift = {"card": dataflow.drift_report()}
+    new_compiles = fusion.cache_stats()["compiles"] - compiles
+    same_keys = fusion.cache_stats()["program_keys"] == keys
+    # the default mesh of four shards: use_comm drops the cached programs
+    # (a mesh-keyed cache), so this comes after the audit and its count
+    ht.use_comm(MeshCommunication([torch.device("cuda", 0)] * OT_P))
+    try:
+        before = fusion.cache_stats()["compiles"]
+        drift[f"{OT_P}_shards"] = dataflow.drift_report()
+        new_compiles += fusion.cache_stats()["compiles"] - before
+    finally:
+        ht.use_comm(None)
+    drift_s = time.perf_counter() - t1
+    for label, rep in drift.items():
+        print(f"  drift_report() on {label} (mesh {rep['mesh_size']}): " + "; ".join(
+            f"{name} static {r['static_total']} B, observed {r['observed_total']} B, ratio {r['ratio']}"
+            for name, r in rep["workloads"].items()), flush=True)
+    out = {
+        "programs": len(keys), "findings": [f.as_dict() for f in findings], "audit_s": audit_s,
+        "info": {k: {"family": r["family"], "mesh_size": r["mesh_size"], "cost": r["cost"],
+                     "replicated_bytes_accessed": r["replicated_cost"].get("bytes_accessed")} for k, r in info.items()},
+        "new_compiles": new_compiles, "static": static, "drift": drift,
+        "drift_s": drift_s, "leg_s": time.perf_counter() - t0,
+    }
+    print(f"  the leg: {out['leg_s']:.2f} s (audit {audit_s:.3f} s, waiting for the lint and verifier "
+          f"{static['waited_s']:.2f} s, drift {drift_s:.2f} s), {out['new_compiles']} new compiles", flush=True)
+    if not keys or any(f.kind == "replication" for f in findings):
+        raise AssertionError(f"ops_trace: the audit of {len(keys)} program(s) found {out['findings']}")
+    if out["new_compiles"] or not same_keys:
+        raise AssertionError(f"ops_trace: the static analyzer's leg built {out['new_compiles']} program(s)")
+    if static["lint"]["active"] or static["verify"]["active"] or static["cuda_initialized"] or static["forbidden"]:
+        raise AssertionError(f"ops_trace: the lint and verifier over the package: {static}")
+    if any(not r["within_bound"] or r["ratio"] > dataflow.DRIFT_FACTOR
+           for rep in drift.values() for r in rep["workloads"].values()) or drift[f"{OT_P}_shards"]["mesh_size"] != OT_P:
+        raise AssertionError(f"ops_trace: the drift check: {drift}")
+    return out
+
+
 def ot_analyzer_phase(ht, tel, fusion, tl, hr, x, b, tmp: str, cli: "_OtCli") -> dict:
     """(a) The analyzer on a recorded workload: phase 18's 10-op chain on
     the table, one cold signature and OT_WARM warm chains, each read."""
@@ -7519,6 +7652,7 @@ def ot_analyzer_phase(ht, tel, fusion, tl, hr, x, b, tmp: str, cli: "_OtCli") ->
           f"{diag.get('window_s')} s, unattributed {diag.get('unattributed_pct')}%", flush=True)
     if dump["problems"] or set(diag) != want or "trace window" not in diag["text"]:
         raise AssertionError(f"ops_trace: the flight bundle's diagnosis does not validate: {diag}")
+    out["static_analysis"] = ot_static_analysis_leg(ht, fusion)
     return out
 
 
@@ -8821,6 +8955,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+    start_static_analysis()
+    try:
+        return _phases(ht, _build, kind, smi)
+    finally:
+        stop_static_analysis()
+
+
+def _phases(ht, _build, kind: str, smi: str) -> int:
+    import torch
 
     # 1. build
     sources = sorted(p.stem for p in _build.SOURCE_DIR.glob("*.cu"))

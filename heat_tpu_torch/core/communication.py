@@ -70,6 +70,7 @@ def _declare(verb: str, dtype, *records) -> None:
         resilience.check("collective." + verb)
     if telemetry._MODE:
         for nbytes, count in records:
+            # heat-lint: disable=H005 — the site is collective.<verb>, fired above for this schedule's verb
             telemetry.record_collective(verb, SPLIT_AXIS, int(nbytes), telemetry._dtype_name(dtype), count=count)
 
 
@@ -78,6 +79,7 @@ def _note(verb: str, payload) -> None:
     fault site, unless a declared schedule is running."""
     if getattr(_DECLARED, "depth", 0):
         return
+    # heat-lint: disable=H005 — the site is collective.<verb>, fired below for this verb
     telemetry.record_collective_operand(verb, SPLIT_AXIS, payload)
     if resilience._ARMED:
         resilience.check("collective." + verb)
@@ -523,6 +525,7 @@ class ProcessMeshCommunication(MeshCommunication):
 
     def _record(self, verb: str, payload) -> None:
         if self._records and telemetry._MODE and not getattr(_DECLARED, "depth", 0):
+            # heat-lint: disable=H005 — every verb calls _fire (collective.<verb>) beside _record
             telemetry.record_collective_operand(verb, HOST_STAGED_AXIS if self._staged else SPLIT_AXIS, payload)
 
     def _gather(self, contrib: Dict[int, object]) -> Dict[int, object]:

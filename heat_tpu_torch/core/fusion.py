@@ -71,7 +71,10 @@ the GraphModule's node shapes (meta tensors): bytes are the leaves plus the
 outputs plus the intermediates live at the worst point of the op order, an
 upper bound on what the fused program holds; flops come from a per-op
 table (one per output element for elementwise ops, one per input element
-for reductions).
+for reductions). :func:`program_audit_info` adds, per program, the bytes
+each op reads and writes on one rank, the same with every leaf whole on
+every rank, and the collective nodes with their wire bytes: what
+``analysis/audit.py`` checks.
 
 **Collective nodes.** A collective of a pending chain records a node
 instead of forcing the chain: a resplit (:func:`defer_reshard`: the
@@ -157,6 +160,7 @@ __all__ = [
     "force",
     "is_deferred",
     "phys_node",
+    "program_audit_info",
     "program_costs",
     "program_hlo",
     "programs",
@@ -667,6 +671,8 @@ _QUARANTINE: "OrderedDict[tuple, None]" = OrderedDict()
 _PROGRAM_INFO: "OrderedDict[tuple, dict]" = OrderedDict()
 #: memoized cost estimates by program key (program_costs())
 _COSTS: Dict[str, dict] = {}
+#: memoized estimates with every leaf whole on every rank (program_audit_info())
+_REPL_COSTS: Dict[str, dict] = {}
 #: program keys whose cost estimate failed: counted and warned once
 _COST_ERROR_KEYS: set = set()
 _COST_ERROR_WARNED = False
@@ -717,9 +723,13 @@ def _program_key(sig) -> str:
 
 def _label(fn, kw) -> str:
     """An op's name in the telemetry: a schedule's by its kernel
-    (``apply:<kernel>``)."""
+    (``apply:<kernel>``), a reduction's by its local function
+    (``_across_op:sum``), as the reference names a program family by its
+    ops (``sum``)."""
     if fn in (_apply_op, _apply_multi_op):
         return "apply:" + _name(dict(kw)["kernel"])
+    if fn in (_reduce_op, _across_op):
+        return f"{_name(fn)}:{_name(dict(kw)['reduction'].local).strip('_')}"
     return _name(fn)
 
 
@@ -835,30 +845,39 @@ def _build(sig, meta: bool = False) -> torch.fx.GraphModule:
     graph = torch.fx.Graph()
     vals: List[list] = []
     n_in = 0
-    for e in sig:
+    for i, e in enumerate(sig):
         if e[0] == "L":
-            vals.append([graph.placeholder(f"leaf{n_in + j}") for j in range(e[1])])
+            made = [graph.placeholder(f"leaf{n_in + j}") for j in range(e[1])]
+            vals.append(made)
             n_in += e[1]
         elif e[0] == "R":
-            graph.output(tuple(n for i in e[1] for n in vals[i]))
+            graph.output(tuple(n for r in e[1] for n in vals[r]))
+            continue
         else:
             fn, idxs, kw, width = e
             if fn is _pick_op:
                 # output i of a multi-output node, then its shards
                 out = graph.call_function(operator.getitem, (vals[idxs[0]][0], dict(kw)["i"]))
                 vals.append([graph.call_function(operator.getitem, (out, j)) for j in range(width)])
-                continue
-            target = _target(fn, kw, meta)
-            if getattr(fn, "_fusion_multi", False):
-                vals.append([graph.call_function(target, tuple(tuple(vals[i]) for i in idxs))])
-            elif getattr(fn, "_fusion_whole", False):
-                node = graph.call_function(target, tuple(tuple(vals[i]) for i in idxs))
-                vals.append([graph.call_function(operator.getitem, (node, j)) for j in range(width)])
+                made = [out] + vals[-1]
             else:
-                vals.append([
-                    graph.call_function(target, tuple(vals[i][j if len(vals[i]) > 1 else 0] for i in idxs))
-                    for j in range(width)
-                ])
+                target = _target(fn, kw, meta)
+                if getattr(fn, "_fusion_multi", False):
+                    vals.append([graph.call_function(target, tuple(tuple(vals[i]) for i in idxs))])
+                    made = vals[-1]
+                elif getattr(fn, "_fusion_whole", False):
+                    node = graph.call_function(target, tuple(tuple(vals[i]) for i in idxs))
+                    vals.append([graph.call_function(operator.getitem, (node, j)) for j in range(width)])
+                    made = [node] + vals[-1]
+                else:
+                    vals.append([
+                        graph.call_function(target, tuple(vals[i][j if len(vals[i]) > 1 else 0] for i in idxs))
+                        for j in range(width)
+                    ])
+                    made = vals[-1]
+        for n in made:
+            # the signature entry a node computes: the cost walk sums per entry
+            n.meta["entry"] = i
     return torch.fx.GraphModule(torch.nn.Module(), graph)
 
 
@@ -1131,17 +1150,20 @@ def release(tensors) -> int:
 _FLOPS_PER_ELEMENT = {"pow": 10, "exp": 4, "log": 4, "sqrt": 2, "true_divide": 1, "sin": 4, "cos": 4, "tanh": 6}
 
 
-def _shape_walk(sig) -> List[Tuple[str, str, int, int, list]]:
+def _shape_walk(sig) -> List[Tuple[str, str, int, int, list, Optional[int]]]:
     """Run a signature's GraphModule on meta tensors: for each node, in
     order, its op kind, its target's name, the bytes it holds (0 for an op
     over whole shard lists, whose results its ``getitem`` nodes hold), the
-    elements of its results and the indices of the nodes it reads."""
+    elements of its results, the indices of the nodes it reads and the
+    signature entry whose value it holds (None where its result is a
+    tuple, an op over whole shard lists, whose ``getitem`` nodes hold
+    the entry's tensors)."""
     gm = _build(sig, meta=True)
     metas = [
         torch.empty_strided(e[2], e[5], dtype=e[3], device="meta")
         for e in sig if e[0] == "L" for _ in range(e[1])
     ]
-    out: List[Tuple[str, str, int, int, list]] = []
+    out: List[Tuple[str, str, int, int, list, Optional[int]]] = []
     index: Dict[Any, int] = {}
 
     class _Walk(torch.fx.Interpreter):
@@ -1152,19 +1174,99 @@ def _shape_walk(sig) -> List[Tuple[str, str, int, int, list]]:
             numel = sum(t.numel() for t in tensors)
             nbytes = 0 if (many and n.op == "call_function") else sum(t.numel() * t.element_size() for t in tensors)
             index[n] = len(out)
-            out.append((n.op, getattr(n.target, "__name__", ""), nbytes, numel, [index[a] for a in n.all_input_nodes]))
+            out.append((n.op, getattr(n.target, "__name__", ""), nbytes, numel,
+                        [index[a] for a in n.all_input_nodes], None if many else n.meta.get("entry")))
             return result
 
     _Walk(gm).run(*metas)
     return out
 
 
-def _estimate_cost(sig) -> dict:
-    """Cost of one program from its node shapes: operand and result bytes,
-    the static peak (leaves + outputs + the intermediates live at the worst
-    point of the op order, an upper bound on what the program holds) and
-    flops from :data:`_FLOPS_PER_ELEMENT`. The program runs on meta
-    tensors only."""
+#: ops whose results are views of their operands: they move no bytes
+_VIEW_OPS = (_unpad_op, _pick_op)
+#: layout ops that a value held whole on every rank does not run
+_LAYOUT_OPS = (_gather_op, _blocks_op)
+#: the collective nodes, by the names ``telemetry.hlo_collective_counts``
+#: gives them in a program's text
+_COLLECTIVE_OPS = {
+    _across_op: "all-reduce",
+    _cum_split_op: "exscan",
+    _gather_op: "all-gather",
+    _blocks_op: "scatter",
+    _apply_op: "apply",
+    _apply_multi_op: "apply",
+}
+
+
+def _entry_bytes(nodes) -> Tuple[Dict[int, int], Dict[int, int]]:
+    """Per signature entry, the bytes of one rank's tensor of its value (a
+    shard of a split value, the whole of a replicated one) and of the
+    value held whole (every shard summed)."""
+    sizes: Dict[int, List[int]] = {}
+    for node in nodes:
+        if node[5] is not None:
+            sizes.setdefault(node[5], []).append(node[2])
+    shard = {i: max(v) for i, v in sizes.items()}
+    whole = {i: sum(v) for i, v in sizes.items()}
+    return shard, whole
+
+
+def _traffic(sig, shard, whole) -> Tuple[int, int, Dict[int, int]]:
+    """Bytes each op of a signature reads and writes, per rank: summed
+    over one shard of its operands and results (``shard``), and over the
+    whole values (``whole``, the layout ops then moving nothing); with each
+    collective node's wire bytes, its result on one rank."""
+    per_rank = held_whole = 0
+    wire: Dict[int, int] = {}
+    for i, e in enumerate(sig):
+        if e[0] in ("L", "R"):
+            continue
+        fn, idxs = e[0], e[1]
+        if fn is _pick_op:
+            # the output of a multi-output node, written by it
+            per_rank += shard.get(i, 0)
+            held_whole += whole.get(i, 0)
+            if idxs[0] in wire:
+                wire[idxs[0]] += shard.get(i, 0)
+            continue
+        if fn in _VIEW_OPS:
+            continue
+        multi = getattr(fn, "_fusion_multi", False)
+        reads = sum(shard.get(c, 0) for c in idxs)
+        writes = 0 if multi else shard.get(i, 0)
+        per_rank += reads + writes
+        if fn not in _LAYOUT_OPS:
+            held_whole += sum(whole.get(c, 0) for c in idxs) + (0 if multi else whole.get(i, 0))
+        if fn in _COLLECTIVE_OPS:
+            wire[i] = writes
+    return per_rank, held_whole, wire
+
+
+def _estimate_cost(sig, replicated: bool = False) -> dict:
+    """Cost of one program from its node shapes; the program runs on meta
+    tensors only.
+
+    - ``operand_bytes``, ``result_bytes``, ``flops`` (from
+      :data:`_FLOPS_PER_ELEMENT`) and the ``memory`` block's static peak
+      (leaves + outputs + the intermediates live at the worst point of the
+      op order, an upper bound on what the program holds);
+    - ``bytes_accessed``: what each op reads and writes on one rank,
+      ``Σ_op (Σ_operands b(operand) + b(result))``, where ``b(v)`` is one
+      rank's tensor of value ``v`` (a shard of a split value, the whole of
+      a replicated one) and a view (an un-pad, an output selector) moves
+      nothing. A split chain resharded to replicated partway through pays
+      the whole array per rank from there on, so it grows;
+    - ``collectives``: the program's collective nodes by the names that
+      ``telemetry.hlo_collective_counts`` gives them in
+      :func:`program_hlo`'s text (``all-reduce``, ``all-gather``,
+      ``scatter``, ``exscan``, ``apply``), and ``collective_bytes``: their
+      wire bytes by the same names, each node's result on one rank.
+
+    ``replicated=True`` costs the same signature with every leaf whole on
+    every rank: ``b(v)`` is then the whole value, and the layout ops (a
+    gather, a cut into blocks) move nothing, since a whole value needs
+    neither; the audit divides its ``bytes_accessed`` by the mesh size to
+    get what perfect sharding would pay per rank."""
     cost: Dict[str, Any] = {"operand_bytes": 0, "result_bytes": None, "flops": None, "bytes_accessed": None, "collectives": {}}
     for e in sig:
         if e[0] == "L":
@@ -1183,7 +1285,7 @@ def _estimate_cost(sig) -> dict:
     arg_bytes = sum(n[2] for n in nodes if n[0] == "placeholder")
     temp_peak = live = 0
     flops = 0
-    for i, (op, name, nbytes, numel, reads) in enumerate(nodes):
+    for i, (op, name, nbytes, numel, reads, _entry) in enumerate(nodes):
         if op != "call_function":
             continue
         if i not in outputs:
@@ -1197,9 +1299,19 @@ def _estimate_cost(sig) -> dict:
         in_numel = sum(nodes[r][3] for r in reads)
         per = _FLOPS_PER_ELEMENT.get(name.strip("_"), 1)
         flops += per * (in_numel if ("reduce" in name or "across" in name) else numel)
+    shard, whole = _entry_bytes(nodes)
+    per_rank, held_whole, wire = _traffic(sig, shard, whole)
+    counts: Dict[str, int] = {}
+    wire_bytes: Dict[str, int] = {}
+    for i, nbytes in wire.items():
+        kind = _COLLECTIVE_OPS[sig[i][0]]
+        counts[kind] = counts.get(kind, 0) + 1
+        wire_bytes[kind] = wire_bytes.get(kind, 0) + nbytes
     cost["result_bytes"] = result_bytes
     cost["flops"] = float(flops)
-    cost["bytes_accessed"] = float(arg_bytes + result_bytes)
+    cost["bytes_accessed"] = float(held_whole if replicated else per_rank)
+    cost["collectives"] = {} if replicated else counts
+    cost["collective_bytes"] = {} if replicated else wire_bytes
     cost["memory"] = {
         "argument_bytes": arg_bytes,
         "output_bytes": result_bytes,
@@ -1278,6 +1390,52 @@ def program_costs(top: Optional[int] = None, refresh: bool = False) -> dict:
             cost = _COSTS[key] = _estimate_cost(sig)
             _note_cost_error(key, cost)
         out[key] = dict(cost, family=info["family"], dispatches=info["dispatches"])
+    return out
+
+
+def program_audit_info(top: Optional[int] = None, refresh: bool = False) -> dict:
+    """Per cached program, by program key, what ``analysis/audit.py``
+    reasons over: the op ``family``, ``dispatches``, the ``leaves`` (the
+    ``shape`` and ``dtype`` of one rank's tensor, the ``shards`` holding
+    the leaf, its ``nbytes`` over all of them, and ``replicated``: one
+    tensor that every rank shares), ``mesh_size`` (the widest leaf),
+    ``split_leaves``, and the memoized estimates of :func:`_estimate_cost`
+    as recorded (``cost``) and with every leaf whole on every rank
+    (``replicated_cost``). Ranked by dispatches (``top`` limits them).
+    Runs the programs on meta tensors only: never touches data or forces
+    a chain, and builds nothing."""
+    ranked = sorted(_PROGRAM_INFO.items(), key=lambda kv: kv[1]["dispatches"], reverse=True)
+    if top is not None:
+        ranked = ranked[:top]
+    out = {}
+    for sig, info in ranked:
+        key = info["key"]
+        cost = None if refresh else _COSTS.get(key)
+        if cost is None:
+            cost = _COSTS[key] = _estimate_cost(sig)
+            _note_cost_error(key, cost)
+        rcost = None if refresh else _REPL_COSTS.get(key)
+        if rcost is None:
+            rcost = _REPL_COSTS[key] = _estimate_cost(sig, replicated=True)
+        leaves = [
+            {
+                "shape": tuple(int(s) for s in e[2]),
+                "dtype": str(e[3]).removeprefix("torch."),
+                "shards": e[1],
+                "nbytes": e[1] * math.prod(e[2]) * e[3].itemsize,
+                "replicated": e[1] == 1,
+            }
+            for e in sig if e[0] == "L"
+        ]
+        out[key] = {
+            "family": info["family"],
+            "dispatches": info["dispatches"],
+            "mesh_size": max((leaf["shards"] for leaf in leaves), default=1),
+            "split_leaves": sum(1 for leaf in leaves if not leaf["replicated"]),
+            "leaves": leaves,
+            "cost": dict(cost),
+            "replicated_cost": dict(rcost),
+        }
     return out
 
 
@@ -1526,6 +1684,7 @@ def clear_cache() -> None:
     _PROGRAMS.clear()
     _PROGRAM_INFO.clear()
     _COSTS.clear()
+    _REPL_COSTS.clear()
     _COST_ERROR_KEYS.clear()
     _QUARANTINE.clear()
     with _ROOTS_LOCK:

@@ -1568,7 +1568,8 @@ def merge_traces(paths: List[str], path: Optional[str] = None, align: bool = Tru
             doc["otherData"]["collective_parity"] = problems
             warnings.warn(
                 f"merged trace fails cross-host collective parity ({len(problems)} "
-                f"problem(s), first: {problems[0]})",
+                f"problem(s), first: {problems[0]}) — the runtime signature of a collective "
+                "under host-divergent control flow (heat-lint H001)",
                 stacklevel=2,
             )
     if path is not None:
@@ -1718,6 +1719,7 @@ class _MetricsSink:
             return True
         # the sink runs on a daemon thread and at exit: a failed flush drops
         # one metrics line, never the job
+        # heat-lint: disable=H003 — observability must never take the job down
         except Exception:  # noqa: BLE001
             return False
 
@@ -1784,9 +1786,10 @@ def hlo_collectives(hlo_text: str) -> List[Dict[str, str]]:
 
 #: the collective nodes of a fused program's text (``fusion.program_hlo``,
 #: a GraphModule's code): each node's target, by its op's name, and the
-#: collective it stands for
+#: collective it stands for; FX names the second and later nodes of one op
+#: ``<name>_1``, ``<name>_2``, ...
 _PROGRAM_COLLECTIVE_RE = re.compile(
-    r"= heat_tpu_torch_core_fusion_(across_op|cum_split_op|gather_op|blocks_op|apply(?:_multi)?_op\w*)\("
+    r"= heat_tpu_torch_core_fusion_(across_op|cum_split_op|gather_op|blocks_op|apply(?:_multi)?_op\w*?)(?:_\d+)?\("
 )
 _PROGRAM_COLLECTIVE_KIND = {
     "across_op": "all-reduce",

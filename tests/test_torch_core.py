@@ -280,8 +280,8 @@ def _imported_modules(path: Path):
 
 
 SUBPACKAGES = (
-    "classification", "cluster", "datasets", "graph", "naive_bayes", "nn", "ops", "optim", "parallel", "regression",
-    "spatial", "utils",
+    "analysis", "classification", "cluster", "datasets", "graph", "naive_bayes", "nn", "ops", "optim", "parallel",
+    "regression", "spatial", "utils",
 )
 
 
@@ -367,7 +367,7 @@ def test_runtime_modules_read_only_the_references_knobs(module):
 
 
 def test_importing_the_port_loads_no_jax():
-    modules = ", ".join(f"heat_tpu_torch.{m}" for m in MODULES)
+    modules = ", ".join(f"heat_tpu_torch.{m}" for m in SUBPACKAGES + MODULES)
     code = (
         f"import sys, heat_tpu_torch as ht, {modules}; "
         f"assert all(getattr(ht, s).__name__ == 'heat_tpu_torch.' + s for s in {SUBPACKAGES!r}); "
@@ -375,6 +375,23 @@ def test_importing_the_port_loads_no_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    # the analyzer's command line, as a user runs it, loads no forbidden
+    # module either: its lint and rule table never touch the reference
+    for argv in (["rules"], ["lint", "heat_tpu_torch"]):
+        code = (
+            "import runpy, sys\n"
+            f"sys.argv = ['heat_tpu_torch.analysis'] + {argv!r}\n"
+            "try:\n"
+            "    runpy.run_module('heat_tpu_torch.analysis', run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as exc:\n"
+            "    rc = exc.code\n"
+            f"loaded = sorted(set({FORBIDDEN!r}) & set(sys.modules))\n"
+            "print('forbidden:', loaded)\n"
+            "sys.exit(3 if loaded else rc)\n"
+        )
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (argv, proc.stdout[-2000:], proc.stderr[-2000:])
+        assert "forbidden: []" in proc.stdout
 
 
 #: names of heat_tpu's ``__all__`` that exist only because of jax (ROADMAP
