@@ -356,8 +356,21 @@ with open(os.path.join(out, f"ran-{epoch}-{rank}"), "w") as fh:
     json.dump({"world": world, "epoch": epoch, "devices": os.environ["HEAT_TPU_TEST_DEVICES"],
                "coordinator": os.environ["HEAT_TPU_COORDINATOR"]}, fh)
 if epoch == 0 and world > 1:
+    # the casualty holds an exclusive lock until its exit closes it; the
+    # survivors mark it lost only then, so the launcher never finds a
+    # marked casualty still running
+    import fcntl, time
+    lock, ready = os.path.join(out, "casualty.lock"), os.path.join(out, "casualty.ready")
     if rank == world - 1:
+        fd = os.open(lock, os.O_CREAT | os.O_RDWR)
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        open(ready, "w").close()
         os._exit(9)  # the casualty
+    while not os.path.exists(ready):
+        time.sleep(0.01)
+    fd = os.open(lock, os.O_CREAT | os.O_RDWR)
+    fcntl.flock(fd, fcntl.LOCK_EX)
+    fcntl.flock(fd, fcntl.LOCK_UN)
     lost = os.path.join(mesh, "lost", f"epoch-{epoch:04d}")
     os.makedirs(lost, exist_ok=True)
     with open(os.path.join(lost, f"proc-{world - 1:05d}"), "w") as fh:
