@@ -8081,8 +8081,9 @@ def ops_trace_path(ht, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 # the multi-process runtime (phase 22): the port's torch.distributed world,
 # a one-rank NCCL world on the card, two processes on the card over gloo
-# (the clean, killed and hung trainer) and config 3's fit across two
-# processes through the Lloyd kernel
+# (the clean, killed and hung trainer) and config 3 read from .npy and fit
+# by KMeans over a mesh whose ranks span two processes, through the Lloyd
+# kernel
 # ---------------------------------------------------------------------------
 MP_STEPS = 8  # the lstsq trainer's steps, its checkpoint every MP_EVERY
 MP_EVERY = 2
@@ -8141,7 +8142,7 @@ def _mp_final_w(docs: dict):
     return np.asarray(max(done, key=lambda d: d["epoch"])["final_w"])
 
 
-def _mp_launch(multihost, n: int, args, root: str, log: str, **kwargs) -> dict:
+def _mp_launch(multihost, n: int, args, root: str, log: str, env_extra=None, **kwargs) -> dict:
     """``n`` trainer processes under ``spawn_local``; their output goes to
     ``log``. Returns the launcher's summary and the result documents."""
     cmd = [sys.executable, "-m", "heat_tpu_torch.scripts.multiproc_trainer", "--out", os.path.join(root, "out"),
@@ -8149,8 +8150,8 @@ def _mp_launch(multihost, n: int, args, root: str, log: str, **kwargs) -> dict:
     kwargs.setdefault("timeout_s", MP_TIMEOUT_S)
     t0 = time.perf_counter()
     with open(log, "ab") as fh:
-        result = multihost.spawn_local(n, cmd, env=_mp_env(), stdout=fh, mesh=os.path.join(root, "mesh"),
-                                       **kwargs)
+        result = multihost.spawn_local(n, cmd, env=dict(_mp_env(), **(env_extra or {})), stdout=fh,
+                                       mesh=os.path.join(root, "mesh"), **kwargs)
     result["seconds"] = time.perf_counter() - t0
     result["docs"] = _mp_results(os.path.join(root, "out"))
     return result
@@ -8361,54 +8362,121 @@ def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str) -> dict:
     return out
 
 
-def mp_lloyd_phase(ht, multihost, tmp: str, device: str, rows: int) -> dict:
-    """(c) config 3's fit over two processes on the card through the Lloyd
-    kernel, against the one-process fit of the same two shards."""
+def _mp_sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str) -> dict:
+    """(c) Config 3 over a mesh whose ranks span two processes on the card,
+    through the array's entry points (``--workload kmeans``): each process
+    reads its rows of the ``.npy`` table, takes config 1's moments, fits
+    ``KMeans`` through the Lloyd kernel and saves the table and the
+    centers. Held bit for bit against this process's two-shard mesh of the
+    card running the same calls on the eager engines; the workers'
+    checkpoint restored here on two shards and on one."""
     import numpy as np
     import torch
 
     from heat_tpu_torch.core import communication
     from heat_tpu_torch.ops import lloyd
     from heat_tpu_torch.scripts import multiproc_trainer as trainer
+    from heat_tpu_torch.utils.checkpoint import load_checkpoint, verify_checkpoint
 
-    root = os.path.join(tmp, "lloyd")
-    run = _mp_launch(multihost, 2, ["--workload", "lloyd", "--device", device, "--backend", "gloo",
-                                    "--lloyd-rows", str(rows), "--iters", str(ITERS)], root,
-                     os.path.join(tmp, "lloyd.log"))
-    if not run["ok"]:
-        raise AssertionError(f"lloyd: {_mp_gens(run)}\n{_mp_tail(os.path.join(tmp, 'lloyd.log'))}")
-    docs = [run["docs"][(0, r)] for r in range(2)]
     card = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
-    data, init = trainer.lloyd_table(rows, F, K, SEED, card)
-    shards = trainer.lloyd_shards(data, 2, range(2))
+
+    def sync():
+        if card.type == "cuda":
+            torch.cuda.synchronize()
+
+    root = os.path.join(tmp, "spanning")
+    os.makedirs(root)
+    table, ckpt = os.path.join(root, "config3.npy"), os.path.join(root, "ckpt")
+    data, _ = trainer.lloyd_table(rows, F, K, SEED, card)
+    np.save(table, data.cpu().numpy())
     del data
-    one = trainer.lloyd_fit(communication.MeshCommunication([card, card]), shards, init, K, rows, ITERS)
-    del shards
-    labels = np.concatenate([np.load(os.path.join(root, "out", f"labels-epoch0000-rank{r:05d}.npy")) for r in range(2)])
-    want_labels = one["labels"].to(torch.int32).cpu().numpy()
-    centers = one["centers"].float().cpu().numpy().tobytes().hex()
+    nbytes = rows * F * 4
+    run = _mp_launch(multihost, 2, ["--workload", "kmeans", "--device", device, "--backend", "gloo", "--table", table,
+                                    "--ckpt-dir", ckpt, "--iters", str(ITERS), "--clusters", str(K),
+                                    "--seed", str(SEED)], root, os.path.join(tmp, "spanning.log"),
+                     env_extra={"OMP_NUM_THREADS": "1"} if device == "cpu" else None)
+    if not run["ok"]:
+        raise AssertionError(f"spanning: {_mp_gens(run)}\n{_mp_tail(os.path.join(tmp, 'spanning.log'))}")
+    docs = [run["docs"][(0, r)] for r in range(2)]
+    # the same calls on this process's two-shard mesh of the card; the
+    # spanning mesh runs the eager engines (its recorder stays eager)
+    two = communication.MeshCommunication([card, card])
+    with ht.core.fusion.disabled():
+        x = ht.load_npy(table, split=0, comm=two)
+        moments = trainer.digests(two, trainer.kmeans_moments(ht, x))
+        lloyd.LAUNCHES = 0
+        km = trainer.kmeans_fit(ht, x, K, ITERS, SEED)
+        launches_one = lloyd.LAUNCHES
+    labels = {str(r): _mp_sha(b) for r, b in zip(two.local_ranks, km.labels_.lshards)}
+    centers = km.cluster_centers_.larray
     out = {
         "seconds": run["seconds"],
         "launches": [d["launches"] for d in docs],
-        "launches_one_process": one["launches"],
+        "launches_one_process": launches_one,
+        "n_iter": [d["n_iter"] for d in docs],
         "ms_per_iter": [d["ms_per_iter"] for d in docs],
         "allreduce_ms_per_iter": [d["allreduce_ms_per_iter"] for d in docs],
-        "one_process_ms_per_iter": one["ms_per_iter"],
-        "one_process_allreduce_ms_per_iter": one["allreduce_ms_per_iter"],
+        "fit_s": [d["fit_s"] for d in docs],
+        "ingest_gbps": [d["ingest_bytes"] / 1e9 / d["ingest_s"] for d in docs],
+        "save_gbps": [d["save_bytes"] / 1e9 / d["save_s"] for d in docs],
         "inertia": docs[0]["inertia"],
         "generations": _mp_gens(run),
     }
-    if device == "cuda" and (out["launches"] != [ITERS, ITERS] or one["launches"] != 2 * ITERS):
-        raise AssertionError(f"Lloyd launches: {out['launches']} per process, {one['launches']} in one process")
-    if any(d["centers_hex"] != centers or d["inertia"] != float(one["inertia"]) for d in docs):
-        raise AssertionError(f"the two-process fit differs from the one-process fit: {docs[0]['inertia']} against "
-                             f"{float(one['inertia'])}")
-    if labels.shape != want_labels.shape or not np.array_equal(labels, want_labels):
-        raise AssertionError("the two-process labels differ from the one-process fit's")
-    print(f"  config 3 over 2 processes: {out['launches']} Lloyd launches, centers, inertia and labels bit for bit "
-          f"with the one-process 2-shard fit; ms per iteration {out['ms_per_iter']} against "
-          f"{one['ms_per_iter']:.4f}, cross-process allreduce {out['allreduce_ms_per_iter']} ms against "
-          f"{one['allreduce_ms_per_iter']:.4f} in one process", flush=True)
+    if device == "cuda" and (out["launches"] != [ITERS, ITERS] or launches_one != 2 * ITERS):
+        raise AssertionError(f"Lloyd launches in the spanning fit: {out['launches']} per process, {launches_one} "
+                             "in one process")
+    want_centers = centers.float().cpu().numpy().tobytes().hex()
+    for q, d in enumerate(docs):
+        if d["centers_hex"] != want_centers or d["inertia"] != float(km.inertia_) or d["n_iter"] != km.n_iter_:
+            raise AssertionError(f"process {q}'s fit differs from the two-shard fit: inertia {d['inertia']} against "
+                                 f"{float(km.inertia_)}")
+        if any(labels[r] != sha for r, sha in d["labels_sha256"].items()):
+            raise AssertionError(f"process {q}'s labels differ from the two-shard fit's")
+        for name, got in d["moments"].items():
+            want = moments[name]
+            if (got != want) if isinstance(got, str) else any(want[r] != sha for r, sha in got.items()):
+                raise AssertionError(f"process {q}'s {name} differs from the two-shard mesh's")
+    if sorted(r for d in docs for r in d["labels_sha256"]) != ["0", "1"]:
+        raise AssertionError(f"the processes' ranks: {[sorted(d['labels_sha256']) for d in docs]}")
+    # the workers' checkpoint: clean, one fragment per rank from each
+    # process's receipt, restored here on two shards and on one
+    problems = verify_checkpoint(ckpt, 1)
+    receipts = {}
+    for q in range(2):
+        with open(os.path.join(ckpt, "ckpt_1", f".receipt-{q}.json")) as fh:
+            receipts[q] = sorted(os.path.basename(f) for f in json.load(fh) if ".shard_0" in f)
+    if problems or receipts != {q: [f"leaf_00001.shard_{q:05d}"] for q in range(2)}:
+        raise AssertionError(f"the checkpoint: problems {problems}, receipts {receipts}")
+    out["restore_gbps"] = {}
+    for p in (2, 1):
+        mesh = communication.MeshCommunication([card] * p)
+        template = {"table": ht.zeros((rows, F), split=0, comm=mesh), "centers": ht.zeros((K, F), comm=mesh)}
+        sync()
+        t0 = time.perf_counter()
+        back = load_checkpoint(ckpt, template, step=1)
+        sync()
+        out["restore_gbps"][p] = nbytes / 1e9 / (time.perf_counter() - t0)
+        whole = [torch.cat(x.lshards)] if p == 1 else x.lshards
+        if not (all(torch.equal(a, b) for a, b in zip(back["table"].lshards, whole))
+                and torch.equal(back["centers"].larray, centers)):
+            raise AssertionError(f"the checkpoint restored on {p} shard(s) differs from the table or the centers")
+        del back, template, whole
+    del x, km
+    print(f"  config 3 read from .npy and fit by KMeans across 2 processes (A11.5b): {out['launches']} Lloyd "
+          f"launches ({launches_one} in the two-shard fit here); centers, inertia, labels and "
+          f"{len(moments)} moments bit for bit with the two-shard mesh of the card; checkpoint verified, one "
+          f"fragment per rank from each receipt, restored on 2 and 1 shards bit for bit ({smi})", flush=True)
+    print(f"  spanning fit: ms per iteration {out['ms_per_iter']}, cross-process allreduce "
+          f"{out['allreduce_ms_per_iter']} ms (gloo through the host), fit {out['fit_s']} s; ingest "
+          f"{out['ingest_gbps']} GB/s per process, save {out['save_gbps']} GB/s per process, restore "
+          f"{out['restore_gbps']} GB/s (checksums verified first); launch {run['seconds']:.1f} s ({smi})",
+          flush=True)
     return out
 
 
@@ -8435,12 +8503,12 @@ def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict
             numbers[f"lstsq_{backend}"] = mp_lstsq_phase(multihost, tmp, device, backend)
             numbers["seconds"][f"lstsq_{backend}"] = time.perf_counter() - lap
         lap = time.perf_counter()
-        numbers["lloyd"] = mp_lloyd_phase(ht, multihost, tmp, device, rows)
-        numbers["seconds"]["lloyd"] = time.perf_counter() - lap
+        numbers["spanning"] = mp_spanning_phase(ht, multihost, tmp, device, rows, smi)
+        numbers["seconds"]["spanning"] = time.perf_counter() - lap
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     numbers["seconds"]["all"] = time.perf_counter() - t0
-    print(f"phase 22: {numbers['seconds']['all']:.1f} s "
+    print(f"phase 22: {numbers['seconds']['all']:.1f} s, {smi} "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in numbers['seconds'].items() if k != 'all')})", flush=True)
     return numbers
 
@@ -9025,7 +9093,7 @@ def _phases(ht, _build, kind: str, smi: str) -> int:
     kernels[1]["launches_numlens_step"] = serving_numbers["training"]["full"]["launches"][-1]
     kernels[0]["launches_tracelens_fit"] = ops_trace["fit"]["launches"]
     kernels[0]["launches_scraped_fit"] = ops_trace["ops"]["scraped"]["legs"]["scraped"]["fit_launches"]
-    kernels[0]["launches_multiprocess_fit"] = multiprocess["lloyd"]["launches"]
+    kernels[0]["launches_spanning_fit"] = multiprocess["spanning"]["launches"]
     kernels[0]["launches_autoscale_fit"] = elastic["autoscale"]["fit"]["shedding"]["launches"]
     kernels[1]["launches_elastic_fit"] = elastic["lm"]["launches"]
     kernels[1]["launches_elastic_step_forward"] = elastic["lm"]["forward_launches"]

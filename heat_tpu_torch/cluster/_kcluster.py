@@ -9,7 +9,10 @@ proportional to its squared distance from the nearest chosen one
 the p·k candidates with one ``allgather`` and runs one more kmeans++ over
 them (heat_tpu/cluster/_kcluster.py:27-66, :139-178); on a replicated,
 padded or single-shard input, or one with fewer than k rows per shard, it
-is kmeans++, as in heat_tpu.
+is kmeans++, as in heat_tpu. Over a mesh whose ranks span processes each
+process runs the per-shard kmeans++ of its own ranks, seeded by global
+rank, and the batch-parallel init never gathers the table; the random and
+kmeans++ inits read ``x.larray``, one gather of the whole table.
 """
 
 from __future__ import annotations
@@ -116,13 +119,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
     def _initialize_cluster_centers(self, x: DNDarray) -> torch.Tensor:
         """Pick the initial centroids (reference _kcluster.py:87-195)."""
         k = self.n_clusters
-        data = x.larray.to(_float_dtype(x))
-        n = data.shape[0]
-        if self.init == "precomputed":
-            return self._precomputed.larray.to(device=data.device, dtype=data.dtype)
-        if self.init == "random":
-            idx = ht_random.randint(0, n, (k,), device=x.device, comm=x.comm).larray
-            return data[idx.to(data.device).long()]
+        n = x.shape[0]
         if (
             self.init == "batchparallel"
             and x.split == 0
@@ -130,7 +127,13 @@ class _KCluster(ClusteringMixin, BaseEstimator):
             and not x.padded
             and n // x.comm.size >= k
         ):
-            return self._batchparallel_init(x, data.dtype, k)
+            return self._batchparallel_init(x, _float_dtype(x), k)
+        data = x.larray.to(_float_dtype(x))
+        if self.init == "precomputed":
+            return self._precomputed.larray.to(device=data.device, dtype=data.dtype)
+        if self.init == "random":
+            idx = ht_random.randint(0, n, (k,), device=x.device, comm=x.comm).larray
+            return data[idx.to(data.device).long()]
         # kmeans++ / probability_based (reference _kcluster.py:142-187)
         idx0 = int(ht_random.randint(0, n, (1,), device=x.device, comm=x.comm).larray[0])
         centers = data[idx0][None, :]
@@ -145,13 +148,13 @@ class _KCluster(ClusteringMixin, BaseEstimator):
     def _batchparallel_init(self, x: DNDarray, dtype: torch.dtype, k: int) -> torch.Tensor:
         """Batch-parallel init (heat_tpu/cluster/_kcluster.py:162-178): each
         shard runs :func:`_kmeanspp_fixed` over its own rows with a generator
-        seeded from one ``ht.random`` draw plus its index; one ``allgather``
+        seeded from one ``ht.random`` draw plus its global rank; one ``allgather``
         brings the p·k candidates together, and one more kmeans++ over them,
         seeded from the draw plus p, picks the k centers."""
         comm = x.comm
         seed = int(ht_random.randint(0, 2**31 - 1, (1,), device=x.device, comm=comm).larray[0])
         local = []
-        for r, shard in enumerate(x.shards):
+        for r, shard in zip(comm.local_ranks, x.shards):
             gen = torch.Generator(device=shard.device).manual_seed(seed + r)
             local.append(_kmeanspp_fixed(gen, shard.to(dtype), k, self._metric))
         candidates = comm.allgather(local)[0]

@@ -9,6 +9,11 @@ convergence test at chunk boundaries, as in heat_tpu. Two paths:
   for CPU tensors;
 * the torch path (:func:`_lloyd_run`), the port of heat_tpu's jnp oracle,
   with the assignment and the update as two matrix products.
+
+Over a mesh whose ranks span processes the fused path runs on this
+process's shards (global ranks ``comm.first_rank`` on), its accumulators
+summed across processes by the mesh's ``allreduce``; the centers come out
+replicated and the labels split like the rows, never gathered.
 """
 
 from __future__ import annotations
@@ -118,10 +123,11 @@ class KMeans(_KCluster):
         mode = self._fused_mode(x)
         fdtype = _float_dtype(x)
         n_global = int(x.shape[0])
+        first_rank = x.comm.first_rank
         if mode == "sharded":
             # each shard's pass masks its share of the padding itself
             xs = [_lloyd.stream_operand(s) for s in x.shards]
-            xsq = _lloyd.logical_xsq_sum(xs, n_global)
+            xsq = _lloyd.logical_xsq_sum(xs, n_global, x.comm, first_rank)
         elif mode == "single":
             data, xsq = _lloyd.prepare_run_operands(x.larray)
             xs = [data]
@@ -139,16 +145,30 @@ class KMeans(_KCluster):
                 centers, labels, inertia, shift = _lloyd_run(data, centers, k, chunk)
             else:
                 centers, used, inertia, shift = _lloyd.run_steps(
-                    xs, centers, k, x.comm, n_global, chunk, xsq
+                    xs, centers, k, x.comm, n_global, chunk, xsq, first_rank
                 )
             done += chunk
             if float(shift) <= self.tol:
                 break
-        if mode is not None and used is not None:
-            labels = _lloyd.sharded_labels(xs, used, n_global)
-
         self._n_iter = done
         self._inertia = float(inertia) if inertia is not None else None
         self._cluster_centers = _wrap(centers, None, x.device, x.comm)
+        if mode == "sharded" and used is not None and x.comm.spans_processes:
+            self._labels = self._split_labels(xs, used, n_global, x)
+            return self
+        if mode is not None and used is not None:
+            labels = _lloyd.sharded_labels(xs, used, n_global)
         self._labels = self._wrap_labels(labels, x)
         return self
+
+    @staticmethod
+    def _split_labels(xs, used: torch.Tensor, n_global: int, x: DNDarray) -> DNDarray:
+        """The labels of this process's rows as the shards of a split=0
+        array, each padded to its shard's rows: no gather."""
+        from ..core import types
+
+        shards = []
+        for r, s in zip(x.comm.local_ranks, xs):
+            got = _lloyd.sharded_labels([s], used, n_global, r).to(types.index_dtype())
+            shards.append(torch.cat([got, got.new_zeros(s.shape[0] - got.shape[0])]))
+        return DNDarray(shards, (n_global,), types.canonical_heat_type(shards[0].dtype), 0, x.device, x.comm)

@@ -21,7 +21,11 @@ pad+mask layout of :class:`~heat_tpu_torch.core.dndarray.DNDarray`:
 
 The padding of a shard is garbage that stays in the padding. A replicated
 array (``split=None``) is computed once, on the mesh's first device, and
-placed on the others. Nothing here reads a value back to the host, except
+placed on the others. Over a mesh whose ranks span processes every shard
+list is this process's (``comm.local_devices``), a replicated value is
+computed in every process on its ``home`` device, and every combine across
+the split is the mesh's verb, which folds in rank order across processes
+as in one. Nothing here reads a value back to the host, except
 the ``ht.errstate`` check of each result while a policy is active
 (heat_tpu/core/_operations.py:29-37). Each engine counts its dispatches in
 :mod:`.telemetry`.
@@ -59,10 +63,10 @@ def _aligned(x, out_shape, out_split, comm: MeshCommunication, dtype: torch.dtyp
     tensor per shard of a result split along ``out_split`` (the operand's
     own shards where it is split along that axis, the whole operand where
     it is broadcast along it, else its blocks), or the logical tensor on the
-    first device for a replicated result."""
-    first = comm.devices[0]
+    ``home`` device for a replicated result."""
+    first = comm.home
     if isinstance(x, _SCALARS):
-        devices = comm.devices if out_split is not None else (first,)
+        devices = comm.local_devices if out_split is not None else (first,)
         return [torch.full((), x, dtype=dtype, device=d) for d in devices]
     k = None if out_split is None else out_split - (len(out_shape) - len(_shape(x)))
     if isinstance(x, DNDarray):
@@ -74,7 +78,7 @@ def _aligned(x, out_shape, out_split, comm: MeshCommunication, dtype: torch.dtyp
     if k is None:
         return [whole]
     if k < 0 or whole.shape[k] == 1:
-        return [whole.to(d) for d in comm.devices]
+        return [whole.to(d) for d in comm.local_devices]
     return _distribute(whole, k, comm)
 
 
@@ -310,16 +314,21 @@ def _across_split(x: DNDarray, axes, reduction: Reduction) -> torch.Tensor:
     """A reduction over axes that include the split axis: each shard's valid
     rows reduce to a partial (keeping the reduced dims), and the partials
     combine in shard order; a shard without valid rows contributes the
-    combine's neutral element. Returns the result on the first device."""
-    counts = x.counts_displs()[0]
+    combine's neutral element. Returns the result on the ``home`` device."""
+    comm = x.comm
+    counts = comm.local_counts_displs(x.gshape, x.split)[0]
     lshards = x.lshards
     partials = [reduction.local(s, axes, True) if c else None for s, c in zip(lshards, counts)]
     like = next((t for t in partials if t is not None), None)
-    if like is None:  # no element at all: the local op decides (0 or an error)
+    if like is None and x.gshape[x.split]:
+        # this process's ranks hold no row, another's do: a padding row
+        # gives the neutral element's shape and type
+        like = reduction.local(x.shards[0].narrow(x.split, 0, 1), axes, True)
+    elif like is None:  # no element at all: the local op decides (0 or an error)
         like = partials[0] = reduction.local(lshards[0], axes, True)
     partials = [
         t if t is not None else _neutral(reduction.combine, like).to(dev)
-        for t, dev in zip(partials, x.comm.devices)
+        for t, dev in zip(partials, comm.local_devices)
     ]
     return x.comm.allreduce(partials, reduction.combine)[0]
 

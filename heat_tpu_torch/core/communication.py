@@ -140,8 +140,33 @@ class MeshCommunication(Communication):
 
     @property
     def local_devices(self) -> Tuple[torch.device, ...]:
-        """The devices of the shards this process holds: every device here."""
+        """The devices of the shards this process holds: every device here.
+        A DNDarray holds one shard per local device, shard i being global
+        rank ``first_rank + i``."""
         return self._devices
+
+    @property
+    def local_ranks(self) -> range:
+        """The global ranks of the shards this process holds."""
+        return range(self.first_rank, self.first_rank + len(self._devices))
+
+    @property
+    def home(self) -> torch.device:
+        """Where a replicated or whole tensor is built: this process's
+        first device (every process builds the same global value there)."""
+        return self._devices[0]
+
+    #: the process index the per-process seam of :mod:`.multihost` reads
+    #: for this mesh; None: the live world's (every rank is this process's)
+    process: Optional[int] = None
+
+    def local_counts_displs(
+        self, shape: Sequence[int], split: int
+    ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """:meth:`counts_displs_shape` of this process's ranks only."""
+        counts, displs = self.counts_displs_shape(shape, split)
+        ranks = self.local_ranks
+        return counts[ranks.start : ranks.stop], displs[ranks.start : ranks.stop]
 
     @property
     def placements(self) -> Tuple:
@@ -416,17 +441,17 @@ def _combine(op: Union[str, Callable]) -> Callable:
 
 
 class CrossProcessMeshError(NotImplementedError):
-    """A DNDarray engine, factory, ring/Ulysses schedule or ``parallel``
-    layout was asked to run over a mesh whose ranks live in several
-    processes. The process-spanning verbs exist (:class:`ProcessMeshCommunication`);
-    the layers above them over such a mesh are ROADMAP A11.5b."""
+    """A global device list, a sub-mesh, a ring/Ulysses schedule or a
+    ``parallel`` layout was asked for over a mesh whose ranks live in
+    several processes. The verbs, the DNDarray and its engines, factories,
+    I/O and checkpoints run there; these layers are ROADMAP A11.5b(c)."""
 
 
 def _spanning(what: str) -> CrossProcessMeshError:
     return CrossProcessMeshError(
-        f"{what} over a mesh whose ranks span processes is not ported yet (ROADMAP A11.5b): "
-        "the verbs of ProcessMeshCommunication run across processes, the DNDarray engines, "
-        "factories, I/O, ring/Ulysses and parallel/ above them do not"
+        f"{what} over a mesh whose ranks span processes is not ported yet (ROADMAP A11.5b(c)): "
+        "the verbs, the DNDarray engines, factories, I/O and checkpoints run across processes; "
+        "a global device list, sub-meshes, ring/Ulysses attention and parallel/ do not"
     )
 
 
@@ -466,11 +491,15 @@ class ProcessMeshCommunication(MeshCommunication):
     ``group`` CUDA shards go through the host, and the verb records the axis
     :data:`HOST_STAGED_AXIS`.
 
-    ``devices`` is the global device list, which a process cannot hold once
-    the ranks span processes: it raises :class:`CrossProcessMeshError` then,
-    and so does every engine that reaches for it (ROADMAP A11.5b). In a
-    world of one process it is the local list, and the mesh is the
-    in-process mesh whose verbs go through ``torch.distributed``."""
+    A DNDarray over this mesh holds the shards of this process's ranks
+    (``local_ranks``), each on its ``local_devices`` entry; a replicated or
+    whole tensor is built on ``home``, the same value in every process (the
+    multi-controller rule). ``devices`` is the global device list, which a
+    process cannot hold once the ranks span processes: it raises
+    :class:`CrossProcessMeshError` then, and so does every layer that
+    reaches for it (ROADMAP A11.5b(c)). In a world of one process it is the
+    local list, and the mesh is the in-process mesh whose verbs go through
+    ``torch.distributed``."""
 
     def __init__(self, local_devices: Sequence[torch.device], counts: Sequence[int], process: int, group, control):
         super().__init__(local_devices)

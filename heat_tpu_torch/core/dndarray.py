@@ -9,6 +9,14 @@ global size ``n`` are padding, a suffix of the global axis. The padding's
 content is unspecified; consumers that read the physical shards mask it.
 A replicated array (``split=None``) holds the whole array on every device.
 
+Over a mesh whose ranks span processes (``ProcessMeshCommunication``) an
+array holds the shards of this process's ranks only, one per
+``comm.local_devices`` entry, shard i being global rank
+``comm.first_rank + i``; ``padded``, ``counts_displs`` and ``gshape`` stay
+global. ``larray``, ``parray``, ``numpy()`` and ``item()`` of a split array
+there are one ``comm.allgather`` of the blocks, which every process calls
+and every process gets whole (heat_tpu/core/dndarray.py:353-413).
+
 Under the fusion recorder (``core/fusion.py``) the shard list may be a
 pending :class:`~heat_tpu_torch.core.fusion.LazyArray` chain instead. Every
 reader of the shards forces it (``shards``, ``parray``, ``larray``,
@@ -39,7 +47,7 @@ import numpy as np
 import torch
 
 from . import fusion, health_runtime, memledger, resilience, telemetry, types
-from .communication import MeshCommunication, _spanning
+from .communication import MeshCommunication
 from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray", "LocalIndex"]
@@ -72,7 +80,8 @@ class DNDarray:
     Parameters
     ----------
     shards : sequence of torch.Tensor
-        The physical shards, one per device of ``comm``, in device order.
+        The physical shards, one per device of ``comm.local_devices``, in
+        rank order.
     gshape : tuple of int
         The logical global shape.
     dtype : heat type class
@@ -91,10 +100,8 @@ class DNDarray:
         device,
         comm: MeshCommunication,
     ):
-        if getattr(comm, "spans_processes", False):
-            raise _spanning("a DNDarray")
-        if len(shards) != comm.size:
-            raise ValueError(f"expected {comm.size} shards, got {len(shards)}")
+        if len(shards) != len(comm.local_devices):
+            raise ValueError(f"expected {len(comm.local_devices)} shards, got {len(shards)}")
         self.__shards = _tagged(shards)
         self.__gshape = tuple(int(s) for s in gshape)
         self.__dtype = dtype
@@ -156,7 +163,7 @@ class DNDarray:
         rank it holds (reference dndarray.py:404-415)."""
         from . import multihost
 
-        rank = multihost.representative_rank(self.__comm.placements)
+        rank = multihost.representative_rank(self.__comm.placements, self.__comm.process)
         return self.__comm.chunk(self.__gshape, self.__split, rank=rank)[1]
 
     @property
@@ -210,7 +217,7 @@ class DNDarray:
 
     @property
     def shards(self) -> List[torch.Tensor]:
-        """The physical shards, one per mesh device, padding included."""
+        """The physical shards of this process's ranks, padding included."""
         return list(self._forced())
 
     @property
@@ -243,7 +250,7 @@ class DNDarray:
         shards = list(value) if split is not None else _distribute(value[0], None, self.__comm)
         if resilience._ERRSTATE is not None or resilience._TLS_ARMED:
             if split is not None:
-                counts = self.__comm.counts_displs_shape(self.__gshape, split)[0]
+                counts = self.__comm.local_counts_displs(self.__gshape, split)[0]
                 logical = [s.narrow(split, 0, c) for s, c in zip(shards, counts)]
             else:
                 logical = shards[:1]
@@ -270,20 +277,23 @@ class DNDarray:
 
     @property
     def parray(self) -> torch.Tensor:
-        """The physical global tensor, on the first mesh device: the shards
-        concatenated along ``split``, padding included."""
+        """The physical global tensor, on the mesh's ``home`` device: the
+        shards concatenated along ``split``, padding included."""
         return self._physical(self._forced())
 
     def _physical(self, shards: List[torch.Tensor]) -> torch.Tensor:
-        if self.__split is None or len(shards) == 1:
+        if self.__split is None or (len(shards) == 1 and not self.__comm.spans_processes):
             return shards[0]
-        first = self.__comm.devices[0]
-        return torch.cat([s.to(first) for s in shards], dim=self.__split)
+        return _joined(self.__comm, shards, self.__split)
 
     @property
     def larray(self) -> torch.Tensor:
-        """The logical global tensor: :attr:`parray` without the padding."""
-        arr = self._physical(self._forced(_T_LARRAY))
+        """The logical global tensor: :attr:`parray` without the padding.
+        Across processes, one ``allgather`` of the logical blocks."""
+        shards = self._forced(_T_LARRAY)
+        if self.__split is not None and self.__comm.spans_processes:
+            return _joined(self.__comm, self.lshards, self.__split)
+        arr = self._physical(shards)
         if self.padded:
             arr = arr.narrow(self.__split, 0, self.__gshape[self.__split])
         return arr
@@ -299,18 +309,19 @@ class DNDarray:
         split = self.__split
         if split is not None and split >= array.ndim:
             split = None
-        self.__shards = _tagged(_distribute(array.to(self.__comm.devices[0]), split, self.__comm))
+        self.__shards = _tagged(_distribute(array.to(self.__comm.home), split, self.__comm))
         self.__gshape = tuple(int(s) for s in array.shape)
         self.__dtype = types.canonical_heat_type(array.dtype)
         self.__split = split
 
     @property
     def lshards(self) -> List[torch.Tensor]:
-        """Per-device logical shards: each physical shard without its padding."""
+        """This process's logical shards: each physical shard without its
+        padding."""
         shards = self._forced()
         if self.__split is None:
             return list(shards)
-        counts, _ = self.counts_displs()
+        counts, _ = self._local_counts_displs()
         return [s.narrow(self.__split, 0, c) for s, c in zip(shards, counts)]
 
     @property
@@ -332,11 +343,15 @@ class DNDarray:
             raise ValueError("Non-distributed DNDarray has no counts and displacements")
         return self.__comm.counts_displs_shape(self.__gshape, self.__split)
 
+    def _local_counts_displs(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """:meth:`counts_displs` of this process's ranks, one entry per shard."""
+        return self.__comm.local_counts_displs(self.__gshape, self.__split)
+
     def _replace(self, shards: Sequence[torch.Tensor], gshape: Tuple[int, ...], split: Optional[int]) -> "DNDarray":
         """Swap the shards and their layout (the engines' ``out=`` path);
         the dtype follows the new shards."""
-        if len(shards) != self.__comm.size:
-            raise ValueError(f"expected {self.__comm.size} shards, got {len(shards)}")
+        if len(shards) != len(self.__comm.local_devices):
+            raise ValueError(f"expected {len(self.__comm.local_devices)} shards, got {len(shards)}")
         self.__shards = _tagged(shards)
         self.__gshape = tuple(int(s) for s in gshape)
         self.__split = split
@@ -396,14 +411,16 @@ class DNDarray:
         return self.lshape_map
 
     def ranked_shards(self):
-        """Yield ``(rank, block)`` for every shard with logical rows, in rank
-        order: each block is the shard's logical extent as a host numpy array
-        (reference dndarray.py:374). A replicated or 0-d array yields
-        ``(0, whole array)``."""
+        """Yield ``(rank, block)`` for every shard of this process with
+        logical rows, in rank order, ``rank`` global: each block is the
+        shard's logical extent as a host numpy array (reference
+        dndarray.py:374). A replicated or 0-d array yields ``(0, whole
+        array)``."""
         if self.__split is None or self.ndim == 0:
             yield 0, self.numpy()
             return
-        for r, (s, c) in enumerate(zip(self.lshards, self.counts_displs()[0])):
+        counts = self._local_counts_displs()[0]
+        for r, s, c in zip(self.__comm.local_ranks, self.lshards, counts):
             if c:
                 yield r, _host(s)
 
@@ -427,7 +444,7 @@ class DNDarray:
             return self
         comm = sanitize_comm(None, device)
         return DNDarray(
-            _distribute(self.larray.to(comm.devices[0]), self.__split, comm), self.__gshape,
+            _distribute(self.larray.to(comm.home), self.__split, comm), self.__gshape,
             self.__dtype, self.__split, device, comm,
         )
 
@@ -495,20 +512,17 @@ class DNDarray:
     @property
     def array_with_halos(self) -> torch.Tensor:
         """Every physical shard extended by its halos, ``[from_prev | shard |
-        from_next]``, concatenated along the split axis on the first device
-        (reference dndarray.py:619); the logical array when no halos were
-        exchanged."""
+        from_next]``, concatenated along the split axis on the ``home``
+        device, across processes by one ``allgather`` (reference
+        dndarray.py:619); the logical array when no halos were exchanged."""
         if getattr(self, "_DNDarray__halos", None) is None:
             return self.larray
         # the array first: a pending exchange of its chain rides the same
         # program, reading the chain's result instead of computing it again
         shards = self._forced(_T_COLLECTIVE)
         halos = self.halos
-        first = self.__comm.devices[0]
-        return torch.cat(
-            [torch.cat([a, s, b], dim=self.__split).to(first) for a, s, b in zip(halos[0], shards, halos[1])],
-            dim=self.__split,
-        )
+        pieces = [torch.cat([a, s, b], dim=self.__split) for a, s, b in zip(halos[0], shards, halos[1])]
+        return _joined(self.__comm, pieces, self.__split)
 
     def _halo_slice(self, rank: int, trailing: bool) -> Optional[torch.Tensor]:
         hs = getattr(self, "_DNDarray__halo_size", None)
@@ -735,7 +749,7 @@ class DNDarray:
         elif not isinstance(value, (torch.Tensor, int, float, bool, complex)):
             value = torch.as_tensor(np.asarray(value))
         if isinstance(value, torch.Tensor):
-            value = value.to(self.__comm.devices[0], dtype)
+            value = value.to(self.__comm.home, dtype)
         split = self.__split
         if split is None or self.__comm.size == 1:
             target = _owned(self.__shards[0])
@@ -752,7 +766,7 @@ class DNDarray:
             full[out_split] = self.__gshape[split]
             if isinstance(value, torch.Tensor):
                 value = value.broadcast_to(full)
-            counts, displs = self.counts_displs()
+            counts, displs = self._local_counts_displs()
             shards = []
             for s, c, d in zip(self.__shards, counts, displs):
                 s = _owned(s)
@@ -778,7 +792,7 @@ class DNDarray:
             target.diagonal().fill_(value)
             self.__shards = _tagged(_distribute(target, None, self.__comm))
             return self
-        counts, displs = self.counts_displs()
+        counts, displs = self._local_counts_displs()
         shards = []
         for s, c, d in zip(self.__shards, counts, displs):
             s = _owned(s)
@@ -1039,7 +1053,7 @@ def _halo_kernel(x, *, comm, halo_size: int):
     split, p = x.split, comm.size
     shards = x.shards
     block = shards[0].shape[split]
-    counts = x.counts_displs()[0]
+    counts = comm.local_counts_displs(x.gshape, split)[0]
 
     def edge(t: torch.Tensor, count: int, lead: bool) -> torch.Tensor:
         start = 0 if lead else block - halo_size
@@ -1060,12 +1074,24 @@ def _halo_kernel(x, *, comm, halo_size: int):
     return from_prev, from_next
 
 
+def _joined(comm: MeshCommunication, pieces: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """This process's per-rank ``pieces`` concatenated with every other
+    process's along ``dim`` in rank order, on ``comm.home``: across
+    processes one ``allgather``, in one process a concatenation."""
+    if comm.spans_processes:
+        return comm.allgather(list(pieces), dim=dim)[0]
+    home = comm.home
+    return torch.cat([p.to(home) for p in pieces], dim=dim)
+
+
 def _distribute(array: torch.Tensor, split: Optional[int], comm: MeshCommunication) -> List[torch.Tensor]:
     """Cut a logical global tensor into the pad+mask shards of ``comm``: along
     ``split``, ``ceil(n/p)`` rows per shard, the last ones zero-padded; the
     whole tensor on every device for ``split=None``. A single shard on the
-    tensor's own device is the tensor itself, not a copy."""
-    devices = comm.devices
+    tensor's own device is the tensor itself, not a copy. Over a mesh whose
+    ranks span processes only this process's ranks' blocks are kept: every
+    process passes the same global tensor."""
+    devices = comm.local_devices
     if split is None or array.ndim == 0:
         return [array.to(d) for d in devices]
     n = array.shape[split]
@@ -1078,7 +1104,7 @@ def _distribute(array: torch.Tensor, split: Optional[int], comm: MeshCommunicati
     if p == 1:
         return [array.to(devices[0])]
     return [
-        array.narrow(split, i * block, block).to(d).contiguous() for i, d in enumerate(devices)
+        array.narrow(split, r * block, block).to(d).contiguous() for r, d in zip(comm.local_ranks, devices)
     ]
 
 

@@ -1,8 +1,11 @@
 """Array creation routines (reference: heat/core/factories.py,
 heat_tpu/core/factories.py).
 
-Every factory builds the logical global tensor on the mesh's first device and
-cuts it into the pad+mask shards (:func:`.dndarray._distribute`). The device
+Every factory builds the logical global tensor on the mesh's ``home`` device
+(its first; this process's first over a mesh whose ranks span processes)
+and cuts it into the pad+mask shards (:func:`.dndarray._distribute`), which
+keeps this process's ranks' blocks only. Across processes this is the
+multi-controller rule: every process passes the same host value. The device
 defaults to the GPU; without CUDA that raises ``RuntimeError`` unless the
 caller asks for the CPU.
 """
@@ -79,7 +82,7 @@ def array(
             split = obj.split
         obj = obj.larray
     device, comm = _resolve(device, comm)
-    target = comm.devices[0]
+    target = comm.home
     if isinstance(obj, torch.Tensor):
         t = obj.to(device=target, dtype=tdtype)
         if copy and t.data_ptr() == obj.data_ptr():
@@ -117,7 +120,7 @@ def _factory(shape, dtype, split, fill, device, comm) -> DNDarray:
     dtype = types.canonical_heat_type(dtype)
     split = sanitize_axis(shape, split)
     device, comm = _resolve(device, comm)
-    t = fill(shape, dtype=dtype.torch_type(), device=comm.devices[0])
+    t = fill(shape, dtype=dtype.torch_type(), device=comm.home)
     return _wrap(t, split if shape else None, device, comm)
 
 
@@ -174,7 +177,7 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
         dtype = types.int32 if exact else types.float32
     dtype = types.canonical_heat_type(dtype)
     device, comm = _resolve(device, comm)
-    t = torch.arange(start, stop, step, dtype=dtype.torch_type(), device=comm.devices[0])
+    t = torch.arange(start, stop, step, dtype=dtype.torch_type(), device=comm.home)
     split = sanitize_axis(t.shape, split) if split is not None else None
     return _wrap(t, split, device, comm)
 
@@ -189,7 +192,7 @@ def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C
         n, m = (shape[0], shape[0]) if len(shape) == 1 else (shape[0], shape[1])
     dtype = types.canonical_heat_type(dtype)
     device, comm = _resolve(device, comm)
-    t = torch.eye(n, m, dtype=dtype.torch_type(), device=comm.devices[0])
+    t = torch.eye(n, m, dtype=dtype.torch_type(), device=comm.home)
     split = sanitize_axis((n, m), split) if split is not None else None
     return _wrap(t, split, device, comm)
 
@@ -242,7 +245,7 @@ def linspace(
     dtype = types.float32 if dtype is None else types.canonical_heat_type(dtype)
     device, comm = _resolve(device, comm)
     step = (stop - start) / max(1, num - 1 if endpoint else num)
-    t = torch.linspace(start, stop if endpoint else stop - step, num, dtype=torch.float64, device=comm.devices[0])
+    t = torch.linspace(start, stop if endpoint else stop - step, num, dtype=torch.float64, device=comm.home)
     t = t.to(dtype.torch_type())
     split = sanitize_axis(t.shape, split) if split is not None else None
     out = _wrap(t, split, device, comm)
@@ -273,7 +276,7 @@ def meshgrid(*arrays, indexing: str = "xy") -> List[DNDarray]:
     first = next((a for a in arrays if isinstance(a, DNDarray)), None)
     device, comm = _resolve(None, None if first is None else first.comm)
     split = 0 if any(isinstance(a, DNDarray) and a.split is not None for a in arrays) else None
-    target = comm.devices[0]
+    target = comm.home
     tensors = [
         a.larray.to(target) if isinstance(a, DNDarray) else torch.as_tensor(np.asarray(a), device=target)
         for a in arrays

@@ -1771,11 +1771,15 @@ def _small_on_card(*operands) -> bool:
     return total < _EAGER_BELOW_BYTES
 
 
-def _one_device(comm) -> bool:
-    """Whether every shard of ``comm`` lies on one device: a program runs on
-    one device."""
+def _placement_reason(comm) -> Optional[str]:
+    """Why a program cannot run over ``comm``'s shards, or None: a program
+    runs on one device (``multi_device``), in one process
+    (``spans_processes``: a chain that one process forces and another does
+    not would call the mesh's verbs in a different order in each)."""
+    if comm.spans_processes:
+        return "spans_processes"
     devices = comm.devices
-    return all(d == devices[0] for d in devices)
+    return None if all(d == devices[0] for d in devices) else "multi_device"
 
 
 def _phys_node(x):
@@ -1878,8 +1882,9 @@ def defer_binary(operation, t1, t2, dtype: torch.dtype, fn_kwargs):
     elif not ((d1 and isinstance(t2, _SCALARS)) or (d2 and isinstance(t1, _SCALARS))):
         return _unfused("binary", "foreign_operand")
     comm = ref.comm
-    if not _one_device(comm):
-        return _unfused("binary", "multi_device")
+    reason = _placement_reason(comm)
+    if reason is not None:
+        return _unfused("binary", reason)
     shapes = [t.gshape if isinstance(t, DNDarray) else () for t in (t1, t2)]
     out_shape = _broadcast_shapes(*shapes)  # the eager engine's shape error
     out_split = None
@@ -1917,8 +1922,9 @@ def defer_local(operation, x, promote: Optional[torch.dtype], kwargs):
         return _unfused("local", "no_fusion_op")
     if not hashable_kwargs(kwargs):
         return _unfused("local", "unhashable_kwargs")
-    if not _one_device(x.comm):
-        return _unfused("local", "multi_device")
+    reason = _placement_reason(x.comm)
+    if reason is not None:
+        return _unfused("local", reason)
     n = _phys_node(x)
     if _needs_grad(n):
         return _unfused("local", "autograd")
@@ -1948,8 +1954,9 @@ def defer_reduce(reduction, across, x, axes, keepdims, gshape, split, dtype: Opt
     if getattr(reduction.local, "_no_fusion", False):
         return _unfused("reduce", "no_fusion_op")
     comm = x.comm
-    if not _one_device(comm):
-        return _unfused("reduce", "multi_device")
+    reason = _placement_reason(comm)
+    if reason is not None:
+        return _unfused("reduce", reason)
     if _needs_grad(_phys_node(x)):
         return _unfused("reduce", "autograd")
     try:
@@ -1980,8 +1987,9 @@ def defer_cum(operation, combine, x, axis: int, dtype: Optional[torch.dtype]):
     if getattr(operation, "_no_fusion", False):
         return _unfused("cum", "no_fusion_op")
     comm = x.comm
-    if not _one_device(comm):
-        return _unfused("cum", "multi_device")
+    reason = _placement_reason(comm)
+    if reason is not None:
+        return _unfused("cum", reason)
     n = _phys_node(x)
     if _needs_grad(n):
         return _unfused("cum", "autograd")
@@ -2076,8 +2084,9 @@ def _defer_kernel(engine: str, label: str, op, comm, kernel, xs, kw, site: bool 
         return _unfused(engine, "no_fusion_op")
     if not hashable_kwargs(kw):
         return _unfused(engine, "unhashable_kwargs")
-    if not _one_device(comm):
-        return _unfused(engine, "multi_device")
+    reason = _placement_reason(comm)
+    if reason is not None:
+        return _unfused(engine, reason)
     got = _operands(engine, comm, xs)
     if got is None:
         return None

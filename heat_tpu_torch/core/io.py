@@ -199,11 +199,10 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
     enclosing :func:`~.memledger.owner_scope` (a checkpoint restore's),
     until the array that wraps it claims it. This process reads only the
     blocks of the ranks it holds, ``multihost.ranks_to_read``
-    (heat_tpu/core/io.py:160-180)."""
+    (heat_tpu/core/io.py:160-180): over a mesh whose ranks span processes,
+    every process reads its own ranks' rows of the same file."""
     from . import multihost
 
-    if getattr(comm, "spans_processes", False):
-        raise communication._spanning("a sharded ingest")
     dtype = types.canonical_heat_type(dtype)
     tdt = dtype.torch_type()
     gshape = tuple(int(s) for s in gshape)
@@ -212,7 +211,8 @@ def _ingest(read_block, gshape, dtype, split: int, device, comm, convert=_from_h
     counts, displs = comm.counts_displs_shape(gshape, split)
     shards = []
     read_bytes = 0
-    for r, dev in multihost.ranks_to_read(comm.placements):
+    for r, placement in multihost.ranks_to_read(comm.placements, comm.process):
+        dev = placement.device if isinstance(placement, communication.RankPlacement) else placement
         count, displ = counts[r], displs[r]
         sl = [slice(None)] * len(gshape)
         sl[split] = slice(displ, displ + count)
@@ -247,7 +247,7 @@ def _shard_blocks(data: DNDarray) -> Iterator[Tuple[int, int, np.ndarray]]:
     shape over a short payload."""
     from . import multihost
 
-    proc = multihost.process_index()
+    proc = data.comm.process
     if not all(multihost.is_addressable(d, proc) for d in data.comm.placements):
         raise NotImplementedError(
             "streaming save of a split array under a mesh whose ranks span processes: this process holds "

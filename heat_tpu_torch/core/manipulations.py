@@ -137,7 +137,7 @@ def concatenate(arrays: Sequence[DNDarray], axis: int = 0) -> DNDarray:
     dtype = arrays[0].dtype
     for a in arrays[1:]:
         dtype = types.promote_types(dtype, a.dtype)
-    first = arrays[0].comm.devices[0]
+    first = arrays[0].comm.home
     result = torch.cat([a.larray.to(first, dtype.torch_type()) for a in arrays], dim=axis)
     split = next((a.split for a in arrays if a.split is not None), None)
     return _wrap(result, split, arrays[0].device, arrays[0].comm)
@@ -508,9 +508,9 @@ def repeat(a, repeats, axis: Optional[int] = None) -> DNDarray:
     if not isinstance(a, DNDarray):
         a = factories.array(a)
     if isinstance(repeats, DNDarray):
-        repeats = repeats.larray.to(a.comm.devices[0])
+        repeats = repeats.larray.to(a.comm.home)
     elif isinstance(repeats, (list, tuple, np.ndarray)):
-        repeats = torch.as_tensor(np.asarray(repeats), device=a.comm.devices[0])
+        repeats = torch.as_tensor(np.asarray(repeats), device=a.comm.home)
     elif not isinstance(repeats, (int, np.integer)):
         raise TypeError(f"repeats must be int, list, tuple or DNDarray, got {type(repeats)}")
     else:
@@ -698,15 +698,18 @@ def _dist_sort(a: DNDarray, axis: int, descending: bool, with_indices: bool = Tr
     ``MeshCommunication.ppermute`` and keep the lower or upper half of a
     stable merge. Global indices ride along. A device never holds more than
     its block, its partner's and their merge, and the whole array is never
-    assembled. Returns the value and index shards at the physical shape,
-    the sentinels in the padding (indices None without ``with_indices``)."""
+    assembled. Returns this process's value and index shards at the
+    physical shape, the sentinels in the padding (indices None without
+    ``with_indices``); across processes each merges the pairs' halves of its
+    own ranks."""
     comm = a.comm
     p = comm.size
-    counts, _ = a.counts_displs()
+    counts, _ = a._local_counts_displs()
+    ranks = comm.local_ranks
     block = a.shards[0].shape[axis]
     sentinel = _sort_sentinel(a.shards[0].dtype, descending)
     values, indices = [], []
-    for r, (s, c) in enumerate(zip(a.shards, counts)):
+    for r, s, c in zip(ranks, a.shards, counts):
         if c < block:
             s = s.clone()
             s.narrow(axis, c, block - c).fill_(sentinel)
@@ -721,12 +724,14 @@ def _dist_sort(a: DNDarray, axis: int, descending: bool, with_indices: bool = Tr
             partner[lo], partner[hi] = hi, lo
         perm = [(d, partner[d]) for d in range(p)]
         received_v = comm.ppermute(values, perm=perm)
-        received_g = comm.ppermute(indices, perm=perm) if with_indices else [None] * p
+        received_g = comm.ppermute(indices, perm=perm) if with_indices else [None] * len(values)
         for lo, hi in pairs:
-            new_lo = _merge_half((values[lo], indices[lo]), (received_v[lo], received_g[lo]), True, axis, descending)
-            new_hi = _merge_half((values[hi], indices[hi]), (received_v[hi], received_g[hi]), False, axis, descending)
-            received_v[lo] = received_v[hi] = received_g[lo] = received_g[hi] = None
-            (values[lo], indices[lo]), (values[hi], indices[hi]) = new_lo, new_hi
+            for r, keep_lower in ((lo, True), (hi, False)):
+                if r in ranks:
+                    i = r - ranks.start
+                    own, got = (values[i], indices[i]), (received_v[i], received_g[i])
+                    received_v[i] = received_g[i] = None
+                    values[i], indices[i] = _merge_half(own, got, keep_lower, axis, descending)
         del received_v, received_g
     return values, indices
 
@@ -812,13 +817,14 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     if axis is None and not return_inverse and a.split is not None and comm.size > 1 and a.ndim >= 1 and a.size > 0 and not is_complex:
         flat = ravel(a) if a.ndim > 1 else a
         shards, _ = _dist_sort(flat, 0, False, with_indices=False)
-        counts = flat.counts_displs()[0]
+        counts = flat._local_counts_displs()[0]
         valid = [s[:c] for s, c in zip(shards, counts)]
         last = comm.ppermute(
             [v[-1:] if v.numel() else s[:1] for v, s in zip(valid, shards)], perm=[(j, j + 1) for j in range(comm.size - 1)]
         )
         uniques = [
-            v[_first_flags(v, None if r == 0 else last[r])] if v.numel() else v for r, v in enumerate(valid)
+            v[_first_flags(v, None if r == 0 else b)] if v.numel() else v
+            for r, v, b in zip(comm.local_ranks, valid, last)
         ]
         return _wrap_result(comm.allgather(uniques)[0], 0, a)
     split = 0 if a.split is not None else None

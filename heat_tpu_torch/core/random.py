@@ -6,8 +6,11 @@ threefry, so the values differ from the JAX package's. The contract kept is
 that of the reference:
 
 * the same seed gives the same values at every mesh size: each draw is made
-  whole, on the mesh's first device, by a generator seeded from
-  (seed, counter), and only then cut into shards;
+  whole, on the mesh's ``home`` device, by a generator seeded from
+  (seed, counter), and only then cut into shards. Over a mesh whose ranks
+  span processes every process makes the same draw and keeps its ranks'
+  blocks, so the stream advances identically everywhere; an unset seed is
+  process 0's, broadcast at the first such draw;
 * ``get_state``/``set_state`` round-trip;
 * the distributions are right (uniform, standard normal, uniform integers,
   permutations).
@@ -107,9 +110,20 @@ def _float_dtype(dtype):
     return dtype
 
 
+def _agree_on_seed(comm) -> None:
+    """Give every process of a spanning mesh process 0's seed when none is
+    set: every process draws the same stream."""
+    global __seed
+    if __seed is None and comm.spans_processes:
+        seed(None)
+        mine = torch.tensor([__seed], dtype=torch.int64, device=comm.home)
+        __seed = int(comm.bcast([mine] * len(comm.local_devices), root=0)[0].item())
+
+
 def _draw(sampler, shape, dtype, split, device, comm) -> DNDarray:
     device, comm = _resolve(device, comm)
-    first = comm.devices[0]
+    _agree_on_seed(comm)
+    first = comm.home
     t = sampler(shape, generator=_next_generator(first), dtype=dtype, device=first)
     return _wrap(t, split if shape else None, device, comm)
 
@@ -157,7 +171,7 @@ def normal(mean=0.0, std=1.0, shape=None, dtype=None, split=None, device=None, c
     """Normal samples, ``standard_normal * std + mean`` (reference
     random.py:186); ``mean`` and ``std`` may be arrays."""
     base = standard_normal(shape, dtype, split, device, comm)
-    first = base.comm.devices[0]
+    first = base.comm.home
     mean = mean.larray.to(first) if isinstance(mean, DNDarray) else mean
     std = std.larray.to(first) if isinstance(std, DNDarray) else std
     t = base.larray * std + mean

@@ -163,20 +163,35 @@ def _arg_kernel(x, *, comm, axis, extreme, combiner) -> List[torch.Tensor]:
 
 def _arg_across_split(x: DNDarray, axis, extreme, combiner) -> torch.Tensor:
     """Per shard the local extreme and its global index, merged in shard
-    order by ``combiner``; a shard without valid rows does not take part."""
-    counts, displs = x.counts_displs()
-    first = x.comm.devices[0]
-    best = None
+    order by ``combiner``; a shard without valid rows does not take part.
+    Across processes the shards' pairs are gathered first, in rank order,
+    with one ``allgather`` each for the values and the indices."""
+    comm = x.comm
+    counts, displs = comm.local_counts_displs(x.gshape, x.split)
+    first = comm.home
+    pairs = []
     for s, c, d in zip(x.lshards, counts, displs):
         if not c:
+            pairs.append(None)
             continue
         value, index = _extreme(s, axis, extreme)
         if axis is None:  # the flat index in the shard, as one in the whole array
             index = _global_flat_index(index, s.shape, x.gshape, x.split, d)
         else:
             index = index + d
-        pair = (value.to(first), index.to(first))
-        best = pair if best is None else combiner(best, pair)
+        pairs.append((value, index))
+    if comm.spans_processes and x.gshape[x.split]:
+        # a padding row gives the empty shards' pieces their shape and type
+        v0, i0 = _extreme(x.shards[0].narrow(x.split, 0, 1), axis, extreme)
+        v0, i0 = v0[None][:0], i0[None][:0]
+        values = comm.allgather([v0 if p is None else p[0][None] for p in pairs])[0]
+        indices = comm.allgather([i0 if p is None else p[1][None] for p in pairs])[0]
+        pairs = list(zip(values, indices))
+    best = None
+    for pair in pairs:
+        if pair is not None:
+            pair = (pair[0].to(first), pair[1].to(first))
+            best = pair if best is None else combiner(best, pair)
     if best is None:  # no element at all: torch raises, as numpy does
         _extreme(x.lshards[0], axis, extreme)
     return best[1]
@@ -390,9 +405,9 @@ def _var_reduction(ddof: int) -> Reduction:
 
     def across(x: DNDarray, axes, reduction) -> torch.Tensor:
         # per shard: its mean and Σ(x - its mean)², one pass (torch.var_mean)
-        counts = x.counts_displs()[0]
-        others = _count(x, axes) // builtins.max(x.gshape[x.split], 1)
         comm = x.comm
+        counts = comm.local_counts_displs(x.gshape, x.split)[0]
+        others = _count(x, axes) // builtins.max(x.gshape[x.split], 1)
         parts = []
         for s, c in zip(x.lshards, counts):
             if c:
@@ -401,17 +416,22 @@ def _var_reduction(ddof: int) -> Reduction:
             else:
                 parts.append(None)
         like = next((p for p in parts if p is not None), None)
-        if like is None:  # no element: numpy's nan
+        if like is None and x.gshape[x.split]:
+            # this process's ranks hold no row, another's do: a padding row
+            # gives the zeros' shape and type
+            v, m = torch.var_mean(x.shards[0].narrow(x.split, 0, 1), dim=axes, correction=0, keepdim=True)
+            like = (m, v, 0)
+        elif like is None:  # no element: numpy's nan
             return direct(x.lshards[0], axes, True)
         # 1. the global mean, from the shards' sums in shard order
-        sums = [torch.zeros_like(like[0]).to(d) if p is None else p[0] * p[2] for p, d in zip(parts, comm.devices)]
+        sums = [torch.zeros_like(like[0]).to(d) if p is None else p[0] * p[2] for p, d in zip(parts, comm.local_devices)]
         n = _count(x, axes)
         mu = [t / n for t in comm.allreduce(sums)]
         # 2. Σ|x - μ|² per shard, exactly Σ|x - μ_d|² + n_d |μ_d - μ|², combined
         # in shard order; real for complex x too
         dev2 = [
             torch.zeros_like(like[1]).to(d) if p is None else p[1] + p[2] * (p[0] - m).abs() ** 2
-            for p, m, d in zip(parts, mu, comm.devices)
+            for p, m, d in zip(parts, mu, comm.local_devices)
         ]
         return comm.allreduce(dev2)[0] / (n - ddof)
 
@@ -511,7 +531,7 @@ def _as_tensor(values, ref: DNDarray) -> torch.Tensor:
         values = values.larray
     if not isinstance(values, torch.Tensor):
         values = torch.as_tensor(np.asarray(values))
-    return values.to(ref.comm.devices[0])
+    return values.to(ref.comm.home)
 
 
 def digitize(x: DNDarray, bins, right: bool = False) -> DNDarray:

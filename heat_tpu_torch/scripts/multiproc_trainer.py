@@ -4,7 +4,7 @@ process-spanning runtime (reference: scripts/multiproc_trainer.py).
 Launched by ``multihost.spawn_local`` / ``heat_tpu_torch.scripts.launch_multiproc``:
 the world's configuration arrives in the launcher's environment
 (``HEAT_TPU_COORDINATOR`` / ``HEAT_TPU_PROCESS_ID`` / ``HEAT_TPU_NUM_PROCESSES``
-/ ``HEAT_TPU_MESH_DIR`` / ``HEAT_TPU_MESH_EPOCH``). Two workloads:
+/ ``HEAT_TPU_MESH_DIR`` / ``HEAT_TPU_MESH_EPOCH``). Three workloads:
 
 ``--workload lstsq`` (the reference's): least squares by full-batch
 gradient descent over a fixed seeded global table (seed 7, float64), its
@@ -33,6 +33,19 @@ iteration, the accumulators summed across processes by one
 inertia, this process's kernel launches, the milliseconds per iteration and
 those of the cross-process allreduce; the labels of this process's rows go
 to ``labels-epoch{E:04d}-rank{R:05d}.npy``.
+
+``--workload kmeans``: the same fit through the array's own entry points
+on the process-spanning mesh. Each process reads its ranks' rows of the
+``.npy`` table ``--table`` (``ht.load_npy(split=0)``), takes config 1's
+moments over it (:func:`kmeans_moments`), fits
+``ht.cluster.KMeans(init="batchparallel", use_fused=True)`` for ``--iters``
+iterations and saves the table and the centers with ``save_checkpoint`` to
+``--ckpt-dir`` (step 1), each process writing its own ranks' shard files.
+The result holds the centers' bytes, the inertia, the digests of the
+moments and of this process's labels (:func:`digests`), the Lloyd kernel's
+launches in the fit, the milliseconds per iteration and those of the
+cross-process allreduce (two more runs of the iterations from the fitted
+centers), and the seconds and bytes of the ingest and of the save.
 
 Results land as JSON at ``--out/result-epoch{E:04d}-rank{R:05d}.json``.
 """
@@ -167,6 +180,100 @@ def lloyd_fit(comm, shards, init, k: int, rows: int, iters: int) -> dict:
     }
 
 
+def kmeans_moments(ht, x) -> dict:
+    """Config 1's moments of ``x``: mean, var, std, min, max and argmax over
+    the whole table, across the split (axis 0) and along it (axis 1)."""
+    return {f"{fn}_{axis}": getattr(ht, fn)(x, axis=axis)
+            for axis in (None, 0, 1) for fn in ("mean", "var", "std", "min", "max", "argmax")}
+
+
+def digests(comm, arrays: dict) -> dict:
+    """A comparable digest of each array without a gather: a replicated
+    array's bytes in hex, a split one's SHA-256 per logical block of this
+    process's ranks (the global rank as a string key)."""
+    import hashlib
+
+    out = {}
+    for name, a in arrays.items():
+        if a.split is None:
+            out[name] = a.numpy().tobytes().hex()
+            continue
+        out[name] = {str(r): hashlib.sha256(b.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+                     for r, b in zip(comm.local_ranks, a.lshards)}
+    return out
+
+
+def kmeans_fit(ht, x, k: int, iters: int, seed: int):
+    """The spanning fit's estimator, fitted: batch-parallel init from
+    ``seed``, the fused Lloyd kernel, every one of ``iters`` iterations run
+    (a negative tolerance never stops early)."""
+    return ht.cluster.KMeans(n_clusters=k, init="batchparallel", max_iter=iters, tol=-1.0, random_state=seed,
+                             use_fused=True).fit(x)
+
+
+def iteration_ms(comm, shards, centers, k: int, rows: int, iters: int) -> dict:
+    """The fit's iterations run again from ``centers`` over ``shards``:
+    milliseconds per iteration, then, with the allreduce timed, its
+    milliseconds per call."""
+    from ..ops import lloyd
+
+    xs = [lloyd.stream_operand(s) for s in shards]
+    first = comm.first_rank
+    xsq = lloyd.logical_xsq_sum(xs, rows, comm, first)
+    _sync(xs[0].device)
+    t0 = time.perf_counter()
+    lloyd.run_steps(xs, centers, k, comm, rows, iters, xsq, first)
+    _sync(xs[0].device)
+    per_iter = (time.perf_counter() - t0) * 1e3 / iters
+    timed = TimedComm(comm)
+    lloyd.run_steps(xs, centers, k, timed, rows, iters, xsq, first)
+    return {"ms_per_iter": per_iter,
+            "allreduce_ms_per_iter": sum(timed.ms) / len(timed.ms) if timed.ms else 0.0}
+
+
+def run_kmeans(args, comm, doc) -> int:
+    import hashlib
+
+    import heat_tpu_torch as ht
+
+    from ..core import multihost
+    from ..ops import lloyd
+    from ..utils.checkpoint import save_checkpoint
+
+    device = comm.local_devices[0]
+    _sync(device)
+    t0 = time.perf_counter()
+    x = ht.load_npy(args.table, split=0, comm=comm)
+    _sync(device)
+    ingest_s = time.perf_counter() - t0
+    held = sum(b.numel() * b.element_size() for b in x.lshards)
+    moments = digests(comm, kmeans_moments(ht, x))
+    lloyd.LAUNCHES = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    km = kmeans_fit(ht, x, args.clusters, args.iters, args.seed)
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    launches = lloyd.LAUNCHES
+    centers = km.cluster_centers_.larray
+    timing = iteration_ms(comm, x.shards, centers, args.clusters, x.shape[0], args.iters)
+    written = held + (centers.numel() * centers.element_size() if multihost.io_owner() else 0)
+    _sync(device)
+    t0 = time.perf_counter()
+    save_checkpoint(args.ckpt_dir, {"table": x, "centers": km.cluster_centers_}, step=1, keep=0)
+    save_s = time.perf_counter() - t0
+    labels = {str(r): hashlib.sha256(b.cpu().numpy().tobytes()).hexdigest()
+              for r, b in zip(comm.local_ranks, km.labels_.lshards)}
+    c = centers.float().cpu()
+    doc.update(timing, status="done", completed_steps=args.iters, launches=launches, fit_s=fit_s,
+               centers=c.tolist(), centers_hex=c.numpy().tobytes().hex(), inertia=float(km.inertia_),
+               n_iter=km.n_iter_, labels_sha256=labels, moments=moments, ingest_s=ingest_s, ingest_bytes=held,
+               save_s=save_s, save_bytes=written, device=str(device), local_shards=len(comm.local_devices),
+               first_rank=comm.first_rank, ranks=comm.size)
+    _write_result(args.out, doc)
+    return 0
+
+
 def _device(kind: str) -> str:
     return "gpu" if kind == "cuda" else "cpu"
 
@@ -275,7 +382,7 @@ def run_lstsq(args, comm, doc) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--workload", choices=("lstsq", "lloyd"), default="lstsq")
+    ap.add_argument("--workload", choices=("lstsq", "lloyd", "kmeans"), default="lstsq")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                     help="the payload's backend (default: gloo on the CPU, nccl on CUDA)")
@@ -289,15 +396,18 @@ def main(argv=None) -> int:
     ap.add_argument("--clusters", type=int, default=8)
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--seed", type=int, default=LLOYD_SEED)
-    ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory (lstsq)")
+    ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory (lstsq, kmeans)")
+    ap.add_argument("--table", default=None, help="the .npy table the kmeans workload reads")
     ap.add_argument("--out", required=True, help="result directory")
     ap.add_argument("--die-rank", type=int, default=-1)
     ap.add_argument("--die-at-step", type=int, default=-1)
     ap.add_argument("--hang-rank", type=int, default=-1)
     ap.add_argument("--hang-at-step", type=int, default=-1)
     args = ap.parse_args(argv)
-    if args.workload == "lstsq" and not args.ckpt_dir:
-        ap.error("--workload lstsq needs --ckpt-dir")
+    if args.workload in ("lstsq", "kmeans") and not args.ckpt_dir:
+        ap.error(f"--workload {args.workload} needs --ckpt-dir")
+    if args.workload == "kmeans" and not args.table:
+        ap.error("--workload kmeans needs --table")
 
     from ..core import multihost
 
@@ -314,6 +424,8 @@ def main(argv=None) -> int:
     }
     if args.workload == "lloyd":
         return run_lloyd(args, comm, doc)
+    if args.workload == "kmeans":
+        return run_kmeans(args, comm, doc)
     return run_lstsq(args, comm, doc)
 
 

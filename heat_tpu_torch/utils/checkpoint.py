@@ -387,9 +387,13 @@ def _write_frag(frag: dict, payload_dir: str, fname: str, arr: np.ndarray) -> No
 
 
 def _save_dndarray(payload_dir: str, payload_rel: str, base: str, leaf, write: bool = True) -> dict:
-    """Write a DNDarray leaf, shard by shard; return its manifest entry.
-    Without ``write`` only the entry is made: its files are another
-    process's to write."""
+    """Write a DNDarray leaf, shard by shard; return its manifest entry,
+    which names the files of every rank. ``write`` says whether this
+    process writes what is everyone's (a replicated leaf, the shards of a
+    mesh that every process holds whole); over a mesh whose ranks span
+    processes each process writes the shards of its own ranks
+    (heat_tpu/utils/checkpoint.py:390-441), and their checksums reach the
+    owner through its receipt."""
     split = leaf.split
     name = _dtype_name(leaf.dtype.torch_type())
     entry: dict = {
@@ -408,8 +412,10 @@ def _save_dndarray(payload_dir: str, payload_rel: str, base: str, leaf, write: b
             _write_frag(frag, payload_dir, fname, _host(leaf.shards[0])[0])
         entry["files"].append(frag)
         return entry
-    counts, displs = leaf.comm.counts_displs_shape(leaf.shape, split)
-    for r, (shard, count, displ) in enumerate(zip(leaf.shards, counts, displs)):
+    comm = leaf.comm
+    counts, displs = comm.counts_displs_shape(leaf.shape, split)
+    held = dict(zip(comm.local_ranks, leaf.shards))
+    for r, (count, displ) in enumerate(zip(counts, displs)):
         if not count:
             continue
         bshape = list(leaf.shape)
@@ -419,8 +425,8 @@ def _save_dndarray(payload_dir: str, payload_rel: str, base: str, leaf, write: b
         frag["rank"] = r
         frag["start"] = int(displ)
         frag["stop"] = int(displ + count)
-        if write:
-            _write_frag(frag, payload_dir, fname, _host(shard.narrow(split, 0, count))[0])
+        if r in held and (write or comm.spans_processes):
+            _write_frag(frag, payload_dir, fname, _host(held[r].narrow(split, 0, count))[0])
         entry["files"].append(frag)
     return entry
 
@@ -458,7 +464,9 @@ def save_checkpoint(directory: str, tree: Any, step: int = 0, keep: int = 3) -> 
     process runs the same save. A lost peer fails it at once with
     ``multihost.PeerLostError``. The leaves are each process's own values,
     the same in every process, so ``multihost.io_owner()`` writes the
-    payload. Each process publishes a receipt of the checksums it wrote in
+    payload, apart from a DNDarray over a mesh whose ranks span processes:
+    each process writes the shard files of its own ranks. Each process
+    publishes a receipt of the checksums it wrote in
     this attempt (a stale receipt of a crashed attempt is dropped first),
     all meet at a barrier, and the owner fills the checksums it did not
     write from the receipts, never from whatever file lies at a path,
@@ -719,7 +727,7 @@ def _restore_dndarray(directory: str, entry: dict, template) -> Any:
 
     if saved_split is None or not gshape:
         t = convert(_read_array_file(directory, entry["files"][0]))
-        return _wrap(t.to(comm.devices[0]), None if out_split is None or not gshape else int(out_split) % len(gshape), device, comm)
+        return _wrap(t.to(comm.home), None if out_split is None or not gshape else int(out_split) % len(gshape), device, comm)
     saved_split = int(saved_split) % len(gshape)
     shards = [
         (frag["start"], frag["stop"], _open_array_lazy(directory, frag))
@@ -744,7 +752,7 @@ def _restore_dndarray(directory: str, entry: dict, template) -> Any:
 
     if out_split is None:
         full = convert(resilience.call_with_retries("checkpoint.restore", read_block, tuple(slice(0, s) for s in gshape)))
-        return _wrap(full.to(comm.devices[0]), None, device, comm)
+        return _wrap(full.to(comm.home), None, device, comm)
     with memledger.owner_scope("checkpoint"):
         # the staged shards count under "checkpoint" in the memory ledger
         # until the restored array claims them

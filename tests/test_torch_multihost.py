@@ -693,32 +693,44 @@ def test_trace_pid_is_the_process_index(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# a mesh whose ranks span processes: the verbs exist, the layers above them
-# raise the named error (ROADMAP A11.5b)
+# a mesh whose ranks span processes: the array, its factories and the ingest
+# run on each process's own ranks; the global device list, sub-meshes,
+# ring/Ulysses and parallel/ raise the named error (ROADMAP A11.5b(c))
 # ---------------------------------------------------------------------------
-def _spanning():
-    return communication.ProcessMeshCommunication([torch.device("cpu")] * 2, (2, 2), 0, None, None)
+def _spanning(process=0):
+    return communication.ProcessMeshCommunication([torch.device("cpu")] * 2, (2, 2), process, None, None)
 
 
 @pytest.mark.parametrize("entry", [
     "DNDarray", "factory", "ingest", "devices", "sub", "ring", "ulysses", "make_mesh", "default mesh",
 ])
 def test_layers_above_the_verbs_raise_the_named_error(entry, tmp_path):
-    comm = _spanning()
+    """The entries that raise still name A11.5b(c); the array's own
+    entries (a DNDarray, a factory, the ingest, the default mesh) run on a
+    mocked second process of a 2 x 2 world and hold its ranks 2 and 3."""
+    comm = _spanning(1)
     q = torch.zeros(1, 8, 4, 4)
+    want = np.arange(16.0).reshape(8, 2)
+    np.save(tmp_path / "x.npy", want)
     calls = {
-        "DNDarray": lambda: ht.DNDarray([torch.zeros(2), torch.zeros(2)], (8,), ht.float32, 0, ht.cpu, comm),
-        "factory": lambda: ht.zeros((8,), split=0, comm=comm),
-        "ingest": lambda: (np.save(tmp_path / "x.npy", np.zeros((8, 2))),
-                           ht.load_npy(str(tmp_path / "x.npy"), split=0, comm=comm)),
+        "DNDarray": lambda: ht.DNDarray([torch.tensor(want[4:6]), torch.tensor(want[6:])], (8, 2), ht.float64, 0,
+                                        ht.cpu, comm),
+        "factory": lambda: ht.array(want, split=0, comm=comm),
+        "ingest": lambda: ht.load_npy(str(tmp_path / "x.npy"), split=0, comm=comm),
         "devices": lambda: comm.devices,
         "sub": lambda: comm.sub([0, 1]),
         "ring": lambda: ht.nn.ring_attention(q, q, q, comm=comm),
         "ulysses": lambda: ht.nn.ulysses_attention(q, q, q, comm=comm),
         "make_mesh": lambda: ht.parallel.make_mesh({"dp": 2}, devices=None) if ht.use_comm(comm) is None else None,
-        "default mesh": lambda: ht.arange(8, split=0) if ht.use_comm(comm) is None else None,
+        "default mesh": lambda: ht.array(want, split=0) if ht.use_comm(comm) is None else None,
     }
-    with pytest.raises(NotImplementedError, match="A11.5b"):
+    if entry in ("DNDarray", "factory", "ingest", "default mesh"):
+        x = calls[entry]()
+        assert x.comm is comm and x.gshape == (8, 2) and x.split == 0 and x.lshape == (2, 2)
+        assert [r for r, _ in x.ranked_shards()] == [2, 3] and len(x.shards) == 2
+        assert np.array_equal(np.concatenate([b for _, b in x.ranked_shards()]), want[4:])
+        return
+    with pytest.raises(NotImplementedError, match=r"A11\.5b\(c\)"):
         calls[entry]()
     assert isinstance(communication.CrossProcessMeshError("x"), NotImplementedError)
 
