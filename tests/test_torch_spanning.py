@@ -259,6 +259,13 @@ def test_spanning_equals_one_process_bit_for_bit(worlds, world, name):
         assert _same(b, one["blocks"][r]), f"{world} {name}: rank {r}'s block differs"
 
 
+def _written(a):
+    a = a.copy()
+    a[:, 0] = 1.5
+    a[2:6, 1] = np.arange(4.0)
+    return a
+
+
 def _numpy_expectation(name: str):
     """numpy's value of a result of :func:`program`, or None."""
     t = tables()
@@ -281,7 +288,8 @@ def _numpy_expectation(name: str):
         "full": np.full((4, 3), 2.5), "linspace": np.linspace(0.0, 1.0, 7), "eye": np.eye(5),
         "load_npy_0": t["f7"], "load_npy_1": t["f7"], "item_sum": t["f7"].sum(), "item_one_row": 3.5,
         "sort_xe_values": np.sort(t["f5"], axis=0), "sort_xe_indices": np.argsort(t["f5"], axis=0, kind="stable"),
-        "unique_xi": np.unique(t["i4"]), "restored_x": t["f7"], "restored_xe": t["f5"], "restored_y": t["f7"], "restored_n": 3,
+        "unique_xi": np.unique(t["i4"]), "restored_x": t["f7"], "getitem_columns": t["f7"][:, 1:3],
+        "getitem_rows": t["f7"][1:6:2], "setitem": _written(t["f7"]), "fill_diagonal": np.eye(5) * 2.0, "restored_xe": t["f5"], "restored_y": t["f7"], "restored_n": 3,
     }
     if name.startswith("resplit"):
         return t["f7"] if "none_0" not in name else t["f7"][0]
@@ -316,7 +324,7 @@ def test_one_process_program_against_numpy(worlds, name):
             continue
         got = np.asarray(got)
         want = np.asarray(want)
-        if want.dtype.kind in "iub" or name.startswith(("arg", "array", "resplit", "load", "restored", "eye", "sort")):
+        if want.dtype.kind in "iub" or name.startswith(("arg", "array", "resplit", "load", "restored", "eye", "sort", "get", "set", "fill")):
             np.testing.assert_array_equal(got, want.astype(got.dtype) if want.dtype.kind == "f" else want)
         else:
             rtol = 1e-12 if got.dtype == want.dtype == np.float64 else 2e-5
@@ -433,3 +441,28 @@ def test_lshape_reports_this_processes_shard():
     assert second.lshape == communication.MeshCommunication([torch.device("cpu")] * p).chunk((9, 3), 0, rank=2)[1]
     # 9 rows on 4 ranks: 3, 3, 3, 0; rank 3 holds no row to yield
     assert second.lshape == (3, 3) and [r for r, _ in second.ranked_shards()] == [2]
+
+
+def test_the_recorder_stays_eager_on_a_spanning_mesh():
+    """A chain that one process forces and another does not would call the
+    verbs in another order in each: over a spanning mesh every engine runs
+    eagerly, with the reason ``spans_processes``; the same ops over a
+    one-process mesh of the same device defer as before."""
+    from heat_tpu_torch.core import telemetry
+
+    prev, was = telemetry.set_mode(1), fusion.set_enabled(True)
+    telemetry.reset()
+    try:
+        x = ht.ones((8, 2), split=0, comm=_mock((2, 2), 1))
+        y = ht.exp(x + 1)
+        spanning = telemetry.unfused_reasons()
+        telemetry.reset()
+        ht.exp(ht.ones((8, 2), split=0, comm=communication.MeshCommunication([torch.device("cpu")] * 2)) + 1)
+        in_process = telemetry.unfused_reasons()
+    finally:
+        fusion.set_enabled(was)
+        telemetry.set_mode(prev)
+        telemetry.reset()
+    assert spanning["binary"] == {"spans_processes": 1} and spanning["local"] == {"spans_processes": 1}
+    assert not isinstance(y._payload, fusion.LazyArray) and len(y.shards) == 2
+    assert "spans_processes" not in in_process.get("binary", {})

@@ -96,6 +96,15 @@ def program(comm, workdir: str) -> dict:
     halo = ht.array(t["f7"], split=0, comm=comm)
     halo.get_halo(1)
     rec("halos", halo.array_with_halos)
+    # indexing: a shard-wise key, a key that cuts the split, writes
+    rec("getitem_columns", x[:, 1:3])
+    rec("getitem_rows", x[1:6:2])
+    z = ht.array(t["f7"], split=0, comm=comm)
+    z[:, 0] = 1.5
+    z[2:6, 1] = ht.array(np.arange(4.0, dtype=np.float32), comm=comm)
+    rec("setitem", z)
+    d = ht.zeros((5, 5), split=0, comm=comm)
+    rec("fill_diagonal", d.fill_diagonal(2.0))
     # host reads
     rec("item_sum", ht.sum(x).item())
     rec("item_one_row", ht.array([3.5], split=0, comm=comm).item())
