@@ -8362,12 +8362,6 @@ def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str) -> dict:
     return out
 
 
-def _mp_sha(t) -> str:
-    import hashlib
-
-    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
-
-
 def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str) -> dict:
     """(c) Config 3 over a mesh whose ranks span two processes on the card,
     through the array's entry points (``--workload kmeans``): each process
@@ -8413,7 +8407,7 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
         lloyd.LAUNCHES = 0
         km = trainer.kmeans_fit(ht, x, K, ITERS, SEED)
         launches_one = lloyd.LAUNCHES
-    labels = {str(r): _mp_sha(b) for r, b in zip(two.local_ranks, km.labels_.lshards)}
+    labels = trainer.digests(two, {"labels": km.labels_})["labels"]
     centers = km.cluster_centers_.larray
     out = {
         "seconds": run["seconds"],

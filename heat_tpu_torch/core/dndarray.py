@@ -321,7 +321,7 @@ class DNDarray:
         shards = self._forced()
         if self.__split is None:
             return list(shards)
-        counts, _ = self._local_counts_displs()
+        counts, _ = self.__comm.local_counts_displs(self.__gshape, self.__split)
         return [s.narrow(self.__split, 0, c) for s, c in zip(shards, counts)]
 
     @property
@@ -342,10 +342,6 @@ class DNDarray:
         if self.__split is None:
             raise ValueError("Non-distributed DNDarray has no counts and displacements")
         return self.__comm.counts_displs_shape(self.__gshape, self.__split)
-
-    def _local_counts_displs(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-        """:meth:`counts_displs` of this process's ranks, one entry per shard."""
-        return self.__comm.local_counts_displs(self.__gshape, self.__split)
 
     def _replace(self, shards: Sequence[torch.Tensor], gshape: Tuple[int, ...], split: Optional[int]) -> "DNDarray":
         """Swap the shards and their layout (the engines' ``out=`` path);
@@ -419,7 +415,7 @@ class DNDarray:
         if self.__split is None or self.ndim == 0:
             yield 0, self.numpy()
             return
-        counts = self._local_counts_displs()[0]
+        counts = self.__comm.local_counts_displs(self.__gshape, self.__split)[0]
         for r, s, c in zip(self.__comm.local_ranks, self.lshards, counts):
             if c:
                 yield r, _host(s)
@@ -766,7 +762,7 @@ class DNDarray:
             full[out_split] = self.__gshape[split]
             if isinstance(value, torch.Tensor):
                 value = value.broadcast_to(full)
-            counts, displs = self._local_counts_displs()
+            counts, displs = self.__comm.local_counts_displs(self.__gshape, self.__split)
             shards = []
             for s, c, d in zip(self.__shards, counts, displs):
                 s = _owned(s)
@@ -792,7 +788,7 @@ class DNDarray:
             target.diagonal().fill_(value)
             self.__shards = _tagged(_distribute(target, None, self.__comm))
             return self
-        counts, displs = self._local_counts_displs()
+        counts, displs = self.__comm.local_counts_displs(self.__gshape, self.__split)
         shards = []
         for s, c, d in zip(self.__shards, counts, displs):
             s = _owned(s)

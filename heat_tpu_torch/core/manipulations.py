@@ -704,7 +704,7 @@ def _dist_sort(a: DNDarray, axis: int, descending: bool, with_indices: bool = Tr
     own ranks."""
     comm = a.comm
     p = comm.size
-    counts, _ = a._local_counts_displs()
+    counts, _ = a.comm.local_counts_displs(a.gshape, a.split)
     ranks = comm.local_ranks
     block = a.shards[0].shape[axis]
     sentinel = _sort_sentinel(a.shards[0].dtype, descending)
@@ -817,7 +817,7 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     if axis is None and not return_inverse and a.split is not None and comm.size > 1 and a.ndim >= 1 and a.size > 0 and not is_complex:
         flat = ravel(a) if a.ndim > 1 else a
         shards, _ = _dist_sort(flat, 0, False, with_indices=False)
-        counts = flat._local_counts_displs()[0]
+        counts = flat.comm.local_counts_displs(flat.gshape, flat.split)[0]
         valid = [s[:c] for s, c in zip(shards, counts)]
         last = comm.ppermute(
             [v[-1:] if v.numel() else s[:1] for v, s in zip(valid, shards)], perm=[(j, j + 1) for j in range(comm.size - 1)]

@@ -44,7 +44,7 @@ iterations and saves the table and the centers with ``save_checkpoint`` to
 The result holds the centers' bytes, the inertia, the digests of the
 moments and of this process's labels (:func:`digests`), the Lloyd kernel's
 launches in the fit, the milliseconds per iteration and those of the
-cross-process allreduce (two more runs of the iterations from the fitted
+cross-process allreduce (:func:`lloyd_fit`'s runs from the fitted
 centers), and the seconds and bytes of the ingest and of the save.
 
 Results land as JSON at ``--out/result-epoch{E:04d}-rank{R:05d}.json``.
@@ -211,29 +211,7 @@ def kmeans_fit(ht, x, k: int, iters: int, seed: int):
                              use_fused=True).fit(x)
 
 
-def iteration_ms(comm, shards, centers, k: int, rows: int, iters: int) -> dict:
-    """The fit's iterations run again from ``centers`` over ``shards``:
-    milliseconds per iteration, then, with the allreduce timed, its
-    milliseconds per call."""
-    from ..ops import lloyd
-
-    xs = [lloyd.stream_operand(s) for s in shards]
-    first = comm.first_rank
-    xsq = lloyd.logical_xsq_sum(xs, rows, comm, first)
-    _sync(xs[0].device)
-    t0 = time.perf_counter()
-    lloyd.run_steps(xs, centers, k, comm, rows, iters, xsq, first)
-    _sync(xs[0].device)
-    per_iter = (time.perf_counter() - t0) * 1e3 / iters
-    timed = TimedComm(comm)
-    lloyd.run_steps(xs, centers, k, timed, rows, iters, xsq, first)
-    return {"ms_per_iter": per_iter,
-            "allreduce_ms_per_iter": sum(timed.ms) / len(timed.ms) if timed.ms else 0.0}
-
-
 def run_kmeans(args, comm, doc) -> int:
-    import hashlib
-
     import heat_tpu_torch as ht
 
     from ..core import multihost
@@ -256,16 +234,15 @@ def run_kmeans(args, comm, doc) -> int:
     fit_s = time.perf_counter() - t0
     launches = lloyd.LAUNCHES
     centers = km.cluster_centers_.larray
-    timing = iteration_ms(comm, x.shards, centers, args.clusters, x.shape[0], args.iters)
+    timing = lloyd_fit(comm, x.shards, centers, args.clusters, x.shape[0], args.iters)
     written = held + (centers.numel() * centers.element_size() if multihost.io_owner() else 0)
     _sync(device)
     t0 = time.perf_counter()
     save_checkpoint(args.ckpt_dir, {"table": x, "centers": km.cluster_centers_}, step=1, keep=0)
     save_s = time.perf_counter() - t0
-    labels = {str(r): hashlib.sha256(b.cpu().numpy().tobytes()).hexdigest()
-              for r, b in zip(comm.local_ranks, km.labels_.lshards)}
+    labels = digests(comm, {"labels": km.labels_})["labels"]
     c = centers.float().cpu()
-    doc.update(timing, status="done", completed_steps=args.iters, launches=launches, fit_s=fit_s,
+    doc.update({k: timing[k] for k in ("ms_per_iter", "allreduce_ms_per_iter")}, status="done", completed_steps=args.iters, launches=launches, fit_s=fit_s,
                centers=c.tolist(), centers_hex=c.numpy().tobytes().hex(), inertia=float(km.inertia_),
                n_iter=km.n_iter_, labels_sha256=labels, moments=moments, ingest_s=ingest_s, ingest_bytes=held,
                save_s=save_s, save_bytes=written, device=str(device), local_shards=len(comm.local_devices),
