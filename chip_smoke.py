@@ -8374,7 +8374,6 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
     import torch
 
     from heat_tpu_torch.core import communication
-    from heat_tpu_torch.ops import lloyd
     from heat_tpu_torch.scripts import multiproc_trainer as trainer
     from heat_tpu_torch.utils.checkpoint import load_checkpoint, verify_checkpoint
 
@@ -8387,7 +8386,7 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
     root = os.path.join(tmp, "spanning")
     os.makedirs(root)
     table, ckpt = os.path.join(root, "config3.npy"), os.path.join(root, "ckpt")
-    data, _ = trainer.lloyd_table(rows, F, K, SEED, card)
+    data = trainer.lloyd_table(rows, F, K, SEED, card)
     np.save(table, data.cpu().numpy())
     del data
     nbytes = rows * F * 4
@@ -8404,10 +8403,17 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
     with ht.core.fusion.disabled():
         x = ht.load_npy(table, split=0, comm=two)
         moments = trainer.digests(two, trainer.kmeans_moments(ht, x))
-        lloyd.LAUNCHES = 0
-        km = trainer.kmeans_fit(ht, x, K, ITERS, SEED)
-        launches_one = lloyd.LAUNCHES
+        km, one = trainer.timed_fit(ht, x, K, ITERS, SEED)
+        launches_one = one["launches"]
+        again = trainer.kmeans_fit(ht, x, K, ITERS, SEED)
     labels = trainer.digests(two, {"labels": km.labels_})["labels"]
+    # the same seed, the same fit: the kmeans++ draws add their weights
+    # exactly, so no scan's order picks another row
+    if not (torch.equal(again.cluster_centers_.larray, km.cluster_centers_.larray)
+            and trainer.digests(two, {"labels": again.labels_})["labels"] == labels):
+        raise AssertionError(f"a second fit from the same seed differs: inertia {again.inertia_} against "
+                             f"{km.inertia_}")
+    del again
     centers = km.cluster_centers_.larray
     out = {
         "seconds": run["seconds"],
@@ -8417,6 +8423,10 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
         "ms_per_iter": [d["ms_per_iter"] for d in docs],
         "allreduce_ms_per_iter": [d["allreduce_ms_per_iter"] for d in docs],
         "fit_s": [d["fit_s"] for d in docs],
+        "fit_parts_s": [d["parts_s"] for d in docs],
+        "fit_calls_s": [d["calls_s"] for d in docs],
+        "one_process": {key: one[key] for key in ("ms_per_iter", "allreduce_ms_per_iter", "fit_s", "parts_s",
+                                                  "calls_s")},
         "ingest_gbps": [d["ingest_bytes"] / 1e9 / d["ingest_s"] for d in docs],
         "save_gbps": [d["save_bytes"] / 1e9 / d["save_s"] for d in docs],
         "inertia": docs[0]["inertia"],
@@ -8428,8 +8438,10 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
     want_centers = centers.float().cpu().numpy().tobytes().hex()
     for q, d in enumerate(docs):
         if d["centers_hex"] != want_centers or d["inertia"] != float(km.inertia_) or d["n_iter"] != km.n_iter_:
+            err = float(np.max(np.abs(np.asarray(d["centers"], dtype=np.float32) - centers.float().cpu().numpy())))
             raise AssertionError(f"process {q}'s fit differs from the two-shard fit: inertia {d['inertia']} against "
-                                 f"{float(km.inertia_)}")
+                                 f"{float(km.inertia_)}, n_iter {d['n_iter']} against {km.n_iter_}, centers by "
+                                 f"{err} at most")
         if any(labels[r] != sha for r, sha in d["labels_sha256"].items()):
             raise AssertionError(f"process {q}'s labels differ from the two-shard fit's")
         for name, got in d["moments"].items():
@@ -8463,11 +8475,24 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
         del back, template, whole
     del x, km
     print(f"  config 3 read from .npy and fit by KMeans across 2 processes (A11.5b): {out['launches']} Lloyd "
-          f"launches ({launches_one} in the two-shard fit here); centers, inertia, labels and "
+          f"launches ({launches_one} in the two-shard fit here, which a second fit from the seed repeats bit for "
+          f"bit); centers, inertia, labels and "
           f"{len(moments)} moments bit for bit with the two-shard mesh of the card; checkpoint verified, one "
           f"fragment per rank from each receipt, restored on 2 and 1 shards bit for bit ({smi})", flush=True)
-    print(f"  spanning fit: ms per iteration {out['ms_per_iter']}, cross-process allreduce "
-          f"{out['allreduce_ms_per_iter']} ms (gloo through the host), fit {out['fit_s']} s; ingest "
+
+    def parts(t):
+        calls = t["calls_s"]
+        inner = {"kmeans++ calls": calls.get("kmeanspp", []), "allgather in init": calls.get("allgather in init", []),
+                 "chunks": calls["iterations"], "allreduces in iterations, first and median": [
+                     calls["allreduce in iterations"][0], float(np.median(calls["allreduce in iterations"]))]}
+        return (", ".join(f"{k} {v:.4f}" for k, v in t["parts_s"].items()) + "; "
+                + ", ".join(f"{k} {[round(v, 5) for v in vs]}" for k, vs in inner.items()))
+
+    print(f"  spanning KMeans fit, its own {ITERS} iterations: ms per iteration {out['ms_per_iter']}, "
+          f"cross-process allreduce {out['allreduce_ms_per_iter']} ms per iteration (gloo through the host), fit "
+          f"{out['fit_s']} s by part (s): {' | '.join(parts(d) for d in docs)}; the same fit on the two-shard "
+          f"mesh of one process: ms per iteration {one['ms_per_iter']}, allreduce {one['allreduce_ms_per_iter']} "
+          f"ms, fit {one['fit_s']} s ({parts(one)}); ingest "
           f"{out['ingest_gbps']} GB/s per process, save {out['save_gbps']} GB/s per process, restore "
           f"{out['restore_gbps']} GB/s (checksums verified first); launch {run['seconds']:.1f} s ({smi})",
           flush=True)

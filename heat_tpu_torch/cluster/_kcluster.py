@@ -38,7 +38,8 @@ def _kmeanspp_fixed(generator: torch.Generator, data: torch.Tensor, k: int, metr
     """kmeans++ over one block with no host read (heat_tpu/cluster/_kcluster.py:27-51):
     the (k, f) centers buffer is filled row by row, the rows not yet filled
     masked out of the minimum distance by the step index, each draw made on
-    the block's device from ``generator``."""
+    the block's device from ``generator``, each row picked by
+    :func:`_draw_index`."""
     n, f = data.shape
     device = data.device
     first = torch.randint(0, n, (), generator=generator, device=device)
@@ -51,9 +52,25 @@ def _kmeanspp_fixed(generator: torch.Generator, data: torch.Tensor, k: int, metr
         total = torch.sum(dmin)
         prob = torch.where(total > 0, dmin / torch.clamp(total, min=1e-30), 1.0 / n)
         r = torch.rand((), generator=generator, device=device, dtype=prob.dtype)
-        nxt = torch.clamp(torch.searchsorted(torch.cumsum(prob, 0), r[None]), 0, n - 1)
-        centers[i] = data[nxt[0]]
+        centers[i] = data[_draw_index(prob, r)]
     return centers
+
+
+DRAW_SCALE = float(2**40)
+"""Fixed-point unit of :func:`_draw_index`'s weights."""
+
+
+def _draw_index(prob: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draw: the first row whose cumulative weight exceeds ``r``
+    (uniform in [0, 1)) of the total, the weights ``prob`` taken as int64
+    multiples of ``1 / DRAW_SCALE``. An integer cumulative sum is exact, so
+    the row does not depend on the order a device's scan adds in: a float
+    ``cumsum`` on CUDA varies run to run in its last bits, and so would the
+    row picked."""
+    weights = torch.floor(prob.double() * DRAW_SCALE).to(torch.int64)
+    cum = torch.cumsum(weights, 0)
+    target = torch.floor(r.double() * cum[-1].double()).to(torch.int64)
+    return torch.clamp(torch.searchsorted(cum, target[None], right=True), 0, prob.shape[0] - 1)[0]
 
 
 class _KCluster(ClusteringMixin, BaseEstimator):
@@ -139,9 +156,8 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         centers = data[idx0][None, :]
         for _ in range(1, k):
             closest = torch.amin(self._metric(data, centers), dim=1)
-            cum = torch.cumsum(closest / torch.sum(closest), dim=0)
-            r = float(ht_random.rand(1, device=x.device, comm=x.comm).larray[0])
-            nxt = min(int(torch.searchsorted(cum, cum.new_tensor([r]))), n - 1)
+            r = ht_random.rand(1, device=x.device, comm=x.comm).larray[0].to(closest.device)
+            nxt = _draw_index(closest / torch.clamp(torch.sum(closest), min=1e-30), r)
             centers = torch.cat([centers, data[nxt][None, :]], dim=0)
         return centers
 

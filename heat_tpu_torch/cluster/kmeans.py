@@ -153,10 +153,10 @@ class KMeans(_KCluster):
         self._n_iter = done
         self._inertia = float(inertia) if inertia is not None else None
         self._cluster_centers = _wrap(centers, None, x.device, x.comm)
-        if mode == "sharded" and used is not None and x.comm.spans_processes:
+        if mode == "sharded" and used is not None:
             self._labels = self._split_labels(xs, used, n_global, x)
             return self
-        if mode is not None and used is not None:
+        if mode == "single" and used is not None:
             labels = _lloyd.sharded_labels(xs, used, n_global)
         self._labels = self._wrap_labels(labels, x)
         return self
@@ -164,7 +164,8 @@ class KMeans(_KCluster):
     @staticmethod
     def _split_labels(xs, used: torch.Tensor, n_global: int, x: DNDarray) -> DNDarray:
         """The labels of this process's rows as the shards of a split=0
-        array, each padded to its shard's rows: no gather."""
+        array, each on its shard's device and padded to its shard's rows:
+        no gather and no redistribution."""
         from ..core import types
 
         shards = []

@@ -4,7 +4,7 @@ process-spanning runtime (reference: scripts/multiproc_trainer.py).
 Launched by ``multihost.spawn_local`` / ``heat_tpu_torch.scripts.launch_multiproc``:
 the world's configuration arrives in the launcher's environment
 (``HEAT_TPU_COORDINATOR`` / ``HEAT_TPU_PROCESS_ID`` / ``HEAT_TPU_NUM_PROCESSES``
-/ ``HEAT_TPU_MESH_DIR`` / ``HEAT_TPU_MESH_EPOCH``). Three workloads:
+/ ``HEAT_TPU_MESH_DIR`` / ``HEAT_TPU_MESH_EPOCH``). Two workloads:
 
 ``--workload lstsq`` (the reference's): least squares by full-batch
 gradient descent over a fixed seeded global table (seed 7, float64), its
@@ -24,28 +24,21 @@ and leaves through ``multihost.reform_exit``. Chaos: ``--die-rank R
 --die-at-step S`` kills rank R from inside at step S; ``--hang-rank R
 --hang-at-step S`` stops its lease and sleeps, with its sockets open.
 
-``--workload lloyd``: BASELINE config 3's k-means fit (10,000,000 x 16
-float32 blobs, k = 8, seed 20261016; ``--lloyd-rows`` cuts it), its rows
-split over the world's ranks, through ``ops.lloyd.fused_lloyd_run_sharded``
-on the process-spanning mesh: one Lloyd kernel launch per local shard per
-iteration, the accumulators summed across processes by one
-``comm.allreduce`` per iteration. The result holds the centers' bytes, the
-inertia, this process's kernel launches, the milliseconds per iteration and
-those of the cross-process allreduce; the labels of this process's rows go
-to ``labels-epoch{E:04d}-rank{R:05d}.npy``.
-
-``--workload kmeans``: the same fit through the array's own entry points
-on the process-spanning mesh. Each process reads its ranks' rows of the
-``.npy`` table ``--table`` (``ht.load_npy(split=0)``), takes config 1's
-moments over it (:func:`kmeans_moments`), fits
-``ht.cluster.KMeans(init="batchparallel", use_fused=True)`` for ``--iters``
-iterations and saves the table and the centers with ``save_checkpoint`` to
-``--ckpt-dir`` (step 1), each process writing its own ranks' shard files.
-The result holds the centers' bytes, the inertia, the digests of the
-moments and of this process's labels (:func:`digests`), the Lloyd kernel's
-launches in the fit, the milliseconds per iteration and those of the
-cross-process allreduce (:func:`lloyd_fit`'s runs from the fitted
-centers), and the seconds and bytes of the ingest and of the save.
+``--workload kmeans``: BASELINE config 3's k-means fit (a table such as
+:func:`lloyd_table` draws: 10,000,000 x 16 float32 blobs, k = 8, seed
+20261016) through the array's own entry points on the process-spanning
+mesh. Each process reads its ranks' rows of the ``.npy`` table ``--table``
+(``ht.load_npy(split=0)``), takes config 1's moments over it
+(:func:`kmeans_moments`), fits ``ht.cluster.KMeans(init="batchparallel",
+use_fused=True)`` for ``--iters`` iterations (:func:`timed_fit`: one Lloyd
+kernel launch per local shard per iteration, the accumulators summed across
+processes by one ``comm.allreduce`` per iteration) and saves the table and
+the centers with ``save_checkpoint`` to ``--ckpt-dir`` (step 1), each
+process writing its own ranks' shard files. The result holds the centers'
+bytes, the inertia, the digests of the moments and of this process's labels
+(:func:`digests`), the Lloyd kernel's launches in the fit, the fit's seconds
+by part with its milliseconds per iteration and those of its cross-process
+allreduce, and the seconds and bytes of the ingest and of the save.
 
 Results land as JSON at ``--out/result-epoch{E:04d}-rank{R:05d}.json``.
 """
@@ -95,89 +88,18 @@ def row_blocks(rows: int, p: int):
 
 def lloyd_table(rows: int, features: int, k: int, seed: int, device):
     """The fit's table, ``rows`` x ``features`` float32 blobs around ``k``
-    means, and the ``k`` rows that start it, drawn on ``device`` from
-    ``seed``: every process, and the one-process fit it is held against,
-    draws the same."""
+    means, drawn on ``device`` from ``seed``: the same on every call."""
     gen = torch.Generator(device=device).manual_seed(seed)
     means = torch.randn(k, features, generator=gen, device=device) * LLOYD_SPREAD
     ids = torch.randint(0, k, (rows,), generator=gen, device=device)
     data = torch.randn(rows, features, generator=gen, device=device)
     data += means[ids]
-    del ids
-    init = data[torch.randint(0, rows, (k,), generator=gen, device=device)].clone()
-    return data, init
-
-
-def lloyd_shards(data: torch.Tensor, p: int, ranks) -> list:
-    """The ``ceil(n/p)``-row shards of global ``ranks``, the short ones
-    padded with zeros (the padding is never read)."""
-    rows = data.shape[0]
-    block = -(-rows // p)
-    out = []
-    for r in ranks:
-        start, stop = row_blocks(rows, p)[r]
-        shard = data[start:stop].clone()
-        if stop - start < block:
-            shard = torch.cat([shard, shard.new_zeros(block - (stop - start), data.shape[1])])
-        out.append(shard)
-    return out
-
-
-class TimedComm:
-    """A mesh whose ``allreduce`` is timed: the device is synchronized
-    before and after each call, and ``ms`` holds each call's milliseconds."""
-
-    def __init__(self, comm):
-        self.comm = comm
-        self.size, self.first_rank = comm.size, comm.first_rank
-        self.spans_processes = comm.spans_processes
-        self.ms = []
-
-    def allreduce(self, parts, op="sum"):
-        _sync(parts[0].device)
-        t0 = time.perf_counter()
-        out = self.comm.allreduce(parts, op)
-        _sync(out[0].device)
-        self.ms.append((time.perf_counter() - t0) * 1e3)
-        return out
+    return data
 
 
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def lloyd_fit(comm, shards, init, k: int, rows: int, iters: int) -> dict:
-    """The fit over ``shards`` (ranks ``comm.first_rank`` on): a warm-up
-    iteration, the timed fit with its kernel launches counted, then the same
-    fit with the allreduce timed. Returns the numbers and the first fit's
-    ``(centers, labels, inertia)``."""
-    from ..ops import lloyd
-
-    xs = [lloyd.stream_operand(s) for s in shards]
-    first = comm.first_rank
-    lloyd.run_steps(xs, init, k, comm, rows, 1, lloyd.logical_xsq_sum(xs, rows, comm, first), first)
-    _sync(xs[0].device)
-    lloyd.LAUNCHES = 0
-    t0 = time.perf_counter()
-    xsq = lloyd.logical_xsq_sum(xs, rows, comm, first)
-    t1 = time.perf_counter()
-    centers, used, inertia, _ = lloyd.run_steps(xs, init, k, comm, rows, iters, xsq, first)
-    _sync(xs[0].device)
-    t2 = time.perf_counter()
-    launches = lloyd.LAUNCHES
-    labels = lloyd.sharded_labels(xs, used, rows, first)
-    timed = TimedComm(comm)
-    lloyd.run_steps(xs, init, k, timed, rows, iters, xsq, first)
-    return {
-        "launches": launches,
-        "xsq_ms": (t1 - t0) * 1e3,
-        "ms_per_iter": (t2 - t1) * 1e3 / iters,
-        "allreduce_ms_per_iter": sum(timed.ms) / len(timed.ms) if timed.ms else 0.0,
-        "centers": centers,
-        "labels": labels,
-        "inertia": inertia,
-    }
 
 
 def kmeans_moments(ht, x) -> dict:
@@ -207,15 +129,88 @@ def kmeans_fit(ht, x, k: int, iters: int, seed: int):
     """The spanning fit's estimator, fitted: batch-parallel init from
     ``seed``, the fused Lloyd kernel, every one of ``iters`` iterations run
     (a negative tolerance never stops early)."""
+    return kmeans_estimator(ht, k, iters, seed).fit(x)
+
+
+def kmeans_estimator(ht, k: int, iters: int, seed: int):
     return ht.cluster.KMeans(n_clusters=k, init="batchparallel", max_iter=iters, tol=-1.0, random_state=seed,
-                             use_fused=True).fit(x)
+                             use_fused=True)
+
+
+FIT_PARTS = ("init", "xsq", "iterations", "labels")
+
+
+def timed_fit(ht, x, k: int, iters: int, seed: int):
+    """:func:`kmeans_fit` with its own parts timed, on whatever mesh ``x``
+    lives; the result is the fit's. Timed call by call, each closed by a
+    device synchronization: the init and, inside it, each kmeans++
+    (``cluster._kcluster._kmeanspp_fixed``), Σ|x|², each chunk of iterations
+    (``ops.lloyd.run_steps``), the labels (``ops.lloyd.sharded_labels``), and
+    each ``x.comm.allreduce`` and ``allgather``, keyed by the part they run
+    in (``"allreduce in iterations"``). Returns the estimator and the
+    seconds of the fit, of each part and of the rest (the chunks'
+    convergence tests, the result's wrapping), each call's seconds, the
+    milliseconds per iteration and those of the allreduce per iteration, and
+    the Lloyd kernel's launches in the fit."""
+    from ..cluster import _kcluster
+    from ..ops import lloyd
+
+    km = kmeans_estimator(ht, k, iters, seed)
+    comm, device = x.comm, x.lshards[0].device
+    calls, inside = {}, []
+
+    def timed(part, fn):
+        def call(*args, **kwargs):
+            key = f"{part} in {(inside or ['fit'])[-1]}" if part in ("allreduce", "allgather") else part
+            _sync(device)
+            t0 = time.perf_counter()
+            inside.append(part)
+            try:
+                out = fn(*args, **kwargs)
+                _sync(device)
+            finally:
+                inside.pop()
+            calls.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    modules = [(lloyd, "logical_xsq_sum", "xsq"), (lloyd, "run_steps", "iterations"),
+               (lloyd, "sharded_labels", "labels"), (_kcluster, "_kmeanspp_fixed", "kmeanspp")]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in modules]
+    for (module, name, part), (_, _, fn) in zip(modules, saved):
+        setattr(module, name, timed(part, fn))
+    instances = [(km, "_initialize_cluster_centers", "init"), (comm, "allreduce", "allreduce"),
+                 (comm, "allgather", "allgather")]
+    for obj, name, part in instances:
+        setattr(obj, name, timed(part, getattr(obj, name)))
+    lloyd.LAUNCHES = 0
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        km.fit(x)
+        _sync(device)
+        fit_s = time.perf_counter() - t0
+    finally:
+        for obj, name, _ in instances:
+            delattr(obj, name)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    parts = {part: sum(calls.get(part, ())) for part in FIT_PARTS}
+    n_iter = km.n_iter_
+    return km, {
+        "fit_s": fit_s,
+        "parts_s": dict(parts, rest=fit_s - sum(parts.values())),
+        "calls_s": calls,
+        "ms_per_iter": parts["iterations"] * 1e3 / n_iter,
+        "allreduce_ms_per_iter": sum(calls.get("allreduce in iterations", ())) * 1e3 / n_iter,
+        "launches": lloyd.LAUNCHES,
+    }
 
 
 def run_kmeans(args, comm, doc) -> int:
     import heat_tpu_torch as ht
 
     from ..core import multihost
-    from ..ops import lloyd
     from ..utils.checkpoint import save_checkpoint
 
     device = comm.local_devices[0]
@@ -226,15 +221,8 @@ def run_kmeans(args, comm, doc) -> int:
     ingest_s = time.perf_counter() - t0
     held = sum(b.numel() * b.element_size() for b in x.lshards)
     moments = digests(comm, kmeans_moments(ht, x))
-    lloyd.LAUNCHES = 0
-    _sync(device)
-    t0 = time.perf_counter()
-    km = kmeans_fit(ht, x, args.clusters, args.iters, args.seed)
-    _sync(device)
-    fit_s = time.perf_counter() - t0
-    launches = lloyd.LAUNCHES
+    km, timing = timed_fit(ht, x, args.clusters, args.iters, args.seed)
     centers = km.cluster_centers_.larray
-    timing = lloyd_fit(comm, x.shards, centers, args.clusters, x.shape[0], args.iters)
     written = held + (centers.numel() * centers.element_size() if multihost.io_owner() else 0)
     _sync(device)
     t0 = time.perf_counter()
@@ -242,10 +230,10 @@ def run_kmeans(args, comm, doc) -> int:
     save_s = time.perf_counter() - t0
     labels = digests(comm, {"labels": km.labels_})["labels"]
     c = centers.float().cpu()
-    doc.update({k: timing[k] for k in ("ms_per_iter", "allreduce_ms_per_iter")}, status="done", completed_steps=args.iters, launches=launches, fit_s=fit_s,
-               centers=c.tolist(), centers_hex=c.numpy().tobytes().hex(), inertia=float(km.inertia_),
-               n_iter=km.n_iter_, labels_sha256=labels, moments=moments, ingest_s=ingest_s, ingest_bytes=held,
-               save_s=save_s, save_bytes=written, device=str(device), local_shards=len(comm.local_devices),
+    doc.update(timing, status="done", completed_steps=args.iters, centers=c.tolist(),
+               centers_hex=c.numpy().tobytes().hex(), inertia=float(km.inertia_), n_iter=km.n_iter_,
+               labels_sha256=labels, moments=moments, ingest_s=ingest_s, ingest_bytes=held, save_s=save_s,
+               save_bytes=written, device=str(device), local_shards=len(comm.local_devices),
                first_rank=comm.first_rank, ranks=comm.size)
     _write_result(args.out, doc)
     return 0
@@ -253,24 +241,6 @@ def run_kmeans(args, comm, doc) -> int:
 
 def _device(kind: str) -> str:
     return "gpu" if kind == "cuda" else "cpu"
-
-
-def run_lloyd(args, comm, doc) -> int:
-    device = comm.local_devices[0]
-    data, init = lloyd_table(args.lloyd_rows, args.lloyd_features, args.clusters, args.seed, device)
-    shards = lloyd_shards(data, comm.size, range(comm.first_rank, comm.first_rank + len(comm.local_devices)))
-    shards = [s.to(d) for s, d in zip(shards, comm.local_devices)]
-    del data
-    fit = lloyd_fit(comm, shards, init, args.clusters, args.lloyd_rows, args.iters)
-    labels = fit.pop("labels").to(torch.int32).cpu().numpy()
-    os.makedirs(args.out, exist_ok=True)
-    np.save(_result_path(args.out, doc["epoch"], doc["rank"], "labels", "npy"), labels)
-    centers = fit.pop("centers").float().cpu()
-    doc.update(fit, status="done", completed_steps=args.iters, centers=centers.tolist(),
-               centers_hex=centers.numpy().tobytes().hex(), inertia=float(fit["inertia"]),
-               device=str(device), local_shards=len(shards), first_rank=comm.first_rank, ranks=comm.size)
-    _write_result(args.out, doc)
-    return 0
 
 
 def run_lstsq(args, comm, doc) -> int:
@@ -359,7 +329,7 @@ def run_lstsq(args, comm, doc) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--workload", choices=("lstsq", "lloyd", "kmeans"), default="lstsq")
+    ap.add_argument("--workload", choices=("lstsq", "kmeans"), default="lstsq")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                     help="the payload's backend (default: gloo on the CPU, nccl on CUDA)")
@@ -368,8 +338,6 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=64)
     ap.add_argument("--dim", type=int, default=16)
     ap.add_argument("--lr", type=float, default=0.05)
-    ap.add_argument("--lloyd-rows", type=int, default=10_000_000)
-    ap.add_argument("--lloyd-features", type=int, default=16)
     ap.add_argument("--clusters", type=int, default=8)
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--seed", type=int, default=LLOYD_SEED)
@@ -399,8 +367,6 @@ def main(argv=None) -> int:
         "workload": args.workload, "status": "reform", "resumed_from": None, "completed_steps": 0,
         "t_first_step": None, "rate_steps_per_s": None, "final_w": None,
     }
-    if args.workload == "lloyd":
-        return run_lloyd(args, comm, doc)
     if args.workload == "kmeans":
         return run_kmeans(args, comm, doc)
     return run_lstsq(args, comm, doc)

@@ -206,3 +206,21 @@ def test_cdist_matches_reference():
     theirs = ref.spatial.cdist(ref.array(data, split=0))
     assert mine.split == theirs.split == 0
     np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_draw_index_is_the_inverse_cdf_and_skips_zero_weights():
+    """The kmeans++ draws pick the first row whose cumulative weight
+    exceeds the uniform draw, over int64 fixed-point weights (an exact
+    sum), and never a row of weight zero."""
+    from heat_tpu_torch.cluster._kcluster import _draw_index
+
+    rng = np.random.default_rng(11)
+    w = rng.random(1_000)
+    w[rng.random(1_000) < 0.3] = 0.0
+    prob = torch.tensor(w / w.sum(), dtype=torch.float32)
+    cum = np.cumsum(np.floor(prob.double().numpy() * 2.0**40))
+    for r in rng.random(200).astype(np.float32):
+        got = int(_draw_index(prob, torch.tensor(r)))
+        assert got == int(np.searchsorted(cum, np.floor(float(r) * cum[-1]), side="right"))
+        assert w[got] > 0.0
+    assert int(_draw_index(torch.zeros(5), torch.tensor(0.5))) == 4

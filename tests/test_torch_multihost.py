@@ -701,18 +701,13 @@ def _spanning(process=0):
     return communication.ProcessMeshCommunication([torch.device("cpu")] * 2, (2, 2), process, None, None)
 
 
-@pytest.mark.parametrize("entry", [
-    "DNDarray", "factory", "ingest", "devices", "sub", "ring", "ulysses", "make_mesh", "default mesh",
-])
-def test_layers_above_the_verbs_raise_the_named_error(entry, tmp_path):
-    """The entries that raise still name A11.5b(c); the array's own
-    entries (a DNDarray, a factory, the ingest, the default mesh) run on a
-    mocked second process of a 2 x 2 world and hold its ranks 2 and 3."""
-    comm = _spanning(1)
+def _spanning_entries(comm, tmp_path):
+    """The entries a user meets on a mesh whose ranks span processes, over
+    an 8 x 2 table."""
     q = torch.zeros(1, 8, 4, 4)
     want = np.arange(16.0).reshape(8, 2)
     np.save(tmp_path / "x.npy", want)
-    calls = {
+    return want, {
         "DNDarray": lambda: ht.DNDarray([torch.tensor(want[4:6]), torch.tensor(want[6:])], (8, 2), ht.float64, 0,
                                         ht.cpu, comm),
         "factory": lambda: ht.array(want, split=0, comm=comm),
@@ -724,15 +719,28 @@ def test_layers_above_the_verbs_raise_the_named_error(entry, tmp_path):
         "make_mesh": lambda: ht.parallel.make_mesh({"dp": 2}, devices=None) if ht.use_comm(comm) is None else None,
         "default mesh": lambda: ht.array(want, split=0) if ht.use_comm(comm) is None else None,
     }
-    if entry in ("DNDarray", "factory", "ingest", "default mesh"):
-        x = calls[entry]()
-        assert x.comm is comm and x.gshape == (8, 2) and x.split == 0 and x.lshape == (2, 2)
-        assert [r for r, _ in x.ranked_shards()] == [2, 3] and len(x.shards) == 2
-        assert np.array_equal(np.concatenate([b for _, b in x.ranked_shards()]), want[4:])
-        return
+
+
+@pytest.mark.parametrize("entry", ["devices", "sub", "ring", "ulysses", "make_mesh"])
+def test_layers_above_the_verbs_raise_the_named_error(entry, tmp_path):
+    """The global device list, sub-meshes, ring/Ulysses and parallel/ still
+    raise, naming A11.5b(c)."""
+    _, calls = _spanning_entries(_spanning(1), tmp_path)
     with pytest.raises(NotImplementedError, match=r"A11\.5b\(c\)"):
         calls[entry]()
     assert isinstance(communication.CrossProcessMeshError("x"), NotImplementedError)
+
+
+@pytest.mark.parametrize("entry", ["DNDarray", "factory", "ingest", "default mesh"])
+def test_the_arrays_entries_run_on_a_spanning_mesh(entry, tmp_path):
+    """A DNDarray, a factory, the ingest and the default mesh run on a
+    mocked second process of a 2 x 2 world and hold its ranks 2 and 3."""
+    comm = _spanning(1)
+    want, calls = _spanning_entries(comm, tmp_path)
+    x = calls[entry]()
+    assert x.comm is comm and x.gshape == (8, 2) and x.split == 0 and x.lshape == (2, 2)
+    assert [r for r, _ in x.ranked_shards()] == [2, 3] and len(x.shards) == 2
+    assert np.array_equal(np.concatenate([b for _, b in x.ranked_shards()]), want[4:])
 
 
 def test_a_world_of_one_process_is_the_in_process_mesh():

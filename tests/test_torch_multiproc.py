@@ -10,9 +10,9 @@ tests/test_multiproc.py, tests/test_multihost_runtime.py's barrier cases).
   raise naming every process's.
 * The lstsq trainer clean in 2 processes against numpy's float64 gradient
   descent (rtol 1e-12) and a 1-process run (rtol 1e-5).
-* The lloyd trainer at a small size in 2 processes: centers, inertia and
-  labels equal bit for bit to the one-process two-shard run of the plain
-  version.
+* The kmeans trainer over a small ragged table in 2 processes: centers,
+  inertia and labels equal bit for bit to the same calls on the
+  one-process two-shard mesh.
 
 The chaos cases (a SIGKILLed and a hung peer reform and match, the fault
 mix, the launcher's command line) spawn two generations each and are
@@ -230,23 +230,33 @@ def test_world_size_invariance_and_numpy(lstsq_runs):
 
 
 def test_lloyd_across_two_processes_equals_two_shards_bit_for_bit(scratch):
+    """``--workload kmeans`` over a ragged table (1,002 and 1,001 rows, so
+    the last rank masks its padding): each process's centers, inertia and
+    labels are those of the same calls on the one-process two-shard mesh."""
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import fusion
+
     root = os.path.join(scratch, "lloyd")
-    result = _spawn(2, [sys.executable, "-m", "heat_tpu_torch.scripts.multiproc_trainer", "--workload", "lloyd",
-                        "--device", "cpu", "--lloyd-rows", str(LLOYD_ROWS), "--iters", str(LLOYD_ITERS),
-                        "--out", os.path.join(root, "out")])
+    os.makedirs(root)
+    data = trainer.lloyd_table(LLOYD_ROWS, 16, 8, trainer.LLOYD_SEED, torch.device("cpu"))
+    table = os.path.join(root, "table.npy")
+    np.save(table, data.numpy())
+    result = _spawn(2, [sys.executable, "-m", "heat_tpu_torch.scripts.multiproc_trainer", "--workload", "kmeans",
+                        "--device", "cpu", "--table", table, "--ckpt-dir", os.path.join(root, "ckpt"),
+                        "--iters", str(LLOYD_ITERS), "--out", os.path.join(root, "out")])
     assert result["ok"], result
     docs = _results(root)
-    data, init = trainer.lloyd_table(LLOYD_ROWS, 16, 8, trainer.LLOYD_SEED, torch.device("cpu"))
-    shards = trainer.lloyd_shards(data, 2, range(2))
-    centers, labels, inertia, _ = lloyd.fused_lloyd_run_sharded(
-        shards, init, 8, MeshCommunication([torch.device("cpu")] * 2), LLOYD_ROWS, LLOYD_ITERS)
+    two = MeshCommunication([torch.device("cpu")] * 2)
+    with fusion.disabled():
+        km = trainer.kmeans_fit(ht, ht.load_npy(table, split=0, comm=two), 8, LLOYD_ITERS, trainer.LLOYD_SEED)
+    labels = trainer.digests(two, {"l": km.labels_})["l"]
     for r in range(2):
         doc = docs[(0, r)]
-        assert (doc["first_rank"], doc["ranks"], doc["local_shards"]) == (r, 2, 1)
-        assert doc["centers_hex"] == centers.numpy().tobytes().hex()
-        assert doc["inertia"] == float(inertia)
-    got = np.concatenate([np.load(os.path.join(root, "out", f"labels-epoch0000-rank{r:05d}.npy")) for r in range(2)])
-    np.testing.assert_array_equal(got, labels.numpy())
+        assert (doc["first_rank"], doc["ranks"], doc["local_shards"], doc["n_iter"]) == (r, 2, 1, LLOYD_ITERS)
+        assert doc["centers_hex"] == km.cluster_centers_.numpy().tobytes().hex()
+        assert doc["inertia"] == km.inertia_
+        assert doc["labels_sha256"] == {str(r): labels[str(r)]}
+    assert [b.shape[0] for b in km.labels_.shards] == [1_002, 1_002] and km.labels_.shape == (LLOYD_ROWS,)
 
 
 def test_lloyd_masks_each_ranks_share_of_the_padding():

@@ -114,7 +114,7 @@ def _kmeans_workload(root: str) -> dict:
 
     work = os.path.join(root, "kmeans")
     os.makedirs(work)
-    data, _ = trainer.lloyd_table(KM_ROWS, KM_F, KM_K, trainer.LLOYD_SEED, torch.device("cpu"))
+    data = trainer.lloyd_table(KM_ROWS, KM_F, KM_K, trainer.LLOYD_SEED, torch.device("cpu"))
     table = os.path.join(work, "table.npy")
     np.save(table, data.numpy())
     result = multihost.spawn_local(
