@@ -8,8 +8,8 @@ preallocates the result and hands each metric its block:
 
 * at most one operand row-split across devices: one block, the global
   operands against each other, split like ``X``;
-* both operands row-split on p > 1 devices: a ring over the shard list,
-  the symmetric schedule for ``Y`` absent or ``X`` itself (⌈p/2⌉
+* both operands row-split on p > 1 devices: a ring over the shard list
+  (each process computing the tiles of its own ranks), the symmetric schedule for ``Y`` absent or ``X`` itself (⌈p/2⌉
   rotations, the mirrored tiles delivered as transposes by one
   all-to-all), else the general one (p − 1 rotations).
 
@@ -170,11 +170,11 @@ def _dist(X: DNDarray, Y: Optional[DNDarray], metric: Callable) -> DNDarray:
 
 
 def _ring_operand(A: DNDarray, dtype: torch.dtype) -> List[torch.Tensor]:
-    """The row shards of ``A`` in ``dtype``, the padding rows set to zero:
-    the logical rows padded with zeros to a multiple of p
+    """This process's row shards of ``A`` in ``dtype``, the padding rows set
+    to zero: the logical rows padded with zeros to a multiple of p
     (heat_tpu/spatial/distance.py:127-148). The shards' own padding has
     unspecified content and never reaches a metric."""
-    counts, _ = A.counts_displs()
+    counts, _ = A.comm.local_counts_displs(A.gshape, 0)
     shards = []
     for s, c in zip(A.shards, counts):
         s = s.to(dtype)
@@ -201,38 +201,41 @@ def _ring_dist_sym(xs: List[torch.Tensor], metric: Callable, comm: MeshCommunica
     one shift-1 rotation per offset; the tiles (d, d−i) are their mirrors,
     delivered as transposes by one all-to-all; for even p every shard also
     computes offset p/2, its own mirror. ``p·(1 + h + [p even])`` metric
-    calls; returns each shard's (mb, mb·p) row block."""
+    calls over the mesh; this process computes the tiles of its own ranks
+    (``xs``, in rank order) and returns their (mb, mb·p) row blocks."""
     p = comm.size
+    ranks = comm.local_ranks
     mb = xs[0].shape[0]
     paired, self_paired = _sym_schedule(p)
     h = len(paired)
     out = [torch.empty((mb, mb * p), dtype=x.dtype, device=x.device) for x in xs]
 
-    def tile(d: int, j: int) -> torch.Tensor:
-        return out[d][:, (j % p) * mb : (j % p + 1) * mb]
+    def tile(k: int, j: int) -> torch.Tensor:
+        return out[k][:, (j % p) * mb : (j % p + 1) * mb]
 
-    for d in range(p):
-        metric(xs[d], xs[d], tile(d, d))
+    for k, d in enumerate(ranks):
+        metric(xs[k], xs[k], tile(k, d))
     ys = list(xs)
     for i in paired:
-        ys = comm.ppermute(ys, shift=1)  # shard d now holds shard d + i
-        for d in range(p):
-            metric(xs[d], ys[d], tile(d, d + i))
+        ys = comm.ppermute(ys, shift=1)  # rank d now holds rank d + i's rows
+        for k, d in enumerate(ranks):
+            metric(xs[k], ys[k], tile(k, d + i))
     if h:
-        # slot j of shard d is column block j of its row block, which holds
+        # slot j of rank d is column block j of its row block, which holds
         # tile (d, j) where (j - d) % p is in 1..h; the all-to-all hands
-        # slot j to shard j, so shard r receives tile (d, r) from every d
+        # slot j to rank j, so rank r receives tile (d, r) from every d,
+        # whichever process computed it
         slots = [o.view(mb, p, mb).transpose(0, 1) for o in out]
         mirror = comm.alltoall(slots, split_axis=0, concat_axis=0)
-        for r in range(p):
+        for k, r in enumerate(ranks):
             for d in range(p):
                 if 1 <= (r - d) % p <= h:
-                    tile(r, d).copy_(mirror[r][d].T)
+                    tile(k, d).copy_(mirror[k][d].T)
         del mirror
     if self_paired:
         ys = comm.ppermute(ys, shift=1)  # offset p/2 is its own mirror
-        for d in range(p):
-            metric(xs[d], ys[d], tile(d, d + p // 2))
+        for k, d in enumerate(ranks):
+            metric(xs[k], ys[k], tile(k, d + p // 2))
     return out
 
 
@@ -240,17 +243,18 @@ def _ring_dist(
     xs: List[torch.Tensor], ys: List[torch.Tensor], metric: Callable, comm: MeshCommunication
 ) -> List[torch.Tensor]:
     """General ring (heat_tpu/spatial/distance.py:266-309): the X shards stay,
-    the Y shards rotate by ``ppermute``, shard d writes tile (d, d+i) at
+    the Y shards rotate by ``ppermute``, rank d writes tile (d, d+i) at
     step i; p − 1 rotations, the last visiting shard folded without being
-    sent again. p² metric calls; returns each shard's (mbx, mby·p) row
-    block."""
+    sent again. p² metric calls over the mesh; this process computes the
+    tiles of its own ranks (``xs``, ``ys`` in rank order) and returns their
+    (mbx, mby·p) row blocks."""
     p = comm.size
     mby = ys[0].shape[0]
     out = [torch.empty((x.shape[0], mby * p), dtype=x.dtype, device=x.device) for x in xs]
     for i in range(p):
         if i:
-            ys = comm.ppermute(ys, shift=1)  # shard d now holds shard d + i
-        for d in range(p):
+            ys = comm.ppermute(ys, shift=1)  # rank d now holds rank d + i's rows
+        for k, d in enumerate(comm.local_ranks):
             j = (d + i) % p
-            metric(xs[d], ys[d], out[d][:, j * mby : (j + 1) * mby])
+            metric(xs[k], ys[k], out[k][:, j * mby : (j + 1) * mby])
     return out

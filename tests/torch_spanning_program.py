@@ -18,16 +18,38 @@ SEED, K = 11, 3
 def tables():
     """The program's inputs, the same in every process: 7 rows (ragged on
     2 x 2 and 3 x 1), 5 float64 rows (an empty rank on 2 x 2), 4 int64 rows
-    (an empty rank on 3 x 1), and 48 rows of blobs around three means."""
+    (an empty rank on 3 x 1), 48 rows of blobs around three means, and 10
+    float32 rows of the f7 table's 5 features."""
     rng = np.random.default_rng(SEED)
     means = rng.standard_normal((K, 4)) * 6.0
     blobs = (rng.standard_normal((48, 4)) + means[np.arange(48) % K]).astype(np.float32)
-    return {
+    out = {
         "f7": rng.standard_normal((7, 5)).astype(np.float32),
         "f5": rng.standard_normal((5, 3)),
         "i4": rng.integers(-9, 9, (4, 3)).astype(np.int64),
         "blobs": blobs,
     }
+    out["g10"] = rng.standard_normal((10, 5)).astype(np.float32)
+    return out
+
+
+def distances(comm, t, rec) -> None:
+    """The distance rings over split-0 operands of 7 and 10 rows (C25), the
+    quadratic expansion in their tiles, and the one-block path of a
+    replicated operand."""
+    a = ht.array(t["f7"], split=0, comm=comm)
+    b = ht.array(t["g10"], split=0, comm=comm)
+    rec("cdist_7_10", ht.spatial.cdist(a, b))
+    rec("cdist_10_7", ht.spatial.cdist(b, a))
+    rec("cdist_7_self", ht.spatial.cdist(a, a))
+    rec("cdist_10_self", ht.spatial.cdist(b))
+    rec("rbf_7_10", ht.spatial.rbf(a, b, sigma=1.5))
+    rec("rbf_10_self", ht.spatial.rbf(b, sigma=1.5))
+    rec("manhattan_10_7", ht.spatial.manhattan(b, a))
+    rec("cdist_quadratic_7_10", ht.spatial.cdist(a, b, quadratic_expansion=True))
+    rec("cdist_quadratic_10_self", ht.spatial.cdist(b, quadratic_expansion=True))
+    rec("rbf_quadratic_7_self", ht.spatial.rbf(a, quadratic_expansion=True))
+    rec("cdist_7_replicated", ht.spatial.cdist(a, ht.array(t["g10"], comm=comm)))
 
 
 def _record(comm, x):
@@ -122,6 +144,7 @@ def program(comm, workdir: str) -> dict:
         rec(f"kmeans_{init}_centers", km.cluster_centers_)
         rec(f"kmeans_{init}_labels", km.labels_)
         rec(f"kmeans_{init}_inertia", km.inertia_)
+    distances(comm, t, rec)
     # the checkpoint, saved and restored in the same world
     ckpt = os.path.join(workdir, "ckpt")
     tree = {"x": x, "xe": xe, "y": y, "centers": fits["batchparallel"].cluster_centers_, "n": 3}
