@@ -8362,14 +8362,16 @@ def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str) -> dict:
     return out
 
 
-def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str) -> dict:
+def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str, sizes=None) -> dict:
     """(c) Config 3 over a mesh whose ranks span two processes on the card,
     through the array's entry points (``--workload kmeans``): each process
     reads its rows of the ``.npy`` table, takes config 1's moments, fits
     ``KMeans`` through the Lloyd kernel and saves the table and the
     centers. Held bit for bit against this process's two-shard mesh of the
     card running the same calls on the eager engines; the workers'
-    checkpoint restored here on two shards and on one."""
+    checkpoint restored here on two shards and on one. The same launch
+    then runs the main path (:func:`mp_mainpath_leg`, ``sizes`` its
+    shapes)."""
     import numpy as np
     import torch
 
@@ -8390,9 +8392,12 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
     np.save(table, data.cpu().numpy())
     del data
     nbytes = rows * F * 4
-    run = _mp_launch(multihost, 2, ["--workload", "kmeans", "--device", device, "--backend", "gloo", "--table", table,
-                                    "--ckpt-dir", ckpt, "--iters", str(ITERS), "--clusters", str(K),
-                                    "--seed", str(SEED)], root, os.path.join(tmp, "spanning.log"),
+    sizes = dict(MP_MAIN_SIZES, **(sizes or {}))
+    main_args = [a for key, value in sizes.items() for a in (f"--{key.replace('_', '-')}", str(value))]
+    run = _mp_launch(multihost, 2, ["--workload", "kmeans," + ",".join(MP_MAIN_WORKLOADS), "--device", device,
+                                    "--backend", "gloo", "--table", table, "--ckpt-dir", ckpt, "--iters",
+                                    str(ITERS), "--clusters", str(K), "--seed", str(SEED), *main_args],
+                     root, os.path.join(tmp, "spanning.log"),
                      env_extra={"OMP_NUM_THREADS": "1"} if device == "cpu" else None)
     if not run["ok"]:
         raise AssertionError(f"spanning: {_mp_gens(run)}\n{_mp_tail(os.path.join(tmp, 'spanning.log'))}")
@@ -8496,11 +8501,126 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str)
           f"{out['ingest_gbps']} GB/s per process, save {out['save_gbps']} GB/s per process, restore "
           f"{out['restore_gbps']} GB/s (checksums verified first); launch {run['seconds']:.1f} s ({smi})",
           flush=True)
+    if card.type == "cuda":
+        torch.cuda.empty_cache()
+    out["mainpath"] = mp_mainpath_leg(ht, docs, card, smi, sizes)
     return out
 
 
-def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict:
-    """Phase 22: the multi-process runtime on the card; returns its numbers."""
+# the main path over the spanning mesh (phase 22, A11.5b(c1)): BASELINE's
+# configs 2, 4 and 5 in the two workers of the spanning leg's launch, after
+# their KMeans fit, each held bit for bit against the same calls on this
+# process's two-shard mesh of the card:
+# * config 2 at full width, cdist and rbf of 100,000 x 64 float32 by the
+#   symmetric ring: per rank a 50,000 x 100,000 block (20 GB), compared by
+#   digest (multiproc_trainer.block_digest) and freed before the next call;
+#   on two ranks the ring is the diagonal tile and one rotation, two B2
+#   launches per rank per call;
+# * config 4 at 512 columns and phase 19's 2.5·10^6 rows (cut from 10^7):
+#   CholeskyQR2 at condition 1, the probe's TSQR fallback at ~1e5; R's and
+#   Q's blocks by digest, and the two-shard factors within phase 10's
+#   float64 bounds (qr_errors, check_qr);
+# * config 5, ResNet-50 at batch 256 float32: three DataParallel steps
+#   (every BatchNorm a meeting across the processes, forward and backward)
+#   and two DASO steps, one group per process; cuDNN deterministic in both
+#   runs, losses and the parameters' digests bit for bit;
+# * the exchange: an allreduce of 548 bytes and a ppermute of one
+#   50,000 x 64 float32 block between the processes (timed, not compared).
+MP_MAIN_WORKLOADS = ("cdist", "qr", "dp", "exchange")
+MP_MAIN_SIZES = {"cdist_rows": DIST_N, "cdist_features": DIST_F, "qr_rows": FC_QR_SHAPE[0],
+                 "qr_cols": FC_QR_SHAPE[1], "dp_batch": TRAIN_BATCH, "dp_image": TRAIN_IMAGE[0], "dp_filters": 64}
+
+
+def mp_mainpath_leg(ht, docs, card, smi: str, sizes: dict) -> dict:
+    """The spanning leg's main-path workloads, read from the workers'
+    documents ``docs`` and held against this process's two-shard mesh of
+    ``card`` running the same workloads (:mod:`multiproc_trainer`)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core import communication
+    from heat_tpu_torch.scripts import multiproc_trainer as trainer
+
+    two = communication.MeshCommunication([card, card])
+    clock = trainer.VerbClock(two)
+    mains = [d["mainpath"] for d in docs]
+    cuda = card.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    errs = {}
+
+    def keep(name, a, q, r):
+        errs[name] = qr_errors(a.larray, q.larray, r.larray)
+        check_qr(f"the two-shard qr at {name}", errs[name], sizes["qr_cols"])
+
+    try:
+        with ht.core.fusion.disabled():
+            want = {
+                "cdist": trainer.cdist_workload(ht, two, clock, sizes["cdist_rows"], sizes["cdist_features"],
+                                                seed=SEED),
+                "qr": trainer.qr_workload(ht, two, clock, sizes["qr_rows"], sizes["qr_cols"], seed=SEED, keep=keep),
+                "dp": trainer.dp_workload(ht, two, clock, 2, sizes["dp_batch"], seed=SEED,
+                                          image=(sizes["dp_image"],) * 2 + (3,), filters=sizes["dp_filters"]),
+            }
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        if cuda:
+            torch.cuda.empty_cache()
+    out = {"launches": [sum(m["cdist"]["launches"].values()) for m in mains],
+           "launches_two_shards": want["cdist"]["launches"], "qr_errors": errs,
+           "qr_schedules": {k: v["schedule"] for k, v in want["qr"].items()},
+           "dp_losses": want["dp"]["dp_losses"], "daso_losses": want["dp"]["daso_losses"],
+           "parts_ms": [{k: v["ms"] for k, v in d["parts"].items()} for d in docs],
+           "parts_verbs": [{k: v["verbs"] for k, v in d["parts"].items()} for d in docs],
+           "two_shard_parts_ms": {k: v["ms"] for k, v in clock.parts.items()},
+           "exchange_ms": [{k: float(np.median(v)) for k, v in m["exchange"].items()} for m in mains],
+           "exchange_ms_all": [m["exchange"] for m in mains]}
+    if cuda and (any(m["cdist"]["launches"] != {"cdist": 2, "rbf": 2} for m in mains)
+                 or want["cdist"]["launches"] != {"cdist": 4, "rbf": 4}):
+        raise AssertionError(f"B2 launches of the spanning cdist and rbf: {[m['cdist']['launches'] for m in mains]} "
+                             f"per process, {want['cdist']['launches']} on the two-shard mesh")
+    if want["qr"]["cond1"]["schedule"] != ["cholqr2"] or want["qr"]["cond1e5"]["schedule"] != ["tsqr"]:
+        raise AssertionError(f"qr's schedules on the two-shard mesh: {out['qr_schedules']}")
+    for q, m in enumerate(mains):
+        for name, got in m["cdist"]["digests"].items():
+            if any(want["cdist"]["digests"][name][r] != digest for r, digest in got.items()):
+                raise AssertionError(f"process {q}'s {name} blocks differ from the two-shard mesh's")
+        for name, got in m["qr"].items():
+            ref = want["qr"][name]
+            if (got["schedule"], got["r"]) != (ref["schedule"], ref["r"]) or any(
+                    ref["q"][r] != digest for r, digest in got["q"].items()):
+                raise AssertionError(f"process {q}'s qr at {name} differs from the two-shard mesh's: schedule "
+                                     f"{got['schedule']} against {ref['schedule']}")
+        for key in ("dp_losses", "dp_params", "daso_losses", "daso_params"):
+            if m["dp"][key] != want["dp"][key]:
+                raise AssertionError(f"process {q}'s {key} differ from the two-shard mesh's: {m['dp'][key]} against "
+                                     f"{want['dp'][key]}")
+    if sorted(r for m in mains for r in m["cdist"]["digests"]["cdist"]) != ["0", "1"]:
+        raise AssertionError(f"the processes' ranks: {[sorted(m['cdist']['digests']['cdist']) for m in mains]}")
+    losses = want["dp"]["dp_losses"] + want["dp"]["daso_losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"config 5's losses are not finite: {losses}")
+    steps = [k for k in docs[0]["parts"] if k.startswith("dp step")]
+    out["bn_meetings_per_step"] = [[d["parts"][k]["verbs"].get("allreduce", {}).get("calls", 0) - 1 for k in steps]
+                                   for d in docs]
+    print(f"  main path across 2 processes (A11.5b(c1)): config 2 cdist and rbf of {sizes['cdist_rows']} x "
+          f"{sizes['cdist_features']} float32, B2 launches {[m['cdist']['launches'] for m in mains]} per process "
+          f"({want['cdist']['launches']} on the two-shard mesh), every rank's block bit for bit by digest; config 4 "
+          f"qr of {sizes['qr_rows']} x {sizes['qr_cols']}: {out['qr_schedules']}, R and Q's blocks bit for bit, "
+          f"errors {json.dumps(errs)}; config 5 ResNet-50 batch {sizes['dp_batch']}: DataParallel losses "
+          f"{want['dp']['dp_losses']}, DASO {want['dp']['daso_losses']}, losses and parameters bit for bit; "
+          f"BatchNorm meetings per step {out['bn_meetings_per_step']} ({smi})", flush=True)
+    print(f"  main path ms per part, per process: {out['parts_ms']}; on the two-shard mesh: "
+          f"{out['two_shard_parts_ms']}; verbs per part (calls, ms): {out['parts_verbs']}; exchange medians "
+          f"(ms): {out['exchange_ms']} ({smi})", flush=True)
+    return out
+
+
+def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N, sizes=None) -> dict:
+    """Phase 22: the multi-process runtime on the card; returns its numbers
+    (``rows`` config 3's table, ``sizes`` the main path's shapes)."""
     from heat_tpu_torch.core import multihost
 
     numbers = {"card": smi, "seconds": {}}
@@ -8522,7 +8642,7 @@ def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict
             numbers[f"lstsq_{backend}"] = mp_lstsq_phase(multihost, tmp, device, backend)
             numbers["seconds"][f"lstsq_{backend}"] = time.perf_counter() - lap
         lap = time.perf_counter()
-        numbers["spanning"] = mp_spanning_phase(ht, multihost, tmp, device, rows, smi)
+        numbers["spanning"] = mp_spanning_phase(ht, multihost, tmp, device, rows, smi, sizes)
         numbers["seconds"]["spanning"] = time.perf_counter() - lap
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -9113,6 +9233,7 @@ def _phases(ht, _build, kind: str, smi: str) -> int:
     kernels[0]["launches_tracelens_fit"] = ops_trace["fit"]["launches"]
     kernels[0]["launches_scraped_fit"] = ops_trace["ops"]["scraped"]["legs"]["scraped"]["fit_launches"]
     kernels[0]["launches_spanning_fit"] = multiprocess["spanning"]["launches"]
+    kernels[2]["launches_spanning_cdist"] = multiprocess["spanning"]["mainpath"]["launches"]
     kernels[0]["launches_autoscale_fit"] = elastic["autoscale"]["fit"]["shedding"]["launches"]
     kernels[1]["launches_elastic_fit"] = elastic["lm"]["launches"]
     kernels[1]["launches_elastic_step_forward"] = elastic["lm"]["forward_launches"]

@@ -33,6 +33,7 @@ from . import resilience, telemetry
 __all__ = [
     "Communication",
     "CrossProcessMeshError",
+    "ForeignSubMesh",
     "MeshCommunication",
     "ProcessMeshCommunication",
     "get_comm",
@@ -441,17 +442,19 @@ def _combine(op: Union[str, Callable]) -> Callable:
 
 
 class CrossProcessMeshError(NotImplementedError):
-    """A global device list, a sub-mesh, a ring/Ulysses schedule or a
-    ``parallel`` layout was asked for over a mesh whose ranks live in
-    several processes. The verbs, the DNDarray and its engines, factories,
-    I/O and checkpoints run there; these layers are ROADMAP A11.5b(c)."""
+    """A global device list, a ring/Ulysses schedule, a ``parallel`` layout
+    or another layer not ported yet was asked for over a mesh whose ranks
+    live in several processes. The verbs, sub-meshes, the DNDarray and its
+    engines, factories, I/O, checkpoints, ``cdist``, ``linalg`` and
+    ``DataParallel``/DASO run there; the other layers are ROADMAP A11.5b(c2)."""
 
 
 def _spanning(what: str) -> CrossProcessMeshError:
     return CrossProcessMeshError(
-        f"{what} over a mesh whose ranks span processes is not ported yet (ROADMAP A11.5b(c)): "
-        "the verbs, the DNDarray engines, factories, I/O and checkpoints run across processes; "
-        "a global device list, sub-meshes, ring/Ulysses attention and parallel/ do not"
+        f"{what} over a mesh whose ranks span processes is not ported yet (ROADMAP A11.5b(c2)): "
+        "the verbs, sub-meshes, the DNDarray engines, factories, I/O, checkpoints, cdist, linalg and "
+        "DataParallel/DASO run across processes; a global device list, ring/Ulysses attention, parallel/, "
+        "signal, Lasso, the Laplacian, health, elastic and autoscale do not"
     )
 
 
@@ -469,6 +472,75 @@ class RankPlacement(NamedTuple):
 #: the host: gloo is a host transport
 HOST_STAGED_AXIS = "split:host"
 
+#: the types a verb's header can name, each by its index
+_HEADER_DTYPES = (
+    torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.complex64, torch.complex128,
+    torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool,
+)
+_HEADER_CODES = {dt: i for i, dt in enumerate(_HEADER_DTYPES)}
+#: a header entry: the rank, whether the value is a tuple and its leaf
+#: count, then per leaf its type code, its rank and its dimensions
+_MAX_LEAVES, _MAX_NDIM = 8, 8
+_ENTRY = 3 + _MAX_LEAVES * (2 + _MAX_NDIM)
+
+
+def _leaves(value) -> tuple:
+    return value if isinstance(value, tuple) else (value,)
+
+
+def _signature(value) -> tuple:
+    """What the verbs with equal shapes compare: tupleness, each leaf's
+    shape and type."""
+    return isinstance(value, tuple), tuple((tuple(t.shape), t.dtype) for t in _leaves(value))
+
+
+def _flat_bytes(value, transport: torch.device) -> List[torch.Tensor]:
+    return [t.detach().contiguous().reshape(-1).view(torch.uint8).to(transport) for t in _leaves(value)]
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def _unflatten(raw: torch.Tensor, at: int, signature) -> Tuple[object, int]:
+    """The value of ``signature`` whose bytes start at ``at`` of ``raw``,
+    and the offset past them."""
+    is_tuple, leaves = signature
+    got = []
+    for shape, dtype in leaves:
+        nbytes = _nbytes(shape, dtype)
+        got.append(raw[at : at + nbytes].clone().view(dtype).reshape(shape))
+        at += nbytes
+    return (tuple(got) if is_tuple else got[0]), at
+
+
+class ForeignSubMesh:
+    """The sub-mesh of ranks that all live in other processes: this process
+    holds none of its shards, so every verb raises ``ValueError``."""
+
+    spans_processes = False
+    local_devices: Tuple[torch.device, ...] = ()
+
+    def __init__(self, ranks: Sequence[int]):
+        self.ranks = tuple(ranks)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def local_ranks(self) -> range:
+        return range(0)
+
+    def _refuse(self, *args, **kwargs):
+        raise ValueError(f"this process holds none of ranks {list(self.ranks)}: the processes that hold them run "
+                         "this sub-mesh's verbs")
+
+    allreduce = bcast = exscan = scan = allgather = ppermute = alltoall = sub = _refuse
+
+    def __repr__(self) -> str:
+        return f"ForeignSubMesh(ranks {list(self.ranks)})"
+
 
 class ProcessMeshCommunication(MeshCommunication):
     """A mesh whose ranks live in several processes of a ``torch.distributed``
@@ -482,14 +554,19 @@ class ProcessMeshCommunication(MeshCommunication):
     len(local_devices)``, and each verb takes those shards, in rank order,
     and returns this process's results.
 
-    Every verb gathers the values it needs from every process (``group``
-    carries the payload, the gloo ``control`` group its shapes and types),
-    then runs the one-process arithmetic on them in rank order: a
-    reduction or a scan folds with ``_allreduce``/``_prefixes``/``_exscan``
-    on this process's own device type, so a world of N processes gives,
-    bit for bit, what the one-process mesh of the same p gives. On a gloo
-    ``group`` CUDA shards go through the host, and the verb records the axis
-    :data:`HOST_STAGED_AXIS`.
+    A reduction or a scan gathers every rank's value over ``group`` in one
+    ``all_gather`` and runs the one-process arithmetic on them in rank
+    order, folding with ``_allreduce``/``_prefixes``/``_exscan`` on this
+    process's own device type, so a world of N processes gives, bit for bit,
+    what the one-process mesh of the same p gives. Its values have one
+    shape by contract, so no header travels. ``allgather`` and ``alltoall``
+    first gather a fixed-layout ``int64`` header of every process's shapes
+    and types over the gloo ``control`` group; ``bcast`` broadcasts the
+    root's header and then its bytes. ``ppermute`` moves each block from the
+    process of its source rank to the process of its destination rank, by
+    one point-to-point pair, or in place when both live in one process. On a
+    gloo ``group`` CUDA shards go through the host, and the verb records the
+    axis :data:`HOST_STAGED_AXIS`.
 
     A DNDarray over this mesh holds the shards of this process's ranks
     (``local_ranks``), each on its ``local_devices`` entry; a replicated or
@@ -497,11 +574,13 @@ class ProcessMeshCommunication(MeshCommunication):
     multi-controller rule). ``devices`` is the global device list, which a
     process cannot hold once the ranks span processes: it raises
     :class:`CrossProcessMeshError` then, and so does every layer that
-    reaches for it (ROADMAP A11.5b(c)). In a world of one process it is the
+    reaches for it (ROADMAP A11.5b(c2)). In a world of one process it is the
     local list, and the mesh is the in-process mesh whose verbs go through
-    ``torch.distributed``."""
+    ``torch.distributed``. ``process_ranks[q]`` is the world rank of the
+    mesh's process q (a sub-mesh's processes are some of the world's)."""
 
-    def __init__(self, local_devices: Sequence[torch.device], counts: Sequence[int], process: int, group, control):
+    def __init__(self, local_devices: Sequence[torch.device], counts: Sequence[int], process: int, group, control,
+                 process_ranks: Optional[Sequence[int]] = None):
         super().__init__(local_devices)
         counts = tuple(int(c) for c in counts)
         if counts[process] != len(self._devices):
@@ -510,6 +589,7 @@ class ProcessMeshCommunication(MeshCommunication):
         self.process = int(process)
         self.group = group
         self.control = control
+        self.process_ranks = tuple(range(len(counts)) if process_ranks is None else process_ranks)
         self.first_rank = sum(counts[:process])
         self._size = sum(counts)
         self.spans_processes = len(counts) > 1
@@ -518,6 +598,7 @@ class ProcessMeshCommunication(MeshCommunication):
             for q, c in enumerate(counts)
             for r in range(sum(counts[:q]), sum(counts[:q]) + c)
         )
+        self._subs: Dict[Tuple[int, ...], object] = {}
 
     @property
     def size(self) -> int:
@@ -540,10 +621,48 @@ class ProcessMeshCommunication(MeshCommunication):
 
         return self._devices[0].type == "cuda" and dist.get_backend(self.group) == "gloo"
 
-    def sub(self, ranks: Sequence[int]) -> "MeshCommunication":
-        if self.spans_processes:
-            raise _spanning("a sub-mesh")
-        return MeshCommunication([self._devices[r] for r in ranks])
+    def _transport(self) -> torch.device:
+        return torch.device("cpu") if self._staged or self._devices[0].type == "cpu" else self._devices[0]
+
+    def sub(self, ranks: Sequence[int]) -> Union[MeshCommunication, ForeignSubMesh]:
+        """The mesh of the shards ``ranks``, in that order. Every process
+        calls it with the same ranks: ranks that all live in this process
+        give the in-process mesh of their devices; ranks in several processes
+        a :class:`ProcessMeshCommunication` over a new group of those
+        processes (created by every process of the world, in the same order,
+        and cached by the rank tuple), its ranks listed process by process in
+        process order; ranks that all live elsewhere a
+        :class:`ForeignSubMesh`, whose verbs raise."""
+        ranks = tuple(int(r) for r in ranks)
+        if not self.spans_processes:
+            return MeshCommunication([self._devices[r] for r in ranks])
+        if ranks in self._subs:
+            return self._subs[ranks]
+        owners = [self._placements[r].process_index for r in ranks]
+        members = sorted(set(owners))
+        mine = [self._devices[r - self.first_rank] for r, q in zip(ranks, owners) if q == self.process]
+        if len(members) == 1:
+            sub = MeshCommunication(mine) if mine else ForeignSubMesh(ranks)
+        else:
+            import torch.distributed as dist
+
+            if owners != sorted(owners):
+                raise ValueError(f"a sub-mesh over processes lists its ranks process by process, in process "
+                                 f"order: ranks {list(ranks)} live in processes {owners}")
+            if self.group is not dist.group.WORLD:
+                raise CrossProcessMeshError(f"a sub-mesh over processes of {self!r}: only the world's mesh "
+                                            "creates process groups")
+            peers = [self.process_ranks[q] for q in members]
+            backend = dist.get_backend(self.group)
+            group = dist.new_group(peers, backend=backend)
+            control = group if backend == "gloo" else dist.new_group(peers, backend="gloo")
+            if mine:
+                sub = ProcessMeshCommunication(mine, [owners.count(q) for q in members], members.index(self.process),
+                                               group, control, process_ranks=peers)
+            else:
+                sub = ForeignSubMesh(ranks)
+        self._subs[ranks] = sub
+        return sub
 
     # ------------------------------------------------------------------
     # the exchange under every verb
@@ -557,48 +676,101 @@ class ProcessMeshCommunication(MeshCommunication):
             # heat-lint: disable=H005 — every verb calls _fire (collective.<verb>) beside _record
             telemetry.record_collective_operand(verb, HOST_STAGED_AXIS if self._staged else SPLIT_AXIS, payload)
 
-    def _gather(self, contrib: Dict[int, object]) -> Dict[int, object]:
-        """Every process's ``{rank: value}`` (a value is a tensor or a tuple
-        of tensors) merged into one dict, the tensors on the transport's
-        device: the shapes and types go over the control group, the bytes of
-        every process in one ``all_gather`` over ``group``."""
+    def _payload(self, bufs: List[torch.Tensor], transport: torch.device, longest: int) -> List[torch.Tensor]:
+        """Every process's bytes, in process order: this process's ``bufs``
+        concatenated, padded to ``longest``, in one ``all_gather`` over
+        ``group``."""
         import torch.distributed as dist
 
-        transport = torch.device("cpu") if self._staged or self._devices[0].type == "cpu" else self._devices[0]
-        header, parts = [], []
-        for rank, value in contrib.items():
-            leaves = value if isinstance(value, tuple) else (value,)
-            header.append((rank, isinstance(value, tuple),
-                           [(tuple(t.shape), str(t.dtype).split(".")[1]) for t in leaves]))
-            parts.extend(t.detach().contiguous().reshape(-1).view(torch.uint8).to(transport) for t in leaves)
-        buf = torch.cat(parts) if parts else torch.empty(0, dtype=torch.uint8, device=transport)
-        world = len(self.counts)
-        headers = [None] * world
-        dist.all_gather_object(headers, (header, int(buf.numel())), group=self.control)
-        longest = max(n for _, n in headers)
-        bufs = [buf] * world
-        if longest:
-            padded = torch.zeros(longest, dtype=torch.uint8, device=transport)
-            padded[: buf.numel()] = buf
-            bufs = [torch.empty_like(padded) for _ in range(world)]
-            dist.all_gather(bufs, padded, group=self.group)
+        buf = torch.cat(bufs) if bufs else torch.empty(0, dtype=torch.uint8, device=transport)
+        if not longest:
+            return [buf] * len(self.counts)
+        padded = torch.zeros(longest, dtype=torch.uint8, device=transport)
+        padded[: buf.numel()] = buf
+        out = [torch.empty_like(padded) for _ in self.counts]
+        dist.all_gather(out, padded, group=self.group)
+        return out
+
+    def _header(self, contrib: Dict[int, object], slots: int) -> torch.Tensor:
+        """This process's fixed-layout header: its byte count, its entry
+        count, then ``slots`` entries of :data:`_ENTRY` ``int64`` each."""
+        header = torch.zeros(2 + slots * _ENTRY, dtype=torch.int64)
+        header[1] = len(contrib)
+        total = 0
+        for e, (rank, value) in enumerate(contrib.items()):
+            leaves = _leaves(value)
+            if len(leaves) > _MAX_LEAVES:
+                raise ValueError(f"a verb's value holds at most {_MAX_LEAVES} tensors, got {len(leaves)}")
+            row = [rank, int(isinstance(value, tuple)), len(leaves)]
+            for t in leaves:
+                if t.dim() > _MAX_NDIM or t.dtype not in _HEADER_CODES:
+                    raise ValueError(f"a verb moves tensors of at most {_MAX_NDIM} dimensions and the types "
+                                     f"{_HEADER_DTYPES}, got {tuple(t.shape)} {t.dtype}")
+                row += [_HEADER_CODES[t.dtype], t.dim(), *t.shape]
+                row += [0] * (_MAX_NDIM - t.dim())
+                total += t.numel() * t.element_size()
+            at = 2 + e * _ENTRY
+            header[at : at + len(row)] = torch.tensor(row, dtype=torch.int64)
+        header[0] = total
+        return header
+
+    @staticmethod
+    def _entries(header: torch.Tensor):
+        """The ``(rank, signature)`` entries of one process's header."""
+        values = header.tolist()
+        out = []
+        for e in range(values[1]):
+            at = 2 + e * _ENTRY
+            rank, is_tuple, n_leaves = values[at : at + 3]
+            leaves, at = [], at + 3
+            for _ in range(n_leaves):
+                code, ndim = values[at : at + 2]
+                leaves.append((tuple(values[at + 2 : at + 2 + ndim]), _HEADER_DTYPES[code]))
+                at += 2 + _MAX_NDIM
+            out.append((rank, (bool(is_tuple), tuple(leaves))))
+        return out
+
+    def _gather(self, contrib: Dict[int, object]) -> Dict[int, object]:
+        """Every process's ``{rank: value}`` merged into one dict, the
+        tensors on the transport's device: the fixed-layout headers of
+        every process in one ``all_gather`` over the control group, then the
+        bytes in one ``all_gather`` over ``group``."""
+        import torch.distributed as dist
+
+        transport = self._transport()
+        header = self._header(contrib, max(self.counts))
+        headers = [torch.empty_like(header) for _ in self.counts]
+        dist.all_gather(headers, header, group=self.control)
+        bufs = [b for value in contrib.values() for b in _flat_bytes(value, transport)]
+        raws = self._payload(bufs, transport, max(int(h[0]) for h in headers))
         out: Dict[int, object] = {}
-        for (entries, _), raw in zip(headers, bufs):
+        for h, raw in zip(headers, raws):
             at = 0
-            for rank, is_tuple, leaves in entries:
-                got = []
-                for shape, dtype in leaves:
-                    dt = getattr(torch, dtype)
-                    nbytes = math.prod(shape) * torch.empty((), dtype=dt).element_size()
-                    got.append(raw[at : at + nbytes].clone().view(dt).reshape(shape))
-                    at += nbytes
-                out[rank] = tuple(got) if is_tuple else got[0]
+            for rank, signature in self._entries(h):
+                out[rank], at = _unflatten(raw, at, signature)
         return out
 
     def _everyone(self, shards: Sequence) -> List:
-        """Every rank's value, in rank order."""
-        got = self._gather({self.first_rank + i: s for i, s in enumerate(shards)})
-        return [got[r] for r in range(self._size)]
+        """Every rank's value, in rank order, for the verbs whose values
+        share one shape and type by contract (``allreduce``, ``scan``,
+        ``exscan``): checked on this process's shards, then one
+        ``all_gather`` of the bytes and no header."""
+        signature = _signature(shards[0])
+        for s in shards[1:]:
+            if _signature(s) != signature:
+                raise ValueError(f"the values of one reduction share a shape and a type: {signature} against "
+                                 f"{_signature(s)}")
+        transport = self._transport()
+        size = sum(_nbytes(shape, dt) for shape, dt in signature[1])
+        bufs = [b for s in shards for b in _flat_bytes(s, transport)]
+        raws = self._payload(bufs, transport, size * max(self.counts))
+        values = []
+        for c, raw in zip(self.counts, raws):
+            at = 0
+            for _ in range(c):
+                value, at = _unflatten(raw, at, signature)
+                values.append(value)
+        return values
 
     def _standins(self) -> List[torch.device]:
         """A device per global rank for the one-process arithmetic: this
@@ -611,6 +783,9 @@ class ProcessMeshCommunication(MeshCommunication):
     def _mine(self, values: Sequence) -> List:
         return list(values[self.first_rank : self.first_rank + len(self._devices)])
 
+    def _owner(self, rank: int) -> int:
+        return self._placements[rank].process_index
+
     # ------------------------------------------------------------------
     # the verbs, across processes
     # ------------------------------------------------------------------
@@ -622,10 +797,26 @@ class ProcessMeshCommunication(MeshCommunication):
         return _allreduce(values, op, self._devices)
 
     def bcast(self, shards: Sequence, root: int = 0) -> List:
+        """Every shard gets rank ``root``'s value: the root's process
+        broadcasts its header over the control group, then its bytes over
+        ``group``; the other processes' values are not read."""
+        import torch.distributed as dist
+
         self._check(shards)
         self._fire("bcast")
-        mine = root - self.first_rank
-        got = self._gather({root: shards[mine]} if 0 <= mine < len(self._devices) else {})[root]
+        src = self.process_ranks[self._owner(root)]
+        transport = self._transport()
+        held = self._owner(root) == self.process
+        header = self._header({root: shards[root - self.first_rank]} if held else {}, 1)
+        dist.broadcast(header, src=src, group=self.control)
+        (_, signature), = self._entries(header)
+        if held:
+            buf = torch.cat(_flat_bytes(shards[root - self.first_rank], transport))
+        else:
+            buf = torch.empty(int(header[0]), dtype=torch.uint8, device=transport)
+        if buf.numel():
+            dist.broadcast(buf, src=src, group=self.group)
+        got, _ = _unflatten(buf, 0, signature)
         self._record("bcast", got)
         return [_to(got, d) for d in self._devices]
 
@@ -648,10 +839,10 @@ class ProcessMeshCommunication(MeshCommunication):
     def allgather(self, shards: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:
         self._check(shards)
         self._fire("allgather")
-        values = self._everyone(shards)
+        got = self._gather({self.first_rank + i: s for i, s in enumerate(shards)})
         self._record("allgather", shards[0])
         first = self._devices[0]
-        whole = torch.cat([v.to(first) for v in values], dim=dim)
+        whole = torch.cat([got[r].to(first) for r in range(self._size)], dim=dim)
         return [whole if whole.device == d else whole.to(d) for d in self._devices]
 
     def ppermute(
@@ -660,22 +851,51 @@ class ProcessMeshCommunication(MeshCommunication):
         shift: int = 1,
         perm: Optional[Sequence[Tuple[int, int]]] = None,
     ) -> List[torch.Tensor]:
+        """Shard d receives shard ``(d + shift) % p``, or what ``perm``'s
+        (src, dst) pairs say (zeros where no pair names d). Every shard of
+        one permute has one shape and type, as in ``lax.ppermute``: each
+        receiver allocates its block like its own shard. A pair within this
+        process moves in place; a pair across processes is one send and one
+        receive of ``dist.batch_isend_irecv`` over ``group``, tagged by its
+        index in ``perm``, every process posting its pairs in that order."""
+        import torch.distributed as dist
+
         self._check(shards)
+        like = shards[0]
+        for s in shards[1:]:
+            if s.shape != like.shape or s.dtype != like.dtype:
+                raise ValueError(f"the shards of one ppermute share a shape and a type: {tuple(like.shape)} "
+                                 f"{like.dtype} against {tuple(s.shape)} {s.dtype}")
         self._fire("ppermute")
-        p, first, local = self._size, self.first_rank, len(self._devices)
+        p, first, me = self._size, self.first_rank, self.process
         if perm is None:
             perm = [((d + shift) % p, d) for d in range(p)]
-        sources: Dict[int, int] = {}
-        for src, dst in perm:
-            if dst in sources:
+        received: List[Optional[torch.Tensor]] = [None] * len(self._devices)
+        named = set()
+        ops, incoming = [], []
+        staged = self._staged
+        for tag, (src, dst) in enumerate(perm):
+            if dst in named:
                 raise ValueError(f"perm names destination {dst} twice")
-            sources[dst] = src
-        got = self._gather({src: shards[src - first] for src, _ in perm if first <= src < first + local})
-        self._record("ppermute", shards[0])
-        return [
-            got[sources[d]].to(dev) if d in sources else torch.zeros_like(shards[d - first])
-            for d, dev in zip(range(first, first + local), self._devices)
-        ]
+            named.add(dst)
+            q_src, q_dst = self._owner(src), self._owner(dst)
+            if q_src == q_dst == me:
+                received[dst - first] = shards[src - first].to(self._devices[dst - first])
+            elif q_src == me:
+                block = shards[src - first].detach().contiguous()
+                ops.append(dist.P2POp(dist.isend, block.cpu() if staged else block, self.process_ranks[q_dst],
+                                      self.group, tag))
+            elif q_dst == me:
+                block = torch.empty(like.shape, dtype=like.dtype, device=self._transport())
+                ops.append(dist.P2POp(dist.irecv, block, self.process_ranks[q_src], self.group, tag))
+                incoming.append((dst - first, block))
+        if ops:
+            for request in dist.batch_isend_irecv(ops):
+                request.wait()
+        for i, block in incoming:
+            received[i] = block.to(self._devices[i])
+        self._record("ppermute", like)
+        return [torch.zeros_like(shards[i]) if r is None else r for i, r in enumerate(received)]
 
     def alltoall(
         self, shards: Sequence[torch.Tensor], split_axis: int = 0, concat_axis: int = 0
@@ -688,9 +908,9 @@ class ProcessMeshCommunication(MeshCommunication):
                     f"alltoall splits axis {split_axis} of size {s.shape[split_axis]} into {p} equal pieces"
                 )
         self._fire("alltoall")
-        values = self._everyone(shards)
+        got = self._gather({self.first_rank + i: s for i, s in enumerate(shards)})
         self._record("alltoall", shards[0])
-        pieces = [v.tensor_split(p, dim=split_axis) for v in values]
+        pieces = [got[r].tensor_split(p, dim=split_axis) for r in range(p)]
         return [
             torch.cat([pieces[d][j].to(dev) for d in range(p)], dim=concat_axis)
             for j, dev in zip(range(self.first_rank, self.first_rank + len(self._devices)), self._devices)

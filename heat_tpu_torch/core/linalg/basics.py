@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import factories, fusion, resilience, types
-from ..dndarray import DNDarray, _distribute, _wrap
+from ..dndarray import DNDarray, _distribute, _joined, _wrap
 from ..sanitation import sanitize_in, sanitize_mesh, warn_replicated
 from ..stride_tricks import sanitize_axis
 
@@ -79,8 +79,9 @@ def _gathered(x: DNDarray, dtype: torch.dtype) -> List[torch.Tensor]:
 
 def _blocks(x: DNDarray, axis: int) -> List[torch.Tensor]:
     """A replicated ``x`` cut along ``axis`` into the blocks a split operand
-    of that length would hold, each from the device's own copy."""
-    counts, displs = x.comm.counts_displs_shape(x.gshape, axis)
+    of that length would hold on this process's ranks, each from the
+    device's own copy."""
+    counts, displs = x.comm.local_counts_displs(x.gshape, axis)
     return [s.narrow(axis, d, c) for s, d, c in zip(x.shards, displs, counts)]
 
 
@@ -257,7 +258,7 @@ def einsum(subscripts: str, *operands, optimize: Union[bool, str] = "optimal", o
     if ref is None:
         raise TypeError("einsum requires at least one DNDarray operand")
     dtype = types.result_type(*operands).torch_type()
-    device = ref.comm.devices[0]
+    device = ref.comm.home
     tensors = [
         op.larray.to(dtype) if isinstance(op, DNDarray) else torch.as_tensor(np.asarray(op), device=device).to(dtype)
         for op in operands
@@ -307,14 +308,25 @@ def cross(
 # the blocked stage programs: Cholesky and the determinant
 # ---------------------------------------------------------------------------
 def _row_slabs(af: DNDarray, dtype):
-    """The stage grid of a split-0 square operand and its sanitized slabs."""
+    """The stage grid of a split-0 square operand and the sanitized slabs
+    of this process's ranks."""
     from ._blocked import sanitize_slab, stage_grid
 
     n = int(af.gshape[0])
     p, rows_loc, n_stages, owners = stage_grid(af)
     n_pad = p * rows_loc
-    slabs = [sanitize_slab(s, i, rows_loc, n, n_pad, dtype)[0] for i, s in enumerate(af.shards)]
+    slabs = [sanitize_slab(s, r, rows_loc, n, n_pad, dtype)[0] for r, s in zip(af.comm.local_ranks, af.shards)]
     return slabs, rows_loc, n_stages, owners
+
+
+def _from_owner(comm, owner: int, value, shape, dtype) -> List[torch.Tensor]:
+    """One allreduce that gives every rank the owner's ``value``: the owner's
+    rank contributes it, every other rank zeros of ``shape``. ``value`` is
+    None where this process does not hold the owner."""
+    ranks = comm.local_ranks
+    return comm.allreduce([
+        value if r == owner else torch.zeros(shape, dtype=dtype, device=d) for r, d in zip(ranks, comm.local_devices)
+    ])
 
 
 def _cholesky_blocked(af: DNDarray, dtype) -> List[torch.Tensor]:
@@ -323,26 +335,29 @@ def _cholesky_blocked(af: DNDarray, dtype) -> List[torch.Tensor]:
     its updated diagonal tile, one ``allreduce`` replicates ``L_tt``, every
     shard forms its panel block ``C = W[:, t] L_tt^-T`` (zero above the
     owner), one ``allgather`` assembles the block column, and the trailing
-    update ``W -= C colᵀ`` is local. Returns the L slabs, one per shard,
-    and the number of stages whose tile was not positive definite (a 0-d
-    tensor on the owner of the last stage)."""
+    update ``W -= C colᵀ`` is local. Returns the L slabs of this process's
+    ranks and the number of stages whose tile was not positive definite
+    (a 0-d tensor on ``comm.home``; across processes, summed over them)."""
     comm = af.comm
+    ranks = comm.local_ranks
     slabs, rows_loc, n_stages, owners = _row_slabs(af, dtype)
     L = [torch.zeros_like(w) for w in slabs]
-    failed = torch.zeros((), dtype=torch.int32, device=comm.devices[0])
+    failed = torch.zeros((), dtype=torch.int32, device=comm.home)
     for t in range(n_stages):
         start, owner = t * rows_loc, owners[t]
         tiles = [w[:, start:start + rows_loc] for w in slabs]
-        # numpy reads only the lower triangle of the diagonal tile
-        own = tiles[owner]
-        ltt_own, info = torch.linalg.cholesky_ex(torch.tril(own) + torch.tril(own, -1).mT)
-        failed = failed.to(info.device) + (info != 0)
-        ltt = comm.allreduce([ltt_own if i == owner else torch.zeros_like(ltt_own).to(d) for i, d in enumerate(comm.devices)])
+        ltt_own = None
+        if owner in ranks:
+            # numpy reads only the lower triangle of the diagonal tile
+            own = tiles[owner - ranks.start]
+            ltt_own, info = torch.linalg.cholesky_ex(torch.tril(own) + torch.tril(own, -1).mT)
+            failed = failed.to(info.device) + (info != 0)
+        ltt = _from_owner(comm, owner, ltt_own, (rows_loc, rows_loc), dtype)
         panels = []
-        for i, (tile, lt) in enumerate(zip(tiles, ltt)):
-            if i < owner:
+        for r, tile, lt in zip(ranks, tiles, ltt):
+            if r < owner:
                 panels.append(torch.zeros_like(tile))
-            elif i == owner:
+            elif r == owner:
                 panels.append(lt)
             else:
                 panels.append(torch.linalg.solve_triangular(lt.mT, tile, upper=True, left=False))
@@ -350,6 +365,9 @@ def _cholesky_blocked(af: DNDarray, dtype) -> List[torch.Tensor]:
         for i in range(len(slabs)):
             L[i][:, start:start + rows_loc] = panels[i]
             slabs[i] = slabs[i] - panels[i] @ col[i].mT
+    if comm.spans_processes:
+        failed = comm.allreduce([failed.to(d) if i == 0 else torch.zeros_like(failed, device=d)
+                                 for i, d in enumerate(comm.local_devices)])[0]
     return L, failed
 
 
@@ -378,7 +396,7 @@ def cholesky(a: DNDarray) -> DNDarray:
         af = resplit(a, 0) if a.split == 1 else a
         n = a.gshape[0]
         slabs, failed = _cholesky_blocked(af, dtype)
-        L = torch.cat([s.to(af.comm.devices[0]) for s in slabs])[:n, :n]
+        L = _joined(af.comm, slabs, 0)[:n, :n]
     else:
         L, failed = torch.linalg.cholesky_ex(mirror_triangle(a.larray.to(dtype), "L"))
     # numpy's exception contract: one host read
@@ -392,27 +410,37 @@ def _slogdet_blocked(af: DNDarray, dtype):
     heat_tpu/core/linalg/basics.py:273-346): stage ``i``'s owner takes
     sign and log|det| of its diagonal tile (pivoting within the tile) and
     ``D⁻¹ W_owner``, one ``allreduce`` replicates that block, and every
-    other shard folds the block column out of its rows. Returns
-    ``(sign, logabs)`` on the first device; a singular non-final tile
-    shows as a non-finite ``logabs``."""
+    other shard folds the block column out of its rows. The stages' signs
+    and logs are then folded in stage order, after one ``allreduce`` across
+    processes (each stage's are its owner's). Returns ``(sign, logabs)`` on
+    ``comm.home``; a singular non-final tile shows as a non-finite
+    ``logabs``."""
     comm = af.comm
+    ranks = comm.local_ranks
     slabs, rows_loc, n_stages, owners = _row_slabs(af, dtype)
-    first = comm.devices[0]
+    first = comm.home
+    n_pad = slabs[0].shape[1]
+    stages = torch.zeros((n_stages, 3), dtype=dtype, device=first)  # s < 0, s == 0, log|det|
+    for i in range(n_stages):
+        start, owner = i * rows_loc, owners[i]
+        block_own = None
+        if owner in ranks:
+            tile = slabs[owner - ranks.start][:, start:start + rows_loc]
+            s, la = torch.linalg.slogdet(tile)
+            stages[i, 0], stages[i, 1], stages[i, 2] = (s < 0).to(dtype), (s == 0).to(dtype), la.to(first)
+            block_own = torch.linalg.solve_ex(tile, slabs[owner - ranks.start])[0]
+        block = _from_owner(comm, owner, block_own, (rows_loc, n_pad), dtype)
+        for j, r in enumerate(ranks):
+            if r != owner:
+                slabs[j] = slabs[j] - slabs[j][:, start:start + rows_loc] @ block[j]
+    if comm.spans_processes:
+        stages = comm.allreduce([stages.to(d) if i == 0 else torch.zeros_like(stages, device=d)
+                                 for i, d in enumerate(comm.local_devices)])[0]
     neg = torch.zeros((), dtype=dtype, device=first)
     zero = torch.zeros((), dtype=dtype, device=first)
     logabs = torch.zeros((), dtype=dtype, device=first)
     for i in range(n_stages):
-        start, owner = i * rows_loc, owners[i]
-        tile = slabs[owner][:, start:start + rows_loc]
-        s, la = torch.linalg.slogdet(tile)
-        neg = neg + (s < 0).to(dtype).to(first)
-        zero = zero + (s == 0).to(dtype).to(first)
-        logabs = logabs + la.to(first)
-        block_own = torch.linalg.solve_ex(tile, slabs[owner])[0]
-        block = comm.allreduce([block_own if j == owner else torch.zeros_like(block_own).to(d) for j, d in enumerate(comm.devices)])
-        for j in range(len(slabs)):
-            if j != owner:
-                slabs[j] = slabs[j] - slabs[j][:, start:start + rows_loc] @ block[j]
+        neg, zero, logabs = neg + stages[i, 0], zero + stages[i, 1], logabs + stages[i, 2]
     sign = torch.where(torch.remainder(neg, 2) > 0.5, -1.0, 1.0).to(dtype)
     sign = torch.where(zero > 0, torch.zeros_like(sign), sign)
     return sign, logabs

@@ -176,14 +176,19 @@ def _cholqr2_kernel(a, *, comm, calc_q: bool):
     fused program): ``([Q shards], [R], [ok])``, without Q for ``calc_q``
     false. The Gram matrices sum each shard's valid rows (never its
     padding) in shard order; the small (n, n) Cholesky factor and its
-    inverse are computed once, on the first device, and placed on the
-    others; the tall work is two GEMMs per pass (one without ``calc_q``)."""
+    inverse are computed once, on ``comm.home``, and placed on the others;
+    the tall work is two GEMMs per pass (one without ``calc_q``). Across
+    processes each works on its own ranks' shards, and the Gram allreduce
+    gives every process the same (n, n) matrices."""
     n = a.gshape[1]
+    # the Gram partials of a split-0 operand are summed over every rank
+    # (this process's shards here); any other operand is one global view
+    across = a.split == 0 and comm.size > 1
     if a.split == 0:
-        x, counts = a.shards, comm.counts_displs_shape(a.gshape, 0)[0]
+        x, counts = a.shards, comm.local_counts_displs(a.gshape, 0)[0]
     else:
         x, counts = [a.larray], (a.gshape[0],)
-    eye = torch.eye(n, dtype=x[0].dtype, device=comm.devices[0])
+    eye = torch.eye(n, dtype=x[0].dtype, device=comm.home)
 
     def gram(rows):
         g = None
@@ -194,7 +199,7 @@ def _cholqr2_kernel(a, *, comm, calc_q: bool):
 
     def gram_chol(shards):
         partials = [gram(s[:c]) for s, c in zip(shards, counts)]
-        g = comm.allreduce(partials)[0] if len(partials) > 1 else partials[0]
+        g = comm.allreduce(partials)[0] if across else partials[0]
         chol, info = torch.linalg.cholesky_ex(g)
         return chol.mH, info, g  # the upper factor
 
@@ -247,7 +252,7 @@ def _tsqr_kernel(a, *, comm, calc_q: bool):
     view in a fused program): ``([Q shards], [R])``, without Q for
     ``calc_q`` false."""
     n = a.gshape[1]
-    counts = a.counts_displs()[0]
+    counts = comm.local_counts_displs(a.gshape, 0)[0]
     q1s, r1s = [], []
     for s, c in zip(a.shards, counts):
         if c < s.shape[0]:
@@ -260,7 +265,7 @@ def _tsqr_kernel(a, *, comm, calc_q: bool):
     if not calc_q:
         return ([r],)
     blocks = _distribute(q2, None, comm)
-    return [q1 @ b[d * n:(d + 1) * n] for d, (q1, b) in enumerate(zip(q1s, blocks))], [r]
+    return [q1 @ b[d * n:(d + 1) * n] for d, q1, b in zip(comm.local_ranks, q1s, blocks)], [r]
 
 
 def _panel_qr_split1(a: DNDarray) -> Tuple[DNDarray, DNDarray]:
@@ -268,29 +273,36 @@ def _panel_qr_split1(a: DNDarray) -> Tuple[DNDarray, DNDarray]:
 
     Panel by panel: the owner factors its already orthogonalized (m, c)
     panel into its own Q and R blocks, one ``bcast`` gives the Q panel to
-    the others, and every later panel takes a CGS2 update against it. The padding
-    columns, a suffix of the last panel, are zeroed first; their Q and R
-    columns are padding of the results. Q (m, n) and R (n, n) come out split
+    the others (across processes, from the process that holds the owner),
+    and every later panel of this process's ranks takes a CGS2 update
+    against it. The padding columns, a suffix of the last panel, are
+    zeroed first; their Q and R columns are padding of the results. Q (m, n) and R (n, n) come out split
     1, R's shards cut to its n logical rows."""
     comm = a.comm
     m, n = a.gshape
     p = comm.size
-    counts = a.counts_displs()[0]
+    ranks = comm.local_ranks
+    counts = comm.local_counts_displs(a.gshape, 1)[0]
     c = a.shards[0].shape[1]
     cur = []
     for s, cnt in zip(a.shards, counts):
         cur.append(s if cnt == c else torch.cat([s[:, :cnt], s.new_zeros((m, c - cnt))], dim=1))
-    q_loc = [None] * p
+    q_loc = [None] * len(cur)
     r_loc = [s.new_zeros((p * c, c)) for s in cur]
     itemsize = cur[0].element_size()
     _declare("bcast", cur[0].dtype, (m * c * itemsize, p), (c * c * itemsize, p))
     for d in range(p):
-        q_own, r_own = torch.linalg.qr(cur[d], mode="reduced")
+        q_own = None
+        if d in ranks:
+            own = d - ranks.start
+            q_own, r_own = torch.linalg.qr(cur[own], mode="reduced")
+            q_loc[own] = q_own
+            r_loc[own][d * c:(d + 1) * c] = r_own
         with _declared():
-            qd = comm.bcast([q_own] * p, root=d)
-        q_loc[d] = q_own
-        r_loc[d][d * c:(d + 1) * c] = r_own
-        for i in range(d + 1, p):
+            qd = comm.bcast([q_own] * len(cur), root=d)
+        for i, r in enumerate(ranks):
+            if r <= d:
+                continue
             qdh = qd[i].mH
             coef1 = qdh @ cur[i]
             upd = cur[i] - qd[i] @ coef1

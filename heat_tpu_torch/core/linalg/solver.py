@@ -25,7 +25,7 @@ from ..communication import _declare, _declared
 from ..dndarray import DNDarray, _distribute
 from ..sanitation import sanitize_in, warn_replicated
 from ._blocked import sanitize_slab, stage_grid
-from .basics import _wrap_like, matmul, norm, transpose
+from .basics import _from_owner, _wrap_like, matmul, norm, transpose
 
 __all__ = ["cg", "eigh", "eigvalsh", "lanczos", "solve", "solve_triangular"]
 
@@ -127,32 +127,45 @@ def _tri_solve_kernel(A, b, *, comm, lower: bool, tdt: torch.dtype):
     """The shards of ``A x = b`` (DNDarrays, or shard views in a fused
     program): one ``torch.linalg.solve_triangular`` of the global views for
     a replicated ``A`` (one tensor), else the blocked substitution over the
-    stage grid of a split-0 ``A`` (split-0 shards)."""
+    stage grid of a split-0 ``A`` (the split-0 shards of this process's
+    ranks). A split-0 ``b`` gives each rank its own rows, any other ``b`` is
+    read whole."""
     vector_rhs = b.ndim == 1
     n = A.gshape[0]
-    bl = b.larray.to(tdt)
-    bl = bl[:, None] if vector_rhs else bl
     if A.split is None or comm.size == 1:
-        x = torch.linalg.solve_triangular(A.larray.to(tdt), bl, upper=not lower)
+        bl = b.larray.to(tdt)
+        x = torch.linalg.solve_triangular(A.larray.to(tdt), bl[:, None] if vector_rhs else bl, upper=not lower)
         return [x[:, 0] if vector_rhs else x]
     p, rows_loc, n_stages, owners = stage_grid(A)
     n_pad = p * rows_loc
+    ranks = comm.local_ranks
+    if b.split == 0:
+        parts = [t.to(tdt) for t in b.lshards]
+    else:
+        bl = b.larray.to(tdt)
+        counts, displs = comm.local_counts_displs((n,), 0)
+        parts = [bl[o:o + c] for c, o in zip(counts, displs)]
     slabs, rhs = [], []
-    k = bl.shape[1]
-    b_pad = torch.cat([bl, bl.new_zeros((n_pad - n, k))]) if n_pad > n else bl
-    for i, (s, d) in enumerate(zip(A.shards, comm.devices)):
-        slab, rows = sanitize_slab(s, i, rows_loc, n, n_pad, tdt)
+    for r, s, part, d in zip(ranks, A.shards, parts, comm.local_devices):
+        slab, rows = sanitize_slab(s, r, rows_loc, n, n_pad, tdt)
         slabs.append(slab)
+        part = part[:, None] if vector_rhs else part
         # padding rows are identity rows against a zero right-hand side
-        rhs.append(b_pad[i * rows_loc:(i + 1) * rows_loc].to(d))
-    x_own = [torch.zeros((rows_loc, k), dtype=tdt, device=d) for d in comm.devices]
+        if part.shape[0] < rows_loc:
+            part = torch.cat([part, part.new_zeros((rows_loc - part.shape[0], part.shape[1]))])
+        rhs.append(part.to(d))
+    k = rhs[0].shape[1]
+    x_own = [torch.zeros((rows_loc, k), dtype=tdt, device=d) for d in comm.local_devices]
     for i in range(n_stages):
         t = i if lower else n_stages - 1 - i
         start, owner = t * rows_loc, owners[t]
         tiles = [w[:, start:start + rows_loc] for w in slabs]
-        cand = torch.linalg.solve_triangular(tiles[owner], rhs[owner], upper=not lower)
-        block = comm.allreduce([cand if j == owner else torch.zeros_like(cand).to(d) for j, d in enumerate(comm.devices)])
-        x_own[owner] = block[owner]
+        cand = None
+        if owner in ranks:
+            cand = torch.linalg.solve_triangular(tiles[owner - ranks.start], rhs[owner - ranks.start], upper=not lower)
+        block = _from_owner(comm, owner, cand, (rows_loc, k), tdt)
+        if owner in ranks:
+            x_own[owner - ranks.start] = block[owner - ranks.start]
         rhs = [r - tile @ blk for r, tile, blk in zip(rhs, tiles, block)]
     return [x[:, 0] for x in x_own] if vector_rhs else x_own
 

@@ -8,12 +8,16 @@ the threads meet at every BatchNorm, and the last to arrive normalizes
 every shard at once through :class:`_CrossShardNorm`, one autograd node whose
 forward reduces Σx and Σx² over the mesh and whose backward reduces Σdy and
 Σdy·x̂ the same way. The caller then runs one ``backward()`` from its own
-thread: no collective waits inside autograd, so the shards may share one
-device.
+thread: in one process no collective waits inside autograd, so the shards
+may share one device. Over a mesh whose ranks span processes each process
+runs the threads of its own ranks, and each meeting's sums, forward and
+backward, go across processes through the mesh's ``allreduce``: every
+process meets at every BatchNorm, in the same order.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, List, Optional, Sequence
@@ -33,9 +37,10 @@ def current() -> Optional["_Meeting"]:
 class Lockstep:
     """Runs the forwards of a mesh's shards in lockstep, shard r on a worker
     thread of its own (an executor of one thread: a run never waits for a
-    thread that another shard holds). The workers persist from run to run:
-    torch keeps caches per thread (cuDNN's execution plans among them),
-    which a new thread would build again at every step.
+    thread that another shard holds), for this process's ranks. The
+    workers persist from run to run: torch keeps caches per thread (cuDNN's
+    execution plans among them), which a new thread would build again at
+    every step.
 
     Parameters
     ----------
@@ -46,15 +51,17 @@ class Lockstep:
 
     def __init__(self, comm):
         self.comm = comm
-        self._workers = [
-            ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"shard-{r}") for r in range(comm.size)
-        ]
+        self._workers = {
+            r: ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"shard-{r}") for r in comm.local_ranks
+        }
 
-    def run(self, active: Sequence[int], fns: Sequence[Callable[[], torch.Tensor]]) -> List[torch.Tensor]:
-        """Call ``fns[i]``, the forward of shard ``active[i]``, on that
-        shard's worker and return their results in order; a failure in one
-        breaks every meeting and is raised here."""
-        meeting = _Meeting(self.comm, active)
+    def run(self, active: Sequence[int], fns: Sequence[Callable[[], torch.Tensor]],
+            rows: Optional[int] = None) -> List[torch.Tensor]:
+        """Call ``fns[i]``, the forward of shard ``active[i]`` (a rank of this
+        process), on that shard's worker and return their results in order;
+        a failure in one breaks every meeting and is raised here. ``rows``
+        is the whole batch's row count, by default the active shards'."""
+        meeting = _Meeting(self.comm, active, rows)
         futures = [
             self._workers[r].submit(meeting.work, slot, fn) for slot, (r, fn) in enumerate(zip(active, fns))
         ]
@@ -68,11 +75,13 @@ class Lockstep:
 
 
 class _Meeting:
-    """One lockstep run: the active shards meet at every BatchNorm."""
+    """One lockstep run: the active shards meet at every BatchNorm. ``rows``
+    is the whole batch's row count (None: the active shards hold all)."""
 
-    def __init__(self, comm, active: Sequence[int]):
+    def __init__(self, comm, active: Sequence[int], rows: Optional[int] = None):
         self.comm = comm
         self.active = list(active)
+        self.rows = rows
         self._posted: List = [None] * len(self.active)
         self._normalized: List[torch.Tensor] = []
         self._barrier = threading.Barrier(len(self.active), action=self._meet)
@@ -103,15 +112,17 @@ class _Meeting:
 
     def allreduce(self, values: Sequence[tuple]) -> List[tuple]:
         """Sum one tuple of tensors per active shard over the whole mesh, in
-        shard order; each active shard gets the sums on its own device."""
-        full = [None] * self.comm.size
+        shard order (zeros for this process's other shards); each active
+        shard gets the sums on its own device."""
+        first = self.comm.first_rank
+        full = [None] * len(self.comm.local_devices)
         for r, v in zip(self.active, values):
-            full[r] = v
-        for r, d in enumerate(self.comm.devices):
-            if full[r] is None:
-                full[r] = tuple(torch.zeros_like(t, device=d) for t in values[0])
+            full[r - first] = v
+        for i, d in enumerate(self.comm.local_devices):
+            if full[i] is None:
+                full[i] = tuple(torch.zeros_like(t, device=d) for t in values[0])
         summed = self.comm.allreduce(full)
-        return [summed[r] for r in self.active]
+        return [summed[r - first] for r in self.active]
 
 
 def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -127,7 +138,10 @@ class _CrossShardNorm(torch.autograd.Function):
     def forward(ctx, meeting: _Meeting, layers, *xs):
         ndim = xs[0].dim()
         dims = [d for d in range(ndim) if d != 1]
-        n = sum(x.numel() // x.shape[1] for x in xs)
+        if meeting.rows is None:
+            n = sum(x.numel() // x.shape[1] for x in xs)
+        else:
+            n = meeting.rows * math.prod(xs[0].shape[2:])
         sums = meeting.allreduce([(x.sum(dims), (x * x).sum(dims)) for x in xs])
         xhats, invstds = [], []
         for x, (s1, s2), layer in zip(xs, sums, layers):

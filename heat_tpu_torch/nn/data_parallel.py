@@ -16,6 +16,13 @@ of the module per shard of the mesh:
   parts are summed over the mesh in shard order and every replica takes
   the same optimizer step, so the replicas stay equal.
 
+Over a mesh whose ranks span processes every process feeds the same global
+batch and holds the replicas of its own ranks (the parameters of its first
+on ``home``): the BatchNorm meetings and the gradient's sum go across
+processes through the mesh's verbs, the logits of every rank are gathered
+for the one loss, and every process gets the same loss and the same
+update.
+
 As in the JAX package, ``DataParallel`` owns the train step:
 ``dp.train_step(batch, labels)`` runs forward, backward and the update and
 returns the loss; ``dp(x)`` is the forward with the running averages.
@@ -59,13 +66,13 @@ def as_tensor(x, device: torch.device) -> torch.Tensor:
 
 
 def split_rows(x, comm: MeshCommunication) -> List[torch.Tensor]:
-    """One block of rows per shard of ``comm``, each on its shard's device,
-    as ``ht.array(x, split=0)`` lays them out."""
+    """One block of rows per shard of ``comm`` that this process holds, each
+    on its shard's device, as ``ht.array(x, split=0)`` lays them out."""
     if isinstance(x, DNDarray) and x.split == 0 and x.comm.size == comm.size:
-        return [s.to(d) for s, d in zip(x.lshards, comm.devices)]
-    t = as_tensor(x, comm.devices[0])
-    counts, displs = comm.counts_displs_shape(t.shape, 0)
-    return [t.narrow(0, o, c).to(d) for c, o, d in zip(counts, displs, comm.devices)]
+        return [s.to(d) for s, d in zip(x.lshards, comm.local_devices)]
+    t = as_tensor(x, comm.home)
+    counts, displs = comm.local_counts_displs(t.shape, 0)
+    return [t.narrow(0, o, c).to(d) for c, o, d in zip(counts, displs, comm.local_devices)]
 
 
 def bind(module: torch.nn.Module, rng_seed: int, sample: torch.Tensor) -> bool:
@@ -158,12 +165,12 @@ class DataParallel:
         device and sees ``sample_input`` once (layers whose input width
         waits for data draw their weights from ``rng_seed``); every shard
         gets a replica of it and an optimizer."""
-        self._stateful = bind(self.module, rng_seed, as_tensor(sample_input, self.comm.devices[0]))
+        self._stateful = bind(self.module, rng_seed, as_tensor(sample_input, self.comm.home))
         self._replicate()
         return self
 
     def _replicate(self) -> None:
-        self.replicas = replicate(self.module, self.comm.devices)
+        self.replicas = replicate(self.module, self.comm.local_devices)
         self.optimizers = [self.optimizer(r.parameters()) for r in self.replicas]
         self._lockstep = _lockstep.Lockstep(self.comm) if self._stateful and self.comm.size > 1 else None
 
@@ -175,7 +182,7 @@ class DataParallel:
         data_parallel.py:140-174)."""
         if self.replicas is None:
             raise RuntimeError("DataParallel.init must be called before the forward pass")
-        return self._apply(self.module, as_tensor(x, self.comm.devices[0]), False)
+        return self._apply(self.module, as_tensor(x, self.comm.home), False)
 
     forward = __call__
 
@@ -184,6 +191,8 @@ class DataParallel:
         returns the loss."""
         if self.replicas is None:
             raise RuntimeError("DataParallel.init must be called before training")
+        if self.comm.spans_processes:
+            return self._train_step_spanning(x, y)
         xs, ys = split_rows(x, self.comm), split_rows(y, self.comm)
         active = [r for r, s in enumerate(xs) if s.shape[0] > 0]
         fns = [partial(self._apply, self.replicas[r], xs[r], True) for r in active]
@@ -200,6 +209,40 @@ class DataParallel:
         for opt in self.optimizers:
             opt.zero_grad()
         loss.backward()
+        return self._update(loss)
+
+    def _train_step_spanning(self, x, y) -> float:
+        """:meth:`train_step` over a mesh whose ranks span processes. Every
+        rank of this process runs its forward, a rank without rows on an
+        empty block (inside the BatchNorm meetings when the step has them,
+        else with the running averages): its logits are empty and its
+        meeting sums zero, what the one-process mesh puts in for a rank
+        without rows. The logits of every rank are gathered in rank order
+        into one leaf, the loss is taken on it as on one process, and its
+        gradient is handed back to this process's logits."""
+        comm = self.comm
+        xs = split_rows(x, comm)
+        rows = x.gshape[0] if isinstance(x, DNDarray) else int(np.shape(x)[0])
+        counts = comm.counts_displs_shape((rows,), 0)[0]
+        active = [r for r in range(comm.size) if counts[r]]
+        meet = self._stateful and len(active) > 1
+        fns = [partial(self._apply, replica, t, meet or r in active)
+               for r, replica, t in zip(comm.local_ranks, self.replicas, xs)]
+        outs = self._lockstep.run(list(comm.local_ranks), fns, rows=rows) if meet else [f() for f in fns]
+        logits = comm.allgather([o.detach() for o in outs], dim=0)[0].requires_grad_()
+        labels = as_tensor(y, comm.home)
+        loss = self.loss_fn(logits, labels)
+        for opt in self.optimizers:
+            opt.zero_grad()
+        loss.backward()
+        _, displs = comm.local_counts_displs((rows,), 0)
+        grads = [logits.grad.narrow(0, o, out.shape[0]).to(out.device) for o, out in zip(displs, outs)]
+        torch.autograd.backward(outs, grads)
+        return self._update(loss)
+
+    def _update(self, loss: torch.Tensor) -> float:
+        """The gradient summed over the mesh in rank order, every replica's
+        optimizer step, and the loss read once."""
         if self.comm.size > 1:
             summed = self.comm.allreduce([flat_grads(r) for r in self.replicas])
             for replica, flat in zip(self.replicas, summed):
@@ -271,7 +314,7 @@ class DataParallel:
         sd = copy.deepcopy(self.state_dict()) if self.replicas is not None else None
         self.comm = sanitize_comm(comm)
         if sd is not None:
-            self.module.to(self.comm.devices[0])
+            self.module.to(self.comm.home)
             self._replicate()
             self.load_state_dict(sd)
         return self

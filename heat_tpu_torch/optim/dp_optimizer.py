@@ -11,6 +11,11 @@ cadence) each replica steps alone, with no collective at all. Every
 ``global_skip + 1`` batches all replicas are merged with the reference's
 stale weighting, ``(global + waits·local)/(waits + 1)``, the global mean
 travelling in bfloat16 (reference dp_optimizer.py:21-43, 501-589).
+
+Over a mesh whose ranks span processes each process holds the replicas of
+its own ranks and averages over the groups it holds ranks of (a group is a
+sub-mesh, in one process or over several); the global merge and the
+step's loss go across the whole mesh.
 """
 
 from __future__ import annotations
@@ -214,7 +219,8 @@ class DASO:
         self._stateful = False
 
     def _group(self) -> None:
-        """The ``nodes`` groups of ``ici`` consecutive shards."""
+        """The ``nodes`` groups of ``ici`` consecutive shards (every process
+        makes every group's sub-mesh, in group order)."""
         self.ici_size = self.comm.size // self.nodes
         ici = self.ici_size
         self.groups = [self.comm.sub(range(g * ici, (g + 1) * ici)) for g in range(self.nodes)]
@@ -226,23 +232,28 @@ class DASO:
         """Attach the network (the reference receives a DataParallelMultiGPU
         wrapper, dp_optimizer.py:197-230); every shard gets a replica."""
         self.module = module
-        self._stateful = bind(module, rng_seed, as_tensor(sample_input, self.comm.devices[0]))
+        self._stateful = bind(module, rng_seed, as_tensor(sample_input, self.comm.home))
         self._replicate()
         return self
 
     def _replicate(self) -> None:
-        self.replicas = replicate(self.module, self.comm.devices)
+        self.replicas = replicate(self.module, self.comm.local_devices)
         self.optimizers = [self.local_optimizer(r.parameters()) for r in self.replicas]
 
     def _group_mean(self, flats: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each replica's vector averaged over its group: summed in shard
-        order and scaled by 1/ici, as XLA's ``pmean`` scales."""
+        """Each replica's vector (one per rank of this process) averaged over
+        its group: summed in shard order and scaled by 1/ici, as XLA's
+        ``pmean`` scales."""
         if self.ici_size == 1:
             return flats
         ici = self.ici_size
-        out = []
+        out = list(flats)
+        ranks = list(self.comm.local_ranks)
         for g, group in enumerate(self.groups):
-            out += [t * (1.0 / ici) for t in group.allreduce(flats[g * ici:(g + 1) * ici])]
+            held = [i for i, r in enumerate(ranks) if g * ici <= r < (g + 1) * ici]
+            if held:
+                for i, t in zip(held, group.allreduce([flats[i] for i in held])):
+                    out[i] = t * (1.0 / ici)
         return out
 
     # ------------------------------------------------------------------
@@ -255,8 +266,8 @@ class DASO:
         Returns the mean of the replicas' losses."""
         if self.replicas is None:
             raise RuntimeError("add_model must be called before step")
-        devices = self.comm.devices
-        x, y = as_tensor(x, devices[0]), as_tensor(y, devices[0])
+        devices = self.comm.local_devices
+        x, y = as_tensor(x, self.comm.home), as_tensor(y, self.comm.home)
         n_dev = self.comm.size
         rem = x.shape[0] % n_dev
         if rem:
@@ -280,7 +291,9 @@ class DASO:
             for r, flat in zip(self.replicas, means):
                 _copy_flat(r.parameters(), flat)
         losses = []
-        for replica, opt, xb, yb, d in zip(self.replicas, self.optimizers, x.chunk(n_dev), y.chunk(n_dev), devices):
+        ranks = self.comm.local_ranks
+        xbs, ybs = x.chunk(n_dev)[ranks.start:ranks.stop], y.chunk(n_dev)[ranks.start:ranks.stop]
+        for replica, opt, xb, yb, d in zip(self.replicas, self.optimizers, xbs, ybs, devices):
             xb, yb = xb.to(d), yb.to(d)
             out = replica(xb, train=True) if self._stateful else replica(xb)
             loss = self.loss_fn(out, yb)
@@ -297,6 +310,9 @@ class DASO:
                 _copy_flat(r.buffers(), flat)
 
         self.current_batch += 1
+        if self.comm.spans_processes:
+            # every rank's loss, in rank order
+            losses = self.comm.allgather([loss.reshape(1) for loss in losses])[0]
         value = sum(loss.item() for loss in losses) / n_dev
         gs = self._effective_global_skip()
         if gs == 0 or self.current_batch % (gs + 1) == 0:
@@ -370,7 +386,7 @@ class DASO:
 
     def forward(self, x) -> torch.Tensor:
         """Replica 0's forward, with its running averages."""
-        x = as_tensor(x, self.comm.devices[0])
+        x = as_tensor(x, self.comm.home)
         return self.module(x, train=False) if self._stateful else self.module(x)
 
     __call__ = forward
@@ -460,7 +476,7 @@ class DASO:
             self.nodes = _default_nodes(n_dev)
         self._group()
         if sd is not None:
-            self.module.to(self.comm.devices[0])
+            self.module.to(self.comm.home)
             self._replicate()
             self.load_elastic_state_dict(sd)
         return self

@@ -40,15 +40,34 @@ bytes, the inertia, the digests of the moments and of this process's labels
 by part with its milliseconds per iteration and those of its cross-process
 allreduce, and the seconds and bytes of the ingest and of the save.
 
+``--workload cdist``, ``qr`` and ``dp`` (BASELINE configs 2, 4 and 5, the
+main path over the process-spanning mesh; ``--workload kmeans,cdist,qr,dp``
+runs several in turn in one launch): config 2's table drawn from ``--seed``
+through ``ht.random`` (``--cdist-rows`` x ``--cdist-features`` float32,
+split 0) and its ``cdist`` and ``rbf`` by the symmetric ring
+(:func:`cdist_workload`); config 4's ``ht.linalg.qr`` of a seeded
+``--qr-rows`` x ``--qr-cols`` float32 table at condition 1 and, sheared,
+at condition ~1e5, where CholeskyQR2's probe falls back
+(:func:`qr_workload`); config 5's ResNet-50 at ``--dp-batch`` images
+through ``DataParallel`` steps, then DASO steps with one group per process
+(:func:`dp_workload`); and the exchange itself, an ``allreduce`` of 548
+bytes and a ``ppermute`` of one 50,000 x 64 float32 block
+(:func:`exchange_workload`). Each part is timed with its verbs counted
+(:class:`VerbClock`), and large results are compared by digest
+(:func:`block_digest`), with no gather.
+
 Results land as JSON at ``--out/result-epoch{E:04d}-rank{R:05d}.json``.
 """
 
 import argparse
+import hashlib
 import json
+import math
 import os
 import signal
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -111,17 +130,15 @@ def kmeans_moments(ht, x) -> dict:
 
 def digests(comm, arrays: dict) -> dict:
     """A comparable digest of each array without a gather: a replicated
-    array's bytes in hex, a split one's SHA-256 per logical block of this
-    process's ranks (the global rank as a string key)."""
-    import hashlib
-
+    array's bytes in hex, a split one's :func:`block_digest` per logical
+    block of this process's ranks (the global rank as a string key),
+    computed where the block lies."""
     out = {}
     for name, a in arrays.items():
         if a.split is None:
             out[name] = a.numpy().tobytes().hex()
             continue
-        out[name] = {str(r): hashlib.sha256(b.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
-                     for r, b in zip(comm.local_ranks, a.lshards)}
+        out[name] = {str(r): block_digest(b) for r, b in zip(comm.local_ranks, a.lshards)}
     return out
 
 
@@ -239,6 +256,218 @@ def run_kmeans(args, comm, doc) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the main path over the spanning mesh: configs 2, 4 and 5, and the exchange
+# ---------------------------------------------------------------------------
+CDIST_ROWS, CDIST_FEATURES, CDIST_SIGMA = 100_000, 64, 8.0
+QR_ROWS, QR_COLS, QR_COND = 2_500_000, 512, 1e5
+DP_BATCH, DP_STEPS, DASO_STEPS, DP_IMAGE, DP_CLASSES, DP_LR = 256, 3, 2, (32, 32, 3), 10, 0.05
+EXCHANGE_REDUCE_ELEMENTS = 137  # 548 bytes of float32: the Lloyd step's sums, counts and inertia at k 8, f 16
+EXCHANGE_BLOCK = (50_000, 64)  # one rank's rows of config 2 on two ranks
+MAIN_WORKLOADS = ("cdist", "qr", "dp", "exchange")
+
+
+def block_digest(t) -> str:
+    """A digest of a tensor's bits, computed where it lies: its 32-bit
+    words (bytes, for an odd byte count), each times an odd weight of its
+    position, summed in ``int64`` (exact, wrapping, in any order), with its
+    shape and type. Two tensors of one shape and type with equal bits give
+    equal digests on any device; a flipped bit changes it."""
+    t = t.detach().contiguous().reshape(-1)
+    words = t.view(torch.uint8)
+    if words.numel() % 4 == 0:
+        words = words.view(torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    chunk = 1 << 24
+    for at in range(0, words.numel(), chunk):
+        part = words[at:at + chunk].to(torch.int64)
+        weights = torch.arange(at, at + part.numel(), dtype=torch.int64, device=t.device) * 2 + 1
+        total += (part * weights).sum()
+    text = f"{tuple(t.shape)} {t.dtype} {int(total.item())}"
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+class VerbClock:
+    """The seconds of named parts on ``comm``'s device, each closed by a
+    synchronization, with the calls and milliseconds of every verb of the
+    mesh inside them (the verbs wrapped on the instance while a part runs,
+    the host clock around each call)."""
+
+    VERBS = ("allreduce", "allgather", "bcast", "ppermute", "alltoall", "scan", "exscan")
+
+    def __init__(self, comm):
+        self.comm = comm
+        self.device = comm.home
+        self.parts = {}
+
+    @contextmanager
+    def part(self, name: str):
+        verbs = {}
+        for verb in self.VERBS:
+            fn = getattr(self.comm, verb)
+
+            def timed(*args, _fn=fn, _verb=verb, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    entry = verbs.setdefault(_verb, {"calls": 0, "ms": 0.0})
+                    entry["calls"] += 1
+                    entry["ms"] += (time.perf_counter() - t0) * 1e3
+            setattr(self.comm, verb, timed)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync(self.device)
+            self.parts[name] = {"ms": (time.perf_counter() - t0) * 1e3, "verbs": verbs}
+            for verb in self.VERBS:
+                delattr(self.comm, verb)
+
+
+def cdist_workload(ht, comm, clock: VerbClock, rows: int = CDIST_ROWS, features: int = CDIST_FEATURES,
+                   sigma: float = CDIST_SIGMA, seed: int = LLOYD_SEED) -> dict:
+    """Config 2 on ``comm``: ``cdist`` and ``rbf`` of a seeded ``rows`` x
+    ``features`` float32 table split 0 (the symmetric ring, kernel B2 on
+    CUDA): each result's digests per rank and B2's launches per call, each
+    result freed before the next."""
+    from ..ops import pairwise
+
+    ht.random.seed(seed)
+    x = ht.random.randn(rows, features, split=0, comm=comm)
+    out = {"launches": {}, "digests": {}}
+    for name, fn in (("cdist", lambda: ht.spatial.cdist(x)), ("rbf", lambda: ht.spatial.rbf(x, sigma=sigma))):
+        before = pairwise.LAUNCHES
+        with clock.part(name):
+            d = fn()
+        out["launches"][name] = pairwise.LAUNCHES - before
+        out["digests"][name] = digests(comm, {name: d})[name]
+        del d
+    return out
+
+
+def qr_operands(ht, comm, rows: int, cols: int, seed: int):
+    """Config 4's operands: a seeded ``rows`` x ``cols`` float32 table split
+    0 (condition ~1), and the same with its first column times
+    :data:`QR_COND`/``cols`` added to every column (a shear whose condition
+    is ~:data:`QR_COND`, past CholeskyQR2's float32 limit; a column scaling
+    would not do: CholeskyQR is blind to it)."""
+    ht.random.seed(seed + 4)
+    a = ht.random.randn(rows, cols, split=0, comm=comm)
+    return {"cond1": lambda: a, "cond1e5": lambda: a + (QR_COND / cols) * a[:, :1]}
+
+
+def qr_workload(ht, comm, clock: VerbClock, rows: int = QR_ROWS, cols: int = QR_COLS,
+                seed: int = LLOYD_SEED, keep=None) -> dict:
+    """Config 4 on ``comm``: ``ht.linalg.qr`` at condition 1 and ~1e5, the
+    schedule each ran (CholeskyQR2, and TSQR where its probe falls back), R's
+    digest and Q's per rank. ``keep(name, a, q, r)``, when given, sees each
+    factorization before it is freed."""
+    import importlib
+
+    methods = importlib.import_module("heat_tpu_torch.core.linalg.qr")._METHODS
+    out = {}
+    for name, operand in qr_operands(ht, comm, rows, cols, seed).items():
+        a = operand()
+        before = dict(methods)
+        with clock.part(f"qr {name}"):
+            q, r = ht.linalg.qr(a)
+        out[name] = {"schedule": [k for k in methods if methods[k] != before.get(k, 0)],
+                     "r": block_digest(r.larray), "q": digests(comm, {"q": q})["q"]}
+        if keep is not None:
+            keep(name, a, q, r)
+        del a, q, r
+    return out
+
+
+def dp_data(comm, batch: int, seed: int, image=DP_IMAGE, classes: int = DP_CLASSES):
+    """Config 5's batch, drawn on ``comm.home`` from ``seed``: NHWC float32
+    images and integer labels."""
+    gen = torch.Generator(device=comm.home).manual_seed(seed + 5)
+    x = torch.randn((batch,) + tuple(image), generator=gen, device=comm.home)
+    y = torch.randint(0, classes, (batch,), generator=gen, device=comm.home)
+    return x, y
+
+
+def dp_workload(ht, comm, clock: VerbClock, nodes: int, batch: int = DP_BATCH, steps: int = DP_STEPS,
+                daso_steps: int = DASO_STEPS, seed: int = LLOYD_SEED, image=DP_IMAGE, filters: int = 64) -> dict:
+    """Config 5 on ``comm``: a seeded ResNet-50 (``filters`` in its stem)
+    takes ``steps`` DataParallel steps of SGD on one ``batch``, then a fresh
+    one ``daso_steps`` DASO steps with ``nodes`` groups: each step's loss
+    and the parameters' digest after each trainer."""
+    def net():
+        return ht.nn.ResNet50(num_classes=DP_CLASSES, num_filters=filters, device=comm.home,
+                              generator=torch.Generator(device=comm.home).manual_seed(seed))
+
+    def params(module):
+        return block_digest(torch.cat([p.detach().reshape(-1) for p in module.parameters()]))
+
+    x, y = dp_data(comm, batch, seed, image)
+    out = {"dp_losses": [], "daso_losses": []}
+    dp = ht.nn.DataParallel(net(), comm=comm, optimizer=ht.optim.SGD(DP_LR)).init(seed, x[:2])
+    for i in range(steps):
+        with clock.part(f"dp step {i}"):
+            out["dp_losses"].append(dp.train_step(x, y))
+    out["dp_params"] = params(dp.module)
+    del dp
+    daso = ht.optim.DASO(ht.optim.SGD(DP_LR), total_epochs=8, comm=comm, nodes=nodes)
+    daso.add_model(net(), seed, x[:2])
+    for i in range(daso_steps):
+        with clock.part(f"daso step {i}"):
+            out["daso_losses"].append(daso.step(x, y))
+    out["daso_params"] = params(daso.module)
+    return out
+
+
+def exchange_workload(comm, clock: VerbClock, reps: int = 20) -> dict:
+    """The exchange on ``comm``: ``reps`` timed calls (after three warm
+    ones) of an ``allreduce`` of :data:`EXCHANGE_REDUCE_ELEMENTS` float32 and
+    of a shift-1 ``ppermute`` of one :data:`EXCHANGE_BLOCK` float32 block per
+    rank, each call closed by a synchronization; the milliseconds of each."""
+    small = [torch.ones(EXCHANGE_REDUCE_ELEMENTS, device=d) for d in comm.local_devices]
+    block = [torch.ones(EXCHANGE_BLOCK, device=d) for d in comm.local_devices]
+    out = {}
+    for name, fn in (("allreduce_548B", lambda: comm.allreduce(small)),
+                     ("ppermute_block", lambda: comm.ppermute(block, shift=1))):
+        times = []
+        for i in range(reps + 3):
+            _sync(comm.home)
+            t0 = time.perf_counter()
+            fn()
+            _sync(comm.home)
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
+    return out
+
+
+def run_mainpath(args, comm, doc, workloads) -> int:
+    """The main-path workloads in the order given, on the spanning mesh."""
+    import heat_tpu_torch as ht
+
+    from ..core import multihost
+
+    clock = VerbClock(comm)
+    out = {}
+    for name in workloads:
+        if name == "cdist":
+            out[name] = cdist_workload(ht, comm, clock, args.cdist_rows, args.cdist_features, seed=args.seed)
+        elif name == "qr":
+            out[name] = qr_workload(ht, comm, clock, args.qr_rows, args.qr_cols, seed=args.seed)
+        elif name == "dp":
+            out[name] = dp_workload(ht, comm, clock, multihost.process_count(), args.dp_batch, seed=args.seed,
+                                    image=(args.dp_image, args.dp_image, 3), filters=args.dp_filters)
+        elif name == "exchange":
+            out[name] = exchange_workload(comm, clock)
+        if comm.home.type == "cuda":
+            torch.cuda.empty_cache()
+    doc.update(status="done", mainpath=out, parts=clock.parts, first_rank=comm.first_rank, ranks=comm.size,
+               local_shards=len(comm.local_devices), device=str(comm.home))
+    _write_result(args.out, doc)
+    return 0
+
+
 def _device(kind: str) -> str:
     return "gpu" if kind == "cuda" else "cpu"
 
@@ -329,7 +558,8 @@ def run_lstsq(args, comm, doc) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--workload", choices=("lstsq", "kmeans"), default="lstsq")
+    ap.add_argument("--workload", default="lstsq",
+                    help="lstsq, or a comma list of kmeans, cdist, qr, dp and exchange, run in turn")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                     help="the payload's backend (default: gloo on the CPU, nccl on CUDA)")
@@ -343,21 +573,34 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=LLOYD_SEED)
     ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory (lstsq, kmeans)")
     ap.add_argument("--table", default=None, help="the .npy table the kmeans workload reads")
+    ap.add_argument("--cdist-rows", type=int, default=CDIST_ROWS)
+    ap.add_argument("--cdist-features", type=int, default=CDIST_FEATURES)
+    ap.add_argument("--qr-rows", type=int, default=QR_ROWS)
+    ap.add_argument("--qr-cols", type=int, default=QR_COLS)
+    ap.add_argument("--dp-batch", type=int, default=DP_BATCH)
+    ap.add_argument("--dp-image", type=int, default=DP_IMAGE[0])
+    ap.add_argument("--dp-filters", type=int, default=64)
     ap.add_argument("--out", required=True, help="result directory")
     ap.add_argument("--die-rank", type=int, default=-1)
     ap.add_argument("--die-at-step", type=int, default=-1)
     ap.add_argument("--hang-rank", type=int, default=-1)
     ap.add_argument("--hang-at-step", type=int, default=-1)
     args = ap.parse_args(argv)
-    if args.workload in ("lstsq", "kmeans") and not args.ckpt_dir:
+    workloads = args.workload.split(",")
+    unknown = set(workloads) - {"kmeans", *MAIN_WORKLOADS} if workloads != ["lstsq"] else set()
+    if unknown:
+        ap.error(f"unknown workload(s) {sorted(unknown)}: lstsq alone, or kmeans, {', '.join(MAIN_WORKLOADS)}")
+    if ("lstsq" in workloads or "kmeans" in workloads) and not args.ckpt_dir:
         ap.error(f"--workload {args.workload} needs --ckpt-dir")
-    if args.workload == "kmeans" and not args.table:
+    if "kmeans" in workloads and not args.table:
         ap.error("--workload kmeans needs --table")
 
     from ..core import multihost
 
     if args.device == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        # config 5's steps are held bit for bit against another process's
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     kwargs = {"device": _device(args.device)}
     if args.backend is not None:
         kwargs["backend"] = args.backend
@@ -367,9 +610,12 @@ def main(argv=None) -> int:
         "workload": args.workload, "status": "reform", "resumed_from": None, "completed_steps": 0,
         "t_first_step": None, "rate_steps_per_s": None, "final_w": None,
     }
-    if args.workload == "kmeans":
-        return run_kmeans(args, comm, doc)
-    return run_lstsq(args, comm, doc)
+    if workloads == ["lstsq"]:
+        return run_lstsq(args, comm, doc)
+    if "kmeans" in workloads:
+        run_kmeans(args, comm, doc)
+    rest = [w for w in workloads if w != "kmeans"]
+    return run_mainpath(args, comm, doc, rest) if rest else 0
 
 
 if __name__ == "__main__":

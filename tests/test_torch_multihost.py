@@ -694,8 +694,8 @@ def test_trace_pid_is_the_process_index(monkeypatch):
 
 # ---------------------------------------------------------------------------
 # a mesh whose ranks span processes: the array, its factories and the ingest
-# run on each process's own ranks; the global device list, sub-meshes,
-# ring/Ulysses and parallel/ raise the named error (ROADMAP A11.5b(c))
+# run on each process's own ranks, and so do sub-meshes; the global device
+# list, ring/Ulysses and parallel/ raise the named error (ROADMAP A11.5b(c2))
 # ---------------------------------------------------------------------------
 def _spanning(process=0):
     return communication.ProcessMeshCommunication([torch.device("cpu")] * 2, (2, 2), process, None, None)
@@ -721,23 +721,31 @@ def _spanning_entries(comm, tmp_path):
     }
 
 
-@pytest.mark.parametrize("entry", ["devices", "sub", "ring", "ulysses", "make_mesh"])
+@pytest.mark.parametrize("entry", ["devices", "ring", "ulysses", "make_mesh"])
 def test_layers_above_the_verbs_raise_the_named_error(entry, tmp_path):
-    """The global device list, sub-meshes, ring/Ulysses and parallel/ still
-    raise, naming A11.5b(c)."""
+    """The global device list, ring/Ulysses and parallel/ still raise,
+    naming A11.5b(c2)."""
     _, calls = _spanning_entries(_spanning(1), tmp_path)
-    with pytest.raises(NotImplementedError, match=r"A11\.5b\(c\)"):
+    with pytest.raises(NotImplementedError, match=r"A11\.5b\(c2\)"):
         calls[entry]()
     assert isinstance(communication.CrossProcessMeshError("x"), NotImplementedError)
 
 
-@pytest.mark.parametrize("entry", ["DNDarray", "factory", "ingest", "default mesh"])
+@pytest.mark.parametrize("entry", ["DNDarray", "factory", "ingest", "default mesh", "sub"])
 def test_the_arrays_entries_run_on_a_spanning_mesh(entry, tmp_path):
     """A DNDarray, a factory, the ingest and the default mesh run on a
-    mocked second process of a 2 x 2 world and hold its ranks 2 and 3."""
+    mocked second process of a 2 x 2 world and hold its ranks 2 and 3;
+    ``sub`` of the first process's ranks runs there too, and is the mesh of
+    ranks this process does not hold."""
     comm = _spanning(1)
     want, calls = _spanning_entries(comm, tmp_path)
     x = calls[entry]()
+    if entry == "sub":
+        assert isinstance(x, communication.ForeignSubMesh) and x.size == 2 and list(x.local_ranks) == []
+        with pytest.raises(ValueError, match=r"holds none of ranks \[0, 1\]"):
+            x.allreduce([])
+        assert comm.sub([0, 1]) is x
+        return
     assert x.comm is comm and x.gshape == (8, 2) and x.split == 0 and x.lshape == (2, 2)
     assert [r for r, _ in x.ranked_shards()] == [2, 3] and len(x.shards) == 2
     assert np.array_equal(np.concatenate([b for _, b in x.ranked_shards()]), want[4:])

@@ -5,7 +5,13 @@ tests/test_multiproc.py, tests/test_multihost_runtime.py's barrier cases).
 * Every verb of ``ProcessMeshCommunication`` in a world of 2 processes x 2
   local ranks against the one-process mesh of 4, and of 3 x 1 against the
   one-process mesh of 3, bit for bit, over float32, float64 and int64: a
-  reduction or scan is the one-process fold in rank order.
+  reduction or scan is the one-process fold in rank order. ``ppermute``
+  with partners in another process and in the same one, and the verbs of
+  sub-meshes over one process and over two.
+* The exchange (A11.5b(d)): a reduction is one payload ``all_gather`` and
+  no object gather, a ``ppermute`` sends each block to its destination's
+  process only; a ``ppermute`` of two shapes raises ``ValueError``, and so
+  does a verb of a sub-mesh whose ranks live elsewhere.
 * Named barriers in those worlds: matching tags pass, mismatched tags
   raise naming every process's.
 * The lstsq trainer clean in 2 processes against numpy's float64 gradient
@@ -46,9 +52,10 @@ LLOYD_ROWS, LLOYD_ITERS = 2_003, 4
 DTYPES = {"float32": torch.float32, "float64": torch.float64, "int64": torch.int64}
 
 
-def verb_cases(comm, dtype, rank_of):
+def verb_cases(comm, dtype, rank_of, per):
     """The verb cases on ``comm``'s local shards, ``rank_of(i)`` the global
-    rank of local shard i: name -> this process's outputs."""
+    rank of local shard i, ``per`` the ranks of each process of the world
+    compared: name -> this process's outputs."""
     p = comm.size
     local = range(len(comm.local_devices))
 
@@ -62,6 +69,17 @@ def verb_cases(comm, dtype, rank_of):
     ragged = [draw(rank_of(i), (rank_of(i) + 1, 3), 3) for i in local]
     tiles = [draw(rank_of(i), (2 * p, 3), 4) for i in local]
     perm = [(0, p - 1), (p - 1, 1)]
+    # a partner in another process, and one in the same process
+    across = [(d, (d + per) % p) for d in range(p)]
+    within = [(d, d - d % per + (d + 1) % per) for d in range(p)]
+
+    def sub(ranks, verb):
+        mine = sorted((i for i in local if rank_of(i) in ranks), key=lambda i: ranks.index(rank_of(i)))
+        if not mine:
+            return []
+        return verb(comm.sub(ranks), [a[i] for i in mine])
+
+    one, two = list(range(per)), [per - 1, per]
     return {
         "allreduce": comm.allreduce(a),
         "allreduce_max": comm.allreduce(a, "max"),
@@ -72,25 +90,88 @@ def verb_cases(comm, dtype, rank_of):
         "scan_prod": comm.scan(b, "prod"),
         "allgather_ragged": comm.allgather(ragged, dim=0),
         "ppermute": comm.ppermute(a, shift=1),
-        "ppermute_ragged_perm": comm.ppermute(ragged, perm=perm),
+        "ppermute_ragged_perm": comm.ppermute(a, perm=perm),
+        "ppermute_across_processes": comm.ppermute(a, perm=across),
+        "ppermute_within_a_process": comm.ppermute(a, perm=within),
         "alltoall": comm.alltoall(tiles, split_axis=0, concat_axis=1),
+        "sub_one_process_allreduce": sub(one, lambda m, s: m.allreduce(s)),
+        "sub_two_processes_allreduce": sub(two, lambda m, s: m.allreduce(s)),
+        "sub_two_processes_allgather": sub(two, lambda m, s: m.allgather(s)),
+        "sub_two_processes_ppermute": sub(two, lambda m, s: m.ppermute(s, shift=1)),
+        "sub_two_processes_bcast": sub(two, lambda m, s: m.bcast(s, root=1)),
     }
 
 
 VERBS = ("allreduce", "allreduce_max", "allreduce_tuple", "bcast", "exscan", "scan", "scan_prod",
-         "allgather_ragged", "ppermute", "ppermute_ragged_perm", "alltoall")
+         "allgather_ragged", "ppermute", "ppermute_ragged_perm", "ppermute_across_processes",
+         "ppermute_within_a_process", "alltoall", "sub_one_process_allreduce", "sub_two_processes_allreduce",
+         "sub_two_processes_allgather", "sub_two_processes_ppermute", "sub_two_processes_bcast")
+
+
+def exchange_calls(comm) -> dict:
+    """The ``torch.distributed`` calls under one ``allreduce``, ``scan`` and
+    ``exscan`` each, and the sends of one shift-1 ``ppermute``, as
+    (destination process, elements), on this process's shards; then a
+    ``ppermute`` of shards of two shapes, a verb of a sub-mesh of the
+    first process's ranks, and a sub-mesh over processes of a sub-mesh
+    over processes: their errors, or None."""
+    import collections
+
+    import torch.distributed as dist
+
+    names = ("all_gather", "all_gather_object", "broadcast", "broadcast_object_list", "batch_isend_irecv")
+    saved = {n: getattr(dist, n) for n in names}
+    calls, sends = collections.Counter(), []
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            if name == "batch_isend_irecv":
+                sends.extend((op.peer, op.tensor.numel()) for op in args[0] if op.op is dist.isend)
+            return saved[name](*args, **kwargs)
+        return call
+
+    shards = [torch.full((4, 3), float(comm.first_rank + i)) for i in range(len(comm.local_devices))]
+    out = {}
+    for n in names:
+        setattr(dist, n, counting(n))
+    try:
+        for verb in ("allreduce", "scan", "exscan"):
+            calls.clear()
+            getattr(comm, verb)(shards)
+            out[verb] = dict(calls)
+        calls.clear()
+        comm.ppermute(shards, shift=1)
+        out["ppermute"], out["ppermute_sends"] = dict(calls), list(sends)
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+    ragged = [torch.zeros(i + 1, 3) for i in range(len(shards))]
+    per = len(shards)
+    for key, call in (("mismatch", lambda: comm.ppermute(ragged, shift=1)),
+                      ("foreign", lambda: comm.sub(list(range(per))).allreduce(shards)),
+                      ("nested", lambda: comm.sub([per - 1, per]).sub([0, 1]))):
+        try:
+            call()
+            out[key] = None
+        except (ValueError, NotImplementedError) as exc:
+            out[key] = f"{type(exc).__name__}: {exc}"
+    return out
+
 
 _VERB_WORKER = r"""
 import os, sys, torch
 sys.path.insert(0, os.path.join(os.environ["PYTHONPATH"], "tests"))
 import heat_tpu_torch as ht
 from heat_tpu_torch.core import multihost
-from test_torch_multiproc import DTYPES, verb_cases
+from test_torch_multiproc import DTYPES, exchange_calls, verb_cases
 ht.use_device("cpu")
 comm = multihost.initialize_distributed(device="cpu", heartbeat=False)
 me = multihost.process_index()
-out = {name: verb_cases(comm, dt, lambda i: comm.first_rank + i) for name, dt in DTYPES.items()}
+per = len(comm.local_devices)
+out = {name: verb_cases(comm, dt, lambda i: comm.first_rank + i, per) for name, dt in DTYPES.items()}
 out["first_rank"], out["size"], out["count"] = comm.first_rank, comm.size, multihost.process_count()
+out["exchange"] = exchange_calls(comm)
 multihost.sync_processes("both.same", timeout_ms=30_000)
 try:
     multihost.sync_processes(f"differs.{me}", timeout_ms=30_000)
@@ -170,11 +251,54 @@ def test_verb_across_processes_equals_one_process_bit_for_bit(verb_worlds, world
     assert [d["first_rank"] for d in procs] == [q * per for q in range(n)] and procs[0]["size"] == n * per
     got = _flat([v for d in procs for v in d[dtype][verb]])
     one = MeshCommunication([torch.device("cpu")] * (n * per))
-    want = _flat(verb_cases(one, DTYPES[dtype], lambda i: i)[verb])
+    want = _flat(verb_cases(one, DTYPES[dtype], lambda i: i, per)[verb])
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w), f"{world} {verb} {dtype}"
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_reductions_gather_once_without_a_pickled_header(verb_worlds, world):
+    """A11.5b(d): each ``allreduce``, ``scan`` and ``exscan`` across
+    processes is one payload ``all_gather`` and no object gather; a
+    ``ppermute`` posts its pairs in one ``batch_isend_irecv`` and sends each
+    block to the process of its destination rank only (none within a
+    process)."""
+    n, per = WORLDS[world]
+    p = n * per
+    for q, doc in enumerate(verb_worlds[world]):
+        ex = doc["exchange"]
+        for verb in ("allreduce", "scan", "exscan"):
+            assert ex[verb] == {"all_gather": 1}, (world, q, verb, ex[verb])
+        assert ex["ppermute"] == {"batch_isend_irecv": 1}
+        # shard d receives shard d + 1: of this process's ranks only the
+        # first sends, to the process before (the last process for rank 0)
+        dst = (q * per - 1) % p
+        assert ex["ppermute_sends"] == [(dst // per, 4 * 3)], (world, q, ex["ppermute_sends"])
+
+
+def test_ppermute_of_two_shapes_raises_value_error(verb_worlds):
+    """Every shard of one ``ppermute`` shares a shape and a type, as in
+    ``lax.ppermute``: a process whose shards differ raises ``ValueError``
+    before anything moves (2 x 2: two shards per process to compare)."""
+    for doc in verb_worlds["2x2"]:
+        assert "share a shape and a type" in doc["exchange"]["mismatch"]
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_sub_mesh_of_ranks_held_elsewhere_refuses_its_verbs(verb_worlds, world):
+    """Every process calls ``sub`` with process 0's ranks: process 0 gets
+    its in-process mesh, every other a mesh whose verbs raise. A sub-mesh
+    over processes makes no process group of its own (only the world's
+    mesh does, every process calling): it raises the named error, and the
+    mesh of ranks held elsewhere ``ValueError``."""
+    for q, doc in enumerate(verb_worlds[world]):
+        err = doc["exchange"]["foreign"]
+        assert (err is None) if q == 0 else ("holds none of ranks" in err), (world, q, err)
+        nested = doc["exchange"]["nested"]
+        held = q in (0, 1)  # the sub-mesh of ranks per - 1 and per
+        assert nested.startswith("CrossProcessMeshError" if held else "ValueError"), (world, q, nested)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The array over a mesh whose ranks span processes (ROADMAP A11.5b(a) and
-(b)): a DNDarray on a ``ProcessMeshCommunication`` of real gloo worlds on
-loopback holds the shards of each process's own ranks.
+"""The array and the main path over a mesh whose ranks span processes
+(ROADMAP A11.5b(a), (b) and (c1)): a DNDarray on a
+``ProcessMeshCommunication`` of real gloo worlds on loopback holds the
+shards of each process's own ranks.
 
 * One launch each of a 2 x 2 and a 3 x 1 world runs :func:`program`, a
   fixed sequence of factories, random draws, the four engines, the
@@ -16,6 +17,15 @@ loopback holds the shards of each process's own ranks.
   receipt of the process that holds it.
 * C19 across spanning meshes, and heat_tpu's mocked two-process seam
   (tests/test_multihost_seam.py:55-89) against the port.
+* The main path over the spanning mesh (A11.5b(c1)): ``cdist``, ``rbf``,
+  ``manhattan`` and the quadratic expansion over ragged split-0 operands
+  (C25), ``matmul`` over every split pair, ``qr`` by each schedule (the
+  probe's fallback included), the blocked triangular solve, ``solve``,
+  ``cholesky``, ``slogdet`` and ``det``, two ``DataParallel`` steps of a
+  small ResNet with BatchNorm (one with an empty rank) and two DASO steps
+  with a group per process: bit for bit against the one process, against
+  numpy, and the distance and linalg results against heat_tpu at the same
+  p.
 
 Workers run one torch thread each under the launcher's time bound.
 """
@@ -55,7 +65,7 @@ from torch_spanning_program import program
 ht.use_device("cpu")
 comm = multihost.initialize_distributed(device="cpu", heartbeat=False)
 unseeded = ht.random.rand(3, comm=comm).numpy()  # no seed set: process 0's
-out = program(comm, sys.argv[1])
+out = program(comm, sys.argv[1], multihost.process_count())
 out["unseeded"] = unseeded
 out["first_rank"], out["local"] = comm.first_rank, len(comm.local_devices)
 torch.save(out, os.path.join(sys.argv[1], f"res-{multihost.process_index()}.pt"))
@@ -89,7 +99,7 @@ def worlds():
             _inputs(one_dir)
             with fusion.disabled():
                 got[label] = {"one": program(communication.MeshCommunication([torch.device("cpu")] * (n * per)),
-                                             one_dir)}
+                                             one_dir, n)}
         got["kmeans"] = _kmeans_reference(launches["kmeans"].result())
         for label, (n, per) in WORLDS.items():
             result = launches[label].result()
@@ -213,6 +223,9 @@ def _case_names():
     for init in ("batchparallel", "random"):
         names += [f"kmeans_{init}_centers", f"kmeans_{init}_labels", f"kmeans_{init}_inertia"]
     names += [f"restored_{key}" for key in ("x", "xe", "y", "centers", "n")]
+    names += [f"matmul_{sa}_{sb}" for sa in (None, 0, 1) for sb in (None, 0, 1)]
+    names += [f"qr_{name}_{part}" for name in ("auto", "tsqr", "cholqr2", "fallback", "panel") for part in "qr"]
+    names += [f"{fit}_{what}_{i}" for fit in ("dp", "daso") for what in ("loss", "params", "buffers") for i in (0, 1)]
     names += re.findall(r'rec\("(\w+)"', src)
     return sorted(set(names))
 
@@ -280,9 +293,31 @@ def _pairwise(a, b, name: str):
     return np.sqrt(d2)
 
 
+def _linalg_expectation(name: str, t):
+    """numpy's value of a linalg case (float64), or None; a QR case is
+    held by its product and its orthogonality in the test."""
+    if name.startswith("matmul"):
+        return t["f7"].astype(np.float64) @ t["h56"].astype(np.float64)
+    if name == "qr_schedules":
+        return np.array(["cholqr2", "tsqr", "cholqr2", "tsqr", "panel"])
+    return {
+        "solve_triangular_lower": lambda: np.linalg.solve(t["tri"], t["rhs"]),
+        "solve_triangular_upper_vector": lambda: np.linalg.solve(t["tri"].T, t["rhs"][:, 0]),
+        "solve": lambda: np.linalg.solve(t["spd"], t["rhs"]),
+        "cholesky": lambda: np.linalg.cholesky(t["spd"]),
+        "cholesky_split1": lambda: np.linalg.cholesky(t["spd"]),
+        "slogdet_sign": lambda: np.linalg.slogdet(t["spd"])[0],
+        "slogdet_logabs": lambda: np.linalg.slogdet(t["spd"])[1],
+        "det_tri": lambda: np.linalg.det(t["tri"]),
+    }.get(name, lambda: None)()
+
+
 def _numpy_expectation(name: str):
     """numpy's value of a result of :func:`program`, or None."""
     t = tables()
+    linalg = _linalg_expectation(name, t)
+    if linalg is not None:
+        return linalg
     if name.startswith(("cdist", "rbf", "manhattan")):
         rows = {"7": t["f7"], "10": t["g10"]}
         parts = name.split("_")
@@ -334,6 +369,22 @@ def test_one_process_program_against_numpy(worlds, name):
             labels = np.asarray(got).reshape(-1, K)
             assert len(set(labels[0].tolist())) == K and (labels == labels[0]).all()
             continue
+        if name.startswith("qr_") and name != "qr_schedules":
+            # Q R = A and QᵀQ = I (float64 1e-10; the cond-1e5 float32
+            # operand 1e-4 on the product, 1e-3 on Q's orthogonality)
+            base = name[3:-2]
+            other = worlds[world]["one"][name[:-1] + ("r" if name.endswith("q") else "q")]["np"]
+            q, r = (got, other) if name.endswith("q") else (other, got)
+            a = {"auto": "tall", "tsqr": "tall", "cholqr2": "tall", "fallback": "ill", "panel": "wide"}[base]
+            tol = 1e-10 if q.dtype == np.float64 else 1e-4
+            np.testing.assert_allclose(q @ r, tables()[a], rtol=tol, atol=tol)
+            np.testing.assert_allclose(q.T @ q, np.eye(q.shape[1]), atol=10 * tol)
+            continue
+        if name.startswith(("dp_", "daso_")):
+            # the training steps are held bit for bit against the one
+            # process; here: finite, and the losses of a 3-class problem
+            assert np.isfinite(np.asarray(got, dtype=np.float64)).all()
+            continue
         if name.startswith("kmeans_") and name.endswith("_centers"):
             means = np.stack([tables()["blobs"][i::K].mean(0) for i in range(K)])
             order = np.argsort(np.asarray(got)[:, 0])
@@ -349,11 +400,67 @@ def test_one_process_program_against_numpy(worlds, name):
             # diagonal, whose square root is ~1e-3 (reference distance.py:40-60)
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-3)
             continue
-        if want.dtype.kind in "iub" or name.startswith(("arg", "array", "resplit", "load", "restored", "eye", "sort", "get", "set", "fill")):
+        if name.startswith(("matmul", "solve", "cholesky", "slogdet", "det")):
+            tol = 1e-10 if got.dtype == np.float64 else 2e-5
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+            continue
+        if want.dtype.kind in "iubU" or name.startswith(("arg", "array", "resplit", "load", "restored", "eye", "sort", "get", "set", "fill")):
             np.testing.assert_array_equal(got, want.astype(got.dtype) if want.dtype.kind == "f" else want)
         else:
             rtol = 1e-12 if got.dtype == want.dtype == np.float64 else 2e-5
             np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol)
+
+
+def _heat_tpu_case(name: str, comm):
+    """heat_tpu's value of a distance or linalg case on ``comm`` (a mesh of
+    the JAX package), as a numpy array."""
+    t = tables()
+
+    def arr(key, split, a=None):
+        return ref.array(t[key] if a is None else a, split=split, comm=comm)
+
+    cases = {
+        "cdist_7_10": lambda: ref.spatial.cdist(arr("f7", 0), arr("g10", 0)),
+        "cdist_10_self": lambda: ref.spatial.cdist(arr("g10", 0)),
+        "rbf_7_10": lambda: ref.spatial.rbf(arr("f7", 0), arr("g10", 0), sigma=1.5),
+        "manhattan_10_7": lambda: ref.spatial.manhattan(arr("g10", 0), arr("f7", 0)),
+        "cdist_quadratic_7_10": lambda: ref.spatial.cdist(arr("f7", 0), arr("g10", 0), quadratic_expansion=True),
+        "matmul_0_None": lambda: ref.matmul(arr("f7", 0), arr("h56", None)),
+        "matmul_1_0": lambda: ref.matmul(arr("f7", 1), arr("h56", 0)),
+        "matmul_None_1": lambda: ref.matmul(arr("f7", None), arr("h56", 1)),
+        "matmul_1_1": lambda: ref.matmul(arr("f7", 1), arr("h56", 1)),
+        "qr_tsqr_r": lambda: ref.linalg.qr(arr("tall", 0), method="tsqr")[1],
+        "qr_panel_r": lambda: ref.linalg.qr(arr("wide", 1))[1],
+        "solve_triangular_lower": lambda: ref.linalg.solve_triangular(arr("tri", 0), arr("rhs", 0), lower=True),
+        "cholesky": lambda: ref.linalg.cholesky(arr("spd", 0)),
+        "slogdet_logabs": lambda: ref.linalg.slogdet(arr("spd", 0))[1],
+    }
+    return np.asarray(cases[name]().numpy())
+
+
+@pytest.mark.parametrize("name", [
+    "cdist_7_10", "cdist_10_self", "rbf_7_10", "manhattan_10_7", "cdist_quadratic_7_10", "matmul_0_None",
+    "matmul_1_0", "matmul_None_1", "matmul_1_1", "qr_tsqr_r", "qr_panel_r", "solve_triangular_lower", "cholesky",
+    "slogdet_logabs"])
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_distances_and_linalg_against_heat_tpu(worlds, world, name):
+    """The spanning worlds' distance and linalg results (equal to the one
+    process's bit for bit) against heat_tpu on a mesh of the same p:
+    float32 to 2e-5 relative (the quadratic expansion 2e-3 absolute, its
+    cancellation), float64 to 1e-10; R up to the signs of its rows."""
+    import jax
+    from heat_tpu.core.communication import MeshCommunication as RefMesh
+
+    n, per = WORLDS[world]
+    comm = RefMesh(jax.devices()[: min(n * per, len(jax.devices()))])
+    got = worlds[world]["one"][name]["np"]
+    want = _heat_tpu_case(name, comm)
+    if name.startswith("qr_"):
+        got = got * np.sign(np.diagonal(got))[:, None]
+        want = want * np.sign(np.diagonal(want))[:, None]
+    tol = 1e-10 if got.dtype == np.float64 else 2e-5
+    atol = 2e-3 if "quadratic" in name else tol
+    np.testing.assert_allclose(got, want, rtol=tol, atol=atol)
 
 
 @pytest.mark.parametrize("world", sorted(WORLDS))

@@ -30,7 +30,94 @@ def tables():
         "blobs": blobs,
     }
     out["g10"] = rng.standard_normal((10, 5)).astype(np.float32)
+    # linalg: a (5, 6) factor, tall operands (one of cond 1e5), a wide one
+    # for the panel QR, an SPD matrix, a lower triangle and right-hand sides
+    out["h56"] = rng.standard_normal((5, 6)).astype(np.float32)
+    out["tall"] = rng.standard_normal((20, 3))
+    u = np.linalg.qr(rng.standard_normal((20, 3)))[0]
+    v = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    out["ill"] = ((u * np.logspace(0, -5, 3)) @ v.T).astype(np.float32)
+    out["wide"] = rng.standard_normal((12, 10))
+    m = rng.standard_normal((9, 9))
+    out["spd"] = m @ m.T + 9 * np.eye(9)
+    out["tri"] = np.tril(rng.standard_normal((9, 9))) + 4 * np.eye(9)
+    out["rhs"] = rng.standard_normal((9, 2))
+    # training: 12 NHWC images of 8 x 8 x 3 and three classes
+    out["images"] = rng.standard_normal((12, 8, 8, 3)).astype(np.float32)
+    out["labels"] = rng.integers(0, K, 12).astype(np.int64)
     return out
+
+
+def linalg(comm, t, rec) -> None:
+    """matmul over every split pair of ragged operands; qr by CholQR2, TSQR,
+    the probe's fallback on cond 1e5 and the split-1 panel QR (the
+    schedules each call ran recorded); the blocked triangular solve, solve,
+    cholesky, slogdet and det."""
+    import importlib
+
+    methods = importlib.import_module("heat_tpu_torch.core.linalg.qr")._METHODS
+    for sa in (None, 0, 1):
+        for sb in (None, 0, 1):
+            a = ht.array(t["f7"], split=sa, comm=comm)
+            rec(f"matmul_{sa}_{sb}", ht.matmul(a, ht.array(t["h56"], split=sb, comm=comm)))
+    schedules = []
+
+    def qr(name, a, **kwargs):
+        before = dict(methods)
+        q, r = ht.linalg.qr(a, **kwargs)
+        schedules.extend(k for k in methods if methods[k] != before.get(k, 0))
+        rec(f"qr_{name}_q", q)
+        rec(f"qr_{name}_r", r)
+
+    tall = ht.array(t["tall"], split=0, comm=comm)
+    qr("auto", tall)
+    qr("tsqr", tall, method="tsqr")
+    qr("cholqr2", tall, method="cholqr2")
+    qr("fallback", ht.array(t["ill"], split=0, comm=comm))
+    qr("panel", ht.array(t["wide"], split=1, comm=comm))
+    rec("qr_schedules", np.array(schedules))
+    tri = ht.array(t["tri"], split=0, comm=comm)
+    rhs = ht.array(t["rhs"], split=0, comm=comm)
+    rec("solve_triangular_lower", ht.linalg.solve_triangular(tri, rhs, lower=True))
+    rec("solve_triangular_upper_vector", ht.linalg.solve_triangular(
+        ht.array(t["tri"].T.copy(), split=1, comm=comm), ht.array(t["rhs"][:, 0].copy(), comm=comm)))
+    spd = ht.array(t["spd"], split=0, comm=comm)
+    rec("solve", ht.linalg.solve(spd, rhs))
+    rec("cholesky", ht.linalg.cholesky(spd))
+    rec("cholesky_split1", ht.linalg.cholesky(ht.array(t["spd"], split=1, comm=comm)))
+    sign, logabs = ht.linalg.slogdet(spd)
+    rec("slogdet_sign", sign)
+    rec("slogdet_logabs", logabs)
+    rec("det_tri", ht.linalg.det(tri))
+
+
+def training(comm, t, rec, nodes) -> None:
+    """Two DataParallel steps of a small ResNet with BatchNorm (7 rows, then
+    5: an empty rank on 4), the parameters and running averages after each;
+    two DASO steps of the same network with ``nodes`` groups."""
+    import torch
+
+    def net():
+        return ht.nn.ResNet((1, 1), num_classes=K, num_filters=4, generator=torch.Generator().manual_seed(SEED))
+
+    def flat(tensors):
+        return torch.cat([v.detach().reshape(-1) for v in tensors])
+
+    images, labels = t["images"], t["labels"]
+    dp = ht.nn.DataParallel(net(), comm=comm, optimizer=ht.optim.SGD(0.1)).init(SEED, images[:2])
+    for i, (lo, hi) in enumerate(((0, 7), (7, 12))):
+        rec(f"dp_loss_{i}", dp.train_step(images[lo:hi], labels[lo:hi]))
+        rec(f"dp_params_{i}", flat(dp.module.parameters()))
+        rec(f"dp_buffers_{i}", flat(dp.module.buffers()))
+    daso = ht.optim.DASO(ht.optim.SGD(0.1), total_epochs=8, comm=comm, nodes=nodes)
+    daso.add_model(net(), SEED, images[:2])
+    for i in range(2):
+        rec(f"daso_loss_{i}", daso.step(images, labels))
+        rec(f"daso_params_{i}", flat(daso.module.parameters()))
+        # the running averages are each group's: one block per rank
+        out = {"np": np.zeros(0), "split": 0, "lshape": (), "blocks": {
+            r: flat(replica.buffers()) for r, replica in zip(comm.local_ranks, daso.replicas)}}
+        rec(f"daso_buffers_{i}", out)
 
 
 def distances(comm, t, rec) -> None:
@@ -54,16 +141,18 @@ def distances(comm, t, rec) -> None:
 
 def _record(comm, x):
     """A result as the test compares it: the host array every process
-    reads, and this process's logical blocks by global rank."""
+    reads, and this process's logical blocks by global rank (a record of
+    that form passes as it is)."""
     if not isinstance(x, ht.DNDarray):
         return x
     blocks = {} if x.split is None else {r: b.clone() for r, b in zip(comm.local_ranks, x.lshards)}
     return {"np": x.numpy(), "split": x.split, "lshape": x.lshape, "blocks": blocks}
 
 
-def program(comm, workdir: str) -> dict:
+def program(comm, workdir: str, nodes: int) -> dict:
     """The fixed program, on ``comm``: every process of a world calls it
-    with the world's mesh; the test process with a one-process mesh."""
+    with the world's mesh; the test process with a one-process mesh.
+    ``nodes`` is the world's process count, DASO's group count."""
     t = tables()
     out = {}
 
@@ -145,6 +234,8 @@ def program(comm, workdir: str) -> dict:
         rec(f"kmeans_{init}_labels", km.labels_)
         rec(f"kmeans_{init}_inertia", km.inertia_)
     distances(comm, t, rec)
+    linalg(comm, t, rec)
+    training(comm, t, rec, nodes)
     # the checkpoint, saved and restored in the same world
     ckpt = os.path.join(workdir, "ckpt")
     tree = {"x": x, "xe": xe, "y": y, "centers": fits["batchparallel"].cluster_centers_, "n": 3}
