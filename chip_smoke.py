@@ -8394,7 +8394,7 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str,
     nbytes = rows * F * 4
     sizes = dict(MP_MAIN_SIZES, **(sizes or {}))
     main_args = [a for key, value in sizes.items() for a in (f"--{key.replace('_', '-')}", str(value))]
-    run = _mp_launch(multihost, 2, ["--workload", "kmeans," + ",".join(MP_MAIN_WORKLOADS), "--device", device,
+    run = _mp_launch(multihost, 2, ["--workload", "kmeans," + ",".join(trainer.MAIN_WORKLOADS), "--device", device,
                                     "--backend", "gloo", "--table", table, "--ckpt-dir", ckpt, "--iters",
                                     str(ITERS), "--clusters", str(K), "--seed", str(SEED), *main_args],
                      root, os.path.join(tmp, "spanning.log"),
@@ -8526,7 +8526,6 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str,
 #   runs, losses and the parameters' digests bit for bit;
 # * the exchange: an allreduce of 548 bytes and a ppermute of one
 #   50,000 x 64 float32 block between the processes (timed, not compared).
-MP_MAIN_WORKLOADS = ("cdist", "qr", "dp", "exchange")
 MP_MAIN_SIZES = {"cdist_rows": DIST_N, "cdist_features": DIST_F, "qr_rows": FC_QR_SHAPE[0],
                  "qr_cols": FC_QR_SHAPE[1], "dp_batch": TRAIN_BATCH, "dp_image": TRAIN_IMAGE[0], "dp_filters": 64}
 

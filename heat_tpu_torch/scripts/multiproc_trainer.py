@@ -62,7 +62,6 @@ Results land as JSON at ``--out/result-epoch{E:04d}-rank{R:05d}.json``.
 import argparse
 import hashlib
 import json
-import math
 import os
 import signal
 import sys
@@ -347,28 +346,24 @@ def cdist_workload(ht, comm, clock: VerbClock, rows: int = CDIST_ROWS, features:
     return out
 
 
-def qr_operands(ht, comm, rows: int, cols: int, seed: int):
-    """Config 4's operands: a seeded ``rows`` x ``cols`` float32 table split
-    0 (condition ~1), and the same with its first column times
-    :data:`QR_COND`/``cols`` added to every column (a shear whose condition
-    is ~:data:`QR_COND`, past CholeskyQR2's float32 limit; a column scaling
-    would not do: CholeskyQR is blind to it)."""
-    ht.random.seed(seed + 4)
-    a = ht.random.randn(rows, cols, split=0, comm=comm)
-    return {"cond1": lambda: a, "cond1e5": lambda: a + (QR_COND / cols) * a[:, :1]}
-
-
 def qr_workload(ht, comm, clock: VerbClock, rows: int = QR_ROWS, cols: int = QR_COLS,
                 seed: int = LLOYD_SEED, keep=None) -> dict:
-    """Config 4 on ``comm``: ``ht.linalg.qr`` at condition 1 and ~1e5, the
-    schedule each ran (CholeskyQR2, and TSQR where its probe falls back), R's
-    digest and Q's per rank. ``keep(name, a, q, r)``, when given, sees each
+    """Config 4 on ``comm``: ``ht.linalg.qr`` of a seeded ``rows`` x
+    ``cols`` float32 table split 0 at condition 1 and ~1e5, the schedule each
+    ran (CholeskyQR2, and TSQR where its probe falls back), R's digest and
+    Q's per rank. ``keep(name, a, q, r)``, when given, sees each
     factorization before it is freed."""
     import importlib
 
     methods = importlib.import_module("heat_tpu_torch.core.linalg.qr")._METHODS
+    ht.random.seed(seed + 4)
+    base = ht.random.randn(rows, cols, split=0, comm=comm)
+    # the first column times QR_COND / cols added to every column: a shear
+    # of condition ~QR_COND, past CholeskyQR2's float32 limit (a column
+    # scaling would not do: CholeskyQR is blind to it)
+    operands = {"cond1": lambda: base, "cond1e5": lambda: base + (QR_COND / cols) * base[:, :1]}
     out = {}
-    for name, operand in qr_operands(ht, comm, rows, cols, seed).items():
+    for name, operand in operands.items():
         a = operand()
         before = dict(methods)
         with clock.part(f"qr {name}"):
@@ -381,21 +376,13 @@ def qr_workload(ht, comm, clock: VerbClock, rows: int = QR_ROWS, cols: int = QR_
     return out
 
 
-def dp_data(comm, batch: int, seed: int, image=DP_IMAGE, classes: int = DP_CLASSES):
-    """Config 5's batch, drawn on ``comm.home`` from ``seed``: NHWC float32
-    images and integer labels."""
-    gen = torch.Generator(device=comm.home).manual_seed(seed + 5)
-    x = torch.randn((batch,) + tuple(image), generator=gen, device=comm.home)
-    y = torch.randint(0, classes, (batch,), generator=gen, device=comm.home)
-    return x, y
-
-
 def dp_workload(ht, comm, clock: VerbClock, nodes: int, batch: int = DP_BATCH, steps: int = DP_STEPS,
                 daso_steps: int = DASO_STEPS, seed: int = LLOYD_SEED, image=DP_IMAGE, filters: int = 64) -> dict:
     """Config 5 on ``comm``: a seeded ResNet-50 (``filters`` in its stem)
-    takes ``steps`` DataParallel steps of SGD on one ``batch``, then a fresh
-    one ``daso_steps`` DASO steps with ``nodes`` groups: each step's loss
-    and the parameters' digest after each trainer."""
+    takes ``steps`` DataParallel steps of SGD on one seeded ``batch`` of
+    NHWC ``image``s, then a fresh one ``daso_steps`` DASO steps with
+    ``nodes`` groups: each step's loss and the parameters' digest after
+    each trainer."""
     def net():
         return ht.nn.ResNet50(num_classes=DP_CLASSES, num_filters=filters, device=comm.home,
                               generator=torch.Generator(device=comm.home).manual_seed(seed))
@@ -403,7 +390,9 @@ def dp_workload(ht, comm, clock: VerbClock, nodes: int, batch: int = DP_BATCH, s
     def params(module):
         return block_digest(torch.cat([p.detach().reshape(-1) for p in module.parameters()]))
 
-    x, y = dp_data(comm, batch, seed, image)
+    gen = torch.Generator(device=comm.home).manual_seed(seed + 5)
+    x = torch.randn((batch,) + tuple(image), generator=gen, device=comm.home)
+    y = torch.randint(0, DP_CLASSES, (batch,), generator=gen, device=comm.home)
     out = {"dp_losses": [], "daso_losses": []}
     dp = ht.nn.DataParallel(net(), comm=comm, optimizer=ht.optim.SGD(DP_LR)).init(seed, x[:2])
     for i in range(steps):
