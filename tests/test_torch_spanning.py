@@ -78,12 +78,13 @@ def _inputs(workdir: str) -> None:
 
 @pytest.fixture(scope="module")
 def worlds():
-    """Both worlds launched at once, each in a thread of its own, while
-    this process runs the program on the one-process meshes."""
+    """The worlds and the kmeans workload launched two at a time (fewer
+    processes competing for the cores with the suite's other workers),
+    while this process runs the program on the one-process meshes."""
     from concurrent.futures import ThreadPoolExecutor
 
     got = {}
-    with tempfile.TemporaryDirectory(prefix="heat-torch-spanning-") as root, ThreadPoolExecutor(len(WORLDS) + 1) as pool:
+    with tempfile.TemporaryDirectory(prefix="heat-torch-spanning-") as root, ThreadPoolExecutor(2) as pool:
         launches = {"kmeans": pool.submit(_kmeans_workload, root)}
         for label, (n, per) in WORLDS.items():
             work = os.path.join(root, label)
@@ -93,13 +94,20 @@ def worlds():
                 multihost.spawn_local, n, [sys.executable, "-c", _WORKER, work], env=dict(ENV),
                 devices_per_process=per, max_reforms=0, timeout_s=TIMEOUT_S)
         ht.use_device("cpu")
-        for label, (n, per) in WORLDS.items():
-            one_dir = os.path.join(root, f"{label}-one")
-            os.makedirs(one_dir)
-            _inputs(one_dir)
-            with fusion.disabled():
-                got[label] = {"one": program(communication.MeshCommunication([torch.device("cpu")] * (n * per)),
-                                             one_dir, n)}
+        # one torch thread, as in the workers: torch splits a large CPU
+        # reduction (the training cases' convolutions) over its threads
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            for label, (n, per) in WORLDS.items():
+                one_dir = os.path.join(root, f"{label}-one")
+                os.makedirs(one_dir)
+                _inputs(one_dir)
+                with fusion.disabled():
+                    got[label] = {"one": program(
+                        communication.MeshCommunication([torch.device("cpu")] * (n * per)), one_dir, n)}
+        finally:
+            torch.set_num_threads(threads)
         got["kmeans"] = _kmeans_reference(launches["kmeans"].result())
         for label, (n, per) in WORLDS.items():
             result = launches[label].result()
