@@ -8370,8 +8370,9 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str,
     centers. Held bit for bit against this process's two-shard mesh of the
     card running the same calls on the eager engines; the workers'
     checkpoint restored here on two shards and on one. The same launch
-    then runs the main path (:func:`mp_mainpath_leg`, ``sizes`` its
-    shapes)."""
+    then runs the main path (:func:`mp_mainpath_leg`) at the shapes of
+    ``multiproc_trainer.MAIN_SIZES``, of which ``sizes`` overrides some (a
+    rehearsal on the CPU cuts them)."""
     import numpy as np
     import torch
 
@@ -8392,8 +8393,8 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str,
     np.save(table, data.cpu().numpy())
     del data
     nbytes = rows * F * 4
-    sizes = dict(MP_MAIN_SIZES, **(sizes or {}))
-    main_args = [a for key, value in sizes.items() for a in (f"--{key.replace('_', '-')}", str(value))]
+    main_args = [a for key, value in (sizes or {}).items() for a in (f"--{key.replace('_', '-')}", str(value))]
+    sizes = dict(trainer.MAIN_SIZES, **(sizes or {}))
     run = _mp_launch(multihost, 2, ["--workload", "kmeans," + ",".join(trainer.MAIN_WORKLOADS), "--device", device,
                                     "--backend", "gloo", "--table", table, "--ckpt-dir", ckpt, "--iters",
                                     str(ITERS), "--clusters", str(K), "--seed", str(SEED), *main_args],
@@ -8525,9 +8526,9 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str,
 #   and two DASO steps, one group per process; cuDNN deterministic in both
 #   runs, losses and the parameters' digests bit for bit;
 # * the exchange: an allreduce of 548 bytes and a ppermute of one
-#   50,000 x 64 float32 block between the processes (timed, not compared).
-MP_MAIN_SIZES = {"cdist_rows": DIST_N, "cdist_features": DIST_F, "qr_rows": FC_QR_SHAPE[0],
-                 "qr_cols": FC_QR_SHAPE[1], "dp_batch": TRAIN_BATCH, "dp_image": TRAIN_IMAGE[0], "dp_filters": 64}
+#   50,000 x 64 float32 block between the processes (timed, not compared;
+#   exchange_timing.time_exchange).
+# The shapes are multiproc_trainer.MAIN_SIZES.
 
 
 def mp_mainpath_leg(ht, docs, card, smi: str, sizes: dict) -> dict:
@@ -8617,9 +8618,9 @@ def mp_mainpath_leg(ht, docs, card, smi: str, sizes: dict) -> dict:
     return out
 
 
-def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N, sizes=None) -> dict:
+def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict:
     """Phase 22: the multi-process runtime on the card; returns its numbers
-    (``rows`` config 3's table, ``sizes`` the main path's shapes)."""
+    (``rows`` config 3's table)."""
     from heat_tpu_torch.core import multihost
 
     numbers = {"card": smi, "seconds": {}}
@@ -8641,7 +8642,7 @@ def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N, sizes=N
             numbers[f"lstsq_{backend}"] = mp_lstsq_phase(multihost, tmp, device, backend)
             numbers["seconds"][f"lstsq_{backend}"] = time.perf_counter() - lap
         lap = time.perf_counter()
-        numbers["spanning"] = mp_spanning_phase(ht, multihost, tmp, device, rows, smi, sizes)
+        numbers["spanning"] = mp_spanning_phase(ht, multihost, tmp, device, rows, smi)
         numbers["seconds"]["spanning"] = time.perf_counter() - lap
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

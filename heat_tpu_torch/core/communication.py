@@ -18,6 +18,7 @@ its collectives itself runs its verbs inside :func:`_declared`.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import os
 import threading
@@ -482,6 +483,8 @@ _HEADER_CODES = {dt: i for i, dt in enumerate(_HEADER_DTYPES)}
 #: count, then per leaf its type code, its rank and its dimensions
 _MAX_LEAVES, _MAX_NDIM = 8, 8
 _ENTRY = 3 + _MAX_LEAVES * (2 + _MAX_NDIM)
+#: the bytes of the signature's digest before a reduction's payload
+_DIGEST = 16
 
 
 def _leaves(value) -> tuple:
@@ -559,7 +562,9 @@ class ProcessMeshCommunication(MeshCommunication):
     order, folding with ``_allreduce``/``_prefixes``/``_exscan`` on this
     process's own device type, so a world of N processes gives, bit for bit,
     what the one-process mesh of the same p gives. Its values have one
-    shape by contract, so no header travels. ``allgather`` and ``alltoall``
+    shape by contract, so no header travels: a 16-byte digest of each
+    process's shapes and types leads its bytes, and a process whose digest
+    differs raises ``ValueError`` everywhere. ``allgather`` and ``alltoall``
     first gather a fixed-layout ``int64`` header of every process's shapes
     and types over the gloo ``control`` group; ``bcast`` broadcasts the
     root's header and then its bytes. ``ppermute`` moves each block from the
@@ -754,7 +759,10 @@ class ProcessMeshCommunication(MeshCommunication):
         """Every rank's value, in rank order, for the verbs whose values
         share one shape and type by contract (``allreduce``, ``scan``,
         ``exscan``): checked on this process's shards, then one
-        ``all_gather`` of the bytes and no header."""
+        ``all_gather`` of the bytes and no header. The bytes start with a
+        digest of this process's signature, which every process checks
+        against its own: a process whose values differ in shape or type
+        raises ``ValueError`` in every process."""
         signature = _signature(shards[0])
         for s in shards[1:]:
             if _signature(s) != signature:
@@ -762,11 +770,16 @@ class ProcessMeshCommunication(MeshCommunication):
                                  f"{_signature(s)}")
         transport = self._transport()
         size = sum(_nbytes(shape, dt) for shape, dt in signature[1])
-        bufs = [b for s in shards for b in _flat_bytes(s, transport)]
-        raws = self._payload(bufs, transport, size * max(self.counts))
+        digest = hashlib.blake2b(repr(signature).encode(), digest_size=_DIGEST).digest()
+        mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8).to(transport)
+        bufs = [mine] + [b for s in shards for b in _flat_bytes(s, transport)]
+        raws = self._payload(bufs, transport, _DIGEST + size * max(self.counts))
         values = []
-        for c, raw in zip(self.counts, raws):
-            at = 0
+        for q, (c, raw) in enumerate(zip(self.counts, raws)):
+            if not torch.equal(raw[:_DIGEST], mine):
+                raise ValueError(f"the values of one reduction share a shape and a type in every process: process "
+                                 f"{q}'s differ from this process's {signature}")
+            at = _DIGEST
             for _ in range(c):
                 value, at = _unflatten(raw, at, signature)
                 values.append(value)

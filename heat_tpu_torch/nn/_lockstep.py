@@ -11,13 +11,13 @@ forward reduces Σx and Σx² over the mesh and whose backward reduces Σdy and
 thread: in one process no collective waits inside autograd, so the shards
 may share one device. Over a mesh whose ranks span processes each process
 runs the threads of its own ranks, and each meeting's sums, forward and
-backward, go across processes through the mesh's ``allreduce``: every
-process meets at every BatchNorm, in the same order.
+backward, go across processes through the mesh's ``allreduce``, the
+forward's with each shard's count of values: every process meets at every
+BatchNorm, in the same order.
 """
 
 from __future__ import annotations
 
-import math
 import threading
 from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, List, Optional, Sequence
@@ -55,13 +55,11 @@ class Lockstep:
             r: ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"shard-{r}") for r in comm.local_ranks
         }
 
-    def run(self, active: Sequence[int], fns: Sequence[Callable[[], torch.Tensor]],
-            rows: Optional[int] = None) -> List[torch.Tensor]:
+    def run(self, active: Sequence[int], fns: Sequence[Callable[[], torch.Tensor]]) -> List[torch.Tensor]:
         """Call ``fns[i]``, the forward of shard ``active[i]`` (a rank of this
         process), on that shard's worker and return their results in order;
-        a failure in one breaks every meeting and is raised here. ``rows``
-        is the whole batch's row count, by default the active shards'."""
-        meeting = _Meeting(self.comm, active, rows)
+        a failure in one breaks every meeting and is raised here."""
+        meeting = _Meeting(self.comm, active)
         futures = [
             self._workers[r].submit(meeting.work, slot, fn) for slot, (r, fn) in enumerate(zip(active, fns))
         ]
@@ -75,13 +73,11 @@ class Lockstep:
 
 
 class _Meeting:
-    """One lockstep run: the active shards meet at every BatchNorm. ``rows``
-    is the whole batch's row count (None: the active shards hold all)."""
+    """One lockstep run: the active shards meet at every BatchNorm."""
 
-    def __init__(self, comm, active: Sequence[int], rows: Optional[int] = None):
+    def __init__(self, comm, active: Sequence[int]):
         self.comm = comm
         self.active = list(active)
-        self.rows = rows
         self._posted: List = [None] * len(self.active)
         self._normalized: List[torch.Tensor] = []
         self._barrier = threading.Barrier(len(self.active), action=self._meet)
@@ -138,13 +134,16 @@ class _CrossShardNorm(torch.autograd.Function):
     def forward(ctx, meeting: _Meeting, layers, *xs):
         ndim = xs[0].dim()
         dims = [d for d in range(ndim) if d != 1]
-        if meeting.rows is None:
-            n = sum(x.numel() // x.shape[1] for x in xs)
-        else:
-            n = meeting.rows * math.prod(xs[0].shape[2:])
-        sums = meeting.allreduce([(x.sum(dims), (x * x).sum(dims)) for x in xs])
+        counts = [x.numel() // x.shape[1] for x in xs]
+        values = [(x.sum(dims), (x * x).sum(dims)) for x in xs]
+        spanning = meeting.comm.spans_processes
+        if spanning:
+            # the other processes' shards are counted through the verb
+            values = [v + (torch.tensor(c, device=x.device),) for v, c, x in zip(values, counts, xs)]
+        sums = meeting.allreduce(values)
+        n = int(sums[0][2]) if spanning else sum(counts)
         xhats, invstds = [], []
-        for x, (s1, s2), layer in zip(xs, sums, layers):
+        for x, (s1, s2, *_), layer in zip(xs, sums, layers):
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
             invstd = torch.rsqrt(var + layer.eps)

@@ -228,7 +228,7 @@ class DataParallel:
         meet = self._stateful and len(active) > 1
         fns = [partial(self._apply, replica, t, meet or r in active)
                for r, replica, t in zip(comm.local_ranks, self.replicas, xs)]
-        outs = self._lockstep.run(list(comm.local_ranks), fns, rows=rows) if meet else [f() for f in fns]
+        outs = self._lockstep.run(list(comm.local_ranks), fns) if meet else [f() for f in fns]
         logits = comm.allgather([o.detach() for o in outs], dim=0)[0].requires_grad_()
         labels = as_tensor(y, comm.home)
         loss = self.loss_fn(logits, labels)

@@ -12,7 +12,9 @@ one command can time two trees in turns on one card::
     python heat_tpu_torch/scripts/exchange_timing.py --root . --out DIR/new
 
 Each worker writes ``DIR/.../exchange-<process>.json``; the launcher prints
-one JSON line with both processes' medians.
+one JSON line with both processes' medians. :func:`time_exchange` is also
+the ``exchange`` workload of ``multiproc_trainer``, which the chip script's
+phase 22 runs.
 """
 
 import argparse
@@ -27,27 +29,14 @@ BLOCK = (50_000, 64)  # one rank's rows of config 2 on two ranks
 ROWS, FEATURES, CLUSTERS, ITERS, SEED = 10_000_000, 16, 8, 30, 20261016
 
 
-def _timed(fn, sync, reps: int):
-    times = []
-    for i in range(reps + 3):
-        sync()
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        if i >= 3:
-            times.append((time.perf_counter() - t0) * 1e3)
-    return times
-
-
-def worker(args) -> None:
+def time_exchange(comm, reps: int) -> dict:
+    """The exchange on ``comm``: ``reps`` timed calls (after three warm
+    ones) of an ``allreduce`` of :data:`REDUCE_ELEMENTS` float32 and of a
+    shift-1 ``ppermute`` of one :data:`BLOCK` float32 block per rank, each
+    call closed by a synchronization of this process's first device; the
+    milliseconds of each call."""
     import torch
 
-    import heat_tpu_torch as ht
-    from heat_tpu_torch.core import multihost
-    from heat_tpu_torch.scripts import multiproc_trainer as trainer
-
-    kind = "gpu" if args.device == "cuda" else "cpu"
-    comm = multihost.initialize_distributed(device=kind, backend="gloo", heartbeat=False)
     home = comm.local_devices[0]
 
     def sync():
@@ -56,10 +45,31 @@ def worker(args) -> None:
 
     small = [torch.ones(REDUCE_ELEMENTS, device=d) for d in comm.local_devices]
     block = [torch.ones(BLOCK, device=d) for d in comm.local_devices]
-    doc = {"process": multihost.process_index(), "package": os.path.dirname(os.path.abspath(ht.__file__)),
-           "allreduce_548B_ms": _timed(lambda: comm.allreduce(small), sync, args.reps),
-           "ppermute_block_ms": _timed(lambda: comm.ppermute(block, shift=1), sync, args.reps)}
-    data = trainer.lloyd_table(args.rows, FEATURES, CLUSTERS, SEED, home)
+    out = {}
+    for name, fn in (("allreduce_548B", lambda: comm.allreduce(small)),
+                     ("ppermute_block", lambda: comm.ppermute(block, shift=1))):
+        times = []
+        for i in range(reps + 3):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
+    return out
+
+
+def worker(args) -> None:
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import multihost
+    from heat_tpu_torch.scripts import multiproc_trainer as trainer
+
+    kind = "gpu" if args.device == "cuda" else "cpu"
+    comm = multihost.initialize_distributed(device=kind, backend="gloo", heartbeat=False)
+    doc = {"process": multihost.process_index(), "package": os.path.dirname(os.path.abspath(ht.__file__))}
+    doc.update(time_exchange(comm, args.reps))
+    data = trainer.lloyd_table(args.rows, FEATURES, CLUSTERS, SEED, comm.local_devices[0])
     x = ht.array(data, split=0, comm=comm)
     del data
     _, timing = trainer.timed_fit(ht, x, CLUSTERS, ITERS, SEED)
@@ -100,8 +110,8 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, f"exchange-{q}.json")) as fh:
             docs.append(json.load(fh))
     print(json.dumps({"ok": True, "package": docs[0]["package"], "per_process": [{
-        "allreduce_548B_ms_median": statistics.median(d["allreduce_548B_ms"]),
-        "ppermute_block_ms_median": statistics.median(d["ppermute_block_ms"]),
+        "allreduce_548B_ms_median": statistics.median(d["allreduce_548B"]),
+        "ppermute_block_ms_median": statistics.median(d["ppermute_block"]),
         "fit_ms_per_iter": d["ms_per_iter"], "fit_allreduce_ms_per_iter": d["allreduce_ms_per_iter"],
         "fit_s": d["fit_s"]} for d in docs]}))
     return 0

@@ -52,7 +52,7 @@ at condition ~1e5, where CholeskyQR2's probe falls back
 through ``DataParallel`` steps, then DASO steps with one group per process
 (:func:`dp_workload`); and the exchange itself, an ``allreduce`` of 548
 bytes and a ``ppermute`` of one 50,000 x 64 float32 block
-(:func:`exchange_workload`). Each part is timed with its verbs counted
+(:func:`.exchange_timing.time_exchange`). Each part is timed with its verbs counted
 (:class:`VerbClock`), and large results are compared by digest
 (:func:`block_digest`), with no gather.
 
@@ -261,9 +261,12 @@ def run_kmeans(args, comm, doc) -> int:
 CDIST_ROWS, CDIST_FEATURES, CDIST_SIGMA = 100_000, 64, 8.0
 QR_ROWS, QR_COLS, QR_COND = 2_500_000, 512, 1e5
 DP_BATCH, DP_STEPS, DASO_STEPS, DP_IMAGE, DP_CLASSES, DP_LR = 256, 3, 2, (32, 32, 3), 10, 0.05
-EXCHANGE_REDUCE_ELEMENTS = 137  # 548 bytes of float32: the Lloyd step's sums, counts and inertia at k 8, f 16
-EXCHANGE_BLOCK = (50_000, 64)  # one rank's rows of config 2 on two ranks
+DP_FILTERS = 64  # ResNet-50's stem
+EXCHANGE_REPS = 20
 MAIN_WORKLOADS = ("cdist", "qr", "dp", "exchange")
+#: the main path's shapes, by the name of their command-line option
+MAIN_SIZES = {"cdist_rows": CDIST_ROWS, "cdist_features": CDIST_FEATURES, "qr_rows": QR_ROWS, "qr_cols": QR_COLS,
+              "dp_batch": DP_BATCH, "dp_image": DP_IMAGE[0], "dp_filters": DP_FILTERS}
 
 
 def block_digest(t) -> str:
@@ -377,7 +380,7 @@ def qr_workload(ht, comm, clock: VerbClock, rows: int = QR_ROWS, cols: int = QR_
 
 
 def dp_workload(ht, comm, clock: VerbClock, nodes: int, batch: int = DP_BATCH, steps: int = DP_STEPS,
-                daso_steps: int = DASO_STEPS, seed: int = LLOYD_SEED, image=DP_IMAGE, filters: int = 64) -> dict:
+                daso_steps: int = DASO_STEPS, seed: int = LLOYD_SEED, image=DP_IMAGE, filters: int = DP_FILTERS) -> dict:
     """Config 5 on ``comm``: a seeded ResNet-50 (``filters`` in its stem)
     takes ``steps`` DataParallel steps of SGD on one seeded ``batch`` of
     NHWC ``image``s, then a fresh one ``daso_steps`` DASO steps with
@@ -409,33 +412,12 @@ def dp_workload(ht, comm, clock: VerbClock, nodes: int, batch: int = DP_BATCH, s
     return out
 
 
-def exchange_workload(comm, clock: VerbClock, reps: int = 20) -> dict:
-    """The exchange on ``comm``: ``reps`` timed calls (after three warm
-    ones) of an ``allreduce`` of :data:`EXCHANGE_REDUCE_ELEMENTS` float32 and
-    of a shift-1 ``ppermute`` of one :data:`EXCHANGE_BLOCK` float32 block per
-    rank, each call closed by a synchronization; the milliseconds of each."""
-    small = [torch.ones(EXCHANGE_REDUCE_ELEMENTS, device=d) for d in comm.local_devices]
-    block = [torch.ones(EXCHANGE_BLOCK, device=d) for d in comm.local_devices]
-    out = {}
-    for name, fn in (("allreduce_548B", lambda: comm.allreduce(small)),
-                     ("ppermute_block", lambda: comm.ppermute(block, shift=1))):
-        times = []
-        for i in range(reps + 3):
-            _sync(comm.home)
-            t0 = time.perf_counter()
-            fn()
-            _sync(comm.home)
-            if i >= 3:
-                times.append((time.perf_counter() - t0) * 1e3)
-        out[name] = times
-    return out
-
-
 def run_mainpath(args, comm, doc, workloads) -> int:
     """The main-path workloads in the order given, on the spanning mesh."""
     import heat_tpu_torch as ht
 
     from ..core import multihost
+    from . import exchange_timing
 
     clock = VerbClock(comm)
     out = {}
@@ -448,7 +430,7 @@ def run_mainpath(args, comm, doc, workloads) -> int:
             out[name] = dp_workload(ht, comm, clock, multihost.process_count(), args.dp_batch, seed=args.seed,
                                     image=(args.dp_image, args.dp_image, 3), filters=args.dp_filters)
         elif name == "exchange":
-            out[name] = exchange_workload(comm, clock)
+            out[name] = exchange_timing.time_exchange(comm, EXCHANGE_REPS)
         if comm.home.type == "cuda":
             torch.cuda.empty_cache()
     doc.update(status="done", mainpath=out, parts=clock.parts, first_rank=comm.first_rank, ranks=comm.size,
@@ -562,13 +544,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=LLOYD_SEED)
     ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory (lstsq, kmeans)")
     ap.add_argument("--table", default=None, help="the .npy table the kmeans workload reads")
-    ap.add_argument("--cdist-rows", type=int, default=CDIST_ROWS)
-    ap.add_argument("--cdist-features", type=int, default=CDIST_FEATURES)
-    ap.add_argument("--qr-rows", type=int, default=QR_ROWS)
-    ap.add_argument("--qr-cols", type=int, default=QR_COLS)
-    ap.add_argument("--dp-batch", type=int, default=DP_BATCH)
-    ap.add_argument("--dp-image", type=int, default=DP_IMAGE[0])
-    ap.add_argument("--dp-filters", type=int, default=64)
+    for key, value in MAIN_SIZES.items():
+        ap.add_argument(f"--{key.replace('_', '-')}", type=int, default=value)
     ap.add_argument("--out", required=True, help="result directory")
     ap.add_argument("--die-rank", type=int, default=-1)
     ap.add_argument("--die-at-step", type=int, default=-1)

@@ -90,7 +90,7 @@ def verb_cases(comm, dtype, rank_of, per):
         "scan_prod": comm.scan(b, "prod"),
         "allgather_ragged": comm.allgather(ragged, dim=0),
         "ppermute": comm.ppermute(a, shift=1),
-        "ppermute_ragged_perm": comm.ppermute(a, perm=perm),
+        "ppermute_partial_perm": comm.ppermute(a, perm=perm),
         "ppermute_across_processes": comm.ppermute(a, perm=across),
         "ppermute_within_a_process": comm.ppermute(a, perm=within),
         "alltoall": comm.alltoall(tiles, split_axis=0, concat_axis=1),
@@ -103,7 +103,7 @@ def verb_cases(comm, dtype, rank_of, per):
 
 
 VERBS = ("allreduce", "allreduce_max", "allreduce_tuple", "bcast", "exscan", "scan", "scan_prod",
-         "allgather_ragged", "ppermute", "ppermute_ragged_perm", "ppermute_across_processes",
+         "allgather_ragged", "ppermute", "ppermute_partial_perm", "ppermute_across_processes",
          "ppermute_within_a_process", "alltoall", "sub_one_process_allreduce", "sub_two_processes_allreduce",
          "sub_two_processes_allgather", "sub_two_processes_ppermute", "sub_two_processes_bcast")
 
@@ -112,9 +112,10 @@ def exchange_calls(comm) -> dict:
     """The ``torch.distributed`` calls under one ``allreduce``, ``scan`` and
     ``exscan`` each, and the sends of one shift-1 ``ppermute``, as
     (destination process, elements), on this process's shards; then a
-    ``ppermute`` of shards of two shapes, a verb of a sub-mesh of the
-    first process's ranks, and a sub-mesh over processes of a sub-mesh
-    over processes: their errors, or None."""
+    ``ppermute`` of shards of two shapes, an ``allreduce`` whose values
+    differ in shape and type between processes (not in bytes), a verb of a
+    sub-mesh of the first process's ranks, and a sub-mesh over processes of
+    a sub-mesh over processes: their errors, or None."""
     import collections
 
     import torch.distributed as dist
@@ -148,7 +149,12 @@ def exchange_calls(comm) -> dict:
             setattr(dist, n, fn)
     ragged = [torch.zeros(i + 1, 3) for i in range(len(shards))]
     per = len(shards)
+    # the same 48 bytes per shard in every process, of two shapes and two
+    # types across processes
+    shape, dtype = ((4, 3), torch.float32) if comm.process == 0 else ((3, 4), torch.int32)
+    differing = [torch.zeros(shape, dtype=dtype) for _ in shards]
     for key, call in (("mismatch", lambda: comm.ppermute(ragged, shift=1)),
+                      ("reduce_mismatch", lambda: comm.allreduce(differing)),
                       ("foreign", lambda: comm.sub(list(range(per))).allreduce(shards)),
                       ("nested", lambda: comm.sub([per - 1, per]).sub([0, 1]))):
         try:
@@ -284,6 +290,32 @@ def test_ppermute_of_two_shapes_raises_value_error(verb_worlds):
     before anything moves (2 x 2: two shards per process to compare)."""
     for doc in verb_worlds["2x2"]:
         assert "share a shape and a type" in doc["exchange"]["mismatch"]
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_reduction_of_values_that_differ_between_processes_raises(verb_worlds, world):
+    """The equal-shape contract of ``allreduce`` across processes: values
+    of one byte count but of another shape and type in one process raise
+    ``ValueError`` in every process (3 x 1: one shard per process, nothing
+    to compare within a process)."""
+    for q, doc in enumerate(verb_worlds[world]):
+        err = doc["exchange"]["reduce_mismatch"]
+        assert err is not None and err.startswith("ValueError") and "in every process" in err, (world, q, err)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_in_process_ppermute_moves_ragged_shards(dtype):
+    """The in-process mesh's ``ppermute`` moves shards of different row
+    counts (its halo exchange and its callers' ragged blocks); the mesh
+    over processes takes one shape only, as ``lax.ppermute``
+    (test_ppermute_of_two_shapes_raises_value_error)."""
+    one = MeshCommunication([torch.device("cpu")] * 4)
+    gen = torch.Generator().manual_seed(7)
+    ragged = [(torch.randn(r + 1, 3, generator=gen) * 10).to(DTYPES[dtype]) for r in range(4)]
+    got = one.ppermute(ragged, perm=[(0, 3), (3, 1)])
+    assert torch.equal(got[3], ragged[0]) and torch.equal(got[1], ragged[3])
+    for d in (0, 2):
+        assert got[d].shape == ragged[d].shape and got[d].dtype == ragged[d].dtype and not got[d].any()
 
 
 @pytest.mark.parametrize("world", sorted(WORLDS))

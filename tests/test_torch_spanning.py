@@ -233,7 +233,8 @@ def _case_names():
     names += [f"restored_{key}" for key in ("x", "xe", "y", "centers", "n")]
     names += [f"matmul_{sa}_{sb}" for sa in (None, 0, 1) for sb in (None, 0, 1)]
     names += [f"qr_{name}_{part}" for name in ("auto", "tsqr", "cholqr2", "fallback", "panel") for part in "qr"]
-    names += [f"{fit}_{what}_{i}" for fit in ("dp", "daso") for what in ("loss", "params", "buffers") for i in (0, 1)]
+    names += [f"{fit}_{what}_{i}" for fit in ("dp", "dp_tokens", "daso") for what in ("loss", "params", "buffers")
+              for i in (0, 1)]
     names += re.findall(r'rec\("(\w+)"', src)
     return sorted(set(names))
 

@@ -10,6 +10,7 @@ import os
 import numpy as np
 
 import heat_tpu_torch as ht
+from heat_tpu_torch.nn._init import BatchNorm
 from heat_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 SEED, K = 11, 3
@@ -93,8 +94,9 @@ def linalg(comm, t, rec) -> None:
 
 def training(comm, t, rec, nodes) -> None:
     """Two DataParallel steps of a small ResNet with BatchNorm (7 rows, then
-    5: an empty rank on 4), the parameters and running averages after each;
-    two DASO steps of the same network with ``nodes`` groups."""
+    5: an empty rank on 4), the parameters and running averages after each,
+    and the same of a network whose BatchNorm sees 64 rows per image; two
+    DASO steps of the ResNet with ``nodes`` groups."""
     import torch
 
     def net():
@@ -103,12 +105,29 @@ def training(comm, t, rec, nodes) -> None:
     def flat(tensors):
         return torch.cat([v.detach().reshape(-1) for v in tensors])
 
+    class Tokens(torch.nn.Module):
+        """A BatchNorm over tokens: each image's pixels flattened into rows
+        of its channels before the norm, so the norm's rows are not the
+        batch's."""
+
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(SEED)
+            self.proj = torch.nn.Parameter(torch.randn(3, 4, generator=gen))
+            self.norm = BatchNorm(4, device=comm.home)
+            self.head = torch.nn.Parameter(torch.randn(4, K, generator=gen))
+
+        def forward(self, x, train=False):
+            tokens = self.norm(x.reshape(-1, 3) @ self.proj, train=train)
+            return tokens.reshape(x.shape[:3] + (4,)).mean((1, 2)) @ self.head
+
     images, labels = t["images"], t["labels"]
-    dp = ht.nn.DataParallel(net(), comm=comm, optimizer=ht.optim.SGD(0.1)).init(SEED, images[:2])
-    for i, (lo, hi) in enumerate(((0, 7), (7, 12))):
-        rec(f"dp_loss_{i}", dp.train_step(images[lo:hi], labels[lo:hi]))
-        rec(f"dp_params_{i}", flat(dp.module.parameters()))
-        rec(f"dp_buffers_{i}", flat(dp.module.buffers()))
+    for label, model in (("dp", net), ("dp_tokens", Tokens)):
+        dp = ht.nn.DataParallel(model(), comm=comm, optimizer=ht.optim.SGD(0.1)).init(SEED, images[:2])
+        for i, (lo, hi) in enumerate(((0, 7), (7, 12))):
+            rec(f"{label}_loss_{i}", dp.train_step(images[lo:hi], labels[lo:hi]))
+            rec(f"{label}_params_{i}", flat(dp.module.parameters()))
+            rec(f"{label}_buffers_{i}", flat(dp.module.buffers()))
     daso = ht.optim.DASO(ht.optim.SGD(0.1), total_epochs=8, comm=comm, nodes=nodes)
     daso.add_model(net(), SEED, images[:2])
     for i in range(2):
