@@ -2,7 +2,8 @@
 heat_tpu/graph/laplacian.py).
 
 The Laplacian is built shard by shard: a row shard of a ``split=0``
-similarity holds its diagonal at its global row offset, and the normalized
+similarity holds its diagonal at its global row offset (this process's
+ranks' offsets, over a mesh whose ranks span processes), and the normalized
 form's column scaling takes every row's degree, gathered with one
 ``allgather``. Each shard's Laplacian is written into one copy of its
 similarity block.
@@ -81,7 +82,9 @@ class Laplacian:
         diagonal (``norm_sym``, reference laplacian.py:73-99)."""
         S = self.similarity_metric(X)
         if S.split == 0:
-            counts, offsets = S.counts_displs()
+            # this process's ranks only: a mesh whose ranks span processes
+            # holds their shards, not every rank's
+            counts, offsets = S.comm.local_counts_displs(S.gshape, 0)
             shards = S.shards
         else:
             counts, offsets, shards = S.gshape[:1], (0,), S.shards[:1]
@@ -98,5 +101,5 @@ class Laplacian:
                 # (−a·dᵢ)·dⱼ: the reference's −a·dᵢ·dⱼ, the negation exact
                 a.mul_(-row[:, None]).mul_(col[None, :]).diagonal(o).fill_(1.0)
         if S.split != 0:
-            out = [out[0].to(d) for d in S.comm.devices]
+            out = [out[0].to(d) for d in S.comm.local_devices]
         return DNDarray(out, S.gshape, S.dtype, S.split, S.device, S.comm)

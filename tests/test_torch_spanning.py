@@ -235,6 +235,7 @@ def _case_names():
     names += [f"qr_{name}_{part}" for name in ("auto", "tsqr", "cholqr2", "fallback", "panel") for part in "qr"]
     names += [f"{fit}_{what}_{i}" for fit in ("dp", "dp_tokens", "daso") for what in ("loss", "params", "buffers")
               for i in (0, 1)]
+    names += [f"laplacian_{definition}_{rows}" for definition in ("simple", "norm_sym") for rows in (7, 10)]
     names += re.findall(r'rec\("(\w+)"', src)
     return sorted(set(names))
 
@@ -321,9 +322,26 @@ def _linalg_expectation(name: str, t):
     }.get(name, lambda: None)()
 
 
+def _laplacian(a, definition: str):
+    """numpy's fully connected rbf Laplacian (sigma 1.5) of the rows of a,
+    in float64."""
+    a = a.astype(np.float64)
+    diff = a[:, None, :] - a[None, :, :]
+    adj = np.exp(-(diff * diff).sum(-1) / (2.0 * 1.5 * 1.5))
+    np.fill_diagonal(adj, 0.0)
+    deg = adj.sum(1)
+    if definition == "simple":
+        return np.diag(deg) - adj
+    scale = 1.0 / np.sqrt(deg)
+    return np.eye(len(a)) - scale[:, None] * adj * scale[None, :]
+
+
 def _numpy_expectation(name: str):
     """numpy's value of a result of :func:`program`, or None."""
     t = tables()
+    if name.startswith("laplacian_"):
+        definition, rows = name[len("laplacian_"):].rsplit("_", 1)
+        return _laplacian(t["f7"] if rows == "7" else t["g10"], definition)
     linalg = _linalg_expectation(name, t)
     if linalg is not None:
         return linalg

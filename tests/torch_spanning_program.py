@@ -158,6 +158,17 @@ def distances(comm, t, rec) -> None:
     rec("cdist_7_replicated", ht.spatial.cdist(a, ht.array(t["g10"], comm=comm)))
 
 
+def laplacians(comm, t, rec) -> None:
+    """The fully connected rbf Laplacian of split-0 tables of 7 and 10 rows
+    (C27), in both definitions."""
+    for rows, key in ((7, "f7"), (10, "g10")):
+        x = ht.array(t[key], split=0, comm=comm)
+        for definition in ("simple", "norm_sym"):
+            lap = ht.graph.Laplacian(lambda z: ht.spatial.rbf(z, sigma=1.5), definition=definition,
+                                     mode="fully_connected")
+            rec(f"laplacian_{definition}_{rows}", lap.construct(x))
+
+
 def _record(comm, x):
     """A result as the test compares it: the host array every process
     reads, and this process's logical blocks by global rank (a record of
@@ -253,6 +264,7 @@ def program(comm, workdir: str, nodes: int) -> dict:
         rec(f"kmeans_{init}_labels", km.labels_)
         rec(f"kmeans_{init}_inertia", km.inertia_)
     distances(comm, t, rec)
+    laplacians(comm, t, rec)
     linalg(comm, t, rec)
     training(comm, t, rec, nodes)
     # the checkpoint, saved and restored in the same world
