@@ -8273,11 +8273,12 @@ def mp_nccl_probe_phase(multihost, tmp: str) -> dict:
             "timed_out": result["generations"][0]["timed_out"]}
 
 
-def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str) -> dict:
+def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str, beside=None) -> dict:
     """(b) the lstsq trainer on two processes over ``backend``: clean
     against one process and numpy, rank 1 killed at step 3 (one reform),
     rank 1 hung at step 3 (detected and reaped). The kill run goes alone,
-    the other three side by side."""
+    the other three side by side, with ``beside`` (a callable: another
+    launch) in a thread of its own beside them."""
     import threading
 
     import numpy as np
@@ -8304,6 +8305,8 @@ def mp_lstsq_phase(multihost, tmp: str, device: str, backend: str) -> dict:
     # the hang run (whose hung rank only sleeps) side by side
     launch("kill")
     threads = [threading.Thread(target=launch, args=(label,)) for label in ("clean1", "clean2", "hang")]
+    if beside is not None:
+        threads.append(threading.Thread(target=beside))
     for t in threads:
         t.start()
     for t in threads:
@@ -8394,8 +8397,9 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str,
     del data
     nbytes = rows * F * 4
     main_args = [a for key, value in (sizes or {}).items() for a in (f"--{key.replace('_', '-')}", str(value))]
-    sizes = dict(trainer.MAIN_SIZES, **(sizes or {}))
-    run = _mp_launch(multihost, 2, ["--workload", "kmeans," + ",".join(trainer.MAIN_WORKLOADS), "--device", device,
+    sizes = {**trainer.MAIN_SIZES, **trainer.LAYER_SIZES, **(sizes or {})}
+    workloads = ",".join(("kmeans",) + trainer.MAIN_WORKLOADS + trainer.LAYER_WORKLOADS)
+    run = _mp_launch(multihost, 2, ["--workload", workloads, "--device", device,
                                     "--backend", "gloo", "--table", table, "--ckpt-dir", ckpt, "--iters",
                                     str(ITERS), "--clusters", str(K), "--seed", str(SEED), *main_args],
                      root, os.path.join(tmp, "spanning.log"),
@@ -8505,6 +8509,7 @@ def mp_spanning_phase(ht, multihost, tmp: str, device: str, rows: int, smi: str,
     if card.type == "cuda":
         torch.cuda.empty_cache()
     out["mainpath"] = mp_mainpath_leg(ht, docs, card, smi, sizes)
+    out["layers"] = mp_layers_leg(ht, docs, card, smi, sizes)
     return out
 
 
@@ -8572,8 +8577,9 @@ def mp_mainpath_leg(ht, docs, card, smi: str, sizes: dict) -> dict:
            "launches_two_shards": want["cdist"]["launches"], "qr_errors": errs,
            "qr_schedules": {k: v["schedule"] for k, v in want["qr"].items()},
            "dp_losses": want["dp"]["dp_losses"], "daso_losses": want["dp"]["daso_losses"],
-           "parts_ms": [{k: v["ms"] for k, v in d["parts"].items()} for d in docs],
-           "parts_verbs": [{k: v["verbs"] for k, v in d["parts"].items()} for d in docs],
+           "parts_ms": [{k: v["ms"] for k, v in d["parts"].items() if not k.startswith(_LAYER_PARTS)} for d in docs],
+           "parts_verbs": [{k: v["verbs"] for k, v in d["parts"].items() if not k.startswith(_LAYER_PARTS)}
+                           for d in docs],
            "two_shard_parts_ms": {k: v["ms"] for k, v in clock.parts.items()},
            "exchange_ms": [{k: float(np.median(v)) for k, v in m["exchange"].items()} for m in mains],
            "exchange_ms_all": [m["exchange"] for m in mains]}
@@ -8618,6 +8624,117 @@ def mp_mainpath_leg(ht, docs, card, smi: str, sizes: dict) -> dict:
     return out
 
 
+# the layers over the spanning mesh (phase 22, A11.5b(c2a)), in the two
+# workers of the spanning leg's launch after the main path, each held bit
+# for bit against the same workloads on this process's two-shard mesh of
+# the card (multiproc_trainer.LAYER_SIZES):
+# * lm: the README's TransformerLM at full width and depth, batch 1, a
+#   forward at MID_SEQ tokens through ring_attention and one through
+#   ulysses_attention (SP_BLOCK), the logits by digest; one Adam step at
+#   4,096 tokens through the ring, its gradients across the processes
+#   (torch's deterministic algorithms on in both runs: the embedding's
+#   backward); the loss and the parameters' digest. The verbs per forward
+#   against the schedule: the ring 2(p - 1) ppermutes per layer, Ulysses 4
+#   alltoalls per layer, each with one allgather per layer across the
+#   processes that joins the output (none on the two-shard mesh);
+# * parallel: the Megatron pair (TP_SHAPE) on a 'tp' line across the two
+#   processes over TP_ROWS tokens, forward and one SGD step (the loss, each
+#   rank's blocks and the forward after it); a pipeline of two README
+#   TransformerBlocks on PP_BATCH x PP_SEQ activations; two experts;
+# * estimators: convolve of CONV_N float32 with CONV_TAPS taps in "same"
+#   and "full"; Lasso at LASSO_PROTOCOL; Spectral.fit of 10,000 x 16 blobs
+#   (cut from SPECTRAL_N, 40,000: Lanczos holds the whole Laplacian in
+#   each process), B1 counted per process (its similarity is the quadratic
+#   expansion, a matrix product: B2 is not on Spectral's path); ping_mesh.
+
+
+def mp_layers_leg(ht, docs, card, smi: str, sizes: dict) -> dict:
+    """The spanning leg's layer workloads (``lm``, ``parallel``,
+    ``estimators``), read from the workers' documents ``docs`` and held
+    against this process's two-shard mesh of ``card`` running them."""
+    import torch
+
+    from heat_tpu_torch.core import communication
+    from heat_tpu_torch.scripts import multiproc_trainer as trainer
+
+    t0 = time.perf_counter()
+    two = communication.MeshCommunication([card, card])
+    clock = trainer.VerbClock(two)
+    mains = [d["mainpath"] for d in docs]
+    layer_sizes = {key: sizes[key] for key in trainer.LAYER_SIZES}
+    want = {}
+    with ht.core.fusion.disabled():
+        for name, fn in (("lm", trainer.lm_workload), ("parallel", trainer.parallel_workload),
+                         ("estimators", trainer.estimators_workload)):
+            want[name] = fn(ht, two, clock, layer_sizes, seed=SEED)
+            if card.type == "cuda":
+                torch.cuda.empty_cache()
+    depth, p = sizes["lm_depth"], 2
+    schedule = {"ring": {"ppermute": 2 * (p - 1) * depth, "allgather": depth},
+                "ulysses": {"alltoall": 4 * depth, "allgather": depth}}
+    for q, (d, m) in enumerate(zip(docs, mains)):
+        for name in ("lm", "parallel", "estimators"):
+            for key, digest in m[name]["digests"].items():
+                ref = want[name]["digests"][key]
+                if (digest != ref) if isinstance(digest, str) else any(ref[r] != v for r, v in digest.items()):
+                    raise AssertionError(f"process {q}'s {name} {key} differs from the two-shard mesh's")
+        if m["lm"]["loss"] != want["lm"]["loss"] or m["parallel"]["tp_loss"] != want["parallel"]["tp_loss"]:
+            raise AssertionError(f"process {q}'s losses differ: lm {m['lm']['loss']} against {want['lm']['loss']}, "
+                                 f"tp {m['parallel']['tp_loss']} against {want['parallel']['tp_loss']}")
+        if any(want["parallel"]["tp_params"][r] != v for r, v in m["parallel"]["tp_params"].items()):
+            raise AssertionError(f"process {q}'s tensor-parallel blocks after the step differ from the two-shard mesh's")
+        for sched, counts in schedule.items():
+            verbs = {k: v["calls"] for k, v in d["parts"][f"lm {sched} forward"]["verbs"].items()}
+            if verbs != counts:
+                raise AssertionError(f"process {q}'s {sched} forward ran {verbs}, its schedule {counts}")
+        ping = m["estimators"]["ping"]
+        if not ping["ok"] or ping["devices"] != 2 or ping["platform"] != card.type:
+            raise AssertionError(f"process {q}'s ping_mesh: {ping}")
+    for sched, counts in schedule.items():
+        verbs = {k: v["calls"] for k, v in clock.parts[f"lm {sched} forward"]["verbs"].items()}
+        if verbs != {k: v for k, v in counts.items() if k != "allgather"}:
+            raise AssertionError(f"the two-shard {sched} forward ran {verbs}")
+    ranks = sorted(r for m in mains for r in m["parallel"]["tp_params"])
+    if ranks != ["0", "1"]:
+        raise AssertionError(f"the processes' tensor-parallel ranks: {ranks}")
+    launches = [m["estimators"]["launches"]["spectral"] for m in mains]
+    iterations = [m["estimators"]["spectral_iterations"] for m in mains]
+    if card.type == "cuda" and (any(n["lloyd"] != i or n["pairwise"] for n, i in zip(launches, iterations))
+                                or want["estimators"]["launches"]["spectral"]["lloyd"]
+                                != 2 * want["estimators"]["spectral_iterations"]):
+        raise AssertionError(f"Spectral's launches across processes {launches} over {iterations} iterations, on the "
+                             f"two-shard mesh {want['estimators']['launches']['spectral']}")
+    if not (math.isfinite(want["lm"]["loss"]) and math.isfinite(want["parallel"]["tp_loss"])):
+        raise AssertionError(f"losses: lm {want['lm']['loss']}, tp {want['parallel']['tp_loss']}")
+    parts = [{k: round(v["ms"], 1) for k, v in d["parts"].items() if k.startswith(_LAYER_PARTS)} for d in docs]
+    out = {"lm_loss": want["lm"]["loss"], "tp_loss": want["parallel"]["tp_loss"],
+           "spectral_launches": launches, "spectral_iterations": iterations,
+           "spectral_launches_two_shards": want["estimators"]["launches"]["spectral"],
+           "parts_ms": parts, "two_shard_parts_ms": {k: round(v["ms"], 1) for k, v in clock.parts.items()},
+           "verbs": [{k: {verb: v["calls"] for verb, v in d["parts"][k]["verbs"].items()} for k in d["parts"]
+                      if k.startswith(_LAYER_PARTS)} for d in docs],
+           "workload_s": [{name: m[name]["seconds"] for name in trainer.LAYER_WORKLOADS} for m in mains],
+           "ping": [m["estimators"]["ping"] for m in mains]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  layers across 2 processes (A11.5b(c2a)): the README LM (depth {depth}) forward at "
+          f"{sizes['lm_seq']} tokens through ring and Ulysses, logits bit for bit, verbs per forward {schedule} as "
+          f"their schedules; one Adam step at {sizes['lm_step_seq']} tokens through the ring, gradients across the "
+          f"processes, loss {out['lm_loss']} and parameters bit for bit; parallel/: the Megatron pair "
+          f"{sizes['tp_dim']} x {sizes['tp_hidden']} on a 'tp' line across the processes, forward and one step "
+          f"(loss {out['tp_loss']}), a 2-stage pipeline and 2 experts bit for bit; estimators: convolve of "
+          f"{sizes['conv_n']} in same and full, Lasso {sizes['lasso_n']} x {sizes['lasso_f']}, Spectral "
+          f"{sizes['spectral_n']} x 16 (B1 {[n['lloyd'] for n in launches]} per process over {iterations} iterations, "
+          f"B2 {[n['pairwise'] for n in launches]}: its similarity is the quadratic expansion), ping_mesh ok, all bit "
+          f"for bit ({smi})", flush=True)
+    print(f"  layers ms per part, per process: {parts}; on the two-shard mesh: {out['two_shard_parts_ms']}; "
+          f"workloads' seconds per process {out['workload_s']}; the leg's own {out['seconds']:.1f} s ({smi})",
+          flush=True)
+    return out
+
+
+_LAYER_PARTS = ("lm ", "tp ", "pipeline", "experts", "convolve", "lasso", "spectral")
+
+
 def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict:
     """Phase 22: the multi-process runtime on the card; returns its numbers
     (``rows`` config 3's table)."""
@@ -8630,17 +8747,31 @@ def multiprocess_path(ht, smi: str, device: str = "cuda", rows: int = N) -> dict
         lap = time.perf_counter()
         numbers["one_rank"] = mp_one_rank_phase(ht, device)
         numbers["seconds"]["one_rank"] = time.perf_counter() - lap
-        backends = ["gloo"]
-        if device == "cuda":
+        # the NCCL probe's launch beside the gloo lstsq runs that go side
+        # by side; its answer decides whether the lstsq runs again over NCCL
+        probe = {}
+
+        def nccl_probe():
             lap = time.perf_counter()
-            numbers["nccl_two_ranks"] = mp_nccl_probe_phase(multihost, tmp)
-            numbers["seconds"]["nccl_probe"] = time.perf_counter() - lap
-            if numbers["nccl_two_ranks"]["accepted"]:
-                backends.append("nccl")
-        for backend in backends:
-            lap = time.perf_counter()
-            numbers[f"lstsq_{backend}"] = mp_lstsq_phase(multihost, tmp, device, backend)
-            numbers["seconds"][f"lstsq_{backend}"] = time.perf_counter() - lap
+            try:
+                probe["answer"] = mp_nccl_probe_phase(multihost, tmp)
+            except Exception as exc:  # noqa: BLE001 - raised below, after the lstsq runs
+                probe["error"] = exc
+            probe["seconds"] = time.perf_counter() - lap
+
+        lap = time.perf_counter()
+        numbers["lstsq_gloo"] = mp_lstsq_phase(multihost, tmp, device, "gloo",
+                                               beside=nccl_probe if device == "cuda" else None)
+        numbers["seconds"]["lstsq_gloo"] = time.perf_counter() - lap
+        if "error" in probe:
+            raise probe["error"]
+        if probe:
+            numbers["nccl_two_ranks"] = probe["answer"]
+            numbers["seconds"]["nccl_probe_beside_lstsq"] = probe["seconds"]
+            if probe["answer"]["accepted"]:
+                lap = time.perf_counter()
+                numbers["lstsq_nccl"] = mp_lstsq_phase(multihost, tmp, device, "nccl")
+                numbers["seconds"]["lstsq_nccl"] = time.perf_counter() - lap
         lap = time.perf_counter()
         numbers["spanning"] = mp_spanning_phase(ht, multihost, tmp, device, rows, smi)
         numbers["seconds"]["spanning"] = time.perf_counter() - lap
@@ -9234,6 +9365,9 @@ def _phases(ht, _build, kind: str, smi: str) -> int:
     kernels[0]["launches_scraped_fit"] = ops_trace["ops"]["scraped"]["legs"]["scraped"]["fit_launches"]
     kernels[0]["launches_spanning_fit"] = multiprocess["spanning"]["launches"]
     kernels[2]["launches_spanning_cdist"] = multiprocess["spanning"]["mainpath"]["launches"]
+    spectral = multiprocess["spanning"]["layers"]["spectral_launches"]
+    kernels[0]["launches_spanning_spectral"] = [n["lloyd"] for n in spectral]
+    kernels[2]["launches_spanning_spectral"] = [n["pairwise"] for n in spectral]
     kernels[0]["launches_autoscale_fit"] = elastic["autoscale"]["fit"]["shedding"]["launches"]
     kernels[1]["launches_elastic_fit"] = elastic["lm"]["launches"]
     kernels[1]["launches_elastic_step_forward"] = elastic["lm"]["forward_launches"]

@@ -443,19 +443,17 @@ def _combine(op: Union[str, Callable]) -> Callable:
 
 
 class CrossProcessMeshError(NotImplementedError):
-    """A global device list, a ring/Ulysses schedule, a ``parallel`` layout
-    or another layer not ported yet was asked for over a mesh whose ranks
-    live in several processes. The verbs, sub-meshes, the DNDarray and its
-    engines, factories, I/O, checkpoints, ``cdist``, ``linalg`` and
-    ``DataParallel``/DASO run there; the other layers are ROADMAP A11.5b(c2)."""
+    """A global device list, or a re-formation of the mesh inside one
+    process (``reform``, the elastic supervisor, the autoscaler), was asked
+    for over a mesh whose ranks live in several processes. Every other
+    layer runs there; these are ROADMAP A11.5b(c2b)."""
 
 
 def _spanning(what: str) -> CrossProcessMeshError:
     return CrossProcessMeshError(
-        f"{what} over a mesh whose ranks span processes is not ported yet (ROADMAP A11.5b(c2)): "
-        "the verbs, sub-meshes, the DNDarray engines, factories, I/O, checkpoints, cdist, linalg and "
-        "DataParallel/DASO run across processes; a global device list, ring/Ulysses attention, parallel/, "
-        "signal, Lasso, the Laplacian, health, elastic and autoscale do not"
+        f"{what} over a mesh whose ranks span processes is not ported yet (ROADMAP A11.5b(c2b)): "
+        "the verbs, sub-meshes, the array and every layer above it run across processes; a global device "
+        "list, reform, elastic and autoscale do not"
     )
 
 
@@ -578,9 +576,13 @@ class ProcessMeshCommunication(MeshCommunication):
     whole tensor is built on ``home``, the same value in every process (the
     multi-controller rule). ``devices`` is the global device list, which a
     process cannot hold once the ranks span processes: it raises
-    :class:`CrossProcessMeshError` then, and so does every layer that
-    reaches for it (ROADMAP A11.5b(c2)). In a world of one process it is the
-    local list, and the mesh is the in-process mesh whose verbs go through
+    :class:`CrossProcessMeshError` then (ROADMAP A11.5b(c2b)). The layers
+    above the verbs use ``local_devices`` and ``home``; the verbs move
+    bytes, which autograd cannot see through, so a layer differentiates
+    across processes through the verbs' autograd functions (:func:`permute`,
+    :func:`take_blocks` and the others below this class). In a world of
+    one process ``devices`` is the local list, and the mesh is the
+    in-process mesh whose verbs go through
     ``torch.distributed``. ``process_ranks[q]`` is the world rank of the
     mesh's process q (a sub-mesh's processes are some of the world's)."""
 
@@ -939,6 +941,283 @@ class ProcessMeshCommunication(MeshCommunication):
                 f"ranks {self.first_rank}..{self.first_rank + len(self._devices) - 1})")
 
 
+# ---------------------------------------------------------------------------
+# the verbs under autograd, across processes
+# ---------------------------------------------------------------------------
+# The in-process verbs are torch operations, so autograd differentiates a
+# schedule over them as it does any torch code. The verbs of a
+# ProcessMeshCommunication move bytes, where autograd stops; the layers above
+# them call the functions below instead, each a verb with its transpose as
+# the backward, run with the same verbs. Two rules hold every backward to
+# what autograd gives through the one-process mesh of the same p, bit for
+# bit:
+# * a value every process holds whole and every process's loss reads once
+#   (an allreduce's total, the blocks joined into the whole) is not summed
+#   over the processes in the backward: each process's gradient of it is
+#   already the whole gradient;
+# * a backward that exchanges runs in every process, in the same order: every
+#   output of such a function reaches the loss in every process (the layers
+#   use all of them), and the graphs of the processes are the same.
+# A gradient summed from several uses is folded as autograd's engine folds a
+# tensor used several times on one mesh: the last use first.
+
+
+def differentiable(comm) -> bool:
+    """Whether autograd sees through ``comm``'s verbs as they are: the
+    in-process verbs are torch operations; the verbs of a
+    :class:`ProcessMeshCommunication` move bytes, so a layer calls the
+    functions of this section on it."""
+    return not isinstance(comm, ProcessMeshCommunication)
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, perm, *shards):
+        ctx.comm, ctx.perm = comm, perm
+        return tuple(comm.ppermute(list(shards), perm=list(perm)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = ctx.comm.ppermute(list(grads), perm=[(dst, src) for src, dst in ctx.perm])
+        return (None, None, *back)
+
+
+def permute(comm, shards: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``comm.ppermute(shards, perm=perm)``, differentiable on any mesh: the
+    transpose is the permute of the inverse pairs, so a source that no pair
+    names gets a zero gradient."""
+    if differentiable(comm) or not _needs_grad(shards):
+        return comm.ppermute(list(shards), perm=list(perm))
+    return list(_Permute.apply(comm, tuple(tuple(p) for p in perm), *shards))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, split_axis, concat_axis, *shards):
+        ctx.comm, ctx.axes = comm, (split_axis, concat_axis)
+        return tuple(comm.alltoall(list(shards), split_axis=split_axis, concat_axis=concat_axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_axis, concat_axis = ctx.axes
+        back = ctx.comm.alltoall(list(grads), split_axis=concat_axis, concat_axis=split_axis)
+        return (None, None, None, *back)
+
+
+def all_to_all(comm, shards: Sequence[torch.Tensor], split_axis: int, concat_axis: int) -> List[torch.Tensor]:
+    """``comm.alltoall``, differentiable on any mesh: the transpose swaps
+    the two axes."""
+    if differentiable(comm) or not _needs_grad(shards):
+        return comm.alltoall(list(shards), split_axis=split_axis, concat_axis=concat_axis)
+    return list(_AllToAll.apply(comm, split_axis, concat_axis, *shards))
+
+
+class _SumToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, *parts):
+        ctx.devices = [t.device for t in parts]
+        return comm.allreduce(list(parts))[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.to(d) for d in ctx.devices))
+
+
+def sum_to_all(comm, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``comm.allreduce(parts)[0]``: the sum over every rank, on ``home``
+    in every process. The total is read once per process, so each part's
+    gradient is the total's, unsummed: no verb runs in the backward."""
+    if differentiable(comm) or not _needs_grad(parts):
+        return comm.allreduce(list(parts))[0]
+    return _SumToAll.apply(comm, *parts)
+
+
+def _sent(comm, grads: dict, senders: Sequence[int], dim: int, like: torch.Tensor) -> List[torch.Tensor]:
+    """Per local rank, the gradients of the blocks it sends, joined along
+    ``dim`` in block order (an empty block when it sends none)."""
+    out = []
+    for r, dev in zip(comm.local_ranks, comm.local_devices):
+        mine = [grads[b].to(dev) for b, s in enumerate(senders) if s == r]
+        if mine:
+            out.append(torch.cat(mine, dim=dim))
+        else:
+            shape = list(like.shape)
+            shape[dim] = 0
+            out.append(like.new_zeros(shape, device=dev))
+    return out
+
+
+def _check_senders(comm, senders: Sequence[int], held: Sequence[int]) -> None:
+    if list(senders) != sorted(senders):
+        raise ValueError(f"the blocks' senders are ranks in block order, got {list(senders)}")
+    local = set(comm.local_ranks)
+    missing = [b for b, s in enumerate(senders) if s in local and b not in held]
+    if missing:
+        raise ValueError(f"this process sends blocks {missing} it does not hold")
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+class _TakeBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, sizes, dim, held, senders, whole):
+        ctx.comm, ctx.sizes, ctx.dim, ctx.held, ctx.senders = comm, sizes, dim, held, senders
+        ctx.device = whole.device
+        blocks = whole.split(list(sizes), dim)
+        return tuple(blocks[b].to(d) for b, d in held)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        by_block = {b: g for (b, _), g in zip(ctx.held, grads)}
+        sent = _sent(ctx.comm, by_block, ctx.senders, ctx.dim, grads[0])
+        whole = ctx.comm.allgather(sent, dim=ctx.dim)[0].to(ctx.device)
+        return (None, None, None, None, None, whole)
+
+
+def take_blocks(comm, whole: torch.Tensor, sizes: Sequence[int], dim: int, held: Sequence[Tuple[int, torch.device]],
+                senders: Sequence[int]) -> List[torch.Tensor]:
+    """The blocks ``b`` of ``held`` of a value every process holds whole,
+    cut along ``dim`` into blocks of ``sizes``, each moved to its device.
+    The transpose is an allgather of the blocks' gradients: block b's from
+    rank ``senders[b]``, which lives in a process that holds b (ranks in
+    block order), joined into the whole gradient in every process."""
+    held = tuple((int(b), torch.device(d)) for b, d in held)
+    if differentiable(comm) or not _needs_grad([whole]):
+        # one split, whose backward joins the blocks' gradients; the joined
+        # gradient made contiguous, as the allgather across processes makes
+        # it, so that a reduction over it (a bias's gradient) runs in the
+        # same order on both meshes
+        if _needs_grad([whole]):
+            whole = _ContiguousGrad.apply(whole)
+        blocks = whole.split(list(sizes), dim)
+        return [blocks[b].to(d) for b, d in held]
+    _check_senders(comm, senders, [b for b, _ in held])
+    return list(_TakeBlocks.apply(comm, tuple(sizes), dim, held, tuple(senders), whole))
+
+
+class _JoinBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, sizes, dim, ids, senders, device, everywhere, *blocks):
+        ctx.sizes, ctx.dim, ctx.ids = sizes, dim, ids
+        ctx.devices = [t.device for t in blocks]
+        return _join(comm, sizes, dim, ids, senders, device, everywhere, blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks = g.split(list(ctx.sizes), ctx.dim)
+        back = [blocks[b].to(d) for b, d in zip(ctx.ids, ctx.devices)]
+        return (None, None, None, None, None, None, None, *back)
+
+
+def _join(comm, sizes, dim, ids, senders, device, everywhere, blocks) -> torch.Tensor:
+    if everywhere:
+        order = sorted(range(len(ids)), key=lambda i: ids[i])
+        return torch.cat([blocks[i].to(device) for i in order], dim=dim)
+    sent = _sent(comm, dict(zip(ids, blocks)), senders, dim, blocks[0])
+    return comm.allgather(sent, dim=dim)[0].to(device)
+
+
+def join_blocks(comm, blocks: Sequence[torch.Tensor], ids: Sequence[int], sizes: Sequence[int], dim: int,
+                senders: Sequence[int], device, everywhere: bool = False) -> torch.Tensor:
+    """The whole value on ``device`` in every process, from the blocks
+    ``ids`` this process holds: block b (of ``sizes`` along ``dim``) sent by
+    rank ``senders[b]`` through one allgather, in block order; with
+    ``everywhere`` (every process holds every block, a fact of the layout,
+    the same in every process), and on an in-process mesh, nothing moves.
+    Every process reads the whole once, so the transpose takes this
+    process's blocks of its gradient and no verb runs in the backward."""
+    ids = tuple(int(b) for b in ids)
+    device = torch.device(device)
+    # one process holds every block of an in-process mesh: they join as they are
+    everywhere = everywhere or differentiable(comm)
+    if not everywhere:
+        _check_senders(comm, senders, ids)
+    if differentiable(comm) or not _needs_grad(blocks):
+        return _join(comm, sizes, dim, ids, senders, device, everywhere, list(blocks))
+    return _JoinBlocks.apply(comm, tuple(sizes), dim, ids, tuple(senders), device, everywhere, *blocks)
+
+
+class _Share(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, uses, shapes, local_uses, shadows, keys, *tensors):
+        ctx.comm, ctx.uses, ctx.shapes, ctx.local_uses, ctx.keys = comm, uses, shapes, local_uses, keys
+        if len({t.dtype for t in tensors}) > 1:
+            raise ValueError(f"shared tensors have one type, got {sorted({str(t.dtype) for t in tensors})}")
+        ctx.likes = [(t.dtype, t.device) for t in tensors]
+        held = dict(zip(keys, tensors))
+        return tuple(held[uses[u][0]].to(d) for u, d in local_uses) + tuple(held[k].to(d) for k, d in shadows)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        comm, uses = ctx.comm, ctx.uses
+        dtype = ctx.likes[0][0]
+        mine = dict(zip((u for u, _ in ctx.local_uses), grads))
+        flats = []
+        for r, dev in zip(comm.local_ranks, comm.local_devices):
+            parts = [mine[u].to(dev, dtype).reshape(-1) for u, (_, rank) in enumerate(uses) if rank == r]
+            flats.append(torch.cat(parts) if parts else torch.zeros(0, dtype=dtype, device=dev))
+        flat = comm.allgather(flats, dim=0)[0]
+        got, at = {}, 0
+        for r in range(comm.size):
+            for u, (key, rank) in enumerate(uses):
+                if rank == r:
+                    n = math.prod(ctx.shapes[key])
+                    got[u] = flat[at : at + n].reshape(ctx.shapes[key])
+                    at += n
+        out = []
+        for key, (dt, dev) in zip(ctx.keys, ctx.likes):
+            mine_uses = [u for u, (k, _) in enumerate(uses) if k == key]
+            if not mine_uses:
+                out.append(None)
+                continue
+            acc = got[mine_uses[-1]]
+            for u in reversed(mine_uses[:-1]):
+                acc = acc + got[u]
+            out.append(acc.to(dev, dt))
+        return (None, None, None, None, None, None, *out)
+
+
+def share(comm, tensors: Dict, uses: Sequence[Tuple[object, int]], shapes: Dict,
+          shadows: Sequence[Tuple[object, int]] = ()) -> List[torch.Tensor]:
+    """Tensors every process holds whole (``tensors``, by key: this
+    process's, which may be some of the keys) used by several ranks:
+    ``uses`` lists every use in the order of the one-process schedule, as
+    (key, rank). Returns one copy per use whose rank is this process's, on
+    that rank's device, in use order, then one per ``shadows`` entry whose
+    rank is this process's: a use that another process's rank also makes on
+    the same values (a replicated result computed in both), whose gradient
+    that rank's use carries. The transpose sums a key's gradient over all
+    its uses, whichever process computed them: one allgather of every use's
+    gradient over ``comm``, folded as autograd folds the uses of one tensor
+    (the last use first), so each process gets the whole gradient.
+    ``shapes`` holds every key's shape."""
+    local = {r: d for r, d in zip(comm.local_ranks, comm.local_devices)}
+    local_uses = tuple((u, local[rank]) for u, (_, rank) in enumerate(uses) if rank in local)
+    local_shadows = tuple((key, local[rank]) for key, rank in shadows if rank in local)
+    keys = tuple(tensors)
+    values = [tensors[k] for k in keys]
+    if differentiable(comm) or not _needs_grad(values):
+        return [tensors[uses[u][0]].to(d) for u, d in local_uses] + [tensors[k].to(d) for k, d in local_shadows]
+    used = {uses[u][0] for u, _ in local_uses} | {k for k, _ in local_shadows}
+    if not used <= set(keys):
+        raise ValueError(f"this process uses {sorted(map(str, used - set(keys)))} but does not hold them")
+    return list(_Share.apply(comm, tuple(uses), dict(shapes), local_uses, local_shadows, keys, *values))
+
+
 def _cpu_mesh_size() -> int:
     return int(os.environ.get("HEAT_TPU_TEST_DEVICES", "8"))
 
@@ -1041,8 +1320,9 @@ def reform(devices: Optional[Sequence] = None) -> MeshCommunication:
     current = _built_comm()
     if current is not None and current.spans_processes:
         raise CrossProcessMeshError(
-            f"cannot re-form {current!r} inside one process: a world of several processes shrinks through "
-            "its launcher (multihost.PeerLostError, exit multihost.REFORM_EXIT, a respawn under a new epoch)"
+            f"cannot re-form {current!r} inside one process (ROADMAP A11.5b(c2b)): a world of several "
+            "processes shrinks through its launcher (multihost.PeerLostError, exit multihost.REFORM_EXIT, a "
+            "respawn under a new epoch)"
         )
     comm = None if devices is None else MeshCommunication(devices)
     __default_comm = comm

@@ -55,6 +55,13 @@ def _mesh_devices(comm):
     return None if comm.spans_processes else comm.devices
 
 
+def same_mesh(a, b) -> bool:
+    """Whether two meshes hold the same shards: the same mesh, or two
+    one-process meshes of the same device list (a spanning mesh is only
+    itself)."""
+    return a is b or (_mesh_devices(a) is not None and _mesh_devices(a) == _mesh_devices(b))
+
+
 def sanitize_mesh(*operands) -> None:
     """Raise ValueError when two DNDarray operands lie on different meshes,
     as the reference's jitted computation refuses incompatible devices.
@@ -67,9 +74,7 @@ def sanitize_mesh(*operands) -> None:
             continue
         if first is None:
             first = x.comm
-        elif x.comm is not first and (
-            _mesh_devices(x.comm) is None or _mesh_devices(x.comm) != _mesh_devices(first)
-        ):
+        elif not same_mesh(x.comm, first):
             raise ValueError(
                 f"operands lie on different meshes ({first.size} and {x.comm.size} shards): move an "
                 "array made before a reform onto the current mesh before combining them"

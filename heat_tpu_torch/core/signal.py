@@ -7,8 +7,9 @@ mode of a split array takes that schedule: halos of ``k - 1`` rows each
 way, one local convolution per shard. In ``'same'`` mode a shard's outputs
 are its own block, so nothing else moves; ``'full'`` and ``'valid'``
 outputs differ in length from the input, so the shards' pieces are re-cut
-into the result's blocks. When the halo is wider than a shard, the whole
-array is convolved on the first device.
+into the result's blocks (joined across processes by one ``allgather``
+where the ranks span processes). When the halo is wider than a shard, the
+whole array is convolved on the first device.
 
 Every output element is one sum over the taps in tap order (a product
 and an add per tap, never fused), so a split array's result equals the
@@ -57,7 +58,8 @@ def _convolve_kernel(a, prev, nxt, v, *, comm, mode: str, start: int, stop: int)
     taps = v.shards[0]
     k = taps.shape[0]
     offset = start if mode == "same" else 0
-    counts = a.counts_displs()[0]
+    # this process's ranks' counts (every rank's on a one-process mesh)
+    counts = comm.local_counts_displs(a.gshape, 0)[0] if comm.spans_processes else a.counts_displs()[0]
     pieces = []
     for p_, shard, n_, count in zip(prev.shards, a.shards, nxt.shards, counts):
         if count < shard.shape[0]:
@@ -70,12 +72,27 @@ def _convolve_kernel(a, prev, nxt, v, *, comm, mode: str, start: int, stop: int)
         # each shard's own block of outputs: no other data moves
         block = a.shards[0].shape[0]
         return [p[:block] for p in pieces]
+    if comm.spans_processes:
+        return _distribute(_joined_outputs(a, pieces, counts, k, comm)[start:stop], 0, comm)
     first = comm.devices[0]
     last = [r for r, c in enumerate(counts) if c][-1]
     full = [p[:c].to(first) for p, c in zip(pieces, counts)]
     # the last shard with data also holds the k - 1 outputs past the end
     full.append(pieces[last][counts[last] : counts[last] + k - 1].to(first))
     return _distribute(torch.cat(full)[start:stop], 0, comm)
+
+
+def _joined_outputs(a, pieces, counts, k: int, comm) -> torch.Tensor:
+    """The full convolution's outputs on ``home`` in every process, over a
+    mesh whose ranks span processes: each rank's own outputs, the last rank
+    with data followed by the k - 1 past the end, joined in rank order by
+    one ``allgather``."""
+    every = comm.counts_displs_shape(a.gshape, 0)[0]
+    last = [r for r, c in enumerate(every) if c][-1]
+    sent = []
+    for r, p, c in zip(comm.local_ranks, pieces, counts):
+        sent.append(p[: c + k - 1] if r == last else p[:c])
+    return comm.allgather(sent, dim=0)[0]
 
 
 def _convolve_whole_kernel(a, v, *, comm, start: int, stop: int):
@@ -109,7 +126,7 @@ def convolve(a, v, mode: str = "full") -> DNDarray:
     if a.dtype is not promoted:
         a = a.astype(promoted)
     tdt = promoted.torch_type()
-    taps = v.larray.to(a.comm.devices[0], tdt)
+    taps = v.larray.to(a.comm.home, tdt)
     k, n = taps.shape[0], a.gshape[0]
     start, stop = {"full": (0, n + k - 1), "same": ((k - 1) // 2, (k - 1) // 2 + n), "valid": (k - 1, n)}[mode]
     stop = max(stop, start)

@@ -16,8 +16,12 @@ heat_tpu/nn/attention.py).
   turn sequence shards into head shards and back around local attention.
 * :class:`MultiHeadAttention` — projections around a pluggable backend.
 
-The schedules run on the in-process verbs of the port's single-controller
-mesh, so autograd differentiates them as it does any torch code.
+The schedules run on the verbs of the mesh: on a one-process mesh they are
+torch operations, which autograd differentiates as it does any torch code;
+over a mesh whose ranks span processes each process runs its own ranks'
+blocks, and the verbs' autograd functions (``communication.permute``,
+``all_to_all``, ``take_blocks``, ``join_blocks``) carry the gradients
+across, equal bit for bit to the one-process mesh's.
 
 All functions take [batch, seq, heads, head_dim] tensors and accumulate the
 softmax in float32 whatever the input dtype.
@@ -32,6 +36,7 @@ from typing import Callable, List, Optional
 import torch
 from torch import nn
 
+from ..core import communication
 from ..core.communication import MeshCommunication, sanitize_comm
 from ..ops import flash as _flash
 from . import _init
@@ -190,14 +195,27 @@ def flash_attention(
     return _finalize(l, o, q.dtype)
 
 
+def _seq_sizes(S: int, comm: MeshCommunication) -> List[int]:
+    """One equal block of the sequence per shard (both schedules require S
+    divisible by the mesh size)."""
+    return [S // comm.size] * comm.size
+
+
 def _split_seq(x: torch.Tensor, comm: MeshCommunication) -> List[torch.Tensor]:
-    """x's sequence (dim 1) cut into one equal block per shard of ``comm``,
-    each on its shard's device."""
-    return [b.to(d) for b, d in zip(x.tensor_split(comm.size, dim=1), comm.devices)]
+    """x's sequence (dim 1) cut into one equal block per shard of ``comm``:
+    this process's ranks' blocks, each on its shard's device (every process
+    holds x whole; across processes the gradient's blocks are gathered back
+    in the backward, ``communication.take_blocks``)."""
+    return communication.take_blocks(comm, x, _seq_sizes(x.shape[1], comm), 1,
+                                     list(zip(comm.local_ranks, comm.local_devices)), range(comm.size))
 
 
-def _gather_seq(shards: List[torch.Tensor], device: torch.device) -> torch.Tensor:
-    return torch.cat([s.to(device) for s in shards], dim=1)
+def _gather_seq(shards: List[torch.Tensor], comm: MeshCommunication, device: torch.device) -> torch.Tensor:
+    """This process's ranks' blocks joined along the sequence into the whole
+    value on ``device``, in every process (``communication.join_blocks``)."""
+    S = sum(s.shape[1] for s in shards) * comm.size // len(shards)
+    return communication.join_blocks(comm, shards, comm.local_ranks, _seq_sizes(S, comm), 1, range(comm.size),
+                                     device)
 
 
 def ring_attention(
@@ -225,11 +243,12 @@ def ring_attention(
         raise ValueError(f"ring_attention requires seq {S} divisible by mesh size {comm.size}")
     scale = _flash.score_scale(scale, q.shape[-1])
     out = _ring_shards(*(_split_seq(t, comm) for t in (q, k, v)), causal, scale, comm)
-    return _gather_seq(out, q.device)
+    return _gather_seq(out, comm, q.device)
 
 
 def _ring_shards(qs, ks, vs, causal: bool, scale: float, comm: MeshCommunication) -> List[torch.Tensor]:
-    """The ring on sequence shards: one output block per shard, on its device."""
+    """The ring on sequence shards: one output block per shard of this
+    process, on its device."""
     p = comm.size
     B, sq, H, D = qs[0].shape
     acc = _acc_dtype(qs[0].dtype)
@@ -239,17 +258,17 @@ def _ring_shards(qs, ks, vs, causal: bool, scale: float, comm: MeshCommunication
             torch.zeros((B, sq, H), dtype=acc, device=d),
             torch.zeros((B, sq, H, D), dtype=acc, device=d),
         )
-        for d in comm.devices
+        for d in comm.local_devices
     ]
     perm = [(j, (j - 1) % p) for j in range(p)]
     for i in range(p):
         # shard r holds the K/V block of shard (r + i) % p
         state = [
-            _tile_update(qs[r], ks[r], vs[r], *state[r], r * sq, ((r + i) % p) * sq, causal, scale)
-            for r in range(p)
+            _tile_update(qs[j], ks[j], vs[j], *state[j], r * sq, ((r + i) % p) * sq, causal, scale)
+            for j, r in enumerate(comm.local_ranks)
         ]
         if i < p - 1:  # p - 1 rotations: the last block's is never issued
-            ks, vs = comm.ppermute(ks, perm=perm), comm.ppermute(vs, perm=perm)
+            ks, vs = communication.permute(comm, ks, perm), communication.permute(comm, vs, perm)
     return [_finalize(l, o, qs[0].dtype) for _, l, o in state]
 
 
@@ -282,9 +301,9 @@ def ulysses_attention(
     scale = _flash.score_scale(scale, q.shape[-1])
     local = partial(flash_attention, block_size=block_size) if block_size else dot_product_attention
     # [B, S/p, H, D] -> [B, S, H/p, D]: split heads, gather sequence
-    qh, kh, vh = (comm.alltoall(_split_seq(t, comm), split_axis=2, concat_axis=1) for t in (q, k, v))
+    qh, kh, vh = (communication.all_to_all(comm, _split_seq(t, comm), 2, 1) for t in (q, k, v))
     oh = [local(a, b, c, causal=causal, scale=scale) for a, b, c in zip(qh, kh, vh)]
-    return _gather_seq(comm.alltoall(oh, split_axis=1, concat_axis=2), q.device)
+    return _gather_seq(communication.all_to_all(comm, oh, 1, 2), comm, q.device)
 
 
 _BACKENDS = {

@@ -16,7 +16,11 @@ heat_tpu/parallel).
 
 heat_tpu expresses them as ``shard_map`` programs and GSPMD annotations
 over a ``jax.sharding.Mesh``; the port's single controller runs the same
-schedules over the shard lists of its in-process collectives. Sequence
+schedules over the shard lists of its in-process collectives. Over a mesh
+whose ranks span processes, :func:`make_mesh` lays out the ranks, each
+process runs the schedules on its own ranks, and the verbs' autograd
+functions (``communication.share``, ``take_blocks``, ``join_blocks``,
+``sum_to_all``) carry the gradients across the processes. Sequence
 parallelism (ring / Ulysses attention) lives in
 :mod:`heat_tpu_torch.nn.attention` and composes with these meshes.
 """

@@ -6,7 +6,9 @@ into fixed per-destination buffers (capacity = the shard's token count, so
 nothing is ever dropped), exchanged with one ``alltoall``, transformed by
 the receiving shard's expert, exchanged back with another and unpacked to
 their order, each scaled by its router probability (the Switch-Transformer
-data path).
+data path). Over a mesh whose ranks span processes each process routes its
+ranks' rows through its ranks' experts, and the output is joined in every
+process.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import communication
 from ..core.communication import MeshCommunication
 from ..nn import _init
 from ._mesh import Mesh, axis_comm
@@ -59,22 +62,36 @@ def moe_apply(
     if x.shape[0] % n_exp:
         raise ValueError(f"token count {x.shape[0]} not divisible by {n_exp} experts")
     t, d = x.shape[0] // n_exp, x.shape[1]
+    ranks, devices = list(comm.local_ranks), comm.local_devices
+    held = list(zip(ranks, devices))
+    # this process's ranks' rows and experts, and the router on each rank
+    xs = communication.take_blocks(comm, x, [t] * n_exp, 0, held, range(n_exp))
+    routers = communication.share(comm, {"router": router_weights}, [("router", r) for r in range(n_exp)],
+                                  {"router": tuple(router_weights.shape)})
+
+    cuts = {}
+
+    def mine(a, i):
+        # each leaf cut once: its experts of this process's ranks
+        if id(a) not in cuts:
+            cuts[id(a)] = [b[0] for b in communication.take_blocks(comm, a, [1] * n_exp, 0, held, range(n_exp))]
+        return cuts[id(a)][i]
+
+    experts = [tree_map(lambda a, i=i: mine(a, i), expert_params) for i in range(len(ranks))]
     routes, dispatch = [], []
-    for xs, dev in zip(x.split(t), comm.devices):
-        xs = xs.to(dev)
-        gate, slot = _route(xs @ router_weights.to(dev))
+    for xr, router, dev in zip(xs, routers, devices):
+        xr = xr.to(dev)
+        gate, slot = _route(xr @ router)
         routes.append((gate, slot))
         # block j of the buffer goes to shard j; capacity t never overflows
-        dispatch.append(xs.new_zeros(n_exp * t, d).index_copy(0, slot, xs).view(n_exp, t, d))
-    received = comm.alltoall(dispatch, split_axis=0, concat_axis=0)
+        dispatch.append(xr.new_zeros(n_exp * t, d).index_copy(0, slot, xr).view(n_exp, t, d))
+    received = communication.all_to_all(comm, dispatch, 0, 0)
     transformed = [
-        expert_fn(tree_map(lambda a, e=e, dev=dev: a[e].to(dev), expert_params), r.reshape(n_exp * t, d))
-        .reshape(n_exp, t, d)
-        for e, (r, dev) in enumerate(zip(received, comm.devices))
+        expert_fn(params, r.reshape(n_exp * t, d)).reshape(n_exp, t, d) for params, r in zip(experts, received)
     ]
-    back = comm.alltoall(transformed, split_axis=0, concat_axis=0)
+    back = communication.all_to_all(comm, transformed, 0, 0)
     out = [b.reshape(n_exp * t, d)[slot] * gate[:, None] for b, (gate, slot) in zip(back, routes)]
-    return torch.cat([o.to(x.device) for o in out])
+    return communication.join_blocks(comm, out, ranks, [t] * n_exp, 0, range(n_exp), x.device)
 
 
 class MoELayer(nn.Module):

@@ -7,6 +7,10 @@ fill/drain ramp runs ``M + P − 1`` ticks for M microbatches on P stages.
 heat_tpu's ``shard_map`` program runs every stage at every tick; the
 port's single controller runs a stage only at the ticks where it holds a
 microbatch and sends zeros from the idle ones, which changes no result.
+Over a mesh whose ranks span processes each process runs its own ranks'
+stages, and the hops between processes are point-to-point pairs; there the
+schedule runs forward (heat_tpu's tests run it forward), and a gradient
+through it raises ``CrossProcessMeshError``.
 
 Stages must be homogeneous (the same activation shape in and out), the
 standard transformer-block setting.
@@ -18,7 +22,8 @@ from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 
-from ..core.communication import MeshCommunication
+from ..core import communication
+from ..core.communication import CrossProcessMeshError, MeshCommunication
 from ._mesh import Mesh, axis_comm
 
 __all__ = ["pipeline_apply", "pipeline_stage_params", "tree_map"]
@@ -58,29 +63,43 @@ def pipeline_apply(
     or a MeshCommunication, a mesh of one axis.
     """
     comm = axis_comm(mesh, axis)
+    if not communication.differentiable(comm) and torch.is_grad_enabled() and any(
+            t.requires_grad for t in _leaves((x, stacked_params))):
+        raise CrossProcessMeshError(
+            "pipeline_apply's backward over a mesh whose ranks span processes is not ported yet (ROADMAP "
+            "A11.5b(c2b)): its forward runs there, as heat_tpu's tests run it; call it under torch.no_grad()")
     n_stages = comm.size
     m = n_microbatches or n_stages
     batch = x.shape[0]
     if batch % m:
         raise ValueError(f"batch {batch} not divisible by {m} microbatches")
     micro = x.reshape(m, batch // m, *x.shape[1:])
-    params = [tree_map(lambda a, s=s, d=d: a[s].to(d), stacked_params) for s, d in enumerate(comm.devices)]
+    # this process's stages and their slices of the parameters
+    stages = list(zip(comm.local_ranks, comm.local_devices))
+    params = [tree_map(lambda a, s=s, d=d: a[s].to(d), stacked_params) for s, d in stages]
     fwd = [(i, (i + 1) % n_stages) for i in range(n_stages)]
-    buf = [torch.zeros_like(micro[0], device=d) for d in comm.devices]
+    buf = [torch.zeros_like(micro[0], device=d) for _, d in stages]
     outs = []
     for t in range(m + n_stages - 1):
         # stage s holds microbatch t - s while 0 <= t - s < m: stage 0 reads
         # it from the input, the others from what the previous stage sent
         sent = []
-        for s, d in enumerate(comm.devices):
+        for i, (s, d) in enumerate(stages):
             if 0 <= t - s < m:
-                inp = micro[t].to(d) if s == 0 else buf[s]
-                sent.append(stage_fn(params[s], inp))
+                inp = micro[t].to(d) if s == 0 else buf[i]
+                sent.append(stage_fn(params[i], inp))
             else:
-                sent.append(torch.zeros_like(buf[s]))
-        if t >= n_stages - 1:
+                sent.append(torch.zeros_like(buf[i]))
+        if t >= n_stages - 1 and n_stages - 1 in comm.local_ranks:
             outs.append(sent[-1])
         buf = comm.ppermute(sent, perm=fwd)
-    last = torch.stack(outs)
-    replicated = comm.bcast([last if s == n_stages - 1 else None for s in range(n_stages)], root=n_stages - 1)
-    return replicated[0].to(x.device).reshape(batch, *replicated[0].shape[2:])
+    last = torch.stack(outs) if outs else None
+    root = n_stages - 1
+    replicated = comm.bcast([last if s == root else None for s, _ in stages], root=root)[0]
+    return replicated.to(x.device).reshape(batch, *replicated.shape[2:])
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out

@@ -21,6 +21,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..core import sanitation
 from ..core.base import BaseEstimator, RegressionMixin
 from ..core.dndarray import DNDarray, _wrap
 
@@ -120,10 +121,11 @@ class Lasso(RegressionMixin, BaseEstimator):
             X = x.larray.to(torch.float32)
             return [X], [y.larray.to(device=X.device, dtype=torch.float32).reshape(-1)], lambda parts: parts[0]
         xs = [s.to(torch.float32) for s in x.lshards]
-        if y.split == 0 and y.comm.devices == comm.devices:
+        if y.split == 0 and sanitation.same_mesh(y.comm, comm):
             ys = [s.to(torch.float32).reshape(-1) for s in y.lshards]
         else:
-            counts, displs = x.counts_displs()
+            # this process's ranks' rows of y (every rank's on one process)
+            counts, displs = comm.local_counts_displs(x.gshape, 0)
             yl = y.larray.reshape(-1)
             ys = [yl.narrow(0, d, c).to(device=s.device, dtype=torch.float32) for s, c, d in zip(xs, counts, displs)]
         return xs, ys, lambda parts: comm.allreduce(parts)[0]

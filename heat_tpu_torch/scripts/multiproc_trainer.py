@@ -56,6 +56,16 @@ bytes and a ``ppermute`` of one 50,000 x 64 float32 block
 (:class:`VerbClock`), and large results are compared by digest
 (:func:`block_digest`), with no gather.
 
+``--workload lm``, ``parallel`` and ``estimators`` (the layers above the
+verbs over the process-spanning mesh): the README's TransformerLM from
+``--seed`` through ring and Ulysses attention, forward at ``--lm-seq``
+tokens and one Adam step through the ring at ``--lm-step-seq``, the
+gradients crossing the processes (:func:`lm_workload`); the Megatron pair
+on a 'tp' line across the processes, forward and one step, a pipeline and
+the experts (:func:`parallel_workload`); ``convolve``, ``Lasso``,
+``Spectral`` and ``ping_mesh`` (:func:`estimators_workload`). Their shapes
+are :data:`LAYER_SIZES`, each an option.
+
 Results land as JSON at ``--out/result-epoch{E:04d}-rank{R:05d}.json``.
 """
 
@@ -412,6 +422,186 @@ def dp_workload(ht, comm, clock: VerbClock, nodes: int, batch: int = DP_BATCH, s
     return out
 
 
+# ---------------------------------------------------------------------------
+# the layers over the spanning mesh: sequence parallelism, parallel/ and the
+# estimators (A11.5b(c2a))
+# ---------------------------------------------------------------------------
+LM_VOCAB, LM_DIM, LM_DEPTH, LM_HEADS, LM_MAX_LEN = 50_257, 768, 12, 12, 32_768  # the README's TransformerLM
+LM_SEQ, LM_STEP_SEQ, LM_LR, SP_BLOCK = 16_384, 4_096, 3e-4, 512
+TP_ROWS, TP_DIM, TP_HIDDEN, TP_LR = 4_096, 768, 3_072, 0.05  # GPT-2 small's MLP
+PP_SEQ, PP_BATCH = 512, 8
+CONV_N, CONV_TAPS = 100_000_000, 9
+LASSO_N, LASSO_F, LASSO_LAM, LASSO_SWEEPS = 100_000, 64, 0.1, 20  # benchmarks/lasso.py's protocol
+SPECTRAL_N, SPECTRAL_F, SPECTRAL_K, SPECTRAL_LANCZOS = 10_000, 16, 8, 300
+SPECTRAL_GAMMA = 1.0 / 32.0
+LAYER_WORKLOADS = ("lm", "parallel", "estimators")
+#: the layers' shapes, by the name of their command-line option
+LAYER_SIZES = {"lm_vocab": LM_VOCAB, "lm_dim": LM_DIM, "lm_depth": LM_DEPTH, "lm_heads": LM_HEADS,
+               "lm_seq": LM_SEQ, "lm_step_seq": LM_STEP_SEQ, "sp_block": SP_BLOCK, "tp_rows": TP_ROWS,
+               "tp_dim": TP_DIM, "tp_hidden": TP_HIDDEN, "pp_seq": PP_SEQ, "pp_batch": PP_BATCH, "conv_n": CONV_N,
+               "lasso_n": LASSO_N, "lasso_f": LASSO_F, "spectral_n": SPECTRAL_N, "spectral_lanczos": SPECTRAL_LANCZOS}
+
+
+@contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warning where an op has none): the
+    embedding's backward sums its rows in a fixed order, so two processes'
+    steps can be held bit for bit."""
+    was, warn = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def lm_workload(ht, comm, clock: VerbClock, sizes: dict, seed: int = LLOYD_SEED) -> dict:
+    """The README's TransformerLM on ``comm``, from ``seed`` in every
+    process: a forward of batch 1 at ``lm_seq`` tokens through
+    ``ring_attention``, another through ``ulysses_attention`` (blockwise
+    local attention of ``sp_block``), each logits' digest; then one Adam
+    step at ``lm_step_seq`` tokens through the ring, the next-token loss
+    and the parameters' digest after it. Each part's verbs are counted."""
+    import functools
+
+    import torch.nn.functional as Fn
+
+    s = sizes
+    home = comm.home
+    model = ht.nn.TransformerLM(vocab=s["lm_vocab"], dim=s["lm_dim"], depth=s["lm_depth"], heads=s["lm_heads"],
+                                max_len=LM_MAX_LEN, device=home,
+                                generator=torch.Generator(device=home).manual_seed(seed))
+    gen = torch.Generator(device=home).manual_seed(seed + 24)
+    tokens = torch.randint(0, s["lm_vocab"], (1, s["lm_seq"]), generator=gen, device=home)
+    schedules = {"ring": functools.partial(ht.nn.ring_attention, comm=comm),
+                 "ulysses": functools.partial(ht.nn.ulysses_attention, comm=comm, block_size=s["sp_block"])}
+    out = {"digests": {}}
+    for name, fn in schedules.items():
+        for block in model.blocks:
+            block.attn.attention_fn = fn
+        with torch.no_grad(), clock.part(f"lm {name} forward"):
+            logits = model(tokens)
+        out["digests"][f"{name}_logits"] = block_digest(logits)
+        del logits
+        if home.type == "cuda":
+            torch.cuda.empty_cache()
+    for block in model.blocks:
+        block.attn.attention_fn = schedules["ring"]
+    step = tokens[:, : s["lm_step_seq"]]
+    optimizer = torch.optim.Adam(model.parameters(), lr=LM_LR)
+    with deterministic(), clock.part("lm ring step"):
+        logits = model(step)
+        loss = Fn.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]), step[:, 1:].reshape(-1))
+        loss.backward()
+        optimizer.step()
+    out["loss"] = loss.item()
+    out["digests"]["params_after_step"] = block_digest(torch.cat([p.detach().reshape(-1) for p in model.parameters()]))
+    return out
+
+
+def _rank_digests(comm, tensors) -> dict:
+    """A digest per rank of this process: each rank's tensors joined."""
+    return {str(r): block_digest(torch.cat([t.detach().reshape(-1).to(comm.home) for t in ts]))
+            for r, ts in zip(comm.local_ranks, tensors)}
+
+
+def parallel_workload(ht, comm, clock: VerbClock, sizes: dict, seed: int = LLOYD_SEED) -> dict:
+    """parallel/ on ``comm``, a 'tp' line of every rank: the Megatron pair
+    (``TPMLPBlock``, ``tp_dim`` x ``tp_hidden``) on ``tp_rows`` tokens,
+    forward, then one SGD step of the mean-square loss (the loss, each
+    rank's blocks' digest and the forward after it); a pipeline of one
+    TransformerBlock per rank on ``pp_batch`` x ``pp_seq`` activations; one
+    expert per rank (``MoELayer``) on the tokens. Outputs by digest."""
+    from torch.func import functional_call
+
+    from .. import parallel
+
+    s = sizes
+    home = comm.home
+    dim, hidden = s["tp_dim"], s["tp_hidden"]
+    gen = torch.Generator(device=home).manual_seed(seed + 16)
+    x = torch.randn(s["tp_rows"], dim, generator=gen, device=home)
+    target = torch.randn(s["tp_rows"], dim, generator=gen, device=home)
+    block = parallel.TPMLPBlock(hidden, dim, dim, comm=comm, device=home,
+                                generator=torch.Generator(device=home).manual_seed(seed))
+    out = {"digests": {}}
+    with torch.no_grad(), clock.part("tp forward"):
+        out["digests"]["tp_forward"] = block_digest(block(x))
+    with clock.part("tp step"):
+        loss = ((block(x) - target) ** 2).mean()
+        loss.backward()
+        with torch.no_grad():
+            for param in block.parameters():
+                param -= TP_LR * param.grad
+    out["tp_loss"] = loss.item()
+    out["tp_params"] = _rank_digests(comm, [(block.up.kernel[i], block.up.bias[i], block.down.kernel[i])
+                                            for i in range(len(comm.local_ranks))])
+    out["digests"]["tp_down_bias"] = block_digest(block.down.bias)
+    with torch.no_grad():
+        out["digests"]["tp_forward_after_step"] = block_digest(block(x))
+        stages = [ht.nn.TransformerBlock(dim, heads=LM_HEADS, device=home,
+                                         generator=torch.Generator(device=home).manual_seed(seed + r))
+                  for r in range(comm.size)]
+        acts = torch.randn(s["pp_batch"], s["pp_seq"], dim, generator=gen, device=home)
+        stacked = parallel.pipeline_stage_params([dict(b.named_parameters()) for b in stages])
+        with clock.part("pipeline"):
+            got = parallel.pipeline_apply(lambda prm, a: functional_call(stages[0], prm, (a,)), stacked, acts, comm)
+        out["digests"]["pipeline"] = block_digest(got)
+        moe = parallel.MoELayer(comm.size, hidden, dim, device=home,
+                                generator=torch.Generator(device=home).manual_seed(seed))
+        with clock.part("experts"):
+            got = moe(x, mesh=comm)
+        out["digests"]["experts"] = block_digest(got)
+    return out
+
+
+def estimators_workload(ht, comm, clock: VerbClock, sizes: dict, seed: int = LLOYD_SEED) -> dict:
+    """The estimators on ``comm``: ``convolve`` of a seeded ``conv_n``
+    float32 signal, split 0, with ``CONV_TAPS`` taps in "same" and "full"
+    (each rank's block by digest); ``Lasso`` at benchmarks/lasso.py's
+    protocol (``lasso_n`` x ``lasso_f``, λ 0.1, 20 sweeps; θ's digest);
+    ``Spectral.fit`` of a ``spectral_n`` x 16 table of 8 blobs (rbf
+    similarity, ``spectral_lanczos`` Lanczos steps, KMeans through the
+    Lloyd kernel: its labels per rank and the launches of B1 and B2 in the
+    fit); ``ping_mesh``'s answer."""
+    from ..ops import lloyd, pairwise
+    from ..utils import health
+
+    s = sizes
+    out = {"digests": {}, "launches": {}}
+    ht.random.seed(seed + 20)
+    signal = ht.random.randn(s["conv_n"], split=0, comm=comm)
+    taps = ht.random.randn(CONV_TAPS, comm=comm)
+    for mode in ("same", "full"):
+        with clock.part(f"convolve {mode}"):
+            got = ht.convolve(signal, taps, mode=mode)
+        out["digests"][f"convolve_{mode}"] = digests(comm, {"c": got})["c"]
+        del got
+    del signal
+    ht.random.seed(seed + 21)
+    x = ht.random.randn(s["lasso_n"], s["lasso_f"], split=0, comm=comm)
+    y = ht.random.randn(s["lasso_n"], split=0, comm=comm)
+    with clock.part("lasso"):
+        est = ht.regression.Lasso(lam=LASSO_LAM, max_iter=LASSO_SWEEPS, tol=None).fit(x, y)
+    out["digests"]["lasso_theta"] = block_digest(est.theta.larray)
+    del x, y
+    table = lloyd_table(s["spectral_n"], SPECTRAL_F, SPECTRAL_K, seed + 37, comm.home)
+    x = ht.array(table, split=0, comm=comm)
+    del table
+    spectral = ht.cluster.Spectral(n_clusters=SPECTRAL_K, gamma=SPECTRAL_GAMMA, n_lanczos=s["spectral_lanczos"],
+                                   init="kmeans++", random_state=seed)
+    lloyd_before, pairwise_before = lloyd.LAUNCHES, pairwise.LAUNCHES
+    with clock.part("spectral"):
+        spectral.fit(x)
+    out["launches"]["spectral"] = {"lloyd": lloyd.LAUNCHES - lloyd_before,
+                                   "pairwise": pairwise.LAUNCHES - pairwise_before}
+    out["spectral_iterations"] = spectral._cluster.n_iter_
+    out["digests"]["spectral_labels"] = digests(comm, {"l": spectral.labels_})["l"]
+    info = health.ping_mesh(comm, timeout=120.0)
+    out["ping"] = {key: info[key] for key in ("ok", "devices", "platform", "error", "latency_s")}
+    return out
+
+
 def run_mainpath(args, comm, doc, workloads) -> int:
     """The main-path workloads in the order given, on the spanning mesh."""
     import heat_tpu_torch as ht
@@ -431,6 +621,12 @@ def run_mainpath(args, comm, doc, workloads) -> int:
                                     image=(args.dp_image, args.dp_image, 3), filters=args.dp_filters)
         elif name == "exchange":
             out[name] = exchange_timing.time_exchange(comm, EXCHANGE_REPS)
+        elif name in LAYER_WORKLOADS:
+            sizes = {key: getattr(args, key) for key in LAYER_SIZES}
+            fn = {"lm": lm_workload, "parallel": parallel_workload, "estimators": estimators_workload}[name]
+            t0 = time.perf_counter()
+            out[name] = fn(ht, comm, clock, sizes, seed=args.seed)
+            out[name]["seconds"] = time.perf_counter() - t0
         if comm.home.type == "cuda":
             torch.cuda.empty_cache()
     doc.update(status="done", mainpath=out, parts=clock.parts, first_rank=comm.first_rank, ranks=comm.size,
@@ -530,7 +726,8 @@ def run_lstsq(args, comm, doc) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--workload", default="lstsq",
-                    help="lstsq, or a comma list of kmeans, cdist, qr, dp and exchange, run in turn")
+                    help="lstsq, or a comma list of kmeans, cdist, qr, dp, exchange, lm, parallel and estimators, run "
+                         "in turn")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                     help="the payload's backend (default: gloo on the CPU, nccl on CUDA)")
@@ -544,7 +741,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=LLOYD_SEED)
     ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory (lstsq, kmeans)")
     ap.add_argument("--table", default=None, help="the .npy table the kmeans workload reads")
-    for key, value in MAIN_SIZES.items():
+    for key, value in {**MAIN_SIZES, **LAYER_SIZES}.items():
         ap.add_argument(f"--{key.replace('_', '-')}", type=int, default=value)
     ap.add_argument("--out", required=True, help="result directory")
     ap.add_argument("--die-rank", type=int, default=-1)
@@ -553,9 +750,10 @@ def main(argv=None) -> int:
     ap.add_argument("--hang-at-step", type=int, default=-1)
     args = ap.parse_args(argv)
     workloads = args.workload.split(",")
-    unknown = set(workloads) - {"kmeans", *MAIN_WORKLOADS} if workloads != ["lstsq"] else set()
+    known = ("kmeans", *MAIN_WORKLOADS, *LAYER_WORKLOADS)
+    unknown = set(workloads) - set(known) if workloads != ["lstsq"] else set()
     if unknown:
-        ap.error(f"unknown workload(s) {sorted(unknown)}: lstsq alone, or kmeans, {', '.join(MAIN_WORKLOADS)}")
+        ap.error(f"unknown workload(s) {sorted(unknown)}: lstsq alone, or {', '.join(known)}")
     if ("lstsq" in workloads or "kmeans" in workloads) and not args.ckpt_dir:
         ap.error(f"--workload {args.workload} needs --ckpt-dir")
     if "kmeans" in workloads and not args.table:

@@ -8,7 +8,8 @@ surface:
   budget; it returns the status and the latency. The probe runs on a daemon
   thread, so that a hung backend cannot hang the caller.
 * :func:`assert_mesh_healthy`: raise unless the mesh answers in time.
-* :func:`memory_report`: the live buffers per device of the mesh, from the
+* :func:`memory_report`: the live buffers per device of the mesh (this
+  process's devices, where the ranks span processes), from the
   memory ledger's own walk and buffer key (``core/memledger.py``), so that
   the two surfaces cannot disagree on what one buffer is.
 """
@@ -33,14 +34,15 @@ class MeshUnhealthyError(RuntimeError):
 
 
 def _ping(comm: MeshCommunication) -> float:
-    """One allreduce of shard r's value r over the mesh; returns the wall
-    latency, the host read of the result included."""
+    """One allreduce of rank r's value r over the mesh (each process
+    contributes its ranks'); returns the wall latency, the host read of this
+    process's copies of the result included."""
     start = time.perf_counter()
-    shards = [torch.full((1,), float(r), device=d) for r, d in enumerate(comm.devices)]
+    shards = [torch.full((1,), float(r), device=d) for r, d in zip(comm.local_ranks, comm.local_devices)]
     out = comm.allreduce(shards)
-    first = comm.devices[0]
-    total = float(torch.cat([s.to(first) for s in out]).sum())  # the host read
-    expect = float(comm.size) * sum(range(comm.size))
+    # the host read of this process's copies, on home
+    total = float(torch.cat([s.to(comm.home) for s in out]).sum())
+    expect = float(len(out)) * sum(range(comm.size))
     if total != expect:
         raise MeshUnhealthyError(f"collective returned {total}, expected {expect}: mesh state corrupt")
     return time.perf_counter() - start
@@ -57,7 +59,7 @@ def ping_mesh(comm: Optional[MeshCommunication] = None, timeout: float = 60.0) -
         "ok": False,
         "latency_s": None,
         "devices": comm.size,
-        "platform": comm.devices[0].type if comm.devices else "?",
+        "platform": comm.home.type,
         "error": None,
     }
     # a daemon thread, not an executor: an executor's shutdown (and the

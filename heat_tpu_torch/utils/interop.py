@@ -242,12 +242,14 @@ def _unbox(value):
     return value.unbox() if hasattr(value, "unbox") else value
 
 
-def _load_blocks(blocks, value, dim: int) -> None:
-    """A flax kernel into the port's blocks of it, cut along ``dim``."""
+def _load_blocks(layer, blocks, value, dim: int) -> None:
+    """A flax kernel into the port's blocks of it, cut along ``dim`` by the
+    layer's widths: the blocks of this process's ranks of the layer's line."""
     value = np.asarray(_unbox(value))
-    widths = [b.shape[dim] for b in blocks]
-    for block, part in zip(blocks, np.split(value, np.cumsum(widths)[:-1], axis=dim)):
-        _copy(block, part)
+    parts = np.split(value, np.cumsum(layer.widths)[:-1], axis=dim)
+    ranks = range(len(parts)) if layer.comm is None else layer.comm.local_ranks
+    for block, r in zip(blocks, ranks):
+        _copy(block, parts[r])
 
 
 def tp_mlp_block_from_flax(params: Mapping, **config) -> TPMLPBlock:
@@ -260,9 +262,9 @@ def tp_mlp_block_from_flax(params: Mapping, **config) -> TPMLPBlock:
     features = np.shape(_unbox(params["down"]["kernel"]))[1]
     block = TPMLPBlock(hidden, features, in_features, **config)
     with torch.no_grad():
-        _load_blocks(block.up.kernel, params["up"]["kernel"], 1)
-        _load_blocks(block.up.bias, params["up"]["bias"], 0)
-        _load_blocks(block.down.kernel, params["down"]["kernel"], 0)
+        _load_blocks(block.up, block.up.kernel, params["up"]["kernel"], 1)
+        _load_blocks(block.up, block.up.bias, params["up"]["bias"], 0)
+        _load_blocks(block.down, block.down.kernel, params["down"]["kernel"], 0)
         _copy(block.down.bias, _unbox(params["down"]["bias"]))
     return block
 

@@ -694,8 +694,8 @@ def test_trace_pid_is_the_process_index(monkeypatch):
 
 # ---------------------------------------------------------------------------
 # a mesh whose ranks span processes: the array, its factories and the ingest
-# run on each process's own ranks, and so do sub-meshes; the global device
-# list, ring/Ulysses and parallel/ raise the named error (ROADMAP A11.5b(c2))
+# run on each process's own ranks, and so do sub-meshes and the layers above;
+# the global device list and reform raise the named error (ROADMAP A11.5b(c2b))
 # ---------------------------------------------------------------------------
 def _spanning(process=0):
     return communication.ProcessMeshCommunication([torch.device("cpu")] * 2, (2, 2), process, None, None)
@@ -716,19 +716,84 @@ def _spanning_entries(comm, tmp_path):
         "sub": lambda: comm.sub([0, 1]),
         "ring": lambda: ht.nn.ring_attention(q, q, q, comm=comm),
         "ulysses": lambda: ht.nn.ulysses_attention(q, q, q, comm=comm),
-        "make_mesh": lambda: ht.parallel.make_mesh({"dp": 2}, devices=None) if ht.use_comm(comm) is None else None,
+        "make_mesh": lambda: ht.parallel.make_mesh([("dp", 2), ("tp", 2)]) if ht.use_comm(comm) is None else None,
         "default mesh": lambda: ht.array(want, split=0) if ht.use_comm(comm) is None else None,
+        "reform": lambda: _reform_over(comm),
+        "pipeline backward": lambda: ht.parallel.pipeline_apply(
+            lambda prm, a: a @ prm, torch.ones(4, 2, 2, requires_grad=True), torch.ones(8, 2), comm),
     }
 
 
-@pytest.mark.parametrize("entry", ["devices", "ring", "ulysses", "make_mesh"])
+def _reform_over(comm):
+    """``reform`` with ``comm`` the default mesh, the default restored after."""
+    ht.use_comm(comm)
+    try:
+        return communication.reform()
+    finally:
+        ht.use_comm(None)
+
+
+@pytest.mark.parametrize("entry", ["devices", "reform", "pipeline backward"])
 def test_layers_above_the_verbs_raise_the_named_error(entry, tmp_path):
-    """The global device list, ring/Ulysses and parallel/ still raise,
-    naming A11.5b(c2)."""
+    """The global device list, the re-formation of the mesh inside one
+    process and a gradient through the pipeline still raise, naming
+    A11.5b(c2b) (the pipeline's forward runs, as heat_tpu's tests run it)."""
     _, calls = _spanning_entries(_spanning(1), tmp_path)
-    with pytest.raises(NotImplementedError, match=r"A11\.5b\(c2\)"):
+    with pytest.raises(NotImplementedError, match=r"A11\.5b\(c2b\)"):
         calls[entry]()
     assert isinstance(communication.CrossProcessMeshError("x"), NotImplementedError)
+
+
+def _fake_verbs(comm, monkeypatch):
+    """Verbs for a mocked spanning mesh, which has no world: each records
+    its call (verb, this process's shard count, the first shard's shape)
+    and answers with blocks of the right shapes."""
+    calls = []
+
+    def fake(verb):
+        def run(shards, *args, **kwargs):
+            calls.append((verb, len(shards), tuple(shards[0].shape)))
+            p = comm.size
+            if verb == "allgather":
+                return [torch.cat([shards[0]] * p, dim=kwargs.get("dim", 0))] * len(shards)
+            if verb == "alltoall":
+                split, concat = kwargs["split_axis"], kwargs["concat_axis"]
+                return [torch.cat([s.tensor_split(p, dim=split)[0]] * p, dim=concat) for s in shards]
+            return [torch.zeros_like(s) for s in shards]
+        return run
+
+    for verb in ("ppermute", "alltoall", "allgather"):
+        monkeypatch.setattr(comm, verb, fake(verb))
+    return calls
+
+
+@pytest.mark.parametrize("entry", ["ring", "ulysses", "make_mesh"])
+def test_the_layers_run_on_a_spanning_mesh(entry, tmp_path, monkeypatch):
+    """Ring and Ulysses attention and ``make_mesh`` run on a mocked second
+    process of a 2 x 2 world (tests/test_torch_spanning.py runs them on real
+    worlds): the schedules hold this process's two ranks' blocks and call
+    the verbs with them, in their schedules' counts; ``make_mesh`` lays out
+    the ranks, and the 'tp' line this process runs is its own two ranks."""
+    comm = _spanning(1)
+    calls = _fake_verbs(comm, monkeypatch)
+    _, entries = _spanning_entries(comm, tmp_path)
+    try:
+        got = entries[entry]()
+    finally:
+        ht.use_comm(None)
+    if entry == "make_mesh":
+        assert got.shape == {"dp": 2, "tp": 2} and got.comm is comm
+        lines = got.comms("tp")
+        assert isinstance(lines[0], communication.ForeignSubMesh) and lines[0].ranks == (0, 1)
+        assert ht.parallel._mesh.axis_comm(got, "tp") is lines[1] and lines[1].size == 2
+        assert calls == []
+        return
+    assert got.shape == (1, 8, 4, 4)
+    block = (1, 2, 4, 4)
+    if entry == "ring":  # p - 1 rotations of K and V, then the output joined
+        assert calls == [("ppermute", 2, block)] * 6 + [("allgather", 2, block)]
+    else:  # q, k, v to heads, the output (one head per rank) back, then joined
+        assert calls == [("alltoall", 2, block)] * 3 + [("alltoall", 2, (1, 8, 1, 4)), ("allgather", 2, block)]
 
 
 @pytest.mark.parametrize("entry", ["DNDarray", "factory", "ingest", "default mesh", "sub"])

@@ -1,5 +1,5 @@
-"""The array and the main path over a mesh whose ranks span processes
-(ROADMAP A11.5b(a), (b) and (c1)): a DNDarray on a
+"""The array, the main path and the layers above it over a mesh whose
+ranks span processes (ROADMAP A11.5b(a), (b), (c1) and (c2a)): a DNDarray on a
 ``ProcessMeshCommunication`` of real gloo worlds on loopback holds the
 shards of each process's own ranks.
 
@@ -26,6 +26,16 @@ shards of each process's own ranks.
   with a group per process: bit for bit against the one process, against
   numpy, and the distance and linalg results against heat_tpu at the same
   p.
+* The layers above the verbs (A11.5b(c2a)): the Laplacian of 7 and 10
+  rows in both definitions (C27); ring and Ulysses, causal and not, with
+  the gradients of q, k and v, MultiHeadAttention's ring backend and a
+  TransformerLM's step through the ring; the dp x tp step of a
+  ``TPMLPBlock`` with 'tp' inside a process and across the processes, the
+  Megatron pair with its input's gradient, the pipeline and the experts;
+  ``convolve`` in every mode over ragged rows, ``Lasso``, ``Spectral``
+  and ``ping_mesh``: bit for bit against the one process, against their
+  dense oracles or numpy, and ring, Ulysses and parallel/ against
+  heat_tpu at the same p.
 
 Workers run one torch thread each under the launcher's time bound.
 """
@@ -50,7 +60,7 @@ from heat_tpu_torch.core import communication, fusion, multihost
 from heat_tpu_torch.utils.checkpoint import load_checkpoint, verify_checkpoint
 from test_torch_parity import on_cpu  # noqa: F401
 import torch_spanning_program
-from torch_spanning_program import K, program, tables
+from torch_spanning_program import MESH_LAYOUTS, SP_CASES, K, mesh_layouts, program, sp_name, tables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {"PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
@@ -212,6 +222,21 @@ def _receipts(ckpt: str, n: int) -> dict:
     return got
 
 
+def _layer_case_names():
+    """The result names of the layers (A11.5b(c2a)) that the program builds
+    with f-strings."""
+    names = [f"{sp_name(*case)}_{part}" for case in SP_CASES for part in ("out", "grad_q", "grad_k", "grad_v")]
+    for label in MESH_LAYOUTS:
+        names += [f"mesh_{label}_shape", f"dp_tp_{label}_loss", f"dp_tp_{label}_out_after_step"]
+        names += [f"dp_tp_{label}_grad_{name}" for name in ("up_kernel", "up_bias", "down_kernel", "down_bias")]
+    names += [f"convolve_{rows}_{mode}" for rows in (23, 10) for mode in ("full", "same", "valid")]
+    names += [f"lasso_{label}_y{split}_theta" for label in ("tall", "wide") for split in (0, None)]
+    return names
+
+
+LAYER_CASES = _layer_case_names()
+
+
 def _case_names():
     """Every result name of :func:`program`, read from its source (the test
     ids are fixed at collection, before any world runs)."""
@@ -236,6 +261,7 @@ def _case_names():
     names += [f"{fit}_{what}_{i}" for fit in ("dp", "dp_tokens", "daso") for what in ("loss", "params", "buffers")
               for i in (0, 1)]
     names += [f"laplacian_{definition}_{rows}" for definition in ("simple", "norm_sym") for rows in (7, 10)]
+    names += LAYER_CASES
     names += re.findall(r'rec\("(\w+)"', src)
     return sorted(set(names))
 
@@ -488,6 +514,233 @@ def test_distances_and_linalg_against_heat_tpu(worlds, world, name):
     tol = 1e-10 if got.dtype == np.float64 else 2e-5
     atol = 2e-3 if "quadratic" in name else tol
     np.testing.assert_allclose(got, want, rtol=tol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the layers over the spanning mesh (A11.5b(c2a)): their oracles and heat_tpu
+# ---------------------------------------------------------------------------
+SP_TOL, SP_GRAD_TOL = 1e-5, 1e-4  # tests/test_torch_attention.py's
+TP_LOSS_RTOL, TP_TOL, MOE_TOL = 1e-6, 1e-5, 1e-4  # tests/test_torch_parallel.py's
+EST_TOL = 2e-5  # float32 against float64
+
+
+def _dense_attention(t, causal):
+    """The dense oracle's output and q, k, v gradients under the program's
+    weighting."""
+    leaves = [torch.from_numpy(t[key]).requires_grad_() for key in ("q", "k", "v")]
+    out = ht.nn.dot_product_attention(*leaves, causal=causal)
+    (out * torch.from_numpy(t["w_sp"])).sum().backward()
+    return {"out": out.detach(), **{f"grad_{k}": leaf.grad for k, leaf in zip("qkv", leaves)}}
+
+
+def _dense_tp(t, tp):
+    """The dense TPMLPBlock of the program's seed: loss, gradients, and the
+    output after one SGD step."""
+    from torch_spanning_program import SEED
+
+    from heat_tpu_torch import parallel
+
+    x, y = torch.from_numpy(t["x_tp"]), torch.from_numpy(t["y_tp"])
+    block = parallel.TPMLPBlock(4 * tp + 1, 6, 6, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    loss = ((block(x) - y) ** 2).mean()
+    loss.backward()
+    out = {"loss": loss.item(), "grad_up_kernel": block.up.kernel[0].grad, "grad_up_bias": block.up.bias[0].grad,
+           "grad_down_kernel": block.down.kernel[0].grad, "grad_down_bias": block.down.bias.grad}
+    with torch.no_grad():
+        for param in block.parameters():
+            param -= 0.1 * param.grad
+        out["out_after_step"] = block(x)
+    return out
+
+
+def _layer_oracle(name: str, p: int):
+    """The oracle of a layer case: (value, rtol, atol), or None."""
+    from torch_spanning_program import SEED
+
+    from heat_tpu_torch import parallel
+
+    t = tables()
+    for case in SP_CASES:
+        for part in ("out", "grad_q", "grad_k", "grad_v"):
+            if name == f"{sp_name(*case)}_{part}":
+                tol = SP_TOL if part == "out" else SP_GRAD_TOL
+                return _dense_attention(t, case[1])[part], tol, tol
+    if name.startswith("mha_ring_"):
+        mha = ht.nn.MultiHeadAttention(4, 16, backend="dense", causal=True, device="cpu",
+                                       generator=torch.Generator().manual_seed(SEED))
+        x = torch.from_numpy(t["x_mha"]).requires_grad_()
+        out = mha(x)
+        (out * out).sum().backward()
+        want = {"out": out.detach(), "grad_x": x.grad,
+                "grad_params": torch.cat([q.grad.reshape(-1) for q in mha.parameters()])}[name[len("mha_ring_"):]]
+        tol = SP_TOL if name.endswith("out") else SP_GRAD_TOL
+        return want, tol, tol
+    for label, axes in mesh_layouts(p).items():
+        if name == f"mesh_{label}_shape":
+            return np.array([s for _, s in axes]), 0, 0
+        prefix = f"dp_tp_{label}_"
+        if name.startswith(prefix):
+            part = name[len(prefix):]
+            return _dense_tp(t, dict(axes)["tp"])[part], TP_LOSS_RTOL if part == "loss" else TP_TOL, \
+                0 if part == "loss" else TP_TOL
+    if name.startswith("lm_ring_"):
+        lm = ht.nn.TransformerLM(vocab=31, dim=24, depth=2, heads=4, max_len=12, device="cpu",
+                                 generator=torch.Generator().manual_seed(SEED))
+        tokens = torch.from_numpy(t["lm_tokens"])
+        logits = lm(tokens)
+        loss = torch.nn.functional.cross_entropy(logits[:, :-1].reshape(-1, 31), tokens[:, 1:].reshape(-1))
+        loss.backward()
+        if name == "lm_ring_loss":
+            return np.float32(loss.item()), SP_TOL, 0
+        return torch.cat([q.grad.reshape(-1) for q in lm.parameters()]), SP_GRAD_TOL, SP_GRAD_TOL
+    if name.startswith("megatron_pair_"):
+        col = parallel.ColumnParallelDense(6, 2 * p + 1, device="cpu", generator=torch.Generator().manual_seed(SEED + 1))
+        row = parallel.RowParallelDense(2 * p + 1, 6, device="cpu", generator=torch.Generator().manual_seed(SEED + 2))
+        x = torch.from_numpy(t["x_tp"]).requires_grad_()
+        out = row(torch.tanh(col(x)))
+        (out * out).sum().backward()
+        return {"out": out.detach(), "grad_x": x.grad, "grad_col_kernel": col.kernel[0].grad,
+                "grad_row_kernel": row.kernel[0].grad}[name[len("megatron_pair_"):]], TP_TOL, TP_TOL
+    if name.startswith("pipeline_"):
+        stages = 2 if name == "pipeline_named_axis" and p % 2 == 0 else p
+        a = t["pp_x"].astype(np.float64)
+        for s in range(stages):
+            a = np.tanh(a @ t["pp_w"][s] + t["pp_b"][s])
+        return a, TP_TOL, TP_TOL
+    if name.startswith("convolve_"):
+        _, rows, mode = name.split("_")
+        return np.convolve(t["conv_x"][: int(rows)].astype(np.float64), t["conv_taps"], mode=mode), EST_TOL, EST_TOL
+    if name == "ping_mesh":
+        return np.array(["True", str(p), "cpu", "None"]), 0, 0
+    return None
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if n in LAYER_CASES or n.startswith(
+    ("mha_", "lm_ring_", "megatron_", "pipeline_", "moe_", "lasso_", "spectral_", "ping_"))])
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_layers_against_their_oracles(worlds, world, name):
+    """Each layer's result (equal to the spanning world's bit for bit)
+    against its oracle: ring, Ulysses and MultiHeadAttention against dense
+    attention and its autograd; the dp x tp step and the Megatron pair
+    against the dense block; the pipeline against its stages in sequence;
+    the experts against the dense oracle; convolve against numpy; Lasso
+    against the fit on one unsplit shard; Spectral's labels one per blob;
+    ping_mesh's answer."""
+    n, per = WORLDS[world]
+    p = n * per
+    one = worlds[world]["one"]
+    got = one[name]["np"] if isinstance(one[name], dict) else one[name]
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    if name.startswith("moe_grad_"):
+        from torch_spanning_program import SEED
+
+        moe = ht.parallel.MoELayer(p, 8, 5, device="cpu", generator=torch.Generator().manual_seed(SEED + 3))
+        xg = torch.from_numpy(tables()["moe_x"]).requires_grad_()
+        out = moe(xg)
+        (out * out).sum().backward()
+        want = xg.grad if name == "moe_grad_x" else torch.cat([q.grad.reshape(-1) for q in moe.parameters()])
+        np.testing.assert_allclose(got, want.numpy(), rtol=MOE_TOL, atol=MOE_TOL)
+        return
+    if name.startswith("moe_"):
+        np.testing.assert_allclose(got, one["moe_dense"].numpy(), rtol=MOE_TOL, atol=MOE_TOL)
+        return
+    if name.startswith("lasso_"):
+        t = tables()
+        label, ysplit = name.split("_")[1:3]
+        xk, yk = ("lasso_x", "lasso_y") if label == "tall" else ("lasso_xw", "lasso_yw")
+        single = communication.MeshCommunication([torch.device("cpu")])
+        est = ht.regression.Lasso(lam=0.1, max_iter=20, tol=None).fit(
+            ht.array(t[xk], comm=single), ht.array(t[yk], comm=single))
+        np.testing.assert_allclose(got, est.theta.numpy(), rtol=EST_TOL, atol=EST_TOL)
+        return
+    if name == "spectral_labels":
+        labels = got.reshape(-1, K)
+        assert len(set(labels[0].tolist())) == K and (labels == labels[0]).all()
+        return
+    want, rtol, atol = _layer_oracle(name, p)
+    want = want.numpy() if isinstance(want, torch.Tensor) else np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    if want.dtype.kind in "iuU":  # the layouts and ping_mesh's answer: exact
+        np.testing.assert_array_equal(got, want)
+        return
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+def _heat_tpu_layer(name: str, p: int):
+    """heat_tpu's value of a ring, Ulysses, pipeline, experts or dp x tp
+    case at the same p, as a numpy array (the dp x tp loss and gradients by
+    ``jax.value_and_grad`` of its TPMLPBlock from the port's weights)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh as JaxMesh
+    from jax.sharding import NamedSharding, PartitionSpec
+    from torch_spanning_program import SEED
+
+    from heat_tpu.core.communication import MeshCommunication as RefMesh
+    from heat_tpu.nn import attention as ref_attention
+    from heat_tpu.parallel import expert as ref_expert
+    from heat_tpu.parallel import pipeline as ref_pipeline
+    from heat_tpu.parallel import tensor as ref_tensor
+    from heat_tpu_torch import parallel
+
+    t = tables()
+    devices = jax.devices()[:p]
+    for fn, causal, block in SP_CASES:
+        if name == f"{sp_name(fn, causal, block)}_out":
+            comm = RefMesh(devices)
+            sharded = [jax.device_put(jnp.asarray(t[key]), comm.sharding(4, 1)) for key in ("q", "k", "v")]
+            kwargs = {"block_size": block} if fn == "ulysses" else {}
+            return np.asarray(getattr(ref_attention, f"{fn}_attention")(*sharded, comm=comm, causal=causal, **kwargs))
+    if name.startswith("pipeline_"):
+        microbatches = 12 if name == "pipeline_microbatches" else None
+        stacked = {"w": jnp.asarray(t["pp_w"][:p]), "b": jnp.asarray(t["pp_b"][:p])}
+        return np.asarray(ref_pipeline.pipeline_apply(
+            lambda sp, a: jnp.tanh(a @ sp["w"] + sp["b"]), stacked, jnp.asarray(t["pp_x"]),
+            JaxMesh(np.array(devices), ("pp",)), axis="pp", n_microbatches=microbatches))
+    if name == "moe_mesh":
+        moe = parallel.MoELayer(p, 8, 5, device="cpu", generator=torch.Generator().manual_seed(SEED + 3))
+        mesh = JaxMesh(np.array(devices), ("ep",))
+        xs = jax.device_put(jnp.asarray(t["moe_x"]), NamedSharding(mesh, PartitionSpec("ep", None)))
+        weights = [jnp.asarray(w.detach().numpy()) for w in (moe.wi, moe.wo, moe.router)]
+        return np.asarray(ref_expert.moe_apply(ref_expert.MoELayer.expert_fn, tuple(weights[:2]), weights[2], xs,
+                                               mesh, "ep"))
+    label = next(lab for lab in MESH_LAYOUTS if name.startswith(f"dp_tp_{lab}_"))
+    part = name[len(f"dp_tp_{label}_"):]
+    tp = dict(mesh_layouts(p)[label])["tp"]
+    block = parallel.TPMLPBlock(4 * tp + 1, 6, 6, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    params = {"up": {"kernel": block.up.kernel[0], "bias": block.up.bias[0]},
+              "down": {"kernel": block.down.kernel[0], "bias": block.down.bias}}
+    params = jax.tree.map(lambda w: jnp.asarray(w.detach().numpy()), params)
+    model = ref_tensor.TPMLPBlock(hidden=4 * tp + 1, features=6)
+
+    def loss_fn(prm):
+        return jnp.mean((model.apply({"params": prm}, jnp.asarray(t["x_tp"])) - jnp.asarray(t["y_tp"])) ** 2)
+
+    loss, grads = jax.value_and_grad(loss_fn)(params)
+    if part == "loss":
+        return np.asarray(loss)
+    layer, leaf = part[len("grad_"):].split("_")
+    return np.asarray(grads[layer][leaf])
+
+
+@pytest.mark.parametrize("name", [f"{sp_name(*case)}_out" for case in SP_CASES] + [
+    "pipeline_all_ranks", "pipeline_microbatches", "moe_mesh"] + [
+    f"dp_tp_{label}_{part}" for label in MESH_LAYOUTS for part in (
+        "loss", "grad_up_kernel", "grad_up_bias", "grad_down_kernel", "grad_down_bias")])
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_layers_against_heat_tpu(worlds, world, name):
+    """The spanning worlds' layers (equal to the one process's bit for bit)
+    against heat_tpu at the same p, within tests/test_torch_attention.py's
+    and tests/test_torch_parallel.py's tolerances."""
+    n, per = WORLDS[world]
+    one = worlds[world]["one"][name]
+    got = np.asarray(one.numpy() if isinstance(one, torch.Tensor) else one)
+    want = _heat_tpu_layer(name, n * per)
+    if name.endswith("_loss"):
+        np.testing.assert_allclose(got, want, rtol=TP_LOSS_RTOL)
+        return
+    tol = SP_TOL if name.startswith(("ring", "ulysses")) else MOE_TOL if name.startswith("moe") else TP_TOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("world", sorted(WORLDS))

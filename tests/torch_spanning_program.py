@@ -46,6 +46,27 @@ def tables():
     # training: 12 NHWC images of 8 x 8 x 3 and three classes
     out["images"] = rng.standard_normal((12, 8, 8, 3)).astype(np.float32)
     out["labels"] = rng.integers(0, K, 12).astype(np.int64)
+    # the layers: q, k, v and a weighting of the output; a MultiHeadAttention input
+    for key in ("q", "k", "v", "w_sp"):
+        out[key] = rng.standard_normal(SP_SHAPE).astype(np.float32)
+    out["x_mha"] = rng.standard_normal((2, 12, 16)).astype(np.float32)
+    out["lm_tokens"] = rng.integers(0, 31, (2, 12)).astype(np.int64)
+    # parallel/: a dp x tp batch, a pipeline's stages and input, the experts' tokens
+    out["x_tp"] = rng.standard_normal((8, 6)).astype(np.float32)
+    out["y_tp"] = rng.standard_normal((8, 6)).astype(np.float32)
+    out["pp_w"] = (rng.standard_normal((4, 5, 5)) * 0.5).astype(np.float32)
+    out["pp_b"] = rng.standard_normal((4, 5)).astype(np.float32)
+    out["pp_x"] = rng.standard_normal((12, 3, 5)).astype(np.float32)
+    out["moe_x"] = rng.standard_normal((12, 5)).astype(np.float32)
+    # estimators: a signal and its taps; Lasso's tall and wide tables with
+    # unit mean-square columns
+    out["conv_x"] = rng.standard_normal(23).astype(np.float32)
+    out["conv_taps"] = rng.standard_normal(5).astype(np.float32)
+    for key, shape in (("lasso_x", (40, 5)), ("lasso_xw", (6, 9))):
+        a = rng.standard_normal(shape)
+        out[key] = (a / np.sqrt((a * a).mean(0))).astype(np.float32)
+        out[key.replace("x", "y")] = (a @ rng.standard_normal(shape[1]) + 0.1 * rng.standard_normal(shape[0])).astype(
+            np.float32)
     return out
 
 
@@ -169,12 +190,160 @@ def laplacians(comm, t, rec) -> None:
             rec(f"laplacian_{definition}_{rows}", lap.construct(x))
 
 
+#: ring and Ulysses over every world: S and H divisible by 4 and by 3
+SP_SHAPE = (2, 12, 12, 4)
+SP_CASES = [(fn, causal, block) for fn in ("ring", "ulysses") for causal in (False, True)
+            for block in ((0, 5) if fn == "ulysses" else (0,))]
+
+
+def sp_name(fn, causal, block) -> str:
+    return f"{fn}_{'causal' if causal else 'full'}" + (f"_block{block}" if block else "")
+
+
+def attention(comm, t, rec) -> None:
+    """Ring and Ulysses (dense and blockwise local attention), causal and
+    not: the output and the gradients of q, k and v under a fixed weighting;
+    MultiHeadAttention's ring backend: its output and the gradients of its
+    input and of its parameters."""
+    import torch
+
+    for fn, causal, block in SP_CASES:
+        leaves = [torch.from_numpy(t[key]).requires_grad_() for key in ("q", "k", "v")]
+        kwargs = {"block_size": block} if fn == "ulysses" else {}
+        out = getattr(ht.nn, f"{fn}_attention")(*leaves, causal=causal, comm=comm, **kwargs)
+        (out * torch.from_numpy(t["w_sp"])).sum().backward()
+        name = sp_name(fn, causal, block)
+        rec(f"{name}_out", out.detach())
+        for key, leaf in zip("qkv", leaves):
+            rec(f"{name}_grad_{key}", leaf.grad)
+    mha = ht.nn.MultiHeadAttention(4, 16, backend="ring", causal=True, device="cpu",
+                                   generator=torch.Generator().manual_seed(SEED))
+    x = torch.from_numpy(t["x_mha"]).requires_grad_()
+    out = mha(x, comm)
+    (out * out).sum().backward()
+    rec("mha_ring_out", out.detach())
+    rec("mha_ring_grad_x", x.grad)
+    rec("mha_ring_grad_params", torch.cat([p.grad.reshape(-1) for p in mha.parameters()]))
+    # a two-layer TransformerLM through the ring: the next-token loss and
+    # every parameter's gradient (the key bias's sums the joined gradient)
+    lm = ht.nn.TransformerLM(vocab=31, dim=24, depth=2, heads=4, max_len=12, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED),
+                             attention_fn=lambda q, k, v, causal: ht.nn.ring_attention(q, k, v, causal=causal, comm=comm))
+    tokens = torch.from_numpy(t["lm_tokens"])
+    logits = lm(tokens)
+    loss = torch.nn.functional.cross_entropy(logits[:, :-1].reshape(-1, 31), tokens[:, 1:].reshape(-1))
+    loss.backward()
+    rec("lm_ring_loss", loss.item())
+    rec("lm_ring_grads", torch.cat([p.grad.reshape(-1) for p in lm.parameters()]))
+
+
+def mesh_layouts(p: int):
+    """The dp x tp layouts of a world of p ranks: on 2 x 2 'tp' inside a
+    process and 'tp' across the processes; on 3 x 1 'tp' of one rank and
+    'tp' across every process."""
+    if p == 4:
+        return {"tp_inside": [("dp", 2), ("tp", 2)], "tp_across": [("tp", 2), ("dp", 2)]}
+    return {"tp_inside": [("dp", p), ("tp", 1)], "tp_across": [("dp", 1), ("tp", p)]}
+
+
+MESH_LAYOUTS = ("tp_inside", "tp_across")
+
+
+def parallel_layers(comm, t, rec) -> None:
+    """parallel/: the dp x tp step of a TPMLPBlock on each layout (loss,
+    output, every parameter's gradient joined over its 'tp' line, and the
+    output after one SGD update); the Megatron pair on the mesh's own line;
+    the pipeline over the mesh and over a named axis; the experts."""
+    import torch
+
+    from heat_tpu_torch import parallel
+
+    p = comm.size
+    x, y = torch.from_numpy(t["x_tp"]), torch.from_numpy(t["y_tp"])
+    for label, axes in mesh_layouts(p).items():
+        mesh = parallel.make_mesh(axes, comm=comm)
+        rec(f"mesh_{label}_shape", np.array([mesh.shape[name] for name, _ in axes]))
+        tp = dict(axes)["tp"]
+        block = parallel.TPMLPBlock(4 * tp + 1, 6, 6, comm=mesh, device="cpu",
+                                    generator=torch.Generator().manual_seed(SEED))
+        loss = ((block(x) - y) ** 2).mean()
+        loss.backward()
+        rec(f"dp_tp_{label}_loss", loss.item())
+        line = parallel._mesh.axis_comm(mesh, "tp")
+        for name, layer, dim in (("up_kernel", block.up.kernel, 1), ("up_bias", block.up.bias, 0),
+                                 ("down_kernel", block.down.kernel, 0)):
+            rec(f"dp_tp_{label}_grad_{name}", line.allgather([b.grad for b in layer], dim=dim)[0])
+        rec(f"dp_tp_{label}_grad_down_bias", block.down.bias.grad)
+        with torch.no_grad():
+            for param in block.parameters():
+                param -= 0.1 * param.grad
+            rec(f"dp_tp_{label}_out_after_step", block(x))
+    # the pair on the mesh itself, a line of every rank, with an input that
+    # takes a gradient (summed over the ranks across processes)
+    col = parallel.ColumnParallelDense(6, 2 * p + 1, comm=comm, device="cpu",
+                                       generator=torch.Generator().manual_seed(SEED + 1))
+    row = parallel.RowParallelDense(2 * p + 1, 6, comm=comm, device="cpu",
+                                    generator=torch.Generator().manual_seed(SEED + 2))
+    xg = x.clone().requires_grad_()
+    out = row([torch.tanh(h) for h in col(xg)])
+    (out * out).sum().backward()
+    rec("megatron_pair_out", out.detach())
+    rec("megatron_pair_grad_x", xg.grad)
+    rec("megatron_pair_grad_col_kernel", comm.allgather([k.grad for k in col.kernel], dim=1)[0])
+    rec("megatron_pair_grad_row_kernel", comm.allgather([k.grad for k in row.kernel], dim=0)[0])
+    # the pipeline: every rank a stage, then two stages on a named axis
+    stage = lambda prm, a: torch.tanh(a @ prm["w"] + prm["b"])  # noqa: E731
+    stacked = {"w": torch.from_numpy(t["pp_w"][:p]), "b": torch.from_numpy(t["pp_b"][:p])}
+    acts = torch.from_numpy(t["pp_x"])
+    rec("pipeline_all_ranks", parallel.pipeline_apply(stage, stacked, acts, comm))
+    rec("pipeline_microbatches", parallel.pipeline_apply(stage, stacked, acts, comm, n_microbatches=12))
+    pp = 2 if p % 2 == 0 else p
+    mesh = parallel.make_mesh([("dp", p // pp), ("pp", pp)], comm=comm)
+    rec("pipeline_named_axis", parallel.pipeline_apply(stage, {k: v[:pp] for k, v in stacked.items()}, acts, mesh))
+    # the experts: one per rank, on the mesh and on a named axis
+    moe = parallel.MoELayer(p, 8, 5, device="cpu", generator=torch.Generator().manual_seed(SEED + 3))
+    tokens = torch.from_numpy(t["moe_x"])
+    rec("moe_mesh", moe(tokens, comm))
+    rec("moe_named_axis", moe(tokens, parallel.make_mesh([("ep", p)], comm=comm)))
+    rec("moe_dense", moe(tokens))
+    # the experts' gradients: of the tokens and of the router and experts
+    xg = tokens.clone().requires_grad_()
+    out = moe(xg, comm)
+    (out * out).sum().backward()
+    rec("moe_grad_x", xg.grad)
+    rec("moe_grad_params", torch.cat([q.grad.reshape(-1) for q in moe.parameters()]))
+
+
+def estimators(comm, t, rec) -> None:
+    """convolve in every mode over a ragged split signal (halos narrower
+    than a shard, and one wider: the whole-signal path); Lasso by both
+    sweeps over split rows, with y split and replicated; Spectral's labels
+    and embedding's eigenvalues; ping_mesh's answer."""
+    from heat_tpu_torch.utils import health
+
+    taps = ht.array(t["conv_taps"], comm=comm)
+    for rows in (23, 10):
+        signal = ht.array(t["conv_x"][:rows], split=0, comm=comm)
+        for mode in ("full", "same", "valid"):
+            rec(f"convolve_{rows}_{mode}", ht.convolve(signal, taps, mode=mode))
+    for label, (xk, yk) in (("tall", ("lasso_x", "lasso_y")), ("wide", ("lasso_xw", "lasso_yw"))):
+        x = ht.array(t[xk], split=0, comm=comm)
+        for ysplit in (0, None):
+            est = ht.regression.Lasso(lam=0.1, max_iter=20, tol=None).fit(x, ht.array(t[yk], split=ysplit, comm=comm))
+            rec(f"lasso_{label}_y{ysplit}_theta", est.theta)
+    spectral = ht.cluster.Spectral(n_clusters=K, gamma=0.1, n_lanczos=24, random_state=5, max_iter=10)
+    spectral.fit(ht.array(t["blobs"], split=0, comm=comm))
+    rec("spectral_labels", spectral.labels_)
+    info = health.ping_mesh(comm, timeout=60.0)
+    rec("ping_mesh", np.array([str(info[key]) for key in ("ok", "devices", "platform", "error")]))
+
+
 def _record(comm, x):
     """A result as the test compares it: the host array every process
     reads, and this process's logical blocks by global rank (a record of
     that form passes as it is)."""
     if not isinstance(x, ht.DNDarray):
-        return x
+        return x.detach() if hasattr(x, "detach") else x
     blocks = {} if x.split is None else {r: b.clone() for r, b in zip(comm.local_ranks, x.lshards)}
     return {"np": x.numpy(), "split": x.split, "lshape": x.lshape, "blocks": blocks}
 
@@ -265,6 +434,9 @@ def program(comm, workdir: str, nodes: int) -> dict:
         rec(f"kmeans_{init}_inertia", km.inertia_)
     distances(comm, t, rec)
     laplacians(comm, t, rec)
+    attention(comm, t, rec)
+    parallel_layers(comm, t, rec)
+    estimators(comm, t, rec)
     linalg(comm, t, rec)
     training(comm, t, rec, nodes)
     # the checkpoint, saved and restored in the same world
