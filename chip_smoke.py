@@ -8694,9 +8694,14 @@ def mp_layers_leg(ht, docs, card, smi: str, sizes: dict) -> dict:
         verbs = {k: v["calls"] for k, v in clock.parts[f"lm {sched} forward"]["verbs"].items()}
         if verbs != {k: v for k, v in counts.items() if k != "allgather"}:
             raise AssertionError(f"the two-shard {sched} forward ran {verbs}")
-    ranks = sorted(r for m in mains for r in m["parallel"]["tp_params"])
-    if ranks != ["0", "1"]:
-        raise AssertionError(f"the processes' tensor-parallel ranks: {ranks}")
+    # every rank's block came from the one process that holds it
+    per_rank = {"tp_params": [m["parallel"]["tp_params"] for m in mains]}
+    for key, digest in want["estimators"]["digests"].items():
+        if not isinstance(digest, str):
+            per_rank[key] = [m["estimators"]["digests"][key] for m in mains]
+    for key, got in per_rank.items():
+        if sorted(r for g in got for r in g) != ["0", "1"]:
+            raise AssertionError(f"the processes' ranks of {key}: {[sorted(g) for g in got]}")
     launches = [m["estimators"]["launches"]["spectral"] for m in mains]
     iterations = [m["estimators"]["spectral_iterations"] for m in mains]
     if card.type == "cuda" and (any(n["lloyd"] != i or n["pairwise"] for n, i in zip(launches, iterations))
@@ -9280,6 +9285,7 @@ def print_build_report(name: str, log: str) -> None:
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -9296,12 +9302,12 @@ def main() -> int:
 
     start_static_analysis()
     try:
-        return _phases(ht, _build, kind, smi)
+        return _phases(ht, _build, kind, smi, start)
     finally:
         stop_static_analysis()
 
 
-def _phases(ht, _build, kind: str, smi: str) -> int:
+def _phases(ht, _build, kind: str, smi: str, start: float) -> int:
     import torch
 
     # 1. build
@@ -9390,6 +9396,7 @@ def _phases(ht, _build, kind: str, smi: str) -> int:
     for label, numbers in off.items():
         print(f"{label}: " + json.dumps(numbers))
     print("paths: " + json.dumps(paths))
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from its start to its last phase ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
