@@ -404,22 +404,30 @@ _H_SCOPES: Dict[str, _HState] = {}
 
 # the scope stack is thread-local, as telemetry's is: records roll up into
 # the shared global tables and the archive merge runs under _H_LOCK
-_H_TLS = threading.local()
+class _HLocal(threading.local):
+    """Each thread's scope stack, made on its first touch, so that the
+    per-sample read never misses (telemetry's ``_Local``)."""
+
+    def __init__(self):
+        self.scopes: List[_HState] = []
+
+
+_H_TLS = _HLocal()
 _H_GLOBAL_ONLY = (_H_GLOBAL,)
-#: every scope state active on any thread (reset() clears them all)
+#: every scope state active on any thread (reset() clears them all); empty,
+#: it spares each sample the thread-local read
 _H_ACTIVE: List[_HState] = []
 _H_LOCK = threading.Lock()
 
 
 def _h_stack() -> List[_HState]:
-    stack = getattr(_H_TLS, "scopes", None)
-    if stack is None:
-        stack = _H_TLS.scopes = []
-    return stack
+    return _H_TLS.scopes
 
 
 def _h_states():
-    stack = getattr(_H_TLS, "scopes", None)
+    if not _H_ACTIVE:
+        return _H_GLOBAL_ONLY
+    stack = _H_TLS.scopes
     if not stack:
         return _H_GLOBAL_ONLY
     return [_H_GLOBAL] + stack

@@ -386,8 +386,9 @@ def sample(event: str = "manual", force: bool = False) -> Optional[Dict[str, Any
 
 def note(event: str) -> None:
     """The sampling hook of telemetry's record seams: one attribute read
-    when disabled, throttled otherwise."""
-    if _ENABLED:
+    when disabled, throttled otherwise (the clock is read here, so that a
+    throttled seam, nearly every one, makes no further call)."""
+    if _ENABLED and time.perf_counter() - _LAST_SAMPLE_TS >= _SAMPLE_EVERY_S:
         sample(event)
 
 

@@ -321,7 +321,17 @@ class _DiskIndex:
 # holding it (so a last-exit teardown cannot race a concurrent first-enter
 # and disarm a live session's gates), and the helpers they call take it too
 _LOCK = threading.RLock()
-_TLS = threading.local()  # per-thread stack of active Sessions
+
+
+class _Local(threading.local):
+    """Each thread's stack of active Sessions, made on its first touch, so
+    that the tenant lookup of every latency sample never misses."""
+
+    def __init__(self):
+        self.stack: List["Session"] = []
+
+
+_TLS = _Local()
 _SESSION_SEQ = itertools.count(1)
 #: every session ever entered this telemetry session, active or exited,
 #: keyed by name (the archive the CLI `sessions` verb renders)
@@ -357,19 +367,16 @@ _ENV_BURST = _parse_env_burst(
 
 
 def _session_stack() -> List["Session"]:
-    stack = getattr(_TLS, "stack", None)
-    if stack is None:
-        stack = _TLS.stack = []
-    return stack
+    return _TLS.stack
 
 
 def _current_session() -> Optional["Session"]:
-    stack = getattr(_TLS, "stack", None)
+    stack = _TLS.stack
     return stack[-1] if stack else None
 
 
 def _current_session_name() -> Optional[str]:
-    stack = getattr(_TLS, "stack", None)
+    stack = _TLS.stack
     return stack[-1].name if stack else None
 
 

@@ -412,45 +412,50 @@ _SCOPES: Dict[str, _State] = {}
 # the scope, span and trigger stacks are thread-local: each thread resolves
 # its own innermost scope, records still roll up into the shared global
 # state, and the completed-scope archive is merged under _SCOPE_LOCK
-_TLS = threading.local()
+class _Local(threading.local):
+    """Each thread's stacks, made on its first touch: reading an attribute
+    that a thread-local lacks raises and catches inside, about ten times
+    the cost of a hit, and the record seams read these on every op."""
+
+    def __init__(self):
+        self.scopes: List[_State] = []
+        self.spans: list = []
+        self.triggers: List[str] = []
+
+
+_TLS = _Local()
 #: the common case (no scope on this thread), without a per-record allocation
 _GLOBAL_ONLY = (_GLOBAL,)
-#: every scope state active on any thread (reset() clears them all)
+#: every scope state active on any thread (reset() clears them all); empty,
+#: it spares the record seams the thread-local read
 _ACTIVE_SCOPE_STATES: List[_State] = []
 _SCOPE_LOCK = threading.Lock()
 
 
 def _scope_stack() -> List[_State]:
-    stack = getattr(_TLS, "scopes", None)
-    if stack is None:
-        stack = _TLS.scopes = []
-    return stack
+    return _TLS.scopes
 
 
 def _states():
     """The global state plus the calling thread's scope stack."""
-    stack = getattr(_TLS, "scopes", None)
+    if not _ACTIVE_SCOPE_STATES:
+        return _GLOBAL_ONLY
+    stack = _TLS.scopes
     if not stack:
         return _GLOBAL_ONLY
     return [_GLOBAL] + stack
 
 
 def _span_stack() -> list:
-    stack = getattr(_TLS, "spans", None)
-    if stack is None:
-        stack = _TLS.spans = []
-    return stack
+    return _TLS.spans
 
 
 def _trigger_stack() -> List[str]:
-    stack = getattr(_TLS, "triggers", None)
-    if stack is None:
-        stack = _TLS.triggers = []
-    return stack
+    return _TLS.triggers
 
 
 def _cur() -> _State:
-    stack = getattr(_TLS, "scopes", None)
+    stack = _TLS.scopes
     return stack[-1] if stack else _GLOBAL
 
 
@@ -497,7 +502,7 @@ def _emit(kind: str, **fields) -> dict:
     innermost scope path when a scope is active."""
     ev: Dict[str, Any] = {"kind": kind, "ts": time.perf_counter()}
     ev.update(fields)
-    stack = getattr(_TLS, "scopes", None)
+    stack = _TLS.scopes if _ACTIVE_SCOPE_STATES else None
     if stack:
         ev["scope"] = stack[-1].path
     for st in _states():
@@ -516,9 +521,8 @@ def _note_event(kind: str, **fields) -> Optional[dict]:
             _FLIGHT_HOOK(ev)
         return ev
     if _MODE and _FLIGHT_HOOK is not None:
-        ev = {"kind": kind, "ts": time.perf_counter()}
-        ev.update(fields)
-        stack = getattr(_TLS, "scopes", None)
+        ev = {"kind": kind, "ts": time.perf_counter(), **fields}
+        stack = _TLS.scopes if _ACTIVE_SCOPE_STATES else None
         if stack:
             ev["scope"] = stack[-1].path
         _FLIGHT_HOOK(ev)
@@ -870,7 +874,7 @@ def force_trigger(name: str) -> _TriggerScope:
 def current_trigger() -> str:
     """The attribution of a force right now: the outermost trigger scope,
     else ``"parray"``."""
-    stack = getattr(_TLS, "triggers", None)
+    stack = _TLS.triggers
     return stack[0] if stack else "parray"
 
 

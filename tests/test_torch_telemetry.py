@@ -615,3 +615,56 @@ def test_mode_one_keeps_nine_tenths_of_the_dispatch_rate():
         if round_ >= 1 and ratio >= 0.9:
             break
     assert ratio >= 0.9, f"telemetry overhead too high (ratio {ratio:.3f})"
+
+
+def test_a_scope_on_another_thread_keeps_to_its_thread():
+    """The record seams skip the thread-local read while no scope is open
+    anywhere; once one is open on another thread, that thread's records
+    reach its scope and this thread's reach the global state alone, and a
+    thread never touched before records with no setup of its own."""
+    import threading
+
+    tel.reset()
+    entered, done = threading.Event(), threading.Event()
+    seen = {}
+
+    def worker():
+        with tel.scope("worker"):
+            tel.record_dispatch("binary", fused=True)
+            entered.set()
+            done.wait(10)
+            seen["worker"] = tel.dispatches()
+
+    with tel.enabled():
+        assert tel._states() is tel._GLOBAL_ONLY
+        thread = threading.Thread(target=worker)
+        thread.start()
+        assert entered.wait(10)
+        tel.record_dispatch("local", fused=False)
+        assert len(tel._states()) == 1 and tel.dispatches() == {
+            "binary": {"fused": 1, "eager": 0}, "local": {"fused": 0, "eager": 1}}
+        done.set()
+        thread.join(10)
+        fresh = {}
+        other = threading.Thread(target=lambda: fresh.update(trigger=tel.current_trigger(), cur=tel._cur()))
+        other.start()
+        other.join(10)
+    assert seen["worker"] == {"binary": {"fused": 1, "eager": 0}}
+    assert fresh == {"trigger": "parray", "cur": tel._GLOBAL}
+    assert tel.scope_reports()["worker"]["dispatches"] == {"binary": {"fused": 1, "eager": 0}}
+    assert not tel._ACTIVE_SCOPE_STATES
+    tel.reset()
+
+
+def test_the_overhead_script_prints_its_rounds_and_seams(capsys):
+    from heat_tpu_torch.scripts import telemetry_overhead
+
+    assert telemetry_overhead.main(["--device", "cpu", "--rows", "24", "--cols", "4", "--rounds", "2",
+                                    "--reps", "2", "--trials", "1", "--seam-calls", "10"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["shape"] == [24, 4] and len(out["rounds"]) == 2
+    assert all(r["off"] > 0 and r["on"] > 0 and r["verbose"] > 0 for r in out["rounds"])
+    assert out["best_round_on_off"] == max(r["on_off"] for r in out["rounds"])
+    assert set(out["seam_ns"]) == {"record_dispatch", "record_force", "record_async_dispatch",
+                                   "record_fused_collective", "blocking_sync", "note_dispatch", "memory_note"}
+    assert tel._MODE == 0
